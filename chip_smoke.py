@@ -8,16 +8,25 @@ exits non-zero without a result line:
 1. device  -- the card (nvidia-smi name and power limit), torch and CUDA
    versions; TF32 off for matmul and cuDNN, so fp32 means fp32.
 2. build   -- nvcc builds every kernel source of the package for sm_90a.
-3. kernels -- each kernel against its plain PyTorch version on the card at
-   the shapes the main path gives it (and a few more), with its time, the
-   plain version's, one PyTorch library call's, and the least time the card
-   could take (bytes or operations over the H100's peak rates).
-4. slice   -- the main path: the tutorial Transformer LM at full width
+3. kernels -- each kernel (flash forward, dQ, dK/dV) against its plain
+   PyTorch version on the card at the shapes the main paths give it (and a
+   few more), with and without attention dropout (the plain versions fed the
+   same Philox mask), with its time, the plain version's, one PyTorch library
+   call's, and the least time the card could take (bytes or operations over
+   the H100's peak rates). Same seed, same bits: each kernel run twice.
+4. slice   -- the eval path: the tutorial Transformer LM at full width
    (d_model 2048, 32 heads, d_ff 2048, 16 layers, bptt 128, random weights
    from a seed) through ``Pipe(chunks=4, n_stages=2)`` in eval mode over 4
    batches of the tutorial text pipeline. The flash kernel must be launched
    16 layers x 4 chunks x 4 batches times, and the logits and losses must
    agree with a twin that runs plain attention on the same weights.
+5. train   -- the training path: ``Trainer`` over the same LM with dropout
+   0.2 (batch 32, bptt 128, chunks 4, 2 stages, except_last, lr 1e-4) for 8
+   steps; the forward kernel must be launched 8 x 112 times (64 forwards and
+   48 recomputes a step), dQ and dK/dV 8 x 64 times each; every loss finite,
+   the last below the first. Then twins at dropout 0: one step's loss and
+   gradients with the kernels and with plain attention on the same weights,
+   each held to plain attention in float64.
 
 The last two lines are the kernels JSON object and
 ``{"ok": true, "device": {...}}``.
@@ -41,14 +50,37 @@ BPTT = 128
 N_BATCHES = 4
 CHUNKS = 4
 N_STAGES = 2
-TOL_KERNEL = 1e-4        # fp32, sums taken in another order than the plain version
+# fp32, sums taken in another order than the plain version: |err| at most
+# TOL_KERNEL x max(1, max|plain|).
+TOL_KERNEL = 1e-4
 TOL_LOSS_REL = 1e-4      # flash vs plain-attention twin, per batch
 TOL_LOGITS = 1e-3        # flash vs plain-attention twin, abs
+# Training twins at dropout 0, each held to a float64 run of plain attention
+# on the same weights: per parameter, the largest gradient difference over
+# the larger of that parameter's largest gradient and GRAD_FLOOR of the
+# largest gradient of any parameter. The floor is for the key projection's
+# bias, whose gradient is zero in exact arithmetic (softmax ignores a
+# constant added to a row of scores): every path gives rounding noise there,
+# which no relative bound of its own holds. The kernel path must come within
+# TOL_GRAD_REL, or within GRAD_SLACK times what fp32 plain attention itself
+# comes within: a one-ulp change of a ReLU input near 0 switches that
+# element's whole term in the feed-forward gradients on or off, so fp32 runs
+# that round differently disagree there by far more than rounding.
+TOL_GRAD_REL = 1e-3
+GRAD_FLOOR = 1e-3
+GRAD_SLACK = 2.0
+TRAIN_BATCH = 32
+TRAIN_STEPS = 8
+TRAIN_LR = 1e-4          # lr 5.0 (the reference's) diverges at full width
 # H100 SXM peaks (NVIDIA data sheet, dense): HBM3 bytes/s, fp32 FMA FLOP/s.
 PEAK_BYTES = 3.35e12
 PEAK_FP32 = 67e12
 
-# (bh, s, d, causal): the slice's shape first (b*h = 2 x 32, bptt, 2048 / 32).
+# (bh, s, d, causal): the eval slice's shape first (b*h = 2 x 32, bptt,
+# 2048 / 32); the training path's micro-batch of 8 rows gives b*h = 8 x 32.
+TRAIN_SHAPE = (256, 128, 64, True)
+DROPOUT = 0.2
+DROP_SEEDS = (12345, (1 << 62) + 977)   # the second uses the key's high word
 TIMED_SHAPES = [(64, 128, 64, True), (16, 512, 64, True), (8, 256, 128, False)]
 # Ragged and odd shapes the kernel also takes: checked, not timed.
 EDGE_SHAPES = [(3, 24, 8, True), (2, 8, 16, False), (4, 40, 48, True),
@@ -86,8 +118,11 @@ def phase_build() -> None:
     for src, info in report.items():
         log("build", source=src, nvcc_s=f"{info['seconds']:.2f}")
         for line in info["ptxas"].splitlines():
-            if "registers" in line or "spill" in line:
-                print("    " + line.strip(), flush=True)
+            if "Function properties" in line:
+                print("    " + line.split(" for ")[-1].strip()[:100], flush=True)
+            elif "registers" in line or "spill" in line:
+                print("      " + line.replace("ptxas info    :", "").strip(),
+                      flush=True)
     log("build", total_s=f"{total:.2f}")
 
 
@@ -114,50 +149,122 @@ def time_ms(fn, iters: int = 20, reps: int = 10) -> float:
     return start.elapsed_time(end) / (iters * reps)
 
 
-def attention_bound(bh: int, s: int, d: int, causal: bool, elem: int):
-    """Least time (ms) for one flash forward: q, k, v read once, o and lse
-    written once; 4*d FLOPs per (query, key) pair the mask keeps."""
-    nbytes = 4 * bh * s * d * elem + bh * s * 4
-    pairs = s * (s + 1) // 2 if causal else s * s
-    flops = 4 * d * pairs * bh
+def _bound(nbytes: float, flops: float):
     t_bytes, t_ops = nbytes / PEAK_BYTES, flops / PEAK_FP32
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
                                        else "operations")
 
 
-def _qkv(bh, s, d, dtype, gen):
+def _pairs(s: int, causal: bool) -> int:
+    return s * (s + 1) // 2 if causal else s * s
+
+
+def attention_bound(bh: int, s: int, d: int, causal: bool, elem: int):
+    """Least time (ms) for one flash forward: q, k, v read once, o and lse
+    written once; 4*d FLOPs per (query, key) pair the mask keeps."""
+    return _bound(4 * bh * s * d * elem + bh * s * 4,
+                  4 * d * _pairs(s, causal) * bh)
+
+
+def bwd_bound(kernel: str, bh: int, s: int, d: int, causal: bool, elem: int):
+    """Least time (ms) for one dQ or dK/dV call: q, k, v, dO, L and D read
+    once, the gradients written once; 6*d (dQ) or 8*d (dK/dV) FLOPs per
+    (query, key) pair the mask keeps."""
+    outs, per_pair = {"dq": (1, 6), "dkv": (2, 8)}[kernel]
+    return _bound((4 + outs) * bh * s * d * elem + 2 * bh * s * 4,
+                  per_pair * d * _pairs(s, causal) * bh)
+
+
+def events_ms(fn, iters: int = 20) -> float:
+    """Device time of one ``fn()`` by CUDA events around ``iters`` eager
+    calls (host launch cost included): for calls that run autograd."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def _qkv(bh, s, d, dtype, gen, n=3):
     return [torch.randn((bh, s, d), generator=gen, device="cuda").to(dtype)
-            for _ in range(3)]
+            for _ in range(n)]
+
+
+def _err(got: torch.Tensor, want: torch.Tensor) -> float:
+    return (got.float() - want.float()).abs().max().item()
+
+
+def _scale_of(want: torch.Tensor) -> float:
+    return max(1.0, want.float().abs().max().item())
 
 
 def phase_kernels() -> dict:
+    """Each kernel against its plain version; returns the kernels' rows."""
     import torch.nn.functional as F
 
     from pipe_tpu_torch.ops import flash_attention as fa
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
-    worst = 0.0
-    slice_row = None
+    worst = {"flash_attn_fwd": 0.0, "flash_attn_bwd_dq": 0.0,
+             "flash_attn_bwd_dkv": 0.0}
+    rows = {}
 
-    def compare(bh, s, d, causal, dtype, tol):
+    def keep_of(seed, rate, bh, s):
+        return fa.dropout_keep(seed, rate, bh, s, device="cuda") if rate else None
+
+    def check(name, errs, scale, tol, where):
+        if tol == TOL_KERNEL:                 # fp32: what max_abs_err reports
+            worst[name] = max(worst[name], *errs)
+        if max(errs) > tol * scale:
+            raise AssertionError(
+                f"{name} disagrees with its plain version at {where}: "
+                f"max|err|={max(errs):.3e} > {tol} x {scale:.3g}")
+
+    def compare_fwd(bh, s, d, causal, dtype, tol, seed=0, rate=0.0):
         q, k, v = _qkv(bh, s, d, dtype, gen)
         scale = 1.0 / math.sqrt(d)
-        o, lse = fa.flash_attention_fwd(q, k, v, causal=causal, scale=scale)
+        o, lse = fa.flash_attention_fwd(q, k, v, causal=causal, scale=scale,
+                                        seed=seed, rate=rate)
         torch.cuda.synchronize()
-        o_ref, lse_ref = fa.flash_attention_ref(q, k, v, causal, scale)
-        err_o = (o.float() - o_ref.float()).abs().max().item()
-        err_l = (lse - lse_ref).abs().max().item()
-        if not (err_o <= tol and err_l <= tol):
-            raise AssertionError(
-                f"flash kernel disagrees with its plain version at "
-                f"bh={bh} s={s} d={d} causal={causal} {dtype}: "
-                f"max|dO|={err_o:.3e} max|dL|={err_l:.3e} > {tol}")
-        return q, k, v, scale, err_o, err_l
+        o_ref, lse_ref = fa.flash_attention_ref(q, k, v, causal, scale,
+                                                keep_of(seed, rate, bh, s))
+        errs = (_err(o, o_ref), _err(lse, lse_ref))
+        check("flash_attn_fwd", errs, _scale_of(o_ref), tol,
+              f"bh={bh} s={s} d={d} causal={causal} {dtype} rate={rate}")
+        return q, k, v, scale, errs
 
+    def compare_bwd(bh, s, d, causal, dtype, tol, seed=0, rate=0.0):
+        q, k, v, do = _qkv(bh, s, d, dtype, gen, n=4)
+        scale = 1.0 / math.sqrt(d)
+        keep = keep_of(seed, rate, bh, s)
+        o, lse = fa.flash_attention_ref(q, k, v, causal, scale, keep)
+        delta = fa.attention_delta(o, do)
+        kw = dict(causal=causal, scale=scale, seed=seed, rate=rate)
+        dq = fa.flash_attention_bwd_dq(q, k, v, do, lse, delta, **kw)
+        dk, dv = fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, **kw)
+        torch.cuda.synchronize()
+        ref = dict(causal=causal, scale=scale, keep=keep)
+        dq_r = fa.flash_attention_bwd_dq_ref(q, k, v, do, lse, delta, **ref)
+        dk_r, dv_r = fa.flash_attention_bwd_dkv_ref(q, k, v, do, lse, delta,
+                                                    **ref)
+        where = f"bh={bh} s={s} d={d} causal={causal} {dtype} rate={rate}"
+        e_dq = _err(dq, dq_r)
+        e_dkv = (_err(dk, dk_r), _err(dv, dv_r))
+        check("flash_attn_bwd_dq", (e_dq,), _scale_of(dq_r), tol, where)
+        check("flash_attn_bwd_dkv", e_dkv,
+              max(_scale_of(dk_r), _scale_of(dv_r)), tol, where)
+        return (q, k, v, do, lse, delta, kw), (e_dq, *e_dkv)
+
+    # The forward without dropout: the eval path's shape first.
     for bh, s, d, causal in TIMED_SHAPES:
-        q, k, v, scale, err_o, err_l = compare(bh, s, d, causal,
-                                               torch.float32, TOL_KERNEL)
-        worst = max(worst, err_o, err_l)
+        q, k, v, scale, (err_o, err_l) = compare_fwd(bh, s, d, causal,
+                                                     torch.float32, TOL_KERNEL)
         ms = time_ms(lambda: fa.flash_attention_fwd(q, k, v, causal=causal,
                                                     scale=scale))
         plain = time_ms(lambda: fa.flash_attention_ref(q, k, v, causal,
@@ -166,24 +273,116 @@ def phase_kernels() -> dict:
             q, k, v, is_causal=causal, scale=scale))
         bound, bound_by = attention_bound(bh, s, d, causal, 4)
         log("kernels", name="flash_attn_fwd", bh=bh, s=s, d=d, causal=causal,
-            dtype="f32", max_abs_dO=f"{err_o:.3e}", max_abs_dL=f"{err_l:.3e}",
-            ms=f"{ms:.5f}", plain_ms=f"{plain:.5f}", library_ms=f"{lib:.5f}",
-            bound_ms=f"{bound:.5f}", bound_by=bound_by,
-            roofline=f"{bound / ms:.3f}")
-        if slice_row is None:
-            slice_row = dict(ms=ms, plain_ms=plain, library_ms=lib,
-                             bound_ms=bound, bound_by=bound_by)
-    for bh, s, d, causal in EDGE_SHAPES:
-        *_, err_o, err_l = compare(bh, s, d, causal, torch.float32, TOL_KERNEL)
-        worst = max(worst, err_o, err_l)
-        log("kernels", check="edge", bh=bh, s=s, d=d, causal=causal,
-            max_abs_dO=f"{err_o:.3e}", max_abs_dL=f"{err_l:.3e}")
-    # bf16 in and out (fp32 inside): o rounds to bf16, 8 bits of mantissa.
-    *_, err_o, err_l = compare(64, 128, 64, True, torch.bfloat16, 1e-2)
-    log("kernels", check="bf16", bh=64, s=128, d=64, causal=True,
-        max_abs_dO=f"{err_o:.3e}", max_abs_dL=f"{err_l:.3e}")
-    slice_row["max_abs_err"] = worst
-    return slice_row
+            dtype="f32", rate=0.0, max_abs_dO=f"{err_o:.3e}",
+            max_abs_dL=f"{err_l:.3e}", ms=f"{ms:.5f}", plain_ms=f"{plain:.5f}",
+            library_ms=f"{lib:.5f}", bound_ms=f"{bound:.5f}",
+            bound_by=bound_by, roofline=f"{bound / ms:.3f}")
+
+    # Every kernel, with and without dropout, at the training shape (timed)
+    # and at the other shapes (checked).
+    for shape in [TRAIN_SHAPE] + TIMED_SHAPES + EDGE_SHAPES:
+        bh, s, d, causal = shape
+        for seed, rate in [(0, 0.0)] + [(sd, DROPOUT) for sd in DROP_SEEDS]:
+            *_, (err_o, err_l) = compare_fwd(bh, s, d, causal, torch.float32,
+                                             TOL_KERNEL, seed, rate)
+            args, errs = compare_bwd(bh, s, d, causal, torch.float32,
+                                     TOL_KERNEL, seed, rate)
+            log("kernels", check="fwd+bwd", bh=bh, s=s, d=d, causal=causal,
+                rate=rate, seed=seed, max_abs_dO=f"{err_o:.3e}",
+                max_abs_dL=f"{err_l:.3e}", max_abs_ddq=f"{errs[0]:.3e}",
+                max_abs_ddk=f"{errs[1]:.3e}", max_abs_ddv=f"{errs[2]:.3e}")
+    # bf16 in and out (fp32 inside): results round to bf16, 8 bits of
+    # mantissa, so the tolerance is 1e-2 of the largest value.
+    for seed, rate in ((0, 0.0), (DROP_SEEDS[0], DROPOUT)):
+        *_, (err_o, err_l) = compare_fwd(*TRAIN_SHAPE, torch.bfloat16, 1e-2,
+                                         seed, rate)
+        _, errs = compare_bwd(*TRAIN_SHAPE, torch.bfloat16, 1e-2, seed, rate)
+        log("kernels", check="bf16", shape=TRAIN_SHAPE, rate=rate,
+            max_abs_dO=f"{err_o:.3e}", max_abs_ddq=f"{errs[0]:.3e}",
+            max_abs_ddk=f"{errs[1]:.3e}", max_abs_ddv=f"{errs[2]:.3e}")
+
+    # The training shape with dropout, as the main path calls the kernels.
+    bh, s, d, causal = TRAIN_SHAPE
+    seed = DROP_SEEDS[0]
+    (q, k, v, do, lse, delta, kw), _ = compare_bwd(
+        bh, s, d, causal, torch.float32, TOL_KERNEL, seed, DROPOUT)
+    scale = kw["scale"]
+
+    # Same seed, same bits: a second run of each kernel equals the first;
+    # another seed changes the result.
+    runs = [(lambda sd=sd: fa.flash_attention_fwd(
+                 q, k, v, causal=causal, scale=scale, seed=sd, rate=DROPOUT)[0],
+             lambda sd=sd: fa.flash_attention_bwd_dq(
+                 q, k, v, do, lse, delta, **dict(kw, seed=sd)),
+             lambda sd=sd: torch.cat(fa.flash_attention_bwd_dkv(
+                 q, k, v, do, lse, delta, **dict(kw, seed=sd))))
+            for sd in (seed, DROP_SEEDS[1])]
+    for name, a, b in zip(("fwd", "dq", "dkv"), *runs):
+        first, again, other = a(), a(), b()
+        if not torch.equal(first, again):
+            raise AssertionError(f"{name}: the same seed gave other bits")
+        if torch.equal(first, other):
+            raise AssertionError(f"{name}: another seed gave the same result")
+    keep = fa.dropout_keep(seed, DROPOUT, bh, s, device="cuda")
+    kept = (keep > 0).float().mean().item()
+    sigma = math.sqrt(DROPOUT * (1 - DROPOUT) / keep.numel())
+    log("kernels", check="repeat", same_seed_bitwise=True,
+        keep_rate=f"{kept:.6f}", expected=1 - DROPOUT, sigma=f"{sigma:.2e}")
+    if abs(kept - (1 - DROPOUT)) > 4 * sigma:
+        raise AssertionError(f"keep rate {kept} is not within 4 sigma of "
+                             f"{1 - DROPOUT}")
+
+    plain_keep = lambda: fa.dropout_keep(seed, DROPOUT, bh, s, device="cuda")
+    ref_kw = dict(causal=causal, scale=scale)
+    fwd_ms = time_ms(lambda: fa.flash_attention_fwd(
+        q, k, v, causal=causal, scale=scale, seed=seed, rate=DROPOUT))
+    fwd_plain = time_ms(lambda: fa.flash_attention_ref(
+        q, k, v, causal, scale, plain_keep()))
+    dq_ms = time_ms(lambda: fa.flash_attention_bwd_dq(
+        q, k, v, do, lse, delta, **kw))
+    dq_plain = time_ms(lambda: fa.flash_attention_bwd_dq_ref(
+        q, k, v, do, lse, delta, keep=plain_keep(), **ref_kw))
+    dkv_ms = time_ms(lambda: fa.flash_attention_bwd_dkv(
+        q, k, v, do, lse, delta, **kw))
+    dkv_plain = time_ms(lambda: fa.flash_attention_bwd_dkv_ref(
+        q, k, v, do, lse, delta, keep=plain_keep(), **ref_kw))
+    # Library yardstick: SDPA without dropout (its dropout draws from
+    # PyTorch's own generator); its backward is forward+backward less the
+    # forward, and covers dQ, dK and dV together.
+    q4, k4, v4 = (x[None].detach().requires_grad_() for x in (q, k, v))
+    do4 = do[None]
+
+    def sdpa():
+        return F.scaled_dot_product_attention(q4, k4, v4, is_causal=causal,
+                                              scale=scale)
+
+    with torch.no_grad():
+        lib_fwd = events_ms(sdpa)
+    lib_fwd_bwd = events_ms(lambda: torch.autograd.grad(sdpa(), (q4, k4, v4),
+                                                        do4))
+    lib_bwd = lib_fwd_bwd - lib_fwd
+    with torch.no_grad():
+        lib_fwd_graph = time_ms(sdpa)
+
+    for name, ms, plain, lib, (bound, by) in (
+            ("flash_attn_fwd", fwd_ms, fwd_plain, lib_fwd_graph,
+             attention_bound(bh, s, d, causal, 4)),
+            ("flash_attn_bwd_dq", dq_ms, dq_plain, lib_bwd,
+             bwd_bound("dq", bh, s, d, causal, 4)),
+            ("flash_attn_bwd_dkv", dkv_ms, dkv_plain, lib_bwd,
+             bwd_bound("dkv", bh, s, d, causal, 4))):
+        rows[name] = dict(ms=ms, plain_ms=plain, library_ms=lib,
+                          bound_ms=bound, bound_by=by,
+                          max_abs_err=worst[name])
+        log("kernels", name=name, bh=bh, s=s, d=d, causal=causal, dtype="f32",
+            rate=DROPOUT, ms=f"{ms:.5f}", plain_ms=f"{plain:.5f}",
+            library_ms=f"{lib:.5f}", bound_ms=f"{bound:.5f}", bound_by=by,
+            roofline=f"{bound / ms:.3f}", max_abs_err=f"{worst[name]:.3e}")
+    log("kernels", sdpa_fwd_ms_events=f"{lib_fwd:.5f}",
+        sdpa_fwd_bwd_ms_events=f"{lib_fwd_bwd:.5f}",
+        sdpa_bwd_ms=f"{lib_bwd:.5f}", note="library_ms of dq and dkv is "
+        "SDPA's whole backward (dQ, dK, dV together), no dropout")
+    return rows
 
 
 def make_slice(n_batches: int = N_BATCHES):
@@ -239,7 +438,8 @@ def phase_slice() -> int:
     with torch.inference_mode():
         pipe(batches[0][0])                      # warm-up: not counted
         torch.cuda.synchronize()
-        fa.flash_attention_fwd.launches = 0
+        for c in _counters():
+            c.launches = 0
         t0 = time.perf_counter()
         logits, losses = evaluate(pipe, batches)
         torch.cuda.synchronize()
@@ -288,26 +488,172 @@ def phase_slice() -> int:
     return launches
 
 
+def _counters():
+    from pipe_tpu_torch.ops import flash_attention as fa
+    return (fa.flash_attention_fwd, fa.flash_attention_bwd_dq,
+            fa.flash_attention_bwd_dkv)
+
+
+def phase_train() -> dict:
+    """The training path; returns each kernel's launches over its 8 steps."""
+    from pipe_tpu_torch import Pipe
+    from pipe_tpu_torch.data import lm_text
+    from pipe_tpu_torch.models.transformer_lm import (LMConfig,
+                                                      build_sequential,
+                                                      pipelined_lm_balance)
+    from pipe_tpu_torch.train.loop import Trainer, TrainerConfig, lm_loss
+
+    t0 = time.perf_counter()
+    train_lines, _, _ = lm_text.load_corpus(vocab_size=28782)
+    vocab = lm_text.Vocab(map(lm_text.basic_english_tokenize, train_lines))
+    cfg = LMConfig(vocab=len(vocab), attn_impl="flash")   # dropout 0.2
+    tcfg = TrainerConfig(batch_size=TRAIN_BATCH, bptt=BPTT, chunks=CHUNKS,
+                         n_stages=N_STAGES, checkpoint="except_last",
+                         lr=TRAIN_LR)
+    source = lm_text.batchify(lm_text.data_process(train_lines, vocab),
+                              tcfg.batch_size)
+    if lm_text.num_batches(source, BPTT) < TRAIN_STEPS:
+        raise RuntimeError("train split too short for the smoke steps")
+    trainer = Trainer(cfg, tcfg, device="cuda")
+    state = trainer.init_state()
+    torch.cuda.synchronize()
+    log("train", vocab=cfg.vocab, dropout=cfg.dropout,
+        params=trainer.num_params(state), balance=trainer.pipe.balance,
+        batch=tcfg.batch_size, chunks=tcfg.chunks,
+        checkpoint=tcfg.checkpoint, lr=tcfg.lr,
+        setup_s=f"{time.perf_counter() - t0:.2f}")
+
+    for c in _counters():
+        c.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    losses, step_s = [], []
+    t_all = time.perf_counter()
+    for b in range(TRAIN_STEPS):
+        t_step = time.perf_counter()
+        state, info = trainer.train_epoch(source, epoch=0, state=state,
+                                          max_steps=b + 1, start_step=b,
+                                          log_every=1)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t_step)
+        losses.append(info["loss"])
+    wall = time.perf_counter() - t_all
+    launches = {c.__name__: c.launches for c in _counters()}
+    tokens = TRAIN_STEPS * tcfg.batch_size * BPTT
+    steady = sum(step_s[1:]) / (TRAIN_STEPS - 1)
+    log("train", steps=TRAIN_STEPS, losses=[f"{l:.6f}" for l in losses],
+        seconds=f"{wall:.4f}", tokens=tokens,
+        train_tokens_per_s=f"{tokens / wall:.1f}",
+        ms_per_step=[f"{x * 1e3:.1f}" for x in step_s],
+        steady_ms_per_step=f"{steady * 1e3:.1f}",
+        steady_tokens_per_s=f"{tcfg.batch_size * BPTT / steady:.1f}",
+        peak_mem_gb=f"{torch.cuda.max_memory_allocated() / 1e9:.2f}",
+        **launches)
+    per_step = cfg.n_layers * CHUNKS
+    recompute = cfg.n_layers * (CHUNKS - 1)      # except_last
+    expected = {"flash_attention_fwd": TRAIN_STEPS * (per_step + recompute),
+                "flash_attention_bwd_dq": TRAIN_STEPS * per_step,
+                "flash_attention_bwd_dkv": TRAIN_STEPS * per_step}
+    if launches != expected:
+        raise AssertionError(f"kernel launches {launches} on the training "
+                             f"path, expected {expected}")
+    if not all(math.isfinite(l) for l in losses):
+        raise AssertionError(f"non-finite training loss: {losses}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"training loss did not fall: {losses}")
+    del trainer, state
+    torch.cuda.empty_cache()
+
+    # Twins at dropout 0: one step's loss and gradients from the same weights
+    # and batch, with the kernels (fp32), with plain attention (fp32) and
+    # with plain attention in float64, the reference both are held to.
+    cfg0 = dataclasses.replace(cfg, dropout=0.0)
+    data, target = lm_text.get_batch(source, 0, BPTT)
+    tokens_t = torch.from_numpy(data).long().cuda()
+    target_t = torch.from_numpy(target).long().cuda()
+    results = {}
+    for name, impl, dtype in (("kernel", "flash", torch.float32),
+                              ("plain", "xla", torch.float32),
+                              ("f64", "xla", torch.float64)):
+        seq = build_sequential(
+            dataclasses.replace(cfg0, attn_impl=impl), device="cuda",
+            generator=torch.Generator(device="cuda").manual_seed(SEED))
+        seq.to(dtype)
+        pipe = Pipe(seq, chunks=CHUNKS, checkpoint="except_last",
+                    balance=pipelined_lm_balance(cfg.n_layers, N_STAGES),
+                    device="cuda")
+        before = [c.launches for c in _counters()]
+        loss = lm_loss(pipe, tokens_t, target_t, train=True, seed=SEED)
+        loss.backward()
+        moved = [c.launches - n for c, n in zip(_counters(), before)]
+        if (impl == "flash") != all(moved):
+            raise AssertionError(f"{name} twin launched kernels {moved}")
+        results[name] = (loss.item(), [p.grad for p in pipe.parameters()])
+        names = [n for n, _ in pipe.named_parameters()]
+        del seq, pipe
+    l_64, g_64 = results.pop("f64")
+    largest = [g.abs().max().item() for g in g_64]
+    floor = GRAD_FLOOR * max(largest)
+    worst = {}
+    for name, (l, grads) in results.items():
+        errs = [(a.double() - b).abs().max().item() / max(m, floor)
+                for a, b, m in zip(grads, g_64, largest)]
+        worst[name] = max(errs)
+        log("train", twin=name, dropout=0.0, loss=f"{l:.9f}",
+            loss_f64=f"{l_64:.9f}", loss_rel=f"{abs(l - l_64) / l_64:.3e}",
+            max_grad_rel=f"{max(errs):.3e}",
+            worst_param=names[errs.index(max(errs))],
+            median_grad_rel=f"{sorted(errs)[len(errs) // 2]:.3e}",
+            params_over_1e3=sum(e > 1e-3 for e in errs), params=len(errs),
+            params_at_floor=sum(m < floor for m in largest))
+        if abs(l - l_64) > TOL_LOSS_REL * l_64:
+            raise AssertionError(f"{name} twin's loss {l} is not within "
+                                 f"{TOL_LOSS_REL} of the float64 {l_64}")
+    (l_k, _), (l_x, _) = results["kernel"], results["plain"]
+    if abs(l_k - l_x) > TOL_LOSS_REL * abs(l_x):
+        raise AssertionError(f"kernel path's loss {l_k} is not within "
+                             f"{TOL_LOSS_REL} of plain attention's {l_x}")
+    tol = max(TOL_GRAD_REL, GRAD_SLACK * worst["plain"])
+    if worst["kernel"] > tol:
+        raise AssertionError(
+            f"kernel path's gradients are {worst['kernel']:.3e} of each "
+            f"parameter's largest from the float64 twin's; plain attention "
+            f"in fp32 is {worst['plain']:.3e} from it (tol {tol:.3e})")
+    return launches
+
+
 def main() -> int:
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     t_start = time.perf_counter()
     smi = phase_device()
     phase_build()
-    row = phase_kernels()
-    launches = phase_slice()
-    kernels = {"kernels": [{
-        "name": "flash_attn_fwd",
-        "route": "cuda",
-        "source": "pipe_tpu_torch/csrc/flash_attn_fwd.cu",
-        "replaces": "pipe_tpu/ops/pallas_attention.py:87",
-        "launches": launches,
-        "max_abs_err": row["max_abs_err"],
-        "ms": row["ms"],
-        "plain_ms": row["plain_ms"],
-        "bound_ms": row["bound_ms"],
-        "bound_by": row["bound_by"],
-        "library_ms": row["library_ms"],
-    }]}
+    rows = phase_kernels()
+    eval_launches = phase_slice()
+    train_launches = phase_train()
+    sources = {"flash_attn_fwd": ("flash_attn_fwd.cu", 87,
+                                  "flash_attention_fwd"),
+               "flash_attn_bwd_dq": ("flash_attn_bwd.cu", 162,
+                                     "flash_attention_bwd_dq"),
+               "flash_attn_bwd_dkv": ("flash_attn_bwd.cu", 201,
+                                      "flash_attention_bwd_dkv")}
+    kernels = {"kernels": []}
+    for name, (src, line, wrapper) in sources.items():
+        row = rows[name]
+        entry = {
+            "name": name,
+            "route": "cuda",
+            "source": f"pipe_tpu_torch/csrc/{src}",
+            "replaces": f"pipe_tpu/ops/pallas_attention.py:{line}",
+            "launches": train_launches[wrapper],
+            "max_abs_err": row["max_abs_err"],
+            "ms": row["ms"],
+            "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"],
+            "library_ms": row["library_ms"],
+        }
+        if name == "flash_attn_fwd":
+            entry["launches_eval"] = eval_launches
+        kernels["kernels"].append(entry)
     log("done", seconds=f"{time.perf_counter() - t_start:.1f}")
     print(smi.splitlines()[0], flush=True)
     print(json.dumps(kernels), flush=True)

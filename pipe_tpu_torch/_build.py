@@ -3,8 +3,8 @@
 Each source under ``csrc/`` is compiled by ``nvcc`` for Hopper (``sm_90a``) into
 a shared library with a plain C interface, which :func:`load` opens with
 ``ctypes``. Libraries go to ``build/torch_kernels/`` beside the package, named
-by a hash of the source and flags, so an edited source builds anew and an
-unchanged one is reused. :func:`build_all` starts one ``nvcc`` per missing
+by a hash of the source, the shared headers (``csrc/*.cuh``) and the flags, so
+an edited source or header builds anew and an unchanged one is reused. :func:`build_all` starts one ``nvcc`` per missing
 library, all at once. Nothing here runs at import time: the CPU path needs no
 compiler.
 """
@@ -26,7 +26,7 @@ __all__ = ["SOURCES", "BUILD_DIR", "NVCC_FLAGS", "build_all", "load"]
 _PKG = Path(__file__).resolve().parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "torch_kernels"
-SOURCES = ("flash_attn_fwd.cu",)
+SOURCES = ("flash_attn_fwd.cu", "flash_attn_bwd.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 
@@ -43,8 +43,11 @@ def _nvcc() -> str:
 
 
 def lib_path(source: str) -> Path:
-    """Where ``source``'s library lives: named by its content and flags."""
+    """Where ``source``'s library lives: named by its content, the headers'
+    and the flags."""
     text = (CSRC / source).read_bytes()
+    for header in sorted(CSRC.glob("*.cuh")):
+        text += header.name.encode() + header.read_bytes()
     digest = hashlib.sha256(text + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"{Path(source).stem}-{digest[:16]}.so"
 

@@ -13,6 +13,10 @@ layer by layer. The layouts that differ:
   output dim in both packages, so no head permutation is needed;
 * ``LayerNorm``: ``g/b`` become ``weight/bias``; ``Embedding``: ``table``
   becomes ``weight``.
+
+:func:`load_pipelined_lm_params` copies the JAX ``Trainer``'s params, the
+``PipelinedLM`` triple ``(stage_params, pre_params, post_params)``, into a
+``Pipe`` over the tutorial LM cut by ``pipelined_lm_balance``.
 """
 
 from __future__ import annotations
@@ -27,7 +31,7 @@ from .ops.layers import (Decoder, Dropout, Embedding, LayerNorm, Lambda,
                          Linear, MultiHeadAttention, PositionalEncoding,
                          Sequential, _TransformerBlockBase)
 
-__all__ = ["load_params", "load_stage_params"]
+__all__ = ["load_params", "load_stage_params", "load_pipelined_lm_params"]
 
 
 def _copy(dst: torch.Tensor, src: Any, transpose: bool = False) -> None:
@@ -87,3 +91,41 @@ def load_stage_params(pipe, params_per_stage: Sequence[Any]) -> None:
                          f"Pipe of {len(pipe.partitions)} stages")
     for part, params in zip(pipe.partitions, params_per_stage):
         load_params(part, params)
+
+
+def load_pipelined_lm_params(pipe, params: Sequence[Any]) -> None:
+    """Copy ``pipe_tpu``'s ``PipelinedLM`` params into ``pipe``, a ``Pipe``
+    over ``build_sequential`` with the ``pipelined_lm_balance`` cut.
+
+    ``params`` is ``(stage_params, pre_params, post_params)`` as numpy arrays
+    (or anything ``np.asarray`` takes): ``pre_params["embed"]`` goes to the
+    embedding, ``post_params["decoder"]`` to the decoder, and block ``l`` of
+    stage ``s`` to that stage's ``l``-th transformer block. ``stage_params``
+    is stage-stacked (a list of blocks whose leaves lead with the stage axis,
+    as ``stack_stage_params`` leaves them) or a per-stage list of block lists.
+    """
+    stage_params, pre, post = params
+    n = len(pipe.partitions)
+    if len(stage_params) == n and isinstance(stage_params[0], (list, tuple)):
+        per_stage = [list(blocks) for blocks in stage_params]
+    else:
+        per_stage = [[_take(block, j) for block in stage_params]
+                     for j in range(n)]
+    layers = list(pipe)
+    lps = len(per_stage[0])
+    if len(layers) != n * lps + 3 or any(len(b) != lps for b in per_stage):
+        raise ValueError(
+            f"a Pipe of {len(layers)} layers over {n} stages does not hold "
+            f"{n} stages of {lps} blocks plus embedding, positions and decoder")
+    load_params(layers[0], pre["embed"])
+    for j, blocks in enumerate(per_stage):
+        for l, block in enumerate(blocks):
+            load_params(layers[2 + j * lps + l], block)
+    load_params(layers[-1], post["decoder"])
+
+
+def _take(tree: Any, j: int) -> Any:
+    """Index ``j`` of the leading (stage) axis of every leaf of ``tree``."""
+    if isinstance(tree, dict):
+        return {k: _take(v, j) for k, v in tree.items()}
+    return np.asarray(tree)[j]

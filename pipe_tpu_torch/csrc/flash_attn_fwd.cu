@@ -2,11 +2,14 @@
 // and the per-row logsumexp L, over contiguous [b*h, s, d] tensors.
 //
 // Replaces: pipe_tpu/ops/pallas_attention.py, _fwd_kernel (lines 87-130), launched by
-// _fwd (lines 137-155). Same arithmetic: the running max m and normaliser l of the
-// online softmax, safe_m = 0 where m is -inf, p = 0 where a score is masked, l clamped
-// at 1e-30, and L = m + log l with m read as 0 where it is not finite. The causal mask
-// compares absolute positions, so the tile sizes below (not the Pallas block sizes)
-// decide nothing about the result.
+// _fwd (lines 137-155), with the attention dropout of _drop_mask (lines 57-74) inside.
+// Same arithmetic: the running max m and normaliser l of the online softmax, safe_m = 0
+// where m is -inf, p = 0 where a score is masked, l clamped at 1e-30, and L = m + log l
+// with m read as 0 where it is not finite. Under dropout, l takes p before the keep
+// factor and O takes it after (lines 117-120), so L stays the logsumexp of the
+// undropped scores and the backward kernels rebuild p from it. The causal mask and the
+// Philox keep mask (philox.cuh) are functions of absolute positions, so the tile sizes
+// below (not the Pallas block sizes) decide nothing about the result.
 //
 // What bounds it: at the tutorial LM's shape (b*h = 64, s = 128, d = 64, causal, fp32)
 // the call must move q, k, v and o once, 8.4 MB, which takes 2.5 us at 3.35 TB/s, and
@@ -26,12 +29,17 @@
 // Head dims up to 128 are instantiated: every model of the repo has head dim 64. The
 // Pallas wrapper takes any head dim; the wrapper here refuses d > 128 with an error.
 //
+// Dropout costs one Philox4x32-10 call per (query, key) pair: ~60 integer instructions
+// against the 2 d FMAs of the pair, about half again the arithmetic at d = 64.
+//
 // C interface for ctypes: pipe_flash_attn_fwd returns a cudaError_t code, 0 on success.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stddef.h>
+
+#include "philox.cuh"
 
 namespace {
 
@@ -67,7 +75,7 @@ template <int D, typename T>
 __global__ void __launch_bounds__(THREADS)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                  T* __restrict__ o, float* __restrict__ lse, int s, int d, int causal,
-                 float scale) {
+                 float scale, pipe_philox::Dropout drop) {
   constexpr int LD = D + 4;  // +4 floats: rows stay 16-byte aligned, banks spread
   constexpr int NC = D / 16; // float4 chunks of the output row per thread
   extern __shared__ float4 smem4[];
@@ -139,7 +147,11 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
     psum += __shfl_xor_sync(FULL, psum, 1);
     psum += __shfl_xor_sync(FULL, psum, 2);
     const float corr = isfinite(m) ? expf(m - safe_m) : 0.f;
-    l = l * corr + psum;
+    l = l * corr + psum;  // the normaliser takes p before dropout
+    if (drop.on) {
+#pragma unroll
+      for (int j = 0; j < KPT; ++j) sc[j] *= drop.factor(bh, qg, k0 + j * TPR + t);
+    }
 #pragma unroll
     for (int c = 0; c < NC; ++c) {
       acc[c].x *= corr; acc[c].y *= corr; acc[c].z *= corr; acc[c].w *= corr;
@@ -183,7 +195,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
 
 template <int D, typename T>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o, void* lse, int bh,
-                   int s, int d, int causal, float scale, cudaStream_t stream) {
+                   int s, int d, int causal, float scale, pipe_philox::Dropout drop,
+                   cudaStream_t stream) {
   const int smem = (BQ + 2 * BK) * (D + 4) * (int)sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
       flash_fwd_kernel<D, T>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -191,16 +204,17 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, void* l
   const dim3 grid(bh, (s + BQ - 1) / BQ);
   flash_fwd_kernel<D, T><<<grid, THREADS, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), static_cast<float*>(lse), s, d, causal, scale);
+      static_cast<T*>(o), static_cast<float*>(lse), s, d, causal, scale, drop);
   return cudaGetLastError();
 }
 
 template <typename T>
 cudaError_t dispatch_d(const void* q, const void* k, const void* v, void* o, void* lse,
-                       int bh, int s, int d, int causal, float scale, cudaStream_t stream) {
-  if (d <= 32) return launch<32, T>(q, k, v, o, lse, bh, s, d, causal, scale, stream);
-  if (d <= 64) return launch<64, T>(q, k, v, o, lse, bh, s, d, causal, scale, stream);
-  if (d <= 128) return launch<128, T>(q, k, v, o, lse, bh, s, d, causal, scale, stream);
+                       int bh, int s, int d, int causal, float scale,
+                       pipe_philox::Dropout drop, cudaStream_t stream) {
+  if (d <= 32) return launch<32, T>(q, k, v, o, lse, bh, s, d, causal, scale, drop, stream);
+  if (d <= 64) return launch<64, T>(q, k, v, o, lse, bh, s, d, causal, scale, drop, stream);
+  if (d <= 128) return launch<128, T>(q, k, v, o, lse, bh, s, d, causal, scale, drop, stream);
   return cudaErrorInvalidValue;
 }
 
@@ -209,14 +223,20 @@ cudaError_t dispatch_d(const void* q, const void* k, const void* v, void* o, voi
 extern "C" {
 
 // dtype: 0 float32, 1 bfloat16 (q, k, v and o share it; lse is float32).
+// dropout: 0 off; else pairs are kept when their Philox bits (philox.cuh, keyed by seed)
+// are >= threshold, and scaled by keep_scale.
 int pipe_flash_attn_fwd(const void* q, const void* k, const void* v, void* o, void* lse,
                         int bh, int s, int d, int causal, float scale, int dtype,
-                        void* stream) {
+                        int dropout, unsigned long long seed, unsigned int threshold,
+                        float keep_scale, void* stream) {
   if (bh <= 0 || s <= 0 || d <= 0) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const pipe_philox::Dropout drop{dropout, (uint32_t)seed, (uint32_t)(seed >> 32), threshold,
+                                  keep_scale};
   switch (dtype) {
-    case 0: return (int)dispatch_d<float>(q, k, v, o, lse, bh, s, d, causal, scale, st);
-    case 1: return (int)dispatch_d<__nv_bfloat16>(q, k, v, o, lse, bh, s, d, causal, scale, st);
+    case 0: return (int)dispatch_d<float>(q, k, v, o, lse, bh, s, d, causal, scale, drop, st);
+    case 1:
+      return (int)dispatch_d<__nv_bfloat16>(q, k, v, o, lse, bh, s, d, causal, scale, drop, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

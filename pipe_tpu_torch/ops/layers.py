@@ -6,9 +6,10 @@ initial weights from an explicit ``torch.Generator`` with the same
 distributions as ``pipe_tpu``. Every layer's ``forward`` takes the stage
 context as ``ctx=`` (its seed drives dropout in training).
 
-Attention runs the hand-written flash kernel (``ops/flash_attention.py``) or
-the plain einsum-softmax path, chosen by ``impl``. The projections and the
-feed-forward stay ``torch`` matmuls.
+Attention runs the hand-written flash kernels (``ops/flash_attention.py``:
+forward, dQ and dK/dV, with attention dropout inside) or the plain
+einsum-softmax path, chosen by ``impl``. The projections and the feed-forward
+stay ``torch`` matmuls.
 """
 
 from __future__ import annotations
@@ -173,10 +174,12 @@ def dot_product_attention(q, k, v, *, causal: bool = False,
                           dropout_rate: float = 0.0,
                           dropout_seed: Optional[int] = None,
                           train: bool = False):
-    """Softmax attention with float32 logits over ``[b, s, h, d]``: the plain
-    path (``impl="xla"``), and the path under attention-weight dropout."""
+    """Softmax attention with float32 logits (float64 for float64 inputs)
+    over ``[b, s, h, d]``: the plain path (``impl="xla"``), and the path
+    under attention-weight dropout."""
     d = q.shape[-1]
-    logits = torch.einsum("bqhd,bkhd->bhqk", q, k).float()
+    logits = torch.einsum("bqhd,bkhd->bhqk", q, k)
+    logits = logits.to(torch.promote_types(logits.dtype, torch.float32))
     logits = logits / math.sqrt(d)
     if causal:
         qlen, klen = logits.shape[-2], logits.shape[-1]
@@ -200,9 +203,9 @@ def flash_auto_ok(s: int, device: torch.device) -> bool:
 def _flash_route(impl: str, s: int, device: torch.device,
                  dropout_active: bool) -> bool:
     """Whether :class:`MultiHeadAttention` calls ``flash_attention``. On the
-    card, active dropout does not change the choice: the kernel's wrapper
-    raises until the kernel has dropout. On the CPU, active dropout takes the
-    plain path, as it does in the Pallas module's interpret mode."""
+    card, active dropout does not change the choice: the kernels drop
+    attention weights themselves. On the CPU, active dropout takes the plain
+    path, as it does in the Pallas module's interpret mode."""
     if impl == "xla" or (dropout_active and device.type != "cuda"):
         return False
     if impl == "flash":
@@ -214,8 +217,8 @@ class MultiHeadAttention(nn.Module):
     """Self-attention over ``[batch, seq, d_model]``; heads are contiguous
     slices of the projections' outputs. ``impl``: ``flash`` (the kernel where
     it takes the shape), ``xla`` (plain einsum softmax) or ``auto``
-    (:func:`flash_auto_ok`). Attention-weight dropout in training raises on
-    the flash route on the card (the kernel has no dropout yet) and takes the
+    (:func:`flash_auto_ok`). Attention-weight dropout in training runs inside
+    the kernels on the card, seeded by ``ctx.fold(1).seed``, and takes the
     plain path on the CPU."""
 
     def __init__(self, d_model: int, nhead: int, dropout: float = 0.0,
@@ -256,7 +259,8 @@ class MultiHeadAttention(nn.Module):
         if _flash_route(self.impl, s, x.device, dropout_active):
             o = flash_attention(
                 q, k, v, causal=self.causal,
-                dropout_rate=self.dropout if dropout_active else 0.0)
+                dropout_rate=self.dropout if dropout_active else 0.0,
+                dropout_seed=dk if dropout_active else None)
         else:
             o = dot_product_attention(q, k, v, causal=self.causal,
                                       dropout_rate=self.dropout,

@@ -1,5 +1,6 @@
-"""pipe_tpu_torch on a CUDA card: the kernels against their plain versions,
-and the Pipe slice through them. Skipped without a card.
+"""pipe_tpu_torch on a CUDA card: the kernels (flash forward, dQ, dK/dV, with
+and without dropout) against their plain versions, and the Pipe slice and a
+training step through them. Skipped without a card.
 
 This file imports only torch and pipe_tpu_torch, so it runs on a machine
 without JAX; there, skip the repo's JAX conftest:
@@ -59,14 +60,117 @@ def test_flash_kernel_refuses_what_it_cannot_take(cuda):
 
 
 def test_flash_pipe_refuses_dropout(cuda):
+    """The tiny pipe under dropout 0.2 on the card: the forward kernel runs
+    it (no refusal any more), and a seed gives the same output twice and
+    another seed another output."""
     cfg = dataclasses.replace(pt.LMConfig().tiny(), attn_impl="flash",
                               dropout=0.2)
     pipe = pt.Pipe(pt.build_sequential(cfg, device=cuda), chunks=2,
                    device=cuda)
     tokens = torch.zeros(2, cfg.seq_len, dtype=torch.long, device=cuda)
-    with torch.no_grad(), pytest.raises(NotImplementedError,
-                                        match="dropout.*training slice"):
-        pipe(tokens, train=True, seed=0)
+    with torch.no_grad():
+        before = tfa.flash_attention_fwd.launches
+        a = pipe(tokens, train=True, seed=0)
+        assert tfa.flash_attention_fwd.launches - before == cfg.n_layers * 2
+        assert torch.equal(a, pipe(tokens, train=True, seed=0))
+        assert not torch.equal(a, pipe(tokens, train=True, seed=1))
+    assert torch.isfinite(a).all()
+
+
+SHAPES = [(256, 128, 64, True), (3, 24, 8, True), (2, 8, 16, False),
+          (4, 40, 48, True), (2, 200, 64, True), (2, 96, 96, False),
+          (5, 136, 32, False)]
+
+
+def _inputs(cuda, bh, s, d, n=4):
+    gen = torch.Generator(device=cuda).manual_seed(bh * 1000 + s + d)
+    return [torch.randn((bh, s, d), generator=gen, device=cuda)
+            for _ in range(n)]
+
+
+def _close(got, want):
+    scale = max(1.0, want.abs().max().item())
+    assert (got - want).abs().max().item() <= TOL * scale
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.2])
+@pytest.mark.parametrize("bh,s,d,causal", SHAPES)
+def test_backward_kernels_match_plain_versions(cuda, bh, s, d, causal, rate):
+    q, k, v, do = _inputs(cuda, bh, s, d)
+    seed, scale = 99, 1.0 / d ** 0.5
+    keep = tfa.dropout_keep(seed, rate, bh, s, device=cuda) if rate else None
+    o, lse = tfa.flash_attention_fwd(q, k, v, causal=causal, scale=scale,
+                                     seed=seed, rate=rate)
+    o_ref, lse_ref = tfa.flash_attention_ref(q, k, v, causal, scale, keep)
+    _close(o, o_ref)
+    _close(lse, lse_ref)
+    delta = tfa.attention_delta(o_ref, do)
+    kw = dict(causal=causal, scale=scale, seed=seed, rate=rate)
+    counts = [tfa.flash_attention_bwd_dq.launches,
+              tfa.flash_attention_bwd_dkv.launches]
+    dq = tfa.flash_attention_bwd_dq(q, k, v, do, lse_ref, delta, **kw)
+    dk, dv = tfa.flash_attention_bwd_dkv(q, k, v, do, lse_ref, delta, **kw)
+    torch.cuda.synchronize()
+    assert [tfa.flash_attention_bwd_dq.launches,
+            tfa.flash_attention_bwd_dkv.launches] == [c + 1 for c in counts]
+    ref = dict(causal=causal, scale=scale, keep=keep)
+    _close(dq, tfa.flash_attention_bwd_dq_ref(q, k, v, do, lse_ref, delta,
+                                              **ref))
+    for got, want in zip((dk, dv), tfa.flash_attention_bwd_dkv_ref(
+            q, k, v, do, lse_ref, delta, **ref)):
+        _close(got, want)
+
+
+def test_mask_bits_equal_across_kernels_for_one_seed(cuda):
+    """Each kernel regenerates the same Philox mask: fed the plain mask of the
+    seed, every plain version agrees with its kernel (a different mask would
+    move each result by far more than TOL), and each kernel run again gives
+    the same bits."""
+    bh, s, d = 16, 128, 64
+    q, k, v, do = _inputs(cuda, bh, s, d)
+    seed, rate, scale = (1 << 40) + 3, 0.2, 0.125
+    keep = tfa.dropout_keep(seed, rate, bh, s, device=cuda)
+    o_ref, lse = tfa.flash_attention_ref(q, k, v, True, scale, keep)
+    delta = tfa.attention_delta(o_ref, do)
+    kw = dict(causal=True, scale=scale, seed=seed, rate=rate)
+    runs = [(tfa.flash_attention_fwd(q, k, v, causal=True, scale=scale,
+                                     seed=seed, rate=rate)[0],
+             tfa.flash_attention_bwd_dq(q, k, v, do, lse, delta, **kw),
+             *tfa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, **kw))
+            for _ in range(2)]
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+    ref = dict(causal=True, scale=scale, keep=keep)
+    wants = (o_ref,
+             tfa.flash_attention_bwd_dq_ref(q, k, v, do, lse, delta, **ref),
+             *tfa.flash_attention_bwd_dkv_ref(q, k, v, do, lse, delta, **ref))
+    for got, want in zip(runs[0], wants):
+        _close(got, want)
+
+
+def test_tiny_trainer_step_launches_the_kernels(cuda):
+    """One training step of the tiny LM under except_last: per step the
+    forward kernel runs n_layers x (chunks + chunks - 1) times, dQ and dK/dV
+    n_layers x chunks times each."""
+    from pipe_tpu_torch.data import lm_text
+    from pipe_tpu_torch.train.loop import Trainer, TrainerConfig
+
+    cfg = dataclasses.replace(pt.LMConfig().tiny(), attn_impl="flash",
+                              dropout=0.2)
+    tcfg = TrainerConfig(batch_size=8, bptt=cfg.seq_len, chunks=4,
+                         n_stages=2, lr=1e-2)
+    trainer = Trainer(cfg, tcfg, device=cuda)
+    ids = torch.randint(0, cfg.vocab, (4096,),
+                        generator=torch.Generator().manual_seed(0)).numpy()
+    source = lm_text.batchify(ids, tcfg.batch_size)
+    counters = (tfa.flash_attention_fwd, tfa.flash_attention_bwd_dq,
+                tfa.flash_attention_bwd_dkv)
+    before = [c.launches for c in counters]
+    _, info = trainer.train_epoch(source, max_steps=1, log_every=0)
+    moved = [c.launches - b for c, b in zip(counters, before)]
+    n, m = cfg.n_layers, tcfg.chunks
+    assert moved == [n * (2 * m - 1), n * m, n * m]
+    assert info["steps"] == 1 and info["loss"] == info["loss"]
 
 
 def test_tiny_pipe_slice_goes_through_the_kernel(cuda):

@@ -2,7 +2,8 @@
 
 The Pallas forward runs in interpret mode on the CPU, as
 tests/test_pallas_attention.py runs it; the port's wrapper runs its plain
-PyTorch version for CPU tensors. Inputs come from numpy with a seed and go
+PyTorch version for CPU tensors. The backward and dropout are held in
+tests/test_torch_flash_backward.py. Inputs come from numpy with a seed and go
 through both. fp32 tolerance 1e-5 abs: the two sum in different orders.
 The CUDA kernel itself is checked on the card by tests/test_torch_cuda.py
 (skipped without one) and by chip_smoke.py.
@@ -112,17 +113,24 @@ def test_cpu_call_does_not_move_the_launch_counter():
 
 
 def test_gradient_and_dropout_raise_not_implemented():
-    q, k, v = [torch.from_numpy(a) for a in _qkv3(1, 16, 8)]
-    with pytest.raises(NotImplementedError, match="training slice"):
-        tfa.flash_attention_fwd(q.requires_grad_(), k, v, causal=True,
-                                scale=1.0)
-    with torch.no_grad():   # no gradient needed: runs
-        tfa.flash_attention_fwd(q, k, v, causal=True, scale=1.0)
-    x = torch.zeros(1, 16, 1, 8)
-    with pytest.raises(NotImplementedError, match="training slice"):
-        tfa.flash_attention(x, x, x, dropout_rate=0.1)
-    with pytest.raises(ValueError):
-        tfa.flash_attention(x, x, x, dropout_rate=1.0)
+    """Neither a gradient nor dropout raises any more: both run through the
+    autograd Function and the backward wrappers. What still raises mirrors
+    the Pallas wrapper: a rate outside [0, 1) and a rate without a seed."""
+    q, k, v = [torch.from_numpy(a).view(1, 16, 1, 8)
+               for a in _qkv3(1, 16, 8)]
+    qg = q.clone().requires_grad_()
+    counts = (tfa.flash_attention_bwd_dq.launches,
+              tfa.flash_attention_bwd_dkv.launches)
+    tfa.flash_attention(qg, k, v, dropout_rate=0.1, dropout_seed=3).sum() \
+        .backward()
+    assert qg.grad is not None and torch.isfinite(qg.grad).all()
+    assert (tfa.flash_attention_bwd_dq.launches,
+            tfa.flash_attention_bwd_dkv.launches) == counts   # CPU: no launch
+    with pytest.raises(ValueError, match="requires dropout_seed"):
+        tfa.flash_attention(q, k, v, dropout_rate=0.1)
+    for bad in (1.0, 1.5, -0.1):
+        with pytest.raises(ValueError, match="dropout_rate"):
+            tfa.flash_attention(q, k, v, dropout_rate=bad, dropout_seed=0)
 
 
 def test_wrapper_checks_shapes_and_dtypes():

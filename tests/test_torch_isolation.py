@@ -18,7 +18,10 @@ for name in ("jax", "jaxlib", "pipe_tpu"):
 import torch
 import pipe_tpu_torch as pt
 from pipe_tpu_torch import convert, _build
+from pipe_tpu_torch.apps import lm_tutorial
 from pipe_tpu_torch.data import lm_text
+from pipe_tpu_torch.models import common
+from pipe_tpu_torch.train import Trainer, TrainerConfig, save_checkpoint
 cfg = pt.LMConfig().tiny()
 seq = pt.build_sequential(cfg, device="cpu",
                           generator=torch.Generator().manual_seed(1))
@@ -27,6 +30,12 @@ with torch.inference_mode():
     out = pipe(torch.randint(0, cfg.vocab, (4, cfg.seq_len)))
 assert out.shape == (4, cfg.seq_len, cfg.vocab)
 assert torch.isfinite(out).all()
+tr = Trainer(cfg, TrainerConfig(batch_size=4, bptt=cfg.seq_len, chunks=2),
+             device="cpu")
+ids = torch.randint(0, cfg.vocab, (2048,)).numpy()
+state, info = tr.train_epoch(lm_text.batchify(ids, 4), max_steps=2,
+                             log_every=0)
+assert info["steps"] == 2 and info["loss"] == info["loss"]
 bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib")
        and sys.modules[m] is not None]
 assert not bad, bad
@@ -38,9 +47,13 @@ import torch
 torch.cuda.is_available = lambda: False
 import pipe_tpu_torch as pt
 from pipe_tpu_torch.ops.layers import Linear
+from pipe_tpu_torch.train import Trainer, TrainerConfig
+from pipe_tpu_torch.apps import lm_tutorial
 for make in (lambda: Linear(4, 4),
              lambda: pt.build_sequential(pt.LMConfig().tiny()),
-             lambda: pt.Pipe(pt.Sequential([Linear(4, 4, device="cpu")]))):
+             lambda: pt.Pipe(pt.Sequential([Linear(4, 4, device="cpu")])),
+             lambda: Trainer(pt.LMConfig().tiny(), TrainerConfig()),
+             lambda: lm_tutorial.main(["never", "--tiny"])):
     try:
         make()
     except RuntimeError as e:

@@ -1,8 +1,9 @@
 """pipe_tpu_torch's Pipe, micro-batching, partitioning, schedule and data
 pipeline against pipe_tpu's, and the whole slice: the tutorial LM's eval
-forward through ``Pipe(chunks=4, n_stages=2)`` with flash attention, JAX
-(Pallas in interpret mode) against the port (the kernel's plain version)
-from converted weights.
+forward and a training step's gradients through ``Pipe(chunks=4,
+n_stages=2)`` with flash attention, JAX (Pallas in interpret mode) against
+the port (the kernels' plain versions) from converted weights, and the
+attention dropout replayed by the recompute.
 """
 
 import dataclasses
@@ -28,6 +29,7 @@ from pipe_tpu_torch.core import schedule as tsched
 from pipe_tpu_torch.core.remat import checkpoint_stop
 from pipe_tpu_torch.data import lm_text as ttext
 from pipe_tpu_torch.models import transformer_lm as tlm
+from pipe_tpu_torch.ops import flash_attention as tfa
 from pipe_tpu_torch.ops import layers as tl
 
 
@@ -262,7 +264,7 @@ def test_pipelined_equals_unpipelined(batch, chunks, n_stages):
 
 @pytest.mark.parametrize("checkpoint", ["never", "except_last", "always"])
 def test_training_forward_and_grads_are_transparent(checkpoint):
-    # The plain attention path (the kernel has no backward yet), dropout on:
+    # The plain attention path (dropout on the CPU takes it), dropout on:
     # remat replays each micro-batch's dropout from its seed.
     vocab, x, y = _corpus_batch()
     cfg = dataclasses.replace(tlm.LMConfig().tiny(), vocab=vocab,
@@ -284,18 +286,42 @@ def test_training_forward_and_grads_are_transparent(checkpoint):
         torch.testing.assert_close(a, b, rtol=0, atol=1e-6)
 
 
+def _card_routing(monkeypatch):
+    """Route attention as on the card (dropout included) while the tensors
+    stay on the CPU, where the kernels' wrappers run their plain versions."""
+    route = tl._flash_route
+    monkeypatch.setattr(
+        tl, "_flash_route",
+        lambda impl, s, device, drop: route(impl, s, torch.device("cuda"),
+                                            drop))
+
+
 def test_flash_path_refuses_gradients():
-    cfg = dataclasses.replace(tlm.LMConfig().tiny(), attn_impl="flash")
-    pipe = pipe_tpu_torch.Pipe(tlm.build_sequential(cfg, device="cpu"),
-                               chunks=2, device="cpu")
-    with pytest.raises(NotImplementedError, match="training slice"):
-        pipe(torch.zeros(2, 16, dtype=torch.long), train=True, seed=0)
+    """The flash path takes gradients now: a training step through
+    ``Pipe`` with ``attn_impl="flash"`` (the autograd Function over the
+    plain versions) gives the loss and gradients of plain attention."""
+    vocab, x, y = _corpus_batch()
+    cfg = dataclasses.replace(tlm.LMConfig().tiny(), vocab=vocab)
+    tokens, targets = torch.from_numpy(x).long(), torch.from_numpy(y)
+    out = []
+    for impl in ("flash", "xla"):
+        seq = tlm.build_sequential(dataclasses.replace(cfg, attn_impl=impl),
+                                   device="cpu")
+        pipe = pipe_tpu_torch.Pipe(seq, chunks=2, n_stages=2, device="cpu")
+        loss = tlm.cross_entropy(pipe(tokens, train=True, seed=0), targets)
+        loss.backward()
+        out.append((loss.item(), [p.grad for p in pipe.parameters()]))
+    (lf, gf), (lx, gx) = out
+    assert abs(lf - lx) <= 1e-6 * abs(lx)
+    for a, b in zip(gf, gx):
+        torch.testing.assert_close(a, b, rtol=0, atol=1e-5)
 
 
 @pytest.mark.parametrize("impl", ["flash", "auto"])
 def test_attention_route_under_dropout(impl):
-    # On the card the flash route holds under dropout (the wrapper raises);
-    # on the CPU dropout takes the plain path, as Pallas interpret mode does.
+    # On the card the flash route holds under dropout (the kernels drop
+    # attention weights themselves); on the CPU dropout takes the plain
+    # path, as Pallas interpret mode does.
     cuda, cpu = torch.device("cuda"), torch.device("cpu")
     assert tl._flash_route(impl, 128, cuda, dropout_active=True)
     assert tl._flash_route(impl, 128, cuda, dropout_active=False)
@@ -307,23 +333,98 @@ def test_attention_route_under_dropout(impl):
 
 
 def test_flash_path_refuses_dropout_on_the_card(monkeypatch):
-    # The tutorial LM trains with dropout 0.2: on the card its flash route
-    # reaches the kernel's wrapper with that rate, which raises. The card is
-    # stood in for by routing as if the CPU tensors were on it.
-    route = tl._flash_route
-    monkeypatch.setattr(
-        tl, "_flash_route",
-        lambda impl, s, device, drop: route(impl, s, torch.device("cuda"),
-                                            drop))
+    """The tutorial LM trains with dropout 0.2: routed as on the card, the
+    flash path takes the rate and a seed folded from the step's, and drops
+    attention weights by the Philox mask of that seed — deterministic for a
+    seed, different for another, and off in eval."""
+    _card_routing(monkeypatch)
     cfg = dataclasses.replace(tlm.LMConfig().tiny(), attn_impl="flash",
                               dropout=0.2)
     pipe = pipe_tpu_torch.Pipe(tlm.build_sequential(cfg, device="cpu"),
                                chunks=2, device="cpu")
+    seen = []
+    keep = tfa.dropout_keep
+    monkeypatch.setattr(tfa, "dropout_keep",
+                        lambda seed, rate, *a, **k: seen.append(rate)
+                        or keep(seed, rate, *a, **k))
     tokens = torch.zeros(2, 16, dtype=torch.long)
     with torch.no_grad():
-        with pytest.raises(NotImplementedError, match="dropout.*training slice"):
-            pipe(tokens, train=True, seed=0)
-        assert torch.isfinite(pipe(tokens)).all()   # eval: no dropout
+        a = pipe(tokens, train=True, seed=0)
+        assert seen == [0.2] * cfg.n_layers * 2
+        assert torch.equal(a, pipe(tokens, train=True, seed=0))
+        assert not torch.equal(a, pipe(tokens, train=True, seed=1))
+        seen.clear()
+        assert torch.isfinite(pipe(tokens)).all() and not seen   # eval
+
+
+def test_recompute_replays_attention_dropout(monkeypatch):
+    """Under checkpoint="always" the recompute asks for the forward's masks:
+    every (seed, shape) the forward draws is drawn again by the recompute
+    and by the dQ and dK/dV wrappers, and the gradients equal a run that
+    stores its activations (checkpoint="never")."""
+    _card_routing(monkeypatch)
+    vocab, x, y = _corpus_batch()
+    cfg = dataclasses.replace(tlm.LMConfig().tiny(), vocab=vocab,
+                              attn_impl="flash", dropout=0.2)
+    tokens, targets = torch.from_numpy(x).long(), torch.from_numpy(y)
+    keep = tfa.dropout_keep
+
+    def run(mode):
+        calls = []
+        monkeypatch.setattr(
+            tfa, "dropout_keep",
+            lambda seed, rate, bh, s, **k: calls.append((seed, bh, s))
+            or keep(seed, rate, bh, s, **k))
+        pipe = pipe_tpu_torch.Pipe(tlm.build_sequential(cfg, device="cpu"),
+                                   chunks=2, n_stages=2, checkpoint=mode,
+                                   device="cpu")
+        loss = tlm.cross_entropy(pipe(tokens, train=True, seed=9), targets)
+        loss.backward()
+        return calls, loss.item(), [p.grad for p in pipe.parameters()]
+
+    calls, loss, grads = run("always")
+    seeds = sorted(set(calls))
+    assert len(seeds) == cfg.n_layers * 2          # layers x micro-batches
+    assert sorted(calls) == sorted(seeds * 4)      # fwd, recompute, dQ, dK/dV
+    base_calls, base_loss, base = run("never")
+    assert sorted(set(base_calls)) == seeds
+    assert loss == base_loss
+    for a, b in zip(grads, base):
+        torch.testing.assert_close(a, b, rtol=0, atol=1e-6)
+
+
+@pytest.mark.parametrize("checkpoint", ["never", "except_last", "always"])
+def test_pipe_grads_match_pipe_tpu(checkpoint):
+    """Loss and every parameter's gradient of a training step through the
+    flash path, against the JAX ``Pipe`` on the emulator with the Pallas
+    kernels in interpret mode, from converted weights (dropout 0)."""
+    vocab, x, y = _corpus_batch()
+    jcfg = dataclasses.replace(jlm.LMConfig().tiny(), vocab=vocab,
+                               attn_impl="flash")
+    jpipe = pipe_tpu.Pipe(jlm.build_sequential(jcfg), chunks=4, n_stages=2,
+                          checkpoint=checkpoint)
+    params = jpipe.init(jax.random.key(1), jnp.asarray(x))
+    jx, jy = jnp.asarray(x), jnp.asarray(y)
+    want, jgrads = jax.value_and_grad(lambda p: jlm.cross_entropy(
+        jpipe(p, jx, key=jax.random.key(2), train=True), jy))(params)
+
+    tcfg = dataclasses.replace(tlm.LMConfig().tiny(), vocab=vocab,
+                               attn_impl="flash")
+
+    def port_pipe():
+        return pipe_tpu_torch.Pipe(tlm.build_sequential(tcfg, device="cpu"),
+                                   chunks=4, n_stages=2,
+                                   checkpoint=checkpoint, device="cpu")
+
+    tpipe, expected = port_pipe(), port_pipe()
+    convert.load_stage_params(tpipe, _np(params))
+    convert.load_stage_params(expected, _np(jgrads))   # grads, port layout
+    got = tlm.cross_entropy(tpipe(torch.from_numpy(x).long(), train=True,
+                                  seed=2), torch.from_numpy(y))
+    got.backward()
+    assert abs(got.item() - float(want)) <= 1e-5 * abs(float(want))
+    for p, g in zip(tpipe.parameters(), expected.parameters()):
+        torch.testing.assert_close(p.grad, g.detach(), rtol=0, atol=1e-5)
 
 
 # --- data pipeline copy ------------------------------------------------------
