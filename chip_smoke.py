@@ -7,13 +7,19 @@ exits non-zero without a result line:
 
 1. device  -- the card (nvidia-smi name and power limit), torch and CUDA
    versions; TF32 off for matmul and cuDNN, so fp32 means fp32.
-2. build   -- nvcc builds every kernel source of the package for sm_90a.
+2. build   -- nvcc builds every kernel source of the package for sm_90a;
+   per kernel instance, ptxas's registers and spill, and the count of
+   tensor-core instructions (HMMA/HGMMA) and asynchronous copies
+   (LDGSTS/UTMALDG) in its SASS (cuobjdump): the forward and dK/dV kernels
+   must show both.
 3. kernels -- each kernel (flash forward, dQ, dK/dV) against its plain
    PyTorch version on the card at the shapes the main paths give it (and a
    few more), with and without attention dropout (the plain versions fed the
    same Philox mask), with its time, the plain version's, one PyTorch library
    call's, and the least time the card could take (bytes or operations over
    the H100's peak rates). Same seed, same bits: each kernel run twice.
+   SDPA is timed beside the forward with and without dropout, and its
+   backward five times, with their spread.
 4. slice   -- the eval path: the tutorial Transformer LM at full width
    (d_model 2048, 32 heads, d_ff 2048, 16 layers, bptt 128, random weights
    from a seed) through ``Pipe(chunks=4, n_stages=2)`` in eval mode over 4
@@ -72,9 +78,12 @@ GRAD_SLACK = 2.0
 TRAIN_BATCH = 32
 TRAIN_STEPS = 8
 TRAIN_LR = 1e-4          # lr 5.0 (the reference's) diverges at full width
-# H100 SXM peaks (NVIDIA data sheet, dense): HBM3 bytes/s, fp32 FMA FLOP/s.
+# H100 SXM peaks (NVIDIA data sheet, dense): HBM3 bytes/s, and the fastest
+# fp32-accurate product rate the card has: TF32 tensor cores (495 TFLOP/s)
+# in three passes (big*big + big*small + small*big), which keep fp32-level
+# error, against 67 TFLOP/s of fp32 FMA on the CUDA cores.
 PEAK_BYTES = 3.35e12
-PEAK_FP32 = 67e12
+PEAK_FP32_ACCURATE = 495e12 / 3
 
 # (bh, s, d, causal): the eval slice's shape first (b*h = 2 x 32, bptt,
 # 2048 / 32); the training path's micro-batch of 8 rows gives b*h = 8 x 32.
@@ -84,7 +93,12 @@ DROP_SEEDS = (12345, (1 << 62) + 977)   # the second uses the key's high word
 TIMED_SHAPES = [(64, 128, 64, True), (16, 512, 64, True), (8, 256, 128, False)]
 # Ragged and odd shapes the kernel also takes: checked, not timed.
 EDGE_SHAPES = [(3, 24, 8, True), (2, 8, 16, False), (4, 40, 48, True),
-               (2, 200, 64, True), (2, 96, 96, False), (5, 136, 32, False)]
+               (2, 200, 64, True), (2, 96, 96, False), (5, 136, 32, False),
+               (3, 72, 8, True), (2, 136, 48, False), (2, 200, 96, True),
+               (1, 128, 128, True)]
+SDPA_RUNS = 5   # graph timings of SDPA's backward
+# Kernels that must run on tensor cores with asynchronous copies (SASS).
+TC_KERNELS = ("flash_fwd_kernel", "flash_bwd_dkv_kernel")
 
 
 def log(phase: str, **fields) -> None:
@@ -110,6 +124,30 @@ def phase_device() -> str:
     return smi
 
 
+def sass_counts(lib: str) -> dict:
+    """``{kernel instance: (tensor-core instructions, async copies)}`` of a
+    built library, from ``cuobjdump --dump-sass``: HMMA/HGMMA and
+    LDGSTS/UTMALDG lines per function, names demangled."""
+    from pipe_tpu_torch._build import cuda_tool
+    out = subprocess.run([cuda_tool("cuobjdump"), "--dump-sass", lib],
+                         capture_output=True, text=True, check=True).stdout
+    counts, name = {}, None
+    for line in out.splitlines():
+        if "Function :" in line:
+            name = line.split("Function :")[1].strip()
+            counts[name] = [0, 0]
+        elif name is not None:
+            op = line.split(";")[0]
+            counts[name][0] += ("HMMA" in op) or ("HGMMA" in op)
+            counts[name][1] += ("LDGSTS" in op) or ("UTMALDG" in op)
+    names = list(counts)
+    plain = subprocess.run([cuda_tool("cu++filt")], input="\n".join(names),
+                           capture_output=True, text=True,
+                           check=True).stdout.splitlines()
+    return {p.replace("<unnamed>::", "").removeprefix("void "): tuple(counts[n])
+            for n, p in zip(names, plain)}
+
+
 def phase_build() -> None:
     from pipe_tpu_torch import _build
     t0 = time.perf_counter()
@@ -124,6 +162,13 @@ def phase_build() -> None:
                 print("      " + line.replace("ptxas info    :", "").strip(),
                       flush=True)
     log("build", total_s=f"{total:.2f}")
+    for src in _build.SOURCES:
+        for fn, (tc, cp) in sass_counts(str(_build.lib_path(src))).items():
+            log("build", sass=src, kernel=repr(fn.split(">(")[0] + ">"),
+                tensor_core=tc, async_copy=cp)
+            if any(k in fn for k in TC_KERNELS) and not (tc and cp):
+                raise AssertionError(f"{fn} lacks tensor-core instructions "
+                                     f"({tc}) or async copies ({cp})")
 
 
 def time_ms(fn, iters: int = 20, reps: int = 10) -> float:
@@ -150,7 +195,7 @@ def time_ms(fn, iters: int = 20, reps: int = 10) -> float:
 
 
 def _bound(nbytes: float, flops: float):
-    t_bytes, t_ops = nbytes / PEAK_BYTES, flops / PEAK_FP32
+    t_bytes, t_ops = nbytes / PEAK_BYTES, flops / PEAK_FP32_ACCURATE
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
                                        else "operations")
 
@@ -173,22 +218,6 @@ def bwd_bound(kernel: str, bh: int, s: int, d: int, causal: bool, elem: int):
     outs, per_pair = {"dq": (1, 6), "dkv": (2, 8)}[kernel]
     return _bound((4 + outs) * bh * s * d * elem + 2 * bh * s * 4,
                   per_pair * d * _pairs(s, causal) * bh)
-
-
-def events_ms(fn, iters: int = 20) -> float:
-    """Device time of one ``fn()`` by CUDA events around ``iters`` eager
-    calls (host launch cost included): for calls that run autograd."""
-    for _ in range(3):
-        fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
 
 
 def _qkv(bh, s, d, dtype, gen, n=3):
@@ -346,26 +375,40 @@ def phase_kernels() -> dict:
         q, k, v, do, lse, delta, **kw))
     dkv_plain = time_ms(lambda: fa.flash_attention_bwd_dkv_ref(
         q, k, v, do, lse, delta, keep=plain_keep(), **ref_kw))
-    # Library yardstick: SDPA without dropout (its dropout draws from
-    # PyTorch's own generator); its backward is forward+backward less the
-    # forward, and covers dQ, dK and dV together.
+    # Library yardsticks, timed like the kernels (CUDA graphs). The forward's:
+    # SDPA with the same dropout rate (the same function up to the mask's
+    # bits, which come from PyTorch's own generator); without dropout beside
+    # it. The backward's: SDPA's whole backward (dQ, dK and dV together, no
+    # dropout), as forward+backward less the forward, the mean of SDPA_RUNS
+    # graph timings, with their spread.
     q4, k4, v4 = (x[None].detach().requires_grad_() for x in (q, k, v))
     do4 = do[None]
 
-    def sdpa():
-        return F.scaled_dot_product_attention(q4, k4, v4, is_causal=causal,
-                                              scale=scale)
+    def sdpa(p=0.0):
+        return F.scaled_dot_product_attention(q4, k4, v4, dropout_p=p,
+                                              is_causal=causal, scale=scale)
+
+    def sdpa_grads():
+        return torch.autograd.grad(sdpa(), (q4, k4, v4), do4)
 
     with torch.no_grad():
-        lib_fwd = events_ms(sdpa)
-    lib_fwd_bwd = events_ms(lambda: torch.autograd.grad(sdpa(), (q4, k4, v4),
-                                                        do4))
-    lib_bwd = lib_fwd_bwd - lib_fwd
-    with torch.no_grad():
-        lib_fwd_graph = time_ms(sdpa)
+        lib_fwd = time_ms(sdpa)
+        lib_fwd_drop = time_ms(lambda: sdpa(DROPOUT))
+    side = torch.cuda.Stream()       # autograd warms up off the capture stream
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            sdpa_grads()
+    torch.cuda.current_stream().wait_stream(side)
+    bwd_runs = []
+    for _ in range(SDPA_RUNS):
+        with torch.no_grad():
+            fwd_only = time_ms(sdpa)
+        bwd_runs.append(time_ms(sdpa_grads) - fwd_only)
+    lib_bwd = sum(bwd_runs) / len(bwd_runs)
 
     for name, ms, plain, lib, (bound, by) in (
-            ("flash_attn_fwd", fwd_ms, fwd_plain, lib_fwd_graph,
+            ("flash_attn_fwd", fwd_ms, fwd_plain, lib_fwd_drop,
              attention_bound(bh, s, d, causal, 4)),
             ("flash_attn_bwd_dq", dq_ms, dq_plain, lib_bwd,
              bwd_bound("dq", bh, s, d, causal, 4)),
@@ -378,9 +421,12 @@ def phase_kernels() -> dict:
             rate=DROPOUT, ms=f"{ms:.5f}", plain_ms=f"{plain:.5f}",
             library_ms=f"{lib:.5f}", bound_ms=f"{bound:.5f}", bound_by=by,
             roofline=f"{bound / ms:.3f}", max_abs_err=f"{worst[name]:.3e}")
-    log("kernels", sdpa_fwd_ms_events=f"{lib_fwd:.5f}",
-        sdpa_fwd_bwd_ms_events=f"{lib_fwd_bwd:.5f}",
-        sdpa_bwd_ms=f"{lib_bwd:.5f}", note="library_ms of dq and dkv is "
+    log("kernels", sdpa_fwd_ms=f"{lib_fwd:.5f}",
+        sdpa_fwd_dropout_ms=f"{lib_fwd_drop:.5f}",
+        sdpa_bwd_ms=f"{lib_bwd:.5f}",
+        sdpa_bwd_runs_ms=[f"{x:.5f}" for x in bwd_runs],
+        sdpa_bwd_spread_ms=f"{max(bwd_runs) - min(bwd_runs):.5f}",
+        note="library_ms of fwd is SDPA with dropout 0.2; of dq and dkv "
         "SDPA's whole backward (dQ, dK, dV together), no dropout")
     return rows
 
@@ -633,7 +679,7 @@ def main() -> int:
                                   "flash_attention_fwd"),
                "flash_attn_bwd_dq": ("flash_attn_bwd.cu", 162,
                                      "flash_attention_bwd_dq"),
-               "flash_attn_bwd_dkv": ("flash_attn_bwd.cu", 201,
+               "flash_attn_bwd_dkv": ("flash_attn_bwd_dkv.cu", 201,
                                       "flash_attention_bwd_dkv")}
     kernels = {"kernels": []}
     for name, (src, line, wrapper) in sources.items():

@@ -21,24 +21,27 @@ import time
 from pathlib import Path
 from typing import Dict, Sequence
 
-__all__ = ["SOURCES", "BUILD_DIR", "NVCC_FLAGS", "build_all", "load"]
+__all__ = ["SOURCES", "BUILD_DIR", "NVCC_FLAGS", "build_all", "cuda_tool",
+           "load"]
 
 _PKG = Path(__file__).resolve().parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "torch_kernels"
-SOURCES = ("flash_attn_fwd.cu", "flash_attn_bwd.cu")
+SOURCES = ("flash_attn_fwd.cu", "flash_attn_bwd.cu", "flash_attn_bwd_dkv.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 
 
-def _nvcc() -> str:
-    path = shutil.which("nvcc")
-    if path is None and os.path.exists("/usr/local/cuda/bin/nvcc"):
-        path = "/usr/local/cuda/bin/nvcc"
+def cuda_tool(name: str = "nvcc") -> str:
+    """Path of a CUDA toolkit program (``nvcc``, ``cuobjdump``, ...): on PATH
+    or under /usr/local/cuda/bin."""
+    path = shutil.which(name)
+    if path is None and os.path.exists(f"/usr/local/cuda/bin/{name}"):
+        path = f"/usr/local/cuda/bin/{name}"
     if path is None:
         raise RuntimeError(
-            "nvcc not found (PATH or /usr/local/cuda/bin): the CUDA kernels "
-            "of pipe_tpu_torch build on a machine with the CUDA toolkit")
+            f"{name} not found (PATH or /usr/local/cuda/bin): the CUDA kernels "
+            f"of pipe_tpu_torch build on a machine with the CUDA toolkit")
     return path
 
 
@@ -68,7 +71,7 @@ def build_all(sources: Sequence[str] = SOURCES) -> Dict[str, dict]:
         if dst.exists():
             out[src] = {"seconds": 0.0, "ptxas": "(cached)"}
             continue
-        nvcc = nvcc or _nvcc()
+        nvcc = nvcc or cuda_tool()
         tmp = dst.with_suffix(f".{os.getpid()}.tmp")
         cmd = [nvcc, *NVCC_FLAGS, "-Xptxas", "-v", "-o", str(tmp),
                str(CSRC / src)]

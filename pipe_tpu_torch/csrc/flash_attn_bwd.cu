@@ -1,37 +1,32 @@
-// Flash-attention backward for Hopper (sm_90a): dQ, and dK with dV, of
+// Flash-attention backward for Hopper (sm_90a), the dQ half: dQ of
 // O = dropout(softmax(scale * Q K^T, masked)) V over contiguous [b*h, s, d] tensors,
-// from the forward's per-row logsumexp L and D = rowsum(dO * O).
+// from the forward's per-row logsumexp L and D = rowsum(dO * O). dK and dV are
+// flash_attn_bwd_dkv.cu's.
 //
 // Replaces: pipe_tpu/ops/pallas_attention.py, _bwd_dq_kernel (lines 162-198, launched
-// at 265) and _bwd_dkv_kernel (lines 201-250, launched at 278), with the dropout of
-// _drop_mask (lines 57-74) inside both. Same decomposition and arithmetic: p is rebuilt
-// as exp(s - L) (0 where a score is masked), dp = dO V^T times the keep factor,
-// ds = p (dp - D); dQ = scale * sum ds K; dV = sum (p * keep)^T dO; dK = sum ds^T (scale Q).
-// Two kernels, as in Pallas, and no atomics: every sum has one owner (a block owns its
-// query rows of dQ, or its key rows of dK and dV), so the results are the same from
-// run to run. The keep factor comes from philox.cuh, a function of absolute positions,
-// so these kernels regenerate the forward kernel's mask whatever their tiles.
+// at 265), with the dropout of _drop_mask (lines 57-74) inside. Same decomposition and
+// arithmetic: p is rebuilt as exp(s - L) (0 where a score is masked), dp = dO V^T times
+// the keep factor, ds = p (dp - D); dQ = scale * sum ds K. No atomics: a block owns its
+// query rows of dQ, so the results are the same from run to run. The keep factor comes
+// from philox.cuh, a function of absolute positions, so this kernel regenerates the
+// forward kernel's mask whatever its tiles.
 //
 // What bounds it: at the tutorial LM's training shape (b*h = 256, s = 128, d = 64,
-// causal, fp32) the pair of kernels must read q, k, v, dO, L, D and write dQ, dK, dV
-// once, 59.0 MB, 17.6 us at 3.35 TB/s; the work is 6 d FLOPs per unmasked (query, key)
-// pair for dQ and 8 d for dK/dV, 1.89 GFLOP together, 28.3 us at the 67 TFLOP/s of
-// fp32 FMA. So the pair is bound by operations, and at this size by latency as much.
+// causal, fp32) the call must read q, k, v, dO, L, D and write dQ once, 42.2 MB,
+// 12.6 us at 3.35 TB/s; the work is 6 d FLOPs per unmasked (query, key) pair,
+// 0.81 GFLOP, 4.9 us at the 165 TFLOP/s of fp32-accurate (3xTF32) tensor-core products.
+// So it is bound by bytes, and at this size by latency as much.
 //
-// What the design does about that: the layout of the forward kernel, turned for each
-// owner. dQ: one 128-thread block per (b*h, 32-row query tile); K/V tiles of 64 keys
-// staged in shared memory and reused by all 32 rows; four threads per query row, each
-// holding 16 scores and 16 dp values of the tile and a quarter of the dQ row in
-// registers; ds moves between the four by warp shuffles. The k-tile loop stops at the
-// causal diagonal. dK/dV: one 128-thread block per (b*h, 32-row key tile), holding its
-// K and V rows in shared memory while Q/dO tiles of 64 queries (with their L and D)
-// stream past, from the first query tile the causal mask lets see the key tile (iq0 of
-// the Pallas kernel); four threads per key row hold a quarter of its dK and dV rows.
-// Products are fp32 FMA on the CUDA cores; tensor cores (wgmma) and TMA come later.
+// What the design does about that: one 128-thread block per (b*h, 32-row query tile);
+// K/V tiles of 64 keys staged in shared memory and reused by all 32 rows; four threads
+// per query row, each holding 16 scores and 16 dp values of the tile and a quarter of
+// the dQ row in registers; ds moves between the four by warp shuffles. The k-tile loop
+// stops at the causal diagonal. Products are fp32 FMA on the CUDA cores; the forward
+// and dK/dV kernels' tensor-core design (tc_tf32.cuh) is this kernel's next step.
 //
 // Head dims up to 128 are instantiated (every model of the repo has head dim 64).
 //
-// C interface for ctypes: each entry point returns a cudaError_t code, 0 on success.
+// C interface for ctypes: pipe_flash_attn_bwd_dq returns a cudaError_t code, 0 on success.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -190,105 +185,6 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
   if (qg < s) store_row<NC>(dq + base + (size_t)qg * d, acc, t, d, scale);
 }
 
-// dK and dV for one (b*h, 32-row key tile).
-template <int D, typename T>
-__global__ void __launch_bounds__(THREADS)
-flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                     const T* __restrict__ dout, const float* __restrict__ lse,
-                     const float* __restrict__ delta, T* __restrict__ dk, T* __restrict__ dv,
-                     int s, int d, int causal, float scale, pipe_philox::Dropout drop) {
-  constexpr int LD = D + 4;
-  constexpr int NC = D / 16;
-  extern __shared__ float4 smem4[];
-  float* ks = reinterpret_cast<float*>(smem4);
-  float* vs = ks + ROWS * LD;
-  float* qs = vs + ROWS * LD;
-  float* dos = qs + TILE * LD;
-  float* ls = dos + TILE * LD;
-  float* dls = ls + TILE;
-
-  const int bh = blockIdx.x;
-  const int k0 = blockIdx.y * ROWS;
-  const size_t base = (size_t)bh * s * d;
-  const int r = threadIdx.x / TPR;  // key row within the tile
-  const int t = threadIdx.x % TPR;
-  const int kg = k0 + r;
-  const int quad = (threadIdx.x & 31) & ~(TPR - 1);
-
-  load_tile<D>(ks, k + base, k0, ROWS, s, d, 1.f);
-  load_tile<D>(vs, v + base, k0, ROWS, s, d, 1.f);
-
-  float4 acck[NC], accv[NC];
-#pragma unroll
-  for (int c = 0; c < NC; ++c) {
-    acck[c] = make_float4(0.f, 0.f, 0.f, 0.f);
-    accv[c] = make_float4(0.f, 0.f, 0.f, 0.f);
-  }
-
-  const int nq = (s + TILE - 1) / TILE;
-  const int iq0 = causal ? k0 / TILE : 0;  // first query tile that sees these keys
-
-  for (int iq = iq0; iq < nq; ++iq) {
-    const int q0 = iq * TILE;
-    __syncthreads();
-    load_tile<D>(qs, q + base, q0, TILE, s, d, scale);
-    load_tile<D>(dos, dout + base, q0, TILE, s, d, 1.f);
-    load_stat(ls, lse + (size_t)bh * s, q0, TILE, s);
-    load_stat(dls, delta + (size_t)bh * s, q0, TILE, s);
-    __syncthreads();
-
-    // Scores and V . dO of this key row against queries q0 + j*TPR + t.
-    float sc[NPT], dp[NPT];
-#pragma unroll
-    for (int j = 0; j < NPT; ++j) sc[j] = dp[j] = 0.f;
-    const float4* krow = reinterpret_cast<const float4*>(ks + r * LD);
-    const float4* vrow = reinterpret_cast<const float4*>(vs + r * LD);
-#pragma unroll 2
-    for (int c4 = 0; c4 < D / 4; ++c4) {
-      const float4 kv = krow[c4], vv = vrow[c4];
-#pragma unroll
-      for (int j = 0; j < NPT; ++j) {
-        const int qr = (j * TPR + t) * LD;
-        sc[j] = dot4(kv, reinterpret_cast<const float4*>(qs + qr)[c4], sc[j]);
-        dp[j] = dot4(vv, reinterpret_cast<const float4*>(dos + qr)[c4], dp[j]);
-      }
-    }
-    // sc becomes p * keep (for dV), dp becomes ds = p (dp * keep - D) (for dK).
-#pragma unroll
-    for (int j = 0; j < NPT; ++j) {
-      const int qi = j * TPR + t;
-      const int qg = q0 + qi;
-      const bool masked = qg >= s || (causal && kg > qg);
-      const float p = masked ? 0.f : expf(sc[j] - ls[qi]);
-      const float f = drop.on ? drop.factor(bh, qg, kg) : 1.f;
-      dp[j] = p * (dp[j] * f - dls[qi]);
-      sc[j] = p * f;
-    }
-    // dV += (p keep)^T dO, dK += ds^T (scale Q): query j*TPR + src's values come from
-    // thread src of the quad.
-#pragma unroll
-    for (int j = 0; j < NPT; ++j) {
-#pragma unroll
-      for (int src = 0; src < TPR; ++src) {
-        const float pk = __shfl_sync(FULL, sc[j], quad | src);
-        const float ds = __shfl_sync(FULL, dp[j], quad | src);
-        const int qr = (j * TPR + src) * LD;
-        const float4* qrow = reinterpret_cast<const float4*>(qs + qr);
-        const float4* drow = reinterpret_cast<const float4*>(dos + qr);
-#pragma unroll
-        for (int c = 0; c < NC; ++c) {
-          fma4(accv[c], pk, drow[c * TPR + t]);
-          fma4(acck[c], ds, qrow[c * TPR + t]);
-        }
-      }
-    }
-  }
-  if (kg < s) {
-    store_row<NC>(dk + base + (size_t)kg * d, acck, t, d, 1.f);
-    store_row<NC>(dv + base + (size_t)kg * d, accv, t, d, 1.f);
-  }
-}
-
 template <int D, typename T>
 cudaError_t launch_dq(const void* q, const void* k, const void* v, const void* dout,
                       const void* lse, const void* delta, void* dq, int bh, int s, int d,
@@ -305,24 +201,6 @@ cudaError_t launch_dq(const void* q, const void* k, const void* v, const void* d
   return cudaGetLastError();
 }
 
-template <int D, typename T>
-cudaError_t launch_dkv(const void* q, const void* k, const void* v, const void* dout,
-                       const void* lse, const void* delta, void* dk, void* dv, int bh, int s,
-                       int d, int causal, float scale, pipe_philox::Dropout drop,
-                       cudaStream_t stream) {
-  const int smem = ((2 * ROWS + 2 * TILE) * (D + 4) + 2 * TILE) * (int)sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dkv_kernel<D, T>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid(bh, (s + ROWS - 1) / ROWS);
-  flash_bwd_dkv_kernel<D, T><<<grid, THREADS, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const T*>(dout), static_cast<const float*>(lse),
-      static_cast<const float*>(delta), static_cast<T*>(dk), static_cast<T*>(dv), s, d, causal,
-      scale, drop);
-  return cudaGetLastError();
-}
-
 template <typename T>
 cudaError_t dispatch_dq(const void* q, const void* k, const void* v, const void* dout,
                         const void* lse, const void* delta, void* dq, int bh, int s, int d,
@@ -330,17 +208,6 @@ cudaError_t dispatch_dq(const void* q, const void* k, const void* v, const void*
   if (d <= 32) return launch_dq<32, T>(q, k, v, dout, lse, delta, dq, bh, s, d, causal, scale, drop, st);
   if (d <= 64) return launch_dq<64, T>(q, k, v, dout, lse, delta, dq, bh, s, d, causal, scale, drop, st);
   if (d <= 128) return launch_dq<128, T>(q, k, v, dout, lse, delta, dq, bh, s, d, causal, scale, drop, st);
-  return cudaErrorInvalidValue;
-}
-
-template <typename T>
-cudaError_t dispatch_dkv(const void* q, const void* k, const void* v, const void* dout,
-                         const void* lse, const void* delta, void* dk, void* dv, int bh, int s,
-                         int d, int causal, float scale, pipe_philox::Dropout drop,
-                         cudaStream_t st) {
-  if (d <= 32) return launch_dkv<32, T>(q, k, v, dout, lse, delta, dk, dv, bh, s, d, causal, scale, drop, st);
-  if (d <= 64) return launch_dkv<64, T>(q, k, v, dout, lse, delta, dk, dv, bh, s, d, causal, scale, drop, st);
-  if (d <= 128) return launch_dkv<128, T>(q, k, v, dout, lse, delta, dk, dv, bh, s, d, causal, scale, drop, st);
   return cudaErrorInvalidValue;
 }
 
@@ -371,28 +238,9 @@ int pipe_flash_attn_bwd_dq(const void* q, const void* k, const void* v, const vo
   }
 }
 
-int pipe_flash_attn_bwd_dkv(const void* q, const void* k, const void* v, const void* dout,
-                            const void* lse, const void* delta, void* dk, void* dv, int bh,
-                            int s, int d, int causal, float scale, int dtype, int dropout,
-                            unsigned long long seed, unsigned int threshold, float keep_scale,
-                            void* stream) {
-  if (bh <= 0 || s <= 0 || d <= 0) return (int)cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const pipe_philox::Dropout drop{dropout, (uint32_t)seed, (uint32_t)(seed >> 32), threshold,
-                                  keep_scale};
-  switch (dtype) {
-    case 0:
-      return (int)dispatch_dkv<float>(q, k, v, dout, lse, delta, dk, dv, bh, s, d, causal,
-                                      scale, drop, st);
-    case 1:
-      return (int)dispatch_dkv<__nv_bfloat16>(q, k, v, dout, lse, delta, dk, dv, bh, s, d,
-                                              causal, scale, drop, st);
-    default: return (int)cudaErrorInvalidValue;
-  }
-}
-
 const char* pipe_cuda_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
 }  // extern "C"
+

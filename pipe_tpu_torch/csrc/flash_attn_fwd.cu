@@ -9,28 +9,40 @@
 // factor and O takes it after (lines 117-120), so L stays the logsumexp of the
 // undropped scores and the backward kernels rebuild p from it. The causal mask and the
 // Philox keep mask (philox.cuh) are functions of absolute positions, so the tile sizes
-// below (not the Pallas block sizes) decide nothing about the result.
+// below (not the Pallas block sizes) decide nothing about the result. The scale is
+// applied to the scores after the product (Pallas scales q before it): the same up to
+// rounding, and it keeps a bf16 Q exact in TF32.
 //
-// What bounds it: at the tutorial LM's shape (b*h = 64, s = 128, d = 64, causal, fp32)
-// the call must move q, k, v and o once, 8.4 MB, which takes 2.5 us at 3.35 TB/s, and
-// do 4 * d * s(s+1)/2 * b*h = 0.14 GFLOP, 2.0 us at the 67 TFLOP/s of fp32 FMA. So it
-// is bound by bytes, and at this size by launch latency more than either.
+// What bounds it: at the tutorial LM's training shape (b*h = 256, s = 128, d = 64,
+// causal, fp32) the call must move q, k, v and o once, 33.7 MB, 10.0 us at 3.35 TB/s,
+// and do 4 * d * s(s+1)/2 * b*h = 0.54 GFLOP, 3.3 us at the 165 TFLOP/s of
+// fp32-accurate (3xTF32) tensor-core products. So it is bound by bytes, and at this
+// size by latency as much.
 //
-// What the design does about that: one thread block per (b*h, 32-row query tile),
-// 256 blocks at the slice shape, all resident at once on 132 SMs (43 KB of shared
-// memory and 128 threads each). Each K/V tile of 64 rows is read from device memory
-// once per block and staged in shared memory, where all 32 query rows reuse it. The
-// scores and the softmax state never leave registers: four threads share a query row,
-// each holds 16 of the tile's 64 scores and a quarter of the output row, and the row
-// max, the row sum and the probabilities move between the four by warp shuffles. The
-// k-tile loop stops at the causal diagonal. Products are fp32 FMA on the CUDA cores;
-// tensor cores (wgmma) and TMA come later, when the kernel is made fast.
+// What the design does about that (tc_tf32.cuh holds the shared pieces):
+// - one 128-thread block per (b*h, 64-query tile): 512 blocks at the training shape,
+//   two to an SM (87 KB of shared memory and 128 registers a thread at d = 64), and
+//   128 at the eval shape, one wave on the 132 SMs, where 128-row tiles would leave
+//   half of them idle. Each warp owns 16 query rows, the M of mma.sync m16n8k8;
+// - S = Q K^T and O += P V are tensor-core products in three TF32 passes (one for
+//   S and two for P V when the inputs are bf16, which TF32 holds exactly);
+// - K/V tiles of 64 keys pass through a two-stage ring in shared memory filled by
+//   16-byte cp.async copies, so tile i+1 is in flight while tile i is used; rows are
+//   padded so that every fragment load is free of bank conflicts;
+// - the online softmax runs on the accumulator layout: a thread holds rows g and g+8,
+//   and the row max and sum take two xor-shuffles in the quad. P feeds P V from
+//   registers by relabelling the k8 step (tc_tf32.cuh), with no shuffle;
+// - the causal loop stops at the diagonal. Inside a tile the products carry no
+//   branch: a branch around mma.sync makes the compiler fence each dependent
+//   three-pass chain on its own, which made it 1.2 to 1.6 times slower (PERF.md), so
+//   the 8-key blocks wholly above a warp's rows are multiplied and masked, and only
+//   their Philox is skipped;
+// - dropout computes each Philox4x32-10 block once: the two lanes of a pair hold the
+//   four keys of one block for rows g and g+8; each computes the block of one row and
+//   they swap two words with one shuffle each.
 //
-// Head dims up to 128 are instantiated: every model of the repo has head dim 64. The
-// Pallas wrapper takes any head dim; the wrapper here refuses d > 128 with an error.
-//
-// Dropout costs one Philox4x32-10 call per (query, key) pair: ~60 integer instructions
-// against the 2 d FMAs of the pair, about half again the arithmetic at d = 64.
+// Head dims up to 128 are instantiated (D = 32, 64, 128; d is zero-padded to D).
+// Every model of the repo has head dim 64; the wrapper refuses d > 128 with an error.
 //
 // C interface for ctypes: pipe_flash_attn_fwd returns a cudaError_t code, 0 on success.
 
@@ -38,36 +50,38 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stddef.h>
+#include <stdint.h>
 
 #include "philox.cuh"
+#include "tc_tf32.cuh"
 
 namespace {
 
-constexpr int BQ = 32;             // query rows per block
-constexpr int BK = 64;             // keys per K/V tile
-constexpr int TPR = 4;             // threads per query row
-constexpr int THREADS = BQ * TPR;  // 128
-constexpr int KPT = BK / TPR;      // scores each thread holds per tile (16)
-constexpr unsigned FULL = 0xffffffffu;
+using namespace pipe_tc;
 
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
-__device__ __forceinline__ void store(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float v) { *p = __float2bfloat16(v); }
+constexpr int BQ = 64;       // query rows per block, 16 per warp
+constexpr int BK = 64;       // keys per K/V tile
+constexpr int THREADS = 128;
+constexpr int NB = BK / 8;   // 8-key blocks per tile
 
-// Rows [row0, row0 + rows) of a row-major [s, d] matrix into a fp32 tile of
-// [rows][D + 4], times mul; columns >= d and rows >= s are filled with zeros.
-template <int D, typename T>
-__device__ __forceinline__ void load_tile(float* tile, const T* __restrict__ src,
-                                          int row0, int rows, int s, int d, float mul) {
-  constexpr int LD = D + 4;
-  for (int i = threadIdx.x; i < rows * D; i += THREADS) {
-    const int r = i / D, c = i % D;
-    const int g = row0 + r;
-    float x = 0.f;
-    if (g < s && c < d) x = to_f(src[(size_t)g * d + c]) * mul;
-    tile[r * LD + c] = x;
-  }
+// Keep factors of this lane's four (query, key) pairs in the C layout: rows qa, qb
+// (= qa + 8), keys 8j + 2t, 8j + 2t + 1 of the block whose first Philox group is grp.
+// Lanes t and t^1 hold the four keys of one group: the even lane computes row qa's
+// block, the odd lane row qb's, and each hands over the two words the other needs.
+__device__ __forceinline__ void keep_pair(const pipe_philox::Dropout& drop, int bh, int grp,
+                                          int qa, int qb, float f[4]) {
+  const int t = threadIdx.x & 3;
+  const bool odd = t & 1;
+  const uint4 r = pipe_philox::philox4x32_10(
+      make_uint4((uint32_t)(grp + (t >> 1)), (uint32_t)(odd ? qb : qa), (uint32_t)bh, 0u),
+      drop.seed_lo, drop.seed_hi);
+  const uint32_t got0 = __shfl_xor_sync(FULL, odd ? r.x : r.z, 1);
+  const uint32_t got1 = __shfl_xor_sync(FULL, odd ? r.y : r.w, 1);
+  const uint32_t own0 = odd ? r.z : r.x, own1 = odd ? r.w : r.y;
+  const uint32_t w[4] = {odd ? got0 : own0, odd ? got1 : own1, odd ? own0 : got0,
+                         odd ? own1 : got1};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) f[i] = w[i] >= drop.threshold ? drop.scale : 0.f;
 }
 
 // D is the head dimension rounded up to 32, 64 or 128; d <= D is the real one.
@@ -75,121 +89,149 @@ template <int D, typename T>
 __global__ void __launch_bounds__(THREADS)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                  T* __restrict__ o, float* __restrict__ lse, int s, int d, int causal,
-                 float scale, pipe_philox::Dropout drop) {
-  constexpr int LD = D + 4;  // +4 floats: rows stay 16-byte aligned, banks spread
-  constexpr int NC = D / 16; // float4 chunks of the output row per thread
+                 float scale, pipe_philox::Dropout drop, int vec) {
+  constexpr int LD = Ld<D, T>::value;
+  constexpr bool EX = Exact<T>::value;
+  constexpr int ND = D / 8;  // 8-wide steps of the head dim
   extern __shared__ float4 smem4[];
-  float* qs = reinterpret_cast<float*>(smem4);
-  float* ks = qs + BQ * LD;
-  float* vs = ks + BK * LD;
+  T* qs = reinterpret_cast<T*>(smem4);  // then stage st: K at 1 + 2 st, V at 2 + 2 st
 
   const int bh = blockIdx.x;
   const int q0 = blockIdx.y * BQ;
   const size_t base = (size_t)bh * s * d;
-  const int r = threadIdx.x / TPR;  // query row within the tile
-  const int t = threadIdx.x % TPR;  // this thread's quarter of the row
-  const int qg = q0 + r;            // absolute query position
-  const int quad = (threadIdx.x & 31) & ~(TPR - 1);
-
-  // q * scale before the product, as _fwd_kernel does.
-  load_tile<D>(qs, q + base, q0, BQ, s, d, scale);
-
-  float4 acc[NC];
-#pragma unroll
-  for (int c = 0; c < NC; ++c) acc[c] = make_float4(0.f, 0.f, 0.f, 0.f);
-  float m = -INFINITY, l = 0.f;
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int r0 = (threadIdx.x >> 5) * 16;  // this warp's first row in the tile
+  const int qa = q0 + r0 + g, qb = qa + 8;
 
   int nk = (s + BK - 1) / BK;
   if (causal) nk = min(nk, (min(q0 + BQ, s) - 1) / BK + 1);
 
+  load_tile<BQ, D, THREADS>(qs, q + base, q0, s, d, vec);
+  load_tile<BK, D, THREADS>(qs + BQ * LD, k + base, 0, s, d, vec);
+  load_tile<BK, D, THREADS>(qs + (BQ + BK) * LD, v + base, 0, s, d, vec);
+  cp_async_commit();
+
+  float oacc[ND][4];
+#pragma unroll
+  for (int n = 0; n < ND; ++n) oacc[n][0] = oacc[n][1] = oacc[n][2] = oacc[n][3] = 0.f;
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+
   for (int it = 0; it < nk; ++it) {
     const int k0 = it * BK;
-    __syncthreads();  // the previous tile is consumed (and the Q tile is in place)
-    load_tile<D>(ks, k + base, k0, BK, s, d, 1.f);
-    load_tile<D>(vs, v + base, k0, BK, s, d, 1.f);
+    if (it + 1 < nk) {
+      T* nxt = qs + (BQ + 2 * BK * ((it + 1) & 1)) * LD;
+      load_tile<BK, D, THREADS>(nxt, k + base, k0 + BK, s, d, vec);
+      load_tile<BK, D, THREADS>(nxt + BK * LD, v + base, k0 + BK, s, d, vec);
+    }
+    cp_async_commit();
+    cp_async_wait<1>();  // this tile's copies (and Q's) have landed
     __syncthreads();
+    const T* ks = qs + (BQ + 2 * BK * (it & 1)) * LD;
+    const T* vs = ks + BK * LD;
 
-    // Scores of this row against keys k0 + j*TPR + t.
-    float sc[KPT];
+    // 8-key blocks of this tile that hold a key this warp may see (the others are
+    // masked whole: their products run, branch-free, and their Philox is skipped).
+    int jn = min(NB, (s - k0 + 7) / 8);
+    if (causal) jn = min(jn, (q0 + r0 + 15 - k0) / 8 + 1);
+
+    float sc[NB][4];
 #pragma unroll
-    for (int j = 0; j < KPT; ++j) sc[j] = 0.f;
-    const float4* qrow = reinterpret_cast<const float4*>(qs + r * LD);
-#pragma unroll 4
-    for (int c4 = 0; c4 < D / 4; ++c4) {
-      const float4 qv = qrow[c4];
+    for (int j = 0; j < NB; ++j) sc[j][0] = sc[j][1] = sc[j][2] = sc[j][3] = 0.f;
 #pragma unroll
-      for (int j = 0; j < KPT; ++j) {
-        const float4 kv = reinterpret_cast<const float4*>(ks + (j * TPR + t) * LD)[c4];
-        sc[j] = fmaf(qv.x, kv.x, sc[j]);
-        sc[j] = fmaf(qv.y, kv.y, sc[j]);
-        sc[j] = fmaf(qv.z, kv.z, sc[j]);
-        sc[j] = fmaf(qv.w, kv.w, sc[j]);
+    for (int kk = 0; kk < ND; ++kk) {
+      uint32_t ab[4], as[4];
+      load_a<EX, LD>(qs, r0, 8 * kk, ab, as);
+#pragma unroll
+      for (int j = 0; j < NB; ++j) {
+        uint32_t bb[2], bs[2];
+        load_b_t<EX, LD>(ks, 8 * j, 8 * kk, bb, bs);
+        mma3<EX, EX>(sc[j], ab, as, bb, bs);
       }
     }
 
-    float bmax = -INFINITY;
+    // Online softmax; element 2h + e of block j is row (h ? qb : qa), key k0+8j+2t+e.
+    float mx[2] = {-INFINITY, -INFINITY};
 #pragma unroll
-    for (int j = 0; j < KPT; ++j) {
-      const int kg = k0 + j * TPR + t;
-      if (kg >= s || (causal && kg > qg)) sc[j] = -INFINITY;
-      bmax = fmaxf(bmax, sc[j]);
-    }
-    bmax = fmaxf(bmax, __shfl_xor_sync(FULL, bmax, 1));
-    bmax = fmaxf(bmax, __shfl_xor_sync(FULL, bmax, 2));
-    const float new_m = fmaxf(m, bmax);
-    const float safe_m = isfinite(new_m) ? new_m : 0.f;
-    float psum = 0.f;
+    for (int j = 0; j < NB; ++j) {
 #pragma unroll
-    for (int j = 0; j < KPT; ++j) {
-      sc[j] = isfinite(sc[j]) ? expf(sc[j] - safe_m) : 0.f;
-      psum += sc[j];
+      for (int i = 0; i < 4; ++i) {
+        const int kg = k0 + 8 * j + 2 * t + (i & 1);
+        float x = sc[j][i] * scale;
+        if (kg >= s || (causal && kg > (i < 2 ? qa : qb))) x = -INFINITY;
+        sc[j][i] = x;
+        mx[i >> 1] = fmaxf(mx[i >> 1], x);
+      }
     }
-    psum += __shfl_xor_sync(FULL, psum, 1);
-    psum += __shfl_xor_sync(FULL, psum, 2);
-    const float corr = isfinite(m) ? expf(m - safe_m) : 0.f;
-    l = l * corr + psum;  // the normaliser takes p before dropout
+    float safe[2], corr[2], psum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      mx[h] = fmaxf(mx[h], __shfl_xor_sync(FULL, mx[h], 1));
+      mx[h] = fmaxf(mx[h], __shfl_xor_sync(FULL, mx[h], 2));
+      const float new_m = fmaxf(m[h], mx[h]);
+      safe[h] = isfinite(new_m) ? new_m : 0.f;
+      corr[h] = isfinite(m[h]) ? expf(m[h] - safe[h]) : 0.f;
+      m[h] = new_m;
+    }
+#pragma unroll
+    for (int j = 0; j < NB; ++j) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float x = sc[j][i];
+        sc[j][i] = isfinite(x) ? expf(x - safe[i >> 1]) : 0.f;
+        psum[i >> 1] += sc[j][i];
+      }
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      psum[h] += __shfl_xor_sync(FULL, psum[h], 1);
+      psum[h] += __shfl_xor_sync(FULL, psum[h], 2);
+      l[h] = l[h] * corr[h] + psum[h];  // the normaliser takes p before dropout
+    }
     if (drop.on) {
 #pragma unroll
-      for (int j = 0; j < KPT; ++j) sc[j] *= drop.factor(bh, qg, k0 + j * TPR + t);
-    }
+      for (int j = 0; j < NB; ++j) {
+        if (j < jn) {
+          float f[4];
+          keep_pair(drop, bh, (k0 + 8 * j) >> 2, qa, qb, f);
 #pragma unroll
-    for (int c = 0; c < NC; ++c) {
-      acc[c].x *= corr; acc[c].y *= corr; acc[c].z *= corr; acc[c].w *= corr;
-    }
-
-    // O += P V: key j*TPR + src's probability comes from thread src of the quad;
-    // this thread owns output columns 16c + 4t .. 16c + 4t + 3.
-#pragma unroll
-    for (int j = 0; j < KPT; ++j) {
-#pragma unroll
-      for (int src = 0; src < TPR; ++src) {
-        const float p = __shfl_sync(FULL, sc[j], quad | src);
-        const float4* vrow = reinterpret_cast<const float4*>(vs + (j * TPR + src) * LD);
-#pragma unroll
-        for (int c = 0; c < NC; ++c) {
-          const float4 vv = vrow[c * TPR + t];
-          acc[c].x = fmaf(p, vv.x, acc[c].x);
-          acc[c].y = fmaf(p, vv.y, acc[c].y);
-          acc[c].z = fmaf(p, vv.z, acc[c].z);
-          acc[c].w = fmaf(p, vv.w, acc[c].w);
+          for (int i = 0; i < 4; ++i) sc[j][i] *= f[i];
         }
       }
     }
-    m = new_m;
+#pragma unroll
+    for (int n = 0; n < ND; ++n) {
+      oacc[n][0] *= corr[0]; oacc[n][1] *= corr[0];
+      oacc[n][2] *= corr[1]; oacc[n][3] *= corr[1];
+    }
+
+    // O += P V, P straight from the score registers.
+#pragma unroll
+    for (int j = 0; j < NB; ++j) {
+      uint32_t ab[4], as[4];
+      a_from_c<false>(sc[j], ab, as);
+#pragma unroll
+      for (int n = 0; n < ND; ++n) {
+        uint32_t bb[2], bs[2];
+        load_b_perm<EX, LD>(vs, 8 * j, 8 * n, bb, bs);
+        mma3<false, EX>(oacc[n], ab, as, bb, bs);
+      }
+    }
+    __syncthreads();  // the ring slot is free for the copy two tiles ahead
   }
 
-  if (qg < s) {
-    const float lc = fmaxf(l, 1e-30f);
-    T* orow = o + base + (size_t)qg * d;
 #pragma unroll
-    for (int c = 0; c < NC; ++c) {
-      const int c0 = 16 * c + 4 * t;
-      if (c0 + 0 < d) store(orow + c0 + 0, acc[c].x / lc);
-      if (c0 + 1 < d) store(orow + c0 + 1, acc[c].y / lc);
-      if (c0 + 2 < d) store(orow + c0 + 2, acc[c].z / lc);
-      if (c0 + 3 < d) store(orow + c0 + 3, acc[c].w / lc);
+  for (int h = 0; h < 2; ++h) {
+    const int row = h ? qb : qa;
+    if (row >= s) continue;
+    const float lc = fmaxf(l[h], 1e-30f);
+    T* orow = o + base + (size_t)row * d;
+#pragma unroll
+    for (int n = 0; n < ND; ++n) {
+      const int c = 8 * n + 2 * t;
+      if (c < d) store(orow + c, oacc[n][2 * h] / lc);
+      if (c + 1 < d) store(orow + c + 1, oacc[n][2 * h + 1] / lc);
     }
-    if (t == 0) lse[(size_t)bh * s + qg] = (isfinite(m) ? m : 0.f) + logf(lc);
+    if (t == 0) lse[(size_t)bh * s + row] = (isfinite(m[h]) ? m[h] : 0.f) + logf(lc);
   }
 }
 
@@ -197,14 +239,16 @@ template <int D, typename T>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o, void* lse, int bh,
                    int s, int d, int causal, float scale, pipe_philox::Dropout drop,
                    cudaStream_t stream) {
-  const int smem = (BQ + 2 * BK) * (D + 4) * (int)sizeof(float);
+  const int smem = (BQ + 2 * 2 * BK) * Ld<D, T>::value * (int)sizeof(T);
   cudaError_t err = cudaFuncSetAttribute(
       flash_fwd_kernel<D, T>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
+  const int vec = d % (16 / (int)sizeof(T)) == 0 &&
+                  (((uintptr_t)q | (uintptr_t)k | (uintptr_t)v) & 15) == 0;
   const dim3 grid(bh, (s + BQ - 1) / BQ);
   flash_fwd_kernel<D, T><<<grid, THREADS, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), static_cast<float*>(lse), s, d, causal, scale, drop);
+      static_cast<T*>(o), static_cast<float*>(lse), s, d, causal, scale, drop, vec);
   return cudaGetLastError();
 }
 

@@ -7,8 +7,9 @@ three Pallas kernels, over ``[batch*head, seq, head_dim]`` views:
 * ``csrc/flash_attn_fwd.cu`` (``_fwd_kernel``): O and the per-row logsumexp
   ``L`` ``[batch*head, 1, seq]``, K/V streamed through shared memory under an
   online softmax, the ``seq x seq`` scores never stored;
-* ``csrc/flash_attn_bwd.cu`` (``_bwd_dq_kernel``, ``_bwd_dkv_kernel``): dQ per
-  query tile and dK/dV per key tile, each rebuilding ``p = exp(s - L)``;
+* ``csrc/flash_attn_bwd.cu`` (``_bwd_dq_kernel``) and
+  ``csrc/flash_attn_bwd_dkv.cu`` (``_bwd_dkv_kernel``): dQ per query tile and
+  dK/dV per key tile, each rebuilding ``p = exp(s - L)``;
   ``D = rowsum(dO * O)`` is a torch op before them, as the JAX package computes
   it outside Pallas;
 * attention-weight dropout inside all three (``_drop_mask``): a Philox4x32-10
@@ -42,8 +43,8 @@ __all__ = ["flash_attention", "flash_attention_fwd", "flash_attention_ref",
            "keep_bits", "dropout_keep", "supports", "MAX_HEAD_DIM"]
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-# The kernels keep a quarter of each owned row in registers per thread; they
-# are instantiated for head dims up to this (every model here has head dim 64).
+# The kernels keep their owned rows' accumulators in registers; they are
+# instantiated for head dims up to this (every model here has head dim 64).
 MAX_HEAD_DIM = 128
 
 _MASK32 = 0xFFFFFFFF
@@ -280,8 +281,8 @@ def _lib(source: str) -> ctypes.CDLL:
     from .. import _build
     lib = _build.load(source)
     entry = {"flash_attn_fwd.cu": {"pipe_flash_attn_fwd": 5},
-             "flash_attn_bwd.cu": {"pipe_flash_attn_bwd_dq": 7,
-                                   "pipe_flash_attn_bwd_dkv": 8}}[source]
+             "flash_attn_bwd.cu": {"pipe_flash_attn_bwd_dq": 7},
+             "flash_attn_bwd_dkv.cu": {"pipe_flash_attn_bwd_dkv": 8}}[source]
     for name, n_ptrs in entry.items():
         fn = getattr(lib, name)
         fn.restype = ctypes.c_int
@@ -370,7 +371,7 @@ def flash_attention_bwd_dkv(q3, k3, v3, do3, lse, delta, *, causal: bool,
     _check_cuda((q3, k3, v3, do3), (lse, delta))
     dk = torch.empty_like(k3)
     dv = torch.empty_like(v3)
-    _launch("flash_attn_bwd.cu", "pipe_flash_attn_bwd_dkv",
+    _launch("flash_attn_bwd_dkv.cu", "pipe_flash_attn_bwd_dkv",
             (q3, k3, v3, do3, lse, delta, dk, dv), q3, causal, scale, seed,
             rate)
     flash_attention_bwd_dkv.launches += 1

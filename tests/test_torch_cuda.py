@@ -79,7 +79,11 @@ def test_flash_pipe_refuses_dropout(cuda):
 
 SHAPES = [(256, 128, 64, True), (3, 24, 8, True), (2, 8, 16, False),
           (4, 40, 48, True), (2, 200, 64, True), (2, 96, 96, False),
-          (5, 136, 32, False)]
+          (5, 136, 32, False),
+          # ragged for the 64-row tiles and the k8 steps of the tensor-core
+          # kernels
+          (3, 72, 8, True), (2, 136, 48, False), (2, 200, 96, True),
+          (1, 128, 128, True)]
 
 
 def _inputs(cuda, bh, s, d, n=4):
@@ -119,6 +123,41 @@ def test_backward_kernels_match_plain_versions(cuda, bh, s, d, causal, rate):
     for got, want in zip((dk, dv), tfa.flash_attention_bwd_dkv_ref(
             q, k, v, do, lse_ref, delta, **ref)):
         _close(got, want)
+
+
+def test_flash_attention_gradients_match_plain_autograd(cuda):
+    """``flash_attention``'s autograd gradient on the card (the forward, dQ and
+    dK/dV kernels, dropout 0.2) against torch autograd through the plain
+    forward fed the same Philox keep mask."""
+    b, s, h, d = 4, 128, 4, 64
+    seed, rate, scale = 2024, 0.2, d ** -0.5
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    q, k, v, g = [torch.randn((b, s, h, d), generator=gen, device=cuda)
+                  for _ in range(4)]
+    leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+    counts = [c.launches for c in (tfa.flash_attention_fwd,
+                                   tfa.flash_attention_bwd_dq,
+                                   tfa.flash_attention_bwd_dkv)]
+    out = tfa.flash_attention(*leaves, causal=True, scale=scale,
+                              dropout_rate=rate, dropout_seed=seed)
+    got = torch.autograd.grad(out, leaves, g)
+    assert [c.launches for c in (tfa.flash_attention_fwd,
+                                 tfa.flash_attention_bwd_dq,
+                                 tfa.flash_attention_bwd_dkv)] == [
+        n + 1 for n in counts]
+
+    def to3(x):
+        return x.transpose(1, 2).reshape(b * h, s, d)
+
+    plain = [x.clone().requires_grad_() for x in (q, k, v)]
+    keep = tfa.dropout_keep(seed, rate, b * h, s, device=cuda)
+    o3, _ = tfa.flash_attention_ref(*(to3(x) for x in plain), True, scale,
+                                    keep)
+    o_plain = o3.reshape(b, h, s, d).transpose(1, 2)
+    _close(out, o_plain)
+    want = torch.autograd.grad(o_plain, plain, g)
+    for a, w in zip(got, want):
+        _close(a, w)
 
 
 def test_mask_bits_equal_across_kernels_for_one_seed(cuda):

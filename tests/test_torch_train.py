@@ -352,4 +352,7 @@ def test_editing_a_header_changes_the_library_path(tmp_path, monkeypatch):
     (tmp_path / "k.cu").write_text('#include "h.cuh"\n// edited\n')
     third = _build.lib_path("k.cu")
     assert len({first, second, third}) == 3
-    assert _build.SOURCES == ("flash_attn_fwd.cu", "flash_attn_bwd.cu")
+    assert _build.SOURCES == ("flash_attn_fwd.cu", "flash_attn_bwd.cu",
+                              "flash_attn_bwd_dkv.cu")
+    assert all((_build._PKG / "csrc" / src).exists()
+               for src in _build.SOURCES)
