@@ -10,8 +10,8 @@ exits non-zero without a result line:
 2. build   -- nvcc builds every kernel source of the package for sm_90a;
    per kernel instance, ptxas's registers and spill, and the count of
    tensor-core instructions (HMMA/HGMMA) and asynchronous copies
-   (LDGSTS/UTMALDG) in its SASS (cuobjdump): the forward and dK/dV kernels
-   must show both.
+   (LDGSTS/UTMALDG) in its SASS (cuobjdump): every instance of the forward,
+   dQ and dK/dV kernels must show both.
 3. kernels -- each kernel (flash forward, dQ, dK/dV) against its plain
    PyTorch version on the card at the shapes the main paths give it (and a
    few more), with and without attention dropout (the plain versions fed the
@@ -19,7 +19,8 @@ exits non-zero without a result line:
    call's, and the least time the card could take (bytes or operations over
    the H100's peak rates). Same seed, same bits: each kernel run twice.
    SDPA is timed beside the forward with and without dropout, and its
-   backward five times, with their spread.
+   backward five times with dropout and five times without, with their
+   spread.
 4. slice   -- the eval path: the tutorial Transformer LM at full width
    (d_model 2048, 32 heads, d_ff 2048, 16 layers, bptt 128, random weights
    from a seed) through ``Pipe(chunks=4, n_stages=2)`` in eval mode over 4
@@ -98,7 +99,7 @@ EDGE_SHAPES = [(3, 24, 8, True), (2, 8, 16, False), (4, 40, 48, True),
                (1, 128, 128, True)]
 SDPA_RUNS = 5   # graph timings of SDPA's backward
 # Kernels that must run on tensor cores with asynchronous copies (SASS).
-TC_KERNELS = ("flash_fwd_kernel", "flash_bwd_dkv_kernel")
+TC_KERNELS = ("flash_fwd_kernel", "flash_bwd_dq_kernel", "flash_bwd_dkv_kernel")
 
 
 def log(phase: str, **fields) -> None:
@@ -378,9 +379,9 @@ def phase_kernels() -> dict:
     # Library yardsticks, timed like the kernels (CUDA graphs). The forward's:
     # SDPA with the same dropout rate (the same function up to the mask's
     # bits, which come from PyTorch's own generator); without dropout beside
-    # it. The backward's: SDPA's whole backward (dQ, dK and dV together, no
-    # dropout), as forward+backward less the forward, the mean of SDPA_RUNS
-    # graph timings, with their spread.
+    # it. The backward's: SDPA's whole backward (dQ, dK and dV together), as
+    # forward+backward less the forward, the mean of SDPA_RUNS graph timings
+    # with their spread; with the main path's dropout rate, and without.
     q4, k4, v4 = (x[None].detach().requires_grad_() for x in (q, k, v))
     do4 = do[None]
 
@@ -388,8 +389,8 @@ def phase_kernels() -> dict:
         return F.scaled_dot_product_attention(q4, k4, v4, dropout_p=p,
                                               is_causal=causal, scale=scale)
 
-    def sdpa_grads():
-        return torch.autograd.grad(sdpa(), (q4, k4, v4), do4)
+    def sdpa_grads(p=0.0):
+        return torch.autograd.grad(sdpa(p), (q4, k4, v4), do4)
 
     with torch.no_grad():
         lib_fwd = time_ms(sdpa)
@@ -397,37 +398,42 @@ def phase_kernels() -> dict:
     side = torch.cuda.Stream()       # autograd warms up off the capture stream
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
-        for _ in range(3):
-            sdpa_grads()
+        for p in (0.0, DROPOUT) * 3:
+            sdpa_grads(p)
     torch.cuda.current_stream().wait_stream(side)
-    bwd_runs = []
+    bwd_runs = {0.0: [], DROPOUT: []}
     for _ in range(SDPA_RUNS):
-        with torch.no_grad():
-            fwd_only = time_ms(sdpa)
-        bwd_runs.append(time_ms(sdpa_grads) - fwd_only)
-    lib_bwd = sum(bwd_runs) / len(bwd_runs)
+        for p, runs in bwd_runs.items():
+            with torch.no_grad():
+                fwd_only = time_ms(lambda: sdpa(p))
+            runs.append(time_ms(lambda: sdpa_grads(p)) - fwd_only)
+    lib_bwd, lib_bwd_drop = (sum(r) / len(r) for r in bwd_runs.values())
 
-    for name, ms, plain, lib, (bound, by) in (
-            ("flash_attn_fwd", fwd_ms, fwd_plain, lib_fwd_drop,
+    for name, ms, plain, lib, lib_nodrop, (bound, by) in (
+            ("flash_attn_fwd", fwd_ms, fwd_plain, lib_fwd_drop, lib_fwd,
              attention_bound(bh, s, d, causal, 4)),
-            ("flash_attn_bwd_dq", dq_ms, dq_plain, lib_bwd,
+            ("flash_attn_bwd_dq", dq_ms, dq_plain, lib_bwd_drop, lib_bwd,
              bwd_bound("dq", bh, s, d, causal, 4)),
-            ("flash_attn_bwd_dkv", dkv_ms, dkv_plain, lib_bwd,
+            ("flash_attn_bwd_dkv", dkv_ms, dkv_plain, lib_bwd_drop, lib_bwd,
              bwd_bound("dkv", bh, s, d, causal, 4))):
         rows[name] = dict(ms=ms, plain_ms=plain, library_ms=lib,
+                          library_ms_no_dropout=lib_nodrop,
                           bound_ms=bound, bound_by=by,
                           max_abs_err=worst[name])
         log("kernels", name=name, bh=bh, s=s, d=d, causal=causal, dtype="f32",
             rate=DROPOUT, ms=f"{ms:.5f}", plain_ms=f"{plain:.5f}",
-            library_ms=f"{lib:.5f}", bound_ms=f"{bound:.5f}", bound_by=by,
+            library_ms=f"{lib:.5f}", library_ms_no_dropout=f"{lib_nodrop:.5f}",
+            bound_ms=f"{bound:.5f}", bound_by=by,
             roofline=f"{bound / ms:.3f}", max_abs_err=f"{worst[name]:.3e}")
+    for p, runs in bwd_runs.items():
+        log("kernels", sdpa_bwd_rate=p, sdpa_bwd_ms=f"{sum(runs) / len(runs):.5f}",
+            sdpa_bwd_runs_ms=[f"{x:.5f}" for x in runs],
+            sdpa_bwd_spread_ms=f"{max(runs) - min(runs):.5f}")
     log("kernels", sdpa_fwd_ms=f"{lib_fwd:.5f}",
         sdpa_fwd_dropout_ms=f"{lib_fwd_drop:.5f}",
-        sdpa_bwd_ms=f"{lib_bwd:.5f}",
-        sdpa_bwd_runs_ms=[f"{x:.5f}" for x in bwd_runs],
-        sdpa_bwd_spread_ms=f"{max(bwd_runs) - min(bwd_runs):.5f}",
-        note="library_ms of fwd is SDPA with dropout 0.2; of dq and dkv "
-        "SDPA's whole backward (dQ, dK, dV together), no dropout")
+        note="library_ms is SDPA with dropout 0.2 (library_ms_no_dropout "
+        "without): of fwd its forward; of dq and dkv its whole backward "
+        "(dQ, dK, dV together)")
     return rows
 
 
@@ -696,6 +702,7 @@ def main() -> int:
             "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"],
             "library_ms": row["library_ms"],
+            "library_ms_no_dropout": row["library_ms_no_dropout"],
         }
         if name == "flash_attn_fwd":
             entry["launches_eval"] = eval_launches

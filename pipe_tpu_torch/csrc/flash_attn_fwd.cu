@@ -37,9 +37,9 @@
 //   three-pass chain on its own, which made it 1.2 to 1.6 times slower (PERF.md), so
 //   the 8-key blocks wholly above a warp's rows are multiplied and masked, and only
 //   their Philox is skipped;
-// - dropout computes each Philox4x32-10 block once: the two lanes of a pair hold the
-//   four keys of one block for rows g and g+8; each computes the block of one row and
-//   they swap two words with one shuffle each.
+// - dropout computes each Philox4x32-10 block once (keep_pair, philox.cuh): the two
+//   lanes of a pair hold the four keys of one block for rows g and g+8; each computes
+//   the block of one row and they swap two words with one shuffle each.
 //
 // Head dims up to 128 are instantiated (D = 32, 64, 128; d is zero-padded to D).
 // Every model of the repo has head dim 64; the wrapper refuses d > 128 with an error.
@@ -63,26 +63,6 @@ constexpr int BQ = 64;       // query rows per block, 16 per warp
 constexpr int BK = 64;       // keys per K/V tile
 constexpr int THREADS = 128;
 constexpr int NB = BK / 8;   // 8-key blocks per tile
-
-// Keep factors of this lane's four (query, key) pairs in the C layout: rows qa, qb
-// (= qa + 8), keys 8j + 2t, 8j + 2t + 1 of the block whose first Philox group is grp.
-// Lanes t and t^1 hold the four keys of one group: the even lane computes row qa's
-// block, the odd lane row qb's, and each hands over the two words the other needs.
-__device__ __forceinline__ void keep_pair(const pipe_philox::Dropout& drop, int bh, int grp,
-                                          int qa, int qb, float f[4]) {
-  const int t = threadIdx.x & 3;
-  const bool odd = t & 1;
-  const uint4 r = pipe_philox::philox4x32_10(
-      make_uint4((uint32_t)(grp + (t >> 1)), (uint32_t)(odd ? qb : qa), (uint32_t)bh, 0u),
-      drop.seed_lo, drop.seed_hi);
-  const uint32_t got0 = __shfl_xor_sync(FULL, odd ? r.x : r.z, 1);
-  const uint32_t got1 = __shfl_xor_sync(FULL, odd ? r.y : r.w, 1);
-  const uint32_t own0 = odd ? r.z : r.x, own1 = odd ? r.w : r.y;
-  const uint32_t w[4] = {odd ? got0 : own0, odd ? got1 : own1, odd ? own0 : got0,
-                         odd ? own1 : got1};
-#pragma unroll
-  for (int i = 0; i < 4; ++i) f[i] = w[i] >= drop.threshold ? drop.scale : 0.f;
-}
 
 // D is the head dimension rounded up to 32, 64 or 128; d <= D is the real one.
 template <int D, typename T>
@@ -192,7 +172,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
       for (int j = 0; j < NB; ++j) {
         if (j < jn) {
           float f[4];
-          keep_pair(drop, bh, (k0 + 8 * j) >> 2, qa, qb, f);
+          pipe_philox::keep_pair(drop, bh, (k0 + 8 * j) >> 2, qa, qb, f);
 #pragma unroll
           for (int i = 0; i < 4; ++i) sc[j][i] *= f[i];
         }

@@ -31,29 +31,34 @@ __device__ __forceinline__ uint4 philox4x32_10(uint4 c, uint32_t k0, uint32_t k1
   return c;
 }
 
-// The random word of pair (bh, q, k): see the layout above.
-__device__ __forceinline__ uint32_t keep_bits(uint32_t seed_lo, uint32_t seed_hi, int bh,
-                                              int q, int k) {
-  const uint4 r = philox4x32_10(
-      make_uint4((uint32_t)k >> 2, (uint32_t)q, (uint32_t)bh, 0u), seed_lo, seed_hi);
-  switch (k & 3) {
-    case 0: return r.x;
-    case 1: return r.y;
-    case 2: return r.z;
-    default: return r.w;
-  }
-}
-
-// Dropout of one attention probability: what multiplies it (0 or 1 / (1 - rate)).
+// Attention dropout as the wrapper passes it: a pair's probability is multiplied by
+// scale when its bits are >= threshold, and by 0 otherwise.
 struct Dropout {
   int on;              // 0: no dropout, every factor is 1
   uint32_t seed_lo, seed_hi;
   uint32_t threshold;  // kept when bits >= threshold
   float scale;         // 1 / (1 - rate), rounded to float32 by the wrapper
-
-  __device__ __forceinline__ float factor(int bh, int q, int k) const {
-    return keep_bits(seed_lo, seed_hi, bh, q, k) >= threshold ? scale : 0.f;
-  }
 };
+
+// Keep factors of this lane's four (query, key) pairs in the C layout of mma.sync
+// m16n8k8 (tc_tf32.cuh), which the forward and dQ kernels share: rows qa, qb
+// (= qa + 8), keys 8j + 2t, 8j + 2t + 1 of the block whose first Philox group is grp.
+// Lanes t and t^1 hold the four keys of one group: the even lane computes row qa's
+// block, the odd lane row qb's, and each hands over the two words the other needs.
+__device__ __forceinline__ void keep_pair(const Dropout& drop, int bh, int grp, int qa, int qb,
+                                          float f[4]) {
+  const int t = threadIdx.x & 3;
+  const bool odd = t & 1;
+  const uint4 r = philox4x32_10(
+      make_uint4((uint32_t)(grp + (t >> 1)), (uint32_t)(odd ? qb : qa), (uint32_t)bh, 0u),
+      drop.seed_lo, drop.seed_hi);
+  const uint32_t got0 = __shfl_xor_sync(0xffffffffu, odd ? r.x : r.z, 1);
+  const uint32_t got1 = __shfl_xor_sync(0xffffffffu, odd ? r.y : r.w, 1);
+  const uint32_t own0 = odd ? r.z : r.x, own1 = odd ? r.w : r.y;
+  const uint32_t w[4] = {odd ? got0 : own0, odd ? got1 : own1, odd ? own0 : got0,
+                         odd ? own1 : got1};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) f[i] = w[i] >= drop.threshold ? drop.scale : 0.f;
+}
 
 }  // namespace pipe_philox

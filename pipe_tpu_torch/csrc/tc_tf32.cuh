@@ -1,4 +1,4 @@
-// Tensor-core building blocks shared by the flash forward and dK/dV kernels:
+// Tensor-core building blocks shared by the flash forward, dQ and dK/dV kernels:
 // fp32-accurate products from three TF32 passes on mma.sync m16n8k8, the
 // fragment loads from shared-memory tiles, and the cp.async tile copies.
 //

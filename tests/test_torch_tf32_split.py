@@ -1,5 +1,5 @@
-"""The numerics of the forward and dK/dV kernels' tensor-core products, on the
-CPU: fp32-accurate products from three TF32 passes (3xTF32).
+"""The numerics of the forward, dQ and dK/dV kernels' tensor-core products, on
+the CPU: fp32-accurate products from three TF32 passes (3xTF32).
 
 The kernels round an fp32 value x to TF32 as ``cvt.rna.tf32.f32`` does (round
 to nearest, ties away from zero, to 10 mantissa bits), written as two integer
@@ -8,10 +8,11 @@ x = big + small with big = tf32(x) and small = tf32(x - big); and take a
 product a b as small_a big_b + big_a small_b + big_a big_b. A TF32 product is
 exact in fp32, so the passes are emulated here by fp32 matrix products of the
 rounded operands. At the tutorial LM's training shape (b*h 256, s 128, d 64,
-causal) the four products of the two kernels (Q K^T, P V, dS^T Q, P^T dO) hold
-the kernels' gate against their plain versions, 1e-4 x max(1, max|ref|), and
-come within a small multiple of fp32's own error from a float64 product; one
-TF32 pass does not.
+causal) the six products of the three kernels (Q K^T and P V of the forward,
+dO V^T and dS K of dQ, dS^T Q and P^T dO of dK/dV; Q K^T is dQ's too) hold the
+kernels' gate against their plain versions, 1e-4 x max(1, max|ref|), and come
+within a small multiple of fp32's own error from a float64 product; one TF32
+pass does not.
 """
 
 import functools
@@ -24,6 +25,7 @@ BH, S, D = 256, 128, 64
 SCALE = 1.0 / D ** 0.5
 TOL = 1e-4            # the kernels' fp32 gate, x max(1, max|ref|)
 FP32_MULTIPLE = 4.0   # three passes stay within this multiple of fp32's error
+PRODUCTS = ["qk", "pv", "dov", "dsk", "dsq", "pdo"]   # keys of _products()
 
 
 def tf32(x: torch.Tensor) -> torch.Tensor:
@@ -51,7 +53,7 @@ def one_pass(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 @functools.lru_cache(maxsize=None)
 def _products():
-    """The operands of the four products at the training shape, float32, from
+    """The operands of the six products at the training shape, float32, from
     seeded numpy inputs; the probabilities and dS computed in float64 and
     rounded to float32, as the kernels hold them in registers."""
     rng = np.random.default_rng(0)
@@ -67,6 +69,7 @@ def _products():
     ds = (p * (dp - delta)).float()
     p = p.float()
     return {"qk": (qs, k.transpose(1, 2)), "pv": (p, v),
+            "dov": (do, v.transpose(1, 2)), "dsk": (ds, k),
             "dsq": (ds.transpose(1, 2), qs), "pdo": (p.transpose(1, 2), do)}
 
 
@@ -104,14 +107,14 @@ def test_split_keeps_22_bits_and_bf16_is_exact():
     assert torch.equal(split(bf)[1], torch.zeros_like(bf))
 
 
-@pytest.mark.parametrize("name", ["qk", "pv", "dsq", "pdo"])
+@pytest.mark.parametrize("name", PRODUCTS)
 def test_three_passes_hold_the_fp32_gate(name):
     gate, e_fp32, e_three, _ = _errors(name)
     assert e_three <= gate
     assert e_three <= FP32_MULTIPLE * e_fp32
 
 
-@pytest.mark.parametrize("name", ["qk", "pv", "dsq", "pdo"])
+@pytest.mark.parametrize("name", PRODUCTS)
 def test_one_pass_misses_the_gate(name):
     gate, e_fp32, _, e_one = _errors(name)
     assert e_one > gate

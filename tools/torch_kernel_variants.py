@@ -1,12 +1,12 @@
-"""Time variants of the flash forward and dK/dV kernels on one CUDA card.
+"""Time variants of the flash forward, dQ and dK/dV kernels on one CUDA card.
 
     python3 tools/torch_kernel_variants.py [--out DIR]
 
 Each variant is the committed source with a few lines replaced (tile sizes,
 the TF32 rounding, a branch around the products, one TF32 pass instead of
-three); the committed source is the variant ``fwd`` or ``dkv``. Every variant
-is built by nvcc into ``build/kernel_variants/<name>/`` (one process per
-variant, all at once), loaded by ctypes, held against the plain PyTorch
+three); the committed source is the variant ``fwd``, ``dq`` or ``dkv``. Every
+variant is built by nvcc into ``build/kernel_variants/<name>/`` (one process
+per variant, all at once), loaded by ctypes, held against the plain PyTorch
 version and timed like ``chip_smoke.py`` times the kernels (a CUDA graph of
 20 calls replayed 10 times), at the training, eval and two longer shapes,
 with and without dropout. ``one_pass`` variants are wrong on purpose (TF32
@@ -55,14 +55,21 @@ BRANCHY_DKV = [(  # dK/dV's first products only for the 8-query blocks it may se
     "        uint32_t pb[4], ps[4], sb[4], ss[4];\n",
     "        if (j < jlo || j >= jhi) continue;\n"
     "        uint32_t pb[4], ps[4], sb[4], ss[4];\n")]
-FWD, DKV = "flash_attn_fwd.cu", "flash_attn_bwd_dkv.cu"
+FWD, DQ, DKV = "flash_attn_fwd.cu", "flash_attn_bwd.cu", "flash_attn_bwd_dkv.cu"
+# source: (C entry point, number of pointer arguments)
+ENTRY = {FWD: ("pipe_flash_attn_fwd", 5), DQ: ("pipe_flash_attn_bwd_dq", 7),
+         DKV: ("pipe_flash_attn_bwd_dkv", 8)}
+BK32 = ("constexpr int BK = 64;", "constexpr int BK = 32;")
 # name: (source, replacements in it, replacements in tc_tf32.cuh)
 VARIANTS = {
     "fwd": (FWD, [], []),
     "fwd_cvt": (FWD, [], [CVT]),
     "fwd_branchy": (FWD, BRANCHY, []),
-    "fwd_bk32": (FWD, [("constexpr int BK = 64;", "constexpr int BK = 32;")], []),
+    "fwd_bk32": (FWD, [BK32], []),
     "fwd_one_pass": (FWD, [], [ONE_PASS]),
+    "dq": (DQ, [], []),
+    "dq_bk32": (DQ, [BK32], []),
+    "dq_one_pass": (DQ, [], [ONE_PASS]),
     "dkv": (DKV, [], []),
     "dkv_cvt": (DKV, [], [CVT]),
     "dkv_branchy": (DKV, BRANCHY_DKV, []),
@@ -101,11 +108,10 @@ def build(out_dir: str = BUILD) -> dict:
         log, _ = proc.communicate()
         if proc.returncode:
             raise RuntimeError(f"{name} did not build:\n{log}")
-        fwd = VARIANTS[name][0] == FWD
-        fn = getattr(ctypes.CDLL(lib), "pipe_flash_attn_fwd" if fwd
-                     else "pipe_flash_attn_bwd_dkv")
+        entry, n_ptrs = ENTRY[VARIANTS[name][0]]
+        fn = getattr(ctypes.CDLL(lib), entry)
         fn.restype = ctypes.c_int
-        fn.argtypes = ([ctypes.c_void_p] * (5 if fwd else 8)
+        fn.argtypes = ([ctypes.c_void_p] * n_ptrs
                        + [ctypes.c_int] * 4 + [ctypes.c_float]
                        + fa._DROP_ARGTYPES)
         fns[name] = fn
@@ -127,20 +133,26 @@ def main(argv=None) -> int:
         q, k, v, do = (torch.randn((bh, s, d), generator=gen, device="cuda")
                        for _ in range(4))
         scale = 1.0 / math.sqrt(d)
-        o, dk, dv = (torch.empty_like(q) for _ in range(3))
+        o, dq, dk, dv = (torch.empty_like(q) for _ in range(4))
         lse = torch.empty((bh, 1, s), device="cuda")
         for rate in (0.0, chip_smoke.DROPOUT):
             seed = chip_smoke.DROP_SEEDS[0]
             keep = fa.dropout_keep(seed, rate, bh, s, device="cuda") if rate else None
             o_r, l_r = fa.flash_attention_ref(q, k, v, causal, scale, keep)
             delta = fa.attention_delta(o_r, do)
-            dk_r, dv_r = fa.flash_attention_bwd_dkv_ref(
-                q, k, v, do, l_r, delta, causal=causal, scale=scale, keep=keep)
+            ref_kw = dict(causal=causal, scale=scale, keep=keep)
+            dq_r = fa.flash_attention_bwd_dq_ref(q, k, v, do, l_r, delta,
+                                                 **ref_kw)
+            dk_r, dv_r = fa.flash_attention_bwd_dkv_ref(q, k, v, do, l_r,
+                                                        delta, **ref_kw)
             drop = fa._dropout_args(seed, rate)
             row = {"shape": [bh, s, d, causal], "rate": rate}
             for name, fn in fns.items():
                 if VARIANTS[name][0] == FWD:
                     ptrs, outs, refs = (q, k, v, o, lse), (o,), (o_r,)
+                elif VARIANTS[name][0] == DQ:
+                    ptrs = (q, k, v, do, l_r, delta, dq)
+                    outs, refs = (dq,), (dq_r,)
                 else:
                     ptrs = (q, k, v, do, l_r, delta, dk, dv)
                     outs, refs = (dk, dv), (dk_r, dv_r)
