@@ -34,6 +34,21 @@ exits non-zero without a result line:
    the last below the first. Then twins at dropout 0: one step's loss and
    gradients with the kernels and with plain attention on the same weights,
    each held to plain attention in float64.
+6. generate -- KV-cached generation (``Generator`` over
+   ``PipelinedLM.from_sequential`` of the eval slice's weights): batch 8
+   prompts of 128 eval tokens, 128 new tokens. Gates: teacher-forced cached
+   logits of a fixed 256-token sequence within TOL_LOGITS of the ``Pipe``
+   eval forward through the flash kernel (64 launches); greedy tokens equal
+   that forward's argmax on their own sequence wherever its top-2 margin is
+   wide; EOS gives the first-EOS length and pad after it; beam scores (k 4,
+   batch 2) equal the forward's sequence log-probs and are no worse than
+   greedy's; the same seed samples the same tokens and another seed others,
+   each in the top 50 of its logits; int8 logits within 0.08 relative of
+   fp32. Prints prefill ms, decode ms per step against its bound (weights
+   and the whole cache read once at 3.35 TB/s), generated tokens/s, peak
+   memory and KV-cache bytes, for fp32 and int8 (timed from a second call;
+   the first call's wall beside it). The decode attention is
+   plain, as in ``pipe_tpu``: the generator launches no kernel.
 
 The last two lines are the kernels JSON object and
 ``{"ok": true, "device": {...}}``.
@@ -79,6 +94,21 @@ GRAD_SLACK = 2.0
 TRAIN_BATCH = 32
 TRAIN_STEPS = 8
 TRAIN_LR = 1e-4          # lr 5.0 (the reference's) diverges at full width
+# Generation phase: batch, prompt and new tokens (prompt + new = 256, a
+# sequence the flash forward takes, for the reference forward); beam search
+# on the first GEN_BEAM_BATCH prompts; sampling; int8 against fp32 logits,
+# relative to the largest fp32 logit (pipe_tpu's bound, tests/test_quant.py).
+GEN_BATCH = 8
+GEN_PROMPT = 128
+GEN_NEW = 128
+GEN_BEAMS = 4
+GEN_BEAM_BATCH = 2
+GEN_TEMPERATURE = 0.8
+GEN_TOP_K = 50
+GEN_EOS_STEP = 5
+TOL_INT8_REL = 0.08
+TOL_BEAM_REL = 1e-3
+MARGIN_OVER_GAP = 10     # greedy is compared where top-2 margin > 10 x gap
 # H100 SXM peaks (NVIDIA data sheet, dense): HBM3 bytes/s, and the fastest
 # fp32-accurate product rate the card has: TF32 tensor cores (495 TFLOP/s)
 # in three passes (big*big + big*small + small*big), which keep fp32-level
@@ -673,6 +703,227 @@ def phase_train() -> dict:
     return launches
 
 
+def teacher_forced(model, tokens, prompt_len):
+    """Logits of ``tokens [b, s]`` through the KV caches: a prefill of the
+    first ``prompt_len`` tokens, then one token a step; ``[b, s - 1, V]``
+    (the logits that predict tokens 1 .. s - 1)."""
+    from pipe_tpu_torch.inference.generate import head_logits
+
+    b, s = tokens.shape
+    caches = [blk.attn.make_cache(b, s) for blk in model.blocks]
+    h = model.embed_at(tokens[:, :prompt_len], 0)
+    for l, blk in enumerate(model.blocks):
+        h, caches[l] = blk.decode(h, caches[l], 0)
+    out = [head_logits(model, h)]
+    for t in range(prompt_len, s - 1):
+        h = model.embed_at(tokens[:, t:t + 1], t)
+        for l, blk in enumerate(model.blocks):
+            h, caches[l] = blk.decode(h, caches[l], t)
+        out.append(head_logits(model, h))
+    return torch.cat(out, dim=1)
+
+
+def _seq_logprob(pipe, prompt, cont):
+    """Total log-prob of ``cont`` after ``prompt`` by the ``Pipe`` forward."""
+    logits = pipe(torch.cat([prompt, cont], dim=1))
+    p = prompt.shape[1]
+    logp = torch.log_softmax(logits[:, p - 1:-1].double(), dim=-1)
+    return torch.gather(logp, -1, cont[..., None])[..., 0].sum(-1)
+
+
+def _timed(fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def _decode_bound_ms(model, batch, max_len):
+    """Least time of one decode step: every block and decoder weight byte
+    (int8 codes and their scales where quantized) and the whole KV cache
+    read once at PEAK_BYTES; the embedding reads only ``batch`` rows."""
+    def nbytes(mod):
+        return sum(t.numel() * t.element_size()
+                   for t in [*mod.parameters(), *mod.buffers()])
+    weights = nbytes(model.blocks) + nbytes(model.decoder)
+    cfg = model.cfg
+    cache = 2 * cfg.n_layers * batch * max_len * cfg.d_model * 4
+    return (weights + cache) / PEAK_BYTES * 1e3, weights, cache
+
+
+def phase_generate() -> None:
+    from pipe_tpu_torch.inference import (GenerationConfig, Generator,
+                                          quantize_params, sequence_lengths)
+    from pipe_tpu_torch.models.transformer_lm import PipelinedLM
+    from pipe_tpu_torch.ops import flash_attention as fa
+
+    t0 = time.perf_counter()
+    cfg, seq, pipe, batches = make_slice(
+        (GEN_PROMPT + GEN_NEW) // BPTT)
+    model = PipelinedLM.from_sequential(cfg, seq)
+    tokens = torch.cat([x for x, _ in batches], dim=1)      # [8, 256]
+    prompts = tokens[:, :GEN_PROMPT]
+    log("generate", batch=GEN_BATCH, prompt=GEN_PROMPT, new=GEN_NEW,
+        vocab=cfg.vocab, setup_s=f"{time.perf_counter() - t0:.2f}")
+
+    def counted(fn):
+        """``fn()`` with the flash forward's count set to 0 before it:
+        (result, launches)."""
+        fa.flash_attention_fwd.launches = 0
+        out = fn()
+        torch.cuda.synchronize()
+        return out, fa.flash_attention_fwd.launches
+
+    def gen(model, **kw):
+        return Generator(model, GenerationConfig(max_new_tokens=GEN_NEW,
+                                                 **kw))
+
+    with torch.inference_mode():
+        # 1. Teacher-forced cached logits against the Pipe eval forward.
+        ref, ref_launches = counted(lambda: pipe(tokens))
+        forced, launches = counted(lambda: teacher_forced(model, tokens,
+                                                          GEN_PROMPT))
+        gap = (forced - ref[:, :-1]).abs().max().item()
+        log("generate", gate="teacher_forced", positions=forced.shape[1],
+            max_abs_dlogits=f"{gap:.3e}", tol=TOL_LOGITS,
+            reference_flash_launches=ref_launches,
+            cached_flash_launches=launches)
+        expected_ref = cfg.n_layers * CHUNKS
+        if ref_launches != expected_ref or launches:
+            raise AssertionError(
+                f"flash launches: reference {ref_launches} (expected "
+                f"{expected_ref}), cached path {launches} (expected 0)")
+        if not gap <= TOL_LOGITS:
+            raise AssertionError(f"cached logits {gap:.3e} from the Pipe "
+                                 f"forward (tol {TOL_LOGITS})")
+        del ref
+
+        # 2. Greedy: timed, held to the forward's argmax where it is clear.
+        greedy = gen(model, temperature=0.0)
+        torch.cuda.reset_peak_memory_stats()
+        (out, launches), first = _timed(lambda: counted(
+            lambda: greedy.generate(prompts)))
+        peak = torch.cuda.max_memory_allocated()
+        again, wall = _timed(lambda: greedy.generate(prompts))
+        if not torch.equal(again, out):
+            raise AssertionError("greedy: a second call gave other tokens")
+        prefill = sorted(_timed(lambda: Generator(model, GenerationConfig(
+            max_new_tokens=1, temperature=0.0)).generate(prompts))[1]
+            for _ in range(3))[1]
+        decode_ms = (wall - prefill) * 1e3 / (GEN_NEW - 1)
+        bound, w_bytes, kv_bytes = _decode_bound_ms(
+            model, GEN_BATCH, GEN_PROMPT + GEN_NEW)
+        logits = pipe(torch.cat([prompts, out], dim=1))[:, GEN_PROMPT - 1:-1]
+        top2 = torch.topk(logits, 2, dim=-1).values
+        clear = (top2[..., 0] - top2[..., 1]) > MARGIN_OVER_GAP * gap
+        agree = logits.argmax(-1) == out
+        log("generate", gate="greedy", prefill_ms=f"{prefill * 1e3:.2f}",
+            decode_ms_per_step=f"{decode_ms:.3f}",
+            decode_bound_ms_per_step=f"{bound:.4f}",
+            bound_share=f"{bound / decode_ms:.3f}",
+            wall_s=f"{wall:.4f}", first_call_wall_s=f"{first:.4f}",
+            generated_tokens_per_s=f"{GEN_BATCH * GEN_NEW / wall:.1f}",
+            peak_mem_gb=f"{peak / 1e9:.2f}", kv_cache_bytes=kv_bytes,
+            weight_bytes_per_step=w_bytes, flash_launches=launches,
+            steps_compared=int(clear.sum()),
+            steps_skipped=int((~clear).sum()))
+        if launches or not agree[clear].all():
+            raise AssertionError(
+                f"greedy: {int((~agree[clear]).sum())} clear steps disagree "
+                f"with the forward's argmax; flash launches {launches}")
+
+        # EOS: the first token of row 0 from step GEN_EOS_STEP on that it
+        # has not emitted before (so that its length is that step + 1).
+        row = out[0].tolist()
+        fresh = [s for s in range(GEN_NEW) if row[s] not in row[:s]]
+        step = next((s for s in fresh if s >= GEN_EOS_STEP), fresh[-1])
+        eos = row[step]
+        (toks, lengths), launches = counted(lambda: gen(
+            model, temperature=0.0, eos_token_id=eos).generate_with_lengths(
+            prompts))
+        want_len = sequence_lengths(out, eos)
+        pos = torch.arange(GEN_NEW, device=out.device)[None]
+        want = torch.where(pos < want_len[:, None], out, 0)
+        log("generate", gate="eos", eos=eos, eos_step=step,
+            row0_length=int(lengths[0]), lengths=lengths.tolist(),
+            flash_launches=launches)
+        if (int(lengths[0]) != step + 1 or not torch.equal(lengths, want_len)
+                or not torch.equal(toks, want) or launches):
+            raise AssertionError(f"EOS {eos}: lengths {lengths.tolist()} "
+                                 f"(want {want_len.tolist()}), row 0 "
+                                 f"{int(lengths[0])} (want {step + 1})")
+
+        # 3. Beam search against the forward's sequence log-probs.
+        bp = prompts[:GEN_BEAM_BATCH]
+        ((beam, scores), launches), beam_wall = _timed(lambda: counted(
+            lambda: gen(model, num_beams=GEN_BEAMS).generate_with_scores(bp)))
+        ext = _seq_logprob(pipe, bp, beam)
+        g_score = _seq_logprob(pipe, bp, out[:GEN_BEAM_BATCH])
+        rel = ((scores.double() - ext).abs() / ext.abs()).max().item()
+        log("generate", gate="beam", beams=GEN_BEAMS, batch=GEN_BEAM_BATCH,
+            scores=[f"{x:.4f}" for x in scores.tolist()],
+            forward_scores=[f"{x:.4f}" for x in ext.tolist()],
+            greedy_scores=[f"{x:.4f}" for x in g_score.tolist()],
+            max_rel=f"{rel:.3e}", wall_s=f"{beam_wall:.4f}",
+            flash_launches=launches)
+        if launches or not rel <= TOL_BEAM_REL:
+            raise AssertionError(f"beam scores {rel:.3e} from the forward's")
+        if not (ext >= g_score - TOL_BEAM_REL * g_score.abs()).all():
+            raise AssertionError("beam search scored below greedy")
+
+        # 4. Sampling: reproducible from its seed, inside the top k.
+        sampler = gen(model, temperature=GEN_TEMPERATURE, top_k=GEN_TOP_K)
+        (a, launches), sample_wall = _timed(lambda: counted(
+            lambda: sampler.generate(prompts, seed=1)))
+        again, other = (sampler.generate(prompts, seed=sd) for sd in (1, 2))
+        logits = pipe(torch.cat([prompts, a], dim=1))[:, GEN_PROMPT - 1:-1]
+        kth = torch.topk(logits, GEN_TOP_K, dim=-1).values[..., -1]
+        picked = torch.gather(logits, -1, a[..., None])[..., 0]
+        inside = (picked >= kth - 2 * TOL_LOGITS).float().mean().item()
+        log("generate", gate="sampled", temperature=GEN_TEMPERATURE,
+            top_k=GEN_TOP_K, same_seed_equal=torch.equal(a, again),
+            other_seed_differs=not torch.equal(a, other),
+            share_in_top_k=inside, wall_s=f"{sample_wall:.4f}",
+            flash_launches=launches)
+        if (launches or not torch.equal(a, again) or torch.equal(a, other)
+                or inside != 1.0):
+            raise AssertionError("sampling: not reproducible from its seed, "
+                                 "or a token outside the top k")
+
+        # 5. int8 weights: logits against fp32, greedy agreement, timing.
+        qmodel = quantize_params(model)
+        q_forced = teacher_forced(qmodel, tokens, GEN_PROMPT)
+        q_rel = ((q_forced - forced).abs().max()
+                 / forced.abs().max()).item()
+        del q_forced
+        q_greedy = gen(qmodel, temperature=0.0)
+        (q_out, launches), q_first = _timed(lambda: counted(
+            lambda: q_greedy.generate(prompts)))
+        q_wall = _timed(lambda: q_greedy.generate(prompts))[1]
+        q_prefill = sorted(_timed(lambda: Generator(qmodel, GenerationConfig(
+            max_new_tokens=1, temperature=0.0)).generate(prompts))[1]
+            for _ in range(3))[1]
+        q_decode = (q_wall - q_prefill) * 1e3 / (GEN_NEW - 1)
+        q_bound, q_w_bytes, _ = _decode_bound_ms(
+            qmodel, GEN_BATCH, GEN_PROMPT + GEN_NEW)
+        log("generate", gate="int8", max_rel_dlogits=f"{q_rel:.4e}",
+            tol=TOL_INT8_REL,
+            greedy_agreement=f"{(q_out == out).float().mean().item():.4f}",
+            prefill_ms=f"{q_prefill * 1e3:.2f}",
+            decode_ms_per_step=f"{q_decode:.3f}",
+            decode_bound_ms_per_step=f"{q_bound:.4f}",
+            weight_bytes_per_step=q_w_bytes,
+            generated_tokens_per_s=f"{GEN_BATCH * GEN_NEW / q_wall:.1f}",
+            wall_s=f"{q_wall:.4f}", first_call_wall_s=f"{q_first:.4f}",
+            flash_launches=launches)
+        if launches or not q_rel <= TOL_INT8_REL:
+            raise AssertionError(f"int8 logits {q_rel:.4e} from fp32 "
+                                 f"(tol {TOL_INT8_REL})")
+    del qmodel, model, seq, pipe
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     t_start = time.perf_counter()
@@ -681,6 +932,7 @@ def main() -> int:
     rows = phase_kernels()
     eval_launches = phase_slice()
     train_launches = phase_train()
+    phase_generate()
     sources = {"flash_attn_fwd": ("flash_attn_fwd.cu", 87,
                                   "flash_attention_fwd"),
                "flash_attn_bwd_dq": ("flash_attn_bwd.cu", 162,

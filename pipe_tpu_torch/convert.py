@@ -16,7 +16,8 @@ layer by layer. The layouts that differ:
 
 :func:`load_pipelined_lm_params` copies the JAX ``Trainer``'s params, the
 ``PipelinedLM`` triple ``(stage_params, pre_params, post_params)``, into a
-``Pipe`` over the tutorial LM cut by ``pipelined_lm_balance``.
+``Pipe`` over the tutorial LM cut by ``pipelined_lm_balance``;
+:func:`load_pipelined_lm` copies the same triple into a port ``PipelinedLM``.
 """
 
 from __future__ import annotations
@@ -31,7 +32,8 @@ from .ops.layers import (Decoder, Dropout, Embedding, LayerNorm, Lambda,
                          Linear, MultiHeadAttention, PositionalEncoding,
                          Sequential, _TransformerBlockBase)
 
-__all__ = ["load_params", "load_stage_params", "load_pipelined_lm_params"]
+__all__ = ["load_params", "load_stage_params", "load_pipelined_lm_params",
+           "load_pipelined_lm"]
 
 
 def _copy(dst: torch.Tensor, src: Any, transpose: bool = False) -> None:
@@ -105,23 +107,47 @@ def load_pipelined_lm_params(pipe, params: Sequence[Any]) -> None:
     as ``stack_stage_params`` leaves them) or a per-stage list of block lists.
     """
     stage_params, pre, post = params
-    n = len(pipe.partitions)
-    if len(stage_params) == n and isinstance(stage_params[0], (list, tuple)):
-        per_stage = [list(blocks) for blocks in stage_params]
-    else:
-        per_stage = [[_take(block, j) for block in stage_params]
-                     for j in range(n)]
+    blocks = _flat_blocks(stage_params)
     layers = list(pipe)
-    lps = len(per_stage[0])
-    if len(layers) != n * lps + 3 or any(len(b) != lps for b in per_stage):
+    if len(layers) != len(blocks) + 3:
         raise ValueError(
-            f"a Pipe of {len(layers)} layers over {n} stages does not hold "
-            f"{n} stages of {lps} blocks plus embedding, positions and decoder")
+            f"a Pipe of {len(layers)} layers over {len(pipe.partitions)} "
+            f"stages does not hold {len(blocks)} blocks plus embedding, "
+            f"positions and decoder")
     load_params(layers[0], pre["embed"])
-    for j, blocks in enumerate(per_stage):
-        for l, block in enumerate(blocks):
-            load_params(layers[2 + j * lps + l], block)
+    for layer, block in zip(layers[2:-1], blocks):
+        load_params(layer, block)
     load_params(layers[-1], post["decoder"])
+
+
+def load_pipelined_lm(model, params: Sequence[Any]) -> None:
+    """Copy ``pipe_tpu``'s ``PipelinedLM`` params, the triple of
+    :func:`load_pipelined_lm_params` in either stage layout, into ``model``,
+    a port ``PipelinedLM`` (any stage count: the blocks go in layer order)."""
+    stage_params, pre, post = params
+    blocks = _flat_blocks(stage_params)
+    if len(blocks) != len(model.blocks):
+        raise ValueError(f"{len(blocks)} blocks of params for a model of "
+                         f"{len(model.blocks)} blocks")
+    load_params(model.embed, pre["embed"])
+    for layer, block in zip(model.blocks, blocks):
+        load_params(layer, block)
+    load_params(model.decoder, post["decoder"])
+
+
+def _flat_blocks(stage_params: Sequence[Any]) -> list:
+    """Every block's params in layer order, from a per-stage list of block
+    lists or from stage-stacked blocks (leaves lead with the stage axis)."""
+    if isinstance(stage_params[0], (list, tuple)):
+        return [block for stage in stage_params for block in stage]
+    n = len(_first_leaf(stage_params[0]))
+    return [_take(block, j) for j in range(n) for block in stage_params]
+
+
+def _first_leaf(tree: Any):
+    while isinstance(tree, dict):
+        tree = next(iter(tree.values()))
+    return np.asarray(tree)
 
 
 def _take(tree: Any, j: int) -> Any:

@@ -1,17 +1,21 @@
 """Shared pieces of the model families.
 
 Counterpart of ``pipe_tpu/models/common.py``: the per-row cross-entropy that
-the trainer's loss is built from. The stage-stacked ``PipelinedTransformer``
-scaffolding is not ported yet (ROADMAP.md, queue A).
+the trainer's loss is built from, and :class:`PipelinedTransformer`, the
+embed | k blocks per stage | head factorization that the generators run. Its
+stage-stacked SPMD executor is not ported yet (ROADMAP.md, queue A).
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Sequence
 
 import torch
+from torch import nn
 
-__all__ = ["per_row_ce"]
+from ..core.partition import StageCtx
+
+__all__ = ["per_row_ce", "PipelinedTransformer"]
 
 
 def per_row_ce(logits: torch.Tensor, targets: torch.Tensor,
@@ -39,3 +43,59 @@ def per_row_ce(logits: torch.Tensor, targets: torch.Tensor,
     if reduce_dims:
         return torch.mean(ce, dim=reduce_dims)
     return ce
+
+
+class PipelinedTransformer(nn.Module):
+    """Base factorization: embed | ``layers_per_stage`` blocks per stage |
+    head, holding the modules themselves (weights included).
+
+    ``blocks`` is an ``nn.ModuleList`` of all ``n_layers`` blocks in layer
+    order; stage ``s`` runs ``blocks[s * lps:(s + 1) * lps]``. ``head`` is
+    the module registered under ``post_key``. Subclasses set ``post_key``
+    and build the modules; ``input_key`` names the token leaf of a dict
+    input.
+    """
+
+    input_key = "tokens"
+    post_key = "head"
+
+    def __init__(self, cfg, n_stages: int, embed: nn.Module,
+                 blocks: Sequence[nn.Module], head: nn.Module):
+        super().__init__()
+        if n_stages < 1 or cfg.n_layers % n_stages:
+            raise ValueError(
+                f"n_layers={cfg.n_layers} must divide into "
+                f"n_stages={n_stages} (use Pipe for uneven splits)")
+        if len(blocks) != cfg.n_layers:
+            raise ValueError(f"{len(blocks)} blocks for a model of "
+                             f"{cfg.n_layers} layers")
+        self.cfg = cfg
+        self.n_stages = n_stages
+        self.layers_per_stage = cfg.n_layers // n_stages
+        self.embed = embed
+        self.blocks = nn.ModuleList(blocks)
+        # Registered under post_key (its state_dict prefix); add_module
+        # would refuse the name "head", which the property below takes.
+        self._modules[self.post_key] = head
+
+    @property
+    def head(self) -> nn.Module:
+        return self._modules[self.post_key]
+
+    def stage_blocks(self, s: int) -> nn.ModuleList:
+        lps = self.layers_per_stage
+        return self.blocks[s * lps:(s + 1) * lps]
+
+    def pre_fn(self, x_mb, ctx: StageCtx = StageCtx()):
+        leaf = x_mb[self.input_key] if isinstance(x_mb, dict) else x_mb
+        return self.embed(leaf, ctx=ctx)
+
+    def stage_fn(self, s: int, h, ctx: StageCtx = StageCtx()):
+        """Stage ``s``'s blocks on ``h`` (``pipe_tpu`` passes the stage's
+        params; here the stage index names the modules that hold them)."""
+        for l, block in enumerate(self.stage_blocks(s)):
+            h = block(h, ctx=ctx.fold(l))
+        return h
+
+    def post_fn(self, h, ctx: StageCtx = StageCtx()):
+        return self.head(h, ctx=ctx)

@@ -3,9 +3,11 @@
 Counterpart of the ``Sequential`` path of ``pipe_tpu/models/transformer_lm.py``:
 Encoder (embedding + positional encoding), N x ``TransformerEncoderLayer``,
 Decoder (projection to vocab); emsize 2048, nhid 2048, nlayers 16, nhead 32,
-dropout 0.2, bptt 128, batch-first. The stage-stacked ``PipelinedLM`` (SPMD
-path) is not ported yet; :func:`pipelined_lm_balance` gives its cut as a
-``Pipe`` balance over this ``Sequential``, which is how the trainer runs it.
+dropout 0.2, bptt 128, batch-first. :class:`PipelinedLM` is the
+embed | blocks | decoder factorization that the generators run; its
+stage-stacked SPMD executor is not ported yet. :func:`pipelined_lm_balance`
+gives its cut as a ``Pipe`` balance over this ``Sequential``, which is how
+the trainer runs it.
 """
 
 from __future__ import annotations
@@ -15,12 +17,14 @@ from typing import List, Optional
 
 import torch
 
+from ..core.partition import StageCtx
 from ..ops.layers import (Decoder, Embedding, PositionalEncoding, Sequential,
                           TransformerEncoderLayer)
 from ..utils.platform import DEFAULT_DEVICE, resolve_device
+from .common import PipelinedTransformer
 
 __all__ = ["LMConfig", "build_sequential", "cross_entropy",
-           "pipelined_lm_balance"]
+           "pipelined_lm_balance", "PipelinedLM"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -98,3 +102,78 @@ def build_sequential(cfg: LMConfig, *, device=DEFAULT_DEVICE,
             attn_impl=cfg.attn_impl, generator=generator, **kw))
     layers.append(Decoder(cfg.d_model, cfg.vocab, generator=generator, **kw))
     return Sequential(layers)
+
+
+class PipelinedLM(PipelinedTransformer):
+    """The tutorial LM as embed (embedding + positions) | ``n_layers``
+    blocks | decoder, with ``layers_per_stage`` blocks per stage.
+
+    Built as :func:`build_sequential` builds it (same weights from the same
+    generator). Counterpart of ``pipe_tpu``'s ``PipelinedLM``; its
+    ``loss_post_fn`` and stage-stacked executor are not ported yet.
+    """
+
+    post_key = "decoder"
+
+    def __init__(self, cfg: LMConfig, n_stages: int = 1, *,
+                 device=DEFAULT_DEVICE,
+                 generator: Optional[torch.Generator] = None):
+        self._assemble(cfg, n_stages,
+                       build_sequential(cfg, device=device,
+                                        generator=generator))
+
+    @classmethod
+    def from_sequential(cls, cfg: LMConfig, seq: Sequential,
+                        n_stages: int = 1) -> "PipelinedLM":
+        """Wrap the module objects of a :func:`build_sequential`
+        ``Sequential`` (or of a ``Pipe``'s layers), with no copy: a model
+        that a ``Pipe`` or ``Trainer`` trained generates directly, and later
+        training shows through. A port-only constructor: ``pipe_tpu`` keeps
+        weights in param trees that both paths read, while here the weights
+        live in the modules, so sharing the modules is what shares them."""
+        model = cls.__new__(cls)
+        model._assemble(cfg, n_stages, seq)
+        return model
+
+    def _assemble(self, cfg: LMConfig, n_stages: int, seq) -> None:
+        layers = list(seq)
+        kinds = ((Embedding, PositionalEncoding)
+                 + (TransformerEncoderLayer,) * cfg.n_layers + (Decoder,))
+        if len(layers) != len(kinds) or not all(
+                isinstance(m, k) for m, k in zip(layers, kinds)):
+            raise ValueError(
+                f"not the tutorial LM of {cfg.n_layers} layers: embedding, "
+                f"positions, {cfg.n_layers} TransformerEncoderLayers, decoder")
+        PipelinedTransformer.__init__(self, cfg, n_stages, layers[0],
+                                      layers[2:-1], layers[-1])
+        self.posenc = layers[1]
+
+    def pre_fn(self, x_mb, ctx: StageCtx = StageCtx()):
+        tokens = x_mb[self.input_key] if isinstance(x_mb, dict) else x_mb
+        h = self.embed(tokens, ctx=ctx)
+        h = self.posenc(h, ctx=ctx.fold(1))
+        return h.to(self.cfg.compute_dtype)
+
+    def embed_at(self, tokens: torch.Tensor, pos: int) -> torch.Tensor:
+        """Embed tokens at positions ``[pos, pos + q)``: ``pre_fn`` with a
+        position offset, for incremental decoding (no dropout)."""
+        h = self.embed(tokens)
+        pe = self.posenc.pe[pos:pos + tokens.shape[-1]]
+        return (h + pe).to(self.cfg.compute_dtype)
+
+    def embed_tree(self, tokens: torch.Tensor, pos: int,
+                   depths: torch.Tensor) -> torch.Tensor:
+        """Embed draft-tree rows: row r of ``tokens [b, Q]`` sits at
+        position ``pos + depths[r]`` (:meth:`embed_at` with a per-row
+        position gather)."""
+        h = self.embed(tokens)
+        pe = self.posenc.pe.index_select(
+            0, pos + torch.as_tensor(depths, device=h.device))
+        return (h + pe).to(self.cfg.compute_dtype)
+
+    def max_position(self) -> int:
+        """Positional capacity (sinusoid table rows): the inference guard."""
+        return int(self.posenc.pe.shape[0])
+
+    def post_fn(self, h, ctx: StageCtx = StageCtx()):
+        return self.decoder(h.to(torch.float32), ctx=ctx)

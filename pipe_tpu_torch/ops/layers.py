@@ -9,7 +9,8 @@ context as ``ctx=`` (its seed drives dropout in training).
 Attention runs the hand-written flash kernels (``ops/flash_attention.py``:
 forward, dQ and dK/dV, with attention dropout inside) or the plain
 einsum-softmax path, chosen by ``impl``. The projections and the feed-forward
-stay ``torch`` matmuls.
+stay ``torch`` matmuls. Cached decoding (``decode``, ``make_cache``) is plain
+einsum-softmax over the whole KV cache, as in ``pipe_tpu``.
 """
 
 from __future__ import annotations
@@ -30,7 +31,7 @@ __all__ = [
     "Sequential", "Lambda", "Linear", "Embedding", "LayerNorm", "Dropout",
     "MultiHeadAttention", "TransformerEncoderLayer", "PreLNBlock",
     "PositionalEncoding", "Decoder", "dot_product_attention", "supports",
-    "flash_auto_ok",
+    "flash_auto_ok", "causal_table",
 ]
 
 
@@ -267,6 +268,73 @@ class MultiHeadAttention(nn.Module):
                                       dropout_seed=dk, train=ctx.train)
         return self.wo(o.reshape(b, s, self.d_model))
 
+    def make_cache(self, batch: int, max_len: int, dtype=None) -> dict:
+        """Zeroed KV cache for incremental decoding: ``{"k", "v"}`` of
+        ``[batch, max_len, nhead, head_dim]`` on the weights' device, in
+        ``dtype`` (default: the weights' dtype)."""
+        w = next(self.parameters())
+        shape = (batch, max_len, self.nhead, self.head_dim)
+        dt = w.dtype if dtype is None else dtype
+        return {"k": torch.zeros(shape, dtype=dt, device=w.device),
+                "v": torch.zeros(shape, dtype=dt, device=w.device)}
+
+    def decode(self, x, cache: dict, pos: int, tree=None, *,
+               allowed: Optional[torch.Tensor] = None):
+        """Incremental self-attention with a KV cache (inference only).
+
+        ``x``: the new tokens' hidden states ``[b, q, d]`` at positions
+        ``[pos, pos + q)`` (``q = 1`` per decode step, the prompt at prefill
+        with ``pos = 0``); ``cache``: :meth:`make_cache`'s dict. Writes the
+        new K/V rows at ``pos`` in place and attends each query over the
+        whole cache with the rows after its own position masked to -1e30,
+        which is the causal mask of ``forward`` restricted to the live
+        prefix. Returns ``(out [b, q, d], cache)``.
+
+        ``pos`` is a host integer. A write past the cache raises
+        ``ValueError`` (``pipe_tpu``'s ``dynamic_update_slice`` clamps it).
+
+        ``tree`` (optional ``[q, q]`` bool): speculative tree verification.
+        The q rows are draft-tree nodes; K/V still land at rows
+        ``[pos, pos + q)``, but query row j attends the rows before ``pos``
+        plus the chunk rows r where ``tree[j, r]``. ``allowed`` (optional
+        ``[q, max_len]`` bool) is the mask itself, precomputed by a caller
+        that decodes many steps (a row slice of :func:`causal_table`).
+        """
+        if not self.causal:
+            raise ValueError("KV-cache decode requires causal attention")
+        b, q, _ = x.shape
+        h, hd = self.nhead, self.head_dim
+        ck, cv = cache["k"], cache["v"]
+        max_len = ck.shape[1]
+        if pos < 0 or pos + q > max_len:
+            raise ValueError(
+                f"decode writes cache rows [{pos}, {pos + q}) of a cache of "
+                f"{max_len} rows")
+        qh = self.wq(x).view(b, q, h, hd)
+        ck[:, pos:pos + q] = self.wk(x).view(b, q, h, hd).to(ck.dtype)
+        cv[:, pos:pos + q] = self.wv(x).view(b, q, h, hd).to(cv.dtype)
+        logits = torch.einsum("bqhd,bkhd->bhqk", qh, ck).to(torch.float32)
+        logits = logits / math.sqrt(hd)
+        if tree is not None:
+            tree = torch.as_tensor(tree, dtype=torch.bool, device=x.device)
+            rel = torch.arange(max_len, device=x.device) - pos
+            within = tree[:, rel.clamp(0, q - 1)]            # [q, max_len]
+            allowed = (rel < 0) | ((rel < q) & within)
+        elif allowed is None:
+            allowed = causal_table(max_len, x.device)[pos:pos + q]
+        logits = torch.where(allowed, logits, -1e30)
+        weights = torch.softmax(logits, dim=-1).to(x.dtype)
+        o = torch.einsum("bhqk,bkhd->bqhd", weights, cv).reshape(
+            b, q, self.d_model)
+        return self.wo(o), cache
+
+
+def causal_table(max_len: int, device) -> torch.Tensor:
+    """``[max_len, max_len]`` bool, row i true at keys ``<= i``: row slices
+    ``[pos:pos + q]`` are :meth:`MultiHeadAttention.decode`'s causal mask."""
+    return torch.ones((max_len, max_len), dtype=torch.bool,
+                      device=device).tril_()
+
 
 # "gelu" is the exact erf form (torch.nn.TransformerEncoderLayer's
 # activation='gelu', BERT, ViT); "gelu_tanh" is the tanh approximation
@@ -320,6 +388,15 @@ class TransformerEncoderLayer(_TransformerBlockBase):
         h = self.drop(h, ctx=ctx.fold(3))
         return self.ln2(x + h)
 
+    def decode(self, x, cache: dict, pos: int, tree=None, *,
+               allowed: Optional[torch.Tensor] = None):
+        """Incremental :meth:`forward` (inference: no dropout), attention
+        served from the KV cache (:meth:`MultiHeadAttention.decode`)."""
+        a, cache = self.attn.decode(x, cache, pos, tree, allowed=allowed)
+        x = self.ln1(x + a)
+        h = self.ff2(self.act(self.ff1(x)))
+        return self.ln2(x + h), cache
+
 
 class PreLNBlock(_TransformerBlockBase):
     """Pre-LN block (GPT-2 / ViT lineage): x + attn(ln1(x)), then
@@ -334,6 +411,15 @@ class PreLNBlock(_TransformerBlockBase):
         h = self.act(self.ff1(self.ln2(x)))
         h = self.ff2(h)
         return x + self.drop(h, ctx=ctx.fold(2))
+
+    def decode(self, x, cache: dict, pos: int, tree=None, *,
+               allowed: Optional[torch.Tensor] = None):
+        """Incremental :meth:`forward` (inference: no dropout), attention
+        served from the KV cache (:meth:`MultiHeadAttention.decode`)."""
+        a, cache = self.attn.decode(self.ln1(x), cache, pos, tree,
+                                    allowed=allowed)
+        x = x + a
+        return x + self.ff2(self.act(self.ff1(self.ln2(x)))), cache
 
 
 class PositionalEncoding(nn.Module):

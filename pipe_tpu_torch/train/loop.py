@@ -24,8 +24,8 @@ from ..core.partition import fold_seed
 from ..core.schedule import bubble_fraction
 from ..data import lm_text
 from ..models.common import per_row_ce
-from ..models.transformer_lm import (LMConfig, build_sequential,
-                                     pipelined_lm_balance)
+from ..models.transformer_lm import (LMConfig, PipelinedLM,
+                                     build_sequential, pipelined_lm_balance)
 from ..pipe import Pipe
 from ..utils.platform import DEFAULT_DEVICE, resolve_device
 from .state import TrainState, save_checkpoint
@@ -182,10 +182,24 @@ class Trainer:
     def analytic_bubble(self) -> float:
         return bubble_fraction(self.cfg.chunks, self.cfg.n_stages)
 
-    def generate(self, state: TrainState, prompt, **kwargs):
-        raise NotImplementedError(
-            "Trainer.generate needs the generation slice, not ported to "
-            "pipe_tpu_torch yet (ROADMAP.md, queue A: generation)")
+    def generate(self, state: TrainState, prompt, *,
+                 max_new_tokens: int = 32, temperature: float = 0.0,
+                 top_k: Optional[int] = None, num_beams: int = 1,
+                 seed: int = 0) -> torch.Tensor:
+        """Sample continuations of ``prompt [b, prompt_len]`` from
+        ``state``'s weights: the trainer's own layers, wrapped by
+        ``PipelinedLM.from_sequential`` with no copy, run the KV-cached
+        ``Generator`` (sampling seeded with ``seed``)."""
+        from ..inference import GenerationConfig, Generator
+        from ..ops.layers import Sequential
+
+        self._adopt(state)
+        model = PipelinedLM.from_sequential(
+            self.model_cfg, Sequential(list(self.pipe)), self.cfg.n_stages)
+        gen = Generator(model, GenerationConfig(
+            max_new_tokens=max_new_tokens, temperature=temperature,
+            top_k=top_k, num_beams=num_beams))
+        return gen.generate(prompt, seed=seed)
 
     # --- steps ---
 

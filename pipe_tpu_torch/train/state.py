@@ -26,7 +26,8 @@ from typing import Any, Dict, Optional
 import torch
 
 __all__ = ["TrainState", "CheckpointCorrupt", "state_manifest",
-           "save_checkpoint", "restore_checkpoint", "latest_step"]
+           "save_checkpoint", "restore_checkpoint", "restore_params",
+           "latest_step"]
 
 _STEP_DIR = re.compile(r"^step_(\d+)$")
 
@@ -138,17 +139,9 @@ def latest_step(directory: str) -> Optional[int]:
     return steps[-1] if steps else None
 
 
-def restore_checkpoint(directory: str, template: TrainState,
-                       step: Optional[int] = None,
-                       verify: bool = True) -> TrainState:
-    """Restore ``step`` (default: latest) as a new :class:`TrainState`.
-
-    ``template``, a state of the same model (a trainer's live state, or
-    ``Trainer.init_state()`` when starting afresh), gives the device the
-    model tensors land on and the model's tensor names, which the checkpoint
-    must match. With ``verify=True`` the loaded tensors are re-hashed against the
-    save-time manifest; a mismatch raises :class:`CheckpointCorrupt`.
-    """
+def _load(directory: str, step: Optional[int], verify: bool) -> TrainState:
+    """Checkpoint ``step`` (default: latest) as saved, on the CPU, re-hashed
+    against its manifest when ``verify``."""
     root = Path(directory)
     if step is None:
         step = latest_step(directory)
@@ -160,13 +153,38 @@ def restore_checkpoint(directory: str, template: TrainState,
                           step=int(tree["step"]))
     if verify:
         _verify_manifest(root, int(step), restored)
+    return restored
+
+
+def restore_checkpoint(directory: str, template: TrainState,
+                       step: Optional[int] = None,
+                       verify: bool = True) -> TrainState:
+    """Restore ``step`` (default: latest) as a new :class:`TrainState`.
+
+    ``template``, a state of the same model (a trainer's live state, or
+    ``Trainer.init_state()`` when starting afresh), gives the device the
+    model tensors land on and the model's tensor names, which the checkpoint
+    must match. With ``verify=True`` the loaded tensors are re-hashed against the
+    save-time manifest; a mismatch raises :class:`CheckpointCorrupt`.
+    """
+    restored = _load(directory, step, verify)
     if set(restored.model) != set(template.model):
         raise ValueError(
-            f"checkpoint step {step} in {directory} holds another model: "
-            f"{sorted(set(restored.model) ^ set(template.model))[:4]} ...")
+            f"checkpoint step {restored.step} in {directory} holds another "
+            f"model: {sorted(set(restored.model) ^ set(template.model))[:4]} "
+            f"...")
     restored.model = {k: v.to(template.model[k].device)
                       for k, v in restored.model.items()}
     return restored
+
+
+def restore_params(directory: str, step: Optional[int] = None,
+                   verify: bool = True) -> Dict[str, torch.Tensor]:
+    """The model ``state_dict`` of checkpoint ``step`` (default: latest), on
+    the CPU and verified as :func:`restore_checkpoint` verifies it, for a
+    caller that needs the weights and not the optimizer (generation). Its
+    keys are the training ``Pipe``'s (``partitions.{stage}.layers.{i}.*``)."""
+    return _load(directory, step, verify).model
 
 
 def _verify_manifest(root: Path, step: int, restored: TrainState) -> None:

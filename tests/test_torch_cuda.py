@@ -1,6 +1,7 @@
 """pipe_tpu_torch on a CUDA card: the kernels (flash forward, dQ, dK/dV, with
-and without dropout) against their plain versions, and the Pipe slice and a
-training step through them. Skipped without a card.
+and without dropout) against their plain versions, the Pipe slice and a
+training step through them, and KV-cached generation (which runs no kernel)
+against the Pipe forward. Skipped without a card.
 
 This file imports only torch and pipe_tpu_torch, so it runs on a machine
 without JAX; there, skip the repo's JAX conftest:
@@ -228,3 +229,81 @@ def test_tiny_pipe_slice_goes_through_the_kernel(cuda):
         assert tfa.flash_attention_fwd.launches - before == cfg.n_layers * 4
         want = twin(tokens)
     assert (got - want).abs().max().item() <= TOL
+
+
+def _tiny_lm(cuda, impl="flash"):
+    cfg = dataclasses.replace(pt.LMConfig().tiny(), attn_impl=impl)
+    seq = pt.build_sequential(
+        cfg, device=cuda,
+        generator=torch.Generator(device=cuda).manual_seed(3))
+    return cfg, seq, pt.PipelinedLM.from_sequential(cfg, seq)
+
+
+def test_cached_logits_match_the_pipe_forward_on_the_card(cuda):
+    """Prefill plus one-token steps through the KV caches on the card: the
+    logits of a fixed sequence against the Pipe eval forward through the
+    flash kernel; the cached path launches no kernel."""
+    from pipe_tpu_torch.inference import generate as tgen
+
+    cfg, seq, model = _tiny_lm(cuda)
+    tokens = torch.randint(0, cfg.vocab, (4, cfg.seq_len), device=cuda,
+                           generator=torch.Generator(device=cuda).manual_seed(1))
+    p = cfg.seq_len // 2
+    with torch.inference_mode():
+        want = pt.Pipe(seq, chunks=2, device=cuda)(tokens)
+        before = tfa.flash_attention_fwd.launches
+        caches = [b.attn.make_cache(4, cfg.seq_len) for b in model.blocks]
+        h = model.embed_at(tokens[:, :p], 0)
+        for l, b in enumerate(model.blocks):
+            h, caches[l] = b.decode(h, caches[l], 0)
+        got = [tgen.head_logits(model, h)]
+        for t in range(p, cfg.seq_len):
+            h = model.embed_at(tokens[:, t:t + 1], t)
+            for l, b in enumerate(model.blocks):
+                h, caches[l] = b.decode(h, caches[l], t)
+            got.append(tgen.head_logits(model, h))
+        assert tfa.flash_attention_fwd.launches == before
+    assert (torch.cat(got, 1) - want).abs().max().item() <= TOL
+
+
+def test_generation_modes_on_the_card(cuda):
+    """Greedy against the argmax of the forward on its own output; the same
+    seed gives the same samples; beam scores equal the sequence log-probs;
+    int8 and EOS runs give tokens of the right shape and lengths."""
+    from pipe_tpu_torch.inference import (GenerationConfig, Generator,
+                                          quantize_params)
+
+    cfg, seq, model = _tiny_lm(cuda)
+    prompt = torch.randint(0, cfg.vocab, (3, 5), device=cuda,
+                           generator=torch.Generator(device=cuda).manual_seed(2))
+    greedy = Generator(model, GenerationConfig(max_new_tokens=8,
+                                               temperature=0.0))
+    out = greedy.generate(prompt)
+    with torch.inference_mode():
+        logits = pt.Pipe(seq, device=cuda)(torch.cat([prompt, out], 1))
+    top2 = torch.topk(logits[:, 4:-1], 2, dim=-1).values
+    clear = (top2[..., 0] - top2[..., 1]) > 1e-3
+    assert torch.equal(logits[:, 4:-1].argmax(-1)[clear], out[clear])
+
+    sampled = Generator(model, GenerationConfig(max_new_tokens=8,
+                                                temperature=0.8, top_k=10))
+    a = sampled.generate(prompt, seed=5)
+    assert torch.equal(a, sampled.generate(prompt, seed=5))
+    assert not torch.equal(a, sampled.generate(prompt, seed=6))
+
+    toks, scores = Generator(model, GenerationConfig(
+        max_new_tokens=6, num_beams=3)).generate_with_scores(prompt)
+    with torch.inference_mode():
+        logp = torch.log_softmax(pt.Pipe(seq, device=cuda)(
+            torch.cat([prompt, toks], 1))[:, 4:-1].float(), -1)
+    ext = torch.gather(logp, -1, toks[..., None])[..., 0].sum(-1)
+    assert torch.allclose(scores, ext, rtol=1e-4, atol=1e-4)
+
+    q = Generator(quantize_params(model), GenerationConfig(max_new_tokens=8,
+                                                           temperature=0.0))
+    assert q.generate(prompt).shape == (3, 8)
+    eos = int(out[0, 2])
+    _, lengths = Generator(model, GenerationConfig(
+        max_new_tokens=8, temperature=0.0,
+        eos_token_id=eos)).generate_with_lengths(prompt)
+    assert int(lengths[0]) <= 3

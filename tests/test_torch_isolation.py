@@ -36,6 +36,19 @@ ids = torch.randint(0, cfg.vocab, (2048,)).numpy()
 state, info = tr.train_epoch(lm_text.batchify(ids, 4), max_steps=2,
                              log_every=0)
 assert info["steps"] == 2 and info["loss"] == info["loss"]
+from pipe_tpu_torch.apps import generate as gen_app
+from pipe_tpu_torch.inference import (GenerationConfig, Generator,
+                                      quantize_params)
+lm = pt.PipelinedLM(cfg, 2, device="cpu")
+prompt = torch.randint(0, cfg.vocab, (2, 5))
+for model, gcfg in ((lm, GenerationConfig(max_new_tokens=4, temperature=0.0)),
+                    (quantize_params(lm), GenerationConfig(
+                        max_new_tokens=4, temperature=0.7, top_k=5)),
+                    (lm, GenerationConfig(max_new_tokens=3, num_beams=2))):
+    toks = Generator(model, gcfg).generate(prompt)
+    assert toks.shape == (2, gcfg.max_new_tokens)
+assert tr.generate(state, prompt, max_new_tokens=3).shape == (2, 3)
+assert gen_app.main(["--tiny", "--device", "cpu", "--max-new", "3"]) == 0
 bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib")
        and sys.modules[m] is not None]
 assert not bad, bad
@@ -48,8 +61,10 @@ torch.cuda.is_available = lambda: False
 import pipe_tpu_torch as pt
 from pipe_tpu_torch.ops.layers import Linear
 from pipe_tpu_torch.train import Trainer, TrainerConfig
-from pipe_tpu_torch.apps import lm_tutorial
+from pipe_tpu_torch.apps import generate as gen_app, lm_tutorial
 for make in (lambda: Linear(4, 4),
+             lambda: pt.PipelinedLM(pt.LMConfig().tiny()),
+             lambda: gen_app.main(["--tiny"]),
              lambda: pt.build_sequential(pt.LMConfig().tiny()),
              lambda: pt.Pipe(pt.Sequential([Linear(4, 4, device="cpu")])),
              lambda: Trainer(pt.LMConfig().tiny(), TrainerConfig()),

@@ -230,9 +230,18 @@ def test_trainer_config_defaults_match_pipe_tpu():
 
 
 def test_generate_and_loss_block_wait_for_later_slices():
+    """``Trainer.generate`` runs since the generation slice (its parity with
+    pipe_tpu is in test_torch_generate.py); the generator's phase timing
+    (telemetry) and the streaming loss still wait."""
+    from pipe_tpu_torch.inference import Generator
+
     trainer, _, _ = tiny_trainer()
+    out = trainer.generate(trainer.init_state(), [[1, 2]], max_new_tokens=4)
+    assert out.shape == (1, 4) and out.dtype == torch.int64
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        trainer.generate(trainer.init_state(), [[1, 2]])
+        Generator(tlm.PipelinedLM.from_sequential(
+            trainer.model_cfg, tl.Sequential(list(trainer.pipe))),
+            phase_timing=True)
     with pytest.raises(NotImplementedError, match="loss_block"):
         tlm.LMConfig(loss_block=128)
 

@@ -2,6 +2,8 @@
 
     python3 tools/torch_slice_profile.py [--batches N] [--out DIR]
     python3 tools/torch_slice_profile.py --train [--steps N] [--out DIR]
+    python3 tools/torch_slice_profile.py --generate [--decode-steps N]
+        [--out DIR]
 
 Eval (default): builds the full-width tutorial LM and ``Pipe`` that
 ``chip_smoke.py`` drives (``make_slice``: d_model 2048, 32 heads, d_ff 2048,
@@ -19,6 +21,16 @@ dropout 0.2 (batch 32, bptt 128, chunks 4, 2 stages, except_last, lr 1e-4,
 as ``chip_smoke.py``'s train phase): N steps timed per turn with the kernels
 and with plain attention, then one kernel step profiled, with the forward
 kernel, dQ, dK/dV, GEMMs, copies and the optimizer as categories.
+
+``--generate``: KV-cached generation over that LM's weights as
+``chip_smoke.py``'s generate phase runs it (batch 8, 128-token prompts from
+the eval split, greedy): for fp32 and for int8 weights, the wall time of a
+prefill alone and of a prefill plus N decode steps (default 32), in turns
+fp32, int8, int8, fp32, then both windows profiled; launches and device
+busy time per decode step are the difference of the two windows over N,
+the idle share and kernel time by category are the longer window's, and
+``decode_idle_share_unprofiled`` sets the busy time per step against the
+unprofiled step time.
 
 Prints one JSON summary as its last line and writes it, with the chrome
 trace, under ``--out`` (default ``build/profile/``).
@@ -201,10 +213,67 @@ def train_slice(args):
     return summary, prof, "torch_train"
 
 
+def generate_slice(args):
+    import chip_smoke
+    from pipe_tpu_torch.inference import (GenerationConfig, Generator,
+                                          quantize_params)
+    from pipe_tpu_torch.models.transformer_lm import PipelinedLM
+
+    cfg, seq, _, batches = chip_smoke.make_slice(1)
+    prompts = batches[0][0][:, :chip_smoke.GEN_PROMPT]
+    n = args.decode_steps
+    models = {"fp32": PipelinedLM.from_sequential(cfg, seq)}
+    models["int8"] = quantize_params(models["fp32"])
+    runs = {}
+    for name, model in models.items():
+        prefill = Generator(model, GenerationConfig(max_new_tokens=1,
+                                                    temperature=0.0))
+        decode = Generator(model, GenerationConfig(max_new_tokens=n + 1,
+                                                   temperature=0.0))
+        runs[name] = {"prefill": lambda g=prefill: g.generate(prompts),
+                      "prefill_decode": lambda g=decode: g.generate(prompts)}
+        runs[name]["prefill_decode"]()                   # warm-up
+    # Every timed turn before any profile: a profiled window leaves the
+    # host's launches slower for a while after it.
+    turns = {name: {"prefill": [], "prefill_decode": []} for name in runs}
+    for name in ("fp32", "int8", "int8", "fp32"):
+        for which in ("prefill", "prefill_decode", "prefill_decode",
+                      "prefill"):
+            turns[name][which].append(timed(runs[name][which]))
+    summary, prof = {}, None
+    for name, run in runs.items():
+        short, _ = profile(run["prefill"], f"{name}_prefill")
+        long, prof_n = profile(run["prefill_decode"],
+                               f"{name}_prefill_decode")
+        prof = prof if prof is not None else prof_n       # keep fp32's trace
+        pf = min(turns[name]["prefill"])
+        step_ms = (min(turns[name]["prefill_decode"]) - pf) * 1e3 / n
+        busy_us = (long["device_busy_us"] - short["device_busy_us"]) / n
+        long.update(
+            wall_s=turns[name], prefill_ms=pf * 1e3,
+            decode_ms_per_step=step_ms,
+            prefill_kernel_launches=short["kernel_launches"],
+            prefill_device_busy_us=short["device_busy_us"],
+            launches_per_decode_step=(long["kernel_launches"]
+                                      - short["kernel_launches"]) / n,
+            decode_device_busy_us_per_step=busy_us,
+            # the profiled window is stretched by the profiler; this share
+            # sets the profiled busy time against the unprofiled step
+            decode_idle_share_unprofiled=1.0 - busy_us / 1e3 / step_ms)
+        summary[name] = long
+    summary.update(batch=prompts.shape[0], prompt=prompts.shape[1],
+                   decode_steps=n)
+    return summary, prof, "torch_generate"
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--train", action="store_true",
                     help="profile training steps instead of the eval slice")
+    ap.add_argument("--generate", action="store_true",
+                    help="profile KV-cached generation (fp32 and int8)")
+    ap.add_argument("--decode-steps", type=int, default=32,
+                    help="decode steps after the prefill (--generate)")
     ap.add_argument("--batches", type=int, default=4,
                     help="eval batches per timed turn")
     ap.add_argument("--steps", type=int, default=3,
@@ -218,7 +287,10 @@ def main(argv=None) -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip().splitlines()[0]
-    summary, prof, stem = (train_slice if args.train else eval_slice)(args)
+    run = (generate_slice if args.generate
+           else train_slice if args.train else eval_slice)
+    with torch.inference_mode(args.generate):
+        summary, prof, stem = run(args)
     summary["device"] = smi
 
     os.makedirs(args.out, exist_ok=True)
@@ -226,13 +298,18 @@ def main(argv=None) -> int:
     with open(os.path.join(args.out, f"{stem}_profile.json"), "w") as f:
         json.dump(summary, f, indent=1)
     print(smi)
-    for k in ("wall_s", "ms_per_step", "tokens_per_s", "profiled_window_us",
-              "kernel_launches", "device_busy_us", "device_idle_share",
-              "kernel_us_by_category", "kernel_calls_by_category"):
-        if k in summary:
-            print(f"{k}: {summary[k]}")
-    for row in summary["top_kernels"]:
-        print(f"  {row['us']:10.1f} us {row['calls']:5d}x  {row['name']}")
+    keys = ("wall_s", "ms_per_step", "tokens_per_s", "profiled_window_us",
+            "kernel_launches", "device_busy_us", "device_idle_share",
+            "kernel_us_by_category", "kernel_calls_by_category",
+            "prefill_ms", "decode_ms_per_step", "launches_per_decode_step",
+            "decode_device_busy_us_per_step", "decode_idle_share_unprofiled")
+    for part in ([summary[k] for k in ("fp32", "int8")] if args.generate
+                 else [summary]):
+        for k in keys:
+            if k in part:
+                print(f"{k}: {part[k]}")
+        for row in part["top_kernels"]:
+            print(f"  {row['us']:10.1f} us {row['calls']:5d}x  {row['name']}")
     print(json.dumps(summary))
     return 0
 
