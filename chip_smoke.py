@@ -50,6 +50,25 @@ exits non-zero without a result line:
    the first call's wall beside it). The decode attention is
    plain, as in ``pipe_tpu``: the generator launches no kernel.
 
+7. serve -- continuous batching (``ServeEngine`` over
+   ``SingleDeviceSlotBackend``: 8 slots, 256 cache rows, buckets 16 to 128,
+   one decode step a tick captured once in a CUDA graph) over the eval
+   weights: 32 greedy requests of 16-128 eval tokens and 32-128 new tokens
+   (a seeded rng), four before the first tick and then two a tick, served
+   twice (cold: the capture; warm). Gates: every request runs to its
+   length; the decode step is captured exactly once over both runs; one
+   prefill shape per bucket touched; no flash launch in the engine; every
+   response equals a batch-1 ``Generator`` on its prompt wherever the
+   reference's top-2 margin exceeds 10 x the generate phase's
+   teacher-forced gap (near ties skipped and counted); the same engine run
+   eagerly on the card gives the graph's tokens; an EOS that request 0
+   emits retires it there with nothing after it; 8 sampled requests (T 0.8,
+   top-k 50) give the same tokens alone in a 1-slot engine, among 32
+   co-tenants and again, each pick inside the top 50. Prints TTFT p50/p99,
+   generated tokens/s over the wall, decode ms per tick (graph and eager,
+   in turns) against its bound, launch calls and kernels per tick
+   (``torch.profiler``), prefill ms per bucket, peak memory, seconds.
+
 The last two lines are the kernels JSON object and
 ``{"ok": true, "device": {...}}``.
 """
@@ -109,6 +128,20 @@ GEN_EOS_STEP = 5
 TOL_INT8_REL = 0.08
 TOL_BEAM_REL = 1e-3
 MARGIN_OVER_GAP = 10     # greedy is compared where top-2 margin > 10 x gap
+# Serve phase: the engine's slots, cache rows and buckets; the traffic
+# (prompt and new-token lengths drawn from a seeded rng); the sampled
+# requests; the ticks timed for decode ms per tick and profiled for
+# launches per tick.
+SERVE_SLOTS = 8
+SERVE_MAX_LEN = 256
+SERVE_BUCKETS = (16, 128)
+SERVE_REQUESTS = 32
+SERVE_FIRST = 4          # submitted before the first tick, then 2 a tick
+SERVE_PROMPT = (16, 128)
+SERVE_NEW = (32, 128)
+SERVE_SAMPLED = 8
+SERVE_TIMED_TICKS = 50
+SERVE_PROFILED_TICKS = 10
 # H100 SXM peaks (NVIDIA data sheet, dense): HBM3 bytes/s, and the fastest
 # fp32-accurate product rate the card has: TF32 tensor cores (495 TFLOP/s)
 # in three passes (big*big + big*small + small*big), which keep fp32-level
@@ -656,8 +689,11 @@ def phase_train() -> dict:
     for name, impl, dtype in (("kernel", "flash", torch.float32),
                               ("plain", "xla", torch.float32),
                               ("f64", "xla", torch.float64)):
+        # The float32 weights of one seed; the float64 twin holds them in
+        # float64 and computes in it (compute_dtype casts the activations).
         seq = build_sequential(
-            dataclasses.replace(cfg0, attn_impl=impl), device="cuda",
+            dataclasses.replace(cfg0, attn_impl=impl, compute_dtype=dtype),
+            device="cuda",
             generator=torch.Generator(device="cuda").manual_seed(SEED))
         seq.to(dtype)
         pipe = Pipe(seq, chunks=CHUNKS, checkpoint="except_last",
@@ -752,7 +788,9 @@ def _decode_bound_ms(model, batch, max_len):
     return (weights + cache) / PEAK_BYTES * 1e3, weights, cache
 
 
-def phase_generate() -> None:
+def phase_generate() -> float:
+    """The generate phase; returns the teacher-forced logit gap, the
+    rounding scale that the serve phase's margin gates are set from."""
     from pipe_tpu_torch.inference import (GenerationConfig, Generator,
                                           quantize_params, sequence_lengths)
     from pipe_tpu_torch.models.transformer_lm import PipelinedLM
@@ -922,6 +960,337 @@ def phase_generate() -> None:
                                  f"(tol {TOL_INT8_REL})")
     del qmodel, model, seq, pipe
     torch.cuda.empty_cache()
+    return gap
+
+
+def _margins(model, prompt, toks, cfg=None, seed=0):
+    """Top-2 margins of the scores that picked each of ``toks`` after
+    ``prompt`` (the ``PipelinedLM`` forward over the whole sequence), and
+    those logits. Greedy: the logits. Sampled (``cfg``): the Gumbel-max
+    scores, ``logits / T`` masked to the top k plus the engine's keyed
+    noise of ``seed`` at each step."""
+    from pipe_tpu_torch.inference import keyed_uniform, seed_word
+
+    dev = next(model.parameters()).device
+    x = torch.tensor([list(prompt) + list(toks)], device=dev)
+    with torch.no_grad():
+        logits = model.post_fn(model.stage_fn(0, model.pre_fn(x)))[0]
+    logits = logits[len(prompt) - 1:-1]
+    scores = logits
+    if cfg is not None:
+        scores = logits / cfg.temperature
+        kth = torch.topk(scores, cfg.top_k, dim=-1).values[..., -1:]
+        scores = torch.where(scores >= kth, scores, -1e30)
+        n, vocab = scores.shape
+        u = keyed_uniform(torch.full((n,), seed_word(seed), device=dev),
+                          torch.arange(n, device=dev), vocab)
+        scores = scores + -torch.log(-torch.log(u))
+    top2 = torch.topk(scores, 2, dim=-1).values
+    return (top2[:, 0] - top2[:, 1]).tolist(), logits
+
+
+def _walk(got, ref, margins, thresh):
+    """``got`` against the reference stream ``ref``, step by step, checked
+    where the reference's margin exceeds ``thresh``: ``(compared, skipped,
+    ok)``. Where the two differ at a step inside the margin (a near tie)
+    the streams part, and the rest is skipped; a difference at a clear
+    step, or a stream of another length, fails."""
+    compared = skipped = 0
+    for t in range(len(ref)):
+        clear = margins[t] > thresh
+        if t >= len(got) or got[t] != ref[t]:
+            return (compared, skipped + len(ref) - t,
+                    t < len(got) and not clear)
+        compared += clear
+        skipped += not clear
+    return compared, skipped, len(got) == len(ref)
+
+
+def _profile_ticks(backend, live):
+    """Host launch calls and device kernels per decode tick over
+    SERVE_PROFILED_TICKS ticks (``torch.profiler``): ``(launch calls by
+    name per tick, kernels per tick, device busy ms per tick)``, busy as
+    the union of the kernels' spans."""
+    from torch.profiler import DeviceType, ProfilerActivity, profile
+
+    names = ("cudaGraphLaunch", "cudaLaunchKernel", "cudaLaunchKernelExC",
+             "cuLaunchKernel", "cuLaunchKernelEx", "cudaMemcpyAsync",
+             "cudaMemsetAsync")
+    backend.decode(live)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(SERVE_PROFILED_TICKS):
+            backend.decode(live)
+        torch.cuda.synchronize()
+    calls = {}
+    spans = []
+    for e in prof.events():
+        if e.device_type == DeviceType.CPU and e.name in names:
+            calls[e.name] = calls.get(e.name, 0) + 1
+        elif (e.device_type == DeviceType.CUDA
+              and not getattr(e, "is_user_annotation", False)):
+            spans.append((e.time_range.start, e.time_range.end))
+    busy, cur_s, cur_e = 0.0, None, None
+    for a, b in sorted(spans):
+        if cur_e is None or a > cur_e:
+            if cur_e is not None:
+                busy += cur_e - cur_s
+            cur_s, cur_e = a, b
+        else:
+            cur_e = max(cur_e, b)
+    if cur_e is not None:
+        busy += cur_e - cur_s
+    n = SERVE_PROFILED_TICKS
+    return ({k: v / n for k, v in sorted(calls.items())}, len(spans) / n,
+            busy / 1e3 / n)
+
+
+def phase_serve(gap: float, smi: str) -> None:
+    import numpy as np
+
+    from pipe_tpu_torch.inference import GenerationConfig, Generator
+    from pipe_tpu_torch.models.transformer_lm import PipelinedLM
+    from pipe_tpu_torch.obs.telemetry import get_registry, percentile_exact
+    from pipe_tpu_torch.serve import (BucketSpec, ServeEngine,
+                                      SingleDeviceSlotBackend)
+
+    t_phase = time.perf_counter()
+    card = smi.splitlines()[0]
+    cfg, seq, pipe, batches = make_slice((GEN_PROMPT + GEN_NEW) // BPTT)
+    del pipe
+    model = PipelinedLM.from_sequential(cfg, seq)
+    tokens = torch.cat([x for x, _ in batches], dim=1).cpu()   # [8, 256]
+    rng = np.random.RandomState(SEED)
+    requests = []
+    for i in range(SERVE_REQUESTS):
+        plen = int(rng.randint(SERVE_PROMPT[0], SERVE_PROMPT[1] + 1))
+        new = int(rng.randint(SERVE_NEW[0], SERVE_NEW[1] + 1))
+        start = int(rng.randint(0, tokens.shape[1] - plen + 1))
+        requests.append(
+            (tokens[i % EVAL_BATCH, start:start + plen].tolist(), new))
+    seeds = list(range(SERVE_REQUESTS))
+    buckets = BucketSpec.pow2(*SERVE_BUCKETS)
+    touched = sorted({buckets.bucket_for(len(p)) for p, _ in requests})
+    reg = get_registry()
+    thresh = MARGIN_OVER_GAP * gap
+    log("serve", slots=SERVE_SLOTS, max_len=SERVE_MAX_LEN,
+        buckets=list(buckets.lengths), requests=SERVE_REQUESTS,
+        prompt_tokens=sum(len(p) for p, _ in requests),
+        new_tokens=sum(n for _, n in requests), buckets_touched=touched,
+        margin_threshold=f"{thresh:.3e}",
+        setup_s=f"{time.perf_counter() - t_phase:.2f}")
+
+    def backend(gen, slots=SERVE_SLOTS, **kw):
+        return SingleDeviceSlotBackend(
+            model, num_slots=slots, max_len=SERVE_MAX_LEN, gen=gen,
+            buckets=buckets, decode_chunk=1, **kw)
+
+    def traffic(eng, reqs, req_seeds):
+        """SERVE_FIRST requests before the first tick, then two a tick,
+        then ticks until idle: (responses in submit order, wall)."""
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ids = [eng.submit(p, max_new_tokens=n, seed=sd).id
+               for (p, n), sd in zip(reqs[:SERVE_FIRST], req_seeds)]
+        for i in range(SERVE_FIRST, len(reqs), 2):
+            eng.tick()
+            ids += [eng.submit(p, max_new_tokens=n, seed=sd).id
+                    for (p, n), sd in zip(reqs[i:i + 2], req_seeds[i:i + 2])]
+        eng.run_until_idle()
+        torch.cuda.synchronize()
+        return [eng.response(r) for r in ids], time.perf_counter() - t0
+
+    def rates(resps, wall):
+        ttft = [r.ttft for r in resps]
+        made = sum(len(r.tokens) for r in resps)
+        return dict(ttft_p50_ms=f"{percentile_exact(ttft, 0.5) * 1e3:.2f}",
+                    ttft_p99_ms=f"{percentile_exact(ttft, 0.99) * 1e3:.2f}",
+                    generated_tokens=made, wall_s=f"{wall:.4f}",
+                    generated_tokens_per_s=f"{made / wall:.1f}")
+
+    greedy = GenerationConfig(max_new_tokens=SERVE_NEW[1], temperature=0.0)
+    # 1. The main path: the greedy traffic through one engine, twice (the
+    # first run captures the decode graph; the second is warm).
+    main = backend(greedy)
+    eng = ServeEngine(main)
+    traces0 = reg.counter("serve.engine.decode_traces").value
+    for c in _counters():
+        c.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    cold, cold_wall = traffic(eng, requests, seeds)
+    warm, warm_wall = traffic(eng, requests, seeds)
+    peak = torch.cuda.max_memory_allocated()
+    flash = [c.launches for c in _counters()]
+    traces = reg.counter("serve.engine.decode_traces").value - traces0
+    stats = main.program_stats()
+    for run, resps, wall in (("cold", cold, cold_wall),
+                             ("warm", warm, warm_wall)):
+        log("serve", run=run, card=repr(card), **rates(resps, wall),
+            ttft_note="submit to first token, queueing included")
+    log("serve", gate="engine", card=repr(card), decode_traces=traces,
+        decode_graph=stats["decode_graph"],
+        prefill_shapes=stats["prefill_programs"],
+        buckets_touched=len(touched), flash_launches=flash,
+        peak_mem_gb=f"{peak / 1e9:.2f}")
+    bad = [i for i, ((_, n), r) in enumerate(zip(requests, cold))
+           if r.status != "ok" or r.finish_reason != "length"
+           or len(r.tokens) != n]
+    if bad:
+        raise AssertionError(f"serve: requests {bad} did not run to length")
+    if [r.tokens for r in warm] != [r.tokens for r in cold]:
+        raise AssertionError("serve: the warm run gave other tokens")
+    if traces != 1 or not stats["decode_graph"]:
+        raise AssertionError(f"serve: decode step captured {traces} times "
+                             f"(graph {stats['decode_graph']}), expected 1")
+    if stats["prefill_programs"] != len(touched):
+        raise AssertionError(f"serve: {stats['prefill_programs']} prefill "
+                             f"shapes for {len(touched)} buckets touched")
+    if any(flash):
+        raise AssertionError(f"serve: the engine launched kernels {flash}")
+
+    # 2. (a) Each response against a batch-1 Generator on its prompt.
+    t0 = time.perf_counter()
+    compared = skipped = 0
+    for i, ((p, n), r) in enumerate(zip(requests, cold)):
+        ref = Generator(model, GenerationConfig(
+            max_new_tokens=n, temperature=0.0)).generate([p])[0].tolist()
+        margins, _ = _margins(model, p, ref)
+        c, sk, ok = _walk(r.tokens, ref, margins, thresh)
+        compared, skipped = compared + c, skipped + sk
+        if not ok:
+            raise AssertionError(f"serve: request {i} differs from the "
+                                 f"batch-1 Generator at a clear step")
+    log("serve", gate="greedy_vs_generator", steps_compared=compared,
+        steps_skipped_near_ties=skipped,
+        seconds=f"{time.perf_counter() - t0:.2f}")
+
+    # 3. (g) The same engine run eagerly on the card; (d) EOS.
+    first = requests[:SERVE_SLOTS]
+    eager = backend(greedy, cuda_graph=False)
+    e_resps, e_wall = traffic(ServeEngine(eager), first, seeds)
+    equal, g_margins = 0, []
+    for i, ((p, _), er, r) in enumerate(zip(first, e_resps, cold)):
+        m, _ = _margins(model, p, r.tokens)
+        g_margins.append(m)
+        equal += er.tokens == r.tokens
+        if not _walk(er.tokens, r.tokens, m, thresh)[2]:
+            raise AssertionError(f"serve: eager request {i} differs from "
+                                 f"the graph's at a clear step")
+    log("serve", gate="graph_vs_eager", requests=len(first),
+        equal_requests=equal, eager_decode_graph=eager.program_stats()[
+            "decode_graph"], **rates(e_resps, e_wall))
+    if equal < 1 or eager.program_stats()["decode_graph"]:
+        raise AssertionError("serve: no request equal between the graph "
+                             "and the eager engine")
+    row = cold[0].tokens
+    fresh = [t for t in range(len(row)) if row[t] not in row[:t]]
+    step = next((t for t in fresh if t >= GEN_EOS_STEP), fresh[-1])
+    eos = row[step]
+    e_gen = GenerationConfig(max_new_tokens=SERVE_NEW[1], temperature=0.0,
+                             eos_token_id=eos)
+    eos_resps, _ = traffic(ServeEngine(backend(e_gen)), first, seeds)
+    r0 = eos_resps[0]
+    others_ok = all(
+        (r.finish_reason == "eos" and r.tokens[-1] == eos
+         and eos not in r.tokens[:-1])
+        or (r.finish_reason == "length" and eos not in r.tokens
+            and len(r.tokens) == n)
+        for r, (_, n) in zip(eos_resps, first))
+    log("serve", gate="eos", eos=eos, eos_step=step,
+        request0=r0.finish_reason, request0_tokens=len(r0.tokens),
+        reasons=[r.finish_reason for r in eos_resps])
+    if (r0.finish_reason != "eos" or r0.tokens != row[:step + 1]
+            or not others_ok):
+        raise AssertionError(f"serve: EOS {eos} did not retire request 0 "
+                             f"at step {step} with nothing past it")
+
+    # 4. (e) Sampled requests alone in a 1-slot engine, among the traffic,
+    # and again: equal where the Gumbel-max scores are clear, every pick in
+    # the top k.
+    s_gen = GenerationConfig(max_new_tokens=SERVE_NEW[1],
+                             temperature=GEN_TEMPERATURE, top_k=GEN_TOP_K)
+    sampled = requests[-SERVE_SAMPLED:]
+    s_seeds = [1000 + i for i in range(SERVE_SAMPLED)]
+    alone_eng = ServeEngine(backend(s_gen, slots=1))
+    alone = []
+    for (p, n), sd in zip(sampled, s_seeds):
+        rid = alone_eng.submit(p, max_new_tokens=n, seed=sd).id
+        alone_eng.run_until_idle()
+        alone.append(alone_eng.response(rid).tokens)
+    mixed, mixed_seeds, where = [], [], []
+    for i, (req, sd) in enumerate(zip(requests, seeds)):
+        mixed.append(req)
+        mixed_seeds.append(sd)
+        if i % 4 == 1:
+            where.append(len(mixed))
+            mixed.append(sampled[len(where) - 1])
+            mixed_seeds.append(s_seeds[len(where) - 1])
+    crowd, crowd_wall = traffic(ServeEngine(backend(s_gen)), mixed,
+                                mixed_seeds)
+    again, _ = traffic(ServeEngine(backend(s_gen)), sampled, s_seeds)
+    s_thresh = thresh / GEN_TEMPERATURE
+    compared = skipped = inside = picks = 0
+    for i, ((p, _), sd, a) in enumerate(zip(sampled, s_seeds, alone)):
+        m, logits = _margins(model, p, a, s_gen, sd)
+        kth = torch.topk(logits, GEN_TOP_K, dim=-1).values[:, -1]
+        picked = logits[torch.arange(len(a)), torch.tensor(a)]
+        inside += int((picked >= kth - 2 * TOL_LOGITS).sum())
+        picks += len(a)
+        for other in (crowd[where[i]].tokens, again[i].tokens):
+            c, sk, ok = _walk(other, a, m, s_thresh)
+            compared, skipped = compared + c, skipped + sk
+            if not ok:
+                raise AssertionError(f"serve: sampled request {i} depends "
+                                     f"on its co-tenants or its run")
+    log("serve", gate="sampled", temperature=GEN_TEMPERATURE,
+        top_k=GEN_TOP_K, requests=SERVE_SAMPLED, co_tenants=len(mixed) - 1,
+        steps_compared=compared, steps_skipped_near_ties=skipped,
+        share_in_top_k=f"{inside / picks:.4f}", **rates(crowd, crowd_wall))
+    if inside != picks:
+        raise AssertionError("serve: a sampled token outside the top k")
+
+    # 5. Decode ms per tick (all slots live) against its bound, graph and
+    # eager on the card in turns; launches per tick; prefill ms.
+    live = np.ones(SERVE_SLOTS, bool)
+
+    def tick_ms(b):
+        times = []
+        for _ in range(SERVE_TIMED_TICKS):
+            t0 = time.perf_counter()
+            b.decode(live)                        # reads the tokens back
+            times.append((time.perf_counter() - t0) * 1e3)
+        return sorted(times)
+
+    turns = {"graph": [], "eager": []}
+    for name, b in (("graph", main), ("eager", eager), ("eager", eager),
+                    ("graph", main)):
+        turns[name] += tick_ms(b)
+    bound, w_bytes, kv_bytes = _decode_bound_ms(model, SERVE_SLOTS,
+                                                SERVE_MAX_LEN)
+    for name, b in (("graph", main), ("eager", eager)):
+        t = sorted(turns[name])
+        calls, kernels, busy = _profile_ticks(b, live)
+        log("serve", decode=name, card=repr(card),
+            decode_ms_per_tick=f"{t[len(t) // 2]:.4f}",
+            decode_ms_min=f"{t[0]:.4f}", decode_ms_max=f"{t[-1]:.4f}",
+            decode_bound_ms=f"{bound:.4f}",
+            bound_share=f"{bound / t[len(t) // 2]:.3f}",
+            launch_calls_per_tick=f"{sum(calls.values()):.1f}",
+            launch_calls=json.dumps(calls).replace(" ", ""),
+            kernels_per_tick=f"{kernels:.1f}",
+            device_busy_ms_per_tick=f"{busy:.4f}",
+            weight_bytes=w_bytes, kv_cache_bytes=kv_bytes)
+    pre = {}
+    for blen in (SERVE_BUCKETS[0], SERVE_BUCKETS[1]):
+        prompt = tokens[0, :blen].tolist()
+        pre[blen] = sorted(_timed(lambda: main.prefill(0, prompt, 0))[1]
+                           for _ in range(3))[1] * 1e3
+    log("serve", card=repr(card), **{f"prefill_ms_{k}": f"{v:.2f}"
+                                     for k, v in pre.items()},
+        seconds=f"{time.perf_counter() - t_phase:.1f}")
+    del main, eager, eng, model, seq
+    torch.cuda.empty_cache()
 
 
 def main() -> int:
@@ -932,7 +1301,8 @@ def main() -> int:
     rows = phase_kernels()
     eval_launches = phase_slice()
     train_launches = phase_train()
-    phase_generate()
+    gap = phase_generate()
+    phase_serve(gap, smi)
     sources = {"flash_attn_fwd": ("flash_attn_fwd.cu", 87,
                                   "flash_attention_fwd"),
                "flash_attn_bwd_dq": ("flash_attn_bwd.cu", 162,

@@ -6,10 +6,11 @@ goes through hand-written CUDA flash-attention kernels for Hopper: the
 forward (``csrc/flash_attn_fwd.cu``), dQ (``csrc/flash_attn_bwd.cu``) and
 dK/dV (``csrc/flash_attn_bwd_dkv.cu``), with Philox attention dropout inside
 all three. ``Generator`` samples from a ``PipelinedLM`` with KV caches
-(greedy, temperature/top-k, beam search, EOS, int8 weights). Every entry point
-runs on the card unless it is given ``device="cpu"``, where each kernel's
-wrapper runs its plain PyTorch version. It imports neither JAX nor
-``pipe_tpu``.
+(greedy, temperature/top-k, beam search, EOS, int8 weights), and
+``serve.ServeEngine`` serves a request stream through decode slots with the
+decode step captured in one CUDA graph. Every entry point runs on the card
+unless it is given ``device="cpu"``, where each kernel's wrapper runs its
+plain PyTorch version. It imports neither JAX nor ``pipe_tpu``.
 """
 
 from .core.microbatch import NoChunk

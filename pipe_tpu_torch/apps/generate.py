@@ -4,15 +4,19 @@ Counterpart of the single-device paths of ``pipe_tpu/apps/generate.py``:
 restore the weights of a ``Trainer`` checkpoint (``train/state.py``; the
 training stage count need not match) or draw fresh ones from ``--seed``,
 then sample continuations with the KV-cached ``Generator`` on one device.
+``--prompts-file`` serves every prompt of a file (comma-separated ids, one
+prompt a line) through the continuous-batching engine (``serve/``) with
+``--slots`` decode slots instead, and prints one row per prompt.
 
 Usage:
     python -m pipe_tpu_torch.apps.generate [--resume DIR] [--prompt "ids,..."]
-        [--batch N] [--max-new N] [--temperature T] [--top-k K] [--beams K]
-        [--eos ID] [--int8] [--tiny] [--seed S] [--device cuda|cpu]
+        [--prompts-file F [--slots S]] [--batch N] [--max-new N]
+        [--temperature T] [--top-k K] [--beams K] [--eos ID] [--int8]
+        [--tiny] [--seed S] [--device cuda|cpu]
 
 A restored model takes its vocabulary from the checkpoint. Not ported yet,
-each refused with rc 2: ``--stages > 1`` (the ring decoder), ``--prompts-file``
-(the serve engine), ``--context-shards > 1`` and ``--family gpt2``.
+each refused with rc 2: ``--stages > 1`` (the ring decoder),
+``--context-shards > 1`` and ``--family gpt2``.
 """
 
 from __future__ import annotations
@@ -26,8 +30,6 @@ import sys
 _NOT_PORTED = (
     ("--stages > 1", lambda a: a.stages > 1,
      "A.8, the ring-pipelined decoder over a stage mesh"),
-    ("--prompts-file", lambda a: a.prompts_file is not None,
-     "A.6, the continuous-batching serve engine"),
     ("--context-shards > 1", lambda a: a.context_shards > 1,
      "A.10, the context-sharded generator"),
     ("--family gpt2", lambda a: a.family != "lm",
@@ -75,7 +77,10 @@ def build_argparser() -> argparse.ArgumentParser:
                    help="comma-separated prompt token ids (one sequence; "
                         "repeated to fill the batch)")
     p.add_argument("--prompts-file", default=None,
-                   help="not ported yet (the serve engine)")
+                   help="serve these prompts (comma-separated ids per "
+                        "line) through the slot engine, one row each")
+    p.add_argument("--slots", type=int, default=4,
+                   help="--prompts-file: decode slots of the serve engine")
     p.add_argument("--eos", type=int, default=None,
                    help="eos token id: a finished row emits pad after it")
     p.add_argument("--batch", type=int, default=1)
@@ -104,15 +109,28 @@ def build_argparser() -> argparse.ArgumentParser:
 
 def _check_args(args, model_cfg):
     """The prompt and generation checks, before any model is built: returns
-    the prompt ids and the generation config, or raises UsageError."""
+    the prompts and the generation config, or raises UsageError."""
     from pipe_tpu_torch.inference import GenerationConfig
 
-    try:
-        ids = [int(t) for t in args.prompt.split(",") if t.strip()]
-    except ValueError:
-        raise UsageError("prompt must be comma-separated integer token ids")
-    if not ids or any(i < 0 or i >= model_cfg.vocab for i in ids):
-        raise UsageError(f"prompt ids must be in [0, {model_cfg.vocab})")
+    if args.prompts_file:
+        from pipe_tpu_torch.apps.serve import read_prompts
+
+        prompts = read_prompts(args.prompts_file, model_cfg.vocab)
+        if args.beams > 1 or args.context_shards > 1:
+            raise UsageError("--prompts-file serves through the slot "
+                             "engine: beams and context shards are "
+                             "single-shot-generator-only")
+        if args.slots < 1:
+            raise UsageError(f"--slots must be >= 1, got {args.slots}")
+    else:
+        try:
+            ids = [int(t) for t in args.prompt.split(",") if t.strip()]
+        except ValueError:
+            raise UsageError(
+                "prompt must be comma-separated integer token ids")
+        if not ids or any(i < 0 or i >= model_cfg.vocab for i in ids):
+            raise UsageError(f"prompt ids must be in [0, {model_cfg.vocab})")
+        prompts = [ids]
     if args.eos is not None and (args.eos < 0 or args.eos >= model_cfg.vocab):
         raise UsageError(f"--eos must be in [0, {model_cfg.vocab})")
     if args.eos is not None and args.beams > 1:
@@ -126,7 +144,7 @@ def _check_args(args, model_cfg):
                                    eos_token_id=args.eos)
     except ValueError as e:
         raise UsageError(str(e))
-    return ids, gen_cfg
+    return prompts, gen_cfg
 
 
 def _checkpoint_state(resume: str) -> dict:
@@ -141,38 +159,35 @@ def _checkpoint_state(resume: str) -> dict:
         raise UsageError(f"--resume {resume}: {e}")
 
 
-def main(argv=None) -> int:
-    args = build_argparser().parse_args(argv)
-
+def model_source(args, model_cfg):
+    """``(config, checkpoint state or None)`` for ``--resume``: the config
+    takes the checkpoint's vocabulary. UsageError for a checkpoint that
+    cannot be read or holds another depth."""
+    if not args.resume:
+        return model_cfg, None
     import dataclasses
 
+    state = _checkpoint_state(args.resume)
+    model_cfg = dataclasses.replace(
+        model_cfg, vocab=state["layers.0.weight"].shape[0])
+    n_blocks = len({k.split(".")[1] for k in state}) - 2
+    if n_blocks != model_cfg.n_layers:
+        raise UsageError(
+            f"checkpoint holds {n_blocks} blocks but the model has "
+            f"{model_cfg.n_layers} layers")
+    return model_cfg, state
+
+
+def build_model(args, model_cfg, state):
+    """The ``PipelinedLM`` on ``--device``: weights drawn from ``--seed``,
+    then the checkpoint's (``state``) loaded over them; int8 block weights
+    with ``--int8``. UsageError for a checkpoint tensor of another shape."""
     import torch
 
-    from pipe_tpu_torch.inference import Generator, quantize_params
-    from pipe_tpu_torch.models.transformer_lm import (LMConfig, PipelinedLM,
+    from pipe_tpu_torch.inference import quantize_params
+    from pipe_tpu_torch.models.transformer_lm import (PipelinedLM,
                                                       build_sequential)
     from pipe_tpu_torch.utils.platform import resolve_device
-
-    model_cfg = LMConfig().tiny() if args.tiny else LMConfig()
-    try:
-        for flag, is_set, item in _NOT_PORTED:
-            if is_set(args):
-                raise UsageError(f"{flag} is not ported to pipe_tpu_torch "
-                                  f"yet (ROADMAP.md {item})")
-        state = None
-        if args.resume:
-            state = _checkpoint_state(args.resume)
-            model_cfg = dataclasses.replace(
-                model_cfg, vocab=state["layers.0.weight"].shape[0])
-            n_blocks = len({k.split(".")[1] for k in state}) - 2
-            if n_blocks != model_cfg.n_layers:
-                raise UsageError(
-                    f"checkpoint holds {n_blocks} blocks but the model has "
-                    f"{model_cfg.n_layers} layers")
-        ids, gen_cfg = _check_args(args, model_cfg)
-    except UsageError as e:
-        print(str(e), file=sys.stderr)
-        return 2
 
     device = resolve_device(args.device)
     seq = build_sequential(
@@ -182,12 +197,50 @@ def main(argv=None) -> int:
         try:
             seq.load_state_dict(state)
         except RuntimeError as e:        # a shape the config does not have
-            print(f"--resume {args.resume}: {e}", file=sys.stderr)
-            return 2
+            raise UsageError(f"--resume {args.resume}: {e}")
     model = PipelinedLM.from_sequential(model_cfg, seq)
-    if args.int8:
-        model = quantize_params(model)
-    prompt = torch.tensor([ids] * args.batch, dtype=torch.int64)
+    return quantize_params(model) if args.int8 else model
+
+
+def main(argv=None) -> int:
+    args = build_argparser().parse_args(argv)
+
+    import torch
+
+    from pipe_tpu_torch.inference import Generator
+    from pipe_tpu_torch.models.transformer_lm import LMConfig
+
+    model_cfg = LMConfig().tiny() if args.tiny else LMConfig()
+    try:
+        for flag, is_set, item in _NOT_PORTED:
+            if is_set(args):
+                raise UsageError(f"{flag} is not ported to pipe_tpu_torch "
+                                  f"yet (ROADMAP.md {item})")
+        model_cfg, state = model_source(args, model_cfg)
+        prompts, gen_cfg = _check_args(args, model_cfg)
+        model = build_model(args, model_cfg, state)
+    except UsageError as e:
+        print(str(e), file=sys.stderr)
+        return 2
+
+    if args.prompts_file:
+        # the serve engine: bucketed prefill + one shared decode step for
+        # the whole set (tests/test_torch_serve.py holds it to per-prompt
+        # generator calls)
+        from pipe_tpu_torch.serve import (BucketSpec, ServeEngine,
+                                          SingleDeviceSlotBackend)
+        longest = max(len(p) for p in prompts)
+        buckets = BucketSpec.pow2(min_len=min(8, longest), max_len=longest)
+        backend = SingleDeviceSlotBackend(
+            model, num_slots=args.slots,
+            max_len=buckets.max_len + args.max_new, gen=gen_cfg,
+            buckets=buckets)
+        eng = ServeEngine(backend)
+        for resp in eng.serve(prompts, seeds=[args.seed + 1] * len(prompts)):
+            print(",".join(str(int(t)) for t in resp.tokens))
+        return 0
+
+    prompt = torch.tensor(prompts * args.batch, dtype=torch.int64)
     out = Generator(model, gen_cfg).generate(prompt, seed=args.seed + 1)
     for row in out.tolist():
         print(",".join(str(t) for t in row))

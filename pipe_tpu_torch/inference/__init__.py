@@ -2,10 +2,12 @@
 (``generate``) and int8 weight-only quantization (``quant``)."""
 
 from .generate import (GenerationConfig, Generator, check_positions,
-                       head_logits, sample_logits, sequence_lengths)
+                       head_logits, keyed_uniform, sample_logits, seed_word,
+                       sequence_lengths)
 from .quant import (QuantLeaf, QuantLinear, dequant_tree, quantize_kv_rows,
                     quantize_params)
 
 __all__ = ["GenerationConfig", "Generator", "check_positions", "head_logits",
-           "sample_logits", "sequence_lengths", "QuantLeaf", "QuantLinear",
-           "quantize_params", "dequant_tree", "quantize_kv_rows"]
+           "keyed_uniform", "sample_logits", "seed_word", "sequence_lengths",
+           "QuantLeaf", "QuantLinear", "quantize_params", "dequant_tree",
+           "quantize_kv_rows"]

@@ -15,28 +15,39 @@ order: the same seed gives the same tokens. ``pipe_tpu``'s key chain cannot
 be reproduced, so sampled tokens are held to the port's own reproducibility
 and to the distribution, not to JAX's bits.
 
+The serve engine draws instead from :func:`keyed_uniform`: one uniform per
+(request seed, step, vocab index) from a counter-based Philox4x32-10, so a
+slot's tokens do not depend on what the other slots hold, and the draw can
+be captured in a CUDA graph. Served sampled tokens are held to that form's
+own reproducibility and to the distribution, not to this generator's
+stream.
+
 The decode loop reads nothing back to the host: tokens and the EOS ``done``
 mask stay on the device, positions are the loop's own host integers, and
 the causal mask table is built once per call. Eager PyTorch compiles nothing
 per shape, so ``pipe_tpu``'s per-shape program-cache warning has no
-counterpart; its telemetry registry (``obs/telemetry.py``) is not ported
-(ROADMAP.md A.7), so the generator records no counters.
+counterpart. Each call records its wall time and tokens into the telemetry
+registry (``obs/telemetry.py``) when it is enabled, as ``pipe_tpu`` does.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import Optional
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..obs.telemetry import get_registry
+from ..ops.flash_attention import philox4x32
 from ..ops.layers import causal_table
 from .quant import QuantLinear
 
 __all__ = ["GenerationConfig", "Generator", "check_positions",
-           "head_logits", "sample_logits", "sequence_lengths"]
+           "head_logits", "keyed_uniform", "sample_logits", "seed_word",
+           "sequence_lengths"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -171,10 +182,12 @@ def head_logits(model, h: torch.Tensor) -> torch.Tensor:
 
 
 def sample_logits(logits: torch.Tensor, cfg: GenerationConfig,
-                  generator: Optional[torch.Generator] = None
-                  ) -> torch.Tensor:
+                  generator: Optional[torch.Generator] = None, *,
+                  uniform: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Next-token ids ``[b]`` (int64) from ``logits [b, vocab]`` (float32
-    math). Sampling draws one uniform per logit from ``generator``."""
+    math). Sampling draws one uniform per logit from ``generator``, or takes
+    them from ``uniform`` (``[b, vocab]`` in (0, 1), e.g.
+    :func:`keyed_uniform`), then picks by Gumbel-max."""
     logits = logits.to(torch.float32)
     if cfg.temperature == 0.0:
         return torch.argmax(logits, dim=-1)
@@ -182,9 +195,43 @@ def sample_logits(logits: torch.Tensor, cfg: GenerationConfig,
     if cfg.top_k is not None:
         kth = torch.topk(logits, cfg.top_k, dim=-1).values[..., -1:]
         logits = torch.where(logits >= kth, logits, -1e30)
-    u = torch.rand(logits.shape, generator=generator, device=logits.device)
-    gumbel = -torch.log(-torch.log(u.clamp_(min=torch.finfo(u.dtype).tiny)))
+    if uniform is None:
+        u = torch.rand(logits.shape, generator=generator,
+                       device=logits.device)
+        u = u.clamp_(min=torch.finfo(u.dtype).tiny)
+    else:
+        u = uniform
+    gumbel = -torch.log(-torch.log(u))
     return torch.argmax(logits + gumbel, dim=-1)
+
+
+_MASK32 = 0xFFFFFFFF
+# Philox counter word 3 of the sampling draws; the attention-dropout mask
+# (``ops/flash_attention.py``) uses 0 there, so the two never share a word.
+_SAMPLE_STREAM = 1
+
+
+def seed_word(seed: int) -> int:
+    """A request seed (any integer) as the int64 whose 64 bits are the seed
+    modulo 2**64: the form :func:`keyed_uniform` takes in a tensor."""
+    return ((int(seed) % (1 << 64)) ^ (1 << 63)) - (1 << 63)
+
+
+def keyed_uniform(seeds: torch.Tensor, steps: torch.Tensor,
+                  vocab: int) -> torch.Tensor:
+    """``[b, vocab]`` float64 uniforms in (0, 1), one per (row's seed, row's
+    step, vocab index) and a function of those alone: word 0 of
+    Philox4x32-10 at counter ``(vocab index, step, 0, 1)`` under the key
+    ``(seed low 32 bits, seed high 32 bits)``, plus a half, over 2**32.
+    ``seeds`` (int64, :func:`seed_word`) and ``steps`` (int64) are ``[b]``
+    device tensors, so the draw reads nothing back to the host."""
+    v = torch.arange(vocab, dtype=torch.int64, device=seeds.device)[None]
+    step = (steps & _MASK32)[:, None]
+    zero = torch.zeros_like(step)
+    w0 = philox4x32(v, step, zero, zero + _SAMPLE_STREAM,
+                    (seeds & _MASK32)[:, None],
+                    ((seeds >> 32) & _MASK32)[:, None])[0]
+    return (w0.to(torch.float64) + 0.5) * (1.0 / (1 << 32))
 
 
 def sequence_lengths(tokens, eos_token_id: Optional[int]) -> torch.Tensor:
@@ -212,8 +259,14 @@ class Generator:
     ``layer_scan`` is accepted for ``pipe_tpu``'s signature and changes
     nothing: eager PyTorch has no scan, so both values run the same per-layer
     loop with per-layer caches written in place. ``layer_scan=False`` with
-    beam search is refused, as in ``pipe_tpu``. ``phase_timing`` needs the
-    telemetry registry, not ported yet.
+    beam search is refused, as in ``pipe_tpu``.
+
+    With the telemetry registry enabled, each call waits for the device and
+    records ``serve.generate_sec`` (``serve.beam_sec`` for beam search),
+    ``serve.tokens`` and ``serve.tokens_per_sec``. ``phase_timing=True``
+    also times a prefill-only pass per call and records
+    ``serve.prefill_sec`` and ``serve.decode_sec`` (the call's time less
+    the prefill's); it runs the prefill once more, so it is for profiling.
     """
 
     def __init__(self, model, gen_cfg: GenerationConfig = GenerationConfig(),
@@ -227,19 +280,49 @@ class Generator:
                 "layer_scan=False is not implemented for beam search "
                 "(the beam path's cache-gather dominates its traffic; "
                 "use the default scan path)")
-        if phase_timing:
-            raise NotImplementedError(
-                "Generator(phase_timing=True) records into the telemetry "
-                "registry, not ported to pipe_tpu_torch yet (ROADMAP.md "
-                "A.7: obs/*)")
         self.model = model
         self.gen_cfg = gen_cfg
+        self.phase_timing = phase_timing
 
     # --- internals ---
 
     @property
     def device(self) -> torch.device:
         return next(self.model.parameters()).device
+
+    def _sync(self) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def _observe(self, name: str, prompt: torch.Tensor, t0: float) -> float:
+        """Record one finished call (the device waited for) into the
+        registry: its seconds under ``name``, and the tokens it made."""
+        reg = get_registry()
+        self._sync()
+        dt = time.perf_counter() - t0
+        reg.histogram(name).observe(dt)
+        tokens = prompt.shape[0] * self.gen_cfg.max_new_tokens
+        reg.counter("serve.tokens").inc(tokens)
+        if dt > 0:
+            reg.gauge("serve.tokens_per_sec").set(tokens / dt)
+        return dt
+
+    def _observe_phases(self, prompt: torch.Tensor, e2e_sec: float) -> None:
+        """Time a prefill-only pass (the prompt's pass and the first
+        token's logits) and split the call's time into prefill and
+        decode."""
+        reg = get_registry()
+        p = prompt.shape[1]
+        total = p + self.gen_cfg.max_new_tokens
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            h, _ = self._prefill(prompt, total,
+                                 causal_table(total, prompt.device))
+            head_logits(self.model, h[:, -1])
+        self._sync()
+        pf = time.perf_counter() - t0
+        reg.histogram("serve.prefill_sec").observe(pf)
+        reg.histogram("serve.decode_sec").observe(max(e2e_sec - pf, 0.0))
 
     def _prompt(self, prompt) -> torch.Tensor:
         if not isinstance(prompt, torch.Tensor):
@@ -346,8 +429,14 @@ class Generator:
             return self.generate_with_scores(prompt)[0]
         if generator is None:
             generator = torch.Generator(device=self.device).manual_seed(seed)
+        t0 = time.perf_counter()
         with torch.inference_mode():
-            return self._generate(prompt, generator)
+            out = self._generate(prompt, generator)
+        if get_registry().enabled:
+            dt = self._observe("serve.generate_sec", prompt, t0)
+            if self.phase_timing:
+                self._observe_phases(prompt, dt)
+        return out
 
     def generate_with_scores(self, prompt):
         """Beam search: ``(tokens [b, max_new], scores [b])``, the best
@@ -357,8 +446,12 @@ class Generator:
         prompt = self._prompt(prompt)
         check_positions(self.model, prompt.shape[1],
                         self.gen_cfg.max_new_tokens)
+        t0 = time.perf_counter()
         with torch.inference_mode():
-            return self._generate_beam(prompt)
+            out = self._generate_beam(prompt)
+        if get_registry().enabled:
+            self._observe("serve.beam_sec", prompt, t0)
+        return out
 
     def generate_with_lengths(self, prompt, *, seed: int = 0,
                               generator: Optional[torch.Generator] = None):

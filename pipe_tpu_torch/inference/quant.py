@@ -61,15 +61,15 @@ def quantize_leaf(weight: torch.Tensor) -> QuantLeaf:
 
 class QuantLinear(nn.Module):
     """A block ``Linear`` with its weight held as int8 codes and float32
-    scales (buffers ``q`` and ``scale``), dequantized to the compute dtype
-    at every call; the bias stays float."""
+    scales (buffers ``q`` and ``scale``), dequantized to the dtype of the
+    activations (the compute dtype) at every call; the bias stays float and
+    is cast to it too."""
 
     def __init__(self, linear: Linear):
         super().__init__()
         leaf = quantize_leaf(linear.weight)
         self.in_features = linear.in_features
         self.features = linear.features
-        self.compute_dtype = linear.weight.dtype
         self.register_buffer("q", leaf.q)
         self.register_buffer("scale", leaf.scale)
         self.bias = linear.bias
@@ -79,7 +79,8 @@ class QuantLinear(nn.Module):
         return QuantLeaf(self.q, self.scale)
 
     def forward(self, x, ctx: StageCtx = StageCtx()):
-        return F.linear(x, self.leaf.dequant(self.compute_dtype), self.bias)
+        bias = None if self.bias is None else self.bias.to(x.dtype)
+        return F.linear(x, self.leaf.dequant(x.dtype), bias)
 
 
 def _quantize_linears(module: nn.Module) -> None:

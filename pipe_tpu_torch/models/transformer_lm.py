@@ -8,6 +8,14 @@ embed | blocks | decoder factorization that the generators run; its
 stage-stacked SPMD executor is not ported yet. :func:`pipelined_lm_balance`
 gives its cut as a ``Pipe`` balance over this ``Sequential``, which is how
 the trainer runs it.
+
+Mixed precision as in ``pipe_tpu``: the weights live in float32 whatever
+``compute_dtype`` is; the embedding stage casts its output to the compute
+dtype, the blocks cast their weights to it at use, and the decoder computes
+float32 logits with its float32 weights. ``pipe_tpu``'s own
+``build_sequential`` ignores ``compute_dtype``; here the ``Sequential`` is
+also what the trainer runs in place of ``PipelinedLM``, so it follows
+``PipelinedLM``'s casts.
 """
 
 from __future__ import annotations
@@ -39,7 +47,7 @@ class LMConfig:
     dropout: float = 0.2
     seq_len: int = 128          # bptt
     causal: bool = True
-    compute_dtype: torch.dtype = torch.float32   # weights and activations
+    compute_dtype: torch.dtype = torch.float32   # activations (weights: f32)
     attn_impl: str = "auto"                      # auto | xla | flash
     # Vocab block of pipe_tpu's streaming cross-entropy (ops/losses.py);
     # None is the dense decoder + per_row_ce path, the only one ported.
@@ -85,16 +93,18 @@ def build_sequential(cfg: LMConfig, *, device=DEFAULT_DEVICE,
                      generator: Optional[torch.Generator] = None
                      ) -> Sequential:
     """Encoder + N blocks + Decoder as one ``Sequential`` on ``device``, with
-    weights drawn from ``generator`` (a fresh one seeded 0 if None)."""
+    float32 weights drawn from ``generator`` (a fresh one seeded 0 if None);
+    activations after the positional encoding are in ``cfg.compute_dtype``."""
     dev = resolve_device(device)
     if generator is None:
         generator = torch.Generator(device=dev).manual_seed(0)
-    kw = dict(dtype=cfg.compute_dtype, device=dev)
+    kw = dict(device=dev)
     layers = [
         Embedding(cfg.vocab, cfg.d_model, scale=True, generator=generator,
                   **kw),
         PositionalEncoding(cfg.d_model, cfg.dropout,
-                           max_len=max(5000, cfg.seq_len), **kw),
+                           max_len=max(5000, cfg.seq_len),
+                           compute_dtype=cfg.compute_dtype, **kw),
     ]
     for _ in range(cfg.n_layers):
         layers.append(TransformerEncoderLayer(
@@ -154,11 +164,21 @@ class PipelinedLM(PipelinedTransformer):
         h = self.posenc(h, ctx=ctx.fold(1))
         return h.to(self.cfg.compute_dtype)
 
-    def embed_at(self, tokens: torch.Tensor, pos: int) -> torch.Tensor:
+    def embed_at(self, tokens: torch.Tensor, pos) -> torch.Tensor:
         """Embed tokens at positions ``[pos, pos + q)``: ``pre_fn`` with a
-        position offset, for incremental decoding (no dropout)."""
+        position offset, for incremental decoding (no dropout). ``pos`` is a
+        host integer, or an int64 tensor ``[b]`` with one per row of
+        ``tokens [b, q]``, clamped to the table as ``pipe_tpu``'s
+        ``dynamic_slice`` clamps (a gather that reads nothing back)."""
         h = self.embed(tokens)
-        pe = self.posenc.pe[pos:pos + tokens.shape[-1]]
+        q = tokens.shape[-1]
+        pe = self.posenc.pe
+        if isinstance(pos, torch.Tensor):
+            rows = (pos.clamp(0, pe.shape[0] - q)[:, None]
+                    + torch.arange(q, device=pos.device))
+            pe = pe[rows]                                   # [b, q, d]
+        else:
+            pe = pe[pos:pos + q]
         return (h + pe).to(self.cfg.compute_dtype)
 
     def embed_tree(self, tokens: torch.Tensor, pos: int,

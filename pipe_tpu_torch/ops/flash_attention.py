@@ -75,9 +75,10 @@ def _mulhilo(a: torch.Tensor, m: int) -> Tuple[torch.Tensor, torch.Tensor]:
     return hi, t & _MASK32
 
 
-def philox4x32(c0, c1, c2, c3, k0: int, k1: int):
+def philox4x32(c0, c1, c2, c3, k0, k1):
     """Philox4x32-10 of the counter ``(c0, c1, c2, c3)`` (int64 tensors of
-    uint32 values, broadcast together) under the key ``(k0, k1)``: the four
+    uint32 values, broadcast together) under the key ``(k0, k1)`` (uint32
+    ints, or int64 tensors that broadcast with the counter): the four
     output words, as ``csrc/philox.cuh`` computes them."""
     c = [torch.as_tensor(x, dtype=torch.int64) for x in (c0, c1, c2, c3)]
     for r in range(10):

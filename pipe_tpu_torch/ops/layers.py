@@ -6,11 +6,17 @@ initial weights from an explicit ``torch.Generator`` with the same
 distributions as ``pipe_tpu``. Every layer's ``forward`` takes the stage
 context as ``ctx=`` (its seed drives dropout in training).
 
+Weights keep the dtype they were built in (float32 by default) and are cast
+at use to the dtype of the activations they meet: a model built for bfloat16
+compute holds float32 weights and computes in bfloat16, as ``pipe_tpu`` casts
+its float32 params to the compute dtype at use.
+
 Attention runs the hand-written flash kernels (``ops/flash_attention.py``:
 forward, dQ and dK/dV, with attention dropout inside) or the plain
 einsum-softmax path, chosen by ``impl``. The projections and the feed-forward
 stay ``torch`` matmuls. Cached decoding (``decode``, ``make_cache``) is plain
-einsum-softmax over the whole KV cache, as in ``pipe_tpu``.
+einsum-softmax over the whole KV cache, as in ``pipe_tpu``; its position is a
+host integer for the whole batch or an int64 tensor with one per row.
 """
 
 from __future__ import annotations
@@ -25,7 +31,8 @@ from torch import nn
 
 from ..core.partition import StageCtx
 from ..utils.platform import DEFAULT_DEVICE, resolve_device
-from .flash_attention import flash_attention, supports
+from .flash_attention import (_DTYPE_CODES, MAX_HEAD_DIM, flash_attention,
+                              supports)
 
 __all__ = [
     "Sequential", "Lambda", "Linear", "Embedding", "LayerNorm", "Dropout",
@@ -92,7 +99,8 @@ class Sequential(nn.Module):
 
 class Linear(nn.Module):
     """``y = x W^T + b`` with ``weight [out, in]`` (``pipe_tpu`` keeps
-    ``[in, out]``); weights and bias uniform in ``±1/sqrt(in)``."""
+    ``[in, out]``); weights and bias uniform in ``±1/sqrt(in)``, cast to
+    ``x``'s dtype at use."""
 
     def __init__(self, in_features: int, features: int, use_bias: bool = True,
                  *, dtype=torch.float32, device=DEFAULT_DEVICE,
@@ -108,7 +116,8 @@ class Linear(nn.Module):
                      if use_bias else None)
 
     def forward(self, x, ctx: StageCtx = StageCtx()):
-        return F.linear(x, self.weight, self.bias)
+        bias = None if self.bias is None else self.bias.to(x.dtype)
+        return F.linear(x, self.weight.to(x.dtype), bias)
 
 
 class Embedding(nn.Module):
@@ -136,7 +145,8 @@ class Embedding(nn.Module):
 
 
 class LayerNorm(nn.Module):
-    """Layer norm over the last dim: biased variance, eps 1e-5."""
+    """Layer norm over the last dim: biased variance, eps 1e-5; gain and
+    bias cast to ``x``'s dtype at use."""
 
     def __init__(self, features: int, eps: float = 1e-5, *,
                  dtype=torch.float32, device=DEFAULT_DEVICE):
@@ -147,7 +157,8 @@ class LayerNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(features, dtype=dtype, device=dev))
 
     def forward(self, x, ctx: StageCtx = StageCtx()):
-        return F.layer_norm(x, x.shape[-1:], self.weight, self.bias, self.eps)
+        return F.layer_norm(x, x.shape[-1:], self.weight.to(x.dtype),
+                            self.bias.to(x.dtype), self.eps)
 
 
 def _dropout(x: torch.Tensor, rate: float, seed: int) -> torch.Tensor:
@@ -193,25 +204,34 @@ def dot_product_attention(q, k, v, *, causal: bool = False,
     return torch.einsum("bhqk,bkhd->bqhd", weights, v)
 
 
-def flash_auto_ok(s: int, device: torch.device) -> bool:
+def flash_auto_ok(s: int, device: torch.device,
+                  dtype: torch.dtype = torch.float32,
+                  head_dim: int = MAX_HEAD_DIM) -> bool:
     """Whether ``impl="auto"`` picks the flash kernel: on a CUDA device,
-    whenever the kernel takes ``s``. Where plain attention is faster on the
-    H100 is not measured yet (ROADMAP.md); the v5e crossover of ``pipe_tpu``
-    does not carry over."""
-    return torch.device(device).type == "cuda" and supports(s)
+    whenever the kernel takes the sequence length, the dtype (float32 or
+    bfloat16) and the head dim (up to ``MAX_HEAD_DIM``); plain attention
+    otherwise. Where plain attention is faster on the H100 is not measured
+    yet (ROADMAP.md); the v5e crossover of ``pipe_tpu`` does not carry
+    over."""
+    return (torch.device(device).type == "cuda" and supports(s)
+            and dtype in _DTYPE_CODES and head_dim <= MAX_HEAD_DIM)
 
 
 def _flash_route(impl: str, s: int, device: torch.device,
-                 dropout_active: bool) -> bool:
+                 dropout_active: bool, dtype: torch.dtype = torch.float32,
+                 head_dim: int = MAX_HEAD_DIM) -> bool:
     """Whether :class:`MultiHeadAttention` calls ``flash_attention``. On the
     card, active dropout does not change the choice: the kernels drop
     attention weights themselves. On the CPU, active dropout takes the plain
-    path, as it does in the Pallas module's interpret mode."""
+    path, as it does in the Pallas module's interpret mode. ``impl="flash"``
+    takes the kernel whenever it takes ``s`` (and raises on the card for a
+    dtype or head dim it cannot take); ``auto`` falls back to plain
+    attention there."""
     if impl == "xla" or (dropout_active and device.type != "cuda"):
         return False
     if impl == "flash":
         return supports(s)
-    return flash_auto_ok(s, device)
+    return flash_auto_ok(s, device, dtype, head_dim)
 
 
 class MultiHeadAttention(nn.Module):
@@ -257,7 +277,7 @@ class MultiHeadAttention(nn.Module):
         v = self.wv(x).view(b, s, h, hd)
         dk = ctx.fold(1).seed if ctx.seed is not None else None
         dropout_active = self.dropout > 0.0 and ctx.train and dk is not None
-        if _flash_route(self.impl, s, x.device, dropout_active):
+        if _flash_route(self.impl, s, x.device, dropout_active, q.dtype, hd):
             o = flash_attention(
                 q, k, v, causal=self.causal,
                 dropout_rate=self.dropout if dropout_active else 0.0,
@@ -271,14 +291,15 @@ class MultiHeadAttention(nn.Module):
     def make_cache(self, batch: int, max_len: int, dtype=None) -> dict:
         """Zeroed KV cache for incremental decoding: ``{"k", "v"}`` of
         ``[batch, max_len, nhead, head_dim]`` on the weights' device, in
-        ``dtype`` (default: the weights' dtype)."""
+        ``dtype`` (default: the weights' dtype; callers that compute in
+        another dtype pass it)."""
         w = next(self.parameters())
         shape = (batch, max_len, self.nhead, self.head_dim)
         dt = w.dtype if dtype is None else dtype
         return {"k": torch.zeros(shape, dtype=dt, device=w.device),
                 "v": torch.zeros(shape, dtype=dt, device=w.device)}
 
-    def decode(self, x, cache: dict, pos: int, tree=None, *,
+    def decode(self, x, cache: dict, pos, tree=None, *,
                allowed: Optional[torch.Tensor] = None):
         """Incremental self-attention with a KV cache (inference only).
 
@@ -290,15 +311,23 @@ class MultiHeadAttention(nn.Module):
         which is the causal mask of ``forward`` restricted to the live
         prefix. Returns ``(out [b, q, d], cache)``.
 
-        ``pos`` is a host integer. A write past the cache raises
-        ``ValueError`` (``pipe_tpu``'s ``dynamic_update_slice`` clamps it).
+        ``pos`` is a host integer for every row, or an int64 tensor ``[b]``
+        with one per row (the serve engine's slots, whose positions differ
+        and live on the device). A host-integer write past the cache raises
+        ``ValueError``. The tensor form reads no value back to the host: it
+        clamps each row's first written row to ``[0, max_len - q]``, as
+        ``pipe_tpu``'s ``dynamic_update_slice`` clamps, so a slot past its
+        cache (a dead serve slot) writes its last rows and its queries see
+        the clamped rows' mask.
 
-        ``tree`` (optional ``[q, q]`` bool): speculative tree verification.
-        The q rows are draft-tree nodes; K/V still land at rows
-        ``[pos, pos + q)``, but query row j attends the rows before ``pos``
-        plus the chunk rows r where ``tree[j, r]``. ``allowed`` (optional
-        ``[q, max_len]`` bool) is the mask itself, precomputed by a caller
-        that decodes many steps (a row slice of :func:`causal_table`).
+        ``tree`` (optional ``[q, q]`` bool, host-integer ``pos`` only):
+        speculative tree verification. The q rows are draft-tree nodes; K/V
+        still land at rows ``[pos, pos + q)``, but query row j attends the
+        rows before ``pos`` plus the chunk rows r where ``tree[j, r]``.
+        ``allowed`` (optional bool) is the mask itself, precomputed by a
+        caller that decodes many steps: ``[q, max_len]`` rows of
+        :func:`causal_table` for a host-integer ``pos``, ``[b, q, max_len]``
+        (the table's rows gathered per row) for the tensor form.
         """
         if not self.causal:
             raise ValueError("KV-cache decode requires causal attention")
@@ -306,22 +335,36 @@ class MultiHeadAttention(nn.Module):
         h, hd = self.nhead, self.head_dim
         ck, cv = cache["k"], cache["v"]
         max_len = ck.shape[1]
-        if pos < 0 or pos + q > max_len:
-            raise ValueError(
-                f"decode writes cache rows [{pos}, {pos + q}) of a cache of "
-                f"{max_len} rows")
         qh = self.wq(x).view(b, q, h, hd)
-        ck[:, pos:pos + q] = self.wk(x).view(b, q, h, hd).to(ck.dtype)
-        cv[:, pos:pos + q] = self.wv(x).view(b, q, h, hd).to(cv.dtype)
+        kh = self.wk(x).view(b, q, h, hd).to(ck.dtype)
+        vh = self.wv(x).view(b, q, h, hd).to(cv.dtype)
+        if isinstance(pos, torch.Tensor):
+            if tree is not None:
+                raise ValueError("tree verification takes a host-integer pos")
+            rows = (pos.clamp(0, max_len - q)[:, None]
+                    + torch.arange(q, device=x.device))           # [b, q]
+            slot = torch.arange(b, device=x.device)[:, None].expand(b, q)
+            ck.index_put_((slot, rows), kh)
+            cv.index_put_((slot, rows), vh)
+            if allowed is None:
+                allowed = causal_table(max_len, x.device)[rows]
+            allowed = allowed[:, None]                      # [b, 1, q, max_len]
+        else:
+            if pos < 0 or pos + q > max_len:
+                raise ValueError(
+                    f"decode writes cache rows [{pos}, {pos + q}) of a cache "
+                    f"of {max_len} rows")
+            ck[:, pos:pos + q] = kh
+            cv[:, pos:pos + q] = vh
+            if tree is not None:
+                tree = torch.as_tensor(tree, dtype=torch.bool, device=x.device)
+                rel = torch.arange(max_len, device=x.device) - pos
+                within = tree[:, rel.clamp(0, q - 1)]        # [q, max_len]
+                allowed = (rel < 0) | ((rel < q) & within)
+            elif allowed is None:
+                allowed = causal_table(max_len, x.device)[pos:pos + q]
         logits = torch.einsum("bqhd,bkhd->bhqk", qh, ck).to(torch.float32)
         logits = logits / math.sqrt(hd)
-        if tree is not None:
-            tree = torch.as_tensor(tree, dtype=torch.bool, device=x.device)
-            rel = torch.arange(max_len, device=x.device) - pos
-            within = tree[:, rel.clamp(0, q - 1)]            # [q, max_len]
-            allowed = (rel < 0) | ((rel < q) & within)
-        elif allowed is None:
-            allowed = causal_table(max_len, x.device)[pos:pos + q]
         logits = torch.where(allowed, logits, -1e30)
         weights = torch.softmax(logits, dim=-1).to(x.dtype)
         o = torch.einsum("bhqk,bkhd->bqhd", weights, cv).reshape(
@@ -331,7 +374,8 @@ class MultiHeadAttention(nn.Module):
 
 def causal_table(max_len: int, device) -> torch.Tensor:
     """``[max_len, max_len]`` bool, row i true at keys ``<= i``: row slices
-    ``[pos:pos + q]`` are :meth:`MultiHeadAttention.decode`'s causal mask."""
+    ``[pos:pos + q]`` (or rows gathered by a position tensor) are
+    :meth:`MultiHeadAttention.decode`'s causal mask."""
     return torch.ones((max_len, max_len), dtype=torch.bool,
                       device=device).tril_()
 
@@ -388,7 +432,7 @@ class TransformerEncoderLayer(_TransformerBlockBase):
         h = self.drop(h, ctx=ctx.fold(3))
         return self.ln2(x + h)
 
-    def decode(self, x, cache: dict, pos: int, tree=None, *,
+    def decode(self, x, cache: dict, pos, tree=None, *,
                allowed: Optional[torch.Tensor] = None):
         """Incremental :meth:`forward` (inference: no dropout), attention
         served from the KV cache (:meth:`MultiHeadAttention.decode`)."""
@@ -412,7 +456,7 @@ class PreLNBlock(_TransformerBlockBase):
         h = self.ff2(h)
         return x + self.drop(h, ctx=ctx.fold(2))
 
-    def decode(self, x, cache: dict, pos: int, tree=None, *,
+    def decode(self, x, cache: dict, pos, tree=None, *,
                allowed: Optional[torch.Tensor] = None):
         """Incremental :meth:`forward` (inference: no dropout), attention
         served from the KV cache (:meth:`MultiHeadAttention.decode`)."""
@@ -424,14 +468,19 @@ class PreLNBlock(_TransformerBlockBase):
 
 class PositionalEncoding(nn.Module):
     """Sinusoidal positions + dropout (the tutorial's table, built in numpy),
-    batch-first ``[batch, seq, d]``."""
+    batch-first ``[batch, seq, d]``. The table is held in ``dtype``; the
+    output is cast to ``compute_dtype`` when one is given (the LM's embed
+    stage: ``pipe_tpu``'s ``pre_fn`` adds float32 positions, then casts to
+    the compute dtype)."""
 
     def __init__(self, d_model: int, dropout: float = 0.0,
                  max_len: int = 5000, *, dtype=torch.float32,
+                 compute_dtype: Optional[torch.dtype] = None,
                  device=DEFAULT_DEVICE):
         super().__init__()
         dev = resolve_device(device)
         self.d_model = d_model
+        self.compute_dtype = compute_dtype
         self.drop = Dropout(dropout)
         position = np.arange(max_len)[:, None]
         div = np.exp(np.arange(0, d_model, 2) * (-math.log(10000.0) / d_model))
@@ -443,11 +492,13 @@ class PositionalEncoding(nn.Module):
 
     def forward(self, x, ctx: StageCtx = StageCtx()):
         s = x.shape[-2]
-        return self.drop(x + self.pe[:s], ctx=ctx)
+        y = self.drop(x + self.pe[:s], ctx=ctx)
+        return y if self.compute_dtype is None else y.to(self.compute_dtype)
 
 
 class Decoder(nn.Module):
-    """Final projection to vocab logits."""
+    """Final projection to vocab logits, in the projection's dtype (float32
+    logits from bfloat16 hidden states, as ``pipe_tpu``'s ``post_fn``)."""
 
     def __init__(self, d_model: int, vocab: int, *, dtype=torch.float32,
                  device=DEFAULT_DEVICE,
@@ -457,4 +508,4 @@ class Decoder(nn.Module):
                            generator=generator)
 
     def forward(self, x, ctx: StageCtx = StageCtx()):
-        return self.proj(x)
+        return self.proj(x.to(self.proj.weight.dtype))

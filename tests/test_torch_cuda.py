@@ -307,3 +307,78 @@ def test_generation_modes_on_the_card(cuda):
         max_new_tokens=8, temperature=0.0,
         eos_token_id=eos)).generate_with_lengths(prompt)
     assert int(lengths[0]) <= 3
+
+
+def _serve_model(cuda):
+    cfg = dataclasses.replace(pt.LMConfig().tiny(), n_layers=2)
+    seq = pt.build_sequential(
+        cfg, device=cuda, generator=torch.Generator(device=cuda).manual_seed(3))
+    return pt.PipelinedLM.from_sequential(cfg, seq)
+
+
+def _serve_prompts(n, lo=3, hi=14):
+    gen = torch.Generator().manual_seed(5)
+    lens = torch.randint(lo, hi, (n,), generator=gen).tolist()
+    return [torch.randint(1, 101, (k,), generator=gen).tolist() for k in lens]
+
+
+def _staggered_serve(backend, prompts, seeds):
+    from pipe_tpu_torch.serve import ServeEngine
+
+    eng = ServeEngine(backend)
+    ids = [eng.submit(p, seed=s).id for p, s in zip(prompts[:2], seeds)]
+    for p, s in zip(prompts[2:], seeds[2:]):
+        eng.tick()
+        ids.append(eng.submit(p, seed=s).id)
+    eng.run_until_idle()
+    return [eng.response(i).tokens for i in ids]
+
+
+@pytest.mark.parametrize("temperature", [0.0, 0.9])
+def test_serve_engine_captures_once_and_equals_eager(cuda, temperature):
+    """A tiny engine on the card over staggered mixed-length traffic: the
+    decode step is captured once (``decode_traces`` + 1) and replayed every
+    tick, launches no flash kernel, and gives the tokens of the same engine
+    run eagerly on the card (same shapes, same kernels)."""
+    from pipe_tpu_torch.inference import GenerationConfig
+    from pipe_tpu_torch.obs.telemetry import get_registry
+    from pipe_tpu_torch.serve import BucketSpec, SingleDeviceSlotBackend
+
+    model = _serve_model(cuda)
+    gen = GenerationConfig(max_new_tokens=12, temperature=temperature,
+                           top_k=20)
+    prompts = _serve_prompts(9)
+    seeds = list(range(9))
+    kw = dict(num_slots=3, max_len=28, gen=gen, buckets=BucketSpec.of(8, 16))
+    reg = get_registry()
+    traces = reg.counter("serve.engine.decode_traces").value
+    launches = tfa.flash_attention_fwd.launches
+    graph = SingleDeviceSlotBackend(model, **kw)
+    got = _staggered_serve(graph, prompts, seeds)
+    assert reg.counter("serve.engine.decode_traces").value - traces == 1
+    assert tfa.flash_attention_fwd.launches == launches
+    assert graph.program_stats()["decode_graph"]
+    assert graph.program_stats()["prefill_programs"] == 2
+    eager = SingleDeviceSlotBackend(model, cuda_graph=False, **kw)
+    assert _staggered_serve(eager, prompts, seeds) == got
+    assert not eager.program_stats()["decode_graph"]
+    assert all(len(t) == 12 for t in got)
+
+
+def test_serve_graph_replay_reads_the_new_slots_cache(cuda):
+    """One slot: request A runs to its end, then B is admitted into the same
+    slot, and the replayed graph decodes B from B's cache: B's tokens are
+    those of B served alone by a fresh engine."""
+    from pipe_tpu_torch.inference import GenerationConfig
+    from pipe_tpu_torch.serve import (BucketSpec, ServeEngine,
+                                      SingleDeviceSlotBackend)
+
+    model = _serve_model(cuda)
+    gen = GenerationConfig(max_new_tokens=10, temperature=0.0)
+    a, b = _serve_prompts(2, lo=6, hi=12)
+    kw = dict(num_slots=1, max_len=26, gen=gen, buckets=BucketSpec.of(16))
+    backend = SingleDeviceSlotBackend(model, **kw)
+    both = ServeEngine(backend).serve([a, b])
+    alone = ServeEngine(SingleDeviceSlotBackend(model, **kw)).serve([b])
+    assert both[1].tokens == alone[0].tokens
+    assert both[0].tokens != both[1].tokens

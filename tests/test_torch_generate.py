@@ -282,8 +282,7 @@ def test_generator_refusals(models):
 
     with pytest.raises(TypeError, match="embed_at"):
         Generator(NoEmbed())
-    with pytest.raises(NotImplementedError, match="A.7"):
-        Generator(tmodel, phase_timing=True)
+    assert Generator(tmodel, phase_timing=True).phase_timing  # obs/ ported
     with pytest.raises(ValueError, match="positional table"):
         Generator(tmodel, GenerationConfig(max_new_tokens=4990)).generate(
             np.zeros((1, 20), np.int64))
@@ -542,7 +541,7 @@ def test_generate_cli_resumes_a_trainer_checkpoint(tmp_path, capsys):
 
 @pytest.mark.parametrize("argv,message", [
     (["--stages", "2"], "A.8"),
-    (["--prompts-file", "p.txt"], "A.6"),
+    (["--prompts-file", "p.txt"], "no such file"),
     (["--context-shards", "2"], "A.10"),
     (["--family", "gpt2"], "A.10"),
     (["--prompt", "1,x"], "comma-separated integer"),

@@ -16,6 +16,7 @@ import torch
 from pipe_tpu.core.partition import StageCtx as JCtx
 from pipe_tpu.ops import layers as jl
 from pipe_tpu_torch import convert
+from pipe_tpu_torch.ops import flash_attention as tfa
 from pipe_tpu_torch.ops import layers as tl
 
 TOL = 1e-5
@@ -185,3 +186,39 @@ def test_convert_rejects_mismatched_shapes():
     params = _np(jlayer.init(jax.random.key(0), jnp.zeros((2, 6))))
     with pytest.raises(ValueError, match="shape mismatch"):
         convert.load_params(tl.Linear(5, 8, device="cpu"), params)
+
+
+@pytest.mark.parametrize("dtype,nhead,takes_kernel", [
+    (torch.float16, 2, False), (torch.float64, 2, False),
+    (torch.float32, 1, False),            # head dim 160
+    (torch.float32, 2, True), (torch.bfloat16, 2, True)])
+def test_auto_route_falls_back_where_the_kernel_cannot_go(
+        monkeypatch, dtype, nhead, takes_kernel):
+    """``impl="auto"`` routed as on the card: float16, float64 and head dim
+    160 take plain attention without raising; float32 and bfloat16 at head
+    dim 80 take the kernel. The kernel's wrapper is held to what the card's
+    accepts (it raises there for anything else)."""
+    route = tl._flash_route
+    monkeypatch.setattr(
+        tl, "_flash_route",
+        lambda impl, s, device, drop, *rest: route(
+            impl, s, torch.device("cuda"), drop, *rest))
+    calls = []
+    flash = tl.flash_attention
+
+    def card_flash(q, k, v, **kw):
+        b, s, h, d = q.shape
+        tfa._check_cuda([x.transpose(1, 2).reshape(b * h, s, d).contiguous()
+                         for x in (q, k, v)])
+        calls.append(q.dtype)
+        return flash(q, k, v, **kw)
+
+    monkeypatch.setattr(tl, "flash_attention", card_flash)
+    mha = tl.MultiHeadAttention(160, nhead, impl="auto", device="cpu").to(dtype)
+    x = torch.randn(2, 16, 160, dtype=dtype)
+    with torch.no_grad():
+        y = mha(x)
+    assert y.dtype == dtype and torch.isfinite(y.float()).all()
+    assert calls == ([dtype] if takes_kernel else [])
+    assert tl.flash_auto_ok(16, torch.device("cuda"), dtype,
+                            160 // nhead) == takes_kernel

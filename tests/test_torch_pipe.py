@@ -292,8 +292,8 @@ def _card_routing(monkeypatch):
     route = tl._flash_route
     monkeypatch.setattr(
         tl, "_flash_route",
-        lambda impl, s, device, drop: route(impl, s, torch.device("cuda"),
-                                            drop))
+        lambda impl, s, device, drop, *rest: route(
+            impl, s, torch.device("cuda"), drop, *rest))
 
 
 def test_flash_path_refuses_gradients():

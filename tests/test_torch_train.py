@@ -231,17 +231,19 @@ def test_trainer_config_defaults_match_pipe_tpu():
 
 def test_generate_and_loss_block_wait_for_later_slices():
     """``Trainer.generate`` runs since the generation slice (its parity with
-    pipe_tpu is in test_torch_generate.py); the generator's phase timing
-    (telemetry) and the streaming loss still wait."""
-    from pipe_tpu_torch.inference import Generator
+    pipe_tpu is in test_torch_generate.py), and the generator's phase
+    timing since the serving slice ported the telemetry registry
+    (test_torch_telemetry.py); the streaming loss still waits."""
+    from pipe_tpu_torch.inference import GenerationConfig, Generator
 
     trainer, _, _ = tiny_trainer()
     out = trainer.generate(trainer.init_state(), [[1, 2]], max_new_tokens=4)
     assert out.shape == (1, 4) and out.dtype == torch.int64
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Generator(tlm.PipelinedLM.from_sequential(
-            trainer.model_cfg, tl.Sequential(list(trainer.pipe))),
-            phase_timing=True)
+    timed = Generator(tlm.PipelinedLM.from_sequential(
+        trainer.model_cfg, tl.Sequential(list(trainer.pipe))),
+        GenerationConfig(max_new_tokens=4, temperature=0.0),
+        phase_timing=True)
+    assert torch.equal(timed.generate([[1, 2]]), out)
     with pytest.raises(NotImplementedError, match="loss_block"):
         tlm.LMConfig(loss_block=128)
 

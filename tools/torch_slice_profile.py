@@ -4,6 +4,8 @@
     python3 tools/torch_slice_profile.py --train [--steps N] [--out DIR]
     python3 tools/torch_slice_profile.py --generate [--decode-steps N]
         [--out DIR]
+    python3 tools/torch_slice_profile.py --serve [--decode-steps N]
+        [--out DIR]
 
 Eval (default): builds the full-width tutorial LM and ``Pipe`` that
 ``chip_smoke.py`` drives (``make_slice``: d_model 2048, 32 heads, d_ff 2048,
@@ -31,6 +33,15 @@ busy time per decode step are the difference of the two windows over N,
 the idle share and kernel time by category are the longer window's, and
 ``decode_idle_share_unprofiled`` sets the busy time per step against the
 unprofiled step time.
+
+``--serve``: the serve engine's decode tick as ``chip_smoke.py``'s serve
+phase runs it (``SingleDeviceSlotBackend``: 8 slots, 256 cache rows, fp32,
+over the eval weights; every slot prefilled with 128 eval tokens): N ticks
+(default 32) with the decode step replayed from its CUDA graph and N run
+eagerly on the card, timed in turns graph, eager, eager, graph, then each
+window profiled (launches, device busy time, idle share and kernel time by
+category, per tick), and one 128-token prefill profiled (what TTFT pays
+beside queueing).
 
 Prints one JSON summary as its last line and writes it, with the chrome
 trace, under ``--out`` (default ``build/profile/``).
@@ -266,14 +277,77 @@ def generate_slice(args):
     return summary, prof, "torch_generate"
 
 
+def serve_slice(args):
+    import numpy as np
+
+    import chip_smoke
+    from pipe_tpu_torch.inference import GenerationConfig
+    from pipe_tpu_torch.models.transformer_lm import PipelinedLM
+    from pipe_tpu_torch.serve import BucketSpec, SingleDeviceSlotBackend
+
+    cfg, seq, _, batches = chip_smoke.make_slice(1)
+    model = PipelinedLM.from_sequential(cfg, seq)
+    prompts = batches[0][0].tolist()                   # 8 x 128 tokens
+    n = args.decode_steps
+    backends = {}
+    for name, graph in (("graph", True), ("eager", False)):
+        b = SingleDeviceSlotBackend(
+            model, num_slots=chip_smoke.SERVE_SLOTS,
+            max_len=chip_smoke.SERVE_MAX_LEN,
+            gen=GenerationConfig(max_new_tokens=128, temperature=0.0),
+            buckets=BucketSpec.pow2(*chip_smoke.SERVE_BUCKETS),
+            cuda_graph=graph)
+        for slot, p in enumerate(prompts):
+            b.prefill(slot, p, 0)
+        backends[name] = b
+    live = np.ones(chip_smoke.SERVE_SLOTS, bool)
+
+    def ticks(b):
+        for _ in range(n):
+            b.decode(live)
+
+    for b in backends.values():                        # capture, warm-up
+        b.decode(live)
+    turns = {"graph": [], "eager": []}
+    for name in ("graph", "eager", "eager", "graph"):
+        turns[name].append(timed(lambda: ticks(backends[name])))
+    summary, prof = {}, None
+    for name, b in backends.items():
+        part, prof_n = profile(lambda: ticks(b), f"{name}_ticks")
+        prof = prof if prof is not None else prof_n     # keep the graph's
+        tick_ms = min(turns[name]) * 1e3 / n
+        part.update(
+            wall_s=turns[name], decode_ms_per_tick=tick_ms,
+            launches_per_tick=part["kernel_launches"] / n,
+            device_busy_us_per_tick=part["device_busy_us"] / n,
+            kernel_us_per_tick_by_category={
+                k: v / n for k, v in part["kernel_us_by_category"].items()},
+            decode_idle_share_unprofiled=1.0 - part["device_busy_us"]
+            / n / 1e3 / tick_ms)
+        summary[name] = part
+    pre, _ = profile(lambda: backends["graph"].prefill(0, prompts[0], 0),
+                     "prefill_128")
+    summary["prefill_128"] = {
+        k: pre[k] for k in ("profiled_window_us", "kernel_launches",
+                            "device_busy_us", "device_idle_share",
+                            "kernel_us_by_category")}
+    summary.update(slots=chip_smoke.SERVE_SLOTS,
+                   max_len=chip_smoke.SERVE_MAX_LEN, ticks=n)
+    return summary, prof, "torch_serve"
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--train", action="store_true",
                     help="profile training steps instead of the eval slice")
     ap.add_argument("--generate", action="store_true",
                     help="profile KV-cached generation (fp32 and int8)")
+    ap.add_argument("--serve", action="store_true",
+                    help="profile the serve engine's decode tick, captured "
+                         "and eager")
     ap.add_argument("--decode-steps", type=int, default=32,
-                    help="decode steps after the prefill (--generate)")
+                    help="decode steps after the prefill (--generate), "
+                         "ticks per turn (--serve)")
     ap.add_argument("--batches", type=int, default=4,
                     help="eval batches per timed turn")
     ap.add_argument("--steps", type=int, default=3,
@@ -287,7 +361,7 @@ def main(argv=None) -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip().splitlines()[0]
-    run = (generate_slice if args.generate
+    run = (generate_slice if args.generate else serve_slice if args.serve
            else train_slice if args.train else eval_slice)
     with torch.inference_mode(args.generate):
         summary, prof, stem = run(args)
@@ -302,9 +376,13 @@ def main(argv=None) -> int:
             "kernel_launches", "device_busy_us", "device_idle_share",
             "kernel_us_by_category", "kernel_calls_by_category",
             "prefill_ms", "decode_ms_per_step", "launches_per_decode_step",
-            "decode_device_busy_us_per_step", "decode_idle_share_unprofiled")
-    for part in ([summary[k] for k in ("fp32", "int8")] if args.generate
-                 else [summary]):
+            "decode_device_busy_us_per_step", "decode_idle_share_unprofiled",
+            "decode_ms_per_tick", "launches_per_tick",
+            "device_busy_us_per_tick", "kernel_us_per_tick_by_category")
+    parts = ([summary[k] for k in ("fp32", "int8")] if args.generate
+             else [summary[k] for k in ("graph", "eager")] if args.serve
+             else [summary])
+    for part in parts:
         for k in keys:
             if k in part:
                 print(f"{k}: {part[k]}")
