@@ -67,7 +67,31 @@ exits non-zero without a result line:
    co-tenants and again, each pick inside the top 50. Prints TTFT p50/p99,
    generated tokens/s over the wall, decode ms per tick (graph and eager,
    in turns) against its bound, launch calls and kernels per tick
-   (``torch.profiler``), prefill ms per bucket, peak memory, seconds.
+   (``torch.profiler``), prefill ms per bucket, peak memory, seconds. The
+   engine runs the single-chunk tick here (``resident=False``); prefill is
+   one CUDA graph per bucket.
+
+8. paged -- the paged KV pool (blocks of 16 rows, 129 blocks) and the
+   resident loop (8 chunks a launch) over the serve phase's model and
+   traffic, reusing its batch-1 references. Gates: (a) every request runs
+   to its length and greedy tokens equal the references at clear steps;
+   (b) one decode and one prefill-chunk capture over every prompt length;
+   (c) 8 requests behind a shared 64-token prefix hit the cache and fork a
+   shared block, with the tokens of a cache-off run at clear steps; (d) a
+   serial run on a 48-block pool with host offload restores blocks and
+   gives the tokens of a pool where nothing is evicted, bit for bit; (e)
+   int8 KV rows agree with the fp32 forward's argmax on at least 0.8 of
+   greedy steps (teacher-forced on the int8 stream; the position-wise
+   agreement with the fp32 run is printed beside it); (f) ``resident=
+   "auto"`` is the resident loop on the card, and resident tokens equal
+   the tick path's bit for bit, slab and paged, greedy, sampled and with
+   EOS; (g) one regather decision per admission, none per launch; (h) the
+   pool drains. Prints TTFT p50/p99 and tokens/s paged, resident and slab
+   resident; decode ms per step (and per token) for the slab graph, the
+   paged graph and a resident launch of 8 chunks, with launch calls,
+   kernels and device busy time per launch; ghost chunks per launch;
+   prefill ms of a 128-token prompt, slab bucket graph against paged
+   chunks; pool, view and peak memory bytes.
 
 The last two lines are the kernels JSON object and
 ``{"ok": true, "device": {...}}``.
@@ -142,6 +166,22 @@ SERVE_NEW = (32, 128)
 SERVE_SAMPLED = 8
 SERVE_TIMED_TICKS = 50
 SERVE_PROFILED_TICKS = 10
+# Paged/resident serve phase: the pool's block size (pipe_tpu's default),
+# the resident depth; a 64-token system prefix shared by PREFIX_REQUESTS
+# requests (two of them the bare prefix, whose recompute tail forks a
+# shared block); the offload run's pool (OFFLOAD_BLOCKS blocks, so
+# OFFLOAD_FILLERS 128-token fillers between two groups of shared-prefix
+# requests push the prefix to the host) and its new tokens; int8 KV's
+# agreement floor (pipe_tpu's tests/test_kvpool.py).
+PAGED_BLOCK = 16
+RESIDENT_CHUNKS = 8
+PREFIX_LEN = 64
+PREFIX_REQUESTS = 8
+PREFIX_NEW = 48
+OFFLOAD_BLOCKS = 48
+OFFLOAD_FILLERS = 8
+OFFLOAD_NEW = 32
+INT8_AGREE_MIN = 0.8
 # H100 SXM peaks (NVIDIA data sheet, dense): HBM3 bytes/s, and the fastest
 # fp32-accurate product rate the card has: TF32 tensor cores (495 TFLOP/s)
 # in three passes (big*big + big*small + small*big), which keep fp32-level
@@ -1006,22 +1046,22 @@ def _walk(got, ref, margins, thresh):
     return compared, skipped, len(got) == len(ref)
 
 
-def _profile_ticks(backend, live):
-    """Host launch calls and device kernels per decode tick over
-    SERVE_PROFILED_TICKS ticks (``torch.profiler``): ``(launch calls by
-    name per tick, kernels per tick, device busy ms per tick)``, busy as
-    the union of the kernels' spans."""
+def _profile_ticks(run):
+    """Host launch calls and device kernels per call of ``run`` (a decode
+    tick or launch) over SERVE_PROFILED_TICKS calls (``torch.profiler``):
+    ``(launch calls by name per call, kernels per call, device busy ms per
+    call)``, busy as the union of the kernels' spans."""
     from torch.profiler import DeviceType, ProfilerActivity, profile
 
     names = ("cudaGraphLaunch", "cudaLaunchKernel", "cudaLaunchKernelExC",
              "cuLaunchKernel", "cuLaunchKernelEx", "cudaMemcpyAsync",
              "cudaMemsetAsync")
-    backend.decode(live)
+    run()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         for _ in range(SERVE_PROFILED_TICKS):
-            backend.decode(live)
+            run()
         torch.cuda.synchronize()
     calls = {}
     spans = []
@@ -1046,12 +1086,41 @@ def _profile_ticks(backend, live):
             busy / 1e3 / n)
 
 
-def phase_serve(gap: float, smi: str) -> None:
+def _traffic(eng, reqs, req_seeds):
+    """SERVE_FIRST requests before the first tick, then two a tick, then
+    ticks until idle: (responses in submit order, wall)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ids = [eng.submit(p, max_new_tokens=n, seed=sd).id
+           for (p, n), sd in zip(reqs[:SERVE_FIRST], req_seeds)]
+    for i in range(SERVE_FIRST, len(reqs), 2):
+        eng.tick()
+        ids += [eng.submit(p, max_new_tokens=n, seed=sd).id
+                for (p, n), sd in zip(reqs[i:i + 2], req_seeds[i:i + 2])]
+    eng.run_until_idle()
+    torch.cuda.synchronize()
+    return [eng.response(r) for r in ids], time.perf_counter() - t0
+
+
+def _rates(resps, wall):
+    from pipe_tpu_torch.obs.telemetry import percentile_exact
+    ttft = [r.ttft for r in resps]
+    made = sum(len(r.tokens) for r in resps)
+    return dict(ttft_p50_ms=f"{percentile_exact(ttft, 0.5) * 1e3:.2f}",
+                ttft_p99_ms=f"{percentile_exact(ttft, 0.99) * 1e3:.2f}",
+                generated_tokens=made, wall_s=f"{wall:.4f}",
+                generated_tokens_per_s=f"{made / wall:.1f}")
+
+
+def phase_serve(gap: float, smi: str) -> dict:
+    """The serve phase (slab KV, the single-chunk tick); returns what the
+    paged/resident phase reuses: the model, the traffic, the batch-1
+    references and their margins, and the slab engine's runs."""
     import numpy as np
 
     from pipe_tpu_torch.inference import GenerationConfig, Generator
     from pipe_tpu_torch.models.transformer_lm import PipelinedLM
-    from pipe_tpu_torch.obs.telemetry import get_registry, percentile_exact
+    from pipe_tpu_torch.obs.telemetry import get_registry
     from pipe_tpu_torch.serve import (BucketSpec, ServeEngine,
                                       SingleDeviceSlotBackend)
 
@@ -1082,32 +1151,10 @@ def phase_serve(gap: float, smi: str) -> None:
         setup_s=f"{time.perf_counter() - t_phase:.2f}")
 
     def backend(gen, slots=SERVE_SLOTS, **kw):
+        kw.setdefault("resident", False)     # the single-chunk tick
         return SingleDeviceSlotBackend(
             model, num_slots=slots, max_len=SERVE_MAX_LEN, gen=gen,
             buckets=buckets, decode_chunk=1, **kw)
-
-    def traffic(eng, reqs, req_seeds):
-        """SERVE_FIRST requests before the first tick, then two a tick,
-        then ticks until idle: (responses in submit order, wall)."""
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        ids = [eng.submit(p, max_new_tokens=n, seed=sd).id
-               for (p, n), sd in zip(reqs[:SERVE_FIRST], req_seeds)]
-        for i in range(SERVE_FIRST, len(reqs), 2):
-            eng.tick()
-            ids += [eng.submit(p, max_new_tokens=n, seed=sd).id
-                    for (p, n), sd in zip(reqs[i:i + 2], req_seeds[i:i + 2])]
-        eng.run_until_idle()
-        torch.cuda.synchronize()
-        return [eng.response(r) for r in ids], time.perf_counter() - t0
-
-    def rates(resps, wall):
-        ttft = [r.ttft for r in resps]
-        made = sum(len(r.tokens) for r in resps)
-        return dict(ttft_p50_ms=f"{percentile_exact(ttft, 0.5) * 1e3:.2f}",
-                    ttft_p99_ms=f"{percentile_exact(ttft, 0.99) * 1e3:.2f}",
-                    generated_tokens=made, wall_s=f"{wall:.4f}",
-                    generated_tokens_per_s=f"{made / wall:.1f}")
 
     greedy = GenerationConfig(max_new_tokens=SERVE_NEW[1], temperature=0.0)
     # 1. The main path: the greedy traffic through one engine, twice (the
@@ -1118,15 +1165,15 @@ def phase_serve(gap: float, smi: str) -> None:
     for c in _counters():
         c.launches = 0
     torch.cuda.reset_peak_memory_stats()
-    cold, cold_wall = traffic(eng, requests, seeds)
-    warm, warm_wall = traffic(eng, requests, seeds)
+    cold, cold_wall = _traffic(eng, requests, seeds)
+    warm, warm_wall = _traffic(eng, requests, seeds)
     peak = torch.cuda.max_memory_allocated()
     flash = [c.launches for c in _counters()]
     traces = reg.counter("serve.engine.decode_traces").value - traces0
     stats = main.program_stats()
     for run, resps, wall in (("cold", cold, cold_wall),
                              ("warm", warm, warm_wall)):
-        log("serve", run=run, card=repr(card), **rates(resps, wall),
+        log("serve", run=run, card=repr(card), **_rates(resps, wall),
             ttft_note="submit to first token, queueing included")
     log("serve", gate="engine", card=repr(card), decode_traces=traces,
         decode_graph=stats["decode_graph"],
@@ -1152,10 +1199,13 @@ def phase_serve(gap: float, smi: str) -> None:
     # 2. (a) Each response against a batch-1 Generator on its prompt.
     t0 = time.perf_counter()
     compared = skipped = 0
+    refs, ref_margins = [], []
     for i, ((p, n), r) in enumerate(zip(requests, cold)):
         ref = Generator(model, GenerationConfig(
             max_new_tokens=n, temperature=0.0)).generate([p])[0].tolist()
         margins, _ = _margins(model, p, ref)
+        refs.append(ref)
+        ref_margins.append(margins)
         c, sk, ok = _walk(r.tokens, ref, margins, thresh)
         compared, skipped = compared + c, skipped + sk
         if not ok:
@@ -1168,7 +1218,7 @@ def phase_serve(gap: float, smi: str) -> None:
     # 3. (g) The same engine run eagerly on the card; (d) EOS.
     first = requests[:SERVE_SLOTS]
     eager = backend(greedy, cuda_graph=False)
-    e_resps, e_wall = traffic(ServeEngine(eager), first, seeds)
+    e_resps, e_wall = _traffic(ServeEngine(eager), first, seeds)
     equal, g_margins = 0, []
     for i, ((p, _), er, r) in enumerate(zip(first, e_resps, cold)):
         m, _ = _margins(model, p, r.tokens)
@@ -1179,7 +1229,7 @@ def phase_serve(gap: float, smi: str) -> None:
                                  f"the graph's at a clear step")
     log("serve", gate="graph_vs_eager", requests=len(first),
         equal_requests=equal, eager_decode_graph=eager.program_stats()[
-            "decode_graph"], **rates(e_resps, e_wall))
+            "decode_graph"], **_rates(e_resps, e_wall))
     if equal < 1 or eager.program_stats()["decode_graph"]:
         raise AssertionError("serve: no request equal between the graph "
                              "and the eager engine")
@@ -1189,7 +1239,7 @@ def phase_serve(gap: float, smi: str) -> None:
     eos = row[step]
     e_gen = GenerationConfig(max_new_tokens=SERVE_NEW[1], temperature=0.0,
                              eos_token_id=eos)
-    eos_resps, _ = traffic(ServeEngine(backend(e_gen)), first, seeds)
+    eos_resps, _ = _traffic(ServeEngine(backend(e_gen)), first, seeds)
     r0 = eos_resps[0]
     others_ok = all(
         (r.finish_reason == "eos" and r.tokens[-1] == eos
@@ -1226,9 +1276,9 @@ def phase_serve(gap: float, smi: str) -> None:
             where.append(len(mixed))
             mixed.append(sampled[len(where) - 1])
             mixed_seeds.append(s_seeds[len(where) - 1])
-    crowd, crowd_wall = traffic(ServeEngine(backend(s_gen)), mixed,
+    crowd, crowd_wall = _traffic(ServeEngine(backend(s_gen)), mixed,
                                 mixed_seeds)
-    again, _ = traffic(ServeEngine(backend(s_gen)), sampled, s_seeds)
+    again, _ = _traffic(ServeEngine(backend(s_gen)), sampled, s_seeds)
     s_thresh = thresh / GEN_TEMPERATURE
     compared = skipped = inside = picks = 0
     for i, ((p, _), sd, a) in enumerate(zip(sampled, s_seeds, alone)):
@@ -1246,7 +1296,7 @@ def phase_serve(gap: float, smi: str) -> None:
     log("serve", gate="sampled", temperature=GEN_TEMPERATURE,
         top_k=GEN_TOP_K, requests=SERVE_SAMPLED, co_tenants=len(mixed) - 1,
         steps_compared=compared, steps_skipped_near_ties=skipped,
-        share_in_top_k=f"{inside / picks:.4f}", **rates(crowd, crowd_wall))
+        share_in_top_k=f"{inside / picks:.4f}", **_rates(crowd, crowd_wall))
     if inside != picks:
         raise AssertionError("serve: a sampled token outside the top k")
 
@@ -1270,7 +1320,7 @@ def phase_serve(gap: float, smi: str) -> None:
                                                 SERVE_MAX_LEN)
     for name, b in (("graph", main), ("eager", eager)):
         t = sorted(turns[name])
-        calls, kernels, busy = _profile_ticks(b, live)
+        calls, kernels, busy = _profile_ticks(lambda: b.decode(live))
         log("serve", decode=name, card=repr(card),
             decode_ms_per_tick=f"{t[len(t) // 2]:.4f}",
             decode_ms_min=f"{t[0]:.4f}", decode_ms_max=f"{t[-1]:.4f}",
@@ -1289,8 +1339,317 @@ def phase_serve(gap: float, smi: str) -> None:
     log("serve", card=repr(card), **{f"prefill_ms_{k}": f"{v:.2f}"
                                      for k, v in pre.items()},
         seconds=f"{time.perf_counter() - t_phase:.1f}")
-    del main, eager, eng, model, seq
+    del eager, eng, seq
     torch.cuda.empty_cache()
+    return dict(model=model, tokens=tokens, requests=requests, seeds=seeds,
+                buckets=buckets, thresh=thresh, refs=refs,
+                ref_margins=ref_margins, cold=cold, main=main,
+                first=first, e_gen=e_gen, eos_resps=eos_resps, eos=eos,
+                s_gen=s_gen, sampled=sampled, s_seeds=s_seeds,
+                slab_tick_ms=turns["graph"])
+
+
+def _delta(reg, names):
+    """A function returning each counter's rise since this call."""
+    base = {n: reg.counter(n).value for n in names}
+    return lambda: {n: reg.counter(n).value - base[n] for n in names}
+
+
+def _serial(eng, reqs, req_seeds):
+    """Each request alone: submit it, tick until idle. Responses."""
+    out = []
+    for (p, n), sd in zip(reqs, req_seeds):
+        rid = eng.submit(p, max_new_tokens=n, seed=sd).id
+        eng.run_until_idle()
+        out.append(eng.response(rid))
+    return out
+
+
+def phase_serve_paged(ctx: dict, smi: str) -> None:
+    """The paged KV pool and the resident loop through ``ServeEngine`` at
+    full width, on the serve phase's model, traffic and references."""
+    import numpy as np
+
+    from pipe_tpu_torch.inference import GenerationConfig
+    from pipe_tpu_torch.obs.telemetry import get_registry
+    from pipe_tpu_torch.serve import ServeEngine, SingleDeviceSlotBackend
+
+    t_phase = time.perf_counter()
+    card = repr(smi.splitlines()[0])
+    model, tokens = ctx["model"], ctx["tokens"]
+    requests, seeds, thresh = ctx["requests"], ctx["seeds"], ctx["thresh"]
+    reg = get_registry()
+    greedy = GenerationConfig(max_new_tokens=SERVE_NEW[1], temperature=0.0)
+    torch.cuda.reset_peak_memory_stats()
+
+    def backend(gen, **kw):
+        kw.setdefault("kv_block_size", PAGED_BLOCK)
+        kw.setdefault("resident", False)
+        return SingleDeviceSlotBackend(
+            model, num_slots=SERVE_SLOTS, max_len=SERVE_MAX_LEN, gen=gen,
+            buckets=ctx["buckets"], decode_chunk=1,
+            resident_chunks=RESIDENT_CHUNKS, **kw)
+
+    def to_length(resps, reqs, what):
+        bad = [i for i, ((_, n), r) in enumerate(zip(reqs, resps))
+               if r.status != "ok" or len(r.tokens) != n]
+        if bad:
+            raise AssertionError(f"{what}: requests {bad} did not run to "
+                                 f"their length")
+
+    def same(a, b, what):
+        if [r.tokens for r in a] != [r.tokens for r in b]:
+            diff = [i for i, (x, y) in enumerate(zip(a, b))
+                    if x.tokens != y.tokens]
+            raise AssertionError(f"{what}: requests {diff} differ")
+
+    # 1. (a), (b), (h): the paged tick path over the serve traffic, its
+    # greedy tokens against the batch-1 Generator references.
+    counts = _delta(reg, ("serve.engine.decode_traces",
+                          "serve.engine.prefill_chunk_traces"))
+    pg = backend(greedy)
+    pg_resps, pg_wall = _traffic(ServeEngine(pg), requests, seeds)
+    traces = counts()
+    to_length(pg_resps, requests, "paged")
+    compared = skipped = 0
+    for i, (r, ref, m) in enumerate(zip(pg_resps, ctx["refs"],
+                                        ctx["ref_margins"])):
+        c, sk, ok = _walk(r.tokens, ref, m, thresh)
+        compared, skipped = compared + c, skipped + sk
+        if not ok:
+            raise AssertionError(f"paged: request {i} differs from the "
+                                 f"batch-1 Generator at a clear step")
+    stats = pg.program_stats()
+    pool_bytes = sum(a.numel() * a.element_size()
+                     for a in pg._pool_kv.values())
+    view_bytes = sum(a.numel() * a.element_size()
+                     for a in pg._state["views"].values())
+    log("paged", run="tick", card=card, **_rates(pg_resps, pg_wall),
+        steps_compared=compared, steps_skipped_near_ties=skipped,
+        decode_traces=traces["serve.engine.decode_traces"],
+        prefill_chunk_traces=traces["serve.engine.prefill_chunk_traces"],
+        prefill_programs=stats["prefill_programs"],
+        prompt_lengths=len({len(p) for p, _ in requests}),
+        blocks_in_use=pg.pool.stats()["blocks_in_use"],
+        pool_blocks=pg.pool.num_blocks, pool_bytes=pool_bytes,
+        view_bytes=view_bytes)
+    if (list(traces.values()) != [1, 1] or stats["prefill_programs"] != 1
+            or not stats["decode_graph"]):
+        raise AssertionError(f"paged: traces {traces}, stats {stats}")
+    if pg.pool.stats()["blocks_in_use"]:
+        raise AssertionError("paged: the pool did not drain")
+
+    # 2. (f), (g): resident="auto" on the card, paged, against the tick
+    # path; prefills arm the device regather flag, nothing else decides.
+    counts = _delta(reg, ("serve.engine.resident_traces",
+                          "serve.kv.regather_host_decisions",
+                          "serve.engine.admitted",
+                          "serve.engine.resident_chunks_run",
+                          "serve.engine.resident_chunks_computed",
+                          "serve.engine.host_syncs",
+                          "serve.engine.device_exits"))
+    pr = backend(greedy, resident="auto")
+    if not pr.resident:
+        raise AssertionError("resident='auto' did not pick the resident "
+                             "loop on the card")
+    pr_resps, pr_wall = _traffic(ServeEngine(pr), requests, seeds)
+    rc = counts()
+    launches = rc["serve.engine.host_syncs"]
+    ghost = (rc["serve.engine.resident_chunks_computed"]
+             - rc["serve.engine.resident_chunks_run"])
+    log("paged", run="resident_auto", card=card, **_rates(pr_resps, pr_wall),
+        resident_traces=rc["serve.engine.resident_traces"],
+        launches=launches,
+        chunks_run=rc["serve.engine.resident_chunks_run"],
+        chunks_computed=rc["serve.engine.resident_chunks_computed"],
+        ghost_chunks_per_launch=f"{ghost / launches:.3f}",
+        device_exits=rc["serve.engine.device_exits"],
+        admitted=rc["serve.engine.admitted"],
+        regather_host_decisions=rc["serve.kv.regather_host_decisions"])
+    same(pr_resps, pg_resps, "paged resident vs tick")
+    if (rc["serve.engine.resident_traces"] != 1
+            or rc["serve.kv.regather_host_decisions"]
+            != rc["serve.engine.admitted"]):
+        raise AssertionError(f"paged resident: {rc}")
+    if pr.pool.stats()["blocks_in_use"]:
+        raise AssertionError("paged resident: the pool did not drain")
+
+    # 3. (f): the slab resident loop against the serve phase's tick run.
+    sr = backend(greedy, kv_block_size=None, resident=True)
+    sr_resps, sr_wall = _traffic(ServeEngine(sr), requests, seeds)
+    same(sr_resps, ctx["cold"], "slab resident vs tick")
+    log("paged", run="slab_resident", card=card, **_rates(sr_resps, sr_wall))
+
+    # 4. (f): sampled, both layouts, resident against the tick path.
+    s_reqs, s_seeds = ctx["sampled"], ctx["s_seeds"]
+    for layout in (None, PAGED_BLOCK):
+        runs = [_traffic(ServeEngine(backend(ctx["s_gen"],
+                                             kv_block_size=layout,
+                                             resident=res)),
+                         s_reqs, s_seeds)[0] for res in (False, True)]
+        same(runs[0], runs[1], f"sampled resident vs tick (block {layout})")
+        to_length(runs[1], s_reqs, "sampled resident")
+    # (f) EOS: the resident loop retires where the tick path did.
+    e_slab = _traffic(ServeEngine(backend(ctx["e_gen"], kv_block_size=None,
+                                          resident=True)),
+                      ctx["first"], seeds)[0]
+    same(e_slab, ctx["eos_resps"], "slab resident EOS vs tick")
+    eos = ctx["eos"]
+    e_paged = _traffic(ServeEngine(backend(ctx["e_gen"], resident=True)),
+                       ctx["first"], seeds)[0]
+    for r, (_, n) in zip(e_paged, ctx["first"]):
+        if not ((r.finish_reason == "eos" and r.tokens[-1] == eos
+                 and eos not in r.tokens[:-1])
+                or (r.finish_reason == "length" and eos not in r.tokens
+                    and len(r.tokens) == n)):
+            raise AssertionError("paged resident: EOS not retired at once")
+    log("paged", gate="resident_equals_tick", card=card,
+        greedy_requests=2 * SERVE_REQUESTS, sampled_requests=4 * len(s_reqs),
+        eos_requests=2 * len(ctx["first"]),
+        eos_retired=sum(r.finish_reason == "eos" for r in e_paged + e_slab))
+    del sr
+
+    # 5. (c): a shared 64-token system prefix, cache on and off.
+    prefix = tokens[0, :PREFIX_LEN].tolist()
+    p_reqs = []
+    for j in range(PREFIX_REQUESTS):
+        tail = ([] if j in (3, 6) else
+                tokens[j, 2 * BPTT - 40 + j:2 * BPTT - 32 + 3 * j].tolist())
+        p_reqs.append((prefix + tail, PREFIX_NEW))
+    p_seeds = list(range(PREFIX_REQUESTS))
+    counts = _delta(reg, ("serve.kv.prefix_hits", "serve.kv.cow_forks"))
+    hit = _traffic(ServeEngine(backend(greedy, resident="auto")), p_reqs,
+                   p_seeds)[0]
+    pc = counts()
+    cold = _traffic(ServeEngine(backend(dataclasses.replace(
+        greedy, prefix_cache=False), resident="auto")), p_reqs, p_seeds)[0]
+    compared = skipped = 0
+    for i, ((p, _), a, b) in enumerate(zip(p_reqs, hit, cold)):
+        m, _ = _margins(model, p, b.tokens)
+        c, sk, ok = _walk(a.tokens, b.tokens, m, thresh)
+        compared, skipped = compared + c, skipped + sk
+        if not ok:
+            raise AssertionError(f"prefix: request {i} differs from the "
+                                 f"cache-off run at a clear step")
+    log("paged", gate="shared_prefix", card=card,
+        prefix_hits=pc["serve.kv.prefix_hits"],
+        cow_forks=pc["serve.kv.cow_forks"], steps_compared=compared,
+        steps_skipped_near_ties=skipped)
+    if not (pc["serve.kv.prefix_hits"] and pc["serve.kv.cow_forks"]):
+        raise AssertionError(f"prefix: no hit or no fork {pc}")
+
+    # 6. (d): offload -> restore against a pool where nothing is evicted.
+    o_reqs = p_reqs[:4] + [
+        (tokens[(i + 1) % EVAL_BATCH, 8 * i:8 * i + BPTT].tolist(),
+         OFFLOAD_NEW)
+        for i in range(OFFLOAD_FILLERS)] + p_reqs[4:]
+    o_reqs = [(p, min(n, OFFLOAD_NEW)) for p, n in o_reqs]
+    o_seeds = list(range(len(o_reqs)))
+    counts = _delta(reg, ("serve.kv.offload_out", "serve.kv.offload_restores",
+                          "serve.kv.evictions"))
+    roomy = _serial(ServeEngine(backend(greedy, resident="auto")), o_reqs,
+                    o_seeds)
+    room = counts()
+    counts = _delta(reg, ("serve.kv.offload_out", "serve.kv.offload_restores",
+                          "serve.kv.evictions", "serve.kv.restore_traces"))
+    ob = backend(greedy, resident="auto", kv_pool_blocks=OFFLOAD_BLOCKS,
+                 kv_offload=True)
+    tight = _serial(ServeEngine(ob), o_reqs, o_seeds)
+    oc = counts()
+    log("paged", gate="offload", card=card, requests=len(o_reqs),
+        pool_blocks=OFFLOAD_BLOCKS,
+        offload_out=oc["serve.kv.offload_out"],
+        restores=oc["serve.kv.offload_restores"],
+        restore_traces=oc["serve.kv.restore_traces"],
+        evictions_roomy=room["serve.kv.evictions"],
+        host_kv_bytes=ob.pool.stats()["host_kv_bytes"])
+    same(tight, roomy, "offload vs roomy pool")
+    to_length(tight, o_reqs, "offload")
+    if (not oc["serve.kv.offload_restores"] or room["serve.kv.evictions"]
+            or ob.pool.stats()["blocks_in_use"]):
+        raise AssertionError(f"offload: {oc}, roomy {room}")
+    del ob
+
+    # 7. (e): int8 KV rows. Agreement is counted teacher-forced: each
+    # int8 token against the fp32 forward's argmax on the same prefix, so a
+    # stream that parted at one near tie is not counted wrong after it;
+    # the position-wise agreement with the fp32 run is printed beside it.
+    i8 = _traffic(ServeEngine(backend(greedy, kv_dtype="int8",
+                                      resident="auto")), requests, seeds)[0]
+    to_length(i8, requests, "int8")
+    agree = stream = total = 0
+    for (p, _), r, f in zip(requests, i8, pg_resps):
+        _, logits = _margins(model, p, r.tokens)
+        agree += int((logits.argmax(-1).cpu()
+                      == torch.tensor(r.tokens)).sum())
+        stream += sum(a == b for a, b in zip(r.tokens, f.tokens))
+        total += len(r.tokens)
+    log("paged", gate="int8_kv", card=card,
+        top1_agreement=f"{agree / total:.4f}",
+        stream_agreement=f"{stream / total:.4f}", tokens=total,
+        floor=INT8_AGREE_MIN)
+    if agree / total < INT8_AGREE_MIN:
+        raise AssertionError(f"int8 KV: top-1 agreement {agree / total:.4f}")
+
+    # 8. Decode ms per step with all 8 slots live (128-token prompts):
+    # slab graph, paged graph, resident launch of 8 chunks, in turns.
+    main = ctx["main"]
+    live = np.ones(SERVE_SLOTS, bool)
+    big = np.full(SERVE_SLOTS, 1 << 30, np.int64)
+    for b in (pg, pr):
+        for i in range(SERVE_SLOTS):
+            b.prefill(i, tokens[i, :BPTT].tolist(), 0,
+                      max_new_tokens=SERVE_NEW[1])
+    runs = {"slab_graph": lambda: main.decode(live),
+            "paged_graph": lambda: pg.decode(live),
+            "resident_r8": lambda: pr.decode(live, budgets=big,
+                                             r_max=RESIDENT_CHUNKS)}
+    times = {k: [] for k in runs}
+    for name in ("slab_graph", "paged_graph", "resident_r8", "resident_r8",
+                 "paged_graph", "slab_graph"):
+        for _ in range(SERVE_TIMED_TICKS // 2):
+            _, dt = _timed(runs[name])
+            times[name].append(dt * 1e3)
+    for name, run in runs.items():
+        t = sorted(times[name])
+        steps = RESIDENT_CHUNKS if name == "resident_r8" else 1
+        calls, kernels, busy = _profile_ticks(run)
+        log("paged", decode=name, card=card,
+            ms_per_launch=f"{t[len(t) // 2]:.4f}",
+            ms_per_step=f"{t[len(t) // 2] / steps:.4f}",
+            ms_per_token=f"{t[len(t) // 2] / steps / SERVE_SLOTS:.4f}",
+            ms_min=f"{t[0]:.4f}", ms_max=f"{t[-1]:.4f}",
+            launch_calls_per_launch=f"{sum(calls.values()):.1f}",
+            launch_calls=json.dumps(calls).replace(" ", ""),
+            kernels_per_launch=f"{kernels:.1f}",
+            device_busy_ms_per_launch=f"{busy:.4f}")
+    for b in (pg, pr):
+        for i in range(SERVE_SLOTS):
+            b.release(i)
+
+    # 9. Prefill ms of a 128-token prompt: the slab bucket graph against
+    # the paged chunk program (8 chunks of 16), in turns; fresh prompts and
+    # no prefix cache, so every chunk is computed.
+    pf = backend(dataclasses.replace(greedy, prefix_cache=False))
+    pf.prefill(0, tokens[0, :BPTT].tolist(), 0)
+    pf.release(0)
+    pre = {"slab_bucket_graph": [], "paged_chunks": []}
+    for turn, name in enumerate(("slab_bucket_graph", "paged_chunks",
+                                 "paged_chunks", "slab_bucket_graph")):
+        for k in range(3):
+            prompt = tokens[(turn + k) % EVAL_BATCH, BPTT:].tolist()
+            if name == "paged_chunks":
+                pre[name].append(_timed(lambda: pf.prefill(0, prompt, 0))[1])
+                pf.release(0)
+            else:
+                pre[name].append(_timed(lambda: main.prefill(0, prompt,
+                                                             0))[1])
+    log("paged", card=card, prompt_tokens=BPTT,
+        **{f"prefill_ms_{k}": f"{sorted(v)[len(v) // 2] * 1e3:.3f}"
+           for k, v in pre.items()},
+        peak_mem_gb=f"{torch.cuda.max_memory_allocated() / 1e9:.2f}",
+        seconds=f"{time.perf_counter() - t_phase:.1f}")
+    del pg, pr, pf, main
 
 
 def main() -> int:
@@ -1302,7 +1661,10 @@ def main() -> int:
     eval_launches = phase_slice()
     train_launches = phase_train()
     gap = phase_generate()
-    phase_serve(gap, smi)
+    ctx = phase_serve(gap, smi)
+    phase_serve_paged(ctx, smi)
+    del ctx
+    torch.cuda.empty_cache()
     sources = {"flash_attn_fwd": ("flash_attn_fwd.cu", 87,
                                   "flash_attention_fwd"),
                "flash_attn_bwd_dq": ("flash_attn_bwd.cu", 162,

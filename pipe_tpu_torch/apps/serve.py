@@ -3,7 +3,8 @@
 Counterpart of the single-replica path of ``pipe_tpu/apps/serve.py``: runs
 :class:`~pipe_tpu_torch.serve.ServeEngine` over the single-device slot
 backend with ``--slots`` decode slots (the decode step captured in a CUDA
-graph on the card). Workload: ``--prompts-file`` (comma-separated token-id
+graph on the card; ``--kv paged`` serves from the paged KV pool, and
+``--resident`` runs several decode chunks per launch). Workload: ``--prompts-file`` (comma-separated token-id
 prompts, one per line, all arriving at once) or a synthetic seeded Poisson
 stream (``--requests``/``--rate``). Per-request results stream to stdout as
 JSON lines the moment each request retires; the final line is a summary
@@ -17,15 +18,16 @@ Usage:
         [--prompts-file F] [--slots S] [--max-new N] [--temperature T]
         [--top-k K] [--eos ID] [--queue-capacity C] [--policy fifo|priority]
         [--timeout-s T] [--decode-chunk K] [--events F.jsonl] [--int8]
-        [--tiny] [--seed S] [--device cuda|cpu]
+        [--kv slab|paged] [--kv-block-size B] [--kv-pool-blocks N]
+        [--kv-offload] [--kv-offload-blocks N] [--resident auto|on|off]
+        [--resident-chunks R] [--tiny] [--seed S] [--device cuda|cpu]
 
 Not ported yet, each refused with rc 2 and the ROADMAP.md item it waits
 for: ``--stages > 1`` (the ring backend), ``--replicas``, ``--fleet``,
 ``--journal``, ``--roles``, ``--placement``, ``--kv-hot-refs``,
 ``--metrics-port``, ``--trace-out``, the ``--slo-*`` flags and the watchdog
-flags (the fleet and its observability), ``--kv paged`` and its
-``--kv-*`` flags, ``--resident on``, ``--spec-*`` and ``--draft*`` (the rest
-of serving on one device), ``--family gpt2`` (the model zoo).
+flags (the fleet and its observability), ``--spec-*`` and ``--draft*``
+(the speculative lane), ``--family gpt2`` (the model zoo).
 """
 
 from __future__ import annotations
@@ -40,7 +42,6 @@ from .generate import UsageError, build_model, model_source
 
 _FLEET = "A.7, fleet/* and serve/router.py"
 _OBS = "A.7, the rest of obs/* (fleet observability)"
-_PAGED = "A.6, serve/kvpool.py: the paged KV pool"
 _SPEC = "A.6, inference/draft.py and the speculative lane"
 
 # (flag, is it set away from its default?, the ROADMAP.md item that ports it)
@@ -61,13 +62,6 @@ _NOT_PORTED = (
     ("--tick-budget-s/--shed-ewma",
      lambda a: a.tick_budget_s is not None or a.shed_ewma is not None,
      "A.7, resilience/* (the tick watchdog)"),
-    ("--kv paged", lambda a: a.kv != "slab", _PAGED),
-    ("--kv-block-size/--kv-pool-blocks/--kv-offload*",
-     lambda a: (a.kv_block_size is not None or a.kv_pool_blocks is not None
-                or a.kv_offload or a.kv_offload_blocks is not None), _PAGED),
-    ("--resident on", lambda a: a.resident == "on", "A.6, the resident loop"),
-    ("--resident-chunks", lambda a: a.resident_chunks is not None,
-     "A.6, the resident loop"),
     ("--spec-*", lambda a: (a.spec_tokens is not None
                             or a.spec_branches is not None
                             or a.spec_adaptive), _SPEC),
@@ -109,6 +103,28 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--tiny", action="store_true")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    p.add_argument("--resident", choices=["auto", "on", "off"],
+                   default="auto",
+                   help="run up to --resident-chunks decode chunks per "
+                        "launch with on-device done-masking and early "
+                        "exit (auto: on for cuda, off on cpu)")
+    p.add_argument("--resident-chunks", type=int, default=8,
+                   help="max decode chunks per resident launch")
+    p.add_argument("--kv", choices=["slab", "paged"], default="slab",
+                   help="KV memory: per-slot slab, or the paged block pool "
+                        "(shared-prefix reuse + chunked prefill)")
+    p.add_argument("--kv-block-size", type=int, default=16,
+                   help="rows per KV block with --kv paged")
+    p.add_argument("--kv-pool-blocks", type=int, default=None,
+                   help="pool size in blocks with --kv paged (default: the "
+                        "slab's row footprint)")
+    p.add_argument("--kv-offload", action="store_true",
+                   help="with --kv paged: spill cold refcount-0 blocks to "
+                        "host RAM under pressure and restore them on "
+                        "re-reference instead of hard-evicting")
+    p.add_argument("--kv-offload-blocks", type=int, default=None,
+                   help="host store capacity in blocks for --kv-offload "
+                        "(default: the device pool size)")
     # Not ported yet: each refused with rc 2 (see _NOT_PORTED).
     p.add_argument("--stages", type=int, default=1)
     p.add_argument("--replicas", type=int, default=1)
@@ -124,14 +140,6 @@ def build_argparser() -> argparse.ArgumentParser:
         p.add_argument(f"--slo-{name}", type=float, default=None)
     p.add_argument("--tick-budget-s", type=float, default=None)
     p.add_argument("--shed-ewma", type=float, default=None)
-    p.add_argument("--kv", default="slab")
-    p.add_argument("--kv-block-size", type=int, default=None)
-    p.add_argument("--kv-pool-blocks", type=int, default=None)
-    p.add_argument("--kv-offload", action="store_true")
-    p.add_argument("--kv-offload-blocks", type=int, default=None)
-    p.add_argument("--resident", choices=["auto", "on", "off"],
-                   default="auto")
-    p.add_argument("--resident-chunks", type=int, default=None)
     p.add_argument("--spec-tokens", type=int, default=None)
     p.add_argument("--spec-branches", type=int, default=None)
     p.add_argument("--spec-adaptive", action="store_true")
@@ -196,13 +204,24 @@ def main(argv=None) -> int:
         gen_cfg = GenerationConfig(max_new_tokens=args.max_new,
                                    temperature=args.temperature,
                                    top_k=args.top_k, eos_token_id=args.eos)
+        if args.kv_offload and args.kv != "paged":
+            raise UsageError("--kv-offload needs --kv paged (the slab has "
+                             "no blocks to spill)")
+        kv_kwargs = {} if args.kv == "slab" else {
+            "kv_block_size": args.kv_block_size,
+            "kv_pool_blocks": args.kv_pool_blocks,
+            "kv_offload": args.kv_offload,
+            "kv_offload_blocks": args.kv_offload_blocks}
+        resident = {"auto": "auto", "on": True, "off": False}[args.resident]
         longest = max(len(p) for p in prompts)
         buckets = BucketSpec.pow2(min_len=min(8, longest), max_len=longest)
         model = build_model(args, model_cfg, state)
         backend = SingleDeviceSlotBackend(
             model, num_slots=args.slots,
             max_len=buckets.max_len + args.max_new, gen=gen_cfg,
-            buckets=buckets, decode_chunk=args.decode_chunk)
+            buckets=buckets, decode_chunk=args.decode_chunk,
+            resident=resident, resident_chunks=args.resident_chunks,
+            **kv_kwargs)
         queue = RequestQueue(capacity=args.queue_capacity,
                              policy=args.policy)
     except (UsageError, ValueError) as e:
@@ -270,8 +289,9 @@ def main(argv=None) -> int:
         "finished": done, "rejected": rejected,
         "drained": eng.draining,
         "elapsed_s": round(elapsed, 3),
-        "resident": False,
-        "decode_graph": backend.program_stats()["decode_graph"],
+        "resident": backend.resident,
+        **{k: v for k, v in backend.program_stats().items()
+           if k in ("kv", "decode_graph", "resident_graph")},
         "host_overhead_per_token_us": round(
             1e6 * host_overhead_per_token(), 2),
         "buckets": list(buckets.lengths), "metrics": snap}

@@ -1,51 +1,79 @@
-"""Slot-based continuous batching: a dynamic request stream through ONE
-decode step, captured once in a CUDA graph on the card.
+"""Slot-based continuous batching: a dynamic request stream through fixed
+device programs, each captured once in a CUDA graph on the card.
 
-Counterpart of the single-device slab path of ``pipe_tpu/serve/engine.py``.
-The engine owns ``S`` decode slots, each a row of every layer's KV cache
-plus a (token, position, seed, draw step) quadruple on the device. A host
-**tick** is:
+Counterpart of the single-device path of ``pipe_tpu/serve/engine.py``. The
+engine owns ``S`` decode slots, each a row of every layer's KV memory plus a
+(token, position, seed, draw step) quadruple on the device. A host **tick**
+is:
 
 1. reap requests that died waiting (deadline/cancel) and retire running
    slots whose deadline passed or that were cancelled;
-2. admit waiting requests into free slots — a prefill per prompt-length
-   bucket (:class:`~.buckets.BucketSpec`) writes the slot's cache rows and
-   samples the first token (TTFT is measured here);
-3. run the **one** decode step for all S slots — finished/empty slots
-   decode garbage into rows the next prefill overwrites — and retire slots
-   on EOS / per-request ``max_new_tokens``.
+2. admit waiting requests into free slots -- a prefill writes the slot's KV
+   rows and samples the first token (TTFT is measured here);
+3. run the decode program for all S slots -- finished/empty slots decode
+   garbage into rows the next prefill overwrites -- and retire slots on EOS
+   / per-request ``max_new_tokens``.
 
-Where ``pipe_tpu`` compiles the decode step once (``jax.jit``), the port
-captures it once in a ``torch.cuda.CUDAGraph`` on the card and replays it
-every tick: the host writes the static input buffers (token, position,
-seed, step) with ``copy_`` at prefill and reads the ``[S, K]`` token output
-back. The capture increments ``serve.engine.decode_traces``;
-``tests/test_torch_serve.py`` and ``chip_smoke.py`` hold it at 1 across
-staggered mixed-length traffic, the port's form of ``pipe_tpu``'s
-zero-recompile pin. A capture or replay error raises: there is no eager
-fallback on the card. On the CPU the same step runs eagerly (the first run
-counts as its trace), as ``jax.jit`` on the CPU runs the compiled program.
-``cuda_graph=False`` runs it eagerly on the card too: the reference the
-graph is held to.
+Where ``pipe_tpu`` compiles each program once (``jax.jit``), the port
+captures it once in a ``torch.cuda.CUDAGraph`` on the card (:class:`_Program`)
+and replays it: the host writes the programs' static input buffers with one
+``copy_`` and reads one output buffer back. Every program's capture counts
+its ``pipe_tpu`` trace counter (``serve.engine.decode_traces``,
+``serve.engine.prefill_chunk_traces``, ``serve.engine.resident_traces``,
+``serve.kv.fork_traces``, ``serve.kv.restore_traces``);
+``tests/test_torch_serve.py``, ``tests/test_torch_kvpool.py``,
+``tests/test_torch_resident.py`` and ``chip_smoke.py`` hold them at 1 across
+staggered mixed-length traffic. A capture or replay error raises: there is no
+eager fallback on the card. On the CPU the same functions run eagerly (the
+first run counts as the trace). ``cuda_graph=False`` runs them eagerly on the
+card too: the reference the graphs are held to.
+
+KV memory is one of two layouts:
+
+* **slab** (default): one ``[S, max_len, heads, head_dim]`` cache per layer.
+  Prefill runs one program per prompt-length bucket
+  (:class:`~.buckets.BucketSpec`), captured per bucket touched, as
+  ``pipe_tpu`` jits one per bucket.
+* **paged** (``kv_block_size``): a :class:`~.kvpool.KvPool` of blocks with
+  per-slot tables, shared prompt prefixes (copy-on-write), optional host
+  offload and int8 rows. Prefill is ONE fixed-shape ``[1, prefill_chunk]``
+  chunk program replayed until the prompt is covered, for every prompt
+  length. Decode runs on per-slot gathered views of the pool, carried across
+  ticks, and scatters the chunk's new rows back through the tables. A view
+  is re-gathered only when a prefill moved its slot's table: the prefill's
+  epilogue refreshes that one slot (``pipe_tpu`` re-gathers every slot
+  under a regather flag that the next decode program reads; a graph
+  without conditional nodes could only gate that by computing it every
+  launch), so decode ticks and resident launches make no gather decision.
 
 Token equality: a slot's tokens do not depend on what the other slots do.
-Positions are per row (``MultiHeadAttention.decode`` with a position
-tensor; a dead slot's position is clamped to the cache, with no host
-check), and sampled draws are keyed by (request seed, step, vocab index)
+Positions are per row (``MultiHeadAttention.decode`` with a position tensor;
+a dead slot's position is clamped to its cache), and sampled draws are keyed
+by (request seed, step, vocab index)
 (:func:`~..inference.generate.keyed_uniform`), not drawn from a stream. S
-slots run as S-row GEMMs, which need not give batch-1 bits, so greedy
-tokens equal a one-shot batch-1 ``Generator`` wherever the logits' top-2
-margin is wider than rounding (the margin-gated law of the generator's
-tests).
+slots run as S-row GEMMs, which need not give batch-1 bits, so greedy tokens
+equal a one-shot batch-1 ``Generator`` wherever the logits' top-2 margin is
+wider than rounding (the margin-gated law of the generator's tests).
 
-``decode_chunk > 1`` runs K decode steps per tick inside the one step (one
-host round trip per K tokens). A slot finishing mid-chunk wastes at most
-K-1 slot-steps before the host sees it.
+``decode_chunk > 1`` runs K decode steps per launch (one host round trip per
+K tokens). A slot finishing mid-chunk wastes at most K-1 slot-steps.
 
-Prefill runs eagerly, one prompt at a time. Not ported yet, each refused
-with ``NotImplementedError`` naming its ROADMAP.md item: the paged KV pool
-(``kv_block_size``, ``kv_dtype``, ``kv_offload``), the resident loop
-(``resident=True``), the speculative lane (``spec_tokens``, ``draft``), the
+**The resident loop** (``resident=True``; ``"auto"`` picks it on ``cuda``)
+runs up to ``resident_chunks`` decode chunks per launch with a device-side
+``done`` mask (EOS or spent token budget), and stops early when a live slot
+goes done, with one host read-back per launch. ``pipe_tpu`` writes it as a
+``lax.while_loop``. PyTorch 2.11 captures no conditional graph node, so the
+port captures ONE graph that unrolls all ``resident_chunks`` chunks, each
+gated by a device flag ``go = (k < r_max) & ~any(live & done)``: a chunk past
+the stop computes but keeps ``tok/pos/step/budget/done`` as they were
+(``torch.where``). That is exact, not an approximation: a frozen chunk
+recomputes what the next real chunk will compute from the same state, so
+its K/V writes put exactly the next real chunk's bits into the same rows.
+The cost is device time on those "ghost" chunks; the
+``serve.engine.resident_chunks_run`` and ``_computed`` counters show it.
+
+Not ported yet, each refused with ``NotImplementedError`` naming its
+ROADMAP.md item: the speculative lane (``spec_tokens``, ``draft``), the
 watchdog, chaos and disaggregated phases, and the fleet's KV handoff.
 """
 
@@ -53,7 +81,7 @@ from __future__ import annotations
 
 import time
 import warnings
-from typing import Callable, List, Optional, Sequence
+from typing import Callable, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -64,24 +92,19 @@ from ..obs.events import NULL_EVENT_LOG, REQUEST
 from ..obs.telemetry import get_registry, host_overhead_per_token
 from ..ops.layers import causal_table
 from .buckets import BucketSpec
+from .kvpool import (HostKvStore, KvPool, PoolExhausted, copy_block,
+                     flat_row_index, gather_block_cache, scatter_block_rows,
+                     storage_for)
 from .queue import QueueFull, Request, RequestQueue, Response
 
-__all__ = ["SingleDeviceSlotBackend", "ServeEngine", "EngineDraining"]
+__all__ = ["SingleDeviceSlotBackend", "ServeEngine", "EngineDraining",
+           "resolve_resident"]
 
-_PAGED = "A.6, serve/kvpool.py: the paged KV pool"
-_RESIDENT = "A.6, the resident loop"
 _SPEC = "A.6, inference/draft.py and the speculative lane"
 _FLEET = "A.7, fleet handoff"
 
 # (argument, its default, the ROADMAP.md item that ports it)
 _NOT_PORTED = (
-    ("kv_block_size", None, _PAGED),
-    ("kv_pool_blocks", None, _PAGED),
-    ("prefill_chunk", 16, _PAGED),
-    ("kv_dtype", None, _PAGED),
-    ("kv_offload", False, _PAGED),
-    ("kv_offload_blocks", None, _PAGED),
-    ("resident_chunks", 8, _RESIDENT),
     ("spec_tokens", None, _SPEC),
     ("draft", "ngram", _SPEC),
     ("draft_stages", 1, _SPEC),
@@ -107,11 +130,88 @@ class _Slot:
         self.ttft = ttft
 
 
+def resolve_resident(resident, device: torch.device) -> bool:
+    """The resident tri-state as a backend on ``device`` runs it: the
+    multi-chunk launch pays off where launch and sync overhead does, so
+    ``"auto"`` is the resident loop on ``cuda`` and the single-chunk tick
+    elsewhere (``pipe_tpu``: on any accelerator)."""
+    if resident == "auto":
+        return device.type == "cuda"
+    return bool(resident)
+
+
+class _Program:
+    """``body(st)`` over a dict of static device buffers ``st``, run as one
+    unit: captured once into a CUDA graph (into the backend's shared graph
+    memory pool) and replayed per call when the backend captures, run
+    eagerly otherwise. The first call counts ``counter``: the capture, or
+    the eager first run. The capture's warm-up (cuBLAS handles, the
+    allocator) runs ``body(scratch())`` on a side stream, where
+    ``scratch()`` gives buffers whose writes cannot touch live state."""
+
+    def __init__(self, backend, body: Callable[[dict], None], st: dict,
+                 scratch: Callable[[], dict], counter: Optional[str] = None):
+        self.backend = backend
+        self.body = body
+        self.st = st
+        self.scratch = scratch
+        self.counter = counter
+        self.graph: Optional[torch.cuda.CUDAGraph] = None
+        self._ready = False
+
+    def __call__(self) -> None:
+        if not self._ready:
+            if self.counter is not None:
+                get_registry().counter(self.counter).inc()
+            if self.backend.cuda_graph:
+                self._capture()
+            self._ready = True
+        if self.graph is not None:
+            self.graph.replay()
+        else:
+            self.body(self.st)
+
+    def _capture(self) -> None:
+        dev = self.backend.device
+        scratch = self.scratch()
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            self.body(scratch)
+        torch.cuda.current_stream(dev).wait_stream(side)
+        del scratch
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, pool=self.backend._graph_pool):
+            self.body(self.st)
+        self.graph = graph
+
+
+def _clone(st: dict, names: Sequence[str]) -> dict:
+    """``st`` with fresh copies of the buffers ``names`` (tensors, or lists
+    of per-layer cache dicts, or dicts of tensors)."""
+    def cp(v):
+        if isinstance(v, torch.Tensor):
+            return v.clone()
+        if isinstance(v, dict):
+            return {k: cp(x) for k, x in v.items()}
+        return [cp(x) for x in v]
+    return dict(st, **{n: cp(st[n]) for n in names})
+
+
 class SingleDeviceSlotBackend:
     """S decode slots over one device's weights: the model's own (an int8
     :func:`~..inference.quant.quantize_params` copy serves int8 weights),
-    on the model's device. The KV memory is one slab per layer,
-    ``[S, max_len, heads, head_dim]`` in the compute dtype.
+    on the model's device.
+
+    KV memory is a slab per layer, ``[S, max_len, heads, head_dim]`` in the
+    compute dtype, or -- with ``kv_block_size`` (or
+    ``GenerationConfig.kv_block_size``) -- a paged pool of
+    ``kv_pool_blocks`` blocks (default: the slab's rows plus the
+    sacrificial block), prefilled in ``prefill_chunk``-row chunks, with
+    ``kv_dtype="int8"`` rows and ``kv_offload`` host spill
+    (``kv_offload_blocks`` caps the host store; default the pool size).
+    ``resident`` (``"auto"``: True on ``cuda``) runs up to
+    ``resident_chunks`` decode chunks per launch.
     """
 
     def __init__(self, model, *, num_slots: int, max_len: int,
@@ -140,21 +240,10 @@ class SingleDeviceSlotBackend:
                 raise NotImplementedError(
                     f"SingleDeviceSlotBackend({name}={args[name]!r}) is not "
                     f"ported to pipe_tpu_torch yet (ROADMAP.md {item})")
-        if gen.kv_block_size is not None:
-            raise NotImplementedError(
-                f"GenerationConfig.kv_block_size is not ported to "
-                f"pipe_tpu_torch yet (ROADMAP.md {_PAGED})")
         if gen.spec_tokens is not None:
             raise NotImplementedError(
                 f"GenerationConfig.spec_tokens is not ported to "
                 f"pipe_tpu_torch yet (ROADMAP.md {_SPEC})")
-        if resident not in ("auto", True, False):
-            raise ValueError(
-                f"resident must be 'auto', True or False, got {resident!r}")
-        if resident is True:
-            raise NotImplementedError(
-                f"resident=True is not ported to pipe_tpu_torch yet "
-                f"(ROADMAP.md {_RESIDENT}); 'auto' serves one chunk a tick")
         if gen.num_beams != 1:
             raise ValueError(
                 "the serve engine decodes greedy/sampled slots; beam "
@@ -166,6 +255,12 @@ class SingleDeviceSlotBackend:
                 f"decode_chunk must be >= 1, got {decode_chunk}")
         if max_len < 2:
             raise ValueError(f"max_len must be >= 2, got {max_len}")
+        if resident not in ("auto", True, False):
+            raise ValueError(
+                f"resident must be 'auto', True or False, got {resident!r}")
+        if resident_chunks < 1:
+            raise ValueError(
+                f"resident_chunks must be >= 1, got {resident_chunks}")
         self.model = model
         self.gen = gen
         self.num_slots = num_slots
@@ -174,32 +269,177 @@ class SingleDeviceSlotBackend:
         self.decode_chunk = decode_chunk
         self.decode_width = decode_chunk
         self.shape_cache_warn = shape_cache_warn
-        self.paged = False
-        self.pool = None
-        self.resident = False
         self.device = next(model.parameters()).device
+        self.resident = resolve_resident(resident, self.device)
+        self.resident_chunks = resident_chunks
         self.cuda_graph = bool(cuda_graph) and self.device.type == "cuda"
+        self._graph_pool = (torch.cuda.graph_pool_handle()
+                            if self.cuda_graph else None)
 
         dev = self.device
         cd = model.cfg.compute_dtype
-        with torch.no_grad():
-            caches = [blk.attn.make_cache(num_slots, max_len, dtype=cd)
-                      for blk in model.blocks]
         ids = dict(dtype=torch.int64, device=dev)
-        # The decode step's static buffers: what the captured graph reads
-        # and writes. Host writes go through copy_/index writes into them.
-        self._state = {
-            "caches": caches,
-            "table": causal_table(max_len, dev),
+        kbs = kv_block_size if kv_block_size is not None \
+            else gen.kv_block_size
+        self.paged = kbs is not None
+        self.kv_dtype = kv_dtype
+        with torch.no_grad():
+            proto = model.blocks[0].attn.make_cache(1, max_len, dtype=cd)
+        if self.paged:
+            if prefill_chunk < 1:
+                raise ValueError(
+                    f"prefill_chunk must be >= 1, got {prefill_chunk}")
+            self.prefill_chunk = prefill_chunk
+            mb = -(-max_len // kbs)
+            nb = kv_pool_blocks if kv_pool_blocks is not None \
+                else num_slots * mb + 1
+            if buckets is not None:
+                gen.check_kv_headroom(buckets.max_len, kbs)
+            self.pool = KvPool(
+                num_blocks=nb, block_size=kbs, num_slots=num_slots,
+                max_len=max_len, prefix_cache=gen.prefix_cache,
+                gather_slack_rows=prefill_chunk)
+            self.kv_offload = bool(kv_offload)
+            if self.kv_offload:
+                # host spill target for cold refcount-0 blocks: payloads are
+                # raw device bytes (int8 codes + scales for int8 pools), so
+                # offload -> restore is a bitwise round trip
+                self.pool.attach_offload(
+                    HostKvStore(max_blocks=(kv_offload_blocks
+                                            if kv_offload_blocks is not None
+                                            else nb)),
+                    self._offload_read_block)
+        else:
+            if kv_dtype is not None:
+                raise ValueError(
+                    "kv_dtype needs the paged pool (set kv_block_size); "
+                    "the slab path stores KV in the compute dtype")
+            if kv_offload:
+                raise ValueError(
+                    "kv_offload needs the paged pool (set kv_block_size); "
+                    "the slab path has no block-level eviction to spill")
+            self.kv_offload = False
+            self.pool = None
+
+        # The decode programs' static buffers: what the captured graphs
+        # read and write. Host writes go through copy_ into them.
+        st = {
             "tok": torch.zeros(num_slots, **ids),
             "pos": torch.zeros(num_slots, **ids),
             "seed": torch.zeros(num_slots, **ids),
             "step": torch.zeros(num_slots, **ids),
             "out": torch.zeros((num_slots, decode_chunk), **ids),
         }
-        self._prefill_shapes = set()
-        self._decode_ready = False
-        self._graph: Optional[torch.cuda.CUDAGraph] = None
+        with torch.no_grad():
+            if self.paged:
+                self._init_paged(st, proto)
+            else:
+                st["caches"] = [blk.attn.make_cache(num_slots, max_len,
+                                                    dtype=cd)
+                                for blk in model.blocks]
+                st["table"] = causal_table(max_len, dev)
+                # the bucket prefill's input: (true length, slot, seed
+                # word, the right-padded prompt), one host copy per prefill
+                st["pin"] = torch.zeros(3 + max_len, **ids)
+            if self.resident:
+                R, C = resident_chunks, decode_chunk
+                # (live, budget, r_max) in, (tokens, chunks run) out: one
+                # host copy each way per launch
+                st["rin"] = torch.zeros(2 * num_slots + 1, **ids)
+                st["rout"] = torch.zeros((num_slots, R * C + 1), **ids)
+        self._state = st
+        self._prefill_programs: Dict[int, _Program] = {}
+        scratch_names = ("caches", "tok", "pos", "seed", "step", "out")
+        self._decode_prog = _Program(
+            self, self._decode_paged_body if self.paged else
+            self._decode_body, st,
+            lambda: self._scratch(scratch_names),
+            "serve.engine.decode_traces")
+        if self.resident:
+            self._resident_prog = _Program(
+                self, self._resident_body, st,
+                lambda: self._scratch(scratch_names + ("rout",)),
+                "serve.engine.resident_traces")
+
+    def _init_paged(self, st: dict, proto: dict) -> None:
+        """The pool's device arrays, the per-slot views the decode programs
+        run on, the tables, and the prefill-chunk program's buffers."""
+        m, dev, pool = self.model, self.device, self.pool
+        cd = m.cfg.compute_dtype
+        ids = dict(dtype=torch.int64, device=dev)
+        L, S = len(m.blocks), self.num_slots
+        bs, W = pool.block_size, pool.table_width
+        self._pool_kv = storage_for(proto, L, pool.num_blocks, bs,
+                                    kv_dtype=self.kv_dtype)
+        # Per-slot gathered views carried across decode chunks: the
+        # prefill that moves a slot's table refreshes that slot's view.
+        # Compute dtype even for int8 pools: the view is the dequantized
+        # working set.
+        R = pool.max_blocks * bs
+        views = {name: torch.zeros((L, S, R) + tuple(proto[name].shape[2:]),
+                                   dtype=cd, device=dev)
+                 for name in ("k", "v")}
+        st["views"] = views
+        st["caches"] = self._layer_views(views)
+        st["table"] = causal_table(R, dev)
+        st["tables"] = torch.zeros((S, W), **ids)
+        st["pool"] = self._pool_kv
+        # The chunk program's input: (chunk start t0, true length, slot,
+        # seed word, the table row, the padded prompt), one host copy per
+        # prefill; each replay advances t0 by one chunk on the device.
+        R_ext = (W - 1) * bs
+        self._cpin_layout = (4, 4 + W, 4 + W + R_ext)
+        cst = {"pin": torch.zeros(4 + W + R_ext, **ids),
+               "h_last": torch.zeros((1, m.cfg.d_model), dtype=cd,
+                                     device=dev),
+               "table": causal_table(R_ext, dev), "pool": self._pool_kv}
+        self._chunk_prog = _Program(
+            self, self._chunk_body, cst, self._chunk_scratch,
+            "serve.engine.prefill_chunk_traces")
+        self._first_prog = _Program(
+            self, self._first_token_paged, dict(st, cst=cst),
+            lambda: dict(self._scratch(("tok", "pos", "seed", "step",
+                                        "caches")),
+                         cst=_clone(cst, ("h_last", "pin"))))
+        fst = {"pin": torch.zeros(2, **ids), "pool": self._pool_kv}
+        self._fork_prog = _Program(
+            self, lambda s: copy_block(s["pool"], s["pin"][0:1],
+                                       s["pin"][1:2]),
+            fst, lambda: dict(fst, pin=torch.zeros_like(fst["pin"])),
+            "serve.kv.fork_traces")
+        rst = {"dst": torch.zeros(1, **ids), "pool": self._pool_kv,
+               "payload": {name: torch.zeros_like(a[:, 0])
+                           for name, a in self._pool_kv.items()}}
+        self._restore_prog = _Program(
+            self, self._restore_body, rst,
+            lambda: dict(rst, dst=torch.zeros_like(rst["dst"])),
+            "serve.kv.restore_traces")
+
+    @staticmethod
+    def _layer_views(views: dict) -> list:
+        """Per-layer ``{'k', 'v'}`` caches ``[S, R, ...]`` over the views
+        ``[L, S, R, ...]``: what the decode step runs on."""
+        return [{name: views[name][l] for name in ("k", "v")}
+                for l in range(views["k"].shape[0])]
+
+    def _scratch(self, names: Sequence[str]) -> dict:
+        """Copies of the decode state for a capture's warm-up; a paged
+        backend's copy also zeroes the tables, so every pool write of the
+        warm-up lands in the sacrificial block, and copies the views."""
+        st = self._state
+        names = list(names)
+        if self.paged:
+            if "caches" in names:
+                names[names.index("caches")] = "views"
+            names.append("tables")
+        out = _clone(st, [n for n in names if n in st])
+        if self.paged:
+            out["tables"].zero_()
+            if "views" in names:
+                out["caches"] = self._layer_views(out["views"])
+        if "rin" in st:
+            out["rin"] = st["rin"].clone()
+        return out
 
     # -- validation --------------------------------------------------------
 
@@ -207,9 +447,19 @@ class SingleDeviceSlotBackend:
         """Admission-control shape checks — reject at submit, not at
         prefill, so a bad request never costs a slot. A live slot's last
         decode writes row ``prompt_len + max_new_tokens - 2``, inside the
-        cache."""
+        cache. Paged mode adds the can-it-EVER-fit check: demand beyond
+        the whole pool is unservable, not merely parked."""
         bucket = (self.buckets.bucket_for(prompt_len)
-                  if self.buckets is not None else prompt_len)
+                  if self.buckets is not None and not self.paged
+                  else prompt_len)
+        if self.paged and self.pool.demand_for(
+                prompt_len, max_new_tokens) > self.pool.allocatable:
+            raise ValueError(
+                f"request needs "
+                f"{self.pool.demand_for(prompt_len, max_new_tokens)} KV "
+                f"blocks but the whole pool holds "
+                f"{self.pool.allocatable}; raise kv_pool_blocks or "
+                f"shorten the request")
         if prompt_len + max_new_tokens > self.max_len:
             raise ValueError(
                 f"prompt_len {prompt_len} + max_new_tokens "
@@ -232,7 +482,7 @@ class SingleDeviceSlotBackend:
                 f"request needs position {max(bucket, prompt_len + max_new_tokens)} "
                 f"but the positional table has {limit}")
 
-    # -- device work -------------------------------------------------------
+    # -- device programs ---------------------------------------------------
 
     def _draws(self, seed: torch.Tensor, step: torch.Tensor,
                vocab: int) -> Optional[torch.Tensor]:
@@ -240,153 +490,418 @@ class SingleDeviceSlotBackend:
             return None
         return keyed_uniform(seed, step, vocab)
 
-    def _prefill_slot(self, slot: int, padded: List[int], p: int,
-                      seed: int) -> torch.Tensor:
-        """The bucket-length prefill: the right-padded prompt through every
-        block's ``decode`` into the slot's slab, zeroed first (the previous
-        occupant's rows are gone, not merely masked), then the first token
-        from the logits at the true last position (draw step 0)."""
-        m, st = self.model, self._state
-        x = torch.tensor([padded], dtype=torch.int64, device=self.device)
-        h = m.embed_at(x, 0)                               # [1, B, d]
-        allowed = st["table"][:len(padded)]
-        for blk, cache in zip(m.blocks, st["caches"]):
-            rows = {name: c[slot:slot + 1] for name, c in cache.items()}
-            for c in rows.values():
-                c.zero_()
-            h, _ = blk.decode(h, rows, 0, allowed=allowed)
-        logits = head_logits(m, h[:, p - 1])              # [1, V]
-        word = torch.tensor([seed_word(seed)], dtype=torch.int64,
-                            device=self.device)
+    def _first_token(self, st: dict, h_last: torch.Tensor,
+                     slot: torch.Tensor, plen: torch.Tensor,
+                     word: torch.Tensor) -> None:
+        """The first-token epilogue of every prefill: the head on ``h_last
+        [1, d]``, a draw at step 0 keyed by the request's seed word, and
+        the slot's (token, position, seed, step) written at ``slot`` (all
+        ``[1]`` device tensors). The token also lands in ``st["tok0"]``."""
+        logits = head_logits(self.model, h_last)            # [1, V]
         tok = sample_logits(
             logits, self.gen,
             uniform=self._draws(word, torch.zeros_like(word),
                                 logits.shape[-1]))
-        st["tok"][slot] = tok[0]
-        st["pos"][slot] = p
-        st["seed"][slot] = word[0]
-        st["step"][slot] = 1
-        return tok[0]
+        st["tok"].index_copy_(0, slot, tok)
+        st["pos"].index_copy_(0, slot, plen)
+        st["seed"].index_copy_(0, slot, word)
+        st["step"].index_fill_(0, slot, 1)
+
+    def _bucket_body(self, st: dict, B: int) -> None:
+        """The bucket-length-B prefill: the right-padded prompt through
+        every block's ``decode`` against a fresh full-length cache, which
+        then replaces the ENTIRE slot slab (the previous occupant's rows
+        are gone, not merely masked), then the first token from the logits
+        at the true last position."""
+        m = self.model
+        pin = st["pin"]
+        plen, slot, word = pin[0:1], pin[1:2], pin[2:3]
+        prompt = pin[3:3 + B][None]                         # [1, B]
+        h = m.embed_at(prompt, 0)                           # [1, B, d]
+        allowed = st["table"][:B]
+        for blk, cache in zip(m.blocks, st["caches"]):
+            rows = {name: torch.zeros_like(c[:1])
+                    for name, c in cache.items()}
+            h, _ = blk.decode(h, rows, 0, allowed=allowed)
+            for name, c in cache.items():
+                c.index_copy_(0, slot, rows[name])
+        h_last = h[0].index_select(0, plen - 1)            # [1, d]
+        self._first_token(st, h_last, slot, plen, word)
+
+    def _decode_step(self, st: dict, tok: torch.Tensor, pos: torch.Tensor,
+                     step: torch.Tensor) -> torch.Tensor:
+        """One decode step for all S slots: each slot's K/V row written at
+        its position in ``st["caches"]``, the next token returned. Reads
+        nothing back to the host: positions gather the mask rows and the
+        positional table, K/V rows are written by index."""
+        m = self.model
+        allowed = st["table"][pos][:, None]               # [S, 1, rows]
+        h = m.embed_at(tok[:, None], pos)                 # [S, 1, d]
+        for blk, cache in zip(m.blocks, st["caches"]):
+            h, _ = blk.decode(h, cache, pos, allowed=allowed)
+        logits = head_logits(m, h[:, 0])                  # [S, V]
+        return sample_logits(
+            logits, self.gen,
+            uniform=self._draws(st["seed"], step, logits.shape[-1]))
 
     def _decode_body(self, st: dict) -> None:
         """THE decode step: ``decode_chunk`` tokens for all S slots, on the
-        buffers of ``st`` in place. Reads nothing back to the host, so it
-        can be captured: positions gather the mask rows and the positional
-        table, K/V rows are written by index, EOS masking is a ``where``.
-        A slot's position stops at the cache's last row (a dead slot
-        decodes garbage there; a live one never gets that far)."""
-        m, gen = self.model, self.gen
+        buffers of ``st`` in place; EOS masking is a ``where``. A slot's
+        position stops at the cache's last row (a dead slot decodes
+        garbage there; a live one never gets that far)."""
+        gen = self.gen
         eos = gen.eos_token_id
         tok, pos = st["tok"], st["pos"]
+        last = st["caches"][0]["k"].shape[1] - 1
         done = None if eos is None else tok == eos
         for k in range(self.decode_chunk):
-            allowed = st["table"][pos][:, None]           # [S, 1, max_len]
-            h = m.embed_at(tok[:, None], pos)             # [S, 1, d]
-            for blk, cache in zip(m.blocks, st["caches"]):
-                h, _ = blk.decode(h, cache, pos, allowed=allowed)
-            logits = head_logits(m, h[:, 0])             # [S, V]
-            nxt = sample_logits(
-                logits, gen,
-                uniform=self._draws(st["seed"], st["step"],
-                                    logits.shape[-1]))
+            nxt = self._decode_step(st, tok, pos, st["step"])
             if done is not None:
                 # a finished slot emits pad from the step after its EOS
                 nxt = torch.where(done, gen.pad_token_id, nxt)
                 done = done | (nxt == eos)
             st["out"][:, k].copy_(nxt)
             tok.copy_(nxt)
-            pos.add_(1).clamp_(max=self.max_len - 1)
+            pos.add_(1).clamp_(max=last)
             st["step"].add_(1)
 
-    def _capture(self) -> None:
-        """Capture the decode step into a CUDA graph. The warm-up run that
-        capture needs (cuBLAS handles, the allocator) goes to a copy of
-        the state on a side stream, so the live slots are not touched;
-        capture itself runs nothing."""
-        st = self._state
-        scratch = dict(st, caches=[{n: c.clone() for n, c in cache.items()}
-                                   for cache in st["caches"]],
-                       **{n: st[n].clone()
-                          for n in ("tok", "pos", "seed", "step", "out")})
-        side = torch.cuda.Stream(self.device)
-        side.wait_stream(torch.cuda.current_stream(self.device))
-        with torch.cuda.stream(side):
-            self._decode_body(scratch)
-        torch.cuda.current_stream(self.device).wait_stream(side)
-        del scratch
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph):
-            self._decode_body(st)
-        self._graph = graph
+    def _scatter_chunk(self, st: dict, pos0: torch.Tensor) -> None:
+        """The rows a decode chunk wrote into the views, positions
+        ``pos0 + [0, C)`` of every slot, back into the pool through the
+        FULL-width tables: positions past a slot's reserved blocks, and
+        every row of a released slot (zeroed table), land in the
+        sacrificial block."""
+        C = self.decode_chunk
+        S = self.num_slots
+        views = st["views"]
+        last = views["k"].shape[2] - 1
+        p = pos0[:, None] + torch.arange(C, device=pos0.device)  # [S, C]
+        ridx = flat_row_index(st["tables"], p, self.pool.block_size)
+        ridx = ridx.reshape(-1)
+        src = p.clamp(max=last)
+        rows_of = torch.arange(S, device=pos0.device)[:, None]
+        for l in range(len(self.model.blocks)):
+            pool_l = {name: a[l] for name, a in st["pool"].items()}
+            rows = {name: views[name][l][rows_of, src].reshape(
+                        (S * C,) + views[name].shape[3:])
+                    for name in ("k", "v")}
+            scatter_block_rows(pool_l, ridx, rows)
+
+    def _decode_paged_body(self, st: dict) -> None:
+        """The paged decode program: ``decode_chunk`` slab-style steps on
+        the per-slot views (the attention math of the slab, in-chunk rows
+        read back from the view as the slab reads its own), then the S*C
+        new rows scattered back into the pool once."""
+        pos0 = st["pos"].clone()
+        self._decode_body(st)
+        self._scatter_chunk(st, pos0)
+
+    def _chunk_body(self, cst: dict) -> None:
+        """THE prefill program: one fixed-shape ``[1, C]`` chunk at the
+        offset ``t0`` held on the device, for any prompt length. Each layer
+        attends over the slot's gathered view (earlier chunks' rows
+        included) and scatters its C new rows back through the table row;
+        pad positions past the true length land in the slot's own future
+        decode blocks or the sacrificial block, both rewritten or ignored
+        before any unmasked read. Leaves ``h`` at ``true_len - 1``, clamped
+        into this chunk, in ``h_last`` (the last chunk's is the prompt's),
+        and advances ``t0`` by C."""
+        m = self.model
+        cd = m.cfg.compute_dtype
+        bs = self.pool.block_size
+        C = self.prefill_chunk
+        a, b, _ = self._cpin_layout
+        pin = cst["pin"]
+        t0, true_len = pin[0:1], pin[1:2]
+        trow, prompt = pin[a:b], pin[b:]
+        positions = t0 + torch.arange(C, device=pin.device)   # [C]
+        h = m.embed_at(prompt.index_select(0, positions)[None], t0)
+        ridx = flat_row_index(trow, positions, bs)
+        allowed = cst["table"][positions][None]              # [1, C, R]
+        for l, blk in enumerate(m.blocks):
+            pool_l = {name: arr[l] for name, arr in cst["pool"].items()}
+            cache = gather_block_cache(pool_l, trow, block_size=bs,
+                                       compute_dtype=cd)
+            h, c2 = blk.decode(h, cache, t0, allowed=allowed)
+            scatter_block_rows(pool_l, ridx, {
+                name: c2[name][0].index_select(0, positions)
+                for name in ("k", "v")})
+        idx = (true_len - 1 - t0).clamp(0, C - 1)
+        cst["h_last"].copy_(h[0].index_select(0, idx))
+        t0.add_(C)
+
+    def _chunk_scratch(self) -> dict:
+        cst = _clone(self._chunk_prog.st, ("h_last", "pin"))
+        a, b, _ = self._cpin_layout
+        cst["pin"][a:b].zero_()
+        return cst
+
+    def _first_token_paged(self, st: dict) -> None:
+        """The paged prefill's epilogue program: the first token from the
+        chunk program's ``h_last``, and the slot's view refreshed from the
+        pool through its new table row (its first ``max_blocks`` entries:
+        every row the slot can read or write). The other slots' views stay
+        valid: this admission wrote only blocks its own table holds."""
+        pin = st["cst"]["pin"]
+        slot = pin[2:3]
+        self._first_token(st, st["cst"]["h_last"], slot, pin[1:2],
+                          pin[3:4])
+        a = self._cpin_layout[0]
+        trow = pin[a:a + self.pool.max_blocks + 1]
+        cd = self.model.cfg.compute_dtype
+        for l in range(len(self.model.blocks)):
+            pool_l = {name: arr[l] for name, arr in st["pool"].items()}
+            fresh = gather_block_cache(pool_l, trow,
+                                       block_size=self.pool.block_size,
+                                       compute_dtype=cd)     # [1, R, ...]
+            for name in ("k", "v"):
+                st["views"][name][l].index_copy_(0, slot, fresh[name])
+
+    def _restore_body(self, rst: dict) -> None:
+        """An offloaded block's host payload (staged on the device) back
+        at physical block ``dst``: one program for every restore."""
+        for name, a in rst["pool"].items():
+            a.index_copy_(1, rst["dst"], rst["payload"][name][:, None])
+
+    def _offload_read_block(self, bid: int) -> dict:
+        """Host copy of one physical block across every pool array -- the
+        payload :class:`~.kvpool.HostKvStore` holds while the block is
+        offloaded. Raw storage bytes (int8 codes + scales for int8 pools),
+        so the later restore is bitwise. A copy, also on the CPU, where
+        ``.cpu()`` would return the pool's own memory."""
+        return {name: a[:, bid].to("cpu", copy=True).numpy()
+                for name, a in self._pool_kv.items()}
+
+    # -- the resident loop -------------------------------------------------
+
+    def _resident_body(self, st: dict) -> None:
+        """The resident program: ``resident_chunks`` decode chunks,
+        unrolled, each gated by ``go = (k < r_max) & ~any(live & done)``.
+        The chunk math is :meth:`_decode_step`'s; ``done`` (dead slot,
+        spent budget, EOS) masks a slot's tokens to pad, and a chunk
+        without ``go`` keeps every per-slot value as it was, so the next
+        launch recomputes it. Paged: each chunk's rows scatter back into
+        the pool. Writes the tokens and the count of chunks run ``k`` to
+        ``rout``."""
+        gen = self.gen
+        eos, pad = gen.eos_token_id, gen.pad_token_id
+        S, C = self.num_slots, self.decode_chunk
+        rin = st["rin"]
+        live, budget, r_max = rin[:S] > 0, rin[S:2 * S], rin[2 * S]
+        tok, pos, step = st["tok"], st["pos"], st["step"]
+        last = st["caches"][0]["k"].shape[1] - 1
+        done = ~live | (budget <= 0)
+        if eos is not None:
+            done = done | (tok == eos)
+        k = torch.zeros((), dtype=torch.int64, device=tok.device)
+        cur = (tok, pos, step, budget, done)
+        outs = []
+        for _ in range(self.resident_chunks):
+            go = (k < r_max) & ~(live & cur[4]).any()
+            t, p, s, b, d = cur
+            toks = []
+            for _ in range(C):
+                nxt = self._decode_step(st, t, p, s)
+                nxt = torch.where(d, pad, nxt)
+                b = b - (~d).to(b.dtype)
+                d = d | (b <= 0)
+                if eos is not None:
+                    d = d | (nxt == eos)
+                toks.append(nxt)
+                t, p, s = nxt, (p + 1).clamp(max=last), s + 1
+            if self.paged:
+                self._scatter_chunk(st, cur[1])
+            cur = tuple(torch.where(go, new, old)
+                        for new, old in zip((t, p, s, b, d), cur))
+            k = k + go.to(k.dtype)
+            outs.append(torch.stack(toks, dim=1))
+        tok.copy_(cur[0])
+        pos.copy_(cur[1])
+        step.copy_(cur[2])
+        st["rout"].copy_(torch.cat(outs + [k.expand(S, 1)], dim=1))
 
     # -- backend API -------------------------------------------------------
 
     def prefill(self, slot: int, prompt: Sequence[int], seed: int,
                 max_new_tokens: Optional[int] = None) -> int:
-        """Fill slot ``slot``'s cache rows from ``prompt`` and return the
-        first sampled token. Blocking — the returned int IS the TTFT
-        moment. One shape per prompt-length bucket, counted as
-        ``pipe_tpu`` counts its per-bucket programs. ``max_new_tokens``
-        is accepted for the paged pool's reservation; the slab ignores
-        it."""
+        """Fill slot ``slot``'s KV rows from ``prompt`` and return the
+        first sampled token. Blocking -- the returned int IS the TTFT
+        moment. Slab: one program per prompt-length bucket. Paged: ONE
+        chunk program whatever the length; ``max_new_tokens`` sizes the
+        block reservation (default the engine cap: full-demand reservation
+        means no mid-decode OOM)."""
+        with torch.no_grad():
+            if self.paged:
+                return self._prefill_paged(
+                    slot, prompt, seed,
+                    max_new_tokens if max_new_tokens is not None
+                    else self.gen.max_new_tokens)
+            return self._prefill_slab(slot, prompt, seed)
+
+    def _prefill_slab(self, slot: int, prompt: Sequence[int],
+                      seed: int) -> int:
         reg = get_registry()
         if self.buckets is not None:
             padded, p = self.buckets.pad(prompt, self.gen.pad_token_id)
         else:
             padded, p = list(prompt), len(prompt)
         B = len(padded)
-        if B not in self._prefill_shapes:
-            self._prefill_shapes.add(B)
+        st = self._state
+        run = self._prefill_programs.get(B)
+        if run is None:
+            run = _Program(
+                self, lambda s, B=B: self._bucket_body(s, B), st,
+                self._bucket_scratch)
+            self._prefill_programs[B] = run
             reg.counter("serve.engine.prefill_traces").inc()
             reg.counter("serve.engine.prefill_program_misses").inc()
             reg.gauge("serve.engine.prefill_programs").set(
-                len(self._prefill_shapes))
+                len(self._prefill_programs))
             if self.buckets is None and \
-                    len(self._prefill_shapes) == self.shape_cache_warn + 1:
+                    len(self._prefill_programs) == self.shape_cache_warn + 1:
                 warnings.warn(
-                    f"serve engine prefilled {len(self._prefill_shapes)} "
+                    f"serve engine prefilled {len(self._prefill_programs)} "
                     f"distinct prompt shapes with bucketing DISABLED — "
                     f"every new prompt length is a new shape. Pass a "
                     f"BucketSpec to cap them.", RuntimeWarning,
-                    stacklevel=3)
+                    stacklevel=4)
         else:
             reg.counter("serve.engine.prefill_program_hits").inc()
-        with torch.no_grad():
-            return int(self._prefill_slot(slot, padded, p, seed))
+        pin = np.zeros(3 + B, np.int64)
+        pin[:3] = (p, slot, seed_word(seed))
+        pin[3:] = padded
+        st["pin"][:3 + B].copy_(torch.from_numpy(pin))
+        run()
+        return int(st["tok"][slot])
 
-    def decode(self, live: np.ndarray):
+    def _bucket_scratch(self) -> dict:
+        """Warm-up buffers of a bucket program: one-slot caches and copies
+        of the per-slot state, so the live slab is not touched."""
+        st = self._scratch(("tok", "pos", "seed", "step", "pin"))
+        st["caches"] = [{name: torch.zeros_like(c[:1])
+                         for name, c in cache.items()}
+                        for cache in self._state["caches"]]
+        st["pin"][1] = 0
+        return st
+
+    def _prefill_paged(self, slot: int, prompt: Sequence[int], seed: int,
+                       max_new_tokens: int) -> int:
+        """Admit into the pool (reserving full demand), restore offloaded
+        prefix blocks, run the COW forks, stream the prompt's recompute
+        tail through the one chunk program, sample the first token. A
+        failure mid-way releases the reservation with ``failed=True``,
+        which unpublishes any half-written cache entries."""
+        plen = len(prompt)
+        C = self.prefill_chunk
+        adm = self.pool.admit(slot, prompt, max_new_tokens, chunk=C)
+        st = self._state
+        try:
+            for dst, payload in adm.restores:
+                # offloaded prefix blocks come back from the host store
+                # BEFORE any fork or chunk writes
+                rst = self._restore_prog.st
+                for name, a in payload.items():
+                    rst["payload"][name].copy_(torch.from_numpy(a))
+                rst["dst"].fill_(dst)
+                self._restore_prog()
+            for src, dst in adm.cow_forks:
+                self._fork_prog.st["pin"].copy_(torch.tensor([src, dst]))
+                self._fork_prog()
+            a, b, end = self._cpin_layout
+            pin = np.full(end, self.gen.pad_token_id, np.int64)
+            pin[:4] = (adm.resume_from, plen, slot, seed_word(seed))
+            pin[a:b] = adm.table
+            pin[b:b + plen] = prompt
+            self._chunk_prog.st["pin"].copy_(torch.from_numpy(pin))
+            for _ in range(adm.resume_from, plen, C):
+                self._chunk_prog()
+            self._first_prog()
+            tok0 = int(st["tok"][slot])
+        except Exception:
+            self.pool.release(slot, failed=True)
+            raise
+        st["tables"][slot].copy_(torch.from_numpy(
+            adm.table.astype(np.int64)))
+        # the epilogue refreshed this slot's view: the ONE host gather
+        # decision per admission (decode ticks and launches make none)
+        get_registry().counter("serve.kv.regather_host_decisions").inc()
+        return tok0
+
+    def decode(self, live: np.ndarray,
+               budgets: Optional[np.ndarray] = None,
+               r_max: Optional[int] = None):
         """One decode chunk for all slots. Returns ``(tokens [S, K],
-        valid [S, K])`` — dead slots compute garbage (their rows are
-        rewritten at the next prefill); ``valid`` masks them out."""
+        valid [S, K])`` -- dead slots compute garbage (their rows are
+        rewritten at the next prefill or, paged, land in the sacrificial
+        block); ``valid`` masks them out.
+
+        With ``budgets`` (per-slot remaining max_new_tokens) on a resident
+        backend, the call runs the RESIDENT program instead: up to
+        ``r_max`` chunks (default ``resident_chunks``) in one launch,
+        returning ``[S, k*K]`` tokens for the ``k`` chunks it ran. Without
+        ``budgets`` the single-chunk path runs even when ``resident=True``:
+        that is the equality reference."""
         with torch.no_grad():
-            if not self._decode_ready:
-                get_registry().counter("serve.engine.decode_traces").inc()
-                if self.cuda_graph:
-                    self._capture()
-                self._decode_ready = True
-            if self._graph is not None:
-                self._graph.replay()
-            else:
-                self._decode_body(self._state)
-            toks = self._state["out"].cpu().numpy()
+            if self.resident and budgets is not None:
+                return self._decode_resident(live, budgets, r_max)
+            st = self._state
+            self._decode_prog()
+            toks = st["out"].cpu().numpy()
         valid = np.broadcast_to(
             np.asarray(live, bool)[:, None], toks.shape)
         return toks, valid
 
+    def _decode_resident(self, live: np.ndarray, budgets: np.ndarray,
+                         r_max: Optional[int]):
+        """One resident launch: up to ``r_max`` chunks on the device, ONE
+        host read-back (the tokens and the chunk count)."""
+        reg = get_registry()
+        S, R, W = self.num_slots, self.resident_chunks, self.decode_width
+        rm = R if r_max is None else max(1, min(int(r_max), R))
+        rin = np.zeros(2 * S + 1, np.int64)
+        rin[:S] = np.asarray(live, bool)
+        rin[S:2 * S] = budgets
+        rin[2 * S] = rm
+        st = self._state
+        st["rin"].copy_(torch.from_numpy(rin))
+        self._resident_prog()
+        rout = st["rout"].cpu().numpy()            # THE host sync
+        k = int(rout[0, -1])
+        reg.counter("serve.engine.resident_chunks_run").inc(k)
+        reg.counter("serve.engine.resident_chunks_computed").inc(R)
+        if k < rm:
+            reg.counter("serve.engine.device_exits").inc()
+        toks = rout[:, :k * W]
+        valid = np.broadcast_to(np.asarray(live, bool)[:, None], toks.shape)
+        return toks, valid
+
     def can_admit(self, prompt_len: int, max_new_tokens: int,
                   prompt: Optional[Sequence[int]] = None) -> bool:
-        """Block-availability admission gate: always True for the slab —
-        its reservation is the slot itself."""
-        return True
+        """Block-availability admission gate (always True for the slab —
+        its reservation is the slot itself)."""
+        if not self.paged:
+            return True
+        return self.pool.can_admit(prompt_len, max_new_tokens, prompt,
+                                   chunk=self.prefill_chunk)
 
     def release(self, slot: int) -> None:
-        """Engine retirement hook: a no-op for the slab — the next prefill
-        rewrites the rows."""
+        """Engine retirement hook: return the slot's blocks to the pool
+        and zero its device table row, so the dead slot decodes into the
+        sacrificial block (a no-op for the slab — the next prefill
+        rewrites the rows)."""
+        if self.paged:
+            self.pool.release(slot)
+            self._state["tables"][slot].zero_()
 
     def program_stats(self) -> dict:
-        return {"prefill_programs": len(self._prefill_shapes),
-                "decode_chunk": self.decode_chunk, "kv": "slab",
-                "decode_graph": self._graph is not None}
+        out = {"prefill_programs": (1 if self.paged
+                                    else len(self._prefill_programs)),
+               "decode_chunk": self.decode_chunk,
+               "kv": "paged" if self.paged else "slab",
+               "decode_graph": self._decode_prog.graph is not None}
+        if self.resident:
+            out["resident_graph"] = self._resident_prog.graph is not None
+        return out
 
     def export_prefix_payload(self, prompt: Sequence[int],
                               codec: str = "int8") -> Optional[dict]:
@@ -415,8 +930,14 @@ class ServeEngine:
     skips the tick with all slot state intact, and only after
     ``decode_error_limit`` consecutive failures are the live slots retired
     as errors (batched decode cannot attribute the fault to one slot).
-    ``watchdog``, ``chaos`` and the disaggregated ``phase`` values are not
-    ported yet (ROADMAP.md A.7) and raise ``NotImplementedError``.
+    On a paged backend a request the pool cannot cover parks at the head
+    of the queue while a smaller one behind it may be admitted, and
+    ``pool.observe()`` feeds the ``serve.kv.*`` gauges every tick. On a
+    resident backend each tick's decode is one resident launch whose
+    horizon (:meth:`_resident_horizon`) is sized from the soonest deadline
+    and the observed per-chunk latency. ``watchdog``, ``chaos`` and the
+    disaggregated ``phase`` values are not ported yet (ROADMAP.md A.7) and
+    raise ``NotImplementedError``.
     """
 
     def __init__(self, backend, queue: Optional[RequestQueue] = None,
@@ -456,6 +977,9 @@ class ServeEngine:
         self._tick_index = 0
         self._decode_errors = 0
         self._draining = False
+        # observed per-chunk decode latency (EWMA): sizes the resident
+        # deadline horizon in chunks; None until the first decode
+        self._chunk_ewma: Optional[float] = None
 
     # -- front door --------------------------------------------------------
 
@@ -604,9 +1128,13 @@ class ServeEngine:
         dies ``status="error"`` — the slot was returned to the free list
         and every other request keeps serving."""
         get_registry().counter("resilience.slot_errors").inc()
+        detail = ({"demand": exc.demand, "blocks_free": exc.free,
+                   "blocks_evictable": exc.evictable,
+                   "blocks_total": exc.total}
+                  if isinstance(exc, PoolExhausted) else {})
         self.events.event("resilience", action="slot_error",
                           request=req.id, where="prefill",
-                          error=type(exc).__name__)
+                          error=type(exc).__name__, **detail)
         resp = Response(request_id=req.id, tokens=[], status="error",
                         finish_reason="backend_error",
                         prompt_len=len(req.prompt),
@@ -666,8 +1194,9 @@ class ServeEngine:
         # 2) admissions — prefill straight into the freed slots; a
         # backend failure here is attributable to ONE request: fail it,
         # free the slot, keep admitting. The scan asks the backend whether
-        # each request can seat now (always, for the slab); a parked head
-        # keeps its place while the next request in pop order may go.
+        # each request can seat now (always, for the slab; block
+        # availability, for the paged pool); a parked head keeps its place
+        # while the next request in pop order may go.
         device_sec = 0.0                    # prefill + decode launches
         head_blocked_counted = False
         while self._free and not self._draining:
@@ -682,10 +1211,14 @@ class ServeEngine:
                     break
                 if cand is candidates[0] and not head_blocked_counted:
                     head_blocked_counted = True
+                    pool = self.backend.pool
+                    detail = ({"blocks_free": pool.free_blocks,
+                               "blocks_evictable": pool.evictable_blocks}
+                              if pool is not None else {})
                     reg.counter("serve.kv.admission_blocked").inc()
                     self.events.event("serve", action="admission_blocked",
                                       request=cand.id,
-                                      depth=self.queue.depth)
+                                      depth=self.queue.depth, **detail)
             if req is None:
                 break                       # nothing admissible: park all
             if req is not candidates[0]:
@@ -720,22 +1253,36 @@ class ServeEngine:
             elif req.max_new_tokens == 1:
                 finished.append(self._retire(slot, "ok", "length", t_first))
 
-        # 3) decode — one fixed-shape chunk for every slot. A failure is
-        # NOT attributable (all slots share the step): skip the tick with
-        # slot state intact, and only a run of consecutive failures
+        # 3) decode — one fixed-shape chunk for every slot (a resident
+        # backend: up to resident_chunks of them in one launch). A failure
+        # is NOT attributable (all slots share the step): skip the tick
+        # with slot state intact, and only a run of consecutive failures
         # retires the live set.
         live = np.array([s is not None for s in self._slots])
         if live.any():
             t0 = self.clock()
             try:
                 reg.counter("serve.engine.host_syncs").inc()
-                toks, valid = self.backend.decode(live)
+                if self.backend.resident:
+                    budgets = np.array(
+                        [0 if s is None else
+                         max(s.req.max_new_tokens - len(s.tokens), 0)
+                         for s in self._slots], np.int64)
+                    toks, valid = self.backend.decode(
+                        live, budgets=budgets,
+                        r_max=self._resident_horizon(now))
+                else:
+                    toks, valid = self.backend.decode(live)
             except Exception as e:           # noqa: BLE001 — containment
                 self._on_decode_error(reg, e, tick_idx, finished)
             else:
                 self._decode_errors = 0
                 t1 = self.clock()
                 device_sec += t1 - t0
+                chunks = max(1, toks.shape[1] // self.backend.decode_width)
+                per = (t1 - t0) / chunks
+                self._chunk_ewma = per if self._chunk_ewma is None \
+                    else 0.8 * self._chunk_ewma + 0.2 * per
                 emitted = 0
                 for slot in range(self.backend.num_slots):
                     st = self._slots[slot]
@@ -763,6 +1310,8 @@ class ServeEngine:
         reg.gauge("serve.engine.queue_depth").set(self.queue.depth)
         reg.gauge("serve.engine.slot_occupancy").set(
             self.live_slots / self.backend.num_slots)
+        if self.backend.pool is not None:
+            self.backend.pool.observe()
         dur = self.clock() - t_start
         # everything in the tick that was NOT a device call (prefill or
         # decode) is host overhead
@@ -772,6 +1321,26 @@ class ServeEngine:
             host_overhead_per_token(reg))
         reg.gauge("resilience.tick_sec").set(dur)
         return finished
+
+    def _resident_horizon(self, now: float) -> int:
+        """How many chunks the device may run before host attention could
+        matter: the soonest deadline -- live slots or queued requests --
+        over the observed per-chunk latency, clamped to [1,
+        resident_chunks]. No deadline in sight: the full resident depth
+        (the slot-free early exit still fires on the device)."""
+        R = self.backend.resident_chunks
+        dls = [s.req.deadline for s in self._slots
+               if s is not None and s.req.deadline is not None]
+        qd = self.queue.earliest_deadline()
+        if qd is not None:
+            dls.append(qd)
+        if not dls:
+            return R
+        ew = self._chunk_ewma
+        left = min(dls) - now
+        if ew is None or ew <= 0.0 or left <= 0.0:
+            return 1
+        return int(max(1, min(R, left / ew)))
 
     def _on_decode_error(self, reg, exc: Exception, tick_idx: int,
                          finished: List[Response]) -> None:

@@ -349,7 +349,8 @@ def test_serve_engine_captures_once_and_equals_eager(cuda, temperature):
                            top_k=20)
     prompts = _serve_prompts(9)
     seeds = list(range(9))
-    kw = dict(num_slots=3, max_len=28, gen=gen, buckets=BucketSpec.of(8, 16))
+    kw = dict(num_slots=3, max_len=28, gen=gen, buckets=BucketSpec.of(8, 16),
+              resident=False)
     reg = get_registry()
     traces = reg.counter("serve.engine.decode_traces").value
     launches = tfa.flash_attention_fwd.launches
@@ -376,9 +377,77 @@ def test_serve_graph_replay_reads_the_new_slots_cache(cuda):
     model = _serve_model(cuda)
     gen = GenerationConfig(max_new_tokens=10, temperature=0.0)
     a, b = _serve_prompts(2, lo=6, hi=12)
-    kw = dict(num_slots=1, max_len=26, gen=gen, buckets=BucketSpec.of(16))
+    kw = dict(num_slots=1, max_len=26, gen=gen, buckets=BucketSpec.of(16),
+              resident=False)
     backend = SingleDeviceSlotBackend(model, **kw)
     both = ServeEngine(backend).serve([a, b])
     alone = ServeEngine(SingleDeviceSlotBackend(model, **kw)).serve([b])
     assert both[1].tokens == alone[0].tokens
     assert both[0].tokens != both[1].tokens
+
+
+_LAYOUTS = {"slab": dict(buckets=None), "paged": dict(kv_block_size=4,
+                                                      prefill_chunk=4)}
+
+
+@pytest.mark.parametrize("layout", ["slab", "paged"])
+@pytest.mark.parametrize("resident", [False, True])
+@pytest.mark.parametrize("temperature", [0.0, 0.9])
+def test_serve_programs_captured_once_equal_eager(cuda, layout, resident,
+                                                  temperature):
+    """Each layout's programs on the card over staggered traffic: the
+    decode (or resident) program captured once, the paged chunk program
+    once for every prompt length, and the tokens of the same engine run
+    eagerly on the card (same shapes, same kernels), bit for bit."""
+    from pipe_tpu_torch.inference import GenerationConfig
+    from pipe_tpu_torch.obs.telemetry import get_registry
+    from pipe_tpu_torch.serve import BucketSpec, SingleDeviceSlotBackend
+
+    model = _serve_model(cuda)
+    gen = GenerationConfig(max_new_tokens=12, temperature=temperature,
+                           top_k=20)
+    prompts = _serve_prompts(9)
+    seeds = list(range(9))
+    lay = dict(_LAYOUTS[layout])
+    if layout == "slab":
+        lay["buckets"] = BucketSpec.of(8, 16)
+    kw = dict(num_slots=3, max_len=28, gen=gen, resident=resident,
+              resident_chunks=3, **lay)
+    reg = get_registry()
+    names = ("serve.engine.resident_traces" if resident
+             else "serve.engine.decode_traces",
+             "serve.engine.prefill_chunk_traces")
+    before = [reg.counter(n).value for n in names]
+    graph = SingleDeviceSlotBackend(model, **kw)
+    got = _staggered_serve(graph, prompts, seeds)
+    after = [reg.counter(n).value - b for n, b in zip(names, before)]
+    assert after == [1, 1 if layout == "paged" else 0]
+    eager = SingleDeviceSlotBackend(model, cuda_graph=False, **kw)
+    assert _staggered_serve(eager, prompts, seeds) == got
+    assert all(len(t) == 12 for t in got)
+    if layout == "paged":
+        assert graph.pool.stats()["blocks_in_use"] == 0
+
+
+def test_resident_auto_on_the_card_equals_the_tick_path(cuda):
+    """``resident="auto"`` picks the resident loop on the card, and its
+    tokens equal the single-chunk tick path's, paged, with an EOS."""
+    from pipe_tpu_torch.inference import GenerationConfig
+    from pipe_tpu_torch.serve import SingleDeviceSlotBackend
+
+    model = _serve_model(cuda)
+    prompts = _serve_prompts(6)
+    free = _staggered_serve(SingleDeviceSlotBackend(
+        model, num_slots=2, max_len=28, resident=False,
+        gen=GenerationConfig(max_new_tokens=12, temperature=0.0),
+        **_LAYOUTS["paged"]), prompts, [0] * 6)
+    gen = GenerationConfig(max_new_tokens=12, temperature=0.0,
+                           eos_token_id=free[0][4])
+    kw = dict(num_slots=2, max_len=28, gen=gen, **_LAYOUTS["paged"])
+    auto = SingleDeviceSlotBackend(model, **kw)
+    assert auto.resident
+    got = _staggered_serve(auto, prompts, [0] * 6)
+    want = _staggered_serve(SingleDeviceSlotBackend(
+        model, resident=False, **kw), prompts, [0] * 6)
+    assert got == want
+    assert got[0][-1] == free[0][4] and len(got[0]) <= 5

@@ -16,6 +16,7 @@ top k, distributed as ``softmax(logits / T)``), and the ``apps.serve`` and
 ``apps.generate --prompts-file`` entry points.
 """
 
+import dataclasses
 import json
 import re
 import warnings
@@ -378,16 +379,32 @@ def test_unbucketed_prefill_warns_past_threshold(models):
 
 
 def test_not_ported_options_name_their_roadmap_item(models):
+    """The speculative lane and the fleet handoff are refused naming their
+    ROADMAP.md items; the paged pool and the resident loop, ported, are
+    accepted (and ``resident="auto"`` stays the single-chunk tick on the
+    CPU)."""
     _, _, tmodel = models
     gen_cfg = GenerationConfig(max_new_tokens=2, temperature=0.0)
-    for kw, item in ((dict(kv_block_size=8), "A.6"),
-                     (dict(kv_dtype="int8"), "A.6"),
-                     (dict(kv_offload=True), "A.6"),
-                     (dict(resident=True), "A.6"),
-                     (dict(spec_tokens=4), "A.6"),
-                     (dict(draft="tree"), "A.6")):
+    for kw, item in ((dict(spec_tokens=4), "A.6"),
+                     (dict(draft="tree"), "A.6"),
+                     (dict(draft_stages=2), "A.6"),
+                     (dict(spec_branches=2), "A.6"),
+                     (dict(spec_adaptive=True), "A.6")):
         with pytest.raises(NotImplementedError, match=item):
             _backend(tmodel, gen_cfg, **kw)
+    with pytest.raises(NotImplementedError, match="A.6"):
+        _backend(tmodel, dataclasses.replace(gen_cfg, spec_tokens=4))
+    # ported: 8 + 2 rows of headroom, so blocks of 2 divide it
+    for kw, paged, resident in (
+            (dict(kv_block_size=2), True, False),
+            (dict(kv_block_size=2, kv_dtype="int8"), True, False),
+            (dict(kv_block_size=2, kv_offload=True), True, False),
+            (dict(resident=True), False, True),
+            (dict(kv_block_size=2, resident=True), True, True)):
+        backend = _backend(tmodel, gen_cfg, **kw)
+        assert (backend.paged, backend.resident) == (paged, resident)
+        assert backend.program_stats()["kv"] == ("paged" if paged
+                                                 else "slab")
     backend = _backend(tmodel, gen_cfg, resident="auto")
     assert not backend.resident
     for call in (lambda: backend.export_prefix_payload([1]),
@@ -596,14 +613,42 @@ def test_generate_cli_prompts_file_serves_through_the_engine(
     (["--stages", "2"], "A.8"), (["--replicas", "2"], "A.7"),
     (["--fleet", "proc"], "A.7"), (["--metrics-port", "0"], "A.7"),
     (["--slo-ttft-p99", "1"], "A.7"), (["--trace-out", "t.jsonl"], "A.7"),
-    (["--resident", "on"], "A.6"), (["--spec-tokens", "4"], "A.6"),
-    (["--draft", "tree"], "A.6"), (["--kv", "paged"], "A.6"),
+    (["--spec-branches", "2"], "A.6"), (["--spec-tokens", "4"], "A.6"),
+    (["--draft", "tree"], "A.6"), (["--spec-adaptive"], "A.6"),
     (["--family", "gpt2"], "A.10"),
     (["--prompts-file", "/nonexistent/p.txt"], "no such file"),
     (["--eos", "101"], r"--eos must be in \[0, 101\)"),
     (["--max-new", "0"], "max_new_tokens must be >= 1"),
+    (["--kv-offload"], "--kv-offload needs --kv paged"),
+    (["--kv", "paged", "--kv-block-size", "128"], "does not divide"),
+    (["--kv", "paged", "--kv-pool-blocks", "1"], "sacrificial"),
+    (["--resident", "on", "--resident-chunks", "0"],
+     "resident_chunks must be >= 1"),
 ])
 def test_serve_cli_refusals_exit_2(argv, message, capsys):
     assert serve_app.main(["--tiny", "--device", "cpu"] + argv) == 2
     err = capsys.readouterr().err
     assert re.search(message, err), err
+
+
+@pytest.mark.parametrize("argv", [
+    ["--kv", "paged", "--kv-block-size", "8"],
+    ["--kv", "paged", "--kv-block-size", "8", "--kv-pool-blocks", "12",
+     "--kv-offload", "--kv-offload-blocks", "4"],
+    ["--resident", "on", "--resident-chunks", "3"],
+    ["--kv", "paged", "--kv-block-size", "8", "--resident", "on"],
+], ids=["paged", "paged-offload", "resident", "paged-resident"])
+def test_serve_cli_paged_and_resident(argv, capsys):
+    """``--kv paged`` and ``--resident on`` serve every request; the
+    summary names the layout and the loop, and the paged pool drains."""
+    assert serve_app.main(["--tiny", "--device", "cpu", "--requests", "5",
+                           "--slots", "2", "--max-new", "8"] + argv) == 0
+    lines = capsys.readouterr().out.strip().splitlines()
+    rows = [json.loads(ln) for ln in lines[:-1]]
+    summary = json.loads(lines[-1])["summary"]
+    assert len(rows) == 5 and all(r["status"] == "ok" for r in rows)
+    assert all(len(r["tokens"]) == 8 for r in rows)
+    assert summary["kv"] == ("paged" if "paged" in argv else "slab")
+    assert summary["resident"] == ("on" in argv)
+    if "paged" in argv:
+        assert summary["metrics"]["serve.kv.blocks_in_use"] == 0.0

@@ -4,8 +4,8 @@
     python3 tools/torch_slice_profile.py --train [--steps N] [--out DIR]
     python3 tools/torch_slice_profile.py --generate [--decode-steps N]
         [--out DIR]
-    python3 tools/torch_slice_profile.py --serve [--decode-steps N]
-        [--out DIR]
+    python3 tools/torch_slice_profile.py --serve [--kv slab|paged]
+        [--resident] [--decode-steps N] [--out DIR]
 
 Eval (default): builds the full-width tutorial LM and ``Pipe`` that
 ``chip_smoke.py`` drives (``make_slice``: d_model 2048, 32 heads, d_ff 2048,
@@ -41,7 +41,12 @@ over the eval weights; every slot prefilled with 128 eval tokens): N ticks
 eagerly on the card, timed in turns graph, eager, eager, graph, then each
 window profiled (launches, device busy time, idle share and kernel time by
 category, per tick), and one 128-token prefill profiled (what TTFT pays
-beside queueing).
+beside queueing). ``--kv paged`` serves from the paged pool (blocks of 16
+rows, chunked prefill, decode on per-slot views) and also profiles the
+prefill's epilogue alone (the first token and the admitted slot's view
+refresh from the pool: the port's regather). ``--resident`` replaces each
+tick with one resident launch of ``resident_chunks`` (8) chunks, every slot
+live with an unbounded budget, and reports per launch and per step.
 
 Prints one JSON summary as its last line and writes it, with the chrome
 trace, under ``--out`` (default ``build/profile/``).
@@ -289,22 +294,30 @@ def serve_slice(args):
     model = PipelinedLM.from_sequential(cfg, seq)
     prompts = batches[0][0].tolist()                   # 8 x 128 tokens
     n = args.decode_steps
+    S, R = chip_smoke.SERVE_SLOTS, chip_smoke.RESIDENT_CHUNKS
+    kv = ({} if args.kv == "slab"
+          else {"kv_block_size": chip_smoke.PAGED_BLOCK})
     backends = {}
     for name, graph in (("graph", True), ("eager", False)):
         b = SingleDeviceSlotBackend(
-            model, num_slots=chip_smoke.SERVE_SLOTS,
-            max_len=chip_smoke.SERVE_MAX_LEN,
+            model, num_slots=S, max_len=chip_smoke.SERVE_MAX_LEN,
             gen=GenerationConfig(max_new_tokens=128, temperature=0.0),
             buckets=BucketSpec.pow2(*chip_smoke.SERVE_BUCKETS),
-            cuda_graph=graph)
+            cuda_graph=graph, resident=args.resident, resident_chunks=R,
+            **kv)
         for slot, p in enumerate(prompts):
             b.prefill(slot, p, 0)
         backends[name] = b
-    live = np.ones(chip_smoke.SERVE_SLOTS, bool)
+    live = np.ones(S, bool)
+    budgets = np.full(S, 1 << 30, np.int64)
+    steps = R if args.resident else 1                  # decode steps a call
 
     def ticks(b):
         for _ in range(n):
-            b.decode(live)
+            if args.resident:
+                b.decode(live, budgets=budgets, r_max=R)
+            else:
+                b.decode(live)
 
     for b in backends.values():                        # capture, warm-up
         b.decode(live)
@@ -318,6 +331,7 @@ def serve_slice(args):
         tick_ms = min(turns[name]) * 1e3 / n
         part.update(
             wall_s=turns[name], decode_ms_per_tick=tick_ms,
+            decode_ms_per_step=tick_ms / steps,
             launches_per_tick=part["kernel_launches"] / n,
             device_busy_us_per_tick=part["device_busy_us"] / n,
             kernel_us_per_tick_by_category={
@@ -325,15 +339,24 @@ def serve_slice(args):
             decode_idle_share_unprofiled=1.0 - part["device_busy_us"]
             / n / 1e3 / tick_ms)
         summary[name] = part
-    pre, _ = profile(lambda: backends["graph"].prefill(0, prompts[0], 0),
+    # a prompt no slot holds, so the paged pool's prefix cache misses
+    fresh = prompts[0][::-1]
+    backends["graph"].release(0)
+    pre, _ = profile(lambda: backends["graph"].prefill(0, fresh, 0),
                      "prefill_128")
-    summary["prefill_128"] = {
-        k: pre[k] for k in ("profiled_window_us", "kernel_launches",
-                            "device_busy_us", "device_idle_share",
-                            "kernel_us_by_category")}
-    summary.update(slots=chip_smoke.SERVE_SLOTS,
-                   max_len=chip_smoke.SERVE_MAX_LEN, ticks=n)
-    return summary, prof, "torch_serve"
+    keep = ("profiled_window_us", "kernel_launches", "device_busy_us",
+            "device_idle_share", "kernel_us_by_category")
+    summary["prefill_128"] = {k: pre[k] for k in keep}
+    if args.kv == "paged":
+        # the epilogue program alone, replayed: the first token and the
+        # admitted slot's view refreshed from the pool (the regather)
+        epi, _ = profile(backends["graph"]._first_prog, "prefill_epilogue")
+        summary["prefill_epilogue"] = {k: epi[k] for k in keep}
+    summary.update(slots=S, max_len=chip_smoke.SERVE_MAX_LEN, ticks=n,
+                   kv=args.kv, resident=args.resident,
+                   decode_steps_per_tick=steps)
+    return summary, prof, ("torch_serve" + ("_paged" if kv else "")
+                           + ("_resident" if args.resident else ""))
 
 
 def main(argv=None) -> int:
@@ -345,6 +368,11 @@ def main(argv=None) -> int:
     ap.add_argument("--serve", action="store_true",
                     help="profile the serve engine's decode tick, captured "
                          "and eager")
+    ap.add_argument("--kv", choices=["slab", "paged"], default="slab",
+                    help="KV layout of the serve engine (--serve)")
+    ap.add_argument("--resident", action="store_true",
+                    help="one resident launch of 8 chunks per tick "
+                         "(--serve)")
     ap.add_argument("--decode-steps", type=int, default=32,
                     help="decode steps after the prefill (--generate), "
                          "ticks per turn (--serve)")
