@@ -93,6 +93,25 @@ exits non-zero without a result line:
    prefill ms of a 128-token prompt, slab bucket graph against paged
    chunks; pool, view and peak memory bytes.
 
+9. spec -- the speculative lane (K 4, 8 rounds a launch, 272 cache rows)
+   over the serve phase's model: n-gram (slab and paged), truncated (the
+   first 8 of 16 layers, slab), tree (2 branches, paged) and n-gram on the
+   adaptive ladder 2/3/4 (slab), each over the serve phase's 32 greedy and
+   8 sampled requests and 8 greedy requests whose 128-token prompts repeat
+   one 16-token span of eval text. Gates: (a) greedy and sampled tokens
+   equal the non-spec resident path's (the paged phase's runs; a warm run
+   of the repeated spans) at clear steps, every request to its length;
+   (b) one capture per rung, and a second drive captures nothing and gives
+   the same tokens; (c) emitted >= rounds and >= tokens - requests; (d) an
+   EOS retires where the non-spec run does; (e) graph = eager bit for bit,
+   slab and paged; (f) ``validate`` names the speculative headroom; (g) the
+   pool drains; (h) no flash launch by the engine. Prints, per run, rounds,
+   tokens per round (serve and repeat traffic), acceptance, accept-length
+   histogram, draft cost, ghost rounds per launch, capture seconds,
+   tokens/s and TTFT p50/p99 beside the non-spec resident path, and per
+   rung the ms and device-busy ms per round with every slot live, kernels
+   and launch calls per launch, peak memory.
+
 The last two lines are the kernels JSON object and
 ``{"ok": true, "device": {...}}``.
 """
@@ -182,6 +201,20 @@ OFFLOAD_BLOCKS = 48
 OFFLOAD_FILLERS = 8
 OFFLOAD_NEW = 32
 INT8_AGREE_MIN = 0.8
+# Spec phase: draft/verify rounds of SPEC_K tokens, RESIDENT_CHUNKS rounds a
+# launch, over 272 cache rows: the bucket ceiling 128 + the request cap +
+# the speculative headroom branches x (K - 1) fill 17 blocks of 16 exactly
+# (cap 141 for one branch, 138 for the tree's two). On top of the serve
+# traffic, REPEAT_REQUESTS prompts that repeat one REPEAT_SPAN-token span of
+# eval text 8 times (lists, tables, code: the text an n-gram draft is for).
+SPEC_K = 4
+SPEC_BRANCHES = 2
+SPEC_MAX_LEN = 272
+SPEC_CAP = {1: 141, SPEC_BRANCHES: 138}
+REPEAT_REQUESTS = 8
+REPEAT_SPAN = 16
+SPEC_TIMED_LAUNCHES = 5  # timed, then as many profiled, per rung
+SPEC_EAGER = (4, 32)     # graph vs eager: the first 4 requests, 32 tokens
 # H100 SXM peaks (NVIDIA data sheet, dense): HBM3 bytes/s, and the fastest
 # fp32-accurate product rate the card has: TF32 tensor cores (495 TFLOP/s)
 # in three passes (big*big + big*small + small*big), which keep fp32-level
@@ -1046,9 +1079,9 @@ def _walk(got, ref, margins, thresh):
     return compared, skipped, len(got) == len(ref)
 
 
-def _profile_ticks(run):
+def _profile_ticks(run, n=SERVE_PROFILED_TICKS):
     """Host launch calls and device kernels per call of ``run`` (a decode
-    tick or launch) over SERVE_PROFILED_TICKS calls (``torch.profiler``):
+    tick or launch) over ``n`` calls (``torch.profiler``):
     ``(launch calls by name per call, kernels per call, device busy ms per
     call)``, busy as the union of the kernels' spans."""
     from torch.profiler import DeviceType, ProfilerActivity, profile
@@ -1060,7 +1093,7 @@ def _profile_ticks(run):
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        for _ in range(SERVE_PROFILED_TICKS):
+        for _ in range(n):
             run()
         torch.cuda.synchronize()
     calls = {}
@@ -1081,7 +1114,6 @@ def _profile_ticks(run):
             cur_e = max(cur_e, b)
     if cur_e is not None:
         busy += cur_e - cur_s
-    n = SERVE_PROFILED_TICKS
     return ({k: v / n for k, v in sorted(calls.items())}, len(spans) / n,
             busy / 1e3 / n)
 
@@ -1365,9 +1397,10 @@ def _serial(eng, reqs, req_seeds):
     return out
 
 
-def phase_serve_paged(ctx: dict, smi: str) -> None:
+def phase_serve_paged(ctx: dict, smi: str) -> dict:
     """The paged KV pool and the resident loop through ``ServeEngine`` at
-    full width, on the serve phase's model, traffic and references."""
+    full width, on the serve phase's model, traffic and references; returns
+    the resident (non-spec) runs the spec phase holds its tokens to."""
     import numpy as np
 
     from pipe_tpu_torch.inference import GenerationConfig
@@ -1482,13 +1515,15 @@ def phase_serve_paged(ctx: dict, smi: str) -> None:
 
     # 4. (f): sampled, both layouts, resident against the tick path.
     s_reqs, s_seeds = ctx["sampled"], ctx["s_seeds"]
-    for layout in (None, PAGED_BLOCK):
+    s_resident = {}
+    for name, layout in (("slab", None), ("paged", PAGED_BLOCK)):
         runs = [_traffic(ServeEngine(backend(ctx["s_gen"],
                                              kv_block_size=layout,
                                              resident=res)),
                          s_reqs, s_seeds)[0] for res in (False, True)]
         same(runs[0], runs[1], f"sampled resident vs tick (block {layout})")
         to_length(runs[1], s_reqs, "sampled resident")
+        s_resident[name] = runs[1]
     # (f) EOS: the resident loop retires where the tick path did.
     e_slab = _traffic(ServeEngine(backend(ctx["e_gen"], kv_block_size=None,
                                           resident=True)),
@@ -1650,6 +1685,305 @@ def phase_serve_paged(ctx: dict, smi: str) -> None:
         peak_mem_gb=f"{torch.cuda.max_memory_allocated() / 1e9:.2f}",
         seconds=f"{time.perf_counter() - t_phase:.1f}")
     del pg, pr, pf, main
+    return dict(greedy={"slab": (sr_resps, sr_wall),
+                        "paged": (pr_resps, pr_wall)},
+                sampled=s_resident, eos=e_slab)
+
+
+def phase_serve_spec(ctx: dict, smi: str) -> None:
+    """The speculative lane (K 4, 8 rounds a launch) through ``ServeEngine``
+    at full width on the serve phase's model: n-gram (slab and paged),
+    truncated (8 of 16 layers, slab), tree (2 branches, paged), n-gram on
+    the adaptive ladder (slab), each over the serve phase's greedy and
+    sampled traffic and the repeated-span requests, held to the
+    non-spec resident path at clear steps."""
+    import numpy as np
+
+    from pipe_tpu_torch.inference import GenerationConfig
+    from pipe_tpu_torch.models.transformer_lm import PipelinedLM
+    from pipe_tpu_torch.obs.telemetry import get_registry
+    from pipe_tpu_torch.serve import ServeEngine, SingleDeviceSlotBackend
+
+    t_phase = time.perf_counter()
+    card = repr(smi.splitlines()[0])
+    ctx.pop("main")
+    torch.cuda.empty_cache()
+    model, tokens, thresh = ctx["model"], ctx["tokens"], ctx["thresh"]
+    requests, seeds = ctx["requests"], ctx["seeds"]
+    s_reqs, s_seeds, s_gen = ctx["sampled"], ctx["s_seeds"], ctx["s_gen"]
+    s_thresh = thresh / GEN_TEMPERATURE
+    S, R, K = SERVE_SLOTS, RESIDENT_CHUNKS, SPEC_K
+    # the same modules as two logical stages: a truncated or tree draft is
+    # the first of them (8 of 16 layers)
+    staged = PipelinedLM.from_sequential(
+        model.cfg, [model.embed, model.posenc, *model.blocks, model.head], 2)
+    reg = get_registry()
+    torch.cuda.reset_peak_memory_stats()
+    for c in _counters():
+        c.launches = 0
+    r_reqs = [(tokens[j, REPEAT_SPAN * j:REPEAT_SPAN * (j + 1)].tolist()
+               * (BPTT // REPEAT_SPAN), requests[j][1])
+              for j in range(REPEAT_REQUESTS)]
+    r_seeds = [2000 + j for j in range(REPEAT_REQUESTS)]
+
+    def gens(branches):
+        cap = SPEC_CAP[branches]
+        return (GenerationConfig(max_new_tokens=cap, temperature=0.0),
+                dataclasses.replace(s_gen, max_new_tokens=cap),
+                dataclasses.replace(ctx["e_gen"], max_new_tokens=cap))
+
+    def backend(gen, layout, m=model, **kw):
+        kv = {"kv_block_size": PAGED_BLOCK} if layout == "paged" else {}
+        return SingleDeviceSlotBackend(
+            m, num_slots=S, max_len=SPEC_MAX_LEN, gen=gen,
+            buckets=ctx["buckets"], decode_chunk=1, resident=True,
+            resident_chunks=R, **kv, **kw)
+
+    margins = {}
+    ref_flash = [0, 0, 0]       # the reference forwards' kernel launches
+    ref_s = [0.0]               # and their seconds
+
+    def walk_all(got, ref, reqs, what, cfg=None, req_seeds=None):
+        """Every response of ``got`` against ``ref`` at clear steps of the
+        reference stream's margins: (compared, skipped)."""
+        compared = skipped = 0
+        for i, ((p, _), a, b) in enumerate(zip(reqs, got, ref)):
+            sd = req_seeds[i] if req_seeds is not None else 0
+            key = (tuple(p), tuple(b.tokens), sd, cfg is not None)
+            if key not in margins:
+                before = [c.launches for c in _counters()]
+                t0 = time.perf_counter()
+                margins[key] = _margins(model, p, b.tokens, cfg, sd)[0]
+                ref_s[0] += time.perf_counter() - t0
+                for j, c in enumerate(_counters()):
+                    ref_flash[j] += c.launches - before[j]
+            c, sk, ok = _walk(a.tokens, b.tokens, margins[key],
+                              thresh if cfg is None else s_thresh)
+            compared, skipped = compared + c, skipped + sk
+            if not ok:
+                raise AssertionError(f"spec {what}: request {i} differs "
+                                     f"from the non-spec path at a clear "
+                                     f"step")
+        return compared, skipped
+
+    def recorded(b):
+        """``b`` with each resident launch recorded: the rung, its wall,
+        whether it captured, and the accepted counts of live slots."""
+        calls = []
+        launch = b.decode
+
+        def decode(live, budgets=None, r_max=None):
+            fresh = not b._spec_progs[b._pick_spec_k(live)]._ready
+            (toks, valid), dt = _timed(lambda: launch(live, budgets, r_max))
+            W = b.decode_width
+            counts = valid.reshape(S, -1, W).sum(-1)[np.asarray(live, bool)]
+            calls.append((W, dt, fresh, counts[counts > 0].tolist()))
+            return toks, valid
+        b.decode = decode
+        return calls
+
+    # the non-spec resident path on the repeated-span traffic, per layout:
+    # captured by one short request first, so that, as in the spec runs,
+    # the graph is warm and the pool holds none of these prompts
+    g_gen = GenerationConfig(
+        max_new_tokens=SPEC_MAX_LEN - ctx["buckets"].max_len, temperature=0.0)
+    r_ref = {}
+    for lay in ("slab", "paged"):
+        r_eng = ServeEngine(backend(g_gen, lay))
+        _traffic(r_eng, [(requests[0][0], 8)], seeds)
+        r_ref[lay] = _traffic(r_eng, r_reqs, r_seeds)
+        del r_eng
+    log("spec", card=card, k=K, rounds_per_launch=R, max_len=SPEC_MAX_LEN,
+        repeat_requests=REPEAT_REQUESTS,
+        repeat_prompt_tokens=sum(len(p) for p, _ in r_reqs),
+        repeat_new_tokens=sum(n for _, n in r_reqs),
+        margin_threshold=f"{thresh:.3e}",
+        repeat_nonspec_slab=json.dumps(_rates(*r_ref["slab"])).replace(
+            " ", ""))
+
+    names = ("serve.engine.spec_rounds", "serve.engine.spec_emitted",
+             "serve.engine.resident_traces", "serve.engine.host_syncs",
+             "serve.engine.resident_chunks_run",
+             "serve.engine.resident_chunks_computed",
+             "serve.engine.device_exits")
+    runs = [("ngram", "slab", model, {}),
+            ("ngram", "paged", model, {}),
+            ("truncated", "slab", staged, dict(draft="truncated",
+                                               draft_stages=1)),
+            ("tree", "paged", staged, dict(draft="tree",
+                                           spec_branches=SPEC_BRANCHES)),
+            ("ngram_adaptive", "slab", model, dict(spec_adaptive=True))]
+    for name, layout, m, kw in runs:
+        t_run = time.perf_counter()
+        branches = kw.get("spec_branches", 1)
+        greedy, sampled, e_gen = gens(branches)
+        b = backend(greedy, layout, m, spec_tokens=K, **kw)
+        calls = recorded(b)
+        eng = ServeEngine(b)
+        count = _delta(reg, names)
+        g, g_wall = _traffic(eng, requests, seeds)
+        c0 = count()
+        rp, rp_wall = _traffic(eng, r_reqs, r_seeds)
+        c1 = count()
+        counted = list(calls)               # the launches c1 counts
+        # (b) the same traffic again captures nothing, same tokens
+        again = _traffic(eng, r_reqs[:2], r_seeds)[0]
+        c2 = count()
+        if [r.tokens for r in again] != [r.tokens for r in rp[:2]]:
+            raise AssertionError(f"spec {name}: a second drive gave other "
+                                 f"tokens")
+        rungs = b.program_stats()["spec_rungs_ready"]
+        if (c1["serve.engine.resident_traces"] != rungs
+                or c2["serve.engine.resident_traces"] != rungs):
+            raise AssertionError(f"spec {name}: {c1} / {c2} captures for "
+                                 f"{rungs} rungs")
+        # (a) greedy against the non-spec resident path, same layout
+        cg = walk_all(g, ctx["resident"]["greedy"][layout][0], requests,
+                      f"{name} greedy")
+        cr = walk_all(rp, r_ref[layout][0], r_reqs, f"{name} repeat")
+        all_resps = g + rp
+        made = sum(len(r.tokens) for r in all_resps)
+        rounds = c1["serve.engine.spec_rounds"]
+        emitted = c1["serve.engine.spec_emitted"]
+        # (c) the lane's counts
+        if emitted < rounds or emitted < made - len(all_resps):
+            raise AssertionError(f"spec {name}: emitted {emitted}, rounds "
+                                 f"{rounds}, tokens {made}")
+        bad = [i for i, (r, (_, n)) in enumerate(
+            zip(all_resps, requests + r_reqs))
+            if r.status != "ok" or len(r.tokens) != n]
+        if bad:
+            raise AssertionError(f"spec {name}: requests {bad} did not run "
+                                 f"to length")
+        hist_len = {}
+        for _, _, _, cs in counted:
+            for v in cs:
+                hist_len[v] = hist_len.get(v, 0) + 1
+        launches = c1["serve.engine.host_syncs"]
+        ghosts = (c1["serve.engine.resident_chunks_computed"]
+                  - c1["serve.engine.resident_chunks_run"])
+        captures = {w: f"{dt:.2f}" for w, dt, fresh, _ in calls if fresh}
+        g_rounds = c0["serve.engine.spec_rounds"]
+        g_emitted = c0["serve.engine.spec_emitted"]
+        log("spec", run=name, layout=layout, card=card,
+            rungs=sorted({w for w, *_ in calls}), captures=rungs,
+            capture_s=json.dumps(captures).replace(" ", ""),
+            rounds=rounds, emitted=emitted,
+            tokens_per_round=f"{emitted / rounds:.4f}",
+            tokens_per_round_serve=f"{g_emitted / g_rounds:.4f}",
+            tokens_per_round_repeat=(
+                f"{(emitted - g_emitted) / (rounds - g_rounds):.4f}"),
+            acceptance_rate=f"{b._spec_acc_total / b._spec_draft_total:.4f}",
+            accept_len_hist=json.dumps(dict(sorted(hist_len.items()))
+                                       ).replace(" ", ""),
+            draft_cost_frac=f"{b._drafter.draft_cost_frac(K, 16):.4f}",
+            launches=launches, ghost_rounds=ghosts,
+            ghost_rounds_per_launch=f"{ghosts / launches:.3f}",
+            device_exits=c1["serve.engine.device_exits"],
+            greedy_steps_compared=cg[0], greedy_steps_skipped=cg[1],
+            repeat_steps_compared=cr[0], repeat_steps_skipped=cr[1])
+        nonspec = ctx["resident"]["greedy"][layout]
+        for traffic, (resps, wall), ref in (
+                ("serve", (g, g_wall), nonspec),
+                ("repeat", (rp, rp_wall), r_ref[layout])):
+            log("spec", run=name, traffic=traffic, card=card,
+                **_rates(resps, wall),
+                **{f"nonspec_{k}": v for k, v in _rates(*ref).items()
+                   if k != "generated_tokens"})
+        # (a) sampled against the non-spec resident path (the ladder's
+        # rungs are the programs the runs above hold)
+        if name != "ngram_adaptive":
+            s_eng = ServeEngine(backend(sampled, layout, m, spec_tokens=K,
+                                        **kw))
+            s_resps, s_wall = _traffic(s_eng, s_reqs, s_seeds)
+            cs = walk_all(s_resps, ctx["resident"]["sampled"][layout],
+                          s_reqs, f"{name} sampled", s_gen, s_seeds)
+            log("spec", run=name, traffic="sampled", card=card,
+                steps_compared=cs[0], steps_skipped_near_ties=cs[1],
+                **_rates(s_resps, s_wall))
+            del s_eng
+        if (name, layout) == ("ngram", "slab"):
+            # (d) EOS
+            e_resps = _traffic(ServeEngine(backend(e_gen, layout,
+                                                   spec_tokens=K)),
+                               ctx["first"], seeds)[0]
+            ce = walk_all(e_resps, ctx["resident"]["eos"], ctx["first"],
+                          "EOS")
+            r0 = e_resps[0]
+            if r0.finish_reason != "eos" or r0.tokens[-1] != ctx["eos"]:
+                raise AssertionError("spec: EOS did not retire request 0")
+            log("spec", gate="eos", eos=ctx["eos"], steps_compared=ce[0],
+                steps_skipped=ce[1],
+                reasons=[r.finish_reason for r in e_resps])
+        if (name, layout) == ("ngram", "paged"):
+            # a 130-token prompt (the pool takes it; a slab bucket would
+            # not) at the cap passes 272 rows only by the headroom
+            try:
+                eng.submit(tokens[0, :BPTT + 2].tolist(),
+                           max_new_tokens=SPEC_CAP[1])
+            except ValueError as e:
+                if "speculative headroom" not in str(e):
+                    raise
+                log("spec", gate="headroom", rejected=repr(str(e)[:80]))
+            else:
+                raise AssertionError("spec: validate took a request past "
+                                     "the speculative headroom")
+        if name == "ngram":
+            # (e) graph = eager bitwise, slab and paged
+            short = [(p, SPEC_EAGER[1]) for p, _ in
+                     ctx["first"][:SPEC_EAGER[0]]]
+            graph_first = _traffic(eng, short, seeds)[0]
+            eager = backend(greedy, layout, spec_tokens=K, cuda_graph=False)
+            eager_first = _traffic(ServeEngine(eager), short, seeds)[0]
+            equal = sum(a.tokens == e.tokens
+                        for a, e in zip(graph_first, eager_first))
+            log("spec", gate="graph_vs_eager", layout=layout,
+                requests=len(graph_first), equal_requests=equal)
+            if equal != len(graph_first) or eager.program_stats()[
+                    "resident_graph"]:
+                raise AssertionError(f"spec {layout}: graph and eager "
+                                     f"tokens differ")
+            del eager
+        # device ms per round for each rung: every slot live with a
+        # 128-token prompt, unbounded budgets, SPEC_TIMED_LAUNCHES launches
+        del b.decode                        # the unrecorded method
+        live = np.ones(S, bool)
+        big = np.full(S, 1 << 30, np.int64)
+        for i in range(S):
+            b.prefill(i, tokens[i, :BPTT].tolist(), 0,
+                      max_new_tokens=SPEC_CAP[branches])
+        # (the ladder's top rung is the n-gram slab run's program)
+        for w in b._spec_ladder[:-1] or b._spec_ladder:
+            def run(w=w):
+                b._spec_ewma.fill(w - 1)
+                return b.decode(live, budgets=big, r_max=R)
+            run()
+            t = sorted(_timed(run)[1] * 1e3
+                       for _ in range(SPEC_TIMED_LAUNCHES))
+            calls_pl, kernels, busy = _profile_ticks(run,
+                                                     SPEC_TIMED_LAUNCHES)
+            log("spec", run=name, layout=layout, rung=w, card=card,
+                ms_per_launch=f"{t[len(t) // 2]:.4f}",
+                ms_per_round=f"{t[len(t) // 2] / R:.4f}",
+                device_busy_ms_per_round=f"{busy / R:.4f}",
+                idle_share=f"{1 - busy / t[len(t) // 2]:.3f}",
+                kernels_per_launch=f"{kernels:.1f}",
+                launch_calls_per_launch=f"{sum(calls_pl.values()):.1f}")
+        for i in range(S):
+            b.release(i)
+        if layout == "paged" and b.pool.stats()["blocks_in_use"]:
+            raise AssertionError(f"spec {name}: the pool did not drain")
+        log("spec", run=name, seconds=f"{time.perf_counter() - t_run:.1f}",
+            peak_mem_gb=f"{torch.cuda.max_memory_allocated() / 1e9:.2f}")
+        del b, eng
+        torch.cuda.empty_cache()
+    flash = [c.launches - r for c, r in zip(_counters(), ref_flash)]
+    log("spec", card=card, flash_launches=flash,
+        reference_forward_flash_launches=ref_flash,
+        reference_forward_s=f"{ref_s[0]:.1f}",
+        seconds=f"{time.perf_counter() - t_phase:.1f}")
+    if any(flash):
+        raise AssertionError(f"spec: the engine launched kernels {flash}")
 
 
 def main() -> int:
@@ -1662,7 +1996,8 @@ def main() -> int:
     train_launches = phase_train()
     gap = phase_generate()
     ctx = phase_serve(gap, smi)
-    phase_serve_paged(ctx, smi)
+    ctx["resident"] = phase_serve_paged(ctx, smi)
+    phase_serve_spec(ctx, smi)
     del ctx
     torch.cuda.empty_cache()
     sources = {"flash_attn_fwd": ("flash_attn_fwd.cu", 87,

@@ -178,10 +178,11 @@ def model_source(args, model_cfg):
     return model_cfg, state
 
 
-def build_model(args, model_cfg, state):
-    """The ``PipelinedLM`` on ``--device``: weights drawn from ``--seed``,
-    then the checkpoint's (``state``) loaded over them; int8 block weights
-    with ``--int8``. UsageError for a checkpoint tensor of another shape."""
+def build_model(args, model_cfg, state, n_stages: int = 1):
+    """The ``PipelinedLM`` of ``n_stages`` stages on ``--device``: weights
+    drawn from ``--seed``, then the checkpoint's (``state``) loaded over
+    them; int8 block weights with ``--int8``. UsageError for a checkpoint
+    tensor of another shape."""
     import torch
 
     from pipe_tpu_torch.inference import quantize_params
@@ -198,7 +199,7 @@ def build_model(args, model_cfg, state):
             seq.load_state_dict(state)
         except RuntimeError as e:        # a shape the config does not have
             raise UsageError(f"--resume {args.resume}: {e}")
-    model = PipelinedLM.from_sequential(model_cfg, seq)
+    model = PipelinedLM.from_sequential(model_cfg, seq, n_stages)
     return quantize_params(model) if args.int8 else model
 
 

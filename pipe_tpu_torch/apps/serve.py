@@ -3,8 +3,10 @@
 Counterpart of the single-replica path of ``pipe_tpu/apps/serve.py``: runs
 :class:`~pipe_tpu_torch.serve.ServeEngine` over the single-device slot
 backend with ``--slots`` decode slots (the decode step captured in a CUDA
-graph on the card; ``--kv paged`` serves from the paged KV pool, and
-``--resident`` runs several decode chunks per launch). Workload: ``--prompts-file`` (comma-separated token-id
+graph on the card; ``--kv paged`` serves from the paged KV pool,
+``--resident`` runs several decode chunks per launch, and ``--spec-tokens``
+makes each resident iteration a speculative draft/verify round). Workload:
+``--prompts-file`` (comma-separated token-id
 prompts, one per line, all arriving at once) or a synthetic seeded Poisson
 stream (``--requests``/``--rate``). Per-request results stream to stdout as
 JSON lines the moment each request retires; the final line is a summary
@@ -20,14 +22,18 @@ Usage:
         [--timeout-s T] [--decode-chunk K] [--events F.jsonl] [--int8]
         [--kv slab|paged] [--kv-block-size B] [--kv-pool-blocks N]
         [--kv-offload] [--kv-offload-blocks N] [--resident auto|on|off]
-        [--resident-chunks R] [--tiny] [--seed S] [--device cuda|cpu]
+        [--resident-chunks R] [--spec-tokens K] [--draft ngram|truncated|tree]
+        [--draft-stages N] [--spec-branches B] [--spec-adaptive]
+        [--tiny] [--seed S] [--device cuda|cpu]
 
-Not ported yet, each refused with rc 2 and the ROADMAP.md item it waits
-for: ``--stages > 1`` (the ring backend), ``--replicas``, ``--fleet``,
-``--journal``, ``--roles``, ``--placement``, ``--kv-hot-refs``,
-``--metrics-port``, ``--trace-out``, the ``--slo-*`` flags and the watchdog
-flags (the fleet and its observability), ``--spec-*`` and ``--draft*``
-(the speculative lane), ``--family gpt2`` (the model zoo).
+A model draft (``--draft truncated|tree``) is a strict prefix of the model:
+with ``--stages 1`` the model is partitioned into ``--draft-stages + 1``
+logical stages to carve it, as ``pipe_tpu`` does. Not ported yet, each
+refused with rc 2 and the ROADMAP.md item it waits for: ``--stages > 1``
+(the ring backend), ``--replicas``, ``--fleet``, ``--journal``,
+``--roles``, ``--placement``, ``--kv-hot-refs``, ``--metrics-port``,
+``--trace-out``, the ``--slo-*`` flags and the watchdog flags (the fleet
+and its observability), ``--family gpt2`` (the model zoo).
 """
 
 from __future__ import annotations
@@ -42,7 +48,6 @@ from .generate import UsageError, build_model, model_source
 
 _FLEET = "A.7, fleet/* and serve/router.py"
 _OBS = "A.7, the rest of obs/* (fleet observability)"
-_SPEC = "A.6, inference/draft.py and the speculative lane"
 
 # (flag, is it set away from its default?, the ROADMAP.md item that ports it)
 _NOT_PORTED = (
@@ -62,11 +67,6 @@ _NOT_PORTED = (
     ("--tick-budget-s/--shed-ewma",
      lambda a: a.tick_budget_s is not None or a.shed_ewma is not None,
      "A.7, resilience/* (the tick watchdog)"),
-    ("--spec-*", lambda a: (a.spec_tokens is not None
-                            or a.spec_branches is not None
-                            or a.spec_adaptive), _SPEC),
-    ("--draft*", lambda a: a.draft is not None or a.draft_stages is not None,
-     _SPEC),
     ("--family gpt2", lambda a: a.family != "lm", "A.10, the GPT-2 family"),
 )
 
@@ -110,6 +110,25 @@ def build_argparser() -> argparse.ArgumentParser:
                         "exit (auto: on for cuda, off on cpu)")
     p.add_argument("--resident-chunks", type=int, default=8,
                    help="max decode chunks per resident launch")
+    p.add_argument("--spec-tokens", type=int, default=None,
+                   help="speculative decode: K-token draft/verify per "
+                        "resident round (needs --resident on/auto-on)")
+    p.add_argument("--draft", choices=["ngram", "truncated", "tree"],
+                   default="ngram",
+                   help="draft source for --spec-tokens: prompt-history "
+                        "n-gram lookup (free), truncated-pipeline "
+                        "(first --draft-stages stages + tied embedding "
+                        "head), or multi-branch tree")
+    p.add_argument("--draft-stages", type=int, default=1,
+                   help="stage depth of the truncated/tree draft — a "
+                        "STRICT prefix of the model (with --stages 1 "
+                        "the model is partitioned into draft-stages+1 "
+                        "logical stages to carve one)")
+    p.add_argument("--spec-branches", type=int, default=None,
+                   help="tree draft: parallel branches per round (>= 2)")
+    p.add_argument("--spec-adaptive", action="store_true",
+                   help="per-slot acceptance-EWMA adaptive K over a "
+                        "small ladder of round depths")
     p.add_argument("--kv", choices=["slab", "paged"], default="slab",
                    help="KV memory: per-slot slab, or the paged block pool "
                         "(shared-prefix reuse + chunked prefill)")
@@ -140,11 +159,6 @@ def build_argparser() -> argparse.ArgumentParser:
         p.add_argument(f"--slo-{name}", type=float, default=None)
     p.add_argument("--tick-budget-s", type=float, default=None)
     p.add_argument("--shed-ewma", type=float, default=None)
-    p.add_argument("--spec-tokens", type=int, default=None)
-    p.add_argument("--spec-branches", type=int, default=None)
-    p.add_argument("--spec-adaptive", action="store_true")
-    p.add_argument("--draft", default=None)
-    p.add_argument("--draft-stages", type=int, default=None)
     p.add_argument("--family", default="lm")
     return p
 
@@ -188,6 +202,18 @@ def main(argv=None) -> int:
                 raise UsageError(f"{flag} is not ported to pipe_tpu_torch "
                                  f"yet (ROADMAP.md {item})")
         model_cfg, state = model_source(args, model_cfg)
+        # a model draft runs "the first stage(s)": --stages 1 serves an
+        # unpartitioned model, so split it into draft-stages+1 logical
+        # stages (the same weights, grouped differently)
+        n_model_stages = 1
+        if args.draft != "ngram":
+            n_model_stages = max(args.draft_stages, 1) + 1
+        if model_cfg.n_layers % n_model_stages:
+            raise UsageError(
+                f"--draft {args.draft} with --stages 1 partitions the "
+                f"model into --draft-stages + 1 = {n_model_stages} logical "
+                f"stages, which must divide the model's "
+                f"{model_cfg.n_layers} layers")
         vocab = model_cfg.vocab
         if args.prompts_file:
             prompts = read_prompts(args.prompts_file, vocab)
@@ -215,13 +241,20 @@ def main(argv=None) -> int:
         resident = {"auto": "auto", "on": True, "off": False}[args.resident]
         longest = max(len(p) for p in prompts)
         buckets = BucketSpec.pow2(min_len=min(8, longest), max_len=longest)
-        model = build_model(args, model_cfg, state)
+        model = build_model(args, model_cfg, state, n_stages=n_model_stages)
+        # spec lane: verify-write slack on top of the request cap -- the
+        # chunk writes branches x (K-1) rows past the accepted frontier
+        spec_slack = ((args.spec_branches or 1) * (args.spec_tokens - 1)
+                      if args.spec_tokens else 0)
         backend = SingleDeviceSlotBackend(
             model, num_slots=args.slots,
-            max_len=buckets.max_len + args.max_new, gen=gen_cfg,
-            buckets=buckets, decode_chunk=args.decode_chunk,
+            max_len=buckets.max_len + args.max_new + spec_slack,
+            gen=gen_cfg, buckets=buckets, decode_chunk=args.decode_chunk,
             resident=resident, resident_chunks=args.resident_chunks,
-            **kv_kwargs)
+            spec_tokens=args.spec_tokens, draft=args.draft,
+            draft_stages=args.draft_stages,
+            spec_branches=args.spec_branches,
+            spec_adaptive=args.spec_adaptive, **kv_kwargs)
         queue = RequestQueue(capacity=args.queue_capacity,
                              policy=args.policy)
     except (UsageError, ValueError) as e:
@@ -290,6 +323,8 @@ def main(argv=None) -> int:
         "drained": eng.draining,
         "elapsed_s": round(elapsed, 3),
         "resident": backend.resident,
+        "spec_tokens": backend.spec_tokens,
+        "draft": args.draft if backend.spec_tokens else None,
         **{k: v for k, v in backend.program_stats().items()
            if k in ("kv", "decode_graph", "resident_graph")},
         "host_overhead_per_token_us": round(

@@ -181,14 +181,21 @@ class PipelinedLM(PipelinedTransformer):
             pe = pe[pos:pos + q]
         return (h + pe).to(self.cfg.compute_dtype)
 
-    def embed_tree(self, tokens: torch.Tensor, pos: int,
+    def embed_tree(self, tokens: torch.Tensor, pos,
                    depths: torch.Tensor) -> torch.Tensor:
         """Embed draft-tree rows: row r of ``tokens [b, Q]`` sits at
         position ``pos + depths[r]`` (:meth:`embed_at` with a per-row
-        position gather)."""
+        position gather). ``pos`` is a host integer, or an int64 tensor
+        ``[b]`` with one per row (the serve engine's slots), whose gather
+        is clamped to the table (it reads nothing back)."""
         h = self.embed(tokens)
-        pe = self.posenc.pe.index_select(
-            0, pos + torch.as_tensor(depths, device=h.device))
+        pe = self.posenc.pe
+        depths = torch.as_tensor(depths, device=h.device)
+        if isinstance(pos, torch.Tensor):
+            rows = (pos[:, None] + depths).clamp(0, pe.shape[0] - 1)
+            pe = pe[rows]                                   # [b, Q, d]
+        else:
+            pe = pe.index_select(0, pos + depths)
         return (h + pe).to(self.cfg.compute_dtype)
 
     def max_position(self) -> int:

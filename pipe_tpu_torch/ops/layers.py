@@ -38,7 +38,7 @@ __all__ = [
     "Sequential", "Lambda", "Linear", "Embedding", "LayerNorm", "Dropout",
     "MultiHeadAttention", "TransformerEncoderLayer", "PreLNBlock",
     "PositionalEncoding", "Decoder", "dot_product_attention", "supports",
-    "flash_auto_ok", "causal_table",
+    "flash_auto_ok", "causal_table", "tree_mask",
 ]
 
 
@@ -320,14 +320,15 @@ class MultiHeadAttention(nn.Module):
         cache (a dead serve slot) writes its last rows and its queries see
         the clamped rows' mask.
 
-        ``tree`` (optional ``[q, q]`` bool, host-integer ``pos`` only):
-        speculative tree verification. The q rows are draft-tree nodes; K/V
-        still land at rows ``[pos, pos + q)``, but query row j attends the
-        rows before ``pos`` plus the chunk rows r where ``tree[j, r]``.
-        ``allowed`` (optional bool) is the mask itself, precomputed by a
-        caller that decodes many steps: ``[q, max_len]`` rows of
-        :func:`causal_table` for a host-integer ``pos``, ``[b, q, max_len]``
-        (the table's rows gathered per row) for the tensor form.
+        ``tree`` (optional ``[q, q]`` bool): speculative tree verification.
+        The q rows are draft-tree nodes; K/V still land at rows ``[pos, pos
+        + q)`` (clamped as above in the tensor form), but query row j
+        attends the rows before ``pos`` plus the chunk rows r where
+        ``tree[j, r]`` (:func:`tree_mask`). ``allowed`` (optional bool) is
+        the mask itself, precomputed by a caller that decodes many steps:
+        ``[q, max_len]`` rows of :func:`causal_table` (or a tree mask) for a
+        host-integer ``pos``, ``[b, q, max_len]`` (the table's rows gathered
+        per row) for the tensor form.
         """
         if not self.causal:
             raise ValueError("KV-cache decode requires causal attention")
@@ -339,14 +340,14 @@ class MultiHeadAttention(nn.Module):
         kh = self.wk(x).view(b, q, h, hd).to(ck.dtype)
         vh = self.wv(x).view(b, q, h, hd).to(cv.dtype)
         if isinstance(pos, torch.Tensor):
-            if tree is not None:
-                raise ValueError("tree verification takes a host-integer pos")
             rows = (pos.clamp(0, max_len - q)[:, None]
                     + torch.arange(q, device=x.device))           # [b, q]
             slot = torch.arange(b, device=x.device)[:, None].expand(b, q)
             ck.index_put_((slot, rows), kh)
             cv.index_put_((slot, rows), vh)
-            if allowed is None:
+            if tree is not None:
+                allowed = tree_mask(tree, pos, max_len)
+            elif allowed is None:
                 allowed = causal_table(max_len, x.device)[rows]
             allowed = allowed[:, None]                      # [b, 1, q, max_len]
         else:
@@ -357,10 +358,7 @@ class MultiHeadAttention(nn.Module):
             ck[:, pos:pos + q] = kh
             cv[:, pos:pos + q] = vh
             if tree is not None:
-                tree = torch.as_tensor(tree, dtype=torch.bool, device=x.device)
-                rel = torch.arange(max_len, device=x.device) - pos
-                within = tree[:, rel.clamp(0, q - 1)]        # [q, max_len]
-                allowed = (rel < 0) | ((rel < q) & within)
+                allowed = tree_mask(tree, pos, max_len, x.device)
             elif allowed is None:
                 allowed = causal_table(max_len, x.device)[pos:pos + q]
         logits = torch.einsum("bqhd,bkhd->bhqk", qh, ck).to(torch.float32)
@@ -370,6 +368,27 @@ class MultiHeadAttention(nn.Module):
         o = torch.einsum("bhqk,bkhd->bqhd", weights, cv).reshape(
             b, q, self.d_model)
         return self.wo(o), cache
+
+
+def tree_mask(tree, pos, max_len: int, device=None) -> torch.Tensor:
+    """The attention mask of a draft-tree chunk of ``q`` rows at ``pos``:
+    key ``k`` is allowed for node ``j`` when it lies before ``pos``, or
+    inside the chunk at ``r = k - pos`` with ``tree[j, r]`` (ancestor or
+    self). ``[q, max_len]`` for a host-integer ``pos``; ``[b, q,
+    max_len]`` for an int64 tensor ``pos [b]``, unclamped, as
+    ``pipe_tpu``'s per-slot (vmapped) mask."""
+    if isinstance(pos, torch.Tensor):
+        device = pos.device
+    tree = torch.as_tensor(tree, dtype=torch.bool, device=device)
+    q = tree.shape[0]
+    keys = torch.arange(max_len, device=device)
+    if isinstance(pos, torch.Tensor):
+        rel = keys - pos[:, None]                           # [b, max_len]
+        within = tree[:, rel.clamp(0, q - 1)].transpose(0, 1)  # [b, q, .]
+        return (rel < 0)[:, None] | ((rel < q)[:, None] & within)
+    rel = keys - pos
+    within = tree[:, rel.clamp(0, q - 1)]                    # [q, max_len]
+    return (rel < 0) | ((rel < q) & within)
 
 
 def causal_table(max_len: int, device) -> torch.Tensor:

@@ -11,9 +11,10 @@ prompt-length shapes. :class:`~.engine.SingleDeviceSlotBackend` keeps a
 per-slot KV slab, or the paged pool of :mod:`.kvpool`
 (:class:`~.kvpool.KvPool`: blocks, radix prefix sharing, copy-on-write,
 host offload, int8 rows) with one chunked prefill program, and runs the
-resident loop (several decode chunks per launch) on the card. The
-speculative lane, the ring backend and the fleet router are not ported yet
-(ROADMAP.md A.6, A.7, A.8). ``apps/serve.py`` is the driver.
+resident loop (several decode chunks per launch) on the card, whose
+chunks become speculative draft/verify rounds with ``spec_tokens``. The
+ring backend and the fleet router are not ported yet (ROADMAP.md A.8,
+A.7). ``apps/serve.py`` is the driver.
 """
 
 from .buckets import BucketSpec

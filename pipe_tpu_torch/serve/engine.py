@@ -72,9 +72,22 @@ its K/V writes put exactly the next real chunk's bits into the same rows.
 The cost is device time on those "ghost" chunks; the
 ``serve.engine.resident_chunks_run`` and ``_computed`` counters show it.
 
+**The speculative lane** (``spec_tokens=K``, resident only) makes each
+gated chunk of that graph a draft/verify ROUND: a drafter
+(:mod:`~..inference.draft`: n-gram history lookup, the model's first
+stages, or a tree of branches) proposes K-1 tokens per slot, one
+teacher-forced ``[S, Q]`` decode at the slots' positions verifies them
+(``Q = K``, or ``1 + B(K-1)`` tree nodes under the tree mask), and the
+longest prefix the model itself picks is emitted with one correction token.
+Row r draws ``keyed_uniform(seed, step + depth[r])``, so accepted tokens are
+the tick path's, sampled too. A round past the stop keeps the per-slot
+state and the token history as they were, and recomputes the next real
+round exactly (drafts and tree relocation included). Each rung of the
+adaptive ladder is its own captured graph.
+
 Not ported yet, each refused with ``NotImplementedError`` naming its
-ROADMAP.md item: the speculative lane (``spec_tokens``, ``draft``), the
-watchdog, chaos and disaggregated phases, and the fleet's KV handoff.
+ROADMAP.md item: the watchdog, chaos and disaggregated phases, and the
+fleet's KV handoff.
 """
 
 from __future__ import annotations
@@ -86,11 +99,12 @@ from typing import Callable, Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
+from ..inference.draft import DraftSource, resolve_draft, tree_layout
 from ..inference.generate import (GenerationConfig, head_logits,
                                   keyed_uniform, sample_logits, seed_word)
 from ..obs.events import NULL_EVENT_LOG, REQUEST
 from ..obs.telemetry import get_registry, host_overhead_per_token
-from ..ops.layers import causal_table
+from ..ops.layers import causal_table, tree_mask
 from .buckets import BucketSpec
 from .kvpool import (HostKvStore, KvPool, PoolExhausted, copy_block,
                      flat_row_index, gather_block_cache, scatter_block_rows,
@@ -100,17 +114,7 @@ from .queue import QueueFull, Request, RequestQueue, Response
 __all__ = ["SingleDeviceSlotBackend", "ServeEngine", "EngineDraining",
            "resolve_resident"]
 
-_SPEC = "A.6, inference/draft.py and the speculative lane"
 _FLEET = "A.7, fleet handoff"
-
-# (argument, its default, the ROADMAP.md item that ports it)
-_NOT_PORTED = (
-    ("spec_tokens", None, _SPEC),
-    ("draft", "ngram", _SPEC),
-    ("draft_stages", 1, _SPEC),
-    ("spec_branches", None, _SPEC),
-    ("spec_adaptive", False, _SPEC),
-)
 
 
 class EngineDraining(RuntimeError):
@@ -211,7 +215,13 @@ class SingleDeviceSlotBackend:
     ``kv_dtype="int8"`` rows and ``kv_offload`` host spill
     (``kv_offload_blocks`` caps the host store; default the pool size).
     ``resident`` (``"auto"``: True on ``cuda``) runs up to
-    ``resident_chunks`` decode chunks per launch.
+    ``resident_chunks`` decode chunks per launch. ``spec_tokens=K`` (or
+    ``GenerationConfig.spec_tokens``) makes each resident iteration a
+    speculative draft/verify round emitting 1..K tokens per slot, drafted
+    by ``draft`` (``"ngram"``, ``"truncated"`` over the first
+    ``draft_stages`` stages, ``"tree"`` of ``spec_branches`` branches, or a
+    :class:`~..inference.draft.DraftSource`); ``spec_adaptive`` picks the
+    round depth per launch from a small ladder.
     """
 
     def __init__(self, model, *, num_slots: int, max_len: int,
@@ -230,20 +240,10 @@ class SingleDeviceSlotBackend:
                  spec_branches: Optional[int] = None,
                  spec_adaptive: bool = False,
                  cuda_graph: bool = True):
-        args = locals()
         if not hasattr(model, "embed_at"):
             raise TypeError(
                 f"{type(model).__name__} has no embed_at; KV-cache "
                 "generation needs position-offset embedding")
-        for name, default, item in _NOT_PORTED:
-            if args[name] != default:
-                raise NotImplementedError(
-                    f"SingleDeviceSlotBackend({name}={args[name]!r}) is not "
-                    f"ported to pipe_tpu_torch yet (ROADMAP.md {item})")
-        if gen.spec_tokens is not None:
-            raise NotImplementedError(
-                f"GenerationConfig.spec_tokens is not ported to "
-                f"pipe_tpu_torch yet (ROADMAP.md {_SPEC})")
         if gen.num_beams != 1:
             raise ValueError(
                 "the serve engine decodes greedy/sampled slots; beam "
@@ -267,7 +267,6 @@ class SingleDeviceSlotBackend:
         self.max_len = max_len
         self.buckets = buckets
         self.decode_chunk = decode_chunk
-        self.decode_width = decode_chunk
         self.shape_cache_warn = shape_cache_warn
         self.device = next(model.parameters()).device
         self.resident = resolve_resident(resident, self.device)
@@ -275,6 +274,10 @@ class SingleDeviceSlotBackend:
         self.cuda_graph = bool(cuda_graph) and self.device.type == "cuda"
         self._graph_pool = (torch.cuda.graph_pool_handle()
                             if self.cuda_graph else None)
+        self._n_layers = len(model.blocks)
+        self._init_spec(spec_tokens if spec_tokens is not None
+                        else gen.spec_tokens, draft, draft_stages,
+                        spec_branches, spec_adaptive)
 
         dev = self.device
         cd = model.cfg.compute_dtype
@@ -294,7 +297,8 @@ class SingleDeviceSlotBackend:
             nb = kv_pool_blocks if kv_pool_blocks is not None \
                 else num_slots * mb + 1
             if buckets is not None:
-                gen.check_kv_headroom(buckets.max_len, kbs)
+                gen.check_kv_headroom(buckets.max_len, kbs,
+                                      self._spec_overshoot)
             self.pool = KvPool(
                 num_blocks=nb, block_size=kbs, num_slots=num_slots,
                 max_len=max_len, prefix_cache=gen.prefix_cache,
@@ -330,6 +334,13 @@ class SingleDeviceSlotBackend:
             "step": torch.zeros(num_slots, **ids),
             "out": torch.zeros((num_slots, decode_chunk), **ids),
         }
+        if self.spec_tokens is not None:
+            # the spec lane's token history: hist[s, p] = the token
+            # embedded at position p of slot s; K rows of slack take the
+            # masked write past the last position
+            st["hist"] = torch.full(
+                (num_slots, max_len + self.spec_tokens), gen.pad_token_id,
+                **ids)
         with torch.no_grad():
             if self.paged:
                 self._init_paged(st, proto)
@@ -344,9 +355,14 @@ class SingleDeviceSlotBackend:
             if self.resident:
                 R, C = resident_chunks, decode_chunk
                 # (live, budget, r_max) in, (tokens, chunks run) out: one
-                # host copy each way per launch
+                # host copy each way per launch; spec rounds read out
+                # (accepted counts [R], rounds run, tokens [R*K])
                 st["rin"] = torch.zeros(2 * num_slots + 1, **ids)
-                st["rout"] = torch.zeros((num_slots, R * C + 1), **ids)
+                st["rout"] = torch.zeros(
+                    (num_slots, R * C + 1 if self.spec_tokens is None
+                     else R + 1 + R * self.spec_tokens), **ids)
+            if self.spec_tokens is not None:
+                self._init_spec_state(st)
         self._state = st
         self._prefill_programs: Dict[int, _Program] = {}
         scratch_names = ("caches", "tok", "pos", "seed", "step", "out")
@@ -355,11 +371,80 @@ class SingleDeviceSlotBackend:
             self._decode_body, st,
             lambda: self._scratch(scratch_names),
             "serve.engine.decode_traces")
-        if self.resident:
+        if self.resident and self.spec_tokens is None:
             self._resident_prog = _Program(
                 self, self._resident_body, st,
                 lambda: self._scratch(scratch_names + ("rout",)),
                 "serve.engine.resident_traces")
+        # one resident spec program per ladder rung, each captured at its
+        # first launch
+        self._spec_progs = {
+            K: _Program(self, lambda s, K=K: self._resident_spec_body(s, K),
+                        st, lambda: self._scratch(scratch_names + ("rout",)),
+                        "serve.engine.resident_traces")
+            for K in self._spec_ladder}
+
+    def _init_spec(self, spec: Optional[int], draft, draft_stages: int,
+                   spec_branches: Optional[int], spec_adaptive: bool) -> None:
+        """The speculative lane's knobs, validated as ``pipe_tpu`` does:
+        the drafter, the verify's row overshoot, the adaptive ladder of
+        round depths and its per-slot acceptance EWMA."""
+        if spec is not None and spec < 2:
+            raise ValueError(
+                f"spec_tokens must be >= 2, got {spec}")
+        if spec is not None and not self.resident:
+            raise ValueError(
+                "spec_tokens needs the resident loop (the draft/verify "
+                "round IS the resident chunk body); pass resident=True")
+        self.spec_tokens = spec
+        # tokens per resident iteration: the readout stride; spec mode
+        # sets it per launch to the ladder rung that ran
+        self.decode_width = spec if spec is not None else self.decode_chunk
+        if spec is None:
+            if not (draft == "ngram" and draft_stages == 1
+                    and spec_branches is None and not spec_adaptive):
+                raise ValueError(
+                    "draft/draft_stages/spec_branches/spec_adaptive "
+                    "configure the speculative lane; set spec_tokens")
+            self._drafter = None
+            self._spec_overshoot = 0
+            self._spec_ladder = []
+            return
+        m = self.model
+        self._drafter = draft if isinstance(draft, DraftSource) \
+            else resolve_draft(draft, n_stages=m.n_stages,
+                               layers_per_stage=m.layers_per_stage,
+                               draft_stages=draft_stages,
+                               spec_branches=spec_branches)
+        if self._drafter.branches > 1 and not hasattr(m, "embed_tree"):
+            raise TypeError(
+                f"{type(m).__name__} has no embed_tree; tree "
+                "verification needs per-node position embedding")
+        # a verify writes Q = 1 + branches*(K-1) rows from pos, at most
+        # plen + max_new - 2: the headroom keeps the write unclamped
+        self._spec_overshoot = self._drafter.branches * (spec - 1)
+        self._spec_ladder = (sorted({2, (spec + 2) // 2, spec})
+                             if spec_adaptive else [spec])
+        self._spec_ewma = np.full((self.num_slots,), float(spec))
+        self._spec_acc_total = 0
+        self._spec_draft_total = 0
+
+    def _init_spec_state(self, st: dict) -> None:
+        """The drafter's scratch (a tree's branch caches: static buffers of
+        the programs, rewritten every round) and a tree's constants: each
+        rung's node depths and ancestor mask, on the device before any
+        capture."""
+        dev = self.device
+        B = self._drafter.branches
+        buffers = self._drafter.make_buffers(st["caches"])
+        if buffers is not None:
+            st["drafter_buffers"] = buffers
+        self._tree_consts = {}
+        for k in self._spec_ladder if B > 1 else ():
+            depths, anc = tree_layout(k, B)
+            self._tree_consts[k] = (
+                torch.as_tensor(depths, dtype=torch.int64, device=dev),
+                torch.as_tensor(anc, device=dev))
 
     def _init_paged(self, st: dict, proto: dict) -> None:
         """The pool's device arrays, the per-slot views the decode programs
@@ -437,8 +522,9 @@ class SingleDeviceSlotBackend:
             out["tables"].zero_()
             if "views" in names:
                 out["caches"] = self._layer_views(out["views"])
-        if "rin" in st:
-            out["rin"] = st["rin"].clone()
+        for name in ("rin", "hist"):
+            if name in st:
+                out[name] = st[name].clone()
         return out
 
     # -- validation --------------------------------------------------------
@@ -447,8 +533,10 @@ class SingleDeviceSlotBackend:
         """Admission-control shape checks — reject at submit, not at
         prefill, so a bad request never costs a slot. A live slot's last
         decode writes row ``prompt_len + max_new_tokens - 2``, inside the
-        cache. Paged mode adds the can-it-EVER-fit check: demand beyond
-        the whole pool is unservable, not merely parked."""
+        cache; a speculative verify writes ``branches * (K-1)`` rows past
+        it (the speculative headroom). Paged mode adds the can-it-EVER-fit
+        check: demand beyond the whole pool is unservable, not merely
+        parked."""
         bucket = (self.buckets.bucket_for(prompt_len)
                   if self.buckets is not None and not self.paged
                   else prompt_len)
@@ -460,10 +548,12 @@ class SingleDeviceSlotBackend:
                 f"blocks but the whole pool holds "
                 f"{self.pool.allocatable}; raise kv_pool_blocks or "
                 f"shorten the request")
-        if prompt_len + max_new_tokens > self.max_len:
+        if prompt_len + max_new_tokens + self._spec_overshoot > self.max_len:
+            extra = (f" + speculative headroom {self._spec_overshoot}"
+                     if self._spec_overshoot else "")
             raise ValueError(
                 f"prompt_len {prompt_len} + max_new_tokens "
-                f"{max_new_tokens} exceeds the slot cache "
+                f"{max_new_tokens}{extra} exceeds the slot cache "
                 f"({self.max_len} rows); raise max_len or shorten the "
                 f"request")
         if bucket > self.max_len:
@@ -507,6 +597,23 @@ class SingleDeviceSlotBackend:
         st["seed"].index_copy_(0, slot, word)
         st["step"].index_fill_(0, slot, 1)
 
+    def _hist_write(self, st: dict, slot: torch.Tensor, plen: torch.Tensor,
+                    prompt: torch.Tensor) -> None:
+        """Seed the spec lane's history row of a freshly prefilled slot:
+        the prompt (``prompt``, padded past ``plen``), the first token at
+        ``plen``, pad beyond -- inside the prefill's epilogue program, from
+        the prompt already on the device. No-op without the spec lane."""
+        if "hist" not in st:
+            return
+        hist, pad = st["hist"], self.gen.pad_token_id
+        H = hist.shape[1]
+        n = min(prompt.shape[0], H)
+        row = torch.nn.functional.pad(prompt[:n], (0, H - n), value=pad)
+        ar = torch.arange(H, device=hist.device)
+        row = torch.where(ar < plen, row, pad)
+        row = torch.where(ar == plen, st["tok"].index_select(0, slot), row)
+        hist.index_copy_(0, slot, row[None])
+
     def _bucket_body(self, st: dict, B: int) -> None:
         """The bucket-length-B prefill: the right-padded prompt through
         every block's ``decode`` against a fresh full-length cache, which
@@ -527,6 +634,7 @@ class SingleDeviceSlotBackend:
                 c.index_copy_(0, slot, rows[name])
         h_last = h[0].index_select(0, plen - 1)            # [1, d]
         self._first_token(st, h_last, slot, plen, word)
+        self._hist_write(st, slot, plen, pin[3:3 + B])
 
     def _decode_step(self, st: dict, tok: torch.Tensor, pos: torch.Tensor,
                      step: torch.Tensor) -> torch.Tensor:
@@ -565,13 +673,14 @@ class SingleDeviceSlotBackend:
             pos.add_(1).clamp_(max=last)
             st["step"].add_(1)
 
-    def _scatter_chunk(self, st: dict, pos0: torch.Tensor) -> None:
-        """The rows a decode chunk wrote into the views, positions
-        ``pos0 + [0, C)`` of every slot, back into the pool through the
-        FULL-width tables: positions past a slot's reserved blocks, and
-        every row of a released slot (zeroed table), land in the
-        sacrificial block."""
-        C = self.decode_chunk
+    def _scatter_chunk(self, st: dict, pos0: torch.Tensor,
+                       width: Optional[int] = None) -> None:
+        """The rows a decode chunk (or a ``width``-row spec verify) wrote
+        into the views, positions ``pos0 + [0, C)`` of every slot, back
+        into the pool through the FULL-width tables: positions past a
+        slot's reserved blocks, and every row of a released slot (zeroed
+        table), land in the sacrificial block."""
+        C = self.decode_chunk if width is None else width
         S = self.num_slots
         views = st["views"]
         last = views["k"].shape[2] - 1
@@ -646,7 +755,8 @@ class SingleDeviceSlotBackend:
         slot = pin[2:3]
         self._first_token(st, st["cst"]["h_last"], slot, pin[1:2],
                           pin[3:4])
-        a = self._cpin_layout[0]
+        a, b, _ = self._cpin_layout
+        self._hist_write(st, slot, pin[1:2], pin[b:])
         trow = pin[a:a + self.pool.max_blocks + 1]
         cd = self.model.cfg.compute_dtype
         for l in range(len(self.model.blocks)):
@@ -720,6 +830,153 @@ class SingleDeviceSlotBackend:
         step.copy_(cur[2])
         st["rout"].copy_(torch.cat(outs + [k.expand(S, 1)], dim=1))
 
+    # -- the speculative lane ----------------------------------------------
+    #
+    # A resident iteration becomes a draft/verify ROUND: the drafter
+    # proposes K-1 tokens per slot, ONE teacher-forced [S, Q] decode at the
+    # slots' positions verifies [tok, drafts], and the longest prefix the
+    # model itself picks is accepted plus one correction token. Rollback is
+    # free: rejected rows sit at positions >= the advanced pos, masked, and
+    # the next round's Q-row write covers them before any unmasked read.
+    # Row r of the chunk draws keyed_uniform(seed, step + depth[r]), so a
+    # node at depth d takes the d-th sequential draw whatever branch it sits
+    # on, and accepted tokens are exactly those the tick path draws.
+
+    def _spec_round(self, st: dict, K: int, cur: tuple):
+        """One draft/verify round at ladder depth ``K`` on the caches of
+        ``st`` (slab, or the paged views) and the per-slot state ``cur =
+        (tok, pos, step, budget, done, hist)``. Returns the advanced state
+        (done slots frozen), the round's ``[S, K]`` tokens (pad past the
+        accepted count and after an EOS) and the accepted counts ``[S]``
+        (0 for a done slot). With a multi-branch drafter the chunk is the
+        flattened tree, ``Q = 1 + B(K-1)`` rows under the tree mask; the
+        winning branch's rows are relocated to ``[pos+1, pos+K)`` before
+        the round returns, so the next round reads them as a linear
+        prefix."""
+        m, gen = self.model, self.gen
+        eos, pad = gen.eos_token_id, gen.pad_token_id
+        tok, pos, step, budget, done, hist = cur
+        caches, table = st["caches"], st["table"]
+        S, rows, dev = tok.shape[0], caches[0]["k"].shape[1], tok.device
+        B = self._drafter.branches
+        ar = torch.arange(K, device=dev)
+
+        # 1) draft: [S, B, K-1] candidate continuations of tok
+        drafts = self._drafter.propose(m, caches, table, tok, pos, hist, K,
+                                       st.get("drafter_buffers"))
+
+        # 2) verify: ONE teacher-forced [S, Q] decode at pos
+        x = torch.cat([tok[:, None], drafts.reshape(S, B * (K - 1))], dim=1)
+        Q = x.shape[1]
+        if B == 1:
+            depth = ar
+            h = m.embed_at(x, pos)
+            allowed = table[pos.clamp(0, rows - Q)[:, None] + ar]
+        else:
+            depth, anc = self._tree_consts[K]
+            h = m.embed_tree(x, pos, depth)
+            allowed = tree_mask(anc, pos, rows)
+        for blk, cache in zip(m.blocks, caches):
+            h, _ = blk.decode(h, cache, pos, allowed=allowed)
+        logits = head_logits(m, h)                          # [S, Q, V]
+        V = logits.shape[-1]
+
+        # 3) the draws: row r at step + depth[r]
+        u = None
+        if gen.temperature != 0.0:
+            u = keyed_uniform(st["seed"][:, None].expand(S, Q).reshape(-1),
+                              (step[:, None] + depth).reshape(-1), V)
+        t = sample_logits(logits.reshape(S * Q, V), gen,
+                          uniform=u).reshape(S, Q)
+
+        # 4) accept the longest matching (root-to-leaf) prefix + 1
+        if B == 1:
+            t_lin = t
+            lead = (drafts[:, 0] == t[:, :K - 1]).long().cumprod(dim=1)
+            n_emit = 1 + lead.sum(dim=1)
+        else:
+            tb = t[:, 1:].reshape(S, B, K - 1)
+            prev = torch.cat([t[:, :1, None].expand(S, B, 1),
+                              tb[:, :, :-1]], dim=2)
+            len_b = (drafts == prev).long().cumprod(dim=2).sum(dim=2)
+            bsel = torch.argmax(len_b, dim=1)                # [S]
+            n_emit = 1 + len_b.gather(1, bsel[:, None])[:, 0]
+            t_lin = torch.cat(
+                [t[:, :1],
+                 tb.gather(1, bsel[:, None, None].expand(S, 1, K - 1))[:, 0]],
+                dim=1)
+        n_emit = torch.where(done, 0, n_emit)
+        emit = ar < n_emit[:, None]                          # [S, K]
+        keep = emit
+        if eos is not None:
+            hit = ((t_lin == eos) & emit).long()
+            keep = emit & ((hit.cumsum(dim=1) - hit) == 0)
+        toks = torch.where(keep, t_lin, pad)
+
+        # 5) tree: the winning branch's K-1 rows to [pos+1, pos+K), read
+        # into a temporary first (the ranges overlap)
+        if B > 1:
+            ar1 = torch.arange(K - 1, device=dev)
+            src = ((pos + 1 + bsel * (K - 1))[:, None] + ar1).clamp(
+                0, rows - 1)
+            dst = (pos + 1).clamp(0, rows - (K - 1))[:, None] + ar1
+            slot = torch.arange(S, device=dev)[:, None].expand(S, K - 1)
+            for cache in caches:
+                for c in cache.values():
+                    c.index_put_((slot, dst), c[slot, src])
+
+        # 6) advance; done slots keep tok/pos/step/budget/hist
+        last = t_lin.gather(1, (n_emit - 1).clamp(min=0)[:, None])[:, 0]
+        H = hist.shape[1]
+        hidx = (pos + 1).clamp(0, H - K)[:, None] + ar
+        hist = hist.scatter(1, hidx, torch.where(emit, t_lin,
+                                                 hist.gather(1, hidx)))
+        budget = budget - n_emit
+        new_done = done | (budget <= 0)
+        if eos is not None:
+            new_done = new_done | (hit > 0).any(dim=1)
+        new = (torch.where(done, tok, last), pos + n_emit, step + n_emit,
+               budget, new_done, hist)
+        return new, toks, n_emit
+
+    def _resident_spec_body(self, st: dict, K: int) -> None:
+        """The resident spec program at ladder depth ``K``:
+        ``resident_chunks`` rounds unrolled, each gated by ``go = (k <
+        r_max) & ~any(live & done)`` as :meth:`_resident_body`'s chunks
+        are; a round without ``go`` keeps every per-slot value (history
+        included) as it was. Paged: each round's Q rows scatter back into
+        the pool from the round's start. Writes the accepted counts ``[S,
+        R]``, the rounds run ``k`` and the tokens ``[S, R*K]`` to
+        ``rout``."""
+        eos = self.gen.eos_token_id
+        S, R = self.num_slots, self.resident_chunks
+        rin = st["rin"]
+        live, budget, r_max = rin[:S] > 0, rin[S:2 * S], rin[2 * S]
+        tok, pos, step, hist = st["tok"], st["pos"], st["step"], st["hist"]
+        done = ~live | (budget <= 0)
+        if eos is not None:
+            done = done | (tok == eos)
+        B = self._drafter.branches
+        Q = 1 + B * (K - 1) if B > 1 else K
+        k = torch.zeros((), dtype=torch.int64, device=tok.device)
+        cur = (tok, pos, step, budget, done, hist)
+        counts, outs = [], []
+        for _ in range(R):
+            go = (k < r_max) & ~(live & cur[4]).any()
+            new, toks, n_emit = self._spec_round(st, K, cur)
+            if self.paged:
+                self._scatter_chunk(st, cur[1], Q)
+            cur = tuple(torch.where(go, a, b) for a, b in zip(new, cur))
+            k = k + go.to(k.dtype)
+            counts.append(torch.where(go, n_emit, 0)[:, None])
+            outs.append(toks)
+        tok.copy_(cur[0])
+        pos.copy_(cur[1])
+        step.copy_(cur[2])
+        hist.copy_(cur[5])
+        st["rout"][:, :R + 1 + R * K].copy_(
+            torch.cat(counts + [k.expand(S, 1)] + outs, dim=1))
+
     # -- backend API -------------------------------------------------------
 
     def prefill(self, slot: int, prompt: Sequence[int], seed: int,
@@ -730,6 +987,10 @@ class SingleDeviceSlotBackend:
         chunk program whatever the length; ``max_new_tokens`` sizes the
         block reservation (default the engine cap: full-demand reservation
         means no mid-decode OOM)."""
+        if self.spec_tokens is not None:
+            # adaptive K starts each request optimistic: full draft depth
+            # until its own acceptance says otherwise
+            self._spec_ewma[slot] = float(self.spec_tokens)
         with torch.no_grad():
             if self.paged:
                 return self._prefill_paged(
@@ -853,10 +1114,11 @@ class SingleDeviceSlotBackend:
 
     def _decode_resident(self, live: np.ndarray, budgets: np.ndarray,
                          r_max: Optional[int]):
-        """One resident launch: up to ``r_max`` chunks on the device, ONE
-        host read-back (the tokens and the chunk count)."""
+        """One resident launch: up to ``r_max`` chunks (spec: rounds) on
+        the device, ONE host read-back (the tokens, the chunk count and,
+        spec, the accepted counts)."""
         reg = get_registry()
-        S, R, W = self.num_slots, self.resident_chunks, self.decode_width
+        S, R = self.num_slots, self.resident_chunks
         rm = R if r_max is None else max(1, min(int(r_max), R))
         rin = np.zeros(2 * S + 1, np.int64)
         rin[:S] = np.asarray(live, bool)
@@ -864,16 +1126,75 @@ class SingleDeviceSlotBackend:
         rin[2 * S] = rm
         st = self._state
         st["rin"].copy_(torch.from_numpy(rin))
-        self._resident_prog()
+        if self.spec_tokens is not None:
+            self.decode_width = self._pick_spec_k(live)
+            self._spec_progs[self.decode_width]()
+        else:
+            self._resident_prog()
         rout = st["rout"].cpu().numpy()            # THE host sync
-        k = int(rout[0, -1])
+        W = self.decode_width
+        k = int(rout[0, R] if self.spec_tokens is not None else rout[0, -1])
         reg.counter("serve.engine.resident_chunks_run").inc(k)
         reg.counter("serve.engine.resident_chunks_computed").inc(R)
         if k < rm:
             reg.counter("serve.engine.device_exits").inc()
-        toks = rout[:, :k * W]
-        valid = np.broadcast_to(np.asarray(live, bool)[:, None], toks.shape)
+        if self.spec_tokens is None:
+            toks = rout[:, :k * W]
+            return toks, np.broadcast_to(np.asarray(live, bool)[:, None],
+                                         toks.shape)
+        counts = rout[:, :k]
+        toks = rout[:, R + 1:R + 1 + k * W]
+        valid = (np.arange(W)[None, None, :]
+                 < counts[:, :, None]).reshape(S, k * W)
+        self._spec_telemetry(reg, np.asarray(live, bool), counts, W)
         return toks, valid
+
+    def _spec_telemetry(self, reg, lmask: np.ndarray, counts: np.ndarray,
+                        W: int) -> None:
+        """A launch's spec counters and gauges, and the adaptive ladder's
+        per-slot EWMA of accepted length (live slots that ran)."""
+        lc = counts[lmask]
+        rounds = int((lc > 0).sum())
+        emitted = int(lc.sum())
+        reg.counter("serve.engine.spec_rounds").inc(rounds)
+        reg.counter("serve.engine.spec_emitted").inc(emitted)
+        # acceptance: accepted draft tokens over drafted positions (K-1 a
+        # round), cumulative; draft cost: the drafter's work-unit share at
+        # the rung that ran
+        self._spec_acc_total += max(emitted - rounds, 0)
+        self._spec_draft_total += rounds * (W - 1)
+        if self._spec_draft_total:
+            reg.gauge("serve.spec.acceptance_rate").set(
+                self._spec_acc_total / self._spec_draft_total)
+        reg.gauge("serve.spec.draft_cost_frac").set(
+            self._drafter.draft_cost_frac(W, self._n_layers))
+        hist_m = reg.histogram("serve.spec.accept_len")
+        for v in lc[lc > 0]:
+            hist_m.observe(float(v))
+        if len(self._spec_ladder) > 1:
+            rc = np.maximum((counts > 0).sum(axis=1), 1)
+            mean_acc = counts.sum(axis=1) / rc
+            upd = lmask & (counts.sum(axis=1) > 0)
+            self._spec_ewma[upd] = (0.7 * self._spec_ewma[upd]
+                                    + 0.3 * mean_acc[upd])
+
+    def _pick_spec_k(self, live: np.ndarray) -> int:
+        """Smallest ladder rung covering the live slots' accepted-length
+        EWMA (plus one probe token so acceptance can grow back).
+        Single-rung ladders -- the non-adaptive default -- short-circuit
+        to ``spec_tokens``."""
+        ladder = self._spec_ladder
+        if len(ladder) == 1:
+            return ladder[0]
+        lmask = np.asarray(live, bool)
+        if not lmask.any():
+            return ladder[0]
+        need = int(np.ceil(self._spec_ewma[lmask].max())) + 1
+        need = max(2, min(need, self.spec_tokens))
+        for k in ladder:
+            if k >= need:
+                return k
+        return ladder[-1]
 
     def can_admit(self, prompt_len: int, max_new_tokens: int,
                   prompt: Optional[Sequence[int]] = None) -> bool:
@@ -899,7 +1220,12 @@ class SingleDeviceSlotBackend:
                "decode_chunk": self.decode_chunk,
                "kv": "paged" if self.paged else "slab",
                "decode_graph": self._decode_prog.graph is not None}
-        if self.resident:
+        if self.spec_tokens is not None:
+            graphs = [p.graph is not None for p in self._spec_progs.values()
+                      if p._ready]
+            out["resident_graph"] = bool(graphs) and all(graphs)
+            out["spec_rungs_ready"] = len(graphs)
+        elif self.resident:
             out["resident_graph"] = self._resident_prog.graph is not None
         return out
 

@@ -451,3 +451,52 @@ def test_resident_auto_on_the_card_equals_the_tick_path(cuda):
         model, resident=False, **kw), prompts, [0] * 6)
     assert got == want
     assert got[0][-1] == free[0][4] and len(got[0]) <= 5
+
+
+_SPEC_CASES = ([("ngram", k, False) for k in (2, 3, 4)]
+               + [("truncated", 4, False), ("tree", 4, False),
+                  ("ngram", 4, True)])
+
+
+@pytest.mark.parametrize("layout", ["slab", "paged"])
+@pytest.mark.parametrize("draft,K,adaptive", _SPEC_CASES,
+                         ids=[f"{d}-K{k}{'-adaptive' if a else ''}"
+                              for d, k, a in _SPEC_CASES])
+def test_spec_rungs_captured_once_equal_eager(cuda, layout, draft, K,
+                                              adaptive):
+    """The speculative lane on the card, each rung (K 2, 3, 4; the
+    truncated and tree drafts at 4; the adaptive ladder): every rung the
+    traffic picks is captured once, a second drive captures nothing, and
+    the tokens equal the same engine run eagerly on the card, bit for
+    bit."""
+    from pipe_tpu_torch.inference import GenerationConfig
+    from pipe_tpu_torch.obs.telemetry import get_registry
+    from pipe_tpu_torch.serve import SingleDeviceSlotBackend
+
+    base = _serve_model(cuda)
+    model = pt.PipelinedLM.from_sequential(
+        base.cfg, [base.embed, base.posenc, *base.blocks, base.head], 2)
+    gen = GenerationConfig(max_new_tokens=12, temperature=0.9, top_k=20)
+    prompts = _serve_prompts(7)
+    prompts[1] = [5, 6, 7] * 4
+    seeds = list(range(7))
+    kw = dict(num_slots=3, max_len=32, gen=gen, resident=True,
+              resident_chunks=3, **_LAYOUTS[layout])
+    spec = dict(spec_tokens=K, spec_adaptive=adaptive)
+    if draft != "ngram":
+        spec.update(draft=draft, spec_branches=2 if draft == "tree" else None)
+    reg = get_registry()
+    name = "serve.engine.resident_traces"
+    t0 = reg.counter(name).value
+    graph = SingleDeviceSlotBackend(model, **kw, **spec)
+    got = _staggered_serve(graph, prompts, seeds)
+    rungs = graph.program_stats()["spec_rungs_ready"]
+    assert reg.counter(name).value - t0 == rungs >= 1
+    assert graph.program_stats()["resident_graph"]
+    assert _staggered_serve(graph, prompts, seeds) == got
+    assert reg.counter(name).value - t0 == rungs
+    eager = SingleDeviceSlotBackend(model, cuda_graph=False, **kw, **spec)
+    assert _staggered_serve(eager, prompts, seeds) == got
+    assert all(len(t) == 12 for t in got)
+    if layout == "paged":
+        assert graph.pool.stats()["blocks_in_use"] == 0

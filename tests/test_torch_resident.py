@@ -287,11 +287,13 @@ def test_resident_knob_validation(models):
         _backend(tmodel, gen, resident="yes")
     with pytest.raises(ValueError, match="resident_chunks"):
         _backend(tmodel, gen, resident=True, resident_chunks=0)
-    for kw in (dict(spec_tokens=3), dict(draft="truncated"),
-               dict(spec_adaptive=True)):
-        with pytest.raises(NotImplementedError,
-                           match="A.6, inference/draft.py"):
-            _backend(tmodel, gen, resident=True, **kw)
+    # the speculative lane's knobs, with JAX's messages
+    for kw, msg in ((dict(resident=True, spec_tokens=1), "spec_tokens"),
+                    (dict(resident=False, spec_tokens=3), "resident"),
+                    (dict(resident=True, draft="truncated"),
+                     "speculative lane")):
+        with pytest.raises(ValueError, match=msg):
+            _backend(tmodel, gen, **kw)
 
 
 def test_auto_picks_the_resident_loop_on_cuda_only(models, monkeypatch):

@@ -379,21 +379,28 @@ def test_unbucketed_prefill_warns_past_threshold(models):
 
 
 def test_not_ported_options_name_their_roadmap_item(models):
-    """The speculative lane and the fleet handoff are refused naming their
-    ROADMAP.md items; the paged pool and the resident loop, ported, are
-    accepted (and ``resident="auto"`` stays the single-chunk tick on the
-    CPU)."""
+    """The fleet handoff is refused naming its ROADMAP.md item; the
+    speculative lane, ported, is validated with JAX's messages (it needs
+    the resident loop, and its draft knobs need spec_tokens); the paged
+    pool and the resident loop, ported, are accepted (and
+    ``resident="auto"`` stays the single-chunk tick on the CPU)."""
     _, _, tmodel = models
     gen_cfg = GenerationConfig(max_new_tokens=2, temperature=0.0)
-    for kw, item in ((dict(spec_tokens=4), "A.6"),
-                     (dict(draft="tree"), "A.6"),
-                     (dict(draft_stages=2), "A.6"),
-                     (dict(spec_branches=2), "A.6"),
-                     (dict(spec_adaptive=True), "A.6")):
-        with pytest.raises(NotImplementedError, match=item):
+    for kw, msg in ((dict(spec_tokens=4), "needs the resident loop"),
+                    (dict(draft="tree"), "speculative lane; set spec_tok"),
+                    (dict(draft_stages=2), "speculative lane; set spec_tok"),
+                    (dict(spec_branches=2), "speculative lane; set spec_tok"),
+                    (dict(spec_adaptive=True),
+                     "speculative lane; set spec_tok"),
+                    (dict(spec_tokens=4, resident=True, draft="truncated",
+                          draft_stages=2), "STRICT prefix")):
+        with pytest.raises(ValueError, match=msg):
             _backend(tmodel, gen_cfg, **kw)
-    with pytest.raises(NotImplementedError, match="A.6"):
+    with pytest.raises(ValueError, match="needs the resident loop"):
         _backend(tmodel, dataclasses.replace(gen_cfg, spec_tokens=4))
+    spec = _backend(tmodel, dataclasses.replace(gen_cfg, spec_tokens=4),
+                    resident=True, max_len=19)
+    assert (spec.spec_tokens, spec.decode_width) == (4, 4)
     # ported: 8 + 2 rows of headroom, so blocks of 2 divide it
     for kw, paged, resident in (
             (dict(kv_block_size=2), True, False),
@@ -428,7 +435,8 @@ def test_per_row_positions_equal_the_host_integer_form(models, q):
     rounding: a 4-row product need not give a 1-row one's bits). A
     row past its cache (a dead slot) clamps its write to the last rows and
     leaves the other rows' results alone; ``embed_at`` clamps the same
-    way."""
+    way. A chain-shaped draft tree at the same positions gives the causal
+    form's results on live rows and its writes on every row."""
     _, _, tmodel = models
     blk = tmodel.blocks[0]
     gen = torch.Generator().manual_seed(0)
@@ -463,9 +471,14 @@ def test_per_row_positions_equal_the_host_integer_form(models, q):
         limit = tmodel.max_position()
         assert torch.equal(far[1], tmodel.embed_at(tokens[:1],
                                                    limit - q)[0])
-    with pytest.raises(ValueError, match="host-integer"):
-        blk.decode(x, blk.attn.make_cache(4, max_len), pos,
-                   tree=np.ones((q, q), bool))
+        # a chain-shaped tree is the causal mask on live rows; the write
+        # is the linear form's, the dead row's included
+        chain = {n: c.clone() for n, c in base.items()}
+        tree_got, _ = blk.decode(x, chain, pos,
+                                 tree=np.tril(np.ones((q, q), bool)))
+        assert torch.equal(tree_got[:3], got[:3])
+        for n in ("k", "v"):
+            assert torch.equal(chain[n], cache[n])
 
 
 # ---------------------------------------------------------------------------
@@ -613,8 +626,11 @@ def test_generate_cli_prompts_file_serves_through_the_engine(
     (["--stages", "2"], "A.8"), (["--replicas", "2"], "A.7"),
     (["--fleet", "proc"], "A.7"), (["--metrics-port", "0"], "A.7"),
     (["--slo-ttft-p99", "1"], "A.7"), (["--trace-out", "t.jsonl"], "A.7"),
-    (["--spec-branches", "2"], "A.6"), (["--spec-tokens", "4"], "A.6"),
-    (["--draft", "tree"], "A.6"), (["--spec-adaptive"], "A.6"),
+    (["--spec-tokens", "1"], "spec_tokens must be >= 2"),
+    (["--draft", "tree", "--spec-tokens", "4", "--resident", "on"],
+     "spec_branches >= 2"),
+    (["--spec-tokens", "4", "--resident", "off"], "needs the resident loop"),
+    (["--draft", "truncated"], "speculative lane; set spec_tokens"),
     (["--family", "gpt2"], "A.10"),
     (["--prompts-file", "/nonexistent/p.txt"], "no such file"),
     (["--eos", "101"], r"--eos must be in \[0, 101\)"),

@@ -5,7 +5,9 @@
     python3 tools/torch_slice_profile.py --generate [--decode-steps N]
         [--out DIR]
     python3 tools/torch_slice_profile.py --serve [--kv slab|paged]
-        [--resident] [--decode-steps N] [--out DIR]
+        [--resident [--spec-tokens K [--draft ngram|truncated|tree]
+        [--draft-stages N] [--spec-branches B]]] [--decode-steps N]
+        [--out DIR]
 
 Eval (default): builds the full-width tutorial LM and ``Pipe`` that
 ``chip_smoke.py`` drives (``make_slice``: d_model 2048, 32 heads, d_ff 2048,
@@ -47,6 +49,12 @@ prefill's epilogue alone (the first token and the admitted slot's view
 refresh from the pool: the port's regather). ``--resident`` replaces each
 tick with one resident launch of ``resident_chunks`` (8) chunks, every slot
 live with an unbounded budget, and reports per launch and per step.
+``--spec-tokens K`` makes each chunk a speculative draft/verify round of K
+tokens (``--draft``, default ngram; a truncated or tree draft over the
+first ``--draft-stages`` of ``--draft-stages + 1`` logical stages), over
+``chip_smoke.py``'s spec-phase cache of 272 rows, and reports per round.
+Positions then run past the cache within a window; the rows a round
+computes, and so its device time, do not depend on them.
 
 Prints one JSON summary as its last line and writes it, with the chrome
 trace, under ``--out`` (default ``build/profile/``).
@@ -291,20 +299,32 @@ def serve_slice(args):
     from pipe_tpu_torch.serve import BucketSpec, SingleDeviceSlotBackend
 
     cfg, seq, _, batches = chip_smoke.make_slice(1)
-    model = PipelinedLM.from_sequential(cfg, seq)
     prompts = batches[0][0].tolist()                   # 8 x 128 tokens
     n = args.decode_steps
     S, R = chip_smoke.SERVE_SLOTS, chip_smoke.RESIDENT_CHUNKS
     kv = ({} if args.kv == "slab"
           else {"kv_block_size": chip_smoke.PAGED_BLOCK})
+    max_len, new, spec, stages = chip_smoke.SERVE_MAX_LEN, 128, {}, 1
+    if args.spec_tokens:
+        if not args.resident:
+            raise SystemExit("--spec-tokens needs --resident")
+        spec = dict(spec_tokens=args.spec_tokens, draft=args.draft,
+                    draft_stages=args.draft_stages,
+                    spec_branches=args.spec_branches)
+        max_len = chip_smoke.SPEC_MAX_LEN
+        new = max_len - 128 - (args.spec_branches or 1) * (
+            args.spec_tokens - 1)
+        if args.draft != "ngram":
+            stages = args.draft_stages + 1
+    model = PipelinedLM.from_sequential(cfg, seq, stages)
     backends = {}
     for name, graph in (("graph", True), ("eager", False)):
         b = SingleDeviceSlotBackend(
-            model, num_slots=S, max_len=chip_smoke.SERVE_MAX_LEN,
-            gen=GenerationConfig(max_new_tokens=128, temperature=0.0),
+            model, num_slots=S, max_len=max_len,
+            gen=GenerationConfig(max_new_tokens=new, temperature=0.0),
             buckets=BucketSpec.pow2(*chip_smoke.SERVE_BUCKETS),
             cuda_graph=graph, resident=args.resident, resident_chunks=R,
-            **kv)
+            **kv, **spec)
         for slot, p in enumerate(prompts):
             b.prefill(slot, p, 0)
         backends[name] = b
@@ -320,7 +340,10 @@ def serve_slice(args):
                 b.decode(live)
 
     for b in backends.values():                        # capture, warm-up
-        b.decode(live)
+        if args.resident:
+            b.decode(live, budgets=budgets, r_max=R)
+        else:
+            b.decode(live)
     turns = {"graph": [], "eager": []}
     for name in ("graph", "eager", "eager", "graph"):
         turns[name].append(timed(lambda: ticks(backends[name])))
@@ -338,6 +361,10 @@ def serve_slice(args):
                 k: v / n for k, v in part["kernel_us_by_category"].items()},
             decode_idle_share_unprofiled=1.0 - part["device_busy_us"]
             / n / 1e3 / tick_ms)
+        if spec:
+            part.update(ms_per_round=tick_ms / R,
+                        device_busy_ms_per_round=part["device_busy_us"]
+                        / n / R / 1e3)
         summary[name] = part
     # a prompt no slot holds, so the paged pool's prefix cache misses
     fresh = prompts[0][::-1]
@@ -352,11 +379,13 @@ def serve_slice(args):
         # admitted slot's view refreshed from the pool (the regather)
         epi, _ = profile(backends["graph"]._first_prog, "prefill_epilogue")
         summary["prefill_epilogue"] = {k: epi[k] for k in keep}
-    summary.update(slots=S, max_len=chip_smoke.SERVE_MAX_LEN, ticks=n,
-                   kv=args.kv, resident=args.resident,
-                   decode_steps_per_tick=steps)
+    summary.update(slots=S, max_len=max_len, ticks=n, kv=args.kv,
+                   resident=args.resident, decode_steps_per_tick=steps,
+                   spec={k: v for k, v in spec.items() if v is not None})
     return summary, prof, ("torch_serve" + ("_paged" if kv else "")
-                           + ("_resident" if args.resident else ""))
+                           + ("_resident" if args.resident else "")
+                           + (f"_spec{args.spec_tokens}{args.draft}"
+                              if spec else ""))
 
 
 def main(argv=None) -> int:
@@ -373,6 +402,15 @@ def main(argv=None) -> int:
     ap.add_argument("--resident", action="store_true",
                     help="one resident launch of 8 chunks per tick "
                          "(--serve)")
+    ap.add_argument("--spec-tokens", type=int, default=None,
+                    help="speculative rounds of K tokens (--serve "
+                         "--resident): each chunk is a round")
+    ap.add_argument("--draft", choices=["ngram", "truncated", "tree"],
+                    default="ngram", help="draft source (--spec-tokens)")
+    ap.add_argument("--draft-stages", type=int, default=1,
+                    help="stages of a truncated or tree draft")
+    ap.add_argument("--spec-branches", type=int, default=None,
+                    help="tree draft branches")
     ap.add_argument("--decode-steps", type=int, default=32,
                     help="decode steps after the prefill (--generate), "
                          "ticks per turn (--serve)")
@@ -406,7 +444,8 @@ def main(argv=None) -> int:
             "prefill_ms", "decode_ms_per_step", "launches_per_decode_step",
             "decode_device_busy_us_per_step", "decode_idle_share_unprofiled",
             "decode_ms_per_tick", "launches_per_tick",
-            "device_busy_us_per_tick", "kernel_us_per_tick_by_category")
+            "device_busy_us_per_tick", "kernel_us_per_tick_by_category",
+            "ms_per_round", "device_busy_ms_per_round")
     parts = ([summary[k] for k in ("fp32", "int8")] if args.generate
              else [summary[k] for k in ("graph", "eager")] if args.serve
              else [summary])
