@@ -34,6 +34,21 @@ exits non-zero without a result line:
    the last below the first. Then twins at dropout 0: one step's loss and
    gradients with the kernels and with plain attention on the same weights,
    each held to plain attention in float64.
+5b. schedules -- the table executor (``parallel/scheduled.py``) over the
+   same LM at full width, with the kernels. (a) Dropout 0: one step of the
+   gpipe, 1f1b and zb-h1 tables under except_last and under never, from one
+   set of weights, against the emulator ``Pipe`` path's ``lm_loss``
+   backward: loss within 1e-5 relative, every gradient within 1e-4 x
+   max(1, max|g|). (b) Dropout 0.2: 8 ``Trainer`` steps each of the table
+   gpipe (except_last), 1f1b (except_last), zb-h1 (never) and 1f1b (never,
+   zb-h1's yardstick): losses finite, every trajectory within 1e-4
+   relative of the table gpipe's (one seed, the same masks). (c) Each run's forward, dQ and
+   dK/dV launches equal what its tables imply (``stage_passes`` x 8 layers
+   a stage), pinned exactly. (d) Under never, one step's peak memory for
+   the emulator gpipe, the table gpipe and the table 1f1b (after a warm-up
+   step, Adam state resident): 1f1b's below the table gpipe's. (e) Per
+   schedule: ms per step (mean of steps 2-8, each ending in a
+   synchronize), train tokens/s and peak bytes, with ``memory_plan``.
 6. generate -- KV-cached generation (``Generator`` over
    ``PipelinedLM.from_sequential`` of the eval slice's weights): batch 8
    prompts of 128 eval tokens, 128 new tokens. Gates: teacher-forced cached
@@ -156,6 +171,15 @@ GRAD_SLACK = 2.0
 TRAIN_BATCH = 32
 TRAIN_STEPS = 8
 TRAIN_LR = 1e-4          # lr 5.0 (the reference's) diverges at full width
+# Schedules phase: (schedule, checkpoint) of the dropout-0 twins and of the
+# 8-step trajectories; the first trajectory is the one the others are held to.
+SCHED_TWINS = [(s, c) for s in ("gpipe", "1f1b", "zb-h1")
+               for c in ("except_last", "never")]
+SCHED_RUNS = (("gpipe", "except_last"), ("1f1b", "except_last"),
+              ("zb-h1", "never"), ("1f1b", "never"))
+TOL_SCHED_LOSS = 1e-5    # twin loss, relative to the emulator's
+TOL_SCHED_GRAD = 1e-4    # twin gradient, of max(1, max|g|) per parameter
+TOL_SCHED_TRAJ = 1e-4    # trajectory, relative to the table gpipe's
 # Generation phase: batch, prompt and new tokens (prompt + new = 256, a
 # sequence the flash forward takes, for the reference forward); beam search
 # on the first GEN_BEAM_BATCH prompts; sampling; int8 against fp32 logits,
@@ -810,6 +834,188 @@ def phase_train() -> dict:
             f"parameter's largest from the float64 twin's; plain attention "
             f"in fp32 is {worst['plain']:.3e} from it (tol {tol:.3e})")
     return launches
+
+
+def _sched_trainer(cfg, schedule, checkpoint):
+    """A ``Trainer`` whose table executor runs ``schedule`` (gpipe through
+    the tables too: the trainer is built for 1f1b, then its executor is
+    replaced over the same modules)."""
+    from pipe_tpu_torch.train.loop import Trainer, TrainerConfig
+
+    tcfg = TrainerConfig(batch_size=TRAIN_BATCH, bptt=BPTT, chunks=CHUNKS,
+                         n_stages=N_STAGES, checkpoint=checkpoint,
+                         lr=TRAIN_LR,
+                         schedule="1f1b" if schedule == "gpipe" else schedule)
+    trainer = Trainer(cfg, tcfg, device="cuda")
+    if schedule == "gpipe":
+        trainer.scheduled = dataclasses.replace(trainer.scheduled,
+                                                schedule="gpipe")
+    return trainer
+
+
+def _expected_launches(executor, lps: int, steps: int = 1) -> dict:
+    passes = executor.stage_passes(CHUNKS)
+    return {"flash_attention_fwd": steps * lps * passes["forward"],
+            "flash_attention_bwd_dq": steps * lps * passes["backward"],
+            "flash_attention_bwd_dkv": steps * lps * passes["backward"]}
+
+
+def phase_schedules() -> dict:
+    """The table executor's phase; returns each (b) run's launches."""
+    import warnings
+
+    from pipe_tpu_torch.core import microbatch as mb
+    from pipe_tpu_torch.data import lm_text
+    from pipe_tpu_torch.models.transformer_lm import LMConfig
+    from pipe_tpu_torch.train.loop import lm_loss
+
+    t_phase = time.perf_counter()
+    train_lines, _, _ = lm_text.load_corpus(vocab_size=28782)
+    vocab = lm_text.Vocab(map(lm_text.basic_english_tokenize, train_lines))
+    source = lm_text.batchify(lm_text.data_process(train_lines, vocab),
+                              TRAIN_BATCH)
+    cfg = LMConfig(vocab=len(vocab), attn_impl="flash")     # dropout 0.2
+    lps = cfg.n_layers // N_STAGES
+    tokens_per_step = TRAIN_BATCH * BPTT
+
+    def counts():
+        return {c.__name__: c.launches for c in _counters()}
+
+    def zero_counts():
+        for c in _counters():
+            c.launches = 0
+
+    # (a) dropout-0 twins from one set of weights
+    trainer = _sched_trainer(dataclasses.replace(cfg, dropout=0.0), "1f1b",
+                             "except_last")
+    trainer.init_state()
+    data, target = lm_text.get_batch(source, 0, BPTT)
+    tokens_t = torch.from_numpy(data).long().cuda()
+    target_t = torch.from_numpy(target).long().cuda()
+    x, rows = mb.stack_scatter({"tokens": tokens_t, "targets": target_t},
+                               CHUNKS)
+    w = mb.valid_row_mask(x, rows)
+    names = [n for n, _ in trainer.model.named_parameters()]
+    trainer.optimizer.zero_grad(set_to_none=True)
+    loss_ref = lm_loss(trainer.pipe, tokens_t, target_t, train=True,
+                       seed=SEED)
+    loss_ref.backward()
+    loss_ref = loss_ref.item()
+    ref = [p.grad.clone() for p in trainer.model.parameters()]
+    scale = [max(1.0, g.abs().max().item()) for g in ref]
+    base = trainer.scheduled
+    for schedule, checkpoint in SCHED_TWINS:
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")     # zb-h1 under except_last
+            ex = dataclasses.replace(base, schedule=schedule,
+                                     checkpoint=checkpoint)
+        trainer.optimizer.zero_grad(set_to_none=True)
+        zero_counts()
+        loss, grads = ex.loss_and_grad(x, w, seed=SEED)
+        torch.cuda.synchronize()
+        launches = counts()
+        loss = loss.item()
+        errs = [(grads[n] - g).abs().max().item() / m
+                for n, g, m in zip(names, ref, scale)]
+        worst = max(errs)
+        rel = abs(loss - loss_ref) / abs(loss_ref)
+        log("schedules", twin=f"{schedule}/{checkpoint}", dropout=0.0,
+            loss=f"{loss:.9f}", emulator_loss=f"{loss_ref:.9f}",
+            loss_rel=f"{rel:.3e}", max_grad_err_of_scale=f"{worst:.3e}",
+            worst_param=names[errs.index(worst)], **launches)
+        if not rel <= TOL_SCHED_LOSS:
+            raise AssertionError(f"{schedule}/{checkpoint} twin loss {loss} "
+                                 f"is not within {TOL_SCHED_LOSS} of the "
+                                 f"emulator's {loss_ref}")
+        if not worst <= TOL_SCHED_GRAD:
+            raise AssertionError(f"{schedule}/{checkpoint} twin gradients "
+                                 f"are {worst:.3e} of max(1, max|g|) from "
+                                 f"the emulator's (tol {TOL_SCHED_GRAD})")
+        if launches != _expected_launches(ex, lps):
+            raise AssertionError(f"{schedule}/{checkpoint} launched "
+                                 f"{launches}, its tables imply "
+                                 f"{_expected_launches(ex, lps)}")
+    del trainer, ref, grads, base, ex
+    torch.cuda.empty_cache()
+
+    # (b, c, e) dropout 0.2: 8 Trainer steps a schedule, one seed
+    runs, by_schedule = {}, {}
+    for schedule, checkpoint in SCHED_RUNS:
+        key = f"{schedule}/{checkpoint}"
+        t0 = time.perf_counter()
+        trainer = _sched_trainer(cfg, schedule, checkpoint)
+        state = trainer.init_state()
+        torch.cuda.synchronize()
+        setup_s = time.perf_counter() - t0
+        zero_counts()
+        torch.cuda.reset_peak_memory_stats()
+        losses, step_s = [], []
+        for b in range(TRAIN_STEPS):
+            t_step = time.perf_counter()
+            state, info = trainer.train_epoch(source, epoch=0, state=state,
+                                              max_steps=b + 1, start_step=b,
+                                              log_every=0)
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t_step)
+            losses.append(info["loss"])
+        launches = counts()
+        peak = torch.cuda.max_memory_allocated()
+        steady = sum(step_s[1:]) / (TRAIN_STEPS - 1)
+        expected = _expected_launches(trainer.scheduled, lps, TRAIN_STEPS)
+        runs[key] = losses
+        by_schedule[key] = launches
+        log("schedules", run=key, dropout=cfg.dropout, steps=TRAIN_STEPS,
+            losses=[f"{l:.6f}" for l in losses],
+            ms_per_step=[f"{t * 1e3:.1f}" for t in step_s],
+            steady_ms_per_step=f"{steady * 1e3:.1f}",
+            train_tokens_per_s=f"{tokens_per_step / steady:.1f}",
+            peak_bytes=peak, setup_s=f"{setup_s:.2f}",
+            memory_plan=trainer.scheduled.memory_plan(CHUNKS), **launches)
+        if not all(math.isfinite(l) for l in losses):
+            raise AssertionError(f"{key}: non-finite training loss {losses}")
+        if launches != expected:
+            raise AssertionError(f"{key} launched {launches} in "
+                                 f"{TRAIN_STEPS} steps, its tables imply "
+                                 f"{expected}")
+        del trainer, state
+        torch.cuda.empty_cache()
+    ref_key = "/".join(SCHED_RUNS[0])
+    for key, losses in runs.items():
+        rel = max(abs(a - b) / abs(b) for a, b in zip(losses, runs[ref_key]))
+        log("schedules", trajectory=key, against=ref_key,
+            max_loss_rel=f"{rel:.3e}")
+        if not rel <= TOL_SCHED_TRAJ:
+            raise AssertionError(f"{key}'s trajectory is {rel:.3e} from "
+                                 f"{ref_key}'s (tol {TOL_SCHED_TRAJ})")
+
+    # (d) peak memory of one step under never, Adam state resident
+    trainer = _sched_trainer(cfg, "1f1b", "never")
+    state = trainer.init_state()
+    data, target = lm_text.get_batch(source, 0, BPTT)
+    table_1f1b = trainer.scheduled
+    trainer._step(data, target, SEED)                   # warm-up: Adam state
+    peaks = {}
+    for key, executor in (("emulator-gpipe", None),
+                          ("table-gpipe", dataclasses.replace(
+                              table_1f1b, schedule="gpipe")),
+                          ("table-1f1b", table_1f1b)):
+        trainer.scheduled = executor
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        trainer._step(data, target, SEED)
+        torch.cuda.synchronize()
+        peaks[key] = torch.cuda.max_memory_allocated()
+        log("schedules", peak=key, checkpoint="never", peak_bytes=peaks[key],
+            memory_plan=(executor.memory_plan(CHUNKS) if executor is not None
+                         else None))
+    if not peaks["table-1f1b"] < peaks["table-gpipe"]:
+        raise AssertionError(f"1f1b's peak {peaks['table-1f1b']} is not "
+                             f"below the table gpipe's "
+                             f"{peaks['table-gpipe']} under never")
+    del trainer, state, table_1f1b
+    torch.cuda.empty_cache()
+    log("schedules", seconds=f"{time.perf_counter() - t_phase:.1f}")
+    return by_schedule
 
 
 def teacher_forced(model, tokens, prompt_len):
@@ -1994,6 +2200,7 @@ def main() -> int:
     rows = phase_kernels()
     eval_launches = phase_slice()
     train_launches = phase_train()
+    sched_launches = phase_schedules()
     gap = phase_generate()
     ctx = phase_serve(gap, smi)
     ctx["resident"] = phase_serve_paged(ctx, smi)
@@ -2025,6 +2232,8 @@ def main() -> int:
         }
         if name == "flash_attn_fwd":
             entry["launches_eval"] = eval_launches
+        entry["launches_by_schedule"] = {
+            run: launches[wrapper] for run, launches in sched_launches.items()}
         kernels["kernels"].append(entry)
     log("done", seconds=f"{time.perf_counter() - t_start:.1f}")
     print(smi.splitlines()[0], flush=True)

@@ -9,10 +9,13 @@ tokens (``main.py:182-234``).
 Usage (mirrors ``python main.py <checkpoint-mode>``, ``main.py:164-169``):
     python -m pipe_tpu_torch.apps.lm_tutorial <never|except_last|always>
         [--corpus FILE] [--steps N] [--epochs N] [--stages N] [--chunks N]
-        [--lr LR] [--tiny] [--save DIR] [--resume DIR] [--device cuda|cpu]
+        [--schedule gpipe|1f1b|zb-h1] [--lr LR] [--tiny] [--save DIR]
+        [--resume DIR] [--device cuda|cpu]
 
-Only the GPipe schedule is ported: ``--schedule`` anything else raises
-``NotImplementedError``. The planner (``--plan``), the profiler trace
+``--schedule gpipe`` trains through ``Pipe``; ``1f1b`` and ``zb-h1`` through
+the table executor (``parallel/scheduled.py``). The interleaved schedules
+raise ``NotImplementedError`` as the ``Trainer`` refuses them (ROADMAP.md
+A.8). The planner (``--plan``), the profiler trace
 (``--profile``), autosave and the virtual CPU mesh (``--cpu``) of the JAX
 entry point are not ported; ``--device cpu`` runs every kernel's plain version.
 """

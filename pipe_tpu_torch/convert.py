@@ -18,11 +18,14 @@ layer by layer. The layouts that differ:
 ``PipelinedLM`` triple ``(stage_params, pre_params, post_params)``, into a
 ``Pipe`` over the tutorial LM cut by ``pipelined_lm_balance``;
 :func:`load_pipelined_lm` copies the same triple into a port ``PipelinedLM``.
+:func:`pipelined_lm_arrays` maps such a triple (params, or the gradients
+``pipe_tpu``'s ``ScheduledPipeline.loss_and_grad`` returns) onto a port
+``PipelinedLM``'s parameter names, as numpy, without copying anything in.
 """
 
 from __future__ import annotations
 
-from typing import Any, Sequence
+from typing import Any, Dict, Iterator, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -33,56 +36,65 @@ from .ops.layers import (Decoder, Dropout, Embedding, LayerNorm, Lambda,
                          Sequential, _TransformerBlockBase)
 
 __all__ = ["load_params", "load_stage_params", "load_pipelined_lm_params",
-           "load_pipelined_lm"]
+           "load_pipelined_lm", "pipelined_lm_arrays"]
 
 
-def _copy(dst: torch.Tensor, src: Any, transpose: bool = False) -> None:
+def _array(dst: torch.Tensor, src: Any, transpose: bool = False
+           ) -> Tuple[torch.Tensor, np.ndarray]:
     arr = np.asarray(src)
     if transpose:
         arr = arr.T
     if tuple(arr.shape) != tuple(dst.shape):
         raise ValueError(f"shape mismatch: pipe_tpu array {arr.shape} -> "
                          f"parameter {tuple(dst.shape)}")
-    with torch.no_grad():
-        dst.copy_(torch.from_numpy(np.array(arr)))   # a writable copy
+    return dst, arr
 
 
-def _linear(lin: Linear, w, b) -> None:
-    _copy(lin.weight, w, transpose=True)
+def _linear(lin: Linear, w, b) -> Iterator[Tuple[torch.Tensor, np.ndarray]]:
+    yield _array(lin.weight, w, transpose=True)
     if lin.bias is not None:
-        _copy(lin.bias, b)
+        yield _array(lin.bias, b)
 
 
-def load_params(layer: nn.Module, params: Any) -> None:
-    """Copy one layer's ``pipe_tpu`` params into ``layer`` in place."""
+def _pairs(layer: nn.Module, params: Any
+           ) -> Iterator[Tuple[torch.Tensor, np.ndarray]]:
+    """``(parameter, array in its layout)`` for one layer's ``pipe_tpu``
+    params."""
     if isinstance(layer, Sequential):
         if len(params) != len(layer):
             raise ValueError(f"Sequential of {len(layer)} layers got "
                              f"{len(params)} param entries")
         for sub, p in zip(layer, params):
-            load_params(sub, p)
+            yield from _pairs(sub, p)
     elif isinstance(layer, Linear):
-        _linear(layer, params["w"], params.get("b"))
+        yield from _linear(layer, params["w"], params.get("b"))
     elif isinstance(layer, Decoder):
-        _linear(layer.proj, params["w"], params.get("b"))
+        yield from _linear(layer.proj, params["w"], params.get("b"))
     elif isinstance(layer, Embedding):
-        _copy(layer.weight, params["table"])
+        yield _array(layer.weight, params["table"])
     elif isinstance(layer, LayerNorm):
-        _copy(layer.weight, params["g"])
-        _copy(layer.bias, params["b"])
+        yield _array(layer.weight, params["g"])
+        yield _array(layer.bias, params["b"])
     elif isinstance(layer, MultiHeadAttention):
         for name in ("q", "k", "v", "o"):
-            _linear(getattr(layer, "w" + name), params["w" + name],
-                    params["b" + name])
+            yield from _linear(getattr(layer, "w" + name), params["w" + name],
+                               params["b" + name])
     elif isinstance(layer, _TransformerBlockBase):
         for name in ("attn", "ff1", "ff2", "ln1", "ln2"):
-            load_params(getattr(layer, name), params[name])
+            yield from _pairs(getattr(layer, name), params[name])
     elif isinstance(layer, (PositionalEncoding, Dropout, Lambda)):
         if params:
             raise ValueError(f"{type(layer).__name__} has no parameters, got "
                              f"{sorted(params)}")
     else:
         raise TypeError(f"no pipe_tpu layout known for {type(layer).__name__}")
+
+
+def load_params(layer: nn.Module, params: Any) -> None:
+    """Copy one layer's ``pipe_tpu`` params into ``layer`` in place."""
+    with torch.no_grad():
+        for dst, arr in list(_pairs(layer, params)):
+            dst.copy_(torch.from_numpy(np.array(arr)))   # a writable copy
 
 
 def load_stage_params(pipe, params_per_stage: Sequence[Any]) -> None:
@@ -120,19 +132,39 @@ def load_pipelined_lm_params(pipe, params: Sequence[Any]) -> None:
     load_params(layers[-1], post["decoder"])
 
 
-def load_pipelined_lm(model, params: Sequence[Any]) -> None:
-    """Copy ``pipe_tpu``'s ``PipelinedLM`` params, the triple of
-    :func:`load_pipelined_lm_params` in either stage layout, into ``model``,
-    a port ``PipelinedLM`` (any stage count: the blocks go in layer order)."""
+def _pipelined_lm_pairs(model, params: Sequence[Any]
+                        ) -> Iterator[Tuple[torch.Tensor, np.ndarray]]:
     stage_params, pre, post = params
     blocks = _flat_blocks(stage_params)
     if len(blocks) != len(model.blocks):
         raise ValueError(f"{len(blocks)} blocks of params for a model of "
                          f"{len(model.blocks)} blocks")
-    load_params(model.embed, pre["embed"])
+    yield from _pairs(model.embed, pre["embed"])
     for layer, block in zip(model.blocks, blocks):
-        load_params(layer, block)
-    load_params(model.decoder, post["decoder"])
+        yield from _pairs(layer, block)
+    yield from _pairs(model.decoder, post["decoder"])
+
+
+def load_pipelined_lm(model, params: Sequence[Any]) -> None:
+    """Copy ``pipe_tpu``'s ``PipelinedLM`` params, the triple of
+    :func:`load_pipelined_lm_params` in either stage layout, into ``model``,
+    a port ``PipelinedLM`` (any stage count: the blocks go in layer order)."""
+    with torch.no_grad():
+        for dst, arr in list(_pipelined_lm_pairs(model, params)):
+            dst.copy_(torch.from_numpy(np.array(arr)))
+
+
+def pipelined_lm_arrays(model, params: Sequence[Any]) -> Dict[str, np.ndarray]:
+    """``{name: array}`` over ``model``'s (a port ``PipelinedLM``) parameter
+    names, from a ``pipe_tpu`` ``PipelinedLM`` triple in either stage layout:
+    its params, or the ``(g_stage, g_pre, g_post)`` gradients of
+    ``ScheduledPipeline.loss_and_grad``. Each array is in the port's layout
+    (``Linear`` weights transposed), so it compares name by name with the
+    port's parameters or with ``ScheduledPipeline.loss_and_grad``'s grads.
+    An interleaved stacking must be unstacked to per-stage lists first."""
+    names = {id(p): name for name, p in model.named_parameters()}
+    return {names[id(dst)]: arr
+            for dst, arr in _pipelined_lm_pairs(model, params)}
 
 
 def _flat_blocks(stage_params: Sequence[Any]) -> list:

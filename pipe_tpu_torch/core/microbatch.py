@@ -11,6 +11,10 @@ dim 0):
   taken from the first micro-batch.
 
 Micro-batches are views of the input (``x[a:b]``), not copies.
+
+:func:`stack_scatter` and :func:`valid_row_mask` are the stacked layout that
+the table executor takes: every tensor ``[n, ...] -> [chunks, ceil(n /
+chunks), ...]``, zero-padded at the tail, with the mask of the real rows.
 """
 
 from __future__ import annotations
@@ -20,7 +24,8 @@ from typing import Any, Callable, List, Sequence, Tuple, Union
 
 import torch
 
-__all__ = ["is_array", "NoChunk", "Batch", "check", "scatter", "gather"]
+__all__ = ["is_array", "NoChunk", "Batch", "check", "scatter", "gather",
+           "stack_scatter", "valid_row_mask"]
 
 
 def is_array(value: Any) -> bool:
@@ -221,3 +226,42 @@ def gather(batches: Sequence[Batch]):
         else:
             outputs.append(first[i])
     return tuple(outputs)
+
+
+def stack_scatter(tree: Any, chunks: int) -> Tuple[Any, int]:
+    """Reshape every tensor of ``tree`` (a tensor or a dict of tensors)
+    ``[n, ...] -> [chunks, ceil(n / chunks), ...]``, right-padding dim 0
+    with zeros where ``chunks`` does not divide ``n``; returns the stacked
+    tree and ``n``. Counterpart of ``pipe_tpu``'s ``stack_scatter``."""
+    if chunks <= 0:
+        raise ValueError("number of chunks must be positive")
+    leaves = list(tree.values()) if isinstance(tree, dict) else [tree]
+    if not leaves or not all(is_array(leaf) for leaf in leaves):
+        raise TypeError("stack_scatter takes a tensor or a dict of tensors")
+    sizes = {leaf.shape[0] for leaf in leaves}
+    if len(sizes) > 1:
+        raise ValueError("inconsistent batch sizes in stack_scatter")
+    batch_size = sizes.pop()
+    mb = math.ceil(batch_size / chunks)
+
+    def split(leaf):
+        if mb * chunks != batch_size:
+            pad = leaf.new_zeros((mb * chunks - batch_size,)
+                                 + tuple(leaf.shape[1:]))
+            leaf = torch.cat([leaf, pad], dim=0)
+        return leaf.reshape((chunks, mb) + tuple(leaf.shape[1:]))
+
+    if isinstance(tree, dict):
+        return {k: split(v) for k, v in tree.items()}, batch_size
+    return split(tree), batch_size
+
+
+def valid_row_mask(stacked: Any, batch_size: int) -> torch.Tensor:
+    """``[chunks, mb_rows]`` float32 mask of the real rows of a stacked
+    batch: row ``(c, r)`` is real iff ``c * mb_rows + r < batch_size``
+    (:func:`stack_scatter` pads at the tail)."""
+    leaf = next(iter(stacked.values())) if isinstance(stacked, dict) \
+        else stacked
+    chunks_n, mb_rows = leaf.shape[:2]
+    idx = torch.arange(chunks_n * mb_rows, device=leaf.device)
+    return (idx < batch_size).float().reshape(chunks_n, mb_rows)

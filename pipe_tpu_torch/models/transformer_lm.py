@@ -4,10 +4,11 @@ Counterpart of the ``Sequential`` path of ``pipe_tpu/models/transformer_lm.py``:
 Encoder (embedding + positional encoding), N x ``TransformerEncoderLayer``,
 Decoder (projection to vocab); emsize 2048, nhid 2048, nlayers 16, nhead 32,
 dropout 0.2, bptt 128, batch-first. :class:`PipelinedLM` is the
-embed | blocks | decoder factorization that the generators run; its
-stage-stacked SPMD executor is not ported yet. :func:`pipelined_lm_balance`
-gives its cut as a ``Pipe`` balance over this ``Sequential``, which is how
-the trainer runs it.
+embed | blocks | decoder factorization that the generators and the table
+executor (``parallel/scheduled.py``) run, with the in-pipeline loss
+:meth:`PipelinedLM.loss_post_fn`; its stage-stacked SPMD executor is not
+ported yet. :func:`pipelined_lm_balance` gives its cut as a ``Pipe`` balance
+over this ``Sequential``, which is how the trainer runs GPipe.
 
 Mixed precision as in ``pipe_tpu``: the weights live in float32 whatever
 ``compute_dtype`` is; the embedding stage casts its output to the compute
@@ -29,7 +30,7 @@ from ..core.partition import StageCtx
 from ..ops.layers import (Decoder, Embedding, PositionalEncoding, Sequential,
                           TransformerEncoderLayer)
 from ..utils.platform import DEFAULT_DEVICE, resolve_device
-from .common import PipelinedTransformer
+from .common import PipelinedTransformer, per_row_ce
 
 __all__ = ["LMConfig", "build_sequential", "cross_entropy",
            "pipelined_lm_balance", "PipelinedLM"]
@@ -49,15 +50,10 @@ class LMConfig:
     causal: bool = True
     compute_dtype: torch.dtype = torch.float32   # activations (weights: f32)
     attn_impl: str = "auto"                      # auto | xla | flash
-    # Vocab block of pipe_tpu's streaming cross-entropy (ops/losses.py);
-    # None is the dense decoder + per_row_ce path, the only one ported.
+    # Vocab block of the streaming cross-entropy (ops/losses.py) that
+    # loss_post_fn fuses the decoder into; None is the dense decoder +
+    # per_row_ce path.
     loss_block: Optional[int] = None
-
-    def __post_init__(self):
-        if self.loss_block is not None:
-            raise NotImplementedError(
-                "LMConfig.loss_block (streaming cross-entropy, ops/losses.py) "
-                "is not ported to pipe_tpu_torch yet (ROADMAP.md, queue A)")
 
     def tiny(self) -> "LMConfig":
         return dataclasses.replace(
@@ -120,7 +116,7 @@ class PipelinedLM(PipelinedTransformer):
 
     Built as :func:`build_sequential` builds it (same weights from the same
     generator). Counterpart of ``pipe_tpu``'s ``PipelinedLM``; its
-    ``loss_post_fn`` and stage-stacked executor are not ported yet.
+    stage-stacked executor is not ported yet.
     """
 
     post_key = "decoder"
@@ -204,3 +200,21 @@ class PipelinedLM(PipelinedTransformer):
 
     def post_fn(self, h, ctx: StageCtx = StageCtx()):
         return self.decoder(h.to(torch.float32), ctx=ctx)
+
+    def loss_post_fn(self, h, x_mb, ctx: StageCtx = StageCtx()):
+        """In-pipeline loss: the per-row mean token cross-entropy
+        ``[mb_rows]`` of the decoder's float32 logits against
+        ``x_mb["targets"]``, computed on the last stage so the ``[batch,
+        seq, vocab]`` logits of the whole batch are never gathered.
+
+        With ``cfg.loss_block`` the decoder and the loss fuse into the
+        vocab-streamed cross-entropy (``ops/losses.py``), so not even one
+        micro-batch's ``[mb, seq, vocab]`` logits are held."""
+        if self.cfg.loss_block:
+            from ..ops.losses import streaming_xent
+            proj = self.decoder.proj
+            ce = streaming_xent(h, proj.weight.t(), proj.bias,
+                                x_mb["targets"], int(self.cfg.loss_block))
+            return ce.mean(dim=-1)
+        logits = self.decoder(h.to(torch.float32), ctx=ctx)
+        return per_row_ce(logits, x_mb["targets"])

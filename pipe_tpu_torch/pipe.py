@@ -8,12 +8,15 @@ Counterpart of ``pipe_tpu/pipe.py`` without a mesh:
 * ``split_balance`` partitioning into per-stage sub-``Sequential``s;
 * the container protocol ``__len__``/``__getitem__``/``__iter__``;
 * ``forward(*inputs, train=False, seed=None)`` = check, scatter, run the
-  GPipe wavefront, gather.
+  schedule's wavefront (``schedule.cycles``), gather.
 
 ``Pipe`` is an ``nn.Module``: the partitions (and their weights) are its
-submodules, on ``device``. The mesh executors, the planner front door,
-deferred batch norm and the schedules other than GPipe are not ported yet
-and raise ``NotImplementedError``.
+submodules, on ``device``. Every registered schedule is accepted, as by
+``pipe_tpu``'s ``Pipe`` without a mesh; the table-only schedules
+(``interleaved-1f1b``, ``zb-h1``, ``zb-h2``) raise from ``cycles`` at the
+first forward, with ``pipe_tpu``'s message. Training through the op tables
+is ``parallel/scheduled.py``. The mesh executors, the planner front door and
+deferred batch norm are not ported yet and raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -42,7 +45,7 @@ def _not_ported(what: str, item: str):
 
 
 class Pipe(nn.Module):
-    """Synchronous GPipe pipeline over a ``Sequential`` of layers, run by the
+    """Synchronous pipeline over a ``Sequential`` of layers, run by the
     serial clock-cycle emulator on one device."""
 
     def __init__(self,
@@ -79,9 +82,6 @@ class Pipe(nn.Module):
             seen.add(id(layer))
         sched_obj = (get_schedule(schedule) if isinstance(schedule, str)
                      else schedule)
-        if not isinstance(sched_obj, Schedule) or sched_obj.name != "gpipe":
-            raise _not_ported(f"schedule {getattr(sched_obj, 'name', sched_obj)!r}",
-                              "rest of core/schedule.py")
 
         self.device = resolve_device(device)
         self.chunks = chunks
@@ -122,9 +122,9 @@ class Pipe(nn.Module):
     # --- forward ---
 
     def forward(self, *inputs, train: bool = False, seed: Optional[int] = None):
-        """Scatter the batch into ``chunks`` micro-batches, run the GPipe
-        wavefront over the stages, gather. ``seed`` drives dropout when
-        ``train``; checkpointing engages only in training."""
+        """Scatter the batch into ``chunks`` micro-batches, run the
+        schedule's wavefront over the stages, gather. ``seed`` drives
+        dropout when ``train``; checkpointing engages only in training."""
         mb.check(*inputs)
         batches = mb.scatter(inputs, self.chunks)
         stages = [Stage(p, name=f"stage{j}")

@@ -2,12 +2,17 @@
 
 Counterpart of ``pipe_tpu/train/loop.py`` (reference ``main.py:180-234``):
 Adam + StepLR(gamma 0.95 per epoch) + global-norm clip 0.5, cross-entropy on
-the last stage's logits, the same log line. The model is the tutorial LM as a
-``Sequential`` under ``Pipe`` (GPipe on the serial emulator), cut where
-``PipelinedLM`` cuts it (``pipelined_lm_balance``). The other executors,
-ZeRO, telemetry, TensorBoard, prefetch, resilience, elastic training and the
-planner are not ported yet: their ``TrainerConfig`` fields raise
-``NotImplementedError`` when set away from their defaults.
+the last stage, the same log line. The model is the tutorial LM as a
+``Sequential`` under ``Pipe``, cut where ``PipelinedLM`` cuts it
+(``pipelined_lm_balance``). ``schedule="gpipe"`` trains through ``Pipe``
+(GPipe on the serial emulator); ``"1f1b"`` and ``"zb-h1"`` train through
+the table executor (``parallel/scheduled.py``) over
+``PipelinedLM.from_sequential`` of the same modules, with the loss on the
+last stage (``loss_post_fn``), as gpipe does when ``LMConfig.loss_block``
+fuses the decoder into the loss. Eval always runs ``Pipe`` with no remat. The
+interleaved schedules, the other executors, ZeRO, telemetry, TensorBoard,
+prefetch, resilience, elastic training and the planner are not ported yet:
+their ``TrainerConfig`` values raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -15,17 +20,21 @@ from __future__ import annotations
 import copy
 import dataclasses
 import time
+import warnings
 from typing import Any, Callable, Iterable, Optional
 
 import numpy as np
 import torch
 
+from ..core import microbatch as mb
 from ..core.partition import fold_seed
 from ..core.schedule import bubble_fraction
 from ..data import lm_text
 from ..models.common import per_row_ce
 from ..models.transformer_lm import (LMConfig, PipelinedLM,
                                      build_sequential, pipelined_lm_balance)
+from ..ops.layers import Sequential
+from ..parallel.scheduled import ScheduledPipeline
 from ..pipe import Pipe
 from ..utils.platform import DEFAULT_DEVICE, resolve_device
 from .state import TrainState, save_checkpoint
@@ -63,9 +72,13 @@ class TrainerConfig:
     plan_memory_cap: Optional[int] = None
 
 
+# Schedules the trainer runs; the interleaved ones need the interleaved
+# executors of parallel/interleaved.py (ROADMAP.md A.8).
+_SCHEDULES = ("gpipe", "1f1b", "zb-h1")
+_INTERLEAVED = ("interleaved", "interleaved-1f1b")
+
 # (field, its default, the ROADMAP.md item that ports it)
 _NOT_PORTED = (
-    ("schedule", "gpipe", "queue A, the 1F1B / zb / interleaved executors"),
     ("n_data", 1, "queue A, the multi-device executors"),
     ("mu_dtype", None, "queue A, ZeRO and optimizer-state options"),
     ("zero", False, "queue A, ZeRO and optimizer-state options"),
@@ -80,6 +93,13 @@ _NOT_PORTED = (
 
 
 def _check_ported(cfg: TrainerConfig) -> None:
+    if cfg.schedule in _INTERLEAVED:
+        raise NotImplementedError(
+            f"TrainerConfig.schedule={cfg.schedule!r} is not ported to "
+            f"pipe_tpu_torch yet (ROADMAP.md: A.8, the interleaved executors "
+            f"of parallel/interleaved.py)")
+    if cfg.schedule not in _SCHEDULES:
+        raise ValueError(f"unknown schedule {cfg.schedule!r}")
     for name, default, item in _NOT_PORTED:
         if getattr(cfg, name) != default:
             raise NotImplementedError(
@@ -93,7 +113,7 @@ def lm_loss(pipe: Pipe, tokens: torch.Tensor, targets: torch.Tensor, *,
 
     ``Pipe`` gathers the ``[batch, seq, vocab]`` logits before the loss (at
     the tutorial's width that is 32 x 128 x vocab floats, a few hundred MB);
-    the JAX trainer computes the loss per micro-batch on the last stage
+    the table executor computes it per micro-batch on the last stage
     instead. A batch that ``chunks`` does not divide is split unevenly by
     ``Pipe``, so every row is real and the mean is the JAX trainer's
     row-masked mean over its zero-padded batch.
@@ -118,7 +138,9 @@ def clip_by_global_norm(grads: Iterable[torch.Tensor],
 
 
 class Trainer:
-    """Builds the LM, ``Pipe`` and Adam on ``device`` and runs epochs.
+    """Builds the LM, ``Pipe`` (and, for a table schedule, the
+    ``ScheduledPipeline`` over the same modules) and Adam on ``device``, and
+    runs epochs.
 
     The model and optimizer live in the trainer and are updated in place.
     A :class:`TrainState` it returns shares their tensors: it is the live
@@ -138,10 +160,37 @@ class Trainer:
                          balance=pipelined_lm_balance(model_cfg.n_layers,
                                                       cfg.n_stages),
                          device=self.device)
+        self.scheduled = self._build_scheduled()
         # optax.scale_by_adam(0.9, 0.999, eps 1e-8) then -lr * u.
         self.optimizer = torch.optim.Adam(self.pipe.parameters(), lr=cfg.lr,
                                           betas=(0.9, 0.999), eps=1e-8)
         self._state: Optional[TrainState] = None
+
+    def _build_scheduled(self) -> Optional[ScheduledPipeline]:
+        """The table executor for ``1f1b``/``zb-h1`` (and for ``gpipe``
+        with ``loss_block``, whose fused loss lives on the last stage), over
+        ``PipelinedLM.from_sequential`` of the ``Pipe``'s own modules: one
+        set of weights, one state dict. None: ``Pipe`` trains."""
+        cfg = self.cfg
+        if cfg.schedule == "gpipe" and not self.model_cfg.loss_block:
+            return None
+        if cfg.schedule == "zb-h1" and cfg.checkpoint != "never":
+            from ..obs.zb_model import crossover
+            row = crossover(cfg.chunks, cfg.n_stages, sigma=1.0)
+            warnings.warn(
+                f"zb-h1 at (m={cfg.chunks}, n={cfg.n_stages}) with "
+                f"checkpoint={cfg.checkpoint!r}: the B/W split needs "
+                f"checkpoint='never', so the fused backward runs at B and "
+                f"the zero-bubble advantage (breakeven sigma* "
+                f"{row['breakeven_sigma']:.2f}, obs/zb_model.py crossover) "
+                f"is forfeited.", stacklevel=3)
+        self.model = PipelinedLM.from_sequential(
+            self.model_cfg, Sequential(list(self.pipe)), cfg.n_stages)
+        return ScheduledPipeline(
+            self.model.stage_fn, self.model.pre_fn, self.model.loss_post_fn,
+            n_stages=cfg.n_stages, module=self.model,
+            checkpoint=cfg.checkpoint, schedule=cfg.schedule,
+            device=self.device)
 
     def _build(self, seed: int):
         gen = torch.Generator(device=self.device).manual_seed(seed)
@@ -209,9 +258,17 @@ class Trainer:
     def _step(self, data: np.ndarray, target: np.ndarray,
               seed: int) -> torch.Tensor:
         self.optimizer.zero_grad(set_to_none=True)
-        loss = lm_loss(self.pipe, self._tensor(data), self._tensor(target),
-                       train=True, seed=seed)
-        loss.backward()
+        tokens, targets = self._tensor(data), self._tensor(target)
+        if self.scheduled is None:
+            loss = lm_loss(self.pipe, tokens, targets, train=True, seed=seed)
+            loss.backward()
+        else:
+            # zero-padded micro-batches and the mask of the real rows, as
+            # pipe_tpu's Trainer feeds its ScheduledPipeline
+            x, rows = mb.stack_scatter({"tokens": tokens, "targets": targets},
+                                       self.cfg.chunks)
+            loss, _ = self.scheduled.loss_and_grad(
+                x, mb.valid_row_mask(x, rows), seed=seed)
         clip_by_global_norm([p.grad for p in self.pipe.parameters()],
                             self.cfg.grad_clip)
         self.optimizer.step()

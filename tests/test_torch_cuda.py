@@ -1,7 +1,8 @@
 """pipe_tpu_torch on a CUDA card: the kernels (flash forward, dQ, dK/dV, with
 and without dropout) against their plain versions, the Pipe slice and a
-training step through them, and KV-cached generation (which runs no kernel)
-against the Pipe forward. Skipped without a card.
+training step through them, a table-executor step (1f1b, zb-h1) against the
+emulator's, and KV-cached generation (which runs no kernel) against the Pipe
+forward. Skipped without a card.
 
 This file imports only torch and pipe_tpu_torch, so it runs on a machine
 without JAX; there, skip the repo's JAX conftest:
@@ -211,6 +212,75 @@ def test_tiny_trainer_step_launches_the_kernels(cuda):
     n, m = cfg.n_layers, tcfg.chunks
     assert moved == [n * (2 * m - 1), n * m, n * m]
     assert info["steps"] == 1 and info["loss"] == info["loss"]
+
+
+@pytest.mark.parametrize("schedule,checkpoint", [("1f1b", "except_last"),
+                                                 ("zb-h1", "never")])
+def test_table_executor_step_matches_the_emulator(cuda, schedule, checkpoint):
+    """One step of the tiny LM through the table executor on the card,
+    against the emulator ``Pipe`` path's ``lm_loss`` backward from the same
+    weights at dropout 0, with the kernel launches its tables imply
+    (``stage_passes`` x layers per stage)."""
+    from pipe_tpu_torch.core import microbatch as mb
+    from pipe_tpu_torch.parallel.scheduled import ScheduledPipeline
+    from pipe_tpu_torch.train.loop import lm_loss
+
+    cfg = dataclasses.replace(pt.LMConfig().tiny(), attn_impl="flash")
+    seq = pt.build_sequential(
+        cfg, device=cuda,
+        generator=torch.Generator(device=cuda).manual_seed(5))
+    pipe = pt.Pipe(seq, chunks=4, n_stages=2, device=cuda)
+    model = pt.PipelinedLM.from_sequential(cfg, seq, 2)
+    tokens = torch.randint(0, cfg.vocab, (8, cfg.seq_len), device=cuda,
+                           generator=torch.Generator(device=cuda).manual_seed(1))
+    targets = tokens.roll(-1, -1)
+    want = lm_loss(pipe, tokens, targets, train=True, seed=0)
+    want.backward()
+    ref = {n: p.grad.clone() for n, p in model.named_parameters()}
+    model.zero_grad(set_to_none=True)
+
+    table = ScheduledPipeline(model.stage_fn, model.pre_fn,
+                              model.loss_post_fn, n_stages=2, module=model,
+                              checkpoint=checkpoint, schedule=schedule,
+                              device=cuda)
+    x, rows = mb.stack_scatter({"tokens": tokens, "targets": targets}, 4)
+    counters = (tfa.flash_attention_fwd, tfa.flash_attention_bwd_dq,
+                tfa.flash_attention_bwd_dkv)
+    before = [c.launches for c in counters]
+    loss, grads = table.loss_and_grad(x, mb.valid_row_mask(x, rows))
+    moved = [c.launches - b for c, b in zip(counters, before)]
+    passes = table.stage_passes(4)
+    lps = model.layers_per_stage
+    assert moved == [lps * passes["forward"], lps * passes["backward"],
+                     lps * passes["backward"]]
+    assert abs(loss.item() - want.item()) <= 1e-5 * abs(want.item())
+    for name, g in ref.items():
+        assert (grads[name] - g).abs().max().item() <= \
+            TOL * max(1.0, g.abs().max().item()), name
+
+
+@pytest.mark.parametrize("schedule", ["1f1b", "interleaved", "zb-h1"])
+def test_pipe_takes_every_schedule_on_the_card(cuda, schedule):
+    """``Pipe(schedule=...)`` on the card: a wavefront schedule's eval
+    forward through the kernel equals GPipe's bit for bit (the same
+    cycles); a table-only one raises from ``cycles``."""
+    cfg = dataclasses.replace(pt.LMConfig().tiny(), attn_impl="flash")
+    seq = pt.build_sequential(cfg, device=cuda)
+    tokens = torch.randint(0, cfg.vocab, (8, cfg.seq_len), device=cuda,
+                           generator=torch.Generator(device=cuda).manual_seed(2))
+    gpipe = pt.Pipe(seq, chunks=4, n_stages=2, device=cuda)
+    other = pt.Pipe(seq, chunks=4, n_stages=2, schedule=schedule,
+                    device=cuda)
+    with torch.inference_mode():
+        want = gpipe(tokens)
+        if schedule == "zb-h1":
+            with pytest.raises(NotImplementedError, match="op_tables"):
+                other(tokens)
+            return
+        before = tfa.flash_attention_fwd.launches
+        got = other(tokens)
+        assert tfa.flash_attention_fwd.launches - before == cfg.n_layers * 4
+    assert torch.equal(got, want)
 
 
 def test_tiny_pipe_slice_goes_through_the_kernel(cuda):

@@ -36,6 +36,13 @@ ids = torch.randint(0, cfg.vocab, (2048,)).numpy()
 state, info = tr.train_epoch(lm_text.batchify(ids, 4), max_steps=2,
                              log_every=0)
 assert info["steps"] == 2 and info["loss"] == info["loss"]
+for schedule, ck in (("1f1b", "except_last"), ("zb-h1", "never")):
+    tr = Trainer(cfg, TrainerConfig(batch_size=4, bptt=cfg.seq_len, chunks=2,
+                                    schedule=schedule, checkpoint=ck),
+                 device="cpu")
+    _, info = tr.train_epoch(lm_text.batchify(ids, 4), max_steps=1,
+                             log_every=0)
+    assert info["steps"] == 1 and info["loss"] == info["loss"]
 from pipe_tpu_torch.apps import generate as gen_app
 from pipe_tpu_torch.inference import (GenerationConfig, Generator,
                                       quantize_params)
@@ -61,6 +68,7 @@ torch.cuda.is_available = lambda: False
 import pipe_tpu_torch as pt
 from pipe_tpu_torch.ops.layers import Linear
 from pipe_tpu_torch.train import Trainer, TrainerConfig
+from pipe_tpu_torch.parallel.scheduled import ScheduledPipeline
 from pipe_tpu_torch.apps import generate as gen_app, lm_tutorial
 for make in (lambda: Linear(4, 4),
              lambda: pt.PipelinedLM(pt.LMConfig().tiny()),
@@ -68,6 +76,9 @@ for make in (lambda: Linear(4, 4),
              lambda: pt.build_sequential(pt.LMConfig().tiny()),
              lambda: pt.Pipe(pt.Sequential([Linear(4, 4, device="cpu")])),
              lambda: Trainer(pt.LMConfig().tiny(), TrainerConfig()),
+             lambda: ScheduledPipeline(lambda s, h, c: h, lambda x, c: x,
+                                       lambda h, x, c: h, n_stages=1,
+                                       module=Linear(4, 4, device="cpu")),
              lambda: lm_tutorial.main(["never", "--tiny"])):
     try:
         make()

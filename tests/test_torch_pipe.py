@@ -117,11 +117,22 @@ def test_gpipe_schedule_matches(m, n):
 
 
 def test_get_schedule_names_what_is_not_ported():
+    """Every schedule of pipe_tpu is registered in the port (its tables are
+    held to JAX's in tests/test_torch_schedule.py); an unknown name still
+    raises."""
     assert tsched.get_schedule("gpipe") == tsched.GPipeSchedule()
-    for name in ("1f1b", "zb-h1", "interleaved"):
-        jsched.get_schedule(name)            # exists in pipe_tpu
-        with pytest.raises(NotImplementedError):
-            tsched.get_schedule(name)
+    assert sorted(tsched._SCHEDULES) == sorted(jsched._SCHEDULES)
+    for name in jsched._SCHEDULES:
+        t, j = tsched.get_schedule(name), jsched.get_schedule(name)
+        assert (t.name, t.v, t.splits_backward) == \
+            (j.name, j.v, j.splits_backward)
+        if name == "interleaved":          # the AD executor's: no tables
+            for sched in (t, j):
+                with pytest.raises(NotImplementedError):
+                    sched.op_tables(4, 2)
+            continue
+        for a, b in zip(t.op_tables(4, 2), j.op_tables(4, 2)):
+            np.testing.assert_array_equal(a, b)
     with pytest.raises(ValueError):
         tsched.get_schedule("nope")
 
@@ -186,10 +197,38 @@ def test_pipe_fail_fast_probes_raise_the_same_types(probe):
 
 @pytest.mark.parametrize("kwargs", [{"mesh": object()}, {"plan": "auto"},
                                     {"deferred_batch_norm": True},
-                                    {"schedule": "1f1b"}])
+                                    {"mesh": object(), "schedule": "1f1b"}])
 def test_pipe_refuses_what_is_not_ported(kwargs):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         pipe_tpu_torch.Pipe(_tseq(), device="cpu", **kwargs)
+
+
+@pytest.mark.parametrize("schedule", sorted(jsched._SCHEDULES))
+def test_pipe_takes_every_schedule_as_pipe_tpu_does(schedule):
+    """Without a mesh both packages' ``Pipe`` accept every registered
+    schedule; the wavefront schedules give the same eval forward from the
+    same weights, and the table-only ones raise the same error from
+    ``cycles`` at the first forward."""
+    x = np.random.default_rng(2).standard_normal((6, 4)).astype(np.float32)
+    jpipe = pipe_tpu.Pipe(_jseq(4), chunks=3, n_stages=2, schedule=schedule)
+    params = jpipe.init(jax.random.key(1), jnp.asarray(x))
+    tpipe = pipe_tpu_torch.Pipe(_tseq(4), chunks=3, n_stages=2,
+                                schedule=schedule, device="cpu")
+    convert.load_stage_params(tpipe, _np(params))
+    try:
+        want = ("ok", np.asarray(jpipe(params, jnp.asarray(x))))
+    except NotImplementedError as e:
+        want = ("raise", str(e))
+    try:
+        with torch.no_grad():
+            got = ("ok", tpipe(torch.from_numpy(x)).numpy())
+    except NotImplementedError as e:
+        got = ("raise", str(e))
+    assert got[0] == want[0]
+    if got[0] == "ok":
+        np.testing.assert_allclose(got[1], want[1], rtol=1e-5, atol=1e-6)
+    else:
+        assert got[1] == want[1]
 
 
 def test_pipe_container_protocol_and_default_device():

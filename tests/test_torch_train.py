@@ -210,7 +210,7 @@ def test_checkpoints_keep_the_newest_three(tmp_path, corpus):
 
 
 @pytest.mark.parametrize("field,value", [
-    ("schedule", "1f1b"), ("n_data", 2), ("mu_dtype", "bfloat16"),
+    ("schedule", "interleaved"), ("n_data", 2), ("mu_dtype", "bfloat16"),
     ("tb_dir", "tb"), ("zero", True), ("prefetch_depth", 2),
     ("telemetry_dir", "t"), ("profile_every", 2), ("resilience", object()),
     ("elastic", object()), ("plan", "auto")])
@@ -229,11 +229,13 @@ def test_trainer_config_defaults_match_pipe_tpu():
     assert t == j
 
 
-def test_generate_and_loss_block_wait_for_later_slices():
+def test_generate_and_loss_block_wait_for_later_slices(corpus):
     """``Trainer.generate`` runs since the generation slice (its parity with
     pipe_tpu is in test_torch_generate.py), and the generator's phase
     timing since the serving slice ported the telemetry registry
-    (test_torch_telemetry.py); the streaming loss still waits."""
+    (test_torch_telemetry.py); the streaming loss trains since the schedule
+    slice: ``loss_block`` puts the fused head and loss on the last stage of
+    the table executor, and its trajectory is the dense one's."""
     from pipe_tpu_torch.inference import GenerationConfig, Generator
 
     trainer, _, _ = tiny_trainer()
@@ -244,8 +246,53 @@ def test_generate_and_loss_block_wait_for_later_slices():
         GenerationConfig(max_new_tokens=4, temperature=0.0),
         phase_timing=True)
     assert torch.equal(timed.generate([[1, 2]]), out)
-    with pytest.raises(NotImplementedError, match="loss_block"):
-        tlm.LMConfig(loss_block=128)
+
+    source, _ = corpus
+    model, cfg = _configs()
+    dense = tloop.Trainer(model, cfg, device="cpu")
+    streamed = tloop.Trainer(dataclasses.replace(model, loss_block=32), cfg,
+                             device="cpu")
+    assert dense.scheduled is None and streamed.scheduled is not None
+    _, want = _per_step_losses(dense, source, dense.init_state(), steps=4)
+    _, got = _per_step_losses(streamed, source, streamed.init_state(),
+                              steps=4)
+    np.testing.assert_allclose(got, want, rtol=TOL_TRAJECTORY, atol=0)
+    assert got[-1] < got[0]
+
+
+@pytest.mark.parametrize("schedule,checkpoint", [("1f1b", "except_last"),
+                                                 ("1f1b", "always"),
+                                                 ("zb-h1", "never")])
+def test_table_trainer_tracks_pipe_tpus_1f1b_trainer(corpus, schedule,
+                                                     checkpoint):
+    """Four steps of the port's ``Trainer`` through the table executor, from
+    the JAX ``Trainer``'s initial weights, against JAX's
+    ``Trainer(schedule="1f1b")`` (its zb-h1 Trainer asks for the structural
+    split, whose tests are red, ROADMAP C.4; the port's zb-h1 under
+    ``never`` is the stored-graph split, C.7): losses within
+    TOL_TRAJECTORY relative."""
+    source, _ = corpus
+    jmodel = dataclasses.replace(jlm.LMConfig().tiny(), n_layers=2)
+    jtrainer = jloop.Trainer(jmodel, jloop.TrainerConfig(
+        batch_size=8, eval_batch_size=8, bptt=jmodel.seq_len, chunks=2,
+        n_stages=2, n_data=1, lr=1e-2, checkpoint="except_last",
+        schedule="1f1b"))
+    jstate = jtrainer.init_state()
+    params = jax.tree_util.tree_map(np.asarray, jstate.params)
+    _, want = _per_step_losses(jtrainer, source, jstate, steps=4)
+
+    trainer, _, _ = tiny_trainer(schedule=schedule, checkpoint=checkpoint)
+    state = trainer.init_state()
+    convert.load_pipelined_lm_params(trainer.pipe, params)
+    assert trainer.scheduled.schedule.name == schedule
+    _, got = _per_step_losses(trainer, source, state, steps=4)
+    np.testing.assert_allclose(got, want, rtol=TOL_TRAJECTORY, atol=0)
+    assert got[-1] < got[0]
+
+
+def test_zb_trainer_under_recompute_warns_with_the_crossover_row():
+    with pytest.warns(UserWarning, match="breakeven sigma"):
+        tiny_trainer(schedule="zb-h1", checkpoint="except_last")
 
 
 def test_lm_tutorial_trains_on_the_cpu(tmp_path, capsys):
@@ -260,11 +307,24 @@ def test_lm_tutorial_trains_on_the_cpu(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("argv", [
-    ["always", "--tiny", "--device", "cpu", "--schedule", "1f1b"],
+    ["always", "--tiny", "--device", "cpu", "--schedule", "interleaved-1f1b"],
     ["always", "--tiny", "--device", "cpu", "--schedule", "interleaved"]])
 def test_lm_tutorial_refuses_other_schedules(argv):
-    with pytest.raises(NotImplementedError, match="schedule"):
+    with pytest.raises(NotImplementedError, match="schedule.*A.8"):
         lm_tutorial.main(argv)
+
+
+def test_lm_tutorial_trains_and_resumes_through_the_tables(tmp_path, capsys):
+    ck = str(tmp_path / "ck")
+    assert lm_tutorial.main(["except_last", "--schedule", "1f1b", "--tiny",
+                             "--steps", "3", "--device", "cpu", "--save",
+                             ck]) == 0
+    out = capsys.readouterr().out
+    assert "| epoch 0 | step 3/3 |" in out and "final train loss" in out
+    assert lm_tutorial.main(["never", "--schedule", "zb-h1", "--tiny",
+                             "--steps", "1", "--device", "cpu", "--resume",
+                             ck]) == 0
+    assert "resumed from step 3" in capsys.readouterr().out
 
 
 @pytest.mark.parametrize("flag", ["--plan", "--profile", "--autosave",

@@ -2,6 +2,8 @@
 
     python3 tools/torch_slice_profile.py [--batches N] [--out DIR]
     python3 tools/torch_slice_profile.py --train [--steps N] [--out DIR]
+    python3 tools/torch_slice_profile.py --train --schedule 1f1b|zb-h1|gpipe
+        [--checkpoint never|except_last|always] [--steps N] [--out DIR]
     python3 tools/torch_slice_profile.py --generate [--decode-steps N]
         [--out DIR]
     python3 tools/torch_slice_profile.py --serve [--kv slab|paged]
@@ -25,6 +27,19 @@ dropout 0.2 (batch 32, bptt 128, chunks 4, 2 stages, except_last, lr 1e-4,
 as ``chip_smoke.py``'s train phase): N steps timed per turn with the kernels
 and with plain attention, then one kernel step profiled, with the forward
 kernel, dQ, dK/dV, GEMMs, copies and the optimizer as categories.
+
+``--train --schedule S``: the same LM and batch through the table executor
+(``Trainer(schedule=S)``; ``gpipe`` runs the gpipe table) under
+``--checkpoint`` (default except_last): N steps timed per turn against the
+emulator ``Pipe`` step of the plain ``--train`` (except_last), in turns
+table, pipe, pipe, table, then one table step profiled; besides the kernel
+categories it reports the device time of the kernels launched inside the
+executor's ranges (the backward's from the autograd thread included): ``F``,
+``B`` and ``W`` ops, and inside them the post's forward at F (``post-F``)
+and its rebuilt forward and backward at B (``post-B``), the work the
+one-device walk does that GPipe does not (with zb-h1's second backward
+walk, ``W``); and the device's idle share against the fastest unprofiled
+step (the profiler stretches the traced window).
 
 ``--generate``: KV-cached generation over that LM's weights as
 ``chip_smoke.py``'s generate phase runs it (batch 8, 128-token prompts from
@@ -63,6 +78,7 @@ trace, under ``--out`` (default ``build/profile/``).
 from __future__ import annotations
 
 import argparse
+import bisect
 import dataclasses
 import json
 import os
@@ -126,7 +142,7 @@ def profile(fn, label: str) -> tuple:
                if e.device_type == torch.autograd.DeviceType.CUDA
                and not getattr(e, "is_user_annotation", False)
                and e.name != label
-               and not e.name.startswith("chunk")]
+               and not e.name.startswith(("chunk", "table:"))]
     spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
     busy, cur_s, cur_e = 0.0, None, None
     for s, e in spans:
@@ -150,7 +166,31 @@ def profile(fn, label: str) -> tuple:
         by_name[e.name] = (n + 1, t + dur)
     total = sum(by_cat.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:12]
+    # The table executor's op ranges live on the main thread, but the
+    # autograd engine launches the backward's kernels from its own thread
+    # while the main thread waits inside the range: attribute to a range
+    # the device time of every host op (any thread) that starts inside it.
+    cpu = torch.autograd.DeviceType.CPU
+    launched = sorted(
+        (e.time_range.start,
+         getattr(e, "self_device_time_total",
+                 getattr(e, "self_cuda_time_total", 0.0)))
+        for e in events if e.device_type == cpu
+        and not e.name.startswith("table:") and e.name != label)
+    starts = [t for t, _ in launched]
+    ranges: dict = {}
+    for e in events:
+        if e.name.startswith("table:") and e.device_type == cpu:
+            kind = e.name[len("table:"):].split("-stage")[0].rstrip(
+                "0123456789")
+            lo = bisect.bisect_left(starts, e.time_range.start)
+            hi = bisect.bisect_left(starts, e.time_range.end)
+            dev = sum(d for _, d in launched[lo:hi])
+            n, t = ranges.get(kind, (0, 0.0))
+            ranges[kind] = (n + 1, t + dev)
     return {
+        "table_op_ranges": {k: {"calls": n, "device_us": t}
+                            for k, (n, t) in ranges.items()},
         "profiled_window_us": window_us,
         "kernel_launches": len(kernels),
         "device_busy_us": busy,
@@ -204,37 +244,58 @@ def train_slice(args):
                          checkpoint="except_last", lr=chip_smoke.TRAIN_LR)
     source = lm_text.batchify(lm_text.data_process(train_lines, vocab),
                               tcfg.batch_size)
-    trainers, states = {}, {}
-    for impl in ("flash", "xla"):
-        cfg = LMConfig(vocab=len(vocab), attn_impl=impl)   # dropout 0.2
-        trainers[impl] = Trainer(cfg, tcfg, device="cuda")
-        states[impl] = trainers[impl].init_state()
-    position = {"flash": 0, "xla": 0}
+    # "main" is profiled; "other" is timed beside it in turns
+    cfg = LMConfig(vocab=len(vocab), attn_impl="flash")      # dropout 0.2
+    if args.schedule:
+        names = {"main": f"table-{args.schedule}/{args.checkpoint}",
+                 "other": "pipe-gpipe/except_last"}
+        trainers = {"main": chip_smoke._sched_trainer(cfg, args.schedule,
+                                                      args.checkpoint),
+                    "other": Trainer(cfg, tcfg, device="cuda")}
+    else:
+        names = {"main": "flash", "other": "xla"}
+        trainers = {"main": Trainer(cfg, tcfg, device="cuda"),
+                    "other": Trainer(dataclasses.replace(cfg,
+                                                         attn_impl="xla"),
+                                     tcfg, device="cuda")}
+    states = {k: t.init_state() for k, t in trainers.items()}
+    position = {"main": 0, "other": 0}
 
-    def steps(impl, n):
-        b = position[impl]
-        states[impl], _ = trainers[impl].train_epoch(
-            source, state=states[impl], max_steps=b + n, start_step=b,
+    def steps(key, n):
+        b = position[key]
+        states[key], _ = trainers[key].train_epoch(
+            source, state=states[key], max_steps=b + n, start_step=b,
             log_every=0)
-        position[impl] = b + n
+        position[key] = b + n
 
-    for impl in ("flash", "xla"):                   # warm-up
-        steps(impl, 1)
-    turns = {"flash": [], "xla": []}
-    for impl in ("flash", "xla", "xla", "flash"):
-        turns[impl].append(timed(lambda: steps(impl, args.steps)))
-    trainers.pop("xla")
-    states.pop("xla")
+    for key in ("main", "other"):                   # warm-up
+        steps(key, 1)
+    turns = {"main": [], "other": []}
+    for key in ("main", "other", "other", "main"):
+        turns[key].append(timed(lambda: steps(key, args.steps)))
+    trainers.pop("other")
+    states.pop("other")
     torch.cuda.empty_cache()
-    summary, prof = profile(lambda: steps("flash", 1), "train_step")
+    summary, prof = profile(lambda: steps("main", 1), "train_step")
     tokens = args.steps * tcfg.batch_size * tcfg.bptt
+    if args.schedule:
+        # the profiler stretches the traced window; the device's busy time
+        # against the fastest unprofiled step is the idle share a step pays
+        step_us = min(turns["main"]) * 1e6 / args.steps
+        summary.update(memory_plan=trainers["main"].scheduled.memory_plan(
+            tcfg.chunks), idle_share_unprofiled=max(
+                0.0, 1.0 - summary["device_busy_us"] / step_us))
+    turns = {names[k]: v for k, v in turns.items()}
     summary.update(tokens=tokens, steps_per_turn=args.steps,
                    wall_s=turns,
                    ms_per_step={k: [t * 1e3 / args.steps for t in v]
                                 for k, v in turns.items()},
                    tokens_per_s={k: [tokens / t for t in v]
                                  for k, v in turns.items()})
-    return summary, prof, "torch_train"
+    stem = "torch_train"
+    if args.schedule:
+        stem += f"_{args.schedule}_{args.checkpoint}"
+    return summary, prof, stem
 
 
 def generate_slice(args):
@@ -392,6 +453,14 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--train", action="store_true",
                     help="profile training steps instead of the eval slice")
+    ap.add_argument("--schedule", choices=["gpipe", "1f1b", "zb-h1"],
+                    default=None,
+                    help="profile a table-executor step of this schedule "
+                         "(--train)")
+    ap.add_argument("--checkpoint", choices=["never", "except_last",
+                                             "always"],
+                    default="except_last",
+                    help="checkpoint mode of the table step (--schedule)")
     ap.add_argument("--generate", action="store_true",
                     help="profile KV-cached generation (fp32 and int8)")
     ap.add_argument("--serve", action="store_true",
@@ -445,7 +514,8 @@ def main(argv=None) -> int:
             "decode_device_busy_us_per_step", "decode_idle_share_unprofiled",
             "decode_ms_per_tick", "launches_per_tick",
             "device_busy_us_per_tick", "kernel_us_per_tick_by_category",
-            "ms_per_round", "device_busy_ms_per_round")
+            "ms_per_round", "device_busy_ms_per_round", "table_op_ranges",
+            "idle_share_unprofiled", "memory_plan")
     parts = ([summary[k] for k in ("fp32", "int8")] if args.generate
              else [summary[k] for k in ("graph", "eager")] if args.serve
              else [summary])
