@@ -13,9 +13,11 @@ exits non-zero without a result line:
    (LDGSTS/UTMALDG) in its SASS (cuobjdump): every instance of the forward,
    dQ and dK/dV kernels must show both.
 3. kernels -- each kernel (flash forward, dQ, dK/dV) against its plain
-   PyTorch version on the card at the shapes the main paths give it (and a
-   few more), with and without attention dropout (the plain versions fed the
-   same Philox mask), with its time, the plain version's, one PyTorch library
+   PyTorch version on the card at the shapes the main paths give it
+   (GPT-2-small's (24, 1024, 64) causal with dropout 0.1 among them, timed
+   as the tutorial LM's training shape is) and a few more, with and
+   without attention dropout (the plain versions fed the same Philox mask),
+   with its time, the plain version's, one PyTorch library
    call's, and the least time the card could take (bytes or operations over
    the H100's peak rates). Same seed, same bits: each kernel run twice.
    SDPA is timed beside the forward with and without dropout, and its
@@ -49,6 +51,36 @@ exits non-zero without a result line:
    step, Adam state resident): 1f1b's below the table gpipe's. (e) Per
    schedule: ms per step (mean of steps 2-8, each ending in a
    synchronize), train tokens/s and peak bytes, with ``memory_plan``.
+5c. gpt2 -- GPT-2-small at its published width (vocab 50,257, d_model 768,
+   12 heads, d_ff 3,072, 12 layers, seq 1,024, dropout 0.1; untied head,
+   ~163.0M parameters; random weights and tokens from seeds) built with the
+   embedding skip, through ``Pipe(chunks=16, balance=[4, 4, 4, 4])``: embed
+   + stash + blocks 0-1 | 2-5 | 6-9 | 10-11 + join + head, batch 32.
+   (a) Dropout 0: one emulator step (except_last; the loss is ``per_row_ce``
+   of the gathered logits) with the kernels, with plain attention and with
+   plain attention in float64 on the same weights, held as the train
+   phase's twins. (b) From those weights, one ``HeteroScheduledPipeline``
+   step of the gpipe and 1f1b tables under except_last and under never:
+   loss within 1e-5 relative and every gradient (``wte``/``wpe`` among them,
+   fed partly through the skip lane) within 1e-4 x max(1, max|g|) of the
+   emulator's; ``memory_plan`` reports one skip lane and its park slots.
+   (c) Dropout 0.1: 8 steps each of the emulator and of the 1f1b table with
+   the lane (except_last), Adam at lr 1e-4, one seed: every loss finite, the
+   trajectories within 1e-4 relative (the table walk folds seeds as the
+   emulator's ``ctx.fold(i, j)``, so the masks are the same). (d) Every
+   run's forward, dQ and dK/dV launches pinned exactly to what it implies
+   (per stage, 16 forwards plus the recomputes and 16 backwards, times the
+   12 blocks): the emulator's 372 / 192 / 192 a step under except_last.
+   (e) ``apps.zoo.main(["gpt2", "--stages", "4", "--chunks", "16",
+   "--batch", "32", "--schedule", "1f1b", "--steps", "8"])`` exits 0 with
+   finite losses; its ms per step is printed. (f) A 4-stage stack of
+   (Linear 1024 -> BatchNorm -> ReLU) x 4, chunks 8, batch 256, through
+   ``Pipe(deferred_batch_norm=True)`` and the 1f1b table: the running stats
+   after one step equal one whole-batch momentum update within 1e-5; zb-h1
+   is refused. (g) Prints ms per step (mean of steps 2-8, each ending in a
+   synchronize), train tokens/s and peak bytes of the (c) runs, and one
+   step's ms and peak under never of the emulator, the table gpipe and the
+   table 1f1b.
 6. generate -- KV-cached generation (``Generator`` over
    ``PipelinedLM.from_sequential`` of the eval slice's weights): batch 8
    prompts of 128 eval tokens, 128 new tokens. Gates: teacher-forced cached
@@ -180,6 +212,18 @@ SCHED_RUNS = (("gpipe", "except_last"), ("1f1b", "except_last"),
 TOL_SCHED_LOSS = 1e-5    # twin loss, relative to the emulator's
 TOL_SCHED_GRAD = 1e-4    # twin gradient, of max(1, max|g|) per parameter
 TOL_SCHED_TRAJ = 1e-4    # trajectory, relative to the table gpipe's
+# GPT-2 phase: GPT-2-small at its published width (BASELINE config #3's
+# composition: 4 stages [4, 4, 4, 4] over embed + stash | 12 blocks | join +
+# head, chunks 16, batch 32 of 1024 tokens), the trajectories' runs, and the
+# deferred-BN stack of gate (f).
+GPT2_BALANCE = [4, 4, 4, 4]
+GPT2_CHUNKS = 16
+GPT2_BATCH = 32
+GPT2_TWINS = [(s, c) for s in ("gpipe", "1f1b")
+              for c in ("except_last", "never")]
+GPT2_RUNS = ("emulator", "1f1b")          # both under except_last
+BN_WIDTH, BN_DEPTH, BN_CHUNKS, BN_BATCH = 1024, 4, 8, 256
+TOL_BN = 1e-5
 # Generation phase: batch, prompt and new tokens (prompt + new = 256, a
 # sequence the flash forward takes, for the reference forward); beam search
 # on the first GEN_BEAM_BATCH prompts; sampling; int8 against fp32 logits,
@@ -250,6 +294,9 @@ PEAK_FP32_ACCURATE = 495e12 / 3
 # 2048 / 32); the training path's micro-batch of 8 rows gives b*h = 8 x 32.
 TRAIN_SHAPE = (256, 128, 64, True)
 DROPOUT = 0.2
+# GPT-2-small's training micro-batch: b*h = 2 x 12, seq 1024, 768 / 12.
+GPT2_SHAPE = (24, 1024, 64, True)
+GPT2_DROPOUT = 0.1
 DROP_SEEDS = (12345, (1 << 62) + 977)   # the second uses the key's high word
 TIMED_SHAPES = [(64, 128, 64, True), (16, 512, 64, True), (8, 256, 128, False)]
 # Ragged and odd shapes the kernel also takes: checked, not timed.
@@ -468,11 +515,13 @@ def phase_kernels() -> dict:
             library_ms=f"{lib:.5f}", bound_ms=f"{bound:.5f}",
             bound_by=bound_by, roofline=f"{bound / ms:.3f}")
 
-    # Every kernel, with and without dropout, at the training shape (timed)
-    # and at the other shapes (checked).
-    for shape in [TRAIN_SHAPE] + TIMED_SHAPES + EDGE_SHAPES:
+    # Every kernel, with and without dropout, at the training shapes (timed
+    # below) and at the other shapes (checked); GPT-2-small's with its own
+    # dropout rate.
+    for shape, drop in ([(sh, DROPOUT) for sh in [TRAIN_SHAPE] + TIMED_SHAPES
+                         + EDGE_SHAPES] + [(GPT2_SHAPE, GPT2_DROPOUT)]):
         bh, s, d, causal = shape
-        for seed, rate in [(0, 0.0)] + [(sd, DROPOUT) for sd in DROP_SEEDS]:
+        for seed, rate in [(0, 0.0)] + [(sd, drop) for sd in DROP_SEEDS]:
             *_, (err_o, err_l) = compare_fwd(bh, s, d, causal, torch.float32,
                                              TOL_KERNEL, seed, rate)
             args, errs = compare_bwd(bh, s, d, causal, torch.float32,
@@ -491,109 +540,120 @@ def phase_kernels() -> dict:
             max_abs_dO=f"{err_o:.3e}", max_abs_ddq=f"{errs[0]:.3e}",
             max_abs_ddk=f"{errs[1]:.3e}", max_abs_ddv=f"{errs[2]:.3e}")
 
-    # The training shape with dropout, as the main path calls the kernels.
-    bh, s, d, causal = TRAIN_SHAPE
-    seed = DROP_SEEDS[0]
-    (q, k, v, do, lse, delta, kw), _ = compare_bwd(
-        bh, s, d, causal, torch.float32, TOL_KERNEL, seed, DROPOUT)
-    scale = kw["scale"]
+    def timed(shape, rate):
+        """Check, repeat and time the three kernels at ``shape`` with
+        dropout ``rate``, as the main path calls them; returns their rows."""
+        rows = {}
+        bh, s, d, causal = shape
+        seed = DROP_SEEDS[0]
+        (q, k, v, do, lse, delta, kw), _ = compare_bwd(
+            bh, s, d, causal, torch.float32, TOL_KERNEL, seed, rate)
+        scale = kw["scale"]
 
-    # Same seed, same bits: a second run of each kernel equals the first;
-    # another seed changes the result.
-    runs = [(lambda sd=sd: fa.flash_attention_fwd(
-                 q, k, v, causal=causal, scale=scale, seed=sd, rate=DROPOUT)[0],
-             lambda sd=sd: fa.flash_attention_bwd_dq(
-                 q, k, v, do, lse, delta, **dict(kw, seed=sd)),
-             lambda sd=sd: torch.cat(fa.flash_attention_bwd_dkv(
-                 q, k, v, do, lse, delta, **dict(kw, seed=sd))))
-            for sd in (seed, DROP_SEEDS[1])]
-    for name, a, b in zip(("fwd", "dq", "dkv"), *runs):
-        first, again, other = a(), a(), b()
-        if not torch.equal(first, again):
-            raise AssertionError(f"{name}: the same seed gave other bits")
-        if torch.equal(first, other):
-            raise AssertionError(f"{name}: another seed gave the same result")
-    keep = fa.dropout_keep(seed, DROPOUT, bh, s, device="cuda")
-    kept = (keep > 0).float().mean().item()
-    sigma = math.sqrt(DROPOUT * (1 - DROPOUT) / keep.numel())
-    log("kernels", check="repeat", same_seed_bitwise=True,
-        keep_rate=f"{kept:.6f}", expected=1 - DROPOUT, sigma=f"{sigma:.2e}")
-    if abs(kept - (1 - DROPOUT)) > 4 * sigma:
-        raise AssertionError(f"keep rate {kept} is not within 4 sigma of "
-                             f"{1 - DROPOUT}")
+        # Same seed, same bits: a second run of each kernel equals the first;
+        # another seed changes the result.
+        runs = [(lambda sd=sd: fa.flash_attention_fwd(
+                     q, k, v, causal=causal, scale=scale, seed=sd,
+                     rate=rate)[0],
+                 lambda sd=sd: fa.flash_attention_bwd_dq(
+                     q, k, v, do, lse, delta, **dict(kw, seed=sd)),
+                 lambda sd=sd: torch.cat(fa.flash_attention_bwd_dkv(
+                     q, k, v, do, lse, delta, **dict(kw, seed=sd))))
+                for sd in (seed, DROP_SEEDS[1])]
+        for name, a, b in zip(("fwd", "dq", "dkv"), *runs):
+            first, again, other = a(), a(), b()
+            if not torch.equal(first, again):
+                raise AssertionError(f"{name}: the same seed gave other bits")
+            if torch.equal(first, other):
+                raise AssertionError(f"{name}: another seed gave the same result")
+        keep = fa.dropout_keep(seed, rate, bh, s, device="cuda")
+        kept = (keep > 0).float().mean().item()
+        sigma = math.sqrt(rate * (1 - rate) / keep.numel())
+        log("kernels", check="repeat", same_seed_bitwise=True,
+            keep_rate=f"{kept:.6f}", expected=1 - rate, sigma=f"{sigma:.2e}")
+        if abs(kept - (1 - rate)) > 4 * sigma:
+            raise AssertionError(f"keep rate {kept} is not within 4 sigma of "
+                                 f"{1 - rate}")
 
-    plain_keep = lambda: fa.dropout_keep(seed, DROPOUT, bh, s, device="cuda")
-    ref_kw = dict(causal=causal, scale=scale)
-    fwd_ms = time_ms(lambda: fa.flash_attention_fwd(
-        q, k, v, causal=causal, scale=scale, seed=seed, rate=DROPOUT))
-    fwd_plain = time_ms(lambda: fa.flash_attention_ref(
-        q, k, v, causal, scale, plain_keep()))
-    dq_ms = time_ms(lambda: fa.flash_attention_bwd_dq(
-        q, k, v, do, lse, delta, **kw))
-    dq_plain = time_ms(lambda: fa.flash_attention_bwd_dq_ref(
-        q, k, v, do, lse, delta, keep=plain_keep(), **ref_kw))
-    dkv_ms = time_ms(lambda: fa.flash_attention_bwd_dkv(
-        q, k, v, do, lse, delta, **kw))
-    dkv_plain = time_ms(lambda: fa.flash_attention_bwd_dkv_ref(
-        q, k, v, do, lse, delta, keep=plain_keep(), **ref_kw))
-    # Library yardsticks, timed like the kernels (CUDA graphs). The forward's:
-    # SDPA with the same dropout rate (the same function up to the mask's
-    # bits, which come from PyTorch's own generator); without dropout beside
-    # it. The backward's: SDPA's whole backward (dQ, dK and dV together), as
-    # forward+backward less the forward, the mean of SDPA_RUNS graph timings
-    # with their spread; with the main path's dropout rate, and without.
-    q4, k4, v4 = (x[None].detach().requires_grad_() for x in (q, k, v))
-    do4 = do[None]
+        plain_keep = lambda: fa.dropout_keep(seed, rate, bh, s, device="cuda")
+        ref_kw = dict(causal=causal, scale=scale)
+        fwd_ms = time_ms(lambda: fa.flash_attention_fwd(
+            q, k, v, causal=causal, scale=scale, seed=seed, rate=rate))
+        fwd_plain = time_ms(lambda: fa.flash_attention_ref(
+            q, k, v, causal, scale, plain_keep()))
+        dq_ms = time_ms(lambda: fa.flash_attention_bwd_dq(
+            q, k, v, do, lse, delta, **kw))
+        dq_plain = time_ms(lambda: fa.flash_attention_bwd_dq_ref(
+            q, k, v, do, lse, delta, keep=plain_keep(), **ref_kw))
+        dkv_ms = time_ms(lambda: fa.flash_attention_bwd_dkv(
+            q, k, v, do, lse, delta, **kw))
+        dkv_plain = time_ms(lambda: fa.flash_attention_bwd_dkv_ref(
+            q, k, v, do, lse, delta, keep=plain_keep(), **ref_kw))
+        # Library yardsticks, timed like the kernels (CUDA graphs). The forward's:
+        # SDPA with the same dropout rate (the same function up to the mask's
+        # bits, which come from PyTorch's own generator); without dropout beside
+        # it. The backward's: SDPA's whole backward (dQ, dK and dV together), as
+        # forward+backward less the forward, the mean of SDPA_RUNS graph timings
+        # with their spread; with the main path's dropout rate, and without.
+        q4, k4, v4 = (x[None].detach().requires_grad_() for x in (q, k, v))
+        do4 = do[None]
 
-    def sdpa(p=0.0):
-        return F.scaled_dot_product_attention(q4, k4, v4, dropout_p=p,
-                                              is_causal=causal, scale=scale)
+        def sdpa(p=0.0):
+            return F.scaled_dot_product_attention(q4, k4, v4, dropout_p=p,
+                                                  is_causal=causal, scale=scale)
 
-    def sdpa_grads(p=0.0):
-        return torch.autograd.grad(sdpa(p), (q4, k4, v4), do4)
+        def sdpa_grads(p=0.0):
+            return torch.autograd.grad(sdpa(p), (q4, k4, v4), do4)
 
-    with torch.no_grad():
-        lib_fwd = time_ms(sdpa)
-        lib_fwd_drop = time_ms(lambda: sdpa(DROPOUT))
-    side = torch.cuda.Stream()       # autograd warms up off the capture stream
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        for p in (0.0, DROPOUT) * 3:
-            sdpa_grads(p)
-    torch.cuda.current_stream().wait_stream(side)
-    bwd_runs = {0.0: [], DROPOUT: []}
-    for _ in range(SDPA_RUNS):
+        with torch.no_grad():
+            lib_fwd = time_ms(sdpa)
+            lib_fwd_drop = time_ms(lambda: sdpa(rate))
+        side = torch.cuda.Stream()       # autograd warms up off the capture stream
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            for p in (0.0, rate) * 3:
+                sdpa_grads(p)
+        torch.cuda.current_stream().wait_stream(side)
+        bwd_runs = {0.0: [], rate: []}
+        for _ in range(SDPA_RUNS):
+            for p, runs in bwd_runs.items():
+                with torch.no_grad():
+                    fwd_only = time_ms(lambda: sdpa(p))
+                runs.append(time_ms(lambda: sdpa_grads(p)) - fwd_only)
+        lib_bwd, lib_bwd_drop = (sum(r) / len(r) for r in bwd_runs.values())
+
+        for name, ms, plain, lib, lib_nodrop, (bound, by) in (
+                ("flash_attn_fwd", fwd_ms, fwd_plain, lib_fwd_drop, lib_fwd,
+                 attention_bound(bh, s, d, causal, 4)),
+                ("flash_attn_bwd_dq", dq_ms, dq_plain, lib_bwd_drop, lib_bwd,
+                 bwd_bound("dq", bh, s, d, causal, 4)),
+                ("flash_attn_bwd_dkv", dkv_ms, dkv_plain, lib_bwd_drop, lib_bwd,
+                 bwd_bound("dkv", bh, s, d, causal, 4))):
+            rows[name] = dict(ms=ms, plain_ms=plain, library_ms=lib,
+                              library_ms_no_dropout=lib_nodrop,
+                              bound_ms=bound, bound_by=by,
+                              max_abs_err=worst[name])
+            log("kernels", name=name, bh=bh, s=s, d=d, causal=causal, dtype="f32",
+                rate=rate, ms=f"{ms:.5f}", plain_ms=f"{plain:.5f}",
+                library_ms=f"{lib:.5f}", library_ms_no_dropout=f"{lib_nodrop:.5f}",
+                bound_ms=f"{bound:.5f}", bound_by=by,
+                roofline=f"{bound / ms:.3f}", max_abs_err=f"{worst[name]:.3e}")
         for p, runs in bwd_runs.items():
-            with torch.no_grad():
-                fwd_only = time_ms(lambda: sdpa(p))
-            runs.append(time_ms(lambda: sdpa_grads(p)) - fwd_only)
-    lib_bwd, lib_bwd_drop = (sum(r) / len(r) for r in bwd_runs.values())
+            log("kernels", sdpa_bwd_rate=p, sdpa_bwd_ms=f"{sum(runs) / len(runs):.5f}",
+                sdpa_bwd_runs_ms=[f"{x:.5f}" for x in runs],
+                sdpa_bwd_spread_ms=f"{max(runs) - min(runs):.5f}")
+        log("kernels", sdpa_fwd_ms=f"{lib_fwd:.5f}",
+            sdpa_fwd_dropout_ms=f"{lib_fwd_drop:.5f}",
+            note=f"library_ms is SDPA with dropout {rate} "
+            "(library_ms_no_dropout without): of fwd its forward; of dq and "
+            "dkv its whole backward (dQ, dK, dV together)")
+        return rows
 
-    for name, ms, plain, lib, lib_nodrop, (bound, by) in (
-            ("flash_attn_fwd", fwd_ms, fwd_plain, lib_fwd_drop, lib_fwd,
-             attention_bound(bh, s, d, causal, 4)),
-            ("flash_attn_bwd_dq", dq_ms, dq_plain, lib_bwd_drop, lib_bwd,
-             bwd_bound("dq", bh, s, d, causal, 4)),
-            ("flash_attn_bwd_dkv", dkv_ms, dkv_plain, lib_bwd_drop, lib_bwd,
-             bwd_bound("dkv", bh, s, d, causal, 4))):
-        rows[name] = dict(ms=ms, plain_ms=plain, library_ms=lib,
-                          library_ms_no_dropout=lib_nodrop,
-                          bound_ms=bound, bound_by=by,
-                          max_abs_err=worst[name])
-        log("kernels", name=name, bh=bh, s=s, d=d, causal=causal, dtype="f32",
-            rate=DROPOUT, ms=f"{ms:.5f}", plain_ms=f"{plain:.5f}",
-            library_ms=f"{lib:.5f}", library_ms_no_dropout=f"{lib_nodrop:.5f}",
-            bound_ms=f"{bound:.5f}", bound_by=by,
-            roofline=f"{bound / ms:.3f}", max_abs_err=f"{worst[name]:.3e}")
-    for p, runs in bwd_runs.items():
-        log("kernels", sdpa_bwd_rate=p, sdpa_bwd_ms=f"{sum(runs) / len(runs):.5f}",
-            sdpa_bwd_runs_ms=[f"{x:.5f}" for x in runs],
-            sdpa_bwd_spread_ms=f"{max(runs) - min(runs):.5f}")
-    log("kernels", sdpa_fwd_ms=f"{lib_fwd:.5f}",
-        sdpa_fwd_dropout_ms=f"{lib_fwd_drop:.5f}",
-        note="library_ms is SDPA with dropout 0.2 (library_ms_no_dropout "
-        "without): of fwd its forward; of dq and dkv its whole backward "
-        "(dQ, dK, dV together)")
+    # The training shapes with dropout, as the main paths call the kernels:
+    # the tutorial LM's, then GPT-2-small's (its rows ride under gpt2_shape).
+    rows = timed(TRAIN_SHAPE, DROPOUT)
+    for name, row in timed(GPT2_SHAPE, GPT2_DROPOUT).items():
+        rows[name]["gpt2_shape"] = row
     return rows
 
 
@@ -1016,6 +1076,333 @@ def phase_schedules() -> dict:
     torch.cuda.empty_cache()
     log("schedules", seconds=f"{time.perf_counter() - t_phase:.1f}")
     return by_schedule
+
+
+def _gpt2_expected(ex, checkpoint: str, n_blocks: int, steps: int = 1
+                   ) -> dict:
+    """Kernel launches a GPT-2 step implies: per stage, the emulator runs
+    each micro-batch forward once (plus the recomputes of ``checkpoint``) and
+    backward once; a table walk runs its ``stage_passes`` (the same count in
+    every stage); times the blocks."""
+    if ex is None:
+        m = GPT2_CHUNKS
+        fwd = m + {"always": m, "except_last": m - 1, "never": 0}[checkpoint]
+        per_stage = {"forward": fwd, "backward": m}
+    else:
+        per_stage = {k: v // ex.d for k, v in ex.stage_passes().items()}
+    return {"flash_attention_fwd": steps * n_blocks * per_stage["forward"],
+            "flash_attention_bwd_dq": steps * n_blocks * per_stage["backward"],
+            "flash_attention_bwd_dkv":
+                steps * n_blocks * per_stage["backward"]}
+
+
+def phase_gpt2() -> dict:
+    """GPT-2-small with the embedding skip; returns each (c) run's kernel
+    launches. The gates of the module docstring's phase 5c."""
+    import contextlib
+    import io
+
+    from pipe_tpu_torch import Pipe
+    from pipe_tpu_torch.apps import zoo
+    from pipe_tpu_torch.core.partition import StageCtx
+    from pipe_tpu_torch.extras.norm import BatchNorm
+    from pipe_tpu_torch.models import gpt2
+    from pipe_tpu_torch.models.common import per_row_ce
+    from pipe_tpu_torch.ops.layers import Lambda, Linear, Sequential
+    from pipe_tpu_torch.parallel.hetero_scheduled import \
+        HeteroScheduledPipeline
+
+    t_phase = time.perf_counter()
+    cfg = gpt2.GPT2Config(attn_impl="flash")          # dropout 0.1
+    cfg0 = dataclasses.replace(cfg, dropout=0.0)
+    n_blocks = cfg.n_layers
+    tokens_per_step = GPT2_BATCH * cfg.seq_len
+
+    def counts():
+        return {c.__name__: c.launches for c in _counters()}
+
+    def zero_counts():
+        for c in _counters():
+            c.launches = 0
+
+    def build(c, dtype=torch.float32):
+        seq = gpt2.build_sequential(
+            c, embed_skip=True, device="cuda",
+            generator=torch.Generator(device="cuda").manual_seed(SEED))
+        seq.to(dtype)
+        return Pipe(seq, chunks=GPT2_CHUNKS, checkpoint="except_last",
+                    balance=GPT2_BALANCE, device="cuda")
+
+    def batch(step: int):
+        gen = torch.Generator(device="cuda").manual_seed(1000 + step)
+        tokens = torch.randint(2, cfg.vocab, (GPT2_BATCH, cfg.seq_len),
+                               generator=gen, device="cuda")
+        return tokens, torch.roll(tokens, -1, -1)
+
+    def emulator_step(pipe, tokens, targets, seed):
+        loss = per_row_ce(pipe(tokens, train=True, seed=seed),
+                          targets).mean()
+        loss.backward()
+        return loss.detach()
+
+    def table(pipe, schedule, checkpoint):
+        return HeteroScheduledPipeline(pipe.partitions, pipe.skip_layout,
+                                       GPT2_CHUNKS, checkpoint, schedule,
+                                       device="cuda")
+
+    def table_step(ex, tokens, targets, seed):
+        return ex.loss_and_grad(tokens, targets=targets, loss_fn=per_row_ce,
+                                seed=seed)[0]
+
+    # (a) emulator twins at dropout 0: kernels, plain attention, float64
+    tokens, targets = batch(0)
+    pipe = build(cfg0)
+    n_params = sum(p.numel() for p in pipe.parameters())
+    names = [n for n, _ in pipe.named_parameters()]
+    log("gpt2", params=n_params, balance=pipe.balance, chunks=GPT2_CHUNKS,
+        batch=GPT2_BATCH, seq=cfg.seq_len,
+        stages=[[type(l).__name__ for l in p] for p in pipe.partitions],
+        skip_pairs=[k for k, _ in pipe.skip_layout.by_src_dst])
+    zero_counts()
+    ref_loss = emulator_step(pipe, tokens, targets, SEED).item()
+    launches = counts()
+    want = _gpt2_expected(None, "except_last", n_blocks)
+    if launches != want:
+        raise AssertionError(f"gpt2 emulator step launched {launches}, "
+                             f"expected {want}")
+    ref = [p.grad.clone() for p in pipe.parameters()]
+    scale = [max(1.0, g.abs().max().item()) for g in ref]
+
+    # (b) the skip lane through the tables, from the same weights
+    for schedule, checkpoint in GPT2_TWINS:
+        pipe.zero_grad(set_to_none=True)
+        ex = table(pipe, schedule, checkpoint)
+        zero_counts()
+        torch.cuda.reset_peak_memory_stats()
+        loss = table_step(ex, tokens, targets, SEED).item()
+        torch.cuda.synchronize()
+        launches = counts()
+        errs = [(p.grad - g).abs().max().item() / m
+                for p, g, m in zip(pipe.parameters(), ref, scale)]
+        worst = max(errs)
+        rel = abs(loss - ref_loss) / abs(ref_loss)
+        plan = ex.memory_plan()
+        log("gpt2", twin=f"{schedule}/{checkpoint}", dropout=0.0,
+            loss=f"{loss:.9f}", emulator_loss=f"{ref_loss:.9f}",
+            loss_rel=f"{rel:.3e}", max_grad_err_of_scale=f"{worst:.3e}",
+            worst_param=names[errs.index(worst)],
+            wte_err=f"{errs[names.index('partitions.0.layers.0.wte')]:.3e}",
+            wpe_err=f"{errs[names.index('partitions.0.layers.0.wpe')]:.3e}",
+            peak_bytes=torch.cuda.max_memory_allocated(),
+            skip_lanes=plan["skip_lanes"],
+            skip_fwd_park_slots=plan["skip_fwd_park_slots"],
+            skip_bwd_park_slots=plan["skip_bwd_park_slots"],
+            last_slots=ex.last_slots, **launches)
+        if not rel <= TOL_SCHED_LOSS:
+            raise AssertionError(f"gpt2 {schedule}/{checkpoint}: loss {loss} "
+                                 f"is not within {TOL_SCHED_LOSS} of the "
+                                 f"emulator's {ref_loss}")
+        if not worst <= TOL_SCHED_GRAD:
+            raise AssertionError(f"gpt2 {schedule}/{checkpoint}: gradients "
+                                 f"are {worst:.3e} of max(1, max|g|) from "
+                                 f"the emulator's (tol {TOL_SCHED_GRAD})")
+        if plan["skip_lanes"] != 1:
+            raise AssertionError(f"gpt2 memory_plan: {plan}")
+        if launches != _gpt2_expected(ex, checkpoint, n_blocks):
+            raise AssertionError(f"gpt2 {schedule}/{checkpoint} launched "
+                                 f"{launches}, its tables imply "
+                                 f"{_gpt2_expected(ex, checkpoint, n_blocks)}")
+    del pipe, ex
+    torch.cuda.empty_cache()
+
+    twins = {"kernel": (ref_loss, ref)}
+    for name, impl, dtype in (("plain", "xla", torch.float32),
+                              ("f64", "xla", torch.float64)):
+        pipe = build(dataclasses.replace(cfg0, attn_impl=impl,
+                                         compute_dtype=dtype), dtype)
+        zero_counts()
+        loss = emulator_step(pipe, tokens, targets, SEED).item()
+        if any(counts().values()):
+            raise AssertionError(f"gpt2 {name} twin launched {counts()}")
+        twins[name] = (loss, [p.grad for p in pipe.parameters()])
+        del pipe
+        torch.cuda.empty_cache()
+    l_64, g_64 = twins.pop("f64")
+    largest = [g.abs().max().item() for g in g_64]
+    floor = GRAD_FLOOR * max(largest)
+    worst = {}
+    for name, (l, grads) in twins.items():
+        errs = [(a.double() - b).abs().max().item() / max(m, floor)
+                for a, b, m in zip(grads, g_64, largest)]
+        worst[name] = max(errs)
+        log("gpt2", twin=name, dropout=0.0, loss=f"{l:.9f}",
+            loss_f64=f"{l_64:.9f}", loss_rel=f"{abs(l - l_64) / l_64:.3e}",
+            max_grad_rel=f"{max(errs):.3e}",
+            worst_param=names[errs.index(max(errs))])
+        if abs(l - l_64) > TOL_LOSS_REL * l_64:
+            raise AssertionError(f"gpt2 {name} twin's loss {l} is not within "
+                                 f"{TOL_LOSS_REL} of the float64 {l_64}")
+    tol = max(TOL_GRAD_REL, GRAD_SLACK * worst["plain"])
+    if worst["kernel"] > tol:
+        raise AssertionError(
+            f"gpt2 kernel path's gradients are {worst['kernel']:.3e} of each "
+            f"parameter's largest from the float64 twin's; plain attention "
+            f"is {worst['plain']:.3e} (tol {tol:.3e})")
+    del twins, ref, g_64
+    torch.cuda.empty_cache()
+
+    # (c, d, g) dropout 0.1: 8 steps of the emulator and of the 1f1b table
+    # with the lane, Adam at lr TRAIN_LR, one seed
+    runs, by_run = {}, {}
+    for run in GPT2_RUNS:
+        pipe = build(cfg)
+        ex = table(pipe, run, "except_last") if run != "emulator" else None
+        opt = torch.optim.Adam(pipe.parameters(), lr=TRAIN_LR)
+        torch.cuda.synchronize()
+        zero_counts()
+        torch.cuda.reset_peak_memory_stats()
+        losses, step_s = [], []
+        for b in range(TRAIN_STEPS):
+            tokens, targets = batch(b)
+            t_step = time.perf_counter()
+            opt.zero_grad(set_to_none=True)
+            loss = (emulator_step(pipe, tokens, targets, b) if ex is None
+                    else table_step(ex, tokens, targets, b))
+            opt.step()
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t_step)
+            losses.append(loss.item())
+        launches = counts()
+        steady = sum(step_s[1:]) / (TRAIN_STEPS - 1)
+        key = f"{run}/except_last"
+        runs[key], by_run[key] = losses, launches
+        expected = _gpt2_expected(ex, "except_last", n_blocks, TRAIN_STEPS)
+        log("gpt2", run=key, dropout=cfg.dropout, steps=TRAIN_STEPS,
+            losses=[f"{l:.6f}" for l in losses],
+            ms_per_step=[f"{t * 1e3:.1f}" for t in step_s],
+            steady_ms_per_step=f"{steady * 1e3:.1f}",
+            train_tokens_per_s=f"{tokens_per_step / steady:.1f}",
+            peak_bytes=torch.cuda.max_memory_allocated(),
+            memory_plan=ex.memory_plan() if ex is not None else None,
+            **launches)
+        if not all(math.isfinite(l) for l in losses):
+            raise AssertionError(f"gpt2 {key}: non-finite loss {losses}")
+        if launches != expected:
+            raise AssertionError(f"gpt2 {key} launched {launches} in "
+                                 f"{TRAIN_STEPS} steps, expected {expected}")
+        del pipe, ex, opt
+        torch.cuda.empty_cache()
+    (k_e, l_e), (k_t, l_t) = runs.items()
+    rel = max(abs(a - b) / abs(b) for a, b in zip(l_t, l_e))
+    log("gpt2", trajectory=k_t, against=k_e, max_loss_rel=f"{rel:.3e}")
+    if not rel <= TOL_SCHED_TRAJ:
+        raise AssertionError(f"gpt2 {k_t}'s trajectory is {rel:.3e} from "
+                             f"{k_e}'s (tol {TOL_SCHED_TRAJ})")
+
+    # (g) one step under never: ms and peak of the emulator and the tables
+    pipe = build(dataclasses.replace(cfg))
+    pipe.checkpoint = "never"
+    tokens, targets = batch(0)
+    for key, ex in (("emulator", None),
+                    ("table-gpipe", table(pipe, "gpipe", "never")),
+                    ("table-1f1b", table(pipe, "1f1b", "never"))):
+        for _ in range(2):                   # the second step is measured
+            pipe.zero_grad(set_to_none=True)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            (emulator_step(pipe, tokens, targets, SEED) if ex is None
+             else table_step(ex, tokens, targets, SEED))
+            torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        log("gpt2", peak=key, checkpoint="never", ms_per_step=f"{ms:.1f}",
+            train_tokens_per_s=f"{tokens_per_step / ms * 1e3:.1f}",
+            peak_bytes=torch.cuda.max_memory_allocated(),
+            memory_plan=ex.memory_plan() if ex is not None else None)
+    del pipe, ex
+    torch.cuda.empty_cache()
+
+    # (e) the zoo at full size
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        rc = zoo.main(["gpt2", "--stages", "4", "--chunks", "16", "--batch",
+                       "32", "--schedule", "1f1b", "--steps",
+                       str(TRAIN_STEPS)])
+    lines = out.getvalue().splitlines()
+    for line in lines:
+        print("    " + line, flush=True)
+    zoo_losses = [float(l.split("loss ")[1]) for l in lines
+                  if l.startswith("| step")]
+    log("gpt2", zoo_rc=rc, zoo_losses=zoo_losses,
+        zoo_ms_per_step=lines[-1].split("(")[-1].rstrip(")"),
+        zoo_seconds=f"{time.perf_counter() - t0:.1f}")
+    if rc != 0 or len(zoo_losses) != TRAIN_STEPS or not all(
+            math.isfinite(l) for l in zoo_losses):
+        raise AssertionError(f"apps.zoo gpt2: rc {rc}, losses {zoo_losses}")
+    torch.cuda.empty_cache()
+
+    # (f) deferred BN: one step commits one whole-batch momentum update
+    def bn_stack():
+        gen = torch.Generator(device="cuda").manual_seed(SEED)
+        layers = []
+        for _ in range(BN_DEPTH):
+            layers += [Linear(BN_WIDTH, BN_WIDTH, device="cuda",
+                              generator=gen),
+                       BatchNorm(BN_WIDTH, device="cuda"),
+                       Lambda(torch.relu)]
+        return Sequential(layers)
+
+    x = torch.randn(BN_BATCH, BN_WIDTH, device="cuda",
+                    generator=torch.Generator(device="cuda").manual_seed(7))
+    # the reference: every BN's inputs over the mini-batch, each micro-batch
+    # normalized by its own statistics, as the pipeline runs it
+    seq = bn_stack()
+    seen = [[] for _ in range(BN_DEPTH)]
+    with torch.no_grad():
+        for chunk in x.chunk(BN_CHUNKS):
+            h, k = chunk, 0
+            for layer in seq:
+                if isinstance(layer, BatchNorm):
+                    seen[k].append(h)
+                    k += 1
+                h = layer(h, ctx=StageCtx(train=True))
+    want = []
+    for hs in seen:
+        h = torch.cat(hs)
+        n = h.shape[0]
+        want.append((0.1 * h.mean(0),
+                     0.9 + 0.1 * h.var(0, unbiased=False) * n / (n - 1)))
+    for key in ("emulator", "1f1b"):
+        pipe = Pipe(bn_stack(), chunks=BN_CHUNKS, checkpoint="except_last",
+                    n_stages=4, deferred_batch_norm=True, device="cuda")
+        if key == "emulator":
+            pipe(x, train=True).square().mean().backward()
+        else:
+            HeteroScheduledPipeline(
+                pipe.partitions, pipe.skip_layout, BN_CHUNKS, "except_last",
+                "1f1b", device="cuda").loss_and_grad(
+                    x, loss_fn=lambda o: o.square().mean(-1))
+        bns = [l for l in pipe if isinstance(l, BatchNorm)]
+        errs = [max((b.mean - m).abs().max().item(),
+                    (b.var - v).abs().max().item())
+                for b, (m, v) in zip(bns, want)]
+        log("gpt2", bn=key, layers=len(bns), max_stat_err=f"{max(errs):.3e}")
+        if max(errs) > TOL_BN:
+            raise AssertionError(f"deferred BN through {key}: stats are "
+                                 f"{max(errs):.3e} from one whole-batch "
+                                 f"update (tol {TOL_BN})")
+    try:
+        Pipe(bn_stack(), chunks=BN_CHUNKS, n_stages=4, schedule="zb-h1",
+             deferred_batch_norm=True, device="cuda")
+    except NotImplementedError as e:
+        log("gpt2", bn="zb-h1", refused=repr(str(e)[:60]))
+    else:
+        raise AssertionError("deferred BN with zb-h1 was not refused")
+    del pipe, seq, seen
+    torch.cuda.empty_cache()
+    log("gpt2", seconds=f"{time.perf_counter() - t_phase:.1f}")
+    return by_run
 
 
 def teacher_forced(model, tokens, prompt_len):
@@ -2201,6 +2588,7 @@ def main() -> int:
     eval_launches = phase_slice()
     train_launches = phase_train()
     sched_launches = phase_schedules()
+    gpt2_launches = phase_gpt2()
     gap = phase_generate()
     ctx = phase_serve(gap, smi)
     ctx["resident"] = phase_serve_paged(ctx, smi)
@@ -2234,6 +2622,9 @@ def main() -> int:
             entry["launches_eval"] = eval_launches
         entry["launches_by_schedule"] = {
             run: launches[wrapper] for run, launches in sched_launches.items()}
+        entry["launches_gpt2"] = {
+            run: launches[wrapper] for run, launches in gpt2_launches.items()}
+        entry["gpt2_shape"] = row["gpt2_shape"]
         kernels["kernels"].append(entry)
     log("done", seconds=f"{time.perf_counter() - t_start:.1f}")
     print(smi.splitlines()[0], flush=True)

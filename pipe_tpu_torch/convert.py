@@ -12,15 +12,21 @@ layer by layer. The layouts that differ:
   becomes a ``Linear`` (transposed). Heads are contiguous slices of the
   output dim in both packages, so no head permutation is needed;
 * ``LayerNorm``: ``g/b`` become ``weight/bias``; ``Embedding``: ``table``
-  becomes ``weight``.
+  becomes ``weight``;
+* GPT-2: ``GPT2Embed``'s ``wte``/``wpe`` keep their names, ``GPT2Head``'s
+  ``ln_f``/``proj`` map as a ``LayerNorm`` and a bias-free ``Linear``; the
+  ``@skippable`` stash/pop layers take ``{}``;
+* ``BatchNorm``: ``scale``/``bias`` go to the parameters, the running
+  ``mean``/``var`` to the buffers of the same names.
 
 :func:`load_pipelined_lm_params` copies the JAX ``Trainer``'s params, the
 ``PipelinedLM`` triple ``(stage_params, pre_params, post_params)``, into a
 ``Pipe`` over the tutorial LM cut by ``pipelined_lm_balance``;
-:func:`load_pipelined_lm` copies the same triple into a port ``PipelinedLM``.
+:func:`load_pipelined_lm` copies the same triple (of a ``PipelinedLM`` or a
+``PipelinedGPT2``) into the port's model of the same family.
 :func:`pipelined_lm_arrays` maps such a triple (params, or the gradients
 ``pipe_tpu``'s ``ScheduledPipeline.loss_and_grad`` returns) onto a port
-``PipelinedLM``'s parameter names, as numpy, without copying anything in.
+model's parameter names, as numpy, without copying anything in.
 """
 
 from __future__ import annotations
@@ -31,12 +37,15 @@ import numpy as np
 import torch
 from torch import nn
 
+from .extras.norm import BatchNorm
+from .extras.skip import Skippable
+from .models.gpt2 import GPT2Embed, GPT2Head
 from .ops.layers import (Decoder, Dropout, Embedding, LayerNorm, Lambda,
                          Linear, MultiHeadAttention, PositionalEncoding,
                          Sequential, _TransformerBlockBase)
 
 __all__ = ["load_params", "load_stage_params", "load_pipelined_lm_params",
-           "load_pipelined_lm", "pipelined_lm_arrays"]
+           "load_pipelined_lm", "pipelined_lm_arrays", "stage_arrays"]
 
 
 def _array(dst: torch.Tensor, src: Any, transpose: bool = False
@@ -82,7 +91,16 @@ def _pairs(layer: nn.Module, params: Any
     elif isinstance(layer, _TransformerBlockBase):
         for name in ("attn", "ff1", "ff2", "ln1", "ln2"):
             yield from _pairs(getattr(layer, name), params[name])
-    elif isinstance(layer, (PositionalEncoding, Dropout, Lambda)):
+    elif isinstance(layer, GPT2Embed):
+        yield _array(layer.wte, params["wte"])
+        yield _array(layer.wpe, params["wpe"])
+    elif isinstance(layer, GPT2Head):
+        yield from _pairs(layer.ln_f, params["ln_f"])
+        yield from _linear(layer.proj, params["proj"]["w"], None)
+    elif isinstance(layer, BatchNorm):
+        for name in ("scale", "bias", "mean", "var"):
+            yield _array(getattr(layer, name), params[name])
+    elif isinstance(layer, (PositionalEncoding, Dropout, Lambda, Skippable)):
         if params:
             raise ValueError(f"{type(layer).__name__} has no parameters, got "
                              f"{sorted(params)}")
@@ -91,7 +109,8 @@ def _pairs(layer: nn.Module, params: Any
 
 
 def load_params(layer: nn.Module, params: Any) -> None:
-    """Copy one layer's ``pipe_tpu`` params into ``layer`` in place."""
+    """Copy one layer's ``pipe_tpu`` params into ``layer`` in place (running
+    statistics into its buffers)."""
     with torch.no_grad():
         for dst, arr in list(_pairs(layer, params)):
             dst.copy_(torch.from_numpy(np.array(arr)))   # a writable copy
@@ -105,6 +124,21 @@ def load_stage_params(pipe, params_per_stage: Sequence[Any]) -> None:
                          f"Pipe of {len(pipe.partitions)} stages")
     for part, params in zip(pipe.partitions, params_per_stage):
         load_params(part, params)
+
+
+def stage_arrays(pipe, trees: Sequence[Any]) -> Dict[str, np.ndarray]:
+    """``{name: array}`` over ``pipe``'s parameter and buffer names, from
+    per-stage trees of ``pipe_tpu``'s ``Pipe`` (its params, or gradients of
+    them), each array in the port's layout. Names follow
+    ``named_parameters()`` and ``named_buffers()`` of ``pipe``."""
+    if len(trees) != len(pipe.partitions):
+        raise ValueError(f"{len(trees)} stages of trees for a Pipe of "
+                         f"{len(pipe.partitions)} stages")
+    names = {id(t): name for name, t in (*pipe.named_parameters(),
+                                         *pipe.named_buffers())}
+    return {names[id(dst)]: arr
+            for part, tree in zip(pipe.partitions, trees)
+            for dst, arr in _pairs(part, tree)}
 
 
 def load_pipelined_lm_params(pipe, params: Sequence[Any]) -> None:
@@ -142,21 +176,23 @@ def _pipelined_lm_pairs(model, params: Sequence[Any]
     yield from _pairs(model.embed, pre["embed"])
     for layer, block in zip(model.blocks, blocks):
         yield from _pairs(layer, block)
-    yield from _pairs(model.decoder, post["decoder"])
+    yield from _pairs(model.head, post[model.post_key])
 
 
 def load_pipelined_lm(model, params: Sequence[Any]) -> None:
-    """Copy ``pipe_tpu``'s ``PipelinedLM`` params, the triple of
-    :func:`load_pipelined_lm_params` in either stage layout, into ``model``,
-    a port ``PipelinedLM`` (any stage count: the blocks go in layer order)."""
+    """Copy ``pipe_tpu``'s ``PipelinedLM`` (or ``PipelinedGPT2``) params,
+    the triple of :func:`load_pipelined_lm_params` in either stage layout,
+    into ``model``, the port's model of that family (any stage count: the
+    blocks go in layer order)."""
     with torch.no_grad():
         for dst, arr in list(_pipelined_lm_pairs(model, params)):
             dst.copy_(torch.from_numpy(np.array(arr)))
 
 
 def pipelined_lm_arrays(model, params: Sequence[Any]) -> Dict[str, np.ndarray]:
-    """``{name: array}`` over ``model``'s (a port ``PipelinedLM``) parameter
-    names, from a ``pipe_tpu`` ``PipelinedLM`` triple in either stage layout:
+    """``{name: array}`` over the parameter names of ``model`` (a port
+    ``PipelinedLM`` or ``PipelinedGPT2``), from a ``pipe_tpu`` triple of the
+    same family in either stage layout:
     its params, or the ``(g_stage, g_pre, g_post)`` gradients of
     ``ScheduledPipeline.loss_and_grad``. Each array is in the port's layout
     (``Linear`` weights transposed), so it compares name by name with the

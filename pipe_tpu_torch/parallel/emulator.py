@@ -4,8 +4,17 @@ Counterpart of ``pipe_tpu/parallel/emulator.py``: iterate the schedule's
 wavefront; for each (i, j) run stage j on micro-batch i, under
 ``torch.utils.checkpoint`` when ``i < checkpoint_stop``. The data dependence
 between cycles is plain function composition on one CUDA stream; the first
-stage failure propagates at once. The chaos and hop-health hooks and the skip
-tracker of ``pipe_tpu`` are not ported yet.
+stage failure propagates at once.
+
+With a skip tracker, cross-stage skips and deferred-BatchNorm sums cross each
+task (and so its checkpoint) as explicit inputs and outputs: the pops of
+stage ``j`` are loaded from the persistent tracker and passed in, a fresh
+local tracker serves the stage's ``stash``/``pop`` inside the task, and only
+the outer call writes the task's stashes and stat sums back. The recompute of
+``torch.utils.checkpoint`` re-runs the task into a local tracker that is
+thrown away, so nothing is stashed or counted twice, and a pop's gradient
+flows back to its stash site through autograd. The chaos and hop-health
+hooks of ``pipe_tpu`` are not ported yet (ROADMAP.md: A.7).
 """
 
 from __future__ import annotations
@@ -23,18 +32,48 @@ __all__ = ["run"]
 
 
 def _compute_one(stage: Stage, batch: mb.Batch, ctx: StageCtx,
-                 remat: bool) -> mb.Batch:
+                 remat: bool, skip_tracker=None) -> mb.Batch:
     """Run one (microbatch, stage) task, optionally rematerialized. The ctx
     (and its seed) is bound into the task, so a recomputed forward sees the
     same seed and replays the same dropout."""
+    label = f"chunk{ctx.microbatch}-stage{ctx.stage}"
+    if skip_tracker is None:
+        def task(*inputs):
+            return stage(*inputs, ctx=ctx)
 
-    def task(*inputs):
-        return stage(*inputs, ctx=ctx)
+        task = apply_remat(task, enabled=remat)
+        with torch.profiler.record_function(label):
+            return batch.call(task)
+
+    from ..extras.skip import SkipTracker
+
+    layout = skip_tracker.layout
+    pop_keys = layout.pops_of(ctx.stage) if layout else ()
+    stash_keys = layout.stashes_of(ctx.stage) if layout else ()
+    pop_vals = [skip_tracker.load(ctx.microbatch, ns, name)
+                for ns, name in pop_keys]
+    n_pops = len(pop_keys)
+
+    def task(*args):
+        local = SkipTracker(layout)
+        for (ns, name), v in zip(pop_keys, args[:n_pops]):
+            local.save(ctx.microbatch, ns, name, v)
+        with local.scope(ctx.microbatch, ctx.stage):
+            out = stage(*args[n_pops:], ctx=ctx)
+        stash_vals = tuple(local.load(ctx.microbatch, ns, name)
+                           for ns, name in stash_keys)
+        return out, stash_vals, dict(local.accum)
 
     task = apply_remat(task, enabled=remat)
-    with torch.profiler.record_function(
-            f"chunk{ctx.microbatch}-stage{ctx.stage}"):
-        return batch.call(task)
+    with torch.profiler.record_function(label):
+        result, stash_vals, accums = task(*pop_vals, *batch.values)
+    for (ns, name), v in zip(stash_keys, stash_vals):
+        skip_tracker.save(ctx.microbatch, ns, name, v)
+    for (ns, name), v in accums.items():
+        skip_tracker.accumulate(ns, name, v)
+    if isinstance(result, (tuple, list)):
+        return mb.Batch(tuple(result), atomic=False)
+    return mb.Batch(result, atomic=True)
 
 
 def run(stages: Sequence[Stage],
@@ -43,10 +82,13 @@ def run(stages: Sequence[Stage],
         schedule: Optional[Schedule] = None,
         checkpoint: str = "never",
         train: bool = False,
-        seed: Optional[int] = None) -> List[mb.Batch]:
+        seed: Optional[int] = None,
+        skip_tracker=None) -> List[mb.Batch]:
     """Execute the clock-cycle schedule serially; returns transformed batches.
 
-    Each task's ctx seed is ``seed`` folded over ``(i, j)``.
+    Each task's ctx seed is ``seed`` folded over ``(i, j)``. ``skip_tracker``
+    (a :class:`~pipe_tpu_torch.extras.skip.SkipTracker` over the stages'
+    skip layout) carries skips and stat sums between tasks.
     """
     validate_mode(checkpoint)
     schedule = schedule or GPipeSchedule()
@@ -63,5 +105,6 @@ def run(stages: Sequence[Stage],
             ctx = StageCtx(seed=seed, train=train, microbatch=i, stage=j)
             ctx = ctx.fold(i, j)
             batches[i] = _compute_one(stages[j], batches[i], ctx,
-                                      remat=i < stop)
+                                      remat=i < stop,
+                                      skip_tracker=skip_tracker)
     return batches

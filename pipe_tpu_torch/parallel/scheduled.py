@@ -30,14 +30,32 @@ table), the op runs:
   path). In recompute modes the whole backward runs at B and W is idle.
 * **IDLE** does nothing.
 
+**Skip lanes** (:class:`SkipLanes`, the cross-stage ``@skippable`` carries):
+the stage contract becomes ``stage_fn(s, h, ctx, pops) -> (h, stashes)``,
+tuples over lanes. At FWD(i, src) the lane's stash value, detached, enters a
+per-lane FIFO park at the end of the cycle, in slot ``i % Kf``; FWD(i, dst)
+reads it, as a leaf that requires grad when the micro-batch keeps its graph.
+A recompute micro-batch re-reads the slot at BWD(i, dst), so the slot lives
+until then (JAX's ``reread`` window). BWD(i, dst) parks the pop's gradient in
+a reverse park of depth ``Kg``; BWD(i, src) then runs the backward of the
+stage output and the stash output together, seeded with the cotangent and
+that gradient: the reference's ``PortalOrange``/``PortalBlue`` pair. ``Kf``
+and ``Kg`` are the smallest FIFO depths with no live-window collision
+(:meth:`ScheduledPipeline._skip_tables`, JAX's host-side plan); a park slot
+still in use raises. **Stat lanes** (``stat_spec``, deferred BatchNorm):
+the stage appends a stats output, ``(h, stats)`` or ``(h, stashes,
+stats)``; stats add up over the FWD ops only (a recompute's are dropped) and
+:meth:`ScheduledPipeline.loss_and_grad` returns ``(loss, grads, stats)``.
+A boundary ``h`` may be a tuple of tensors (a ``Pipe`` partition handing on
+several values); the rings detach it leaf by leaf.
+
 Dropout seeds fold as JAX folds its keys: ``(seed, i, s)``, then 0 for the
 pre, 1 for the stage and 2 for the post, so one seed gives the same masks
 under every schedule and checkpoint mode.
 
-The skip lanes and stat lanes (ROADMAP A.2), the structural split, context
-parallelism, tensor-parallel specs, overlapped transport and phase
-compilation (A.8), and ``remat_policy`` are not ported: their fields raise
-``NotImplementedError`` when set.
+The structural split, context parallelism, tensor-parallel specs,
+overlapped transport and phase compilation (A.8), and ``remat_policy``
+(A.11) are not ported: their fields raise ``NotImplementedError`` when set.
 """
 
 from __future__ import annotations
@@ -57,12 +75,10 @@ from ..core.schedule import BWD, FWD, IDLE, WGRAD, get_schedule
 from ..obs.telemetry import get_registry
 from ..utils.platform import DEFAULT_DEVICE, resolve_device
 
-__all__ = ["ScheduledPipeline"]
+__all__ = ["ScheduledPipeline", "SkipLanes"]
 
 # (field, the ROADMAP.md item that ports it)
 _NOT_PORTED = (
-    ("skip_lanes", "A.2, skip lanes of the table executor"),
-    ("stat_spec", "A.2, stat lanes of the table executor"),
     ("split_stage", "A.8, the structural B/W split"),
     ("context_axis", "A.8, context parallelism"),
     ("stage_param_specs", "A.8, tensor-parallel stage params"),
@@ -72,24 +88,119 @@ _NOT_PORTED = (
 )
 
 
+@dataclasses.dataclass(frozen=True)
+class SkipLanes:
+    """Cross-stage ``@skippable`` carries through the table executor.
+
+    ``pairs[l] = (src, dst)``: virtual stage indices, ``src < dst``.
+    ``specs[l]``: the lane's value (a tensor, or anything with a ``dtype``)
+    as a description; the executor reads only its dtype, to refuse integer
+    lanes, and may be given ``()`` (the one-device executor learns shapes
+    from the values). With lanes the stage contract is
+    ``stage_fn(s, h, ctx, pops) -> (h, stashes)``: ``pops`` holds the value
+    of each lane that ends at ``s`` (None at the others), and a stage returns
+    a value for each lane it stashes (the others' entries are ignored: JAX's
+    zeros or None). Counterpart of ``pipe_tpu``'s ``SkipLanes``; its direct
+    ``ppermute`` hop is here the end-of-cycle write into the park.
+    """
+
+    pairs: tuple
+    specs: tuple
+
+
+def _leaves(h) -> tuple:
+    return tuple(h) if isinstance(h, (tuple, list)) else (h,)
+
+
+def _like(h, leaves):
+    return tuple(leaves) if isinstance(h, (tuple, list)) else leaves[0]
+
+
+def _differentiable(t) -> bool:
+    return isinstance(t, torch.Tensor) and (t.is_floating_point()
+                                            or t.is_complex())
+
+
+def _detached(h):
+    """``h`` (a tensor or a tuple of values) with each tensor detached."""
+    return _like(h, [t.detach() if isinstance(t, torch.Tensor) else t
+                     for t in _leaves(h)])
+
+
+def _require_grad(h):
+    """Make each float leaf of ``h`` (detached leaves) require grad."""
+    for t in _leaves(h):
+        if _differentiable(t):
+            t.requires_grad_(True)
+    return h
+
+
+def _or_zeros(g, t):
+    return g if g is not None else torch.zeros_like(t)
+
+
+def _grads_of(h):
+    """The ``.grad`` of each float leaf of ``h`` (zeros where unused)."""
+    return _like(h, [_or_zeros(t.grad, t) if _differentiable(t) else None
+                     for t in _leaves(h)])
+
+
+def _backward(outs, seeds, inputs=None) -> None:
+    """``torch.autograd.backward`` over the (output, seed) pairs whose output
+    is part of a graph and whose seed is given."""
+    pairs = [(o, g) for o, g in zip(outs, seeds)
+             if g is not None and isinstance(o, torch.Tensor)
+             and o.requires_grad]
+    if pairs:
+        torch.autograd.backward([o for o, _ in pairs], [g for _, g in pairs],
+                                inputs=inputs)
+
+
+def _tree_add(a, b):
+    """Add two stats trees; dicts merge by key (a stage reports only its own
+    entries)."""
+    if a is None:
+        return b
+    if b is None:
+        return a
+    if isinstance(a, dict):
+        return {**a, **b, **{k: _tree_add(a[k], b[k]) for k in a if k in b}}
+    if isinstance(a, (tuple, list)):
+        return type(a)(_tree_add(x, y) for x, y in zip(a, b))
+    return a + b
+
+
+def _check_lane_dtype(dtype) -> None:
+    if not (dtype.is_floating_point or dtype.is_complex):
+        raise NotImplementedError(
+            f"skip lane values must be float (got "
+            f"{str(dtype).removeprefix('torch.')}): integer lanes "
+            "would need the float0 cotangent plumbing the h carrier has "
+            "(_ring_to_seed/_vjp_to_ring) on the reverse skip ring too")
+
+
 @dataclasses.dataclass
 class _Entry:
     """A stash slot: the stage input (None on stage 0, whose input is the
-    micro-batch itself) and, for a saved micro-batch, the stage output with
-    its graph."""
+    micro-batch itself) and, for a saved micro-batch, the stage output and
+    stash outputs with their graph and the pops fed in as leaves."""
 
-    h_in: Optional[torch.Tensor]
-    out: Optional[torch.Tensor] = None
+    h_in: Any
+    out: Any = None
+    stashes: Optional[tuple] = None
+    pops: Optional[tuple] = None
 
 
 class _Ring:
-    """``slots`` entries per virtual stage, indexed ``i % slots``; writing a
-    slot in use raises rather than clobbering it."""
+    """``slots`` entries per row (a virtual stage, or a skip lane), indexed
+    ``i % slots``; writing a slot in use raises rather than clobbering it."""
 
-    def __init__(self, n_virtual: int, slots: int, what: str):
+    def __init__(self, n_rows: int, slots: int, what: str,
+                 where: str = "stage"):
         self.slots = slots
         self.what = what
-        self.live = [[None] * max(slots, 1) for _ in range(n_virtual)]
+        self.where = where
+        self.live = [[None] * max(slots, 1) for _ in range(n_rows)]
         self.peak = 0
 
     def put(self, s: int, i: int, value) -> None:
@@ -97,8 +208,9 @@ class _Ring:
         k = i % self.slots
         if row[k] is not None:
             raise RuntimeError(
-                f"{self.what} slot clobber: micro-batch {i} arrives at stage "
-                f"{s} while slot {k} of {self.slots} is still in use")
+                f"{self.what} slot clobber: micro-batch {i} arrives at "
+                f"{self.where} {s} while slot {k} of {self.slots} is still "
+                f"in use")
         row[k] = (i, value)
         self.peak = max(self.peak, sum(e is not None for e in row))
 
@@ -107,20 +219,25 @@ class _Ring:
         k = i % self.slots
         if row[k] is None or row[k][0] != i:
             raise RuntimeError(
-                f"{self.what}: nothing for micro-batch {i} at stage {s} "
-                f"(slot {k} of {self.slots}); the op table is out of order")
+                f"{self.what}: nothing for micro-batch {i} at {self.where} "
+                f"{s} (slot {k} of {self.slots}); the op table is out of "
+                f"order")
         value = row[k][1]
         if pop:
             row[k] = None
         return value
 
+    def empty(self) -> bool:
+        return all(e is None for row in self.live for e in row)
+
 
 @dataclasses.dataclass
 class _Step:
     """What one :meth:`ScheduledPipeline.loss_and_grad` walk carries from op
-    to op: the rings, the cotangents in flight (``gbuf``, keyed ``(i, s)``),
-    this cycle's stage outputs on their way to the next stash, and the
-    loss."""
+    to op: the rings and parks, the cotangents in flight (``gbuf``, keyed
+    ``(i, s)``), this cycle's arrivals (stage outputs on their way to the
+    next stash, lane values and pop gradients on their way to their parks),
+    the stats and the loss."""
 
     m: int
     seed: Optional[int]
@@ -131,9 +248,12 @@ class _Step:
     wstash: _Ring
     params: List[torch.Tensor]
     loss: torch.Tensor
-    gbuf: Dict[Tuple[int, int], torch.Tensor] = dataclasses.field(
+    fpark: List[_Ring] = dataclasses.field(default_factory=list)
+    gpark: List[_Ring] = dataclasses.field(default_factory=list)
+    stats: Any = None
+    gbuf: Dict[Tuple[int, int], Any] = dataclasses.field(
         default_factory=dict)
-    arrivals: List[Tuple[int, int, torch.Tensor]] = dataclasses.field(
+    arrivals: List[Tuple[_Ring, int, int, Any]] = dataclasses.field(
         default_factory=list)
 
 
@@ -163,7 +283,9 @@ class ScheduledPipeline:
 
     Args:
       stage_fn: ``(s, h, ctx) -> h``, the body of virtual stage ``s``
-        (activation shapes equal at every boundary).
+        (activation shapes equal at every boundary); with ``skip_lanes``
+        ``(s, h, ctx, pops) -> (h, stashes)``, and with ``stat_spec`` a
+        stats output appended (:class:`SkipLanes`, module docstring).
       pre_fn: ``(x_mb, ctx) -> h``, run on virtual stage 0.
       post_fn: ``(h, x_mb, ctx) -> [rows]``, the per-row loss on the last
         virtual stage (``PipelinedLM.loss_post_fn``).
@@ -175,6 +297,10 @@ class ScheduledPipeline:
         per-micro-batch policy.
       schedule: a registered name or a ``Schedule`` with ``op_tables``.
       device: where the step runs (the card unless ``"cpu"`` is asked for).
+      skip_lanes: :class:`SkipLanes`, the cross-stage skips.
+      stat_spec: set (to any value, e.g. a description of the stats) when
+        the stages return stats, detached at source (``DeferredBatchNorm``'s
+        are); the port reads only whether it is set.
     """
 
     stage_fn: Callable
@@ -189,7 +315,7 @@ class ScheduledPipeline:
     stage_param_specs: Optional[Any] = None
     split_stage: Optional[Any] = None
     remat_policy: Optional[Any] = None
-    skip_lanes: Optional[Any] = None
+    skip_lanes: Optional[SkipLanes] = None
     stat_spec: Optional[Any] = None
     overlap_transport: Optional[bool] = None
     phase_compile: Optional[bool] = None
@@ -209,8 +335,32 @@ class ScheduledPipeline:
             self.schedule = get_schedule(self.schedule)
         if not hasattr(self.schedule, "op_tables"):
             raise ValueError(f"schedule {self.schedule!r} has no op_tables")
-        if (getattr(self.schedule, "splits_backward", False)
-                and self.checkpoint != "never"):
+        splits = getattr(self.schedule, "splits_backward", False)
+        if self.skip_lanes is not None and not self.skip_lanes.pairs:
+            self.skip_lanes = None          # empty lanes = no skips
+        if self.skip_lanes is not None:
+            if splits:
+                raise NotImplementedError(
+                    "skip lanes do not compose with split-backward "
+                    "schedules (zb-h1): the W op's params-only grads "
+                    "cannot seed the reverse skip ring")
+            if self.n_stages < 2:
+                raise ValueError(
+                    "cross-stage skip lanes need a >=2-device stage axis")
+            S = self.schedule.v * self.n_stages
+            for (src, dst) in self.skip_lanes.pairs:
+                if not (0 <= src < dst < S):
+                    raise ValueError(
+                        f"skip lane ({src}, {dst}) out of range for "
+                        f"{S} stages (need 0 <= src < dst < {S})")
+            for spec in self.skip_lanes.specs:
+                if hasattr(spec, "dtype"):
+                    _check_lane_dtype(spec.dtype)
+        if self.stat_spec is not None and splits:
+            raise NotImplementedError(
+                "stat lanes do not compose with split-backward "
+                "schedules (zb-h1): the W op's seed has no stats slot")
+        if splits and self.checkpoint != "never":
             warnings.warn(
                 f"schedule {self.schedule.name!r} splits backward into B/W "
                 f"ops to fill bubble slots with weight-grad compute, but "
@@ -223,6 +373,11 @@ class ScheduledPipeline:
         self.v = self.schedule.v
         self.n_virtual = self.v * self.n_stages
         self.last_slots: Dict[str, int] = {}
+        pairs = self.skip_lanes.pairs if self.skip_lanes is not None else ()
+        self._pops_at = [[l for l, (_, dst) in enumerate(pairs) if dst == s]
+                         for s in range(self.n_virtual)]
+        self._stashes_at = [[l for l, (src, _) in enumerate(pairs)
+                             if src == s] for s in range(self.n_virtual)]
 
     # --- tables ---
 
@@ -235,14 +390,81 @@ class ScheduledPipeline:
     def memory_plan(self, m: int) -> dict:
         """Per-stage buffer counts of the walk: ``activation_slot_plan``
         over its slot counts, with the cycle count and the (serialized)
-        transport, as ``pipe_tpu``'s ``memory_plan`` reports them."""
+        transport, and the skip parks' slots, as ``pipe_tpu``'s
+        ``memory_plan`` reports them."""
         d = self.n_stages
-        return {"cycles": int(self._tables(m)[0].shape[0]),
+        op, mbi, grp = self._tables(m)
+        plan = {"cycles": int(op.shape[0]),
                 **activation_slot_plan(MemoryPlanInputs(
                     v=self.v, stash_slots=self.schedule.stash_slots(m, d),
                     wstash_slots=self.schedule.wstash_slots(m, d),
                     checkpoint=self.checkpoint)),
                 "transport": "serialized"}
+        if self.skip_lanes is not None:
+            kf, kg = self._skip_tables(m, op, mbi, grp)
+            plan["skip_lanes"] = len(self.skip_lanes.pairs)
+            plan["skip_fwd_park_slots"] = sum(kf)
+            plan["skip_bwd_park_slots"] = sum(kg)
+        return plan
+
+    def _skip_tables(self, m: int, op, mbi, grp, *, fwd_only: bool = False
+                     ) -> Tuple[List[int], List[int]]:
+        """Host-side skip-lane plan from the op tables: per lane ``(src,
+        dst)`` the FIFO depths ``Kf`` (forward park at ``dst``) and ``Kg``
+        (reverse park at ``src``), the smallest with no collision of
+        overlapping live windows under slot ``i % K``. A stash arrives the
+        cycle after FWD(i, src) and lives until FWD(i, dst), or BWD(i, dst)
+        for a micro-batch that recomputes (it needs its pops again); a pop
+        gradient arrives the cycle after BWD(i, dst) and lives until
+        BWD(i, src). A table that uses a value before it arrives raises.
+        ``fwd_only`` plans the FWD-masked tables of :meth:`forward` (no
+        re-read, no reverse park). Counterpart of ``pipe_tpu``'s
+        ``_skip_tables`` without its overlapped-transport branch."""
+        d, S = self.n_stages, self.n_virtual
+        fwd_c = np.full((m, S), -1, np.int64)
+        bwd_c = np.full((m, S), -1, np.int64)
+        for t in range(op.shape[0]):
+            for p in range(d):
+                s = grp[t, p] * d + p
+                if op[t, p] == FWD:
+                    fwd_c[mbi[t, p], s] = t
+                elif op[t, p] == BWD:
+                    bwd_c[mbi[t, p], s] = t
+
+        def fifo_depth(windows):
+            for K in range(1, m + 1):
+                if all(windows[i][1] < windows[i2][0]
+                       for i in range(m) for i2 in range(i + K, m, K)):
+                    return K
+            return m
+
+        kf, kg = [], []
+        for (src, dst) in self.skip_lanes.pairs:
+            wf, wg = [], []
+            for i in range(m):
+                arr_f, use_f = fwd_c[i, src] + 1, fwd_c[i, dst]
+                if not (0 <= fwd_c[i, src] and arr_f <= use_f):
+                    raise ValueError(
+                        f"skip lane ({src},{dst}): stash for micro-batch "
+                        f"{i} arrives at cycle {arr_f} after its FWD "
+                        f"{use_f} — the schedule violates the direct-hop "
+                        f"timing assumption")
+                wf.append((arr_f, use_f if fwd_only or self._keeps_graph(i, m)
+                           else bwd_c[i, dst]))
+                if fwd_only:
+                    continue
+                arr_g, use_g = bwd_c[i, dst] + 1, bwd_c[i, src]
+                if not (0 <= bwd_c[i, dst] and arr_g <= use_g):
+                    raise ValueError(
+                        f"skip lane ({src},{dst}): cotangent for "
+                        f"micro-batch {i} arrives at cycle {arr_g} after "
+                        f"its BWD {use_g} — the schedule violates the "
+                        f"direct-hop timing assumption")
+                wg.append((arr_g, use_g))
+            kf.append(fifo_depth(wf))
+            if not fwd_only:
+                kg.append(fifo_depth(wg))
+        return kf, kg
 
     def stage_passes(self, m: int) -> Dict[str, int]:
         """Stage-body passes one :meth:`loss_and_grad` runs, read from the
@@ -251,7 +473,8 @@ class ScheduledPipeline:
         and under the ``never`` split one per W plus one per B off stage 0
         (stage 0's B has no input cotangent to take: its input is the
         micro-batch). A layer with a kernel in its forward and backward
-        launches it this many times per stage it sits in."""
+        launches it this many times per stage it sits in (the totals
+        divide evenly by the stage count when no table is split)."""
         op, mbi, grp = self._tables(m)
         split = bool((op == WGRAD).any()) and self.checkpoint == "never"
         n_fwd, n_bwd = int((op == FWD).sum()), int((op == BWD).sum())
@@ -280,13 +503,50 @@ class ScheduledPipeline:
         kis = fold_seed(fold_seed(seed, i), s)
         return tuple(fold_seed(kis, k) for k in range(3))
 
-    def _stage(self, s: int, h_in, x_mb, seeds, train: bool, i: int):
-        """Pre (stage 0) then stage ``s``; returns the stage output."""
+    def _stage(self, s: int, h_in, x_mb, seeds, train: bool, i: int,
+               pops=None):
+        """Pre (stage 0) then stage ``s``; returns ``(h, stashes, stats)``
+        (None for the extras not configured)."""
         if s == 0:
             h_in = self.pre_fn(x_mb, StageCtx(seed=seeds[0], train=train,
                                               microbatch=i))
-        return self.stage_fn(s, h_in, StageCtx(seed=seeds[1], train=train,
-                                                microbatch=i, stage=s))
+        ctx = StageCtx(seed=seeds[1], train=train, microbatch=i, stage=s)
+        if self.skip_lanes is None:
+            out = self.stage_fn(s, h_in, ctx)
+        else:
+            out = self.stage_fn(s, h_in, ctx, pops)
+        return self._split_out(out)
+
+    def _split_out(self, out):
+        """Destructure a stage output into ``(h, stashes, stats)`` per the
+        configured extras (None for the absent ones)."""
+        if self.skip_lanes is not None and self.stat_spec is not None:
+            return tuple(out)
+        if self.skip_lanes is not None:
+            h, sk = out
+            return h, sk, None
+        if self.stat_spec is not None:
+            h, st = out
+            return h, None, st
+        return out, None, None
+
+    def _pops(self, st: _Step, s: int, i: int, *, leaf: bool, last: bool):
+        """The pops of stage ``s`` for micro-batch ``i`` from the forward
+        parks (None for lanes that do not end at ``s``), as leaves that
+        require grad when ``leaf``; ``last`` releases their slots."""
+        if self.skip_lanes is None:
+            return None
+        pops = [None] * len(self.skip_lanes.pairs)
+        for l in self._pops_at[s]:
+            v = st.fpark[l].get(0, i, pop=last)
+            pops[l] = v.detach().requires_grad_(True) if leaf else v
+        return tuple(pops)
+
+    def _park_stashes(self, st: _Step, s: int, i: int, stashes) -> None:
+        for l in self._stashes_at[s]:
+            v = stashes[l]
+            _check_lane_dtype(v.dtype)
+            st.arrivals.append((st.fpark[l], 0, i, v.detach()))
 
     def _post(self, h, x_mb, w_mb, seeds, i: int) -> torch.Tensor:
         """The unnormalized loss contribution ``sum(w · per_row)``."""
@@ -302,19 +562,26 @@ class ScheduledPipeline:
             st.stash.put(0, i, _Entry(None))
         entry = st.stash.get(s, i)
         save = self._keeps_graph(i, st.m)
+        pops = self._pops(st, s, i, leaf=save, last=save)
         with torch.set_grad_enabled(save):
             if save and s > 0:
-                entry.h_in.requires_grad_(True)
-            out = self._stage(s, entry.h_in, x_mb, seeds, True, i)
+                _require_grad(entry.h_in)
+            out, stashes, stats = self._stage(s, entry.h_in, x_mb, seeds,
+                                              True, i, pops)
+        if stats is not None:
+            st.stats = _tree_add(st.stats, stats)
+        if stashes is not None:
+            self._park_stashes(st, s, i, stashes)
         if save:
-            entry.out = out
+            entry.out, entry.stashes, entry.pops = out, stashes, pops
         if s < self.n_virtual - 1:
-            st.arrivals.append((s + 1, i, out.detach()))
+            st.arrivals.append((st.stash, s + 1, i, _detached(out)))
             return
         with torch.no_grad(), torch.profiler.record_function(
                 f"table:post-F{i}"):
-            st.loss = st.loss + self._post(out.detach(), x_mb, w_mb, seeds, i)
-        st.h_last.put(0, i, out.detach())
+            st.loss = st.loss + self._post(_detached(out), x_mb, w_mb,
+                                           seeds, i)
+        st.h_last.put(0, i, _detached(out))
 
     def _bwd_op(self, st: _Step, i: int, s: int, x_mb, w_mb) -> None:
         seeds = self._seeds(st.seed, i, s)
@@ -322,36 +589,63 @@ class ScheduledPipeline:
         if s == self.n_virtual - 1:
             # the post's graph, rebuilt from the parked output
             with torch.profiler.record_function(f"table:post-B{i}"):
-                hl = st.h_last.get(0, i, pop=True).requires_grad_(True)
+                hl = _require_grad(st.h_last.get(0, i, pop=True))
                 with torch.enable_grad():
                     c = self._post(hl, x_mb, w_mb, seeds, i)
                 c.backward(st.inv_wsum)
-            seed_h = hl.grad
+            seed_h = _grads_of(hl)
         else:
             seed_h = st.gbuf.pop((i, s))
-        out = entry.out
+        out, stashes, pops = entry.out, entry.stashes, entry.pops
         if out is None:                                 # recompute
+            pops = self._pops(st, s, i, leaf=True, last=True)
             with torch.enable_grad():
                 if s > 0:
-                    entry.h_in.requires_grad_(True)
-                out = self._stage(s, entry.h_in, x_mb, seeds, True, i)
+                    _require_grad(entry.h_in)
+                out, stashes, _ = self._stage(s, entry.h_in, x_mb, seeds,
+                                              True, i, pops)
+        outs, seeds_out = list(_leaves(out)), list(_leaves(seed_h))
+        for l in self._stashes_at[s]:
+            outs.append(stashes[l])
+            seeds_out.append(st.gpark[l].get(0, i, pop=True))
         if st.split:
-            if s > 0:
-                st.gbuf[(i, s - 1)], = torch.autograd.grad(
-                    out, entry.h_in, seed_h, retain_graph=True)
+            ins = [t for t in _leaves(entry.h_in) if _differentiable(t)] \
+                if s > 0 else []
+            if ins:
+                pairs = [(o, g) for o, g in zip(outs, seeds_out)
+                         if g is not None and o.requires_grad]
+                got = iter(torch.autograd.grad(
+                    [o for o, _ in pairs], ins, [g for _, g in pairs],
+                    retain_graph=True, allow_unused=True))
+                st.gbuf[(i, s - 1)] = _like(entry.h_in, [
+                    _or_zeros(next(got), t) if _differentiable(t) else None
+                    for t in _leaves(entry.h_in)])
             st.wstash.put(s, i, seed_h)
         else:
-            out.backward(seed_h)
+            _backward(outs, seeds_out)
             if s > 0:
-                st.gbuf[(i, s - 1)] = entry.h_in.grad
+                st.gbuf[(i, s - 1)] = _grads_of(entry.h_in)
+        for l in self._pops_at[s]:
+            st.arrivals.append((st.gpark[l], 0, i,
+                                _or_zeros(pops[l].grad, pops[l])))
 
     def _w_op(self, st: _Step, i: int, s: int, x_mb, w_mb) -> None:
         entry = st.stash.get(s, i, pop=True)
-        torch.autograd.backward(entry.out, st.wstash.get(s, i, pop=True),
-                                inputs=st.params)
+        _backward(_leaves(entry.out), _leaves(st.wstash.get(s, i, pop=True)),
+                  inputs=st.params)
+
+    def _parks(self, m: int, op, mbi, grp, *, fwd_only: bool = False):
+        if self.skip_lanes is None:
+            return [], []
+        kf, kg = self._skip_tables(m, op, mbi, grp, fwd_only=fwd_only)
+        return ([_Ring(1, k, f"skip lane {l} park", "lane")
+                 for l, k in enumerate(kf)],
+                [_Ring(1, k, f"skip lane {l} reverse park", "lane")
+                 for l, k in enumerate(kg)])
 
     def loss_and_grad(self, x, w, *, seed: Optional[int] = 0):
-        """One step through the tables: returns ``(loss, grads)``.
+        """One step through the tables: returns ``(loss, grads)``, and
+        ``(loss, grads, stats)`` with ``stat_spec``.
 
         ``x``: a tensor or a dict of tensors ``[m, rows, ...]``
         (micro-batched, e.g. by ``core.microbatch.stack_scatter``); ``w``:
@@ -359,7 +653,8 @@ class ScheduledPipeline:
         ``sum(w · per_row) / sum(w)``. Parameter gradients accumulate into
         ``.grad`` as ``backward()`` does (zero them first), and ``grads`` is
         ``{name: grad}`` over ``module``'s parameters. ``seed`` drives
-        dropout (None: none)."""
+        dropout (None: none). ``stats`` is the sum of every FWD op's stats
+        output."""
         m = _leading(x)
         x = _to(x, self.device)
         w = w.to(self.device, torch.float32)
@@ -370,13 +665,15 @@ class ScheduledPipeline:
         get_registry().gauge("scheduled.cycles").set(int(op.shape[0]))
         split = bool((op == WGRAD).any()) and self.checkpoint == "never"
         Sg = self.schedule.stash_slots(m, d)
+        fpark, gpark = self._parks(m, op, mbi, grp)
         st = _Step(
             m=m, seed=seed, split=split, inv_wsum=1.0 / w.sum(),
             stash=_Ring(S, Sg, "stash"), h_last=_Ring(1, Sg, "h_last"),
             wstash=_Ring(S, self.schedule.wstash_slots(m, d) if split else 1,
                          "wstash"),
             params=[p for p in self.module.parameters() if p.requires_grad],
-            loss=torch.zeros((), device=self.device))
+            loss=torch.zeros((), device=self.device), fpark=fpark,
+            gpark=gpark)
         run = {FWD: self._fwd_op, BWD: self._bwd_op, WGRAD: self._w_op}
         for t in range(op.shape[0]):
             for p in range(d):
@@ -387,43 +684,65 @@ class ScheduledPipeline:
                 with torch.profiler.record_function(
                         f"table:{'FBW'[code - 1]}{i}-stage{s}"):
                     run[code](st, i, s, _index(x, i), w[i])
-            for s, i, h in st.arrivals:
-                st.stash.put(s, i, _Entry(h))
+            for ring, s, i, h in st.arrivals:
+                ring.put(s, i, _Entry(h) if ring is st.stash else h)
             st.arrivals.clear()
-        if st.gbuf or any(e is not None for row in st.stash.live for e in row):
+        if st.gbuf or not all(r.empty() for r in (st.stash, *fpark, *gpark)):
             raise RuntimeError(
                 f"schedule {self.schedule.name!r} left state unconsumed at "
                 f"m={m}: its table misses a BWD or WGRAD op")
         self.last_slots = {"stash": st.stash.peak, "h_last": st.h_last.peak,
                            "wstash": st.wstash.peak if split else 0}
+        if self.skip_lanes is not None:
+            self.last_slots["skip_fwd_park"] = sum(r.peak for r in fpark)
+            self.last_slots["skip_bwd_park"] = sum(r.peak for r in gpark)
         grads = {name: (p.grad if p.grad is not None else torch.zeros_like(p))
                  for name, p in self.module.named_parameters()}
-        return (st.loss * st.inv_wsum).detach(), grads
+        loss = (st.loss * st.inv_wsum).detach()
+        if self.stat_spec is not None:
+            return loss, grads, st.stats
+        return loss, grads
 
-    def forward(self, x, *, seed: Optional[int] = 0,
-                train: bool = False) -> torch.Tensor:
+    def forward(self, x, *, seed: Optional[int] = 0, train: bool = False):
         """The tables' FWD ops only (BWD and WGRAD masked to IDLE): the last
-        virtual stage's outputs ``[m, rows, ...]``, no post applied. Runs
-        under the caller's grad mode."""
+        virtual stage's outputs ``[m, rows, ...]`` (a tuple of them for a
+        tuple boundary), no post applied, and ``(outputs, stats)`` with
+        ``stat_spec``: every micro-batch runs once per stage, so stats
+        count once. Skips ride the forward parks, no reverse. Runs under
+        the caller's grad mode."""
         m = _leading(x)
         x = _to(x, self.device)
         op, mbi, grp = self._tables(m)
         d, S = self.n_stages, self.n_virtual
-        stash = _Ring(S, self.schedule.stash_slots(m, d), "stash")
-        outs: List[Optional[torch.Tensor]] = [None] * m
+        fpark, _ = self._parks(m, op, mbi, grp, fwd_only=True)
+        st = _Step(m=m, seed=seed, split=False, inv_wsum=None,
+                   stash=_Ring(S, self.schedule.stash_slots(m, d), "stash"),
+                   h_last=None, wstash=None, params=[], loss=None,
+                   fpark=fpark)
+        outs: List[Any] = [None] * m
         for t in range(op.shape[0]):
-            arrivals = []
             for p in range(d):
                 if int(op[t, p]) != FWD:
                     continue
                 i, s = int(mbi[t, p]), int(grp[t, p]) * d + p
-                h_in = stash.get(s, i, pop=True) if s > 0 else None
-                out = self._stage(s, h_in, _index(x, i),
-                                  self._seeds(seed, i, s), train, i)
+                h_in = st.stash.get(s, i, pop=True) if s > 0 else None
+                pops = self._pops(st, s, i, leaf=False, last=True)
+                out, stashes, stats = self._stage(
+                    s, h_in, _index(x, i), self._seeds(seed, i, s), train,
+                    i, pops)
+                if stats is not None:
+                    st.stats = _tree_add(st.stats, stats)
+                if stashes is not None:
+                    self._park_stashes(st, s, i, stashes)
                 if s == S - 1:
                     outs[i] = out
                 else:
-                    arrivals.append((s + 1, i, out))
-            for s, i, h in arrivals:
-                stash.put(s, i, h)
-        return torch.stack(outs)
+                    st.arrivals.append((st.stash, s + 1, i, out))
+            for ring, s, i, h in st.arrivals:
+                ring.put(s, i, h)
+            st.arrivals.clear()
+        if isinstance(outs[0], (tuple, list)):
+            res = tuple(torch.stack(col) for col in zip(*outs))
+        else:
+            res = torch.stack(outs)
+        return (res, st.stats) if self.stat_spec is not None else res

@@ -8,15 +8,23 @@ Counterpart of ``pipe_tpu/pipe.py`` without a mesh:
 * ``split_balance`` partitioning into per-stage sub-``Sequential``s;
 * the container protocol ``__len__``/``__getitem__``/``__iter__``;
 * ``forward(*inputs, train=False, seed=None)`` = check, scatter, run the
-  schedule's wavefront (``schedule.cycles``), gather.
+  schedule's wavefront (``schedule.cycles``), gather;
+* ``@skippable`` layers: ``verify_skippables`` and the static
+  ``skip_layout`` at construction, a skip tracker threaded through the
+  emulator's tasks;
+* ``deferred_batch_norm=True``: plain ``BatchNorm`` layers become
+  ``DeferredBatchNorm``, and a train forward commits one running-stats
+  update per mini-batch, in place on their buffers (``pipe_tpu`` returns
+  ``(out, new_params)``; here the weights live in the modules).
 
 ``Pipe`` is an ``nn.Module``: the partitions (and their weights) are its
 submodules, on ``device``. Every registered schedule is accepted, as by
 ``pipe_tpu``'s ``Pipe`` without a mesh; the table-only schedules
 (``interleaved-1f1b``, ``zb-h1``, ``zb-h2``) raise from ``cycles`` at the
 first forward, with ``pipe_tpu``'s message. Training through the op tables
-is ``parallel/scheduled.py``. The mesh executors, the planner front door and
-deferred batch norm are not ported yet and raise ``NotImplementedError``.
+is ``parallel/scheduled.py`` (and ``parallel/hetero_scheduled.py`` for a
+``Pipe``'s partitions). The mesh executors and the planner front door are not
+ported yet and raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -30,6 +38,9 @@ from .core.partition import (BalanceError, Stage, split_balance,
                              verify_splitting, verify_stages)
 from .core.remat import validate_mode
 from .core.schedule import Schedule, get_schedule
+from .extras.norm import (DeferredBatchNorm, commit_batchnorm_stats,
+                          convert_deferred_batch_norm)
+from .extras.skip import SkipTracker, inspect_skip_layout, verify_skippables
 from .ops.layers import Sequential
 from .parallel import emulator
 from .utils.platform import DEFAULT_DEVICE, resolve_device
@@ -65,8 +76,6 @@ class Pipe(nn.Module):
             raise _not_ported("Pipe(mesh=...)", "multi-device executors")
         if plan is not None:
             raise _not_ported("Pipe(plan=...)", "core/planner.py")
-        if deferred_batch_norm:
-            raise _not_ported("deferred_batch_norm", "extras/norm.py")
         # --- fail-fast validation ---
         if not isinstance(chunks, int) or isinstance(chunks, bool):
             raise TypeError("chunks must be an integer")
@@ -82,6 +91,15 @@ class Pipe(nn.Module):
             seen.add(id(layer))
         sched_obj = (get_schedule(schedule) if isinstance(schedule, str)
                      else schedule)
+        if deferred_batch_norm and getattr(sched_obj, "splits_backward",
+                                           False):
+            raise NotImplementedError(
+                "deferred_batch_norm does not compose with "
+                "split-backward schedules (zb-h1): the W op's vjp seed "
+                "has no stats slot — pick 'gpipe' or '1f1b'")
+        if deferred_batch_norm:
+            module = convert_deferred_batch_norm(module, chunks)
+        self.deferred_batch_norm = deferred_batch_norm
 
         self.device = resolve_device(device)
         self.chunks = chunks
@@ -102,6 +120,12 @@ class Pipe(nn.Module):
         verify_stages(self.partitions)
         verify_splitting(self.partitions)
         self._schedule: Schedule = sched_obj
+
+        # Skip wiring: the fail-fast check and the static stash->pop layout.
+        verify_skippables(module)
+        self.skip_layout = inspect_skip_layout(self.partitions)
+        self._has_bn = any(isinstance(l, DeferredBatchNorm) for l in self)
+        self._needs_tracker = self.skip_layout.num_skips > 0 or self._has_bn
 
     # --- container protocol ---
 
@@ -124,12 +148,19 @@ class Pipe(nn.Module):
     def forward(self, *inputs, train: bool = False, seed: Optional[int] = None):
         """Scatter the batch into ``chunks`` micro-batches, run the
         schedule's wavefront over the stages, gather. ``seed`` drives
-        dropout when ``train``; checkpointing engages only in training."""
+        dropout when ``train``; checkpointing engages only in training. A
+        train forward commits the deferred-BatchNorm stats of the whole
+        mini-batch once, in place."""
         mb.check(*inputs)
         batches = mb.scatter(inputs, self.chunks)
         stages = [Stage(p, name=f"stage{j}")
                   for j, p in enumerate(self.partitions)]
+        tracker = (SkipTracker(self.skip_layout) if self._needs_tracker
+                   else None)
         batches = emulator.run(stages, batches, schedule=self._schedule,
                                checkpoint=self.checkpoint, train=train,
-                               seed=seed)
-        return mb.gather(batches)
+                               seed=seed, skip_tracker=tracker)
+        out = mb.gather(batches)
+        if self._has_bn and train:
+            commit_batchnorm_stats(self.partitions, tracker.accum)
+        return out

@@ -1,7 +1,8 @@
 """pipe_tpu_torch on a CUDA card: the kernels (flash forward, dQ, dK/dV, with
 and without dropout) against their plain versions, the Pipe slice and a
 training step through them, a table-executor step (1f1b, zb-h1) against the
-emulator's, and KV-cached generation (which runs no kernel) against the Pipe
+emulator's, the GPT-2 skip lane through the tables against the emulator,
+deferred BatchNorm, and KV-cached generation (which runs no kernel) against the Pipe
 forward. Skipped without a card.
 
 This file imports only torch and pipe_tpu_torch, so it runs on a machine
@@ -125,6 +126,14 @@ def test_backward_kernels_match_plain_versions(cuda, bh, s, d, causal, rate):
     for got, want in zip((dk, dv), tfa.flash_attention_bwd_dkv_ref(
             q, k, v, do, lse_ref, delta, **ref)):
         _close(got, want)
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_kernels_at_the_gpt2_shape(cuda, rate):
+    """GPT-2-small's training shape: (b*h, s, d) = (2 x 12, 1024, 64),
+    causal, its attention dropout 0.1: 8 key tiles per causal row block."""
+    test_backward_kernels_match_plain_versions(cuda, 24, 1024, 64, True,
+                                               rate)
 
 
 def test_flash_attention_gradients_match_plain_autograd(cuda):
@@ -257,6 +266,73 @@ def test_table_executor_step_matches_the_emulator(cuda, schedule, checkpoint):
     for name, g in ref.items():
         assert (grads[name] - g).abs().max().item() <= \
             TOL * max(1.0, g.abs().max().item()), name
+
+
+@pytest.mark.parametrize("schedule", ["gpipe", "1f1b"])
+def test_gpt2_skip_lane_step_matches_the_emulator(cuda, schedule):
+    """The tiny embed-skip GPT-2 on the card at dropout 0.1: one step of the
+    table walk with the skip on a lane gives the emulator ``Pipe``'s loss
+    and gradients (the same kernels, the same masks), with the launches
+    its tables imply; deferred BN commits on the card too."""
+    from pipe_tpu_torch.models import gpt2
+    from pipe_tpu_torch.models.common import per_row_ce
+    from pipe_tpu_torch.parallel.hetero_scheduled import \
+        HeteroScheduledPipeline
+
+    cfg = dataclasses.replace(gpt2.GPT2Config().tiny(), dropout=0.1,
+                              attn_impl="flash")
+    tokens = torch.randint(0, cfg.vocab, (8, cfg.seq_len), device=cuda,
+                           generator=torch.Generator(device=cuda).manual_seed(1))
+    targets = tokens.roll(-1, -1)
+    counters = (tfa.flash_attention_fwd, tfa.flash_attention_bwd_dq,
+                tfa.flash_attention_bwd_dkv)
+    results = []
+    for table in (False, True):
+        seq = gpt2.build_sequential(
+            cfg, embed_skip=True, device=cuda,
+            generator=torch.Generator(device=cuda).manual_seed(5))
+        pipe = pt.Pipe(seq, chunks=4, balance=[2, 2, 2, 2], device=cuda)
+        before = [c.launches for c in counters]
+        if table:
+            ex = HeteroScheduledPipeline(pipe.partitions, pipe.skip_layout,
+                                         4, "except_last", schedule,
+                                         device=cuda)
+            loss, _ = ex.loss_and_grad(tokens, targets=targets,
+                                       loss_fn=per_row_ce, seed=3)
+        else:
+            loss = per_row_ce(pipe(tokens, train=True, seed=3),
+                              targets).mean()
+            loss.backward()
+        moved = [c.launches - b for c, b in zip(counters, before)]
+        # except_last, 4 micro-batches: 4 forwards and 3 recomputes a block
+        assert moved == [cfg.n_layers * 7, cfg.n_layers * 4,
+                         cfg.n_layers * 4]
+        results.append((loss.item(), [p.grad for p in pipe.parameters()]))
+    (l_e, g_e), (l_t, g_t) = results
+    assert abs(l_t - l_e) <= 1e-5 * abs(l_e)
+    for a, b in zip(g_t, g_e):
+        assert (a - b).abs().max().item() <= TOL * max(1.0,
+                                                       b.abs().max().item())
+
+
+def test_deferred_batch_norm_commits_on_the_card(cuda):
+    from pipe_tpu_torch.extras.norm import BatchNorm
+
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    seq = pt.Sequential([pt.Linear(16, 16, device=cuda, generator=gen),
+                         BatchNorm(16, device=cuda)])
+    pipe = pt.Pipe(seq, chunks=4, n_stages=2, deferred_batch_norm=True,
+                   device=cuda)
+    x = torch.randn(32, 16, device=cuda, generator=gen)
+    with torch.no_grad():
+        pipe(x, train=True)
+        h = pipe[0](x)
+    n = h.shape[0]
+    torch.testing.assert_close(pipe[1].mean, 0.1 * h.mean(0),
+                               rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(
+        pipe[1].var, 0.9 + 0.1 * h.var(0, unbiased=False) * n / (n - 1),
+        rtol=1e-5, atol=1e-6)
 
 
 @pytest.mark.parametrize("schedule", ["1f1b", "interleaved", "zb-h1"])

@@ -44,6 +44,7 @@ for schedule, ck in (("1f1b", "except_last"), ("zb-h1", "never")):
                              log_every=0)
     assert info["steps"] == 1 and info["loss"] == info["loss"]
 from pipe_tpu_torch.apps import generate as gen_app
+from pipe_tpu_torch.ops.layers import Linear
 from pipe_tpu_torch.inference import (GenerationConfig, Generator,
                                       quantize_params)
 lm = pt.PipelinedLM(cfg, 2, device="cpu")
@@ -56,6 +57,25 @@ for model, gcfg in ((lm, GenerationConfig(max_new_tokens=4, temperature=0.0)),
     assert toks.shape == (2, gcfg.max_new_tokens)
 assert tr.generate(state, prompt, max_new_tokens=3).shape == (2, 3)
 assert gen_app.main(["--tiny", "--device", "cpu", "--max-new", "3"]) == 0
+from pipe_tpu_torch.apps import zoo
+from pipe_tpu_torch.extras.norm import BatchNorm
+from pipe_tpu_torch.models import gpt2
+from pipe_tpu_torch.models.common import per_row_ce
+from pipe_tpu_torch.parallel.hetero_scheduled import HeteroScheduledPipeline
+assert zoo.main(["gpt2", "--tiny", "--device", "cpu", "--steps", "1"]) == 0
+gcfg = gpt2.GPT2Config().tiny()
+gpipe = pt.Pipe(gpt2.build_sequential(gcfg, embed_skip=True, device="cpu"),
+                chunks=2, balance=[2, 2, 2, 2], device="cpu")
+toks = torch.randint(0, gcfg.vocab, (4, gcfg.seq_len))
+ex = HeteroScheduledPipeline(gpipe.partitions, gpipe.skip_layout, 2,
+                             "except_last", "1f1b", device="cpu")
+loss, _ = ex.loss_and_grad(toks, targets=toks.roll(-1, -1), loss_fn=per_row_ce)
+assert loss.item() == loss.item() and ex.memory_plan()["skip_lanes"] == 1
+bn = pt.Pipe(pt.Sequential([Linear(4, 4, device="cpu"),
+                            BatchNorm(4, device="cpu")]),
+             chunks=2, n_stages=2, deferred_batch_norm=True, device="cpu")
+bn(torch.randn(8, 4), train=True)
+assert bn[1].mean.abs().sum() > 0
 bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib")
        and sys.modules[m] is not None]
 assert not bad, bad
@@ -69,8 +89,16 @@ import pipe_tpu_torch as pt
 from pipe_tpu_torch.ops.layers import Linear
 from pipe_tpu_torch.train import Trainer, TrainerConfig
 from pipe_tpu_torch.parallel.scheduled import ScheduledPipeline
-from pipe_tpu_torch.apps import generate as gen_app, lm_tutorial
+from pipe_tpu_torch.apps import generate as gen_app, lm_tutorial, zoo
+from pipe_tpu_torch.extras.norm import BatchNorm
+from pipe_tpu_torch.models.gpt2 import GPT2Config, PipelinedGPT2
+from pipe_tpu_torch.parallel.hetero_scheduled import HeteroScheduledPipeline
 for make in (lambda: Linear(4, 4),
+             lambda: BatchNorm(4),
+             lambda: PipelinedGPT2(GPT2Config().tiny()),
+             lambda: zoo.main(["gpt2", "--tiny"]),
+             lambda: HeteroScheduledPipeline(
+                 [pt.Sequential([Linear(4, 4, device="cpu")])], None, 2),
              lambda: pt.PipelinedLM(pt.LMConfig().tiny()),
              lambda: gen_app.main(["--tiny"]),
              lambda: pt.build_sequential(pt.LMConfig().tiny()),

@@ -196,7 +196,6 @@ def test_pipe_fail_fast_probes_raise_the_same_types(probe):
 
 
 @pytest.mark.parametrize("kwargs", [{"mesh": object()}, {"plan": "auto"},
-                                    {"deferred_batch_norm": True},
                                     {"mesh": object(), "schedule": "1f1b"}])
 def test_pipe_refuses_what_is_not_ported(kwargs):
     with pytest.raises(NotImplementedError, match="ROADMAP"):

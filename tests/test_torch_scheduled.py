@@ -287,7 +287,6 @@ def test_forward_walks_the_fwd_ops(schedule):
 # --- construction -------------------------------------------------------------
 
 @pytest.mark.parametrize("field,value,item", [
-    ("skip_lanes", object(), "A.2"), ("stat_spec", {}, "A.2"),
     ("split_stage", "auto", "A.8"), ("context_axis", "ctx", "A.8"),
     ("stage_param_specs", {}, "A.8"), ("overlap_transport", True, "A.8"),
     ("phase_compile", True, "A.8"), ("remat_policy", object(), "A.11")])
