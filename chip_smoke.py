@@ -14,8 +14,10 @@ exits non-zero without a result line:
    dQ and dK/dV kernels must show both.
 3. kernels -- each kernel (flash forward, dQ, dK/dV) against its plain
    PyTorch version on the card at the shapes the main paths give it
-   (GPT-2-small's (24, 1024, 64) causal with dropout 0.1 among them, timed
-   as the tutorial LM's training shape is) and a few more, with and
+   (GPT-2-small's (24, 1024, 64) causal with dropout 0.1 and BERT-large's
+   (16, 512, 64) non-causal with dropout 0.1 among them, timed as the
+   tutorial LM's training shape is, with the grid's blocks beside the
+   card's SMs) and a few more, with and
    without attention dropout (the plain versions fed the same Philox mask),
    with its time, the plain version's, one PyTorch library
    call's, and the least time the card could take (bytes or operations over
@@ -81,6 +83,61 @@ exits non-zero without a result line:
    synchronize), train tokens/s and peak bytes of the (c) runs, and one
    step's ms and peak under never of the emulator, the table gpipe and the
    table 1f1b.
+5d. remat -- ``remat_policy`` on the tutorial LM at full width through the
+   1f1b table under except_last, kernels on. (a) Dropout 0, one set of
+   weights: the table's step with ``dots_saveable`` against the same step
+   without a policy, and the emulator ``Pipe`` called with
+   ``remat_policy="dots_saveable"`` against its policy-free step: loss within
+   1e-5 relative, every gradient within 1e-4 x max(1, max|g|); forward, dQ
+   and dK/dV launches equal with and without the policy and pinned to
+   ``stage_passes`` x 8 layers; fewer matrix products dispatched under the
+   policy (``core.remat.count_dots``). (b) Dropout 0.2: 8 ``Trainer`` steps
+   of the 1f1b table without, with, with and without the policy (in turns):
+   launches pinned, trajectories within 1e-4 of each other; ms per step,
+   train tokens/s and peak bytes of each. In this phase and the three
+   after it each peak is printed beside the bytes still allocated when it
+   was reset (``resident_bytes``), which it counts too.
+5e. gpt2_serve -- GPT-2-small at full width (random weights from a seed,
+   fp32) served by ``ServeEngine`` over ``SingleDeviceSlotBackend`` with 8
+   slots: 12 greedy requests of 16-128 random tokens and 32-64 new tokens,
+   through the slab tick, the paged pool (blocks of 16, resident loop) and
+   the n-gram speculative lane (K 4, resident). Gates: every request
+   ``ok`` to its length; each stream equals the port's batch-1
+   ``Generator`` token for token up to the first step where the
+   reference's top-2 margin is under 1e-4 (a near tie; counted); the
+   reference's tokens are the argmax of a naive re-forward of the whole
+   sequence wherever that margin exceeds 1e-4; no flash launch by the
+   engine; ``apps.generate --family gpt2`` and ``apps.serve --family gpt2``
+   exit 0 at full width. Each engine serves the traffic twice (the first
+   run captures its programs); prints TTFT p50/p99 and generated tokens/s of
+   each run.
+5f. bert -- BERT-large at its published width (vocab 30,522, d_model 1,024,
+   16 heads, d_ff 4,096, 24 layers, seq 512, dropout 0.1; untied MLM
+   projection), BASELINE config #4's composition on one device: 8 stages
+   x interleave 3 (24 virtual stages of one block) through the
+   interleaved-1F1B table, chunks 32, batch 32, except_last, Adam at lr
+   1e-4. (a) Dropout 0: one step with the kernels, with plain attention and
+   with plain attention in float64 on the same weights, held as the train
+   phase's twins. (b) From the same weights, one step of the table gpipe
+   over the 24 stages: loss within 1e-5 relative and every gradient within
+   1e-4 x max(1, max|g|) of the interleaved table's. (c) ``apps.zoo bert
+   --stages 8 --interleave 3 --schedule interleaved-1f1b --chunks 32
+   --batch 32 --lr 1e-4``: 8 dropout-0.1 steps, every loss finite. (d)
+   Its forward, dQ and dK/dV launches pinned to ``stage_passes``: 24 x (32
+   + 31) forwards and 768 each of dQ and dK/dV a step. (e) The zoo's first
+   4 steps again with ``remat_policy="dots_saveable"``: trajectory within
+   1e-4 of the zoo's, launches equal; ms per step, train tokens/s and peak
+   bytes of both.
+5g. vit -- ViT-L/16 at its published width (224 x 224 x 3, patch 16, 197
+   tokens, d_model 1,024, 24 layers, 1,000 classes, dropout 0.1). (a)
+   ``apps.zoo vit --stages 8 --chunks 8 --batch 32 --lr 1e-4``: 8 steps,
+   every loss finite, no kernel launch (197 tokens fail ``supports()``, so
+   every block takes plain attention, as ``pipe_tpu``'s gate chooses); ms
+   per step. (b) ``Pipe(balance=[3, 3, 3, 3, 3, 3, 3, 5], chunks=8)``
+   (embed + 2 blocks | 3 blocks x 6 | 4 blocks + head): one dropout-0.1 step
+   of the emulator and one of the hetero 1f1b table from the same weights
+   and seed: loss within 1e-5 relative, every gradient within 1e-4 x
+   max(1, max|g|), no kernel launch; ms of each step.
 6. generate -- KV-cached generation (``Generator`` over
    ``PipelinedLM.from_sequential`` of the eval slice's weights): batch 8
    prompts of 128 eval tokens, 128 new tokens. Gates: teacher-forced cached
@@ -224,6 +281,28 @@ GPT2_TWINS = [(s, c) for s in ("gpipe", "1f1b")
 GPT2_RUNS = ("emulator", "1f1b")          # both under except_last
 BN_WIDTH, BN_DEPTH, BN_CHUNKS, BN_BATCH = 1024, 4, 8, 256
 TOL_BN = 1e-5
+# Remat phase: the policy the tables take (JAX's headline program is
+# except_last + dots_saveable) and the order of the timed runs.
+REMAT_POLICY = "dots_saveable"
+REMAT_RUNS = (None, REMAT_POLICY, REMAT_POLICY, None)
+# GPT-2 serve phase: slots, requests (prompt and new-token lengths drawn
+# from a seeded rng), the prompt buckets, the speculative depth, and the
+# top-2 margin below which a step is a near tie.
+GPT2_SERVE_SLOTS = 8
+GPT2_SERVE_REQUESTS = 12
+GPT2_SERVE_PROMPT = (16, 128)
+GPT2_SERVE_NEW = (32, 64)
+GPT2_SERVE_SPEC_K = 4
+GPT2_TIE = 1e-4
+# BERT phase: BASELINE config #4 on one device (8 stages x interleave 3 =
+# 24 virtual stages of one block, chunks 32 of one 512-token row), and the
+# steps of (e) under the policy.
+BERT_STAGES, BERT_INTERLEAVE, BERT_CHUNKS, BERT_BATCH = 8, 3, 32, 32
+BERT_POLICY_STEPS = 4
+# ViT phase: BASELINE config #5 (8 stages, chunks 8, batch 32) and its
+# uneven Pipe balance over embed + 24 blocks + head.
+VIT_STAGES, VIT_CHUNKS, VIT_BATCH = 8, 8, 32
+VIT_BALANCE = [3] * 7 + [5]
 # Generation phase: batch, prompt and new tokens (prompt + new = 256, a
 # sequence the flash forward takes, for the reference forward); beam search
 # on the first GEN_BEAM_BATCH prompts; sampling; int8 against fp32 logits,
@@ -297,6 +376,9 @@ DROPOUT = 0.2
 # GPT-2-small's training micro-batch: b*h = 2 x 12, seq 1024, 768 / 12.
 GPT2_SHAPE = (24, 1024, 64, True)
 GPT2_DROPOUT = 0.1
+# BERT-large's training micro-batch: one row of 512 tokens, 16 heads of 64.
+BERT_SHAPE = (16, 512, 64, False)
+BERT_DROPOUT = 0.1
 DROP_SEEDS = (12345, (1 << 62) + 977)   # the second uses the key's high word
 TIMED_SHAPES = [(64, 128, 64, True), (16, 512, 64, True), (8, 256, 128, False)]
 # Ragged and odd shapes the kernel also takes: checked, not timed.
@@ -519,7 +601,8 @@ def phase_kernels() -> dict:
     # below) and at the other shapes (checked); GPT-2-small's with its own
     # dropout rate.
     for shape, drop in ([(sh, DROPOUT) for sh in [TRAIN_SHAPE] + TIMED_SHAPES
-                         + EDGE_SHAPES] + [(GPT2_SHAPE, GPT2_DROPOUT)]):
+                         + EDGE_SHAPES] + [(GPT2_SHAPE, GPT2_DROPOUT),
+                                           (BERT_SHAPE, BERT_DROPOUT)]):
         bh, s, d, causal = shape
         for seed, rate in [(0, 0.0)] + [(sd, drop) for sd in DROP_SEEDS]:
             *_, (err_o, err_l) = compare_fwd(bh, s, d, causal, torch.float32,
@@ -650,10 +733,17 @@ def phase_kernels() -> dict:
         return rows
 
     # The training shapes with dropout, as the main paths call the kernels:
-    # the tutorial LM's, then GPT-2-small's (its rows ride under gpt2_shape).
+    # the tutorial LM's, then GPT-2-small's and BERT-large's (their rows ride
+    # under gpt2_shape and bert_shape). Every kernel's grid is (bh, s / 64)
+    # blocks of 128 threads.
     rows = timed(TRAIN_SHAPE, DROPOUT)
-    for name, row in timed(GPT2_SHAPE, GPT2_DROPOUT).items():
-        rows[name]["gpt2_shape"] = row
+    for key, (shape, rate) in (("gpt2_shape", (GPT2_SHAPE, GPT2_DROPOUT)),
+                               ("bert_shape", (BERT_SHAPE, BERT_DROPOUT))):
+        bh, s = shape[:2]
+        log("kernels", shape=key, grid_blocks=bh * -(-s // 64),
+            sms=torch.cuda.get_device_properties(0).multi_processor_count)
+        for name, row in timed(shape, rate).items():
+            rows[name][key] = row
     return rows
 
 
@@ -764,6 +854,15 @@ def _counters():
     from pipe_tpu_torch.ops import flash_attention as fa
     return (fa.flash_attention_fwd, fa.flash_attention_bwd_dq,
             fa.flash_attention_bwd_dkv)
+
+
+def _launch_counts() -> dict:
+    return {c.__name__: c.launches for c in _counters()}
+
+
+def _zero_launches() -> None:
+    for c in _counters():
+        c.launches = 0
 
 
 def phase_train() -> dict:
@@ -913,8 +1012,9 @@ def _sched_trainer(cfg, schedule, checkpoint):
     return trainer
 
 
-def _expected_launches(executor, lps: int, steps: int = 1) -> dict:
-    passes = executor.stage_passes(CHUNKS)
+def _expected_launches(executor, lps: int, steps: int = 1,
+                       m: int = CHUNKS) -> dict:
+    passes = executor.stage_passes(m)
     return {"flash_attention_fwd": steps * lps * passes["forward"],
             "flash_attention_bwd_dq": steps * lps * passes["backward"],
             "flash_attention_bwd_dkv": steps * lps * passes["backward"]}
@@ -937,13 +1037,6 @@ def phase_schedules() -> dict:
     cfg = LMConfig(vocab=len(vocab), attn_impl="flash")     # dropout 0.2
     lps = cfg.n_layers // N_STAGES
     tokens_per_step = TRAIN_BATCH * BPTT
-
-    def counts():
-        return {c.__name__: c.launches for c in _counters()}
-
-    def zero_counts():
-        for c in _counters():
-            c.launches = 0
 
     # (a) dropout-0 twins from one set of weights
     trainer = _sched_trainer(dataclasses.replace(cfg, dropout=0.0), "1f1b",
@@ -970,10 +1063,10 @@ def phase_schedules() -> dict:
             ex = dataclasses.replace(base, schedule=schedule,
                                      checkpoint=checkpoint)
         trainer.optimizer.zero_grad(set_to_none=True)
-        zero_counts()
+        _zero_launches()
         loss, grads = ex.loss_and_grad(x, w, seed=SEED)
         torch.cuda.synchronize()
-        launches = counts()
+        launches = _launch_counts()
         loss = loss.item()
         errs = [(grads[n] - g).abs().max().item() / m
                 for n, g, m in zip(names, ref, scale)]
@@ -1007,7 +1100,7 @@ def phase_schedules() -> dict:
         state = trainer.init_state()
         torch.cuda.synchronize()
         setup_s = time.perf_counter() - t0
-        zero_counts()
+        _zero_launches()
         torch.cuda.reset_peak_memory_stats()
         losses, step_s = [], []
         for b in range(TRAIN_STEPS):
@@ -1018,7 +1111,7 @@ def phase_schedules() -> dict:
             torch.cuda.synchronize()
             step_s.append(time.perf_counter() - t_step)
             losses.append(info["loss"])
-        launches = counts()
+        launches = _launch_counts()
         peak = torch.cuda.max_memory_allocated()
         steady = sum(step_s[1:]) / (TRAIN_STEPS - 1)
         expected = _expected_launches(trainer.scheduled, lps, TRAIN_STEPS)
@@ -1118,13 +1211,6 @@ def phase_gpt2() -> dict:
     n_blocks = cfg.n_layers
     tokens_per_step = GPT2_BATCH * cfg.seq_len
 
-    def counts():
-        return {c.__name__: c.launches for c in _counters()}
-
-    def zero_counts():
-        for c in _counters():
-            c.launches = 0
-
     def build(c, dtype=torch.float32):
         seq = gpt2.build_sequential(
             c, embed_skip=True, device="cuda",
@@ -1163,9 +1249,9 @@ def phase_gpt2() -> dict:
         batch=GPT2_BATCH, seq=cfg.seq_len,
         stages=[[type(l).__name__ for l in p] for p in pipe.partitions],
         skip_pairs=[k for k, _ in pipe.skip_layout.by_src_dst])
-    zero_counts()
+    _zero_launches()
     ref_loss = emulator_step(pipe, tokens, targets, SEED).item()
-    launches = counts()
+    launches = _launch_counts()
     want = _gpt2_expected(None, "except_last", n_blocks)
     if launches != want:
         raise AssertionError(f"gpt2 emulator step launched {launches}, "
@@ -1177,11 +1263,11 @@ def phase_gpt2() -> dict:
     for schedule, checkpoint in GPT2_TWINS:
         pipe.zero_grad(set_to_none=True)
         ex = table(pipe, schedule, checkpoint)
-        zero_counts()
+        _zero_launches()
         torch.cuda.reset_peak_memory_stats()
         loss = table_step(ex, tokens, targets, SEED).item()
         torch.cuda.synchronize()
-        launches = counts()
+        launches = _launch_counts()
         errs = [(p.grad - g).abs().max().item() / m
                 for p, g, m in zip(pipe.parameters(), ref, scale)]
         worst = max(errs)
@@ -1220,35 +1306,16 @@ def phase_gpt2() -> dict:
                               ("f64", "xla", torch.float64)):
         pipe = build(dataclasses.replace(cfg0, attn_impl=impl,
                                          compute_dtype=dtype), dtype)
-        zero_counts()
+        _zero_launches()
         loss = emulator_step(pipe, tokens, targets, SEED).item()
-        if any(counts().values()):
-            raise AssertionError(f"gpt2 {name} twin launched {counts()}")
+        if any(_launch_counts().values()):
+            raise AssertionError(f"gpt2 {name} twin launched "
+                                 f"{_launch_counts()}")
         twins[name] = (loss, [p.grad for p in pipe.parameters()])
         del pipe
         torch.cuda.empty_cache()
-    l_64, g_64 = twins.pop("f64")
-    largest = [g.abs().max().item() for g in g_64]
-    floor = GRAD_FLOOR * max(largest)
-    worst = {}
-    for name, (l, grads) in twins.items():
-        errs = [(a.double() - b).abs().max().item() / max(m, floor)
-                for a, b, m in zip(grads, g_64, largest)]
-        worst[name] = max(errs)
-        log("gpt2", twin=name, dropout=0.0, loss=f"{l:.9f}",
-            loss_f64=f"{l_64:.9f}", loss_rel=f"{abs(l - l_64) / l_64:.3e}",
-            max_grad_rel=f"{max(errs):.3e}",
-            worst_param=names[errs.index(max(errs))])
-        if abs(l - l_64) > TOL_LOSS_REL * l_64:
-            raise AssertionError(f"gpt2 {name} twin's loss {l} is not within "
-                                 f"{TOL_LOSS_REL} of the float64 {l_64}")
-    tol = max(TOL_GRAD_REL, GRAD_SLACK * worst["plain"])
-    if worst["kernel"] > tol:
-        raise AssertionError(
-            f"gpt2 kernel path's gradients are {worst['kernel']:.3e} of each "
-            f"parameter's largest from the float64 twin's; plain attention "
-            f"is {worst['plain']:.3e} (tol {tol:.3e})")
-    del twins, ref, g_64
+    _hold_twins("gpt2", twins, names)
+    del twins, ref
     torch.cuda.empty_cache()
 
     # (c, d, g) dropout 0.1: 8 steps of the emulator and of the 1f1b table
@@ -1259,7 +1326,7 @@ def phase_gpt2() -> dict:
         ex = table(pipe, run, "except_last") if run != "emulator" else None
         opt = torch.optim.Adam(pipe.parameters(), lr=TRAIN_LR)
         torch.cuda.synchronize()
-        zero_counts()
+        _zero_launches()
         torch.cuda.reset_peak_memory_stats()
         losses, step_s = [], []
         for b in range(TRAIN_STEPS):
@@ -1272,7 +1339,7 @@ def phase_gpt2() -> dict:
             torch.cuda.synchronize()
             step_s.append(time.perf_counter() - t_step)
             losses.append(loss.item())
-        launches = counts()
+        launches = _launch_counts()
         steady = sum(step_s[1:]) / (TRAIN_STEPS - 1)
         key = f"{run}/except_last"
         runs[key], by_run[key] = losses, launches
@@ -1403,6 +1470,570 @@ def phase_gpt2() -> dict:
     torch.cuda.empty_cache()
     log("gpt2", seconds=f"{time.perf_counter() - t_phase:.1f}")
     return by_run
+
+
+def _hold_twins(phase: str, twins: dict, names) -> None:
+    """The train phase's twin gate: ``twins`` maps "kernel", "plain" and
+    "f64" to (loss, gradients) of one step from one set of weights; each
+    fp32 twin is held to the float64 one."""
+    l_64, g_64 = twins.pop("f64")
+    largest = [g.abs().max().item() for g in g_64]
+    floor = GRAD_FLOOR * max(largest)
+    worst = {}
+    for name, (l, grads) in twins.items():
+        errs = [(a.double() - b).abs().max().item() / max(m, floor)
+                for a, b, m in zip(grads, g_64, largest)]
+        worst[name] = max(errs)
+        log(phase, twin=name, dropout=0.0, loss=f"{l:.9f}",
+            loss_f64=f"{l_64:.9f}", loss_rel=f"{abs(l - l_64) / l_64:.3e}",
+            max_grad_rel=f"{max(errs):.3e}",
+            worst_param=names[errs.index(max(errs))])
+        if abs(l - l_64) > TOL_LOSS_REL * l_64:
+            raise AssertionError(f"{phase} {name} twin's loss {l} is not "
+                                 f"within {TOL_LOSS_REL} of the float64 "
+                                 f"{l_64}")
+    tol = max(TOL_GRAD_REL, GRAD_SLACK * worst["plain"])
+    if worst["kernel"] > tol:
+        raise AssertionError(
+            f"{phase} kernel path's gradients are {worst['kernel']:.3e} of "
+            f"each parameter's largest from the float64 twin's; plain "
+            f"attention is {worst['plain']:.3e} (tol {tol:.3e})")
+
+
+def _hold_step(phase: str, what: str, got, want, names) -> None:
+    """One step against another from the same weights: ``(loss, grads)``
+    pairs, loss within TOL_SCHED_LOSS relative and every gradient within
+    TOL_SCHED_GRAD x max(1, max|g|)."""
+    (loss, grads), (ref_loss, ref) = got, want
+    errs = [(a - b).abs().max().item() / max(1.0, b.abs().max().item())
+            for a, b in zip(grads, ref)]
+    rel = abs(loss - ref_loss) / abs(ref_loss)
+    log(phase, twin=what, loss=f"{loss:.9f}", against=f"{ref_loss:.9f}",
+        loss_rel=f"{rel:.3e}", max_grad_err_of_scale=f"{max(errs):.3e}",
+        worst_param=names[errs.index(max(errs))])
+    if not rel <= TOL_SCHED_LOSS:
+        raise AssertionError(f"{phase} {what}: loss {loss} is not within "
+                             f"{TOL_SCHED_LOSS} of {ref_loss}")
+    if not max(errs) <= TOL_SCHED_GRAD:
+        raise AssertionError(f"{phase} {what}: gradients are "
+                             f"{max(errs):.3e} of max(1, max|g|) apart "
+                             f"(tol {TOL_SCHED_GRAD})")
+
+
+def _reset_peak() -> int:
+    """Free what earlier work left (collected, cache emptied), reset the
+    peak counter and return the bytes still allocated: the new phases log
+    them beside each peak, which counts them too."""
+    import gc
+
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    return torch.cuda.memory_allocated()
+
+
+def _run_zoo(phase: str, argv) -> tuple:
+    """``apps.zoo.main(argv)`` with its output echoed: ``(losses, ms per
+    step, peak bytes, launches)``; fails unless it exits 0 with a finite
+    loss a step."""
+    import contextlib
+    import io
+
+    from pipe_tpu_torch.apps import zoo
+
+    out = io.StringIO()
+    _zero_launches()
+    resident = _reset_peak()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        rc = zoo.main(argv)
+    torch.cuda.synchronize()
+    launches = _launch_counts()
+    lines = out.getvalue().splitlines()
+    for line in lines:
+        print("    " + line, flush=True)
+    losses = [float(l.split("loss ")[1]) for l in lines
+              if l.startswith("| step")]
+    ms = float(lines[-1].split("(")[-1].split(" ms")[0])
+    log(phase, zoo=" ".join(argv), zoo_rc=rc, zoo_seconds=
+        f"{time.perf_counter() - t0:.1f}", resident_bytes=resident)
+    steps = int(argv[argv.index("--steps") + 1])
+    if rc != 0 or len(losses) != steps or not all(
+            math.isfinite(l) for l in losses):
+        raise AssertionError(f"apps.zoo {argv}: rc {rc}, losses {losses}")
+    return losses, ms, torch.cuda.max_memory_allocated(), launches
+
+
+def _expected_launches_emulator(n_layers: int) -> dict:
+    """The emulator's launches of one except_last step: every micro-batch
+    forward once, all but the last again at the backward, backward once."""
+    return {"flash_attention_fwd": n_layers * (2 * CHUNKS - 1),
+            "flash_attention_bwd_dq": n_layers * CHUNKS,
+            "flash_attention_bwd_dkv": n_layers * CHUNKS}
+
+
+def phase_remat() -> dict:
+    """The remat_policy phase; returns each timed run's launches. The gates
+    of the module docstring's phase 5d."""
+    from pipe_tpu_torch.core import microbatch as mb
+    from pipe_tpu_torch.core.remat import count_dots
+    from pipe_tpu_torch.data import lm_text
+    from pipe_tpu_torch.models.common import per_row_ce
+    from pipe_tpu_torch.models.transformer_lm import LMConfig
+
+    t_phase = time.perf_counter()
+    train_lines, _, _ = lm_text.load_corpus(vocab_size=28782)
+    vocab = lm_text.Vocab(map(lm_text.basic_english_tokenize, train_lines))
+    source = lm_text.batchify(lm_text.data_process(train_lines, vocab),
+                              TRAIN_BATCH)
+    cfg = LMConfig(vocab=len(vocab), attn_impl="flash")     # dropout 0.2
+    lps = cfg.n_layers // N_STAGES
+    tokens_per_step = TRAIN_BATCH * BPTT
+
+    # (a) dropout-0 twins from one set of weights: the 1f1b table, and the
+    # emulator Pipe with the policy per call
+    trainer = _sched_trainer(dataclasses.replace(cfg, dropout=0.0), "1f1b",
+                             "except_last")
+    trainer.init_state()
+    data, target = lm_text.get_batch(source, 0, BPTT)
+    tokens_t = torch.from_numpy(data).long().cuda()
+    target_t = torch.from_numpy(target).long().cuda()
+    x, rows = mb.stack_scatter({"tokens": tokens_t, "targets": target_t},
+                               CHUNKS)
+    w = mb.valid_row_mask(x, rows)
+    names = [n for n, _ in trainer.model.named_parameters()]
+    params = list(trainer.model.parameters())
+
+    def table_step(policy):
+        ex = dataclasses.replace(trainer.scheduled, remat_policy=policy)
+        loss, _ = ex.loss_and_grad(x, w, seed=SEED)
+        return ex, loss
+
+    def emulator_step(policy):
+        loss = per_row_ce(trainer.pipe(tokens_t, train=True, seed=SEED,
+                                       remat_policy=policy),
+                          target_t).mean()
+        loss.backward()
+        return None, loss
+
+    for path, step in (("table-1f1b", table_step),
+                       ("emulator", emulator_step)):
+        runs = {}
+        for policy in (None, REMAT_POLICY):
+            trainer.optimizer.zero_grad(set_to_none=True)
+            _zero_launches()
+            resident = _reset_peak()
+            with count_dots() as dots:
+                ex, loss = step(policy)
+                torch.cuda.synchronize()
+            launches = _launch_counts()
+            runs[policy] = ((loss.item(), [p.grad.clone() for p in params]),
+                            launches, dots.count)
+            log("remat", twin=path, policy=policy, dropout=0.0,
+                loss=f"{loss.item():.9f}", dots=dots.count,
+                resident_bytes=resident,
+                peak_bytes=torch.cuda.max_memory_allocated(), **launches)
+            want = (_expected_launches(ex, lps) if ex is not None else
+                    _expected_launches_emulator(cfg.n_layers))
+            if launches != want:
+                raise AssertionError(f"remat {path} ({policy}) launched "
+                                     f"{launches}, expected {want}")
+        (plain, l0, d0), (pol, l1, d1) = runs[None], runs[REMAT_POLICY]
+        _hold_step("remat", f"{path}/{REMAT_POLICY}", pol, plain, names)
+        log("remat", path=path, dots_without=d0, dots_with=d1,
+            launches_equal=l0 == l1)
+        if l0 != l1 or not d1 < d0:
+            raise AssertionError(f"remat {path}: launches {l0} -> {l1}, "
+                                 f"matrix products {d0} -> {d1}")
+    del trainer, params, runs
+    torch.cuda.empty_cache()
+
+    # (b) dropout 0.2: 8 Trainer steps a run, in turns
+    by_run, trajectories = {}, {}
+    for k, policy in enumerate(REMAT_RUNS):
+        trainer = _sched_trainer(cfg, "1f1b", "except_last")
+        trainer.scheduled = dataclasses.replace(trainer.scheduled,
+                                                remat_policy=policy)
+        state = trainer.init_state()
+        _zero_launches()
+        resident = _reset_peak()
+        losses, step_s = [], []
+        for b in range(TRAIN_STEPS):
+            t_step = time.perf_counter()
+            state, info = trainer.train_epoch(source, epoch=0, state=state,
+                                              max_steps=b + 1, start_step=b,
+                                              log_every=0)
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t_step)
+            losses.append(info["loss"])
+        launches = _launch_counts()
+        steady = sum(step_s[1:]) / (TRAIN_STEPS - 1)
+        key = f"1f1b/except_last/{policy or 'none'}"
+        by_run.setdefault(key, launches)
+        trajectories.setdefault(key, losses)
+        log("remat", run=f"{key}#{k}", dropout=cfg.dropout,
+            steps=TRAIN_STEPS, losses=[f"{l:.6f}" for l in losses],
+            ms_per_step=[f"{t * 1e3:.1f}" for t in step_s],
+            steady_ms_per_step=f"{steady * 1e3:.1f}",
+            train_tokens_per_s=f"{tokens_per_step / steady:.1f}",
+            resident_bytes=resident,
+            peak_bytes=torch.cuda.max_memory_allocated(),
+            memory_plan=trainer.scheduled.memory_plan(CHUNKS), **launches)
+        expected = _expected_launches(trainer.scheduled, lps, TRAIN_STEPS)
+        if not all(math.isfinite(l) for l in losses):
+            raise AssertionError(f"remat {key}: non-finite loss {losses}")
+        if launches != expected:
+            raise AssertionError(f"remat {key} launched {launches} in "
+                                 f"{TRAIN_STEPS} steps, expected {expected}")
+        del trainer, state
+        torch.cuda.empty_cache()
+    (key_a, traj_a), (key_b, traj_b) = trajectories.items()
+    rel = max(abs(a - b) / abs(b) for a, b in zip(traj_b, traj_a))
+    log("remat", trajectory=key_b, against=key_a, max_loss_rel=f"{rel:.3e}")
+    if not rel <= TOL_SCHED_TRAJ:
+        raise AssertionError(f"remat {key_b}'s trajectory is {rel:.3e} from "
+                             f"{key_a}'s (tol {TOL_SCHED_TRAJ})")
+    log("remat", seconds=f"{time.perf_counter() - t_phase:.1f}")
+    return by_run
+
+
+def phase_gpt2_serve() -> None:
+    """GPT-2-small served at full width; the gates of the module
+    docstring's phase 5e."""
+    import contextlib
+    import io
+
+    import numpy as np
+
+    from pipe_tpu_torch.apps import generate as gen_app
+    from pipe_tpu_torch.apps import serve as serve_app
+    from pipe_tpu_torch.inference import GenerationConfig, Generator
+    from pipe_tpu_torch.models import gpt2
+    from pipe_tpu_torch.serve import (BucketSpec, ServeEngine,
+                                      SingleDeviceSlotBackend)
+
+    t_phase = time.perf_counter()
+    cfg = gpt2.GPT2Config()
+    model = gpt2.PipelinedGPT2(
+        cfg, device="cuda",
+        generator=torch.Generator(device="cuda").manual_seed(SEED))
+    rng = np.random.RandomState(SEED)
+    requests = []
+    for _ in range(GPT2_SERVE_REQUESTS):
+        plen = int(rng.randint(GPT2_SERVE_PROMPT[0], GPT2_SERVE_PROMPT[1] + 1))
+        new = int(rng.randint(GPT2_SERVE_NEW[0], GPT2_SERVE_NEW[1] + 1))
+        requests.append((rng.randint(2, cfg.vocab, size=plen).tolist(), new))
+    seeds = list(range(GPT2_SERVE_REQUESTS))
+    buckets = BucketSpec.pow2(*SERVE_BUCKETS)
+    max_new = GPT2_SERVE_NEW[1]
+    greedy = GenerationConfig(max_new_tokens=max_new, temperature=0.0)
+
+    # the batch-1 references, and the naive re-forward of each
+    refs, margins, clear_steps = [], [], 0
+    t0 = time.perf_counter()
+    for prompt, new in requests:
+        toks = Generator(model, GenerationConfig(
+            max_new_tokens=new, temperature=0.0)).generate([prompt])[0]
+        toks = toks.tolist()
+        m, logits = _margins(model, prompt, toks)
+        clear = torch.tensor(m, device="cuda") > GPT2_TIE
+        picked = logits.argmax(-1)
+        want = torch.tensor(toks, device="cuda")
+        if not bool((picked[clear] == want[clear]).all()):
+            raise AssertionError("gpt2_serve: the Generator's greedy tokens "
+                                 "are not the argmax of a naive re-forward "
+                                 "at clear steps")
+        clear_steps += int(clear.sum())
+        refs.append(toks)
+        margins.append(m)
+    log("gpt2_serve", params=sum(p.numel() for p in model.parameters()),
+        requests=len(requests),
+        prompt_tokens=sum(len(p) for p, _ in requests),
+        new_tokens=sum(n for _, n in requests),
+        reforward_clear_steps=clear_steps,
+        reference_s=f"{time.perf_counter() - t0:.1f}")
+
+    runs = (("slab-tick", dict(resident=False)),
+            ("paged-resident", dict(kv_block_size=PAGED_BLOCK,
+                                    resident=True)),
+            ("ngram-spec", dict(resident=True,
+                                spec_tokens=GPT2_SERVE_SPEC_K)))
+    for name, kw in runs:
+        slack = GPT2_SERVE_SPEC_K - 1 if "spec_tokens" in kw else 0
+        backend = SingleDeviceSlotBackend(
+            model, num_slots=GPT2_SERVE_SLOTS,
+            max_len=buckets.max_len + max_new + slack, gen=greedy,
+            buckets=buckets, decode_chunk=1, **kw)
+        eng = ServeEngine(backend)
+        _zero_launches()
+        for turn in ("cold", "warm"):       # the first run captures
+            resps, wall = _traffic(eng, requests, seeds)
+            compared = skipped = identical = 0
+            for resp, ref, m, (_, new) in zip(resps, refs, margins,
+                                               requests):
+                if resp.status != "ok" or len(resp.tokens) != new:
+                    raise AssertionError(
+                        f"gpt2_serve {name}: request {resp.request_id} "
+                        f"{resp.status} {resp.finish_reason}, "
+                        f"{len(resp.tokens)} of {new} tokens")
+                c, sk, ok = _walk(resp.tokens, ref, m, GPT2_TIE)
+                if not ok:
+                    raise AssertionError(
+                        f"gpt2_serve {name}: request {resp.request_id} "
+                        f"parts from its Generator reference at a clear "
+                        f"step")
+                compared, skipped = compared + c, skipped + sk
+                identical += resp.tokens == ref
+            log("gpt2_serve", run=f"{name}/{turn}", identical_streams=
+                f"{identical}/{len(requests)}", compared_steps=compared,
+                near_tie_skipped=skipped, **_rates(resps, wall),
+                peak_bytes=torch.cuda.max_memory_allocated())
+        flash = _launch_counts()
+        log("gpt2_serve", run=name, **flash)
+        if any(flash.values()):
+            raise AssertionError(f"gpt2_serve {name}: the engine launched "
+                                 f"{flash}")
+        del eng, backend
+        torch.cuda.empty_cache()
+    del model
+    torch.cuda.empty_cache()
+
+    # the entry points at full width
+    for app, argv in ((gen_app, ["--family", "gpt2", "--max-new", "16",
+                                 "--batch", "2"]),
+                      (serve_app, ["--family", "gpt2", "--requests", "8",
+                                   "--max-new", "16", "--slots", "4"])):
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            rc = app.main(argv)
+        lines = out.getvalue().splitlines()
+        log("gpt2_serve", app=app.__name__.rsplit(".", 1)[-1],
+            argv=" ".join(argv), rc=rc, lines=len(lines),
+            seconds=f"{time.perf_counter() - t0:.1f}")
+        if rc != 0:
+            raise AssertionError(f"{app.__name__} {argv} exited {rc}")
+        if app is serve_app and [json.loads(l)["status"]
+                                 for l in lines[:-1]] != ["ok"] * 8:
+            raise AssertionError(f"apps.serve --family gpt2: {lines[:-1]}")
+    log("gpt2_serve", seconds=f"{time.perf_counter() - t_phase:.1f}")
+
+
+def phase_bert() -> dict:
+    """BERT-large through the interleaved-1F1B table; returns each run's
+    launches. The gates of the module docstring's phase 5f."""
+    from pipe_tpu_torch.apps import zoo
+    from pipe_tpu_torch.core import microbatch as mb
+    from pipe_tpu_torch.core.schedule import InterleavedOneFOneBSchedule
+    from pipe_tpu_torch.models import bert
+    from pipe_tpu_torch.parallel.scheduled import ScheduledPipeline
+
+    t_phase = time.perf_counter()
+    cfg = bert.BertConfig(attn_impl="flash")          # dropout 0.1
+    cfg0 = dataclasses.replace(cfg, dropout=0.0)
+    n_virtual = BERT_STAGES * BERT_INTERLEAVE
+    lps = cfg.n_layers // n_virtual
+    tokens_per_step = BERT_BATCH * cfg.seq_len
+    interleaved = InterleavedOneFOneBSchedule(interleave=BERT_INTERLEAVE)
+
+    def build(c, dtype=torch.float32):
+        model = bert.PipelinedBERT(
+            c, n_virtual, device="cuda",
+            generator=torch.Generator(device="cuda").manual_seed(0))
+        return model.to(dtype)
+
+    def table(model, schedule=interleaved, n_stages=BERT_STAGES,
+              policy=None):
+        return ScheduledPipeline(
+            model.stage_fn, model.pre_fn, model.loss_post_fn,
+            n_stages=n_stages, module=model, checkpoint="except_last",
+            schedule=schedule, device="cuda", remat_policy=policy)
+
+    def batch(step):
+        x, rows = mb.stack_scatter(zoo.synthetic_batch(
+            "bert", cfg, BERT_BATCH, step, "cuda"), BERT_CHUNKS)
+        return x, mb.valid_row_mask(x, rows)
+
+    # (a) dropout-0 twins: kernels, plain attention, float64
+    x, w = batch(0)
+    twins, launches_a = {}, None
+    for name, impl, dtype in (("kernel", "flash", torch.float32),
+                              ("plain", "xla", torch.float32),
+                              ("f64", "xla", torch.float64)):
+        model = build(dataclasses.replace(cfg0, attn_impl=impl,
+                                          compute_dtype=dtype), dtype)
+        ex = table(model)
+        _zero_launches()
+        resident = _reset_peak()
+        t0 = time.perf_counter()
+        loss, _ = ex.loss_and_grad(x, w, seed=SEED)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        launches = _launch_counts()
+        grads = [p.grad for p in model.parameters()]
+        names = [n for n, _ in model.named_parameters()]
+        twins[name] = (loss.item(), grads)
+        if name == "kernel":
+            n_params = sum(p.numel() for p in model.parameters())
+            passes = ex.stage_passes(BERT_CHUNKS)
+            launches_a = launches
+            per_step = _expected_launches(ex, lps, m=BERT_CHUNKS)
+            log("bert", params=n_params, virtual_stages=n_virtual,
+                stages=BERT_STAGES, chunks=BERT_CHUNKS, batch=BERT_BATCH,
+                seq=cfg.seq_len, stage_passes=passes,
+                memory_plan=ex.memory_plan(BERT_CHUNKS))
+            if launches != per_step:
+                raise AssertionError(f"bert kernel twin launched {launches}, "
+                                     f"expected {per_step}")
+            kept = model                     # (b) reuses its weights
+        elif any(launches.values()):
+            raise AssertionError(f"bert {name} twin launched {launches}")
+        log("bert", step=f"interleaved-1f1b/{name}", ms=f"{ms:.1f}",
+            resident_bytes=resident,
+            peak_bytes=torch.cuda.max_memory_allocated(), **launches)
+        if name != "kernel":
+            del model, ex, grads
+            torch.cuda.empty_cache()
+    ref = twins["kernel"]
+    _hold_twins("bert", twins, names)
+
+    # (b) the table gpipe over the 24 virtual stages, the same weights
+    kept.zero_grad(set_to_none=True)
+    ex = table(kept, schedule="gpipe", n_stages=n_virtual)
+    resident = _reset_peak()
+    loss, _ = ex.loss_and_grad(x, w, seed=SEED)
+    log("bert", step="gpipe/kernel", resident_bytes=resident,
+        peak_bytes=torch.cuda.max_memory_allocated(),
+        memory_plan=ex.memory_plan(BERT_CHUNKS))
+    _hold_step("bert", "interleaved-1f1b vs gpipe", ref,
+               (loss.item(), [p.grad for p in kept.parameters()]), names)
+    del kept, ex, ref, x, w
+    torch.cuda.empty_cache()
+
+    # (c, d) the zoo, config #4 at dropout 0.1
+    by_run = {"twin/interleaved-1f1b": launches_a}
+    argv = ["bert", "--stages", str(BERT_STAGES), "--interleave",
+            str(BERT_INTERLEAVE), "--schedule", "interleaved-1f1b",
+            "--chunks", str(BERT_CHUNKS), "--batch", str(BERT_BATCH),
+            "--lr", str(TRAIN_LR), "--steps", str(TRAIN_STEPS)]
+    zoo_losses, zoo_ms, zoo_peak, launches = _run_zoo("bert", argv)
+    expected = {k: TRAIN_STEPS * v for k, v in per_step.items()}
+    by_run["zoo/interleaved-1f1b"] = launches
+    log("bert", run="zoo/interleaved-1f1b", dropout=cfg.dropout,
+        losses=zoo_losses, steady_ms_per_step=f"{zoo_ms:.1f}",
+        train_tokens_per_s=f"{tokens_per_step / zoo_ms * 1e3:.1f}",
+        peak_bytes=zoo_peak, **launches)
+    if launches != expected:
+        raise AssertionError(f"bert zoo launched {launches} in "
+                             f"{TRAIN_STEPS} steps, expected {expected}")
+    torch.cuda.empty_cache()
+
+    # (e) the zoo's first steps again, with dots_saveable
+    steps = BERT_POLICY_STEPS
+    model = build(cfg)
+    ex = table(model, policy=REMAT_POLICY)
+    opt = torch.optim.Adam(model.parameters(), lr=TRAIN_LR)
+    _zero_launches()
+    resident = _reset_peak()
+    losses, step_s = [], []
+    for b in range(steps):
+        x, w = batch(b)
+        t_step = time.perf_counter()
+        opt.zero_grad(set_to_none=True)
+        loss, _ = ex.loss_and_grad(x, w, seed=b)
+        opt.step()
+        losses.append(loss.item())
+        step_s.append(time.perf_counter() - t_step)
+    launches = _launch_counts()
+    steady = sum(step_s[1:]) / (steps - 1)
+    key = f"loop/interleaved-1f1b/{REMAT_POLICY}"
+    by_run[key] = launches
+    log("bert", run=key, dropout=cfg.dropout, steps=steps,
+        losses=[f"{l:.4f}" for l in losses],
+        ms_per_step=[f"{t * 1e3:.1f}" for t in step_s],
+        steady_ms_per_step=f"{steady * 1e3:.1f}",
+        train_tokens_per_s=f"{tokens_per_step / steady:.1f}",
+        resident_bytes=resident, peak_bytes=torch.cuda.max_memory_allocated(),
+        memory_plan=ex.memory_plan(BERT_CHUNKS), **launches)
+    rel = max(abs(a - b) / abs(b) for a, b in zip(losses, zoo_losses))
+    want = {k: v * steps // TRAIN_STEPS for k, v in expected.items()}
+    if launches != want or not rel <= TOL_SCHED_TRAJ:
+        raise AssertionError(f"bert {key}: launches {launches} (expected "
+                             f"{want}), trajectory {rel:.3e} from the zoo's")
+    del model, ex, opt
+    torch.cuda.empty_cache()
+    log("bert", seconds=f"{time.perf_counter() - t_phase:.1f}")
+    return by_run
+
+
+def phase_vit() -> None:
+    """ViT-L/16 at full width; the gates of the module docstring's phase
+    5g."""
+    from pipe_tpu_torch import Pipe
+    from pipe_tpu_torch.apps import zoo
+    from pipe_tpu_torch.models import vit
+    from pipe_tpu_torch.models.common import per_row_ce
+    from pipe_tpu_torch.ops.flash_attention import supports
+    from pipe_tpu_torch.parallel.hetero_scheduled import \
+        HeteroScheduledPipeline
+
+    t_phase = time.perf_counter()
+    cfg = vit.ViTConfig()                              # dropout 0.1
+    log("vit", tokens=cfg.n_tokens, flash_supports=supports(cfg.n_tokens))
+
+    # (a) the zoo, config #5
+    argv = ["vit", "--stages", str(VIT_STAGES), "--chunks", str(VIT_CHUNKS),
+            "--batch", str(VIT_BATCH), "--lr", str(TRAIN_LR), "--steps",
+            str(TRAIN_STEPS)]
+    losses, ms, peak, launches = _run_zoo("vit", argv)
+    log("vit", run="zoo/1f1b", losses=losses, steady_ms_per_step=f"{ms:.1f}",
+        train_images_per_s=f"{VIT_BATCH / ms * 1e3:.1f}",
+        train_tokens_per_s=f"{VIT_BATCH * cfg.n_tokens / ms * 1e3:.1f}",
+        peak_bytes=peak, **launches)
+    if any(launches.values()):
+        raise AssertionError(f"vit zoo launched {launches}: 197 tokens take "
+                             f"plain attention")
+
+    # (b) the uneven Pipe through the emulator and the hetero 1f1b table
+    data = zoo.synthetic_batch("vit", cfg, VIT_BATCH, 0, "cuda")
+    results = {}
+    for path in ("emulator", "table-1f1b"):
+        pipe = Pipe(vit.build_sequential(
+            cfg, device="cuda",
+            generator=torch.Generator(device="cuda").manual_seed(0)),
+            chunks=VIT_CHUNKS, checkpoint="except_last",
+            balance=VIT_BALANCE, device="cuda")
+        _zero_launches()
+        resident = _reset_peak()
+        t0 = time.perf_counter()
+        if path == "emulator":
+            loss = per_row_ce(pipe(data["images"], train=True, seed=SEED),
+                              data["labels"]).mean()
+            loss.backward()
+        else:
+            ex = HeteroScheduledPipeline(pipe.partitions, pipe.skip_layout,
+                                         VIT_CHUNKS, "except_last", "1f1b",
+                                         device="cuda")
+            loss, _ = ex.loss_and_grad(data["images"],
+                                       targets=data["labels"],
+                                       loss_fn=per_row_ce, seed=SEED)
+        torch.cuda.synchronize()
+        launches = _launch_counts()
+        log("vit", step=path, balance=pipe.balance,
+            ms=f"{(time.perf_counter() - t0) * 1e3:.1f}",
+            resident_bytes=resident,
+            peak_bytes=torch.cuda.max_memory_allocated(), **launches)
+        if any(launches.values()):
+            raise AssertionError(f"vit {path} launched {launches}")
+        names = [n for n, _ in pipe.named_parameters()]
+        results[path] = (loss.item(), [p.grad for p in pipe.parameters()])
+        del pipe
+    _hold_step("vit", "table-1f1b vs emulator", results["table-1f1b"],
+               results["emulator"], names)
+    del results, data
+    torch.cuda.empty_cache()
+    log("vit", seconds=f"{time.perf_counter() - t_phase:.1f}")
 
 
 def teacher_forced(model, tokens, prompt_len):
@@ -2588,7 +3219,11 @@ def main() -> int:
     eval_launches = phase_slice()
     train_launches = phase_train()
     sched_launches = phase_schedules()
+    remat_launches = phase_remat()
     gpt2_launches = phase_gpt2()
+    phase_gpt2_serve()
+    bert_launches = phase_bert()
+    phase_vit()
     gap = phase_generate()
     ctx = phase_serve(gap, smi)
     ctx["resident"] = phase_serve_paged(ctx, smi)
@@ -2624,7 +3259,13 @@ def main() -> int:
             run: launches[wrapper] for run, launches in sched_launches.items()}
         entry["launches_gpt2"] = {
             run: launches[wrapper] for run, launches in gpt2_launches.items()}
+        entry["launches_remat"] = {
+            run: launches[wrapper] for run, launches in remat_launches.items()}
+        entry["launches_bert"] = {
+            run: launches[wrapper] for run, launches in bert_launches.items()}
+        entry["launches_vit"] = 0
         entry["gpt2_shape"] = row["gpt2_shape"]
+        entry["bert_shape"] = row["bert_shape"]
         kernels["kernels"].append(entry)
     log("done", seconds=f"{time.perf_counter() - t_start:.1f}")
     print(smi.splitlines()[0], flush=True)

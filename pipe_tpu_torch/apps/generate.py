@@ -1,9 +1,11 @@
-"""Generation entry point: sample from a (trained or fresh) tutorial LM.
+"""Generation entry point: sample from a (trained or fresh) LM or GPT-2.
 
 Counterpart of the single-device paths of ``pipe_tpu/apps/generate.py``:
 restore the weights of a ``Trainer`` checkpoint (``train/state.py``; the
 training stage count need not match) or draw fresh ones from ``--seed``,
 then sample continuations with the KV-cached ``Generator`` on one device.
+``--family gpt2`` samples from ``PipelinedGPT2`` (fresh weights from
+``--seed``; the ``Trainer`` checkpoints hold the tutorial LM).
 ``--prompts-file`` serves every prompt of a file (comma-separated ids, one
 prompt a line) through the continuous-batching engine (``serve/``) with
 ``--slots`` decode slots instead, and prints one row per prompt.
@@ -12,11 +14,11 @@ Usage:
     python -m pipe_tpu_torch.apps.generate [--resume DIR] [--prompt "ids,..."]
         [--prompts-file F [--slots S]] [--batch N] [--max-new N]
         [--temperature T] [--top-k K] [--beams K] [--eos ID] [--int8]
-        [--tiny] [--seed S] [--device cuda|cpu]
+        [--family lm|gpt2] [--tiny] [--seed S] [--device cuda|cpu]
 
-A restored model takes its vocabulary from the checkpoint. Not ported yet,
-each refused with rc 2: ``--stages > 1`` (the ring decoder),
-``--context-shards > 1`` and ``--family gpt2``.
+A restored model takes its vocabulary from the checkpoint. A request past
+the model's positional table exits 2. Not ported yet, each refused with rc
+2: ``--stages > 1`` (the ring decoder) and ``--context-shards > 1``.
 """
 
 from __future__ import annotations
@@ -32,8 +34,6 @@ _NOT_PORTED = (
      "A.8, the ring-pipelined decoder over a stage mesh"),
     ("--context-shards > 1", lambda a: a.context_shards > 1,
      "A.10, the context-sharded generator"),
-    ("--family gpt2", lambda a: a.family != "lm",
-     "A.10, the GPT-2 family"),
 )
 
 _PIPE_KEY = re.compile(r"^partitions\.(\d+)\.layers\.(\d+)\.(.+)$")
@@ -94,7 +94,8 @@ def build_argparser() -> argparse.ArgumentParser:
                    help="int8 weight-only quantized block weights "
                         "(inference/quant.py)")
     p.add_argument("--family", choices=["lm", "gpt2"], default="lm",
-                   help="model family; only lm is ported")
+                   help="model family: the tutorial LM (sinusoid positions, "
+                        "post-LN) or GPT-2 (learned positions, pre-LN)")
     p.add_argument("--stages", type=int, default=1,
                    help="not ported yet beyond 1 (the ring decoder)")
     p.add_argument("--context-shards", type=int, default=1,
@@ -159,12 +160,25 @@ def _checkpoint_state(resume: str) -> dict:
         raise UsageError(f"--resume {resume}: {e}")
 
 
+def family_config(args):
+    """The ``--family`` config, ``tiny()`` with ``--tiny``."""
+    from pipe_tpu_torch.models import GPT2Config, LMConfig
+
+    cfg = {"lm": LMConfig, "gpt2": GPT2Config}[args.family]()
+    return cfg.tiny() if args.tiny else cfg
+
+
 def model_source(args, model_cfg):
     """``(config, checkpoint state or None)`` for ``--resume``: the config
     takes the checkpoint's vocabulary. UsageError for a checkpoint that
-    cannot be read or holds another depth."""
+    cannot be read or holds another depth, or for GPT-2 (the ``Trainer``
+    checkpoints hold the tutorial LM)."""
     if not args.resume:
         return model_cfg, None
+    if args.family != "lm":
+        raise UsageError(f"--resume holds a Trainer checkpoint of the "
+                         f"tutorial LM; --family {args.family} draws fresh "
+                         f"weights from --seed")
     import dataclasses
 
     state = _checkpoint_state(args.resume)
@@ -179,27 +193,31 @@ def model_source(args, model_cfg):
 
 
 def build_model(args, model_cfg, state, n_stages: int = 1):
-    """The ``PipelinedLM`` of ``n_stages`` stages on ``--device``: weights
-    drawn from ``--seed``, then the checkpoint's (``state``) loaded over
-    them; int8 block weights with ``--int8``. UsageError for a checkpoint
-    tensor of another shape."""
+    """The ``PipelinedLM`` (or ``PipelinedGPT2``) of ``n_stages`` stages on
+    ``--device``: weights drawn from ``--seed``, then the checkpoint's
+    (``state``) loaded over them; int8 block weights with ``--int8``.
+    UsageError for a checkpoint tensor of another shape."""
     import torch
 
     from pipe_tpu_torch.inference import quantize_params
+    from pipe_tpu_torch.models.gpt2 import PipelinedGPT2
     from pipe_tpu_torch.models.transformer_lm import (PipelinedLM,
                                                       build_sequential)
     from pipe_tpu_torch.utils.platform import resolve_device
 
     device = resolve_device(args.device)
-    seq = build_sequential(
-        model_cfg, device=device,
-        generator=torch.Generator(device=device).manual_seed(args.seed))
-    if state is not None:
-        try:
-            seq.load_state_dict(state)
-        except RuntimeError as e:        # a shape the config does not have
-            raise UsageError(f"--resume {args.resume}: {e}")
-    model = PipelinedLM.from_sequential(model_cfg, seq, n_stages)
+    gen = torch.Generator(device=device).manual_seed(args.seed)
+    if args.family == "gpt2":
+        model = PipelinedGPT2(model_cfg, n_stages, device=device,
+                              generator=gen)
+    else:
+        seq = build_sequential(model_cfg, device=device, generator=gen)
+        if state is not None:
+            try:
+                seq.load_state_dict(state)
+            except RuntimeError as e:    # a shape the config does not have
+                raise UsageError(f"--resume {args.resume}: {e}")
+        model = PipelinedLM.from_sequential(model_cfg, seq, n_stages)
     return quantize_params(model) if args.int8 else model
 
 
@@ -208,18 +226,21 @@ def main(argv=None) -> int:
 
     import torch
 
-    from pipe_tpu_torch.inference import Generator
-    from pipe_tpu_torch.models.transformer_lm import LMConfig
+    from pipe_tpu_torch.inference import Generator, check_positions
 
-    model_cfg = LMConfig().tiny() if args.tiny else LMConfig()
     try:
         for flag, is_set, item in _NOT_PORTED:
             if is_set(args):
                 raise UsageError(f"{flag} is not ported to pipe_tpu_torch "
                                   f"yet (ROADMAP.md {item})")
-        model_cfg, state = model_source(args, model_cfg)
+        model_cfg, state = model_source(args, family_config(args))
         prompts, gen_cfg = _check_args(args, model_cfg)
         model = build_model(args, model_cfg, state)
+        try:
+            check_positions(model, max(len(p) for p in prompts),
+                            gen_cfg.max_new_tokens)
+        except ValueError as e:
+            raise UsageError(str(e))
     except UsageError as e:
         print(str(e), file=sys.stderr)
         return 2

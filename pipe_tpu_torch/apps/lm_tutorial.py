@@ -9,13 +9,14 @@ tokens (``main.py:182-234``).
 Usage (mirrors ``python main.py <checkpoint-mode>``, ``main.py:164-169``):
     python -m pipe_tpu_torch.apps.lm_tutorial <never|except_last|always>
         [--corpus FILE] [--steps N] [--epochs N] [--stages N] [--chunks N]
-        [--schedule gpipe|1f1b|zb-h1] [--lr LR] [--tiny] [--save DIR]
-        [--resume DIR] [--device cuda|cpu]
+        [--schedule gpipe|1f1b|zb-h1|interleaved-1f1b] [--interleave V]
+        [--lr LR] [--tiny] [--save DIR] [--resume DIR] [--device cuda|cpu]
 
-``--schedule gpipe`` trains through ``Pipe``; ``1f1b`` and ``zb-h1`` through
-the table executor (``parallel/scheduled.py``). The interleaved schedules
-raise ``NotImplementedError`` as the ``Trainer`` refuses them (ROADMAP.md
-A.8). The planner (``--plan``), the profiler trace
+``--schedule gpipe`` trains through ``Pipe``; ``1f1b``, ``zb-h1`` and
+``interleaved-1f1b`` (``--interleave`` virtual stages a stage) through the
+table executor (``parallel/scheduled.py``). ``interleaved`` raises
+``NotImplementedError`` as the ``Trainer`` refuses it (ROADMAP.md A.8). The
+planner (``--plan``), the profiler trace
 (``--profile``), autosave and the virtual CPU mesh (``--cpu``) of the JAX
 entry point are not ported; ``--device cpu`` runs every kernel's plain version.
 """
@@ -42,6 +43,8 @@ def build_argparser() -> argparse.ArgumentParser:
                    choices=["gpipe", "1f1b", "zb-h1", "interleaved",
                             "interleaved-1f1b"],
                    default="gpipe")
+    p.add_argument("--interleave", type=int, default=2,
+                   help="virtual stages per stage (interleaved-1f1b)")
     p.add_argument("--lr", type=float, default=None,
                    help="override the reference's Adam lr=5.0 (main.py:183), "
                         "which diverges at full scale; try 1e-4")
@@ -73,12 +76,16 @@ def main(argv=None) -> int:
             model_cfg.tiny(), vocab=max(len(vocab), 2),
             n_layers=2 * args.stages)
     cfg = TrainerConfig(chunks=args.chunks, checkpoint=args.checkpoint,
-                        n_stages=args.stages, schedule=args.schedule)
+                        n_stages=args.stages, schedule=args.schedule,
+                        interleave=args.interleave)
     if args.tiny:
         cfg = dataclasses.replace(cfg, batch_size=8, eval_batch_size=8,
                                   bptt=model_cfg.seq_len, lr=1e-3)
     if args.lr is not None:  # explicit --lr beats the tiny default
         cfg = dataclasses.replace(cfg, lr=args.lr)
+    if args.schedule in ("interleaved", "interleaved-1f1b") and args.tiny:
+        model_cfg = dataclasses.replace(
+            model_cfg, n_layers=args.stages * args.interleave)
 
     train_data = lm_text.batchify(train_ids, cfg.batch_size)
     val_data = lm_text.batchify(val_ids, cfg.eval_batch_size)

@@ -33,7 +33,10 @@ refused with rc 2 and the ROADMAP.md item it waits for: ``--stages > 1``
 (the ring backend), ``--replicas``, ``--fleet``, ``--journal``,
 ``--roles``, ``--placement``, ``--kv-hot-refs``, ``--metrics-port``,
 ``--trace-out``, the ``--slo-*`` flags and the watchdog flags (the fleet
-and its observability), ``--family gpt2`` (the model zoo).
+and its observability). ``--family gpt2`` serves ``PipelinedGPT2`` (fresh
+weights from ``--seed``); its model has no ``embed_tree``, so ``--draft
+tree`` exits 2 with the engine's message, as in ``pipe_tpu``. A request
+that does not fit the model's positional table or the slot cache exits 2.
 """
 
 from __future__ import annotations
@@ -44,7 +47,7 @@ import os
 import sys
 import time
 
-from .generate import UsageError, build_model, model_source
+from .generate import UsageError, build_model, family_config, model_source
 
 _FLEET = "A.7, fleet/* and serve/router.py"
 _OBS = "A.7, the rest of obs/* (fleet observability)"
@@ -67,7 +70,6 @@ _NOT_PORTED = (
     ("--tick-budget-s/--shed-ewma",
      lambda a: a.tick_budget_s is not None or a.shed_ewma is not None,
      "A.7, resilience/* (the tick watchdog)"),
-    ("--family gpt2", lambda a: a.family != "lm", "A.10, the GPT-2 family"),
 )
 
 
@@ -159,7 +161,7 @@ def build_argparser() -> argparse.ArgumentParser:
         p.add_argument(f"--slo-{name}", type=float, default=None)
     p.add_argument("--tick-budget-s", type=float, default=None)
     p.add_argument("--shed-ewma", type=float, default=None)
-    p.add_argument("--family", default="lm")
+    p.add_argument("--family", choices=["lm", "gpt2"], default="lm")
     return p
 
 
@@ -187,7 +189,6 @@ def main(argv=None) -> int:
     import numpy as np
 
     from pipe_tpu_torch.inference import GenerationConfig
-    from pipe_tpu_torch.models.transformer_lm import LMConfig
     from pipe_tpu_torch.obs.events import NULL_EVENT_LOG, EventLog
     from pipe_tpu_torch.obs.telemetry import (get_registry,
                                               host_overhead_per_token)
@@ -195,13 +196,12 @@ def main(argv=None) -> int:
                                       RequestQueue, ServeEngine,
                                       SingleDeviceSlotBackend)
 
-    model_cfg = LMConfig().tiny() if args.tiny else LMConfig()
     try:
         for flag, is_set, item in _NOT_PORTED:
             if is_set(args):
                 raise UsageError(f"{flag} is not ported to pipe_tpu_torch "
                                  f"yet (ROADMAP.md {item})")
-        model_cfg, state = model_source(args, model_cfg)
+        model_cfg, state = model_source(args, family_config(args))
         # a model draft runs "the first stage(s)": --stages 1 serves an
         # unpartitioned model, so split it into draft-stages+1 logical
         # stages (the same weights, grouped differently)
@@ -255,9 +255,11 @@ def main(argv=None) -> int:
             draft_stages=args.draft_stages,
             spec_branches=args.spec_branches,
             spec_adaptive=args.spec_adaptive, **kv_kwargs)
+        for p in prompts:
+            backend.validate(len(p), gen_cfg.max_new_tokens)
         queue = RequestQueue(capacity=args.queue_capacity,
                              policy=args.policy)
-    except (UsageError, ValueError) as e:
+    except (UsageError, ValueError, TypeError) as e:
         print(str(e), file=sys.stderr)
         return 2
 

@@ -16,14 +16,21 @@ layer by layer. The layouts that differ:
 * GPT-2: ``GPT2Embed``'s ``wte``/``wpe`` keep their names, ``GPT2Head``'s
   ``ln_f``/``proj`` map as a ``LayerNorm`` and a bias-free ``Linear``; the
   ``@skippable`` stash/pop layers take ``{}``;
+* BERT: ``BertEmbed``'s ``word``/``pos`` keep their names and its ``ln`` is
+  a ``LayerNorm``; ``MLMHead``'s ``dense``/``ln``/``proj`` map as a
+  ``Linear``, a ``LayerNorm`` and a ``Linear``;
+* ViT: ``PatchEmbed``'s ``proj`` is a ``Linear`` and ``cls``/``pos`` keep
+  their names; ``ViTHead``'s ``ln``/``proj`` map as a ``LayerNorm`` and a
+  ``Linear``;
 * ``BatchNorm``: ``scale``/``bias`` go to the parameters, the running
   ``mean``/``var`` to the buffers of the same names.
 
 :func:`load_pipelined_lm_params` copies the JAX ``Trainer``'s params, the
 ``PipelinedLM`` triple ``(stage_params, pre_params, post_params)``, into a
 ``Pipe`` over the tutorial LM cut by ``pipelined_lm_balance``;
-:func:`load_pipelined_lm` copies the same triple (of a ``PipelinedLM`` or a
-``PipelinedGPT2``) into the port's model of the same family.
+:func:`load_pipelined_lm` copies the same triple (of a ``PipelinedLM``,
+``PipelinedGPT2``, ``PipelinedBERT`` or ``PipelinedViT``) into the port's
+model of the same family.
 :func:`pipelined_lm_arrays` maps such a triple (params, or the gradients
 ``pipe_tpu``'s ``ScheduledPipeline.loss_and_grad`` returns) onto a port
 model's parameter names, as numpy, without copying anything in.
@@ -39,7 +46,9 @@ from torch import nn
 
 from .extras.norm import BatchNorm
 from .extras.skip import Skippable
+from .models.bert import BertEmbed, MLMHead
 from .models.gpt2 import GPT2Embed, GPT2Head
+from .models.vit import PatchEmbed, ViTHead
 from .ops.layers import (Decoder, Dropout, Embedding, LayerNorm, Lambda,
                          Linear, MultiHeadAttention, PositionalEncoding,
                          Sequential, _TransformerBlockBase)
@@ -97,6 +106,18 @@ def _pairs(layer: nn.Module, params: Any
     elif isinstance(layer, GPT2Head):
         yield from _pairs(layer.ln_f, params["ln_f"])
         yield from _linear(layer.proj, params["proj"]["w"], None)
+    elif isinstance(layer, BertEmbed):
+        yield _array(layer.word, params["word"])
+        yield _array(layer.pos, params["pos"])
+        yield from _pairs(layer.ln, params["ln"])
+    elif isinstance(layer, PatchEmbed):
+        yield from _pairs(layer.proj, params["proj"])
+        yield _array(layer.cls, params["cls"])
+        yield _array(layer.pos, params["pos"])
+    elif isinstance(layer, (MLMHead, ViTHead)):
+        for name in (("dense", "ln", "proj") if isinstance(layer, MLMHead)
+                     else ("ln", "proj")):
+            yield from _pairs(getattr(layer, name), params[name])
     elif isinstance(layer, BatchNorm):
         for name in ("scale", "bias", "mean", "var"):
             yield _array(getattr(layer, name), params[name])
@@ -180,10 +201,11 @@ def _pipelined_lm_pairs(model, params: Sequence[Any]
 
 
 def load_pipelined_lm(model, params: Sequence[Any]) -> None:
-    """Copy ``pipe_tpu``'s ``PipelinedLM`` (or ``PipelinedGPT2``) params,
-    the triple of :func:`load_pipelined_lm_params` in either stage layout,
-    into ``model``, the port's model of that family (any stage count: the
-    blocks go in layer order)."""
+    """Copy ``pipe_tpu``'s ``PipelinedLM`` (or ``PipelinedGPT2``,
+    ``PipelinedBERT``, ``PipelinedViT``) params, the triple of
+    :func:`load_pipelined_lm_params` in either stage layout, into ``model``,
+    the port's model of that family (any stage count: the blocks go in
+    layer order)."""
     with torch.no_grad():
         for dst, arr in list(_pipelined_lm_pairs(model, params)):
             dst.copy_(torch.from_numpy(np.array(arr)))
@@ -191,8 +213,8 @@ def load_pipelined_lm(model, params: Sequence[Any]) -> None:
 
 def pipelined_lm_arrays(model, params: Sequence[Any]) -> Dict[str, np.ndarray]:
     """``{name: array}`` over the parameter names of ``model`` (a port
-    ``PipelinedLM`` or ``PipelinedGPT2``), from a ``pipe_tpu`` triple of the
-    same family in either stage layout:
+    ``PipelinedTransformer``: the LM, GPT-2, BERT or ViT), from a
+    ``pipe_tpu`` triple of the same family in either stage layout:
     its params, or the ``(g_stage, g_pre, g_post)`` gradients of
     ``ScheduledPipeline.loss_and_grad``. Each array is in the port's layout
     (``Linear`` weights transposed), so it compares name by name with the

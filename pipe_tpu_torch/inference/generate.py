@@ -173,12 +173,20 @@ def check_positions(model, prompt_len: int, max_new_tokens: int) -> None:
 
 def head_logits(model, h: torch.Tensor) -> torch.Tensor:
     """The model head on hidden states, float32 logits: weights (int8 ones
-    dequantized) and ``h`` in float32."""
-    proj = model.head.proj
+    dequantized) and ``h`` in float32. A head with a final LayerNorm
+    (GPT-2's ``ln_f``) applies it before the projection, as ``pipe_tpu``'s
+    ``head.apply`` does."""
+    head = model.head
+    h = h.to(torch.float32)
+    ln = getattr(head, "ln_f", None)
+    if ln is not None:
+        h = F.layer_norm(h, h.shape[-1:], ln.weight.to(torch.float32),
+                         ln.bias.to(torch.float32), ln.eps)
+    proj = head.proj
     w = (proj.leaf.dequant(torch.float32) if isinstance(proj, QuantLinear)
          else proj.weight.to(torch.float32))
     bias = None if proj.bias is None else proj.bias.to(torch.float32)
-    return F.linear(h.to(torch.float32), w, bias)
+    return F.linear(h, w, bias)
 
 
 def sample_logits(logits: torch.Tensor, cfg: GenerationConfig,

@@ -162,11 +162,26 @@ class PipelinedGPT2(PipelinedTransformer):
         against ``x_mb["targets"]``: the in-pipeline loss contract."""
         return per_row_ce(self.head(h, ctx=ctx), x_mb["targets"])
 
-    def embed_at(self, tokens: torch.Tensor, pos: int) -> torch.Tensor:
+    def embed_at(self, tokens: torch.Tensor, pos) -> torch.Tensor:
         """Embed tokens occupying positions ``[pos, pos + q)``, for
-        incremental decoding (inference: no dropout)."""
+        incremental decoding (inference: no dropout). ``pos`` is a host
+        integer (a window past ``wpe`` raises ``ValueError``; the generators
+        guard it with :meth:`max_position`), or an int64 tensor ``[b]`` with
+        one per row of ``tokens [b, q]`` (the serve engine's slots), clamped
+        to ``[0, seq_len - q]`` as ``pipe_tpu``'s ``dynamic_slice_in_dim``
+        clamps."""
         q = tokens.shape[-1]
-        h = F.embedding(tokens, self.embed.wte) + self.embed.wpe[pos:pos + q]
+        wpe = self.embed.wpe
+        if isinstance(pos, torch.Tensor):
+            rows = (pos.clamp(0, wpe.shape[0] - q)[:, None]
+                    + torch.arange(q, device=pos.device))
+            pe = wpe[rows]                                  # [b, q, d]
+        elif not 0 <= pos <= wpe.shape[0] - q:
+            raise ValueError(f"positions [{pos}, {pos + q}) are outside the "
+                             f"positional table ({wpe.shape[0]} rows)")
+        else:
+            pe = wpe[pos:pos + q]
+        h = F.embedding(tokens, self.embed.wte) + pe
         return h.to(self.cfg.compute_dtype)
 
     def max_position(self) -> int:

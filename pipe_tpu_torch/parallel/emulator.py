@@ -2,9 +2,9 @@
 
 Counterpart of ``pipe_tpu/parallel/emulator.py``: iterate the schedule's
 wavefront; for each (i, j) run stage j on micro-batch i, under
-``torch.utils.checkpoint`` when ``i < checkpoint_stop``. The data dependence
-between cycles is plain function composition on one CUDA stream; the first
-stage failure propagates at once.
+``torch.utils.checkpoint`` when ``i < checkpoint_stop`` (selective under a
+``remat_policy``). The data dependence between cycles is plain function
+composition on one CUDA stream; the first stage failure propagates at once.
 
 With a skip tracker, cross-stage skips and deferred-BatchNorm sums cross each
 task (and so its checkpoint) as explicit inputs and outputs: the pops of
@@ -32,7 +32,8 @@ __all__ = ["run"]
 
 
 def _compute_one(stage: Stage, batch: mb.Batch, ctx: StageCtx,
-                 remat: bool, skip_tracker=None) -> mb.Batch:
+                 remat: bool, remat_policy=None,
+                 skip_tracker=None) -> mb.Batch:
     """Run one (microbatch, stage) task, optionally rematerialized. The ctx
     (and its seed) is bound into the task, so a recomputed forward sees the
     same seed and replays the same dropout."""
@@ -41,7 +42,7 @@ def _compute_one(stage: Stage, batch: mb.Batch, ctx: StageCtx,
         def task(*inputs):
             return stage(*inputs, ctx=ctx)
 
-        task = apply_remat(task, enabled=remat)
+        task = apply_remat(task, enabled=remat, policy=remat_policy)
         with torch.profiler.record_function(label):
             return batch.call(task)
 
@@ -64,7 +65,7 @@ def _compute_one(stage: Stage, batch: mb.Batch, ctx: StageCtx,
                            for ns, name in stash_keys)
         return out, stash_vals, dict(local.accum)
 
-    task = apply_remat(task, enabled=remat)
+    task = apply_remat(task, enabled=remat, policy=remat_policy)
     with torch.profiler.record_function(label):
         result, stash_vals, accums = task(*pop_vals, *batch.values)
     for (ns, name), v in zip(stash_keys, stash_vals):
@@ -83,10 +84,13 @@ def run(stages: Sequence[Stage],
         checkpoint: str = "never",
         train: bool = False,
         seed: Optional[int] = None,
+        remat_policy=None,
         skip_tracker=None) -> List[mb.Batch]:
     """Execute the clock-cycle schedule serially; returns transformed batches.
 
-    Each task's ctx seed is ``seed`` folded over ``(i, j)``. ``skip_tracker``
+    Each task's ctx seed is ``seed`` folded over ``(i, j)``. A
+    ``remat_policy`` (``core.remat.checkpoint_policies``) makes the remat of
+    the checkpointed micro-batches selective. ``skip_tracker``
     (a :class:`~pipe_tpu_torch.extras.skip.SkipTracker` over the stages'
     skip layout) carries skips and stat sums between tasks.
     """
@@ -106,5 +110,6 @@ def run(stages: Sequence[Stage],
             ctx = ctx.fold(i, j)
             batches[i] = _compute_one(stages[j], batches[i], ctx,
                                       remat=i < stop,
+                                      remat_policy=remat_policy,
                                       skip_tracker=skip_tracker)
     return batches

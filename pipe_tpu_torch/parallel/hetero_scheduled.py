@@ -21,9 +21,13 @@ Dropout seeds fold as the emulator's: stage ``s`` of micro-batch ``i`` gets
 ``ctx.fold(i, s)`` of the step's seed, so one seed gives the ``Pipe``
 emulator's masks under every table.
 
+``remat_policy`` goes to the tables as ``pipe_tpu``'s
+``_train_remat_policy`` passes it: dropped under ``never``, where every
+micro-batch keeps its graph and the policy would be inert.
+
 Dropped against ``pipe_tpu``: the packing, the stage-sharded rows
 (``shard_params``), the uniform-partition fast path, overlapped transport
-and phase compilation (ROADMAP.md: A.8), and ``remat_policy`` (A.11).
+and phase compilation (ROADMAP.md: A.8).
 ``Pipe(mesh=...)``, which owns this executor in ``pipe_tpu``, still raises.
 """
 
@@ -36,6 +40,7 @@ from torch import nn
 
 from ..core import microbatch as mb
 from ..core.partition import StageCtx
+from ..core.remat import resolve_policy
 from ..core.schedule import Schedule, get_schedule
 from ..extras.norm import (BatchNorm, DeferredBatchNorm,
                            commit_batchnorm_stats)
@@ -57,11 +62,14 @@ class HeteroScheduledPipeline:
       checkpoint: ``always | except_last | never``, exact per micro-batch.
       schedule: a registered name or a ``Schedule`` with ``op_tables``.
       device: where the step runs (the card unless ``"cpu"`` is asked for).
+      remat_policy: a ``core.remat.checkpoint_policies`` member or its name
+        (``Pipe.remat_policy``), for the recompute micro-batches.
     """
 
     def __init__(self, partitions: Sequence[nn.Module], skip_layout,
                  chunks: int, checkpoint: str = "except_last",
-                 schedule: Any = "1f1b", device=DEFAULT_DEVICE):
+                 schedule: Any = "1f1b", device=DEFAULT_DEVICE,
+                 remat_policy=None):
         self.schedule: Schedule = (get_schedule(schedule)
                                    if isinstance(schedule, str) else schedule)
         self.v = self.schedule.v
@@ -76,6 +84,7 @@ class HeteroScheduledPipeline:
         self.layout = skip_layout
         self.chunks = chunks
         self.checkpoint = checkpoint
+        self.remat_policy = resolve_policy(remat_policy)
         self.device = resolve_device(device)
         # stable lane order for cross-stage skips
         self.lane_keys: List[Tuple[Any, str, int, int]] = []
@@ -96,6 +105,9 @@ class HeteroScheduledPipeline:
             self._stage_fn, self._pre_fn, self._post_fn, n_stages=self.d,
             module=self.module, checkpoint=checkpoint,
             schedule=self.schedule, device=self.device,
+            # pipe_tpu's _train_remat_policy: inert under never, dropped
+            remat_policy=(self.remat_policy if checkpoint != "never"
+                          else None),
             skip_lanes=(SkipLanes(self.lane_pairs, ())
                         if self.lane_pairs else None),
             stat_spec="deferred_stats" if self.has_bn else None)

@@ -15,12 +15,18 @@ table), the op runs:
   run under ``torch.no_grad()`` and keep only their stashed input. The last
   stage parks its output (detached) and adds ``sum(w · post_fn(...))`` to
   the loss without a graph: the post's vocab-scale residuals are never kept
-  from F to B. A stage's output reaches the next stage's stash at the end of
-  the cycle, in slot ``i % stash_slots``, as the value sent at cycle ``t``
-  is consumable at ``t + 1`` in JAX; a slot still in use raises.
+  from F to B. Under a ``remat_policy`` (modes other than ``never``) a
+  recompute micro-batch runs its F under the policy's selective
+  ``torch.utils.checkpoint`` and keeps that graph until its B: only what
+  the policy saves (the matrix products' outputs under ``dots_saveable``)
+  is stored, and the backward re-runs the rest of the stage in place. A
+  stage's output reaches the next stage's stash at the end of the cycle,
+  in slot ``i % stash_slots``, as the value sent at cycle ``t`` is
+  consumable at ``t + 1`` in JAX; a slot still in use raises.
 * **BWD**: a recompute micro-batch re-runs its stage from the stash with the
-  same seeds, so its dropout masks replay bit for bit. The last stage first
-  rebuilds the post's graph from the parked output and seeds it with
+  same seeds, so its dropout masks replay bit for bit (under a policy the
+  checkpoint's own recompute does it, with the same seeds). The last stage
+  first rebuilds the post's graph from the parked output and seeds it with
   ``1 / sum(w)``. The stage-input cotangent goes to stage ``s - 1``;
   parameter gradients accumulate into ``.grad``.
 * **WGRAD** (split tables, ``zb-h1``): under ``checkpoint="never"`` B takes
@@ -36,10 +42,12 @@ tuples over lanes. At FWD(i, src) the lane's stash value, detached, enters a
 per-lane FIFO park at the end of the cycle, in slot ``i % Kf``; FWD(i, dst)
 reads it, as a leaf that requires grad when the micro-batch keeps its graph.
 A recompute micro-batch re-reads the slot at BWD(i, dst), so the slot lives
-until then (JAX's ``reread`` window). BWD(i, dst) parks the pop's gradient in
-a reverse park of depth ``Kg``; BWD(i, src) then runs the backward of the
-stage output and the stash output together, seeded with the cotangent and
-that gradient: the reference's ``PortalOrange``/``PortalBlue`` pair. ``Kf``
+until then (JAX's ``reread`` window), unless a ``remat_policy`` is set: the
+pops then ride the checkpointed F and the slot is free after FWD(i, dst).
+BWD(i, dst) parks the pop's gradient in a reverse park of depth ``Kg``;
+BWD(i, src) then runs the backward of the stage output and the stash output
+together, seeded with the cotangent and that gradient: the reference's
+``PortalOrange``/``PortalBlue`` pair. ``Kf``
 and ``Kg`` are the smallest FIFO depths with no live-window collision
 (:meth:`ScheduledPipeline._skip_tables`, JAX's host-side plan); a park slot
 still in use raises. **Stat lanes** (``stat_spec``, deferred BatchNorm):
@@ -54,8 +62,8 @@ pre, 1 for the stage and 2 for the post, so one seed gives the same masks
 under every schedule and checkpoint mode.
 
 The structural split, context parallelism, tensor-parallel specs,
-overlapped transport and phase compilation (A.8), and ``remat_policy``
-(A.11) are not ported: their fields raise ``NotImplementedError`` when set.
+overlapped transport and phase compilation (A.8) are not ported: their
+fields raise ``NotImplementedError`` when set.
 """
 
 from __future__ import annotations
@@ -70,7 +78,7 @@ from torch import nn
 
 from ..core.memplan import MemoryPlanInputs, activation_slot_plan
 from ..core.partition import StageCtx, fold_seed
-from ..core.remat import validate_mode
+from ..core.remat import apply_remat, resolve_policy, validate_mode
 from ..core.schedule import BWD, FWD, IDLE, WGRAD, get_schedule
 from ..obs.telemetry import get_registry
 from ..utils.platform import DEFAULT_DEVICE, resolve_device
@@ -84,7 +92,6 @@ _NOT_PORTED = (
     ("stage_param_specs", "A.8, tensor-parallel stage params"),
     ("overlap_transport", "A.8, overlapped transport"),
     ("phase_compile", "A.8, the phase-compiled executor"),
-    ("remat_policy", "A.11, remat_policy of the table executor"),
 )
 
 
@@ -301,6 +308,9 @@ class ScheduledPipeline:
       stat_spec: set (to any value, e.g. a description of the stats) when
         the stages return stats, detached at source (``DeferredBatchNorm``'s
         are); the port reads only whether it is set.
+      remat_policy: a ``core.remat.checkpoint_policies`` member or its name,
+        for the recompute micro-batches (module docstring); inert, with a
+        warning, under ``never``.
     """
 
     stage_fn: Callable
@@ -322,6 +332,7 @@ class ScheduledPipeline:
 
     def __post_init__(self):
         validate_mode(self.checkpoint)
+        self.remat_policy = resolve_policy(self.remat_policy)
         for name, item in _NOT_PORTED:
             value = getattr(self, name)
             if value is not None and value is not False:
@@ -360,6 +371,12 @@ class ScheduledPipeline:
             raise NotImplementedError(
                 "stat lanes do not compose with split-backward "
                 "schedules (zb-h1): the W op's seed has no stats slot")
+        if self.remat_policy is not None and self.checkpoint == "never":
+            warnings.warn(
+                "remat_policy is inert under checkpoint='never': every "
+                "micro-batch stores its full residual set and nothing is "
+                "recomputed. Use 'always' or 'except_last' to engage the "
+                "policy.", stacklevel=2)
         if splits and self.checkpoint != "never":
             warnings.warn(
                 f"schedule {self.schedule.name!r} splits backward into B/W "
@@ -398,7 +415,8 @@ class ScheduledPipeline:
                 **activation_slot_plan(MemoryPlanInputs(
                     v=self.v, stash_slots=self.schedule.stash_slots(m, d),
                     wstash_slots=self.schedule.wstash_slots(m, d),
-                    checkpoint=self.checkpoint)),
+                    checkpoint=self.checkpoint,
+                    has_remat_policy=self.remat_policy is not None)),
                 "transport": "serialized"}
         if self.skip_lanes is not None:
             kf, kg = self._skip_tables(m, op, mbi, grp)
@@ -414,7 +432,8 @@ class ScheduledPipeline:
         (reverse park at ``src``), the smallest with no collision of
         overlapping live windows under slot ``i % K``. A stash arrives the
         cycle after FWD(i, src) and lives until FWD(i, dst), or BWD(i, dst)
-        for a micro-batch that recomputes (it needs its pops again); a pop
+        for a micro-batch that re-runs its stage from the stash there (it
+        needs its pops again: a recompute without a policy); a pop
         gradient arrives the cycle after BWD(i, dst) and lives until
         BWD(i, src). A table that uses a value before it arrives raises.
         ``fwd_only`` plans the FWD-masked tables of :meth:`forward` (no
@@ -449,8 +468,8 @@ class ScheduledPipeline:
                         f"{i} arrives at cycle {arr_f} after its FWD "
                         f"{use_f} — the schedule violates the direct-hop "
                         f"timing assumption")
-                wf.append((arr_f, use_f if fwd_only or self._keeps_graph(i, m)
-                           else bwd_c[i, dst]))
+                reread = not fwd_only and self._reruns_at_b(i, m)
+                wf.append((arr_f, bwd_c[i, dst] if reread else use_f))
                 if fwd_only:
                     continue
                 arr_g, use_g = bwd_c[i, dst] + 1, bwd_c[i, src]
@@ -492,6 +511,12 @@ class ScheduledPipeline:
         ``always`` none (they recompute at B)."""
         return (self.checkpoint == "never"
                 or (self.checkpoint == "except_last" and i == m - 1))
+
+    def _reruns_at_b(self, i: int, m: int) -> bool:
+        """Whether micro-batch ``i`` re-runs its stages from the stash at B:
+        a recompute micro-batch without a ``remat_policy`` (under one it keeps
+        the policy's checkpointed graph from F instead)."""
+        return self.remat_policy is None and not self._keeps_graph(i, m)
 
     # --- the ops ---
 
@@ -561,13 +586,16 @@ class ScheduledPipeline:
         if s == 0:
             st.stash.put(0, i, _Entry(None))
         entry = st.stash.get(s, i)
-        save = self._keeps_graph(i, st.m)
+        save = not self._reruns_at_b(i, st.m)
+        policy = save and not self._keeps_graph(i, st.m)
         pops = self._pops(st, s, i, leaf=save, last=save)
         with torch.set_grad_enabled(save):
             if save and s > 0:
                 _require_grad(entry.h_in)
-            out, stashes, stats = self._stage(s, entry.h_in, x_mb, seeds,
-                                              True, i, pops)
+            stage = apply_remat(self._stage, enabled=policy,
+                                policy=self.remat_policy)
+            out, stashes, stats = stage(s, entry.h_in, x_mb, seeds, True, i,
+                                        pops)
         if stats is not None:
             st.stats = _tree_add(st.stats, stats)
         if stashes is not None:

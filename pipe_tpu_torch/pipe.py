@@ -12,6 +12,11 @@ Counterpart of ``pipe_tpu/pipe.py`` without a mesh:
 * ``@skippable`` layers: ``verify_skippables`` and the static
   ``skip_layout`` at construction, a skip tracker threaded through the
   emulator's tasks;
+* ``remat_policy``: a ``core.remat.checkpoint_policies`` member (or its
+  name) for the micro-batches the checkpoint mode recomputes, set at
+  construction or per call (``forward(..., remat_policy=)``, which wins);
+  ``HeteroScheduledPipeline(..., remat_policy=pipe.remat_policy)`` takes it
+  for the tables;
 * ``deferred_batch_norm=True``: plain ``BatchNorm`` layers become
   ``DeferredBatchNorm``, and a train forward commits one running-stats
   update per mini-batch, in place on their buffers (``pipe_tpu`` returns
@@ -36,7 +41,7 @@ from torch import nn
 from .core import microbatch as mb
 from .core.partition import (BalanceError, Stage, split_balance,
                              verify_splitting, verify_stages)
-from .core.remat import validate_mode
+from .core.remat import resolve_policy, validate_mode
 from .core.schedule import Schedule, get_schedule
 from .extras.norm import (DeferredBatchNorm, commit_batchnorm_stats,
                           convert_deferred_batch_norm)
@@ -70,6 +75,7 @@ class Pipe(nn.Module):
                  mesh=None,
                  plan=None,
                  deferred_batch_norm: bool = False,
+                 remat_policy=None,
                  device=DEFAULT_DEVICE):
         super().__init__()
         if mesh is not None:
@@ -82,6 +88,7 @@ class Pipe(nn.Module):
         if chunks <= 0:
             raise ValueError("number of chunks must be positive")
         validate_mode(checkpoint)
+        self.remat_policy = resolve_policy(remat_policy)
         if not isinstance(module, Sequential):
             raise TypeError("module must be a pipe_tpu_torch Sequential")
         seen = set()
@@ -145,12 +152,16 @@ class Pipe(nn.Module):
 
     # --- forward ---
 
-    def forward(self, *inputs, train: bool = False, seed: Optional[int] = None):
+    def forward(self, *inputs, train: bool = False, seed: Optional[int] = None,
+                remat_policy=None):
         """Scatter the batch into ``chunks`` micro-batches, run the
         schedule's wavefront over the stages, gather. ``seed`` drives
-        dropout when ``train``; checkpointing engages only in training. A
-        train forward commits the deferred-BatchNorm stats of the whole
-        mini-batch once, in place."""
+        dropout when ``train``; checkpointing engages only in training,
+        selectively under ``remat_policy`` (this call's, else the
+        ``Pipe``'s). A train forward commits the deferred-BatchNorm stats of
+        the whole mini-batch once, in place."""
+        if remat_policy is None:
+            remat_policy = self.remat_policy
         mb.check(*inputs)
         batches = mb.scatter(inputs, self.chunks)
         stages = [Stage(p, name=f"stage{j}")
@@ -159,7 +170,8 @@ class Pipe(nn.Module):
                    else None)
         batches = emulator.run(stages, batches, schedule=self._schedule,
                                checkpoint=self.checkpoint, train=train,
-                               seed=seed, skip_tracker=tracker)
+                               seed=seed, remat_policy=remat_policy,
+                               skip_tracker=tracker)
         out = mb.gather(batches)
         if self._has_bn and train:
             commit_batchnorm_stats(self.partitions, tracker.accum)

@@ -5,14 +5,17 @@ Adam + StepLR(gamma 0.95 per epoch) + global-norm clip 0.5, cross-entropy on
 the last stage, the same log line. The model is the tutorial LM as a
 ``Sequential`` under ``Pipe``, cut where ``PipelinedLM`` cuts it
 (``pipelined_lm_balance``). ``schedule="gpipe"`` trains through ``Pipe``
-(GPipe on the serial emulator); ``"1f1b"`` and ``"zb-h1"`` train through
-the table executor (``parallel/scheduled.py``) over
-``PipelinedLM.from_sequential`` of the same modules, with the loss on the
-last stage (``loss_post_fn``), as gpipe does when ``LMConfig.loss_block``
-fuses the decoder into the loss. Eval always runs ``Pipe`` with no remat. The
-interleaved schedules, the other executors, ZeRO, telemetry, TensorBoard,
-prefetch, resilience, elastic training and the planner are not ported yet:
-their ``TrainerConfig`` values raise ``NotImplementedError``.
+(GPipe on the serial emulator); ``"1f1b"``, ``"zb-h1"`` and
+``"interleaved-1f1b"`` train through the table executor
+(``parallel/scheduled.py``) over ``PipelinedLM.from_sequential`` of the same
+modules, with the loss on the last stage (``loss_post_fn``), as gpipe does
+when ``LMConfig.loss_block`` fuses the decoder into the loss;
+``interleaved-1f1b`` cuts the model into ``n_stages * interleave`` virtual
+stages, as ``pipe_tpu``'s trainer does. Eval always runs ``Pipe`` with no
+remat. ``schedule="interleaved"`` (the interleaved executors), the other
+executors, ZeRO, telemetry, TensorBoard, prefetch, resilience, elastic
+training and the planner are not ported yet: their ``TrainerConfig`` values
+raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -28,7 +31,7 @@ import torch
 
 from ..core import microbatch as mb
 from ..core.partition import fold_seed
-from ..core.schedule import bubble_fraction
+from ..core.schedule import InterleavedOneFOneBSchedule, bubble_fraction
 from ..data import lm_text
 from ..models.common import per_row_ce
 from ..models.transformer_lm import (LMConfig, PipelinedLM,
@@ -72,10 +75,9 @@ class TrainerConfig:
     plan_memory_cap: Optional[int] = None
 
 
-# Schedules the trainer runs; the interleaved ones need the interleaved
-# executors of parallel/interleaved.py (ROADMAP.md A.8).
-_SCHEDULES = ("gpipe", "1f1b", "zb-h1")
-_INTERLEAVED = ("interleaved", "interleaved-1f1b")
+# Schedules the trainer runs; "interleaved" needs the interleaved executors
+# of parallel/interleaved.py (ROADMAP.md A.8).
+_SCHEDULES = ("gpipe", "1f1b", "zb-h1", "interleaved-1f1b")
 
 # (field, its default, the ROADMAP.md item that ports it)
 _NOT_PORTED = (
@@ -93,7 +95,7 @@ _NOT_PORTED = (
 
 
 def _check_ported(cfg: TrainerConfig) -> None:
-    if cfg.schedule in _INTERLEAVED:
+    if cfg.schedule == "interleaved":
         raise NotImplementedError(
             f"TrainerConfig.schedule={cfg.schedule!r} is not ported to "
             f"pipe_tpu_torch yet (ROADMAP.md: A.8, the interleaved executors "
@@ -167,10 +169,11 @@ class Trainer:
         self._state: Optional[TrainState] = None
 
     def _build_scheduled(self) -> Optional[ScheduledPipeline]:
-        """The table executor for ``1f1b``/``zb-h1`` (and for ``gpipe``
-        with ``loss_block``, whose fused loss lives on the last stage), over
-        ``PipelinedLM.from_sequential`` of the ``Pipe``'s own modules: one
-        set of weights, one state dict. None: ``Pipe`` trains."""
+        """The table executor for ``1f1b``/``zb-h1``/``interleaved-1f1b``
+        (and for ``gpipe`` with ``loss_block``, whose fused loss lives on
+        the last stage), over ``PipelinedLM.from_sequential`` of the
+        ``Pipe``'s own modules: one set of weights, one state dict. None:
+        ``Pipe`` trains."""
         cfg = self.cfg
         if cfg.schedule == "gpipe" and not self.model_cfg.loss_block:
             return None
@@ -184,12 +187,18 @@ class Trainer:
                 f"the zero-bubble advantage (breakeven sigma* "
                 f"{row['breakeven_sigma']:.2f}, obs/zb_model.py crossover) "
                 f"is forfeited.", stacklevel=3)
+        schedule, n_virtual = cfg.schedule, cfg.n_stages
+        if schedule == "interleaved-1f1b":
+            # n_stages devices' worth of tables, each hosting `interleave`
+            # virtual stages: the model factors into n_stages*interleave
+            schedule = InterleavedOneFOneBSchedule(interleave=cfg.interleave)
+            n_virtual = cfg.n_stages * cfg.interleave
         self.model = PipelinedLM.from_sequential(
-            self.model_cfg, Sequential(list(self.pipe)), cfg.n_stages)
+            self.model_cfg, Sequential(list(self.pipe)), n_virtual)
         return ScheduledPipeline(
             self.model.stage_fn, self.model.pre_fn, self.model.loss_post_fn,
             n_stages=cfg.n_stages, module=self.model,
-            checkpoint=cfg.checkpoint, schedule=cfg.schedule,
+            checkpoint=cfg.checkpoint, schedule=schedule,
             device=self.device)
 
     def _build(self, seed: int):
@@ -229,7 +238,11 @@ class Trainer:
         save_checkpoint(directory, state, state.step if step is None else step)
 
     def analytic_bubble(self) -> float:
-        return bubble_fraction(self.cfg.chunks, self.cfg.n_stages)
+        cfg = self.cfg
+        if cfg.schedule == "interleaved-1f1b":
+            return InterleavedOneFOneBSchedule(
+                interleave=cfg.interleave).bubble(cfg.chunks, cfg.n_stages)
+        return bubble_fraction(cfg.chunks, cfg.n_stages)
 
     def generate(self, state: TrainState, prompt, *,
                  max_new_tokens: int = 32, temperature: float = 0.0,

@@ -2,8 +2,10 @@
 and without dropout) against their plain versions, the Pipe slice and a
 training step through them, a table-executor step (1f1b, zb-h1) against the
 emulator's, the GPT-2 skip lane through the tables against the emulator,
-deferred BatchNorm, and KV-cached generation (which runs no kernel) against the Pipe
-forward. Skipped without a card.
+deferred BatchNorm, a ``dots_saveable`` step against the policy-free one,
+the kernels at BERT-large's shape, GPT-2 served against its ``Generator``,
+and KV-cached generation (which runs no kernel) against the Pipe forward.
+Skipped without a card.
 
 This file imports only torch and pipe_tpu_torch, so it runs on a machine
 without JAX; there, skip the repo's JAX conftest:
@@ -134,6 +136,83 @@ def test_kernels_at_the_gpt2_shape(cuda, rate):
     causal, its attention dropout 0.1: 8 key tiles per causal row block."""
     test_backward_kernels_match_plain_versions(cuda, 24, 1024, 64, True,
                                                rate)
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_kernels_at_the_bert_shape(cuda, rate):
+    """BERT-large's training shape: (b*h, s, d) = (1 x 16, 512, 64),
+    non-causal, its attention dropout 0.1: 8 row blocks of 64, all 8 key
+    tiles each."""
+    test_backward_kernels_match_plain_versions(cuda, 16, 512, 64, False,
+                                               rate)
+
+
+@pytest.mark.parametrize("schedule", ["1f1b", "interleaved-1f1b"])
+def test_dots_saveable_step_on_the_card(cuda, schedule):
+    """One except_last step of the tiny LM at dropout 0.1 through the table
+    executor, with and without ``remat_policy="dots_saveable"``: the same
+    loss and gradients (the same masks), the same kernel launches (a policy
+    cannot save a kernel's output), fewer matrix products."""
+    from pipe_tpu_torch.core import microbatch as mb
+    from pipe_tpu_torch.core.remat import count_dots
+    from pipe_tpu_torch.parallel.scheduled import ScheduledPipeline
+
+    cfg = dataclasses.replace(pt.LMConfig().tiny(), attn_impl="flash",
+                              dropout=0.1)
+    tokens = torch.randint(0, cfg.vocab, (8, cfg.seq_len), device=cuda,
+                           generator=torch.Generator(device=cuda).manual_seed(1))
+    x, rows = mb.stack_scatter({"tokens": tokens,
+                                "targets": tokens.roll(-1, -1)}, 4)
+    counters = (tfa.flash_attention_fwd, tfa.flash_attention_bwd_dq,
+                tfa.flash_attention_bwd_dkv)
+    runs = []
+    for policy in (None, "dots_saveable"):
+        model = pt.PipelinedLM(cfg, 4, device=cuda,
+                               generator=torch.Generator(device=cuda)
+                               .manual_seed(5))
+        table = ScheduledPipeline(model.stage_fn, model.pre_fn,
+                                  model.loss_post_fn, n_stages=2,
+                                  module=model, checkpoint="except_last",
+                                  schedule=schedule, device=cuda,
+                                  remat_policy=policy)
+        before = [c.launches for c in counters]
+        with count_dots() as dots:
+            loss, grads = table.loss_and_grad(x, mb.valid_row_mask(x, rows),
+                                              seed=3)
+            torch.cuda.synchronize()
+        moved = [c.launches - b for c, b in zip(counters, before)]
+        passes = table.stage_passes(4)
+        lps = model.layers_per_stage
+        assert moved == [lps * passes["forward"], lps * passes["backward"],
+                         lps * passes["backward"]]
+        runs.append((loss.item(), grads, moved, dots.count))
+    (l0, g0, m0, d0), (l1, g1, m1, d1) = runs
+    assert m0 == m1 and d1 < d0
+    assert abs(l1 - l0) <= 1e-5 * abs(l0)
+    for name, g in g0.items():
+        assert (g1[name] - g).abs().max().item() <= \
+            TOL * max(1.0, g.abs().max().item()), name
+
+
+def test_gpt2_engine_equals_generator_on_the_card(cuda):
+    """GPT-2 tiny served by the slot engine (decode captured in a CUDA
+    graph) gives the batch-1 ``Generator``'s greedy tokens bit for bit."""
+    from pipe_tpu_torch.inference import GenerationConfig, Generator
+    from pipe_tpu_torch.models.gpt2 import GPT2Config, PipelinedGPT2
+    from pipe_tpu_torch.serve import (BucketSpec, ServeEngine,
+                                      SingleDeviceSlotBackend)
+
+    model = PipelinedGPT2(GPT2Config().tiny(), 2, device=cuda)
+    gen = GenerationConfig(max_new_tokens=6, temperature=0.0)
+    prompts = [[5, 9, 2], [7, 1, 8, 3, 4], [11, 6, 2, 9]]
+    eng = ServeEngine(SingleDeviceSlotBackend(
+        model, num_slots=2, max_len=8 + 6, gen=gen,
+        buckets=BucketSpec.of(4, 8), resident=False))
+    resps = eng.serve(prompts)
+    ref = Generator(model, gen)
+    for p, r in zip(prompts, resps):
+        assert r.status == "ok"
+        assert r.tokens == ref.generate([p])[0].tolist()
 
 
 def test_flash_attention_gradients_match_plain_autograd(cuda):

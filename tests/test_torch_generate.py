@@ -543,7 +543,7 @@ def test_generate_cli_resumes_a_trainer_checkpoint(tmp_path, capsys):
     (["--stages", "2"], "A.8"),
     (["--prompts-file", "p.txt"], "no such file"),
     (["--context-shards", "2"], "A.10"),
-    (["--family", "gpt2"], "A.10"),
+    (["--family", "gpt2", "--context-shards", "2"], "A.10"),
     (["--prompt", "1,x"], "comma-separated integer"),
     (["--prompt", "1,101"], r"prompt ids must be in \[0, 101\)"),
     (["--prompt", ""], r"prompt ids must be in \[0, 101\)"),

@@ -15,8 +15,9 @@ at ``GPT2Config().tiny()``, from converted weights and the same numpy tokens.
   loss within 1e-5 relative, gradients within 1e-4 x max(1, max|g|)), and
   the attention kernels' launches follow ``stage_passes`` x the blocks of
   each stage.
-* ``apps.zoo gpt2 --tiny --device cpu`` trains; ``bert``, ``vit`` and
-  ``--schedule interleaved-1f1b`` exit 2 naming their ROADMAP items.
+* ``apps.zoo gpt2 --tiny --device cpu`` trains, and so do ``bert``, ``vit``
+  and ``--schedule interleaved-1f1b``, which exited 2 naming their ROADMAP
+  items until they landed.
 """
 
 import dataclasses
@@ -240,5 +241,10 @@ def test_zoo_gpt2_tiny_trains_on_cpu(capsys):
     (["bert"], "A.10"), (["vit"], "A.10"),
     (["gpt2", "--schedule", "interleaved-1f1b"], "A.8")])
 def test_zoo_refuses_what_is_not_ported(capsys, argv, item):
-    assert zoo.main(argv + ["--tiny", "--device", "cpu"]) == 2
-    assert f"ROADMAP.md: {item}" in capsys.readouterr().err
+    """The families and the schedule that waited for ``item`` (A.10's BERT
+    and ViT, the interleaved-1F1B table once filed under A.8) have landed:
+    each runs now, and nothing names a ROADMAP item."""
+    assert zoo.main(argv + ["--tiny", "--device", "cpu", "--steps", "1",
+                            "--batch", "4", "--chunks", "2"]) == 0
+    out = capsys.readouterr()
+    assert "ROADMAP.md" not in out.err and "final loss" in out.out

@@ -76,6 +76,19 @@ bn = pt.Pipe(pt.Sequential([Linear(4, 4, device="cpu"),
              chunks=2, n_stages=2, deferred_batch_norm=True, device="cpu")
 bn(torch.randn(8, 4), train=True)
 assert bn[1].mean.abs().sum() > 0
+from pipe_tpu_torch.apps import serve as serve_app
+from pipe_tpu_torch.core.remat import checkpoint_policies
+from pipe_tpu_torch.models import BertConfig, PipelinedBERT, ViTConfig
+for argv in (["bert", "--schedule", "interleaved-1f1b"], ["vit"]):
+    assert zoo.main(argv + ["--tiny", "--device", "cpu", "--steps", "1"]) == 0
+rp = pt.Pipe(pt.build_sequential(cfg, device="cpu"), chunks=2, n_stages=2,
+             remat_policy=checkpoint_policies.dots_saveable, device="cpu")
+rp(torch.randint(0, cfg.vocab, (4, cfg.seq_len)), train=True).sum().backward()
+assert gen_app.main(["--family", "gpt2", "--tiny", "--device", "cpu",
+                     "--max-new", "3"]) == 0
+g2 = gpt2.PipelinedGPT2(gcfg, device="cpu")
+assert g2.embed_at(toks[:, :1], torch.tensor([0, 3, 9, 15])).shape == (
+    4, 1, gcfg.d_model)
 bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib")
        and sys.modules[m] is not None]
 assert not bad, bad
@@ -91,11 +104,16 @@ from pipe_tpu_torch.train import Trainer, TrainerConfig
 from pipe_tpu_torch.parallel.scheduled import ScheduledPipeline
 from pipe_tpu_torch.apps import generate as gen_app, lm_tutorial, zoo
 from pipe_tpu_torch.extras.norm import BatchNorm
-from pipe_tpu_torch.models.gpt2 import GPT2Config, PipelinedGPT2
+from pipe_tpu_torch.models import (BertConfig, GPT2Config, PipelinedBERT,
+                                   PipelinedGPT2, PipelinedViT, ViTConfig)
 from pipe_tpu_torch.parallel.hetero_scheduled import HeteroScheduledPipeline
 for make in (lambda: Linear(4, 4),
              lambda: BatchNorm(4),
              lambda: PipelinedGPT2(GPT2Config().tiny()),
+             lambda: PipelinedBERT(BertConfig().tiny()),
+             lambda: PipelinedViT(ViTConfig().tiny()),
+             lambda: zoo.main(["vit", "--tiny"]),
+             lambda: gen_app.main(["--tiny", "--family", "gpt2"]),
              lambda: zoo.main(["gpt2", "--tiny"]),
              lambda: HeteroScheduledPipeline(
                  [pt.Sequential([Linear(4, 4, device="cpu")])], None, 2),

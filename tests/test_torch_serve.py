@@ -631,7 +631,9 @@ def test_generate_cli_prompts_file_serves_through_the_engine(
      "spec_branches >= 2"),
     (["--spec-tokens", "4", "--resident", "off"], "needs the resident loop"),
     (["--draft", "truncated"], "speculative lane; set spec_tokens"),
-    (["--family", "gpt2"], "A.10"),
+    (["--family", "gpt2", "--draft", "tree", "--spec-tokens", "4",
+      "--spec-branches", "2", "--resident", "on"],
+     "PipelinedGPT2 has no embed_tree"),
     (["--prompts-file", "/nonexistent/p.txt"], "no such file"),
     (["--eos", "101"], r"--eos must be in \[0, 101\)"),
     (["--max-new", "0"], "max_new_tokens must be >= 1"),

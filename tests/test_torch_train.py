@@ -290,6 +290,37 @@ def test_table_trainer_tracks_pipe_tpus_1f1b_trainer(corpus, schedule,
     assert got[-1] < got[0]
 
 
+def test_interleaved_table_trainer_tracks_the_1f1b_trainer(corpus):
+    """``Trainer(schedule="interleaved-1f1b", interleave=2)`` cuts 4 layers
+    into 2 x 2 virtual stages and walks the interleaved table: four steps
+    from one set of weights track the port's 1f1b ``Trainer`` (the same
+    step in another order; ``test_table_trainer_tracks_pipe_tpus_1f1b_trainer``
+    holds that one to JAX's) within TOL_TRAJECTORY."""
+    source, _ = corpus
+    results = {}
+    for schedule in ("1f1b", "interleaved-1f1b"):
+        model, cfg = _configs(schedule=schedule, interleave=2,
+                              checkpoint="except_last")
+        trainer = tloop.Trainer(dataclasses.replace(model, n_layers=4), cfg,
+                                device="cpu")
+        state = trainer.init_state(seed=3)
+        _, results[schedule] = _per_step_losses(trainer, source, state,
+                                                steps=4)
+    assert trainer.scheduled.n_virtual == 4
+    assert trainer.scheduled.schedule.name == "interleaved-1f1b"
+    assert trainer.analytic_bubble() < tloop.bubble_fraction(2, 2)
+    np.testing.assert_allclose(results["interleaved-1f1b"], results["1f1b"],
+                               rtol=TOL_TRAJECTORY, atol=0)
+    assert results["1f1b"][-1] < results["1f1b"][0]
+
+
+def test_lm_tutorial_trains_interleaved_1f1b(capsys):
+    assert lm_tutorial.main(["except_last", "--tiny", "--steps", "2",
+                             "--device", "cpu", "--schedule",
+                             "interleaved-1f1b", "--interleave", "2"]) == 0
+    assert "final train loss" in capsys.readouterr().out
+
+
 def test_zb_trainer_under_recompute_warns_with_the_crossover_row():
     with pytest.warns(UserWarning, match="breakeven sigma"):
         tiny_trainer(schedule="zb-h1", checkpoint="except_last")
@@ -307,7 +338,8 @@ def test_lm_tutorial_trains_on_the_cpu(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("argv", [
-    ["always", "--tiny", "--device", "cpu", "--schedule", "interleaved-1f1b"],
+    ["never", "--tiny", "--device", "cpu", "--schedule", "interleaved",
+     "--interleave", "3"],
     ["always", "--tiny", "--device", "cpu", "--schedule", "interleaved"]])
 def test_lm_tutorial_refuses_other_schedules(argv):
     with pytest.raises(NotImplementedError, match="schedule.*A.8"):

@@ -3,7 +3,10 @@
     python3 tools/torch_slice_profile.py [--batches N] [--out DIR]
     python3 tools/torch_slice_profile.py --train [--steps N] [--out DIR]
     python3 tools/torch_slice_profile.py --train --schedule 1f1b|zb-h1|gpipe
-        [--checkpoint never|except_last|always] [--steps N] [--out DIR]
+        [--checkpoint never|except_last|always] [--remat-policy NAME]
+        [--steps N] [--out DIR]
+    python3 tools/torch_slice_profile.py --bert [--remat-policy NAME]
+        [--steps N] [--out DIR]
     python3 tools/torch_slice_profile.py --generate [--decode-steps N]
         [--out DIR]
     python3 tools/torch_slice_profile.py --serve [--kv slab|paged]
@@ -39,7 +42,18 @@ executor's ranges (the backward's from the autograd thread included): ``F``,
 and its rebuilt forward and backward at B (``post-B``), the work the
 one-device walk does that GPipe does not (with zb-h1's second backward
 walk, ``W``); and the device's idle share against the fastest unprofiled
-step (the profiler stretches the traced window).
+step (the profiler stretches the traced window). With ``--remat-policy``
+the turns are the table with the policy (profiled) against the same table
+without one, and the policy-free step is profiled too
+(``without_policy``).
+
+``--bert``: BERT-large at full width through the interleaved-1F1B table as
+``chip_smoke.py``'s bert phase runs it (8 stages x 3, chunks 32, batch 32 x
+512, except_last, dropout 0.1, Adam at lr 1e-4): N steps timed in turns
+with ``--remat-policy`` (default none) and without, then one step of each
+profiled; the summary has no per-kernel trace (a step launches ~10^5
+kernels) but the busy time, idle share against the unprofiled step and the
+kernel time by category.
 
 ``--generate``: KV-cached generation over that LM's weights as
 ``chip_smoke.py``'s generate phase runs it (batch 8, 128-token prompts from
@@ -246,7 +260,16 @@ def train_slice(args):
                               tcfg.batch_size)
     # "main" is profiled; "other" is timed beside it in turns
     cfg = LMConfig(vocab=len(vocab), attn_impl="flash")      # dropout 0.2
-    if args.schedule:
+    if args.schedule and args.remat_policy:
+        names = {"main": f"table-{args.schedule}/{args.checkpoint}/"
+                         f"{args.remat_policy}",
+                 "other": f"table-{args.schedule}/{args.checkpoint}"}
+        trainers = {k: chip_smoke._sched_trainer(cfg, args.schedule,
+                                                 args.checkpoint)
+                    for k in names}
+        trainers["main"].scheduled = dataclasses.replace(
+            trainers["main"].scheduled, remat_policy=args.remat_policy)
+    elif args.schedule:
         names = {"main": f"table-{args.schedule}/{args.checkpoint}",
                  "other": "pipe-gpipe/except_last"}
         trainers = {"main": chip_smoke._sched_trainer(cfg, args.schedule,
@@ -273,10 +296,18 @@ def train_slice(args):
     turns = {"main": [], "other": []}
     for key in ("main", "other", "other", "main"):
         turns[key].append(timed(lambda: steps(key, args.steps)))
+    without = None
+    if args.remat_policy:
+        without, _ = profile(lambda: steps("other", 1), "train_step")
+        without["idle_share_unprofiled"] = max(
+            0.0, 1.0 - without["device_busy_us"]
+            / (min(turns["other"]) * 1e6 / args.steps))
     trainers.pop("other")
     states.pop("other")
     torch.cuda.empty_cache()
     summary, prof = profile(lambda: steps("main", 1), "train_step")
+    if without is not None:
+        summary["without_policy"] = without
     tokens = args.steps * tcfg.batch_size * tcfg.bptt
     if args.schedule:
         # the profiler stretches the traced window; the device's busy time
@@ -295,7 +326,73 @@ def train_slice(args):
     stem = "torch_train"
     if args.schedule:
         stem += f"_{args.schedule}_{args.checkpoint}"
+    if args.remat_policy:
+        stem += f"_{args.remat_policy}"
     return summary, prof, stem
+
+
+def bert_slice(args):
+    import chip_smoke
+    from pipe_tpu_torch.apps import zoo
+    from pipe_tpu_torch.core import microbatch as mb
+    from pipe_tpu_torch.core.schedule import InterleavedOneFOneBSchedule
+    from pipe_tpu_torch.models import bert
+    from pipe_tpu_torch.parallel.scheduled import ScheduledPipeline
+
+    cfg = bert.BertConfig()                          # dropout 0.1
+    n_virtual = chip_smoke.BERT_STAGES * chip_smoke.BERT_INTERLEAVE
+    model = bert.PipelinedBERT(
+        cfg, n_virtual, device="cuda",
+        generator=torch.Generator(device="cuda").manual_seed(0))
+    opt = torch.optim.Adam(model.parameters(), lr=chip_smoke.TRAIN_LR)
+    names = {"main": args.remat_policy or "none", "other": "none"}
+    tables = {k: ScheduledPipeline(
+        model.stage_fn, model.pre_fn, model.loss_post_fn,
+        n_stages=chip_smoke.BERT_STAGES, module=model,
+        checkpoint="except_last",
+        schedule=InterleavedOneFOneBSchedule(
+            interleave=chip_smoke.BERT_INTERLEAVE), device="cuda",
+        remat_policy=args.remat_policy if k == "main" else None)
+        for k in names}
+    position = {"main": 0, "other": 0}
+
+    def steps(key, n):
+        for _ in range(n):
+            b = position[key]
+            x, rows = mb.stack_scatter(zoo.synthetic_batch(
+                "bert", cfg, chip_smoke.BERT_BATCH, b, "cuda"),
+                chip_smoke.BERT_CHUNKS)
+            opt.zero_grad(set_to_none=True)
+            tables[key].loss_and_grad(x, mb.valid_row_mask(x, rows), seed=b)
+            opt.step()
+            position[key] = b + 1
+
+    for key in ("main", "other"):                   # warm-up
+        steps(key, 1)
+    turns = {"main": [], "other": []}
+    for key in ("main", "other", "other", "main"):
+        turns[key].append(timed(lambda: steps(key, args.steps)))
+    summaries = {}
+    for key in ("other", "main"):
+        summaries[key], prof = profile(lambda: steps(key, 1), "bert_step")
+        summaries[key]["idle_share_unprofiled"] = max(
+            0.0, 1.0 - summaries[key]["device_busy_us"]
+            / (min(turns[key]) * 1e6 / args.steps))
+    summary = summaries["main"]
+    if args.remat_policy:
+        summary["without_policy"] = summaries["other"]
+    tokens = args.steps * chip_smoke.BERT_BATCH * cfg.seq_len
+    turns = {names["main"] if k == "main" else f"{names[k]}#2": v
+             for k, v in turns.items()}
+    summary.update(tokens=tokens, steps_per_turn=args.steps, wall_s=turns,
+                   ms_per_step={k: [t * 1e3 / args.steps for t in v]
+                                for k, v in turns.items()},
+                   tokens_per_s={k: [tokens / t for t in v]
+                                 for k, v in turns.items()},
+                   memory_plan=tables["main"].memory_plan(
+                       chip_smoke.BERT_CHUNKS))
+    return summary, None, "torch_bert" + (f"_{args.remat_policy}"
+                                          if args.remat_policy else "")
 
 
 def generate_slice(args):
@@ -461,6 +558,15 @@ def main(argv=None) -> int:
                                              "always"],
                     default="except_last",
                     help="checkpoint mode of the table step (--schedule)")
+    ap.add_argument("--remat-policy", default=None,
+                    choices=["dots_saveable",
+                             "dots_with_no_batch_dims_saveable",
+                             "nothing_saveable", "everything_saveable"],
+                    help="a remat policy for the table step (--schedule, "
+                         "--bert), timed and profiled against none")
+    ap.add_argument("--bert", action="store_true",
+                    help="profile BERT-large steps through the "
+                         "interleaved-1F1B table")
     ap.add_argument("--generate", action="store_true",
                     help="profile KV-cached generation (fp32 and int8)")
     ap.add_argument("--serve", action="store_true",
@@ -497,13 +603,16 @@ def main(argv=None) -> int:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip().splitlines()[0]
     run = (generate_slice if args.generate else serve_slice if args.serve
+           else bert_slice if args.bert
            else train_slice if args.train else eval_slice)
     with torch.inference_mode(args.generate):
         summary, prof, stem = run(args)
     summary["device"] = smi
 
     os.makedirs(args.out, exist_ok=True)
-    prof.export_chrome_trace(os.path.join(args.out, f"{stem}_trace.json"))
+    if prof is not None:
+        prof.export_chrome_trace(os.path.join(args.out,
+                                              f"{stem}_trace.json"))
     with open(os.path.join(args.out, f"{stem}_profile.json"), "w") as f:
         json.dump(summary, f, indent=1)
     print(smi)
@@ -515,7 +624,7 @@ def main(argv=None) -> int:
             "decode_ms_per_tick", "launches_per_tick",
             "device_busy_us_per_tick", "kernel_us_per_tick_by_category",
             "ms_per_round", "device_busy_ms_per_round", "table_op_ranges",
-            "idle_share_unprofiled", "memory_plan")
+            "idle_share_unprofiled", "memory_plan", "without_policy")
     parts = ([summary[k] for k in ("fp32", "int8")] if args.generate
              else [summary[k] for k in ("graph", "eager")] if args.serve
              else [summary])
