@@ -38,6 +38,40 @@ exits non-zero without a result line:
    the last below the first. Then twins at dropout 0: one step's loss and
    gradients with the kernels and with plain attention on the same weights,
    each held to plain attention in float64.
+5h. train_obs -- the rest of the one-device training path over the train
+   phase's LM and trainer (batch 32, chunks 4, 2 stages, except_last, lr
+   1e-4, dropout 0.2, 8 steps logged every 4). (a) ``Trainer`` plain, with
+   ``telemetry_dir``, and with ``telemetry_dir``, ``tb_dir``,
+   ``profile_every=4`` and ``prefetch_depth=2``: losses equal bit for bit and
+   the three kernels' launches equal; 8 StepReports whose walls over steps
+   2-8 sum to within 5% of the loop's elapsed time; every report's
+   0 < MFU <= HFU < 1 (the card's fp32 peak, ``n_devices=1``), printed with
+   the steady-state MFU/HFU beside the prediction; the report's peak equals
+   ``max_memory_allocated``; every TensorBoard record passes its masked
+   CRC32C and the file holds every tag ``pipe_tpu`` writes; ``trace_step4``
+   gives a ``cuda`` timeline with all 4 x 2 (chunk, stage) cells whose busy
+   time is at most the traced wall (measured bubble, device idle share and
+   analytic bubble printed); the native prefetcher is taken and its batches
+   are ``get_batch``'s. Prints each run's ms per step, train tokens/s and
+   peak, and the telemetry cost of an unprofiled step. (b) ``profile_model``
+   over the LM's ``Sequential`` (per-layer forward and backward ms);
+   ``auto_plan`` at 2 devices, its profile fitted to whole steps at m 2, 4
+   and 8 (the fitted per-cycle overhead, scale and residual printed):
+   ``Pipe(plan=...)``'s step loss equals the hand-built ``Pipe``'s bit for
+   bit; the winner's and the runners-up's predicted ms against measured
+   (the first runner-up and the first with another m), and the winner's
+   best step is at most 5% over each runner-up's; ``Trainer(plan="auto")``'s
+   plan line. (c)
+   ``resilience=ResilienceConfig(warmup_steps=2)`` without faults: losses
+   and launches equal the plain run's; with ``nan_grads`` at step 3,
+   ``loss_spike`` at 5 and ``data_raise`` at 6: both skipped steps leave
+   parameters, both Adam moments and Adam's step count bitwise unchanged,
+   the data fault is retried once and no step is lost; persistent
+   ``nan_grads`` rewinds once and raises ``TrainingAborted``. Prints the
+   guarded step's ms, with the verdict read every step and every 8, against
+   the plain step's. (d) SIGTERM during step 3
+   with ``install_autosave``: 3 steps, a checkpoint; a new trainer restored
+   from it takes steps 4-8 with the plain run's losses, bit for bit.
 5b. schedules -- the table executor (``parallel/scheduled.py``) over the
    same LM at full width, with the kernels. (a) Dropout 0: one step of the
    gpipe, 1f1b and zb-h1 tables under except_last and under never, from one
@@ -230,6 +264,7 @@ import subprocess
 import sys
 import time
 
+import numpy as np
 import torch
 
 SEED = 0
@@ -283,6 +318,23 @@ BN_WIDTH, BN_DEPTH, BN_CHUNKS, BN_BATCH = 1024, 4, 8, 256
 TOL_BN = 1e-5
 # Remat phase: the policy the tables take (JAX's headline program is
 # except_last + dots_saveable) and the order of the timed runs.
+# train_obs phase: the train phase's LM and trainer, 8 steps logged every 4
+# (the first and the logged steps synchronize), a profiled step every 4; the
+# StepReports' walls over steps 2-8 within TOL_WALL_SUM of the loop's own
+# elapsed time; the prediction written in PERF.md before the first chip run
+# (MFU and HFU at the emulator's 10,720 train tokens/s against 66.9 TFLOP/s
+# fp32); the planner's candidates (m dividing the batch, the emulator's
+# schedules) and its timed steps.
+OBS_STEPS = 8
+OBS_LOG_EVERY = 4
+OBS_PROFILE_EVERY = 4
+TOL_WALL_SUM = 0.05
+PREDICTED_MFU, PREDICTED_HFU = 0.43, 0.53
+PLAN_M = (2, 4, 8, 16, 32)
+PLAN_SCHEDULES = ("gpipe", "1f1b")
+PLAN_REPS = 3
+PLAN_FIT_M = (2, 4, 8)      # the m at which auto_plan fits its step costs
+TOL_PLAN = 0.05             # the plan's step may be this much over a runner-up's
 REMAT_POLICY = "dots_saveable"
 REMAT_RUNS = (None, REMAT_POLICY, REMAT_POLICY, None)
 # GPT-2 serve phase: slots, requests (prompt and new-token lengths drawn
@@ -993,6 +1045,531 @@ def phase_train() -> dict:
             f"parameter's largest from the float64 twin's; plain attention "
             f"in fp32 is {worst['plain']:.3e} from it (tol {tol:.3e})")
     return launches
+
+
+def _obs_setup():
+    """The train phase's corpus, model config and trainer config."""
+    from pipe_tpu_torch.data import lm_text
+    from pipe_tpu_torch.models.transformer_lm import LMConfig
+    from pipe_tpu_torch.train.loop import TrainerConfig
+
+    train_lines, val_lines, _ = lm_text.load_corpus(vocab_size=28782)
+    vocab = lm_text.Vocab(map(lm_text.basic_english_tokenize, train_lines))
+    cfg = LMConfig(vocab=len(vocab), attn_impl="flash")   # dropout 0.2
+    tcfg = TrainerConfig(batch_size=TRAIN_BATCH, bptt=BPTT, chunks=CHUNKS,
+                         n_stages=N_STAGES, checkpoint="except_last",
+                         lr=TRAIN_LR)
+    source = lm_text.batchify(lm_text.data_process(train_lines, vocab),
+                              tcfg.batch_size)
+    val = lm_text.batchify(lm_text.data_process(val_lines, vocab),
+                           tcfg.eval_batch_size)
+    return cfg, tcfg, source, val
+
+
+def _obs_run(trainer, source, steps=OBS_STEPS, start=0, state=None,
+             name="_step", log_fn=None, keep=False):
+    """``steps - start`` steps of ``trainer`` in one ``train_epoch``, with the
+    kernels' counts set to 0 just before and read just after; returns
+    ``(state, info, losses, launches, peak_bytes)``, the state only when
+    ``keep`` (it holds the run's weights and Adam moments on the card). The
+    losses are the step method's (recorded, read back after the run)."""
+    losses = []
+    step = getattr(trainer, name)
+    patched = name in vars(trainer)
+
+    def recording(*a):
+        out = step(*a)
+        losses.append(out[0] if isinstance(out, tuple) else out)
+        return out
+
+    setattr(trainer, name, recording)
+    state = trainer.init_state() if state is None else state
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_launches()
+    state, info = trainer.train_epoch(source, state=state, max_steps=steps,
+                                      start_step=start,
+                                      log_every=OBS_LOG_EVERY,
+                                      log_fn=log_fn or (lambda s: None))
+    torch.cuda.synchronize()
+    launches = _launch_counts()
+    if patched:
+        setattr(trainer, name, step)
+    else:
+        delattr(trainer, name)      # no bound method left to cycle on
+    return (state if keep else None, info, [float(l) for l in losses],
+            launches, torch.cuda.max_memory_allocated())
+
+
+def _obs_log(run, info, peak, smi, tokens_per_step):
+    ms = info["sec_per_step"] * 1e3
+    log("train_obs", run=run, steps=info["steps"],
+        ms_per_step=f"{ms:.1f}",
+        train_tokens_per_s=f"{tokens_per_step / info['sec_per_step']:.1f}",
+        peak_mem_gb=f"{peak / 1e9:.2f}", card=repr(smi.splitlines()[0]))
+
+
+def _crc32c(data: bytes) -> int:
+    crc = 0xFFFFFFFF
+    for byte in data:
+        crc ^= byte
+        for _ in range(8):
+            crc = (crc >> 1) ^ (0x82F63B78 if crc & 1 else 0)
+    return crc ^ 0xFFFFFFFF
+
+
+def _tb_tags(path: str) -> set:
+    """The tags of a TensorBoard scalar file, every record's two masked
+    CRC32Cs checked (a bitwise CRC32C, not the writer's table)."""
+    import struct
+
+    def masked(data):
+        c = _crc32c(data)
+        return (((c >> 15) | (c << 17)) + 0xA282EAD8) & 0xFFFFFFFF
+
+    def fields(buf):
+        k = 0
+        while k < len(buf):
+            key = shift = 0
+            while True:
+                b = buf[k]
+                key |= (b & 0x7F) << shift
+                k, shift = k + 1, shift + 7
+                if not b & 0x80:
+                    break
+            wire = key & 7
+            if wire == 0:
+                while buf[k] & 0x80:
+                    k += 1
+                k, val = k + 1, None
+            elif wire in (1, 5):
+                k, val = k + (8 if wire == 1 else 4), None
+            else:
+                n = shift = 0
+                while True:
+                    b = buf[k]
+                    n |= (b & 0x7F) << shift
+                    k, shift = k + 1, shift + 7
+                    if not b & 0x80:
+                        break
+                k, val = k + n, buf[k:k + n]
+            yield key >> 3, val
+
+    raw, tags, off, n_rec = open(path, "rb").read(), set(), 0, 0
+    while off < len(raw):
+        header = raw[off:off + 8]
+        (n,) = struct.unpack("<Q", header)
+        payload = raw[off + 12:off + 12 + n]
+        if (struct.unpack("<I", raw[off + 8:off + 12])[0] != masked(header)
+                or struct.unpack("<I", raw[off + 12 + n:off + 16 + n])[0]
+                != masked(payload)):
+            raise AssertionError(f"{path}: record {n_rec} fails its CRC32C")
+        for field, summary in fields(payload):
+            if field == 5:
+                for _, value in fields(summary):
+                    tags.update(v.decode() for f, v in fields(value)
+                                if f == 1)
+        off, n_rec = off + 16 + n, n_rec + 1
+    return tags
+
+
+def _train_state_copy(trainer):
+    return ([p.detach().clone() for p in trainer.pipe.parameters()],
+            [{k: v.clone() for k, v in st.items()}
+             for st in trainer.optimizer.state.values()])
+
+
+def _same_state(a, b) -> bool:
+    return all(torch.equal(x, y) for x, y in zip(a[0], b[0])) and all(
+        sa.keys() == sb.keys() and all(torch.equal(sa[k], sb[k]) for k in sa)
+        for sa, sb in zip(a[1], b[1]))
+
+
+def phase_train_obs(smi: str) -> dict:
+    """The rest of the one-device training path at the tutorial LM's full
+    width (docstring phase 5h); returns each run's kernel launches."""
+    import gc
+    import shutil
+    import signal
+
+    from pipe_tpu_torch import Pipe
+    from pipe_tpu_torch.core import planner
+    from pipe_tpu_torch.data import lm_text
+    from pipe_tpu_torch.data.native import (BatchPrefetcher,
+                                            prefetch_available)
+    from pipe_tpu_torch.models.transformer_lm import build_sequential
+    from pipe_tpu_torch.obs import meters
+    from pipe_tpu_torch.obs.events import EventLog
+    from pipe_tpu_torch.obs.telemetry import (peak_flops_per_chip,
+                                              train_flops_per_token)
+    from pipe_tpu_torch.resilience import (ChaosPlan, Fault,
+                                           ResilienceConfig, TrainingAborted)
+    from pipe_tpu_torch.train.loop import (Trainer, lm_loss, plan_line)
+    from pipe_tpu_torch.train.state import restore_checkpoint
+
+    t_phase = time.perf_counter()
+    card = repr(smi.splitlines()[0])
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                        "train_obs")
+    shutil.rmtree(root, ignore_errors=True)
+    cfg, tcfg, source, val = _obs_setup()
+    tokens_per_step = tcfg.batch_size * BPTT
+    runs = {}
+
+    def fresh(chaos=None, **kw):
+        gc.collect()
+        torch.cuda.empty_cache()
+        return Trainer(cfg, dataclasses.replace(tcfg, **kw), device="cuda",
+                       chaos=chaos)
+
+    # (a) telemetry: plain, telemetry on, and telemetry + TensorBoard +
+    # profile_every + prefetch
+    tr = fresh()
+    _, info, plain, runs["plain"], peak = _obs_run(tr, source)
+    _obs_log("plain", info, peak, smi, tokens_per_step)
+    plain_ms_runs = [info["sec_per_step"] * 1e3]
+    del tr
+    tr = fresh(telemetry_dir=os.path.join(root, "t0"))
+    _, info, losses, runs["telemetry"], peak = _obs_run(tr, source)
+    _obs_log("telemetry", info, peak, smi, tokens_per_step)
+    unprofiled = [e for e in EventLog.read(os.path.join(root, "t0",
+                                                        "events.jsonl"))
+                  if e["kind"] == "step_report"]
+    log("train_obs", run="telemetry",
+        mfu=[r["mfu"] for r in unprofiled],
+        hfu=[r["hfu"] for r in unprofiled],
+        steady_mfu=f"{sum(r['mfu'] * r['wall_sec'] for r in unprofiled[1:]) / sum(r['wall_sec'] for r in unprofiled[1:]):.4f}",
+        predicted_mfu=PREDICTED_MFU, card=card)
+    telemetry_ms = [info["sec_per_step"] * 1e3]
+    if losses != plain or runs["telemetry"] != runs["plain"]:
+        raise AssertionError(f"telemetry changed the steps: {losses} vs "
+                             f"{plain}, {runs['telemetry']} vs "
+                             f"{runs['plain']}")
+    del tr
+    tdir = os.path.join(root, "t")
+    opened = BatchPrefetcher.opened
+    tr = fresh(telemetry_dir=tdir, tb_dir=os.path.join(root, "tb"),
+               profile_every=OBS_PROFILE_EVERY, prefetch_depth=2)
+    state, info, losses, runs["observed"], peak = _obs_run(tr, source,
+                                                           keep=True)
+    peak_now = torch.cuda.max_memory_allocated()
+    tr.evaluate(val, state, max_steps=1)
+    _obs_log("observed", info, peak, smi, tokens_per_step)
+    if losses != plain or runs["observed"] != runs["plain"]:
+        raise AssertionError(f"telemetry, TensorBoard, profiling and "
+                             f"prefetch changed the steps: {losses} vs "
+                             f"{plain}, {runs['observed']} vs "
+                             f"{runs['plain']}")
+    if not prefetch_available() or BatchPrefetcher.opened != opened + 1:
+        raise AssertionError("the native prefetcher was not taken")
+    with BatchPrefetcher(source, BPTT, depth=2) as pf:
+        for b, (d, t) in zip(range(OBS_STEPS), pf):
+            want = lm_text.get_batch(source, b * BPTT, BPTT)
+            if not (np.array_equal(d, want[0]) and np.array_equal(t, want[1])):
+                raise AssertionError(f"prefetched batch {b} differs")
+    reports = [e for e in EventLog.read(os.path.join(tdir, "events.jsonl"))
+               if e["kind"] == "step_report"]
+    if len(reports) != OBS_STEPS:
+        raise AssertionError(f"{len(reports)} StepReports, not {OBS_STEPS}")
+    walls = sum(r["wall_sec"] for r in reports[1:])
+    loop = info["sec_per_step"] * (OBS_STEPS - 1)
+    log("train_obs", report_wall_sum_s=f"{walls:.4f}",
+        loop_elapsed_s=f"{loop:.4f}",
+        rel=f"{abs(walls - loop) / loop:.4f}",
+        per_step_wall_ms=[f"{r['wall_sec'] * 1e3:.1f}" for r in reports])
+    if abs(walls - loop) > TOL_WALL_SUM * loop:
+        raise AssertionError(f"StepReport walls over steps 2-{OBS_STEPS} sum "
+                             f"to {walls:.4f} s, the loop took {loop:.4f} s")
+    peak_flops = peak_flops_per_chip(cfg.compute_dtype, "cuda")
+    req, hw = train_flops_per_token(cfg, tcfg.checkpoint, tcfg.chunks)
+    steady_tps = tokens_per_step * (OBS_STEPS - 1) / walls
+    log("train_obs", peak_flops=f"{peak_flops:.4g}", card=card,
+        flops_per_token_required=f"{req:.4g}",
+        flops_per_token_hardware=f"{hw:.4g}",
+        mfu=[r["mfu"] for r in reports], hfu=[r["hfu"] for r in reports],
+        steady_mfu=f"{req * steady_tps / peak_flops:.4f}",
+        steady_hfu=f"{hw * steady_tps / peak_flops:.4f}",
+        predicted_mfu=PREDICTED_MFU, predicted_hfu=PREDICTED_HFU)
+    for r in reports:
+        if not 0 < r["mfu"] <= r["hfu"] < 1:
+            raise AssertionError(f"step {r['step']}: mfu {r['mfu']} hfu "
+                                 f"{r['hfu']} outside 0 < mfu <= hfu < 1")
+    mem = reports[-1]["memory"]["cuda:0"]
+    log("train_obs", peak_bytes_in_use=mem["peak_bytes_in_use"],
+        max_memory_allocated=peak_now, bytes_limit=mem["bytes_limit"])
+    if mem["peak_bytes_in_use"] != peak_now:
+        raise AssertionError(f"the report's peak {mem['peak_bytes_in_use']} "
+                             f"is not max_memory_allocated {peak_now}")
+    tb = os.path.join(root, "tb")
+    tags = _tb_tags(os.path.join(tb, os.listdir(tb)[0]))
+    want = {"telemetry/tokens_per_sec", "telemetry/ms_step", "telemetry/loss",
+            "telemetry/mfu", "telemetry/hfu", "telemetry/analytic_bubble",
+            "telemetry/peak_gib/cuda:0", "train/loss", "train/ppl",
+            "train/tok_s", "train/ms_batch", "train/lr", "pipeline/bubble",
+            "train/epoch_loss", "eval/loss"}
+    if not want <= tags:
+        raise AssertionError(f"TensorBoard tags missing: {want - tags}")
+    trace = os.path.join(tdir, f"trace_step{OBS_PROFILE_EVERY}")
+    tl = meters.stage_timeline_from_trace(trace)
+    busy = meters.stage_busy_from_trace(trace)
+    cells = {j: sorted(s["chunks"]) for j, s in tl["stages"].items()}
+    stage_busy = [s["busy_sec"] for s in tl["stages"].values()]
+    wall = busy["_span"]
+    meter = meters.BubbleMeter(chunks=tcfg.chunks, n_stages=tcfg.n_stages)
+    with open(os.path.join(trace, "trace.json")) as f:
+        gpu_ranges = sum(e.get("cat") == "gpu_user_annotation"
+                         for e in json.load(f)["traceEvents"])
+    log("train_obs", timeline_source=tl["source"], cells=cells,
+        gpu_user_annotations=gpu_ranges,
+        stage_busy_ms=[f"{b * 1e3:.2f}" for b in stage_busy],
+        device_busy_ms=f"{busy['cuda:0'] * 1e3:.2f}",
+        traced_wall_ms=f"{wall * 1e3:.2f}",
+        device_idle_share=f"{1 - busy['cuda:0'] / wall:.4f}",
+        measured_bubble=f"{meter.measured(stage_busy, wall):.4f}",
+        analytic_bubble=f"{meter.analytic:.4f}",
+        trace_mb=f"{os.path.getsize(os.path.join(trace, 'trace.json')) / 1e6:.1f}")
+    if tl["source"] != "cuda" or cells != {
+            j: list(range(tcfg.chunks)) for j in range(tcfg.n_stages)}:
+        raise AssertionError(f"timeline from {tl['source']} with cells "
+                             f"{cells}")
+    if sum(stage_busy) > wall:
+        raise AssertionError(f"stage busy {sum(stage_busy)} s exceeds the "
+                             f"traced wall {wall} s")
+    del tr, state
+    shutil.rmtree(os.path.join(tdir), ignore_errors=True)
+
+    # (b) the planner
+    t_b = time.perf_counter()
+    seq = build_sequential(
+        cfg, device="cuda",
+        generator=torch.Generator(device="cuda").manual_seed(SEED))
+    data, target = lm_text.get_batch(source, 0, BPTT)
+    tokens = torch.from_numpy(data).long().cuda()
+    targets = torch.from_numpy(target).long().cuda()
+    sample = tokens[:tcfg.batch_size // tcfg.chunks]
+    prof = planner.profile_model(seq, sample, repeat=3)
+    log("train_obs", profile_rows=prof.rows,
+        layer_fwd_ms=[f"{t * 1e3:.3f}" for t in prof.layer_fwd_s],
+        layer_bwd_ms=[f"{t * 1e3:.3f}" for t in prof.layer_bwd_s], card=card)
+    # the profile auto_plan ranks on, fitted to whole steps at PLAN_FIT_M
+    fitted, search = [], planner.search
+    planner.search = lambda profile, **kw: (fitted.append(profile)
+                                            or search(profile, **kw))
+    try:
+        plan = planner.auto_plan(seq, sample, n_devices=N_STAGES,
+                                 m_candidates=PLAN_M, batch_rows=TRAIN_BATCH,
+                                 schedules=PLAN_SCHEDULES,
+                                 checkpoint=tcfg.checkpoint, fit_m=PLAN_FIT_M)
+    finally:
+        planner.search = search
+    fit = fitted[0]
+    log("train_obs", fit_m=list(PLAN_FIT_M), fit_o_ms=f"{fit.o * 1e3:.3f}",
+        fit_scale=f"{fit.layer_fwd_s[1] / prof.layer_fwd_s[1]:.4f}",
+        fit_rel_residual=f"{fit.rel_residual:.4f}", source=fit.source)
+    # the first runner-up, and the first with another m: the choice of m is
+    # what the fitted overhead decides
+    runners = list(plan.runners_up[:1]) + [
+        r for r in plan.runners_up if r["m"] != plan.m][:1]
+    runners = [r for i, r in enumerate(runners) if r not in runners[:i]]
+
+    def step_of(pipe_kw, reps=PLAN_REPS):
+        """Loss and ms of ``reps`` synchronized forward+backward steps of a
+        Pipe over ``seq`` (the first, a warm-up, untimed)."""
+        pipe = Pipe(seq, device="cuda", **pipe_kw)
+        times, loss0 = [], None
+        for r in range(reps + 1):
+            seq.zero_grad(set_to_none=True)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loss = lm_loss(pipe, tokens, targets, train=True, seed=SEED)
+            loss.backward()
+            torch.cuda.synchronize()
+            if r:
+                times.append(time.perf_counter() - t0)
+            loss0 = loss.detach() if loss0 is None else loss0
+        return loss0, times, pipe
+
+    got, t_plan, pipe = step_of({"plan": plan})
+    hand, _, _ = step_of({"chunks": plan.m, "checkpoint": plan.checkpoint,
+                          "schedule": plan.schedule,
+                          "balance": list(plan.balance)}, reps=0)
+    if not torch.equal(got, hand):
+        raise AssertionError(f"Pipe(plan=...) loss {got.item()} is not the "
+                             f"hand-built Pipe's {hand.item()}")
+    log("train_obs", plan=f"{plan.schedule} m={plan.m} "
+        f"balance={list(plan.balance)} checkpoint={plan.checkpoint}",
+        predicted_ms=f"{plan.predicted_step_s * 1e3:.1f}",
+        measured_ms=[f"{t * 1e3:.1f}" for t in t_plan],
+        loss_plan=f"{got.item():.9f}", loss_hand=f"{hand.item():.9f}",
+        card=card)
+    for runner in runners:
+        _, t_run, _ = step_of({"chunks": runner["m"],
+                               "checkpoint": runner["checkpoint"],
+                               "schedule": runner["schedule"],
+                               "balance": list(runner["balance"])})
+        log("train_obs", runner_up=f"{runner['schedule']} m={runner['m']} "
+            f"balance={runner['balance']}",
+            runner_up_predicted_ms=f"{runner['predicted_step_s'] * 1e3:.1f}",
+            runner_up_measured_ms=[f"{t * 1e3:.1f}" for t in t_run])
+        if min(t_plan) > (1 + TOL_PLAN) * min(t_run):
+            raise AssertionError(
+                f"the plan {plan.schedule} m={plan.m} took "
+                f"{min(t_plan) * 1e3:.1f} ms, the runner-up "
+                f"{runner['schedule']} m={runner['m']} "
+                f"{min(t_run) * 1e3:.1f}")
+    del seq, pipe, tokens, targets, sample
+    tr = fresh(plan="auto")
+    log("train_obs", trainer_plan=repr(plan_line(tr.cfg)),
+        planner_s=f"{time.perf_counter() - t_b:.1f}")
+    del tr
+
+    # (c) the guarded step: no faults, then a ChaosPlan
+    rc = ResilienceConfig(warmup_steps=2, data_backoff_s=0.0)
+    tr = fresh(resilience=rc)
+    _, info, losses, runs["guarded"], peak = _obs_run(
+        tr, source, name="_guarded_step")
+    _obs_log("guarded", info, peak, smi, tokens_per_step)
+    guarded_ms = [info["sec_per_step"] * 1e3]
+    # the guard's own device work: the copies before the update and the
+    # select after it, over this trainer's parameters and moments
+    live = tr._guarded_tensors()
+    bufs, ok = tr._guard_bufs, torch.ones((), dtype=torch.bool, device="cuda")
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    guard_ms = []
+    with torch.no_grad():
+        for _ in range(4):
+            start.record()
+            torch._foreach_copy_(bufs, live)
+            for t, old in zip(live, bufs):
+                torch.where(ok, t, old, out=t)
+            end.record()
+            end.synchronize()
+            guard_ms.append(start.elapsed_time(end))
+    guard_bytes = 5 * sum(t.numel() * t.element_size() for t in live)
+    log("train_obs", guard_device_ms=[f"{x:.3f}" for x in guard_ms],
+        guard_bytes=guard_bytes,
+        guard_bound_ms=f"{guard_bytes / PEAK_BYTES * 1e3:.3f}",
+        tensors=len(live), card=card)
+    del live, bufs, ok
+    if losses != plain or runs["guarded"] != runs["plain"]:
+        raise AssertionError(f"the guard without faults changed the steps: "
+                             f"{losses} vs {plain}, {runs['guarded']} vs "
+                             f"{runs['plain']}")
+    del tr
+    # the verdict read once at the end: the host waits only one step behind
+    tr = fresh(resilience=dataclasses.replace(rc, check_every=OBS_STEPS))
+    _, info, losses, _, peak = _obs_run(tr, source, name="_guarded_step")
+    _obs_log(f"guarded_check_every_{OBS_STEPS}", info, peak, smi,
+             tokens_per_step)
+    if losses != plain:
+        raise AssertionError(f"the guard read every {OBS_STEPS} steps "
+                             f"changed the losses: {losses} vs {plain}")
+    guarded_ms.append(info["sec_per_step"] * 1e3)
+    del tr
+    # telemetry and plain again, so each comparison is made in turns
+    # (plain, telemetry, ..., guarded, telemetry, plain)
+    tr = fresh(telemetry_dir=os.path.join(root, "t1"))
+    _, info, losses, _, peak = _obs_run(tr, source)
+    telemetry_ms.append(info["sec_per_step"] * 1e3)
+    _obs_log("telemetry", info, peak, smi, tokens_per_step)
+    del tr
+    tr = fresh()
+    _, info, again, _, peak = _obs_run(tr, source)
+    plain_ms_runs.append(info["sec_per_step"] * 1e3)
+    _obs_log("plain", info, peak, smi, tokens_per_step)
+    if losses != plain or again != plain:
+        raise AssertionError("a repeated run changed the losses")
+    log("train_obs", plain_ms=[f"{x:.1f}" for x in plain_ms_runs],
+        telemetry_ms=[f"{x:.1f}" for x in telemetry_ms],
+        guarded_ms=f"{guarded_ms[0]:.1f}",
+        guarded_check_every_8_ms=f"{guarded_ms[1]:.1f}", card=card)
+    del tr
+    # one epoch (the loss EWMA lives in it); the state is copied around the
+    # faulted steps 3 and 5, Adam's step count settled from the verdict
+    tr = fresh(ChaosPlan([Fault("nan_grads", 3), Fault("loss_spike", 5),
+                          Fault("data_raise", 6)]), resilience=rc)
+    retries = tr.registry.scalars().get("resilience.data_retries", 0)
+    guarded = tr._guarded_step
+    skipped = {}
+
+    def copying(data, target, seed, step, *rest):
+        if step not in (3, 5):
+            return guarded(data, target, seed, step, *rest)
+        tr._settle_steps()
+        before = _train_state_copy(tr)
+        out = guarded(data, target, seed, step, *rest)
+        tr._settle_steps()
+        skipped[step] = _same_state(before, _train_state_copy(tr))
+        return out
+
+    tr._guarded_step = copying
+    state, info, losses, _, _ = _obs_run(tr, source, name="_guarded_step",
+                                         keep=True)
+    retried = tr.registry.scalars().get("resilience.data_retries", 0) - retries
+    log("train_obs", chaos_losses=[f"{l:.6f}" for l in losses],
+        anomalies=info["anomalies"], rewinds=info["rewinds"],
+        state_unchanged_by_skipped_step=skipped, data_retries=retried,
+        steps=info["steps"])
+    if losses[:3] != plain[:3]:
+        raise AssertionError("the chaos run's clean steps differ from plain")
+    if skipped != {3: True, 5: True} or info["anomalies"] != 2 \
+            or info["rewinds"] != 0:
+        raise AssertionError(f"skipped steps left the state unchanged: "
+                             f"{skipped}; {info}")
+    if retried != 1 or info["steps"] != OBS_STEPS or state.step != OBS_STEPS:
+        raise AssertionError(f"data fault: {retried} retries, "
+                             f"{info['steps']} steps, state at {state.step}")
+    del tr, state
+    tr = fresh(ChaosPlan([Fault("nan_grads", 2, count=6)]),
+               resilience=ResilienceConfig(
+                   warmup_steps=2, rewind_after=1, max_rewinds=1,
+                   snapshot_every=1, rewind_backoff_s=0.0))
+    lines = []
+    try:
+        _obs_run(tr, source, name="_guarded_step", log_fn=lines.append)
+    except TrainingAborted as e:
+        log("train_obs", aborted=repr(str(e)[:80]), rewinds=lines)
+    else:
+        raise AssertionError("persistent nan_grads did not abort")
+    if not any("rewind #1 at step 2" in l for l in lines):
+        raise AssertionError(f"no rewind before the abort: {lines}")
+    del tr
+
+    # (d) autosave: SIGTERM during step 3, resume, bitwise
+    auto = os.path.join(root, "auto")
+    tr = fresh()
+    tr.install_autosave(auto)
+    step = tr._step
+    calls = [0]
+
+    def step_with_sigterm(*a):
+        calls[0] += 1
+        if calls[0] == 3:
+            os.kill(os.getpid(), signal.SIGTERM)
+        return step(*a)
+
+    tr._step = step_with_sigterm
+    t_d = time.perf_counter()
+    try:
+        _, info, first, _, _ = _obs_run(tr, source)
+    finally:
+        signal.signal(signal.SIGTERM, signal.SIG_DFL)
+    del tr
+    tr = fresh()
+    state = restore_checkpoint(auto, tr.init_state(), verify=False)
+    resumed_from = state.step
+    _, _, rest, _, _ = _obs_run(tr, source, start=state.step, state=state)
+    log("train_obs", autosave_steps=info["steps"], resumed_from=resumed_from,
+        resumed_losses=[f"{l:.6f}" for l in first + rest],
+        autosave_s=f"{time.perf_counter() - t_d:.1f}")
+    if info["steps"] != 3 or first + rest != plain:
+        raise AssertionError(f"autosave resume: {first} + {rest} vs {plain}")
+    del tr, state
+    shutil.rmtree(root, ignore_errors=True)
+    torch.cuda.empty_cache()
+    log("train_obs", seconds=f"{time.perf_counter() - t_phase:.1f}",
+        **{f"launches_{k}": list(v.values()) for k, v in runs.items()})
+    return runs
 
 
 def _sched_trainer(cfg, schedule, checkpoint):
@@ -3218,6 +3795,7 @@ def main() -> int:
     rows = phase_kernels()
     eval_launches = phase_slice()
     train_launches = phase_train()
+    obs_launches = phase_train_obs(smi)
     sched_launches = phase_schedules()
     remat_launches = phase_remat()
     gpt2_launches = phase_gpt2()
@@ -3264,6 +3842,8 @@ def main() -> int:
         entry["launches_bert"] = {
             run: launches[wrapper] for run, launches in bert_launches.items()}
         entry["launches_vit"] = 0
+        entry["launches_train_obs"] = {
+            run: launches[wrapper] for run, launches in obs_launches.items()}
         entry["gpt2_shape"] = row["gpt2_shape"]
         entry["bert_shape"] = row["bert_shape"]
         kernels["kernels"].append(entry)

@@ -10,15 +10,21 @@ Usage (mirrors ``python main.py <checkpoint-mode>``, ``main.py:164-169``):
     python -m pipe_tpu_torch.apps.lm_tutorial <never|except_last|always>
         [--corpus FILE] [--steps N] [--epochs N] [--stages N] [--chunks N]
         [--schedule gpipe|1f1b|zb-h1|interleaved-1f1b] [--interleave V]
-        [--lr LR] [--tiny] [--save DIR] [--resume DIR] [--device cuda|cpu]
+        [--lr LR] [--plan auto|PLAN.json] [--tiny] [--profile DIR]
+        [--save DIR] [--resume DIR] [--autosave DIR] [--device cuda|cpu]
 
 ``--schedule gpipe`` trains through ``Pipe``; ``1f1b``, ``zb-h1`` and
 ``interleaved-1f1b`` (``--interleave`` virtual stages a stage) through the
 table executor (``parallel/scheduled.py``). ``interleaved`` raises
-``NotImplementedError`` as the ``Trainer`` refuses it (ROADMAP.md A.8). The
-planner (``--plan``), the profiler trace
-(``--profile``), autosave and the virtual CPU mesh (``--cpu``) of the JAX
-entry point are not ported; ``--device cpu`` runs every kernel's plain version.
+``NotImplementedError`` as the ``Trainer`` refuses it (ROADMAP.md A.8).
+``--plan`` resolves a planner plan (``core/planner.py``; ``auto`` searches
+schedule x chunks over the cost model and overrides ``--schedule`` and
+``--chunks``) and prints it; ``--profile DIR`` writes a ``torch.profiler``
+Chrome trace of the training into ``DIR/trace.json``; ``--autosave DIR``
+checkpoints into ``DIR`` on SIGTERM after the step in flight and exits.
+The virtual CPU mesh
+(``--cpu``) of the JAX entry point is not ported; ``--device cpu`` runs
+every kernel's plain version.
 """
 
 from __future__ import annotations
@@ -48,10 +54,21 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--lr", type=float, default=None,
                    help="override the reference's Adam lr=5.0 (main.py:183), "
                         "which diverges at full scale; try 1e-4")
+    p.add_argument("--plan", default=None,
+                   help="auto-planner front door: 'auto' searches schedule "
+                        "x chunks x interleave under the planner's cost "
+                        "model and overrides --schedule/--chunks; a path "
+                        "loads a saved plan json")
     p.add_argument("--tiny", action="store_true",
                    help="tiny model config (CI / CPU-sized)")
+    p.add_argument("--profile", default=None,
+                   help="torch.profiler trace dir (main.py:196-204 "
+                        "equivalent)")
     p.add_argument("--save", default=None, help="checkpoint dir to save into")
     p.add_argument("--resume", default=None, help="checkpoint dir to resume")
+    p.add_argument("--autosave", default=None,
+                   help="checkpoint dir for preemption-aware autosave "
+                        "(SIGTERM finishes the step, saves, exits cleanly)")
     p.add_argument("--device", default="cuda",
                    help="cuda (default) or cpu (the kernels' plain versions)")
     return p
@@ -60,9 +77,12 @@ def build_argparser() -> argparse.ArgumentParser:
 def main(argv=None) -> int:
     args = build_argparser().parse_args(argv)
 
+    import contextlib
+
     from pipe_tpu_torch.data import lm_text
     from pipe_tpu_torch.models.transformer_lm import LMConfig
-    from pipe_tpu_torch.train.loop import Trainer, TrainerConfig
+    from pipe_tpu_torch.obs.meters import profile_trace
+    from pipe_tpu_torch.train.loop import Trainer, TrainerConfig, plan_line
     from pipe_tpu_torch.train.state import restore_checkpoint
 
     train_lines, val_lines, _ = lm_text.load_corpus(args.corpus)
@@ -77,7 +97,7 @@ def main(argv=None) -> int:
             n_layers=2 * args.stages)
     cfg = TrainerConfig(chunks=args.chunks, checkpoint=args.checkpoint,
                         n_stages=args.stages, schedule=args.schedule,
-                        interleave=args.interleave)
+                        interleave=args.interleave, plan=args.plan)
     if args.tiny:
         cfg = dataclasses.replace(cfg, batch_size=8, eval_batch_size=8,
                                   bptt=model_cfg.seq_len, lr=1e-3)
@@ -91,6 +111,10 @@ def main(argv=None) -> int:
     val_data = lm_text.batchify(val_ids, cfg.eval_batch_size)
 
     trainer = Trainer(model_cfg, cfg, device=args.device)
+    if args.plan:
+        print(plan_line(trainer.cfg))
+    if args.autosave:
+        trainer.install_autosave(args.autosave)
     state = trainer.init_state()
     if args.resume:
         state = restore_checkpoint(args.resume, state)
@@ -98,10 +122,16 @@ def main(argv=None) -> int:
     print(f"Total parameters in model: {trainer.num_params(state):,}")
 
     metrics = {"loss": float("nan"), "sec_per_step": float("nan")}
-    for epoch in range(args.epochs):
-        state, metrics = trainer.train_epoch(
-            train_data, epoch=epoch, state=state, max_steps=args.steps,
-            log_every=max(args.steps // 4, 1))
+    with (profile_trace(args.profile) if args.profile
+          else contextlib.nullcontext()):
+        for epoch in range(args.epochs):
+            state, metrics = trainer.train_epoch(
+                train_data, epoch=epoch, state=state, max_steps=args.steps,
+                log_every=max(args.steps // 4, 1))
+            if trainer._autosave_pending():
+                break  # preemption: checkpoint written, exit cleanly
+    if args.profile:
+        print(f"profiler trace written to {args.profile}")
 
     if val_data.shape[0] > cfg.bptt:
         val_loss = trainer.evaluate(val_data, state, max_steps=4)

@@ -1,32 +1,39 @@
-"""Process-local metrics registry: counters, gauges, EWMA timers and
-log-scale histograms.
+"""Process-local metrics registry and per-step reporting.
 
-Counterpart of the registry part of ``pipe_tpu/obs/telemetry.py``, copied:
-it imports only the standard library. :class:`MetricsRegistry` is
-process-local, dependency-free, and a cheap no-op when disabled: a disabled
-registry hands out shared null instruments whose methods do nothing (no
-allocation, no clock reads), so hot paths can instrument unconditionally.
-The serve engine and the generator record into the default registry
-(:func:`get_registry`).
+Counterpart of ``pipe_tpu/obs/telemetry.py``:
 
-Not ported yet (ROADMAP.md A.7): ``StepReport``, the FLOPs model and the
-per-device peak and memory readers, which are to be rewritten on
-``torch.cuda`` with the card's own numbers.
+* :class:`MetricsRegistry` -- counters, gauges, EWMA timers, log-scale
+  histograms, copied: it imports only the standard library. It is
+  process-local, dependency-free, and a cheap no-op when disabled: a disabled
+  registry hands out shared null instruments whose methods do nothing (no
+  allocation, no clock reads), so hot paths can instrument unconditionally.
+  The serve engine, the generator and the trainer record into the default
+  registry (:func:`get_registry`).
+* :class:`StepReport` -- one training step folded into throughput, MFU/HFU,
+  the analytic and measured bubble and the device memory peaks, with
+  ``pipe_tpu``'s fields, ``to_json`` and ``scalar_items``.
+* the FLOPs model (:func:`train_flops_per_token`, copied) and the card's
+  own peak rates (:func:`peak_flops_per_chip`) and memory readers
+  (:func:`device_memory_peaks`), on ``torch.cuda``.
 """
 
 from __future__ import annotations
 
 import bisect
 import contextlib
+import dataclasses
 import math
+import subprocess
 import threading
 import time
-from typing import Any, Dict, Optional
+from typing import Any, Dict, List, Optional, Tuple
 
 __all__ = [
     "Counter", "Gauge", "EwmaTimer", "Histogram", "MetricsRegistry",
     "get_registry", "set_registry", "null_registry", "labelled",
     "percentile_exact", "host_overhead_per_token", "NULL_INSTRUMENT",
+    "StepReport", "train_flops_per_token", "peak_flops_per_chip",
+    "device_memory_peaks", "card_name_and_power_limit",
 ]
 
 
@@ -425,3 +432,251 @@ def host_overhead_per_token(registry: Optional[MetricsRegistry] = None
     if not toks:
         return 0.0
     return reg.timer("serve.engine.host_sec").total / toks
+
+
+# --------------------------------------------------------------------------
+# FLOPs model (pipe_tpu/obs/telemetry.py, copied)
+# --------------------------------------------------------------------------
+
+def train_flops_per_token(cfg, checkpoint: str, chunks: int):
+    """(required, hardware) FLOPs per trained token.
+
+    MAC counting: per layer, QKV+out projections 4*d^2 and FFN 2*d*d_ff; the
+    attention score/value matmuls add seq*d per token (causal halves the
+    window); the decoder projection d*vocab. One MAC = 2 FLOPs; backward
+    costs 2x forward. ``required`` is the standard MFU numerator (3x forward,
+    no recompute); ``hardware`` adds the remat re-forward the executor
+    actually runs: except_last remats chunks-1 of chunks micro-batches. Only
+    the per-layer term remats: the policy wraps the stage body, not
+    embed/decoder.
+
+    ``cfg`` is duck-typed (``d_model``/``d_ff``/``n_layers``/``vocab``/
+    ``seq_len``/``causal``) so obs does not import the model zoo.
+    """
+    d, ff, L, V = cfg.d_model, cfg.d_ff, cfg.n_layers, cfg.vocab
+    eff_s = cfg.seq_len / 2 if cfg.causal else cfg.seq_len
+    layer_macs = L * (4 * d * d + 2 * d * ff + 2 * eff_s * d)
+    macs = layer_macs + d * V
+    remat = {"never": 0.0, "except_last": (chunks - 1) / chunks,
+             "always": 1.0}[checkpoint]
+    required = 2 * macs * 3
+    hardware = required + 2 * layer_macs * remat
+    return required, hardware
+
+
+# Dense peak FLOP/s of the cards the port knows, by the math its matrix
+# products run: NVIDIA H100 Tensor Core GPU data sheet, SXM5 column, without
+# sparsity (FP32 66.9 TFLOP/s on the CUDA cores, TF32 494.7 and BF16/FP16
+# 989.4 on the tensor cores), at the card's full 700 W power limit.
+_PEAKS = (
+    ("H100 80GB HBM3", {"fp32": 66.9e12, "tf32": 494.7e12,
+                        "bf16": 989.4e12}),
+)
+
+
+def peak_flops_per_chip(compute_dtype=None, device=None) -> Optional[float]:
+    """The card's dense peak FLOP/s for the math the port's matrix products
+    run: bf16 under a 16-bit ``compute_dtype``, TF32 when
+    ``torch.backends.cuda.matmul.allow_tf32`` is set, fp32 on the CUDA cores
+    otherwise (the port's default). None for a CPU device (no peak is
+    claimed there, so no MFU); an unknown card raises."""
+    import torch
+
+    if device is None:
+        device = "cuda" if torch.cuda.is_available() else "cpu"
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        return None
+    name = torch.cuda.get_device_name(dev)
+    if compute_dtype in (torch.bfloat16, torch.float16):
+        math_kind = "bf16"
+    elif torch.backends.cuda.matmul.allow_tf32:
+        math_kind = "tf32"
+    else:
+        math_kind = "fp32"
+    for tag, peaks in _PEAKS:
+        if tag in name:
+            return peaks[math_kind]
+    raise ValueError(
+        f"no peak FLOP/s known for {name!r}: add the card's data-sheet rates "
+        f"to pipe_tpu_torch/obs/telemetry.py _PEAKS")
+
+
+def card_name_and_power_limit() -> Optional[str]:
+    """``nvidia-smi --query-gpu=name,power.limit`` of the first card, as it
+    prints it (the limit a peak rate assumes is 700 W), or None where there
+    is no ``nvidia-smi``."""
+    try:
+        out = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            timeout=30, check=True).stdout
+    except (OSError, subprocess.SubprocessError):
+        return None
+    return out.strip().splitlines()[0] if out.strip() else None
+
+
+def device_memory_peaks(devices=None) -> Dict[str, Dict[str, int]]:
+    """Per-device allocator figures under ``pipe_tpu``'s keys:
+    ``bytes_in_use`` (``torch.cuda.memory_allocated``),
+    ``peak_bytes_in_use`` (``max_memory_allocated``) and ``bytes_limit``
+    (the card's total, ``mem_get_info``). ``devices`` defaults to every
+    visible card; a CPU device gives ``{}``, as ``pipe_tpu``'s does on its
+    CPU platform."""
+    import torch
+
+    if devices is None:
+        devices = ([torch.device("cuda", i)
+                    for i in range(torch.cuda.device_count())]
+                   if torch.cuda.is_available() else [torch.device("cpu")])
+    elif not isinstance(devices, (list, tuple)):
+        devices = [devices]
+    out: Dict[str, Dict[str, int]] = {}
+    for dev in map(torch.device, devices):
+        if dev.type != "cuda":
+            out[str(dev)] = {}
+            continue
+        if dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
+        out[str(dev)] = {
+            "bytes_in_use": int(torch.cuda.memory_allocated(dev)),
+            "peak_bytes_in_use": int(torch.cuda.max_memory_allocated(dev)),
+            "bytes_limit": int(torch.cuda.mem_get_info(dev)[1]),
+        }
+    return out
+
+
+# --------------------------------------------------------------------------
+# StepReport
+# --------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class StepReport:
+    """One step's telemetry, with ``pipe_tpu``'s fields.
+
+    ``compute`` derives throughput and MFU/HFU from raw timings;
+    ``to_json`` emits the artifact-schema dict (``metric``/``value``/
+    ``unit`` head keys, then the context fields).
+    """
+
+    step: int
+    wall_sec: float
+    tokens: int
+    n_stages: int = 1
+    chunks: int = 1
+    checkpoint: str = "never"
+    schedule: Optional[str] = None
+    loss: Optional[float] = None
+    tokens_per_sec: float = 0.0
+    tokens_per_sec_per_chip: float = 0.0
+    mfu: Optional[float] = None
+    hfu: Optional[float] = None
+    analytic_bubble: Optional[float] = None
+    measured_bubble: Optional[float] = None
+    measured_bubble_method: Optional[str] = None
+    memory: Dict[str, Dict[str, int]] = dataclasses.field(default_factory=dict)
+    compile_inclusive: bool = False
+    platform: Optional[str] = None
+    device_kind: Optional[str] = None
+    extra: Dict[str, Any] = dataclasses.field(default_factory=dict)
+
+    @classmethod
+    def compute(cls, *, step: int, wall_sec: float, tokens: int,
+                n_stages: int = 1, chunks: int = 1,
+                checkpoint: str = "never", schedule: Optional[str] = None,
+                loss: Optional[float] = None, model_cfg=None,
+                analytic_bubble: Optional[float] = None,
+                measured_bubble: Optional[float] = None,
+                measured_bubble_method: Optional[str] = None,
+                memory: Optional[Dict[str, Dict[str, int]]] = None,
+                compile_inclusive: bool = False,
+                peak_flops: Optional[float] = None,
+                platform: Optional[str] = None,
+                device_kind: Optional[str] = None,
+                n_devices: Optional[int] = None,
+                **extra: Any) -> "StepReport":
+        """Fold raw timings into derived rates. ``model_cfg`` (an LMConfig-
+        shaped object) enables MFU/HFU via :func:`train_flops_per_token`;
+        ``peak_flops`` overrides :func:`peak_flops_per_chip` (no MFU where
+        there is no peak: the CPU).
+
+        ``n_devices`` is the number of devices the step ran on, which the
+        per-chip rate divides by. It defaults to ``n_stages``, ``pipe_tpu``'s
+        reading (a stage a chip), so a call with ``pipe_tpu``'s arguments
+        gives its numbers; the port's ``Trainer`` runs every stage on one
+        card and passes 1 (recorded in ``extra``)."""
+        per_dev = max(n_stages if n_devices is None else n_devices, 1)
+        if n_devices is not None:
+            extra["n_devices"] = n_devices
+        tps = tokens / wall_sec if wall_sec > 0 else 0.0
+        mfu = hfu = None
+        if model_cfg is not None and wall_sec > 0:
+            req_tok, hw_tok = train_flops_per_token(model_cfg, checkpoint,
+                                                    chunks)
+            peak = peak_flops if peak_flops is not None \
+                else peak_flops_per_chip()
+            if peak:
+                per_chip = tps / per_dev
+                mfu = (req_tok * per_chip) / peak
+                hfu = (hw_tok * per_chip) / peak
+        return cls(step=step, wall_sec=wall_sec, tokens=tokens,
+                   n_stages=n_stages, chunks=chunks, checkpoint=checkpoint,
+                   schedule=schedule, loss=loss, tokens_per_sec=tps,
+                   tokens_per_sec_per_chip=tps / per_dev,
+                   mfu=mfu, hfu=hfu, analytic_bubble=analytic_bubble,
+                   measured_bubble=measured_bubble,
+                   measured_bubble_method=measured_bubble_method,
+                   memory=memory or {}, compile_inclusive=compile_inclusive,
+                   platform=platform, device_kind=device_kind, extra=extra)
+
+    def to_json(self) -> Dict[str, Any]:
+        out: Dict[str, Any] = {
+            "metric": "train_tokens_per_sec_per_chip",
+            "value": round(self.tokens_per_sec_per_chip, 2),
+            "unit": "tokens/s/chip",
+            "step": self.step,
+            "wall_sec": round(self.wall_sec, 6),
+            "tokens": self.tokens,
+            "tokens_per_sec": round(self.tokens_per_sec, 2),
+            "n_stages": self.n_stages,
+            "chunks": self.chunks,
+            "checkpoint": self.checkpoint,
+            "schedule": self.schedule,
+            "mfu": round(self.mfu, 4) if self.mfu is not None else None,
+            "hfu": round(self.hfu, 4) if self.hfu is not None else None,
+            "analytic_bubble": (round(self.analytic_bubble, 4)
+                                if self.analytic_bubble is not None else None),
+            "measured_bubble": (round(self.measured_bubble, 4)
+                                if self.measured_bubble is not None else None),
+            "measured_bubble_method": self.measured_bubble_method,
+            "final_loss": (round(self.loss, 4)
+                           if self.loss is not None else None),
+            "memory": self.memory,
+            "compile_inclusive": self.compile_inclusive,
+            "platform": self.platform,
+            "device_kind": self.device_kind,
+        }
+        out.update(self.extra)
+        return out
+
+    def scalar_items(self) -> List[Tuple[str, float]]:
+        """(tag, value) pairs for a ``ScalarWriter`` sink."""
+        items: List[Tuple[str, float]] = [
+            ("telemetry/tokens_per_sec", self.tokens_per_sec),
+            ("telemetry/ms_step", self.wall_sec * 1e3),
+        ]
+        if self.loss is not None:
+            items.append(("telemetry/loss", self.loss))
+        if self.mfu is not None:
+            items.append(("telemetry/mfu", self.mfu))
+        if self.hfu is not None:
+            items.append(("telemetry/hfu", self.hfu))
+        if self.analytic_bubble is not None:
+            items.append(("telemetry/analytic_bubble", self.analytic_bubble))
+        if self.measured_bubble is not None:
+            items.append(("telemetry/measured_bubble", self.measured_bubble))
+        for dev, stats in self.memory.items():
+            if "peak_bytes_in_use" in stats:
+                items.append((f"telemetry/peak_gib/{dev}",
+                              stats["peak_bytes_in_use"] / 2 ** 30))
+        return items

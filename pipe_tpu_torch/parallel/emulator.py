@@ -13,20 +13,22 @@ local tracker serves the stage's ``stash``/``pop`` inside the task, and only
 the outer call writes the task's stashes and stat sums back. The recompute of
 ``torch.utils.checkpoint`` re-runs the task into a local tracker that is
 thrown away, so nothing is stashed or counted twice, and a pop's gradient
-flows back to its stash site through autograd. The chaos and hop-health
-hooks of ``pipe_tpu`` are not ported yet (ROADMAP.md: A.7).
+flows back to its stash site through autograd. Each task's forward runs in
+the profiler range ``chunk{i}-stage{j}`` (``obs.meters.stage_scope``); while a
+profiler runs, its backward gets the same label (``obs.meters.mark_backward``).
+The chaos and hop-health hooks of ``pipe_tpu`` are not ported yet
+(ROADMAP.md: A.7).
 """
 
 from __future__ import annotations
 
 from typing import List, Optional, Sequence
 
-import torch
-
 from ..core import microbatch as mb
 from ..core.partition import Stage, StageCtx
 from ..core.remat import apply_remat, checkpoint_stop, validate_mode
 from ..core.schedule import GPipeSchedule, Schedule
+from ..obs.meters import mark_backward, stage_scope
 
 __all__ = ["run"]
 
@@ -37,14 +39,13 @@ def _compute_one(stage: Stage, batch: mb.Batch, ctx: StageCtx,
     """Run one (microbatch, stage) task, optionally rematerialized. The ctx
     (and its seed) is bound into the task, so a recomputed forward sees the
     same seed and replays the same dropout."""
-    label = f"chunk{ctx.microbatch}-stage{ctx.stage}"
     if skip_tracker is None:
         def task(*inputs):
             return stage(*inputs, ctx=ctx)
 
         task = apply_remat(task, enabled=remat, policy=remat_policy)
-        with torch.profiler.record_function(label):
-            return batch.call(task)
+        with stage_scope(ctx.microbatch, ctx.stage):
+            return _marked(batch.call(task), ctx)
 
     from ..extras.skip import SkipTracker
 
@@ -66,15 +67,26 @@ def _compute_one(stage: Stage, batch: mb.Batch, ctx: StageCtx,
         return out, stash_vals, dict(local.accum)
 
     task = apply_remat(task, enabled=remat, policy=remat_policy)
-    with torch.profiler.record_function(label):
+    with stage_scope(ctx.microbatch, ctx.stage):
         result, stash_vals, accums = task(*pop_vals, *batch.values)
     for (ns, name), v in zip(stash_keys, stash_vals):
         skip_tracker.save(ctx.microbatch, ns, name, v)
     for (ns, name), v in accums.items():
         skip_tracker.accumulate(ns, name, v)
     if isinstance(result, (tuple, list)):
-        return mb.Batch(tuple(result), atomic=False)
-    return mb.Batch(result, atomic=True)
+        return _marked(mb.Batch(tuple(result), atomic=False), ctx)
+    return _marked(mb.Batch(result, atomic=True), ctx)
+
+
+def _marked(batch: mb.Batch, ctx: StageCtx) -> mb.Batch:
+    """``batch`` with its backward in the task's profiler range while a
+    profiler runs (``obs.meters.mark_backward``); ``batch`` itself
+    otherwise."""
+    values = mark_backward(batch.values, ctx.microbatch, ctx.stage)
+    if values is batch.values:
+        return batch
+    return mb.Batch(values[0] if batch.atomic else values,
+                    atomic=batch.atomic)
 
 
 def run(stages: Sequence[Stage],

@@ -17,6 +17,11 @@ Counterpart of ``pipe_tpu/pipe.py`` without a mesh:
   construction or per call (``forward(..., remat_policy=)``, which wins);
   ``HeteroScheduledPipeline(..., remat_policy=pipe.remat_policy)`` takes it
   for the tables;
+* ``plan=``: a planner ``Plan`` (or the path of a saved one,
+  ``core/planner.py``) fixes chunks, checkpoint, schedule and balance, with
+  ``pipe_tpu``'s conflict errors. A plan with ``split_stage`` set prescribes
+  the structural B/W split, which raises (ROADMAP.md A.8; ``pipe_tpu`` warns
+  and runs its stored-vjp split instead);
 * ``deferred_batch_norm=True``: plain ``BatchNorm`` layers become
   ``DeferredBatchNorm``, and a train forward commits one running-stats
   update per mini-batch, in place on their buffers (``pipe_tpu`` returns
@@ -28,8 +33,8 @@ submodules, on ``device``. Every registered schedule is accepted, as by
 (``interleaved-1f1b``, ``zb-h1``, ``zb-h2``) raise from ``cycles`` at the
 first forward, with ``pipe_tpu``'s message. Training through the op tables
 is ``parallel/scheduled.py`` (and ``parallel/hetero_scheduled.py`` for a
-``Pipe``'s partitions). The mesh executors and the planner front door are not
-ported yet and raise ``NotImplementedError``.
+``Pipe``'s partitions). The mesh executors are not ported yet and raise
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -80,8 +85,35 @@ class Pipe(nn.Module):
         super().__init__()
         if mesh is not None:
             raise _not_ported("Pipe(mesh=...)", "multi-device executors")
+        # --- auto-planner front door (core/planner.py): the plan fixes
+        # chunks/schedule/balance/n_stages and the checkpoint mode it was
+        # scored under; config it already decides cannot also be passed.
         if plan is not None:
-            raise _not_ported("Pipe(plan=...)", "core/planner.py")
+            from .core.planner import Plan
+            if isinstance(plan, str):
+                plan = Plan.load(plan)
+            if (chunks != 1 or balance is not None or n_stages is not None
+                    or schedule != "gpipe"):
+                raise ValueError(
+                    "Pipe(plan=...) already fixes chunks, schedule, "
+                    "balance and n_stages — drop the hand-passed values "
+                    "(or drop the plan)")
+            if checkpoint != "except_last" \
+                    and checkpoint != plan.checkpoint:
+                raise ValueError(
+                    f"checkpoint={checkpoint!r} conflicts with the plan's "
+                    f"{plan.checkpoint!r} (the plan was scored under its "
+                    f"own checkpoint mode)")
+            if plan.split_stage:
+                raise _not_ported(
+                    "a plan with split_stage=True (the structural B/W split "
+                    "of core/remat.py)", "A.8")
+            chunks = plan.m
+            checkpoint = plan.checkpoint
+            schedule = plan.schedule_obj()
+            balance = list(plan.balance)
+            n_stages = len(balance)
+        self.plan = plan
         # --- fail-fast validation ---
         if not isinstance(chunks, int) or isinstance(chunks, bool):
             raise TypeError("chunks must be an integer")

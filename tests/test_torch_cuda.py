@@ -4,8 +4,10 @@ training step through them, a table-executor step (1f1b, zb-h1) against the
 emulator's, the GPT-2 skip lane through the tables against the emulator,
 deferred BatchNorm, a ``dots_saveable`` step against the policy-free one,
 the kernels at BERT-large's shape, GPT-2 served against its ``Generator``,
-and KV-cached generation (which runs no kernel) against the Pipe forward.
-Skipped without a card.
+KV-cached generation (which runs no kernel) against the Pipe forward, and
+the training telemetry's readers of the card (memory peaks, the H100's peak
+FLOP/s, a profiled emulator step's per-stage timeline from the device
+trace). Skipped without a card.
 
 This file imports only torch and pipe_tpu_torch, so it runs on a machine
 without JAX; there, skip the repo's JAX conftest:
@@ -725,3 +727,46 @@ def test_spec_rungs_captured_once_equal_eager(cuda, layout, draft, K,
     assert all(len(t) == 12 for t in got)
     if layout == "paged":
         assert graph.pool.stats()["blocks_in_use"] == 0
+
+
+def test_device_memory_peaks_read_torch_cuda(cuda):
+    from pipe_tpu_torch.obs.telemetry import device_memory_peaks
+
+    torch.cuda.reset_peak_memory_stats()
+    x = torch.empty(1 << 24, device=cuda)
+    got = device_memory_peaks(cuda)[f"cuda:{torch.cuda.current_device()}"]
+    assert got == {"bytes_in_use": torch.cuda.memory_allocated(),
+                   "peak_bytes_in_use": torch.cuda.max_memory_allocated(),
+                   "bytes_limit": torch.cuda.mem_get_info()[1]}
+    assert got["peak_bytes_in_use"] >= x.numel() * 4
+
+
+def test_peak_flops_on_the_h100(cuda):
+    from pipe_tpu_torch.obs.telemetry import (card_name_and_power_limit,
+                                              peak_flops_per_chip)
+
+    assert "H100" in torch.cuda.get_device_name(0)
+    assert peak_flops_per_chip(torch.float32, cuda) == 66.9e12
+    assert peak_flops_per_chip(torch.bfloat16, cuda) == 989.4e12
+    assert "H100" in card_name_and_power_limit()
+
+
+def test_profile_trace_of_an_emulator_step_has_a_cuda_timeline(cuda,
+                                                                tmp_path):
+    from pipe_tpu_torch.obs import meters
+
+    cfg = dataclasses.replace(pt.LMConfig().tiny(), seq_len=128)
+    pipe = pt.Pipe(pt.build_sequential(cfg, device=cuda), chunks=4,
+                   n_stages=2, device=cuda)
+    x = torch.randint(0, cfg.vocab, (8, cfg.seq_len), device=cuda)
+    pipe(x, train=True, seed=1).sum().backward()        # warm-up
+    with meters.profile_trace(str(tmp_path)):
+        pipe(x, train=True, seed=1).sum().backward()
+    tl = meters.stage_timeline_from_trace(str(tmp_path))
+    assert tl["source"] == "cuda"
+    assert {j: sorted(s["chunks"]) for j, s in tl["stages"].items()} == \
+        {0: [0, 1, 2, 3], 1: [0, 1, 2, 3]}
+    busy = meters.stage_busy_from_trace(str(tmp_path))
+    lo, hi = tl["span"]
+    assert sum(s["busy_sec"] for s in tl["stages"].values()) <= \
+        min(busy["_span"], (hi - lo) / 1e9) + 1e-9

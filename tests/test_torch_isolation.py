@@ -89,6 +89,33 @@ assert gen_app.main(["--family", "gpt2", "--tiny", "--device", "cpu",
 g2 = gpt2.PipelinedGPT2(gcfg, device="cpu")
 assert g2.embed_at(toks[:, :1], torch.tensor([0, 3, 9, 15])).shape == (
     4, 1, gcfg.d_model)
+import os, tempfile
+from pipe_tpu_torch import obs, resilience
+from pipe_tpu_torch.core import balance, planner
+from pipe_tpu_torch.data import native
+from pipe_tpu_torch.obs import meters, tb_writer, telemetry
+from pipe_tpu_torch.resilience import chaos, detect, recover
+d = tempfile.mkdtemp()
+tr = Trainer(cfg, TrainerConfig(
+    batch_size=4, bptt=cfg.seq_len, chunks=2, telemetry_dir=d,
+    tb_dir=os.path.join(d, "tb"), profile_every=2, prefetch_depth=2,
+    plan="auto", resilience=recover.ResilienceConfig(data_backoff_s=0.0)),
+    device="cpu", chaos=chaos.ChaosPlan([chaos.Fault("nan_grads", 1),
+                                         chaos.Fault("data_raise", 0)]))
+_, info = tr.train_epoch(lm_text.batchify(ids, 4), max_steps=2, log_every=1)
+assert info["steps"] == 2 and info["anomalies"] == 1
+assert os.path.exists(os.path.join(d, "trace_step2", "trace.json"))
+tl = meters.stage_timeline_from_trace(os.path.join(d, "trace_step2"))
+assert tl["source"] == "host" and tl["stages"], tl
+assert native.prefetch_available() and native.BatchPrefetcher.opened >= 1
+plan = planner.auto_plan(pt.build_sequential(cfg, device="cpu"),
+                         torch.randint(0, cfg.vocab, (2, cfg.seq_len)),
+                         n_devices=2, m_candidates=(2,), batch_rows=4,
+                         schedules=("gpipe",), checkpoint="except_last")
+pt.Pipe(pt.build_sequential(cfg, device="cpu"), plan=plan, device="cpu")
+assert lm_tutorial.main(["never", "--tiny", "--device", "cpu", "--steps", "1",
+                         "--plan", "auto", "--profile",
+                         os.path.join(d, "p")]) == 0
 bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib")
        and sys.modules[m] is not None]
 assert not bad, bad
@@ -122,10 +149,13 @@ for make in (lambda: Linear(4, 4),
              lambda: pt.build_sequential(pt.LMConfig().tiny()),
              lambda: pt.Pipe(pt.Sequential([Linear(4, 4, device="cpu")])),
              lambda: Trainer(pt.LMConfig().tiny(), TrainerConfig()),
+             lambda: Trainer(pt.LMConfig().tiny(), TrainerConfig(
+                 plan="auto", prefetch_depth=2, profile_every=1)),
              lambda: ScheduledPipeline(lambda s, h, c: h, lambda x, c: x,
                                        lambda h, x, c: h, n_stages=1,
                                        module=Linear(4, 4, device="cpu")),
-             lambda: lm_tutorial.main(["never", "--tiny"])):
+             lambda: lm_tutorial.main(["never", "--tiny"]),
+             lambda: lm_tutorial.main(["never", "--tiny", "--plan", "auto"])):
     try:
         make()
     except RuntimeError as e:

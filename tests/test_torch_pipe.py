@@ -26,6 +26,7 @@ from pipe_tpu_torch import convert
 from pipe_tpu_torch.core import microbatch as tmb
 from pipe_tpu_torch.core import partition as tpart
 from pipe_tpu_torch.core import schedule as tsched
+from pipe_tpu_torch.core.planner import Plan
 from pipe_tpu_torch.core.remat import checkpoint_stop
 from pipe_tpu_torch.data import lm_text as ttext
 from pipe_tpu_torch.models import transformer_lm as tlm
@@ -195,9 +196,19 @@ def test_pipe_fail_fast_probes_raise_the_same_types(probe):
     assert terr.type.__name__ == jerr.type.__name__
 
 
-@pytest.mark.parametrize("kwargs", [{"mesh": object()}, {"plan": "auto"},
+_SPLIT_PLAN = Plan(schedule="zb-h1", m=4, v=1, balance=(2, 2),
+                   split_stage=True, checkpoint="never", n_devices=2,
+                   mode="serialized", predicted_step_s=1.0,
+                   predicted_s_per_row=0.1, predicted_peak_bytes=0,
+                   phase_ok=True)
+
+
+@pytest.mark.parametrize("kwargs", [{"mesh": object()},
+                                    {"plan": _SPLIT_PLAN},
                                     {"mesh": object(), "schedule": "1f1b"}])
 def test_pipe_refuses_what_is_not_ported(kwargs):
+    """The mesh executors (A.8), and a plan that prescribes the structural
+    B/W split (A.8; pipe_tpu warns and runs its stored-vjp split)."""
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         pipe_tpu_torch.Pipe(_tseq(), device="cpu", **kwargs)
 

@@ -211,9 +211,7 @@ def test_checkpoints_keep_the_newest_three(tmp_path, corpus):
 
 @pytest.mark.parametrize("field,value", [
     ("schedule", "interleaved"), ("n_data", 2), ("mu_dtype", "bfloat16"),
-    ("tb_dir", "tb"), ("zero", True), ("prefetch_depth", 2),
-    ("telemetry_dir", "t"), ("profile_every", 2), ("resilience", object()),
-    ("elastic", object()), ("plan", "auto")])
+    ("zero", True), ("elastic", object())])
 def test_unported_trainer_fields_raise(field, value):
     assert getattr(tloop.TrainerConfig(), field) == \
         getattr(jloop.TrainerConfig(), field)
@@ -221,6 +219,26 @@ def test_unported_trainer_fields_raise(field, value):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tloop.Trainer(model, dataclasses.replace(cfg, **{field: value}),
                       device="cpu")
+
+
+@pytest.mark.parametrize("field", ["tb_dir", "telemetry_dir",
+                                   "profile_every", "prefetch_depth",
+                                   "resilience", "plan"])
+def test_ported_trainer_fields_build(field, tmp_path):
+    """The fields this slice ported build a trainer (their behaviour is held
+    to pipe_tpu's in tests/test_torch_{obs,native,planner,resilience}.py)."""
+    from pipe_tpu_torch.resilience import ResilienceConfig
+
+    assert getattr(tloop.TrainerConfig(), field) == \
+        getattr(jloop.TrainerConfig(), field)
+    value = {"tb_dir": str(tmp_path / "tb"),
+             "telemetry_dir": str(tmp_path / "t"), "profile_every": 2,
+             "prefetch_depth": 2, "resilience": ResilienceConfig(),
+             "plan": "auto"}[field]
+    model, cfg = _configs()
+    trainer = tloop.Trainer(model, dataclasses.replace(cfg, **{field: value}),
+                            device="cpu")
+    assert trainer.cfg.plan is not None or field != "plan"
 
 
 def test_trainer_config_defaults_match_pipe_tpu():
@@ -359,11 +377,23 @@ def test_lm_tutorial_trains_and_resumes_through_the_tables(tmp_path, capsys):
     assert "resumed from step 3" in capsys.readouterr().out
 
 
-@pytest.mark.parametrize("flag", ["--plan", "--profile", "--autosave",
-                                  "--cpu"])
+@pytest.mark.parametrize("flag", ["--cpu"])
 def test_lm_tutorial_refuses_unported_flags(flag):
     with pytest.raises(SystemExit):
         lm_tutorial.main(["never", "--tiny", flag, "x"])
+
+
+@pytest.mark.parametrize("flag", ["--plan", "--profile", "--autosave"])
+def test_lm_tutorial_takes_the_ported_flags(flag, tmp_path, capsys):
+    value = "auto" if flag == "--plan" else str(tmp_path / "d")
+    assert lm_tutorial.main(["never", "--tiny", "--device", "cpu", "--steps",
+                             "1", flag, value]) == 0
+    out = capsys.readouterr().out
+    assert "final train loss" in out
+    if flag == "--plan":
+        assert "plan resolved: schedule=" in out
+    if flag == "--profile":
+        assert (tmp_path / "d" / "trace.json").exists()
 
 
 # --- the pieces under the trainer ---------------------------------------------
