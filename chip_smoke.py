@@ -250,12 +250,56 @@ exits non-zero without a result line:
    rung the ms and device-busy ms per round with every slot live, kernels
    and launch calls per launch, peak memory.
 
+10. fleet -- the serving fleet on one card (``pipe_tpu_torch/fleet``,
+   ``serve/router.py``, ``obs/fleet_obs.py``) over the tutorial LM at full
+   width (the eval weights, drawn again from the seed by every child): 48
+   greedy requests of 128 tokens whose first 64 are one of 4 shared
+   prefixes, 64 new tokens each, all at once; replicas of 4 slots, paged
+   (16-row blocks, 96 blocks), resident. The reference is one engine on the
+   same traffic; a stream passes where it equals the reference's under the
+   serve phase's near-tie rule. Gates: (a) 3 replicas in this process,
+   serial ticks and one tick thread each (``Router(async_tick=True)``): the
+   streams pass, every request ``ok`` and delivered once; (b) 3 child
+   processes on the card (``ProcessReplicaTransport``; the children report
+   the JSON codec): the streams pass; then one child is SIGKILLed while it
+   holds work: every id once and ``ok``, 2 replicas healthy and 1 retired;
+   (c) roles prefill, decode, decode as processes (a survivor of (b) the
+   mixed fallback): the decode children import prefix blocks
+   (``serve.kv.prefix_imported``); the decode runs over prefix rows the
+   wire shipped as int8, so, as the paged phase holds int8 KV rows, every
+   stream's tokens agree with the fp32 forward's argmax on its own stream
+   on at least 0.8 of steps (the first token's logit change over an
+   imported int8 prefix against a cold prefill is printed); then the
+   prefill child is SIGKILLed mid-handoff: every id once; (d) a journaled
+   controller over two fresh children is dropped mid-flight and rebuilt
+   with ``FleetController.from_journal``, re-dialing the running children:
+   the pre-crash terminals and the recovered deliveries partition the ids;
+   (e) a ``wire_corrupt`` storm and a ``wire_partition`` on a survivor's
+   wire: CRC rejects counted, every id once; (f) ``slow_replica`` sleeps
+   inside replica 0's decode for 3 router ticks over a 0.5 s tick budget:
+   ``resilience.watchdog_slow_ticks`` rises by exactly 3 and the replica
+   walks healthy, suspect, healthy; (g) over (b)'s clean run, the
+   ``--metrics-port`` server: ``/metrics`` holds every replica's
+   ``serve.fleet.replica.*`` series and the children's shipped
+   ``serve.engine.*`` counters, ``/fleet`` one view per replica, the
+   per-replica ``tokens_out`` sum to the tokens delivered, and every
+   request's stitched trace holds its delivery and its child's terminal
+   record; (h) a ``transport_drop`` on the eval ``Pipe``'s hop for
+   micro-batch 1 (the emulator run directly): that micro-batch differs and
+   the others equal the clean run bit for bit, ``HopHealth`` streaks as
+   planned (and a ``persistent_hop_drop`` marks the hop dead), 64 forward
+   launches without a plan. Prints generated tokens/s and TTFT p50/p99 of
+   1 engine and of 3 replicas serial, threaded and as processes,
+   spawn-to-ready and peak bytes per child, the handoff's bytes, JSON frame
+   and ms against a re-prefill, and the failover rates.
+
 The last two lines are the kernels JSON object and
 ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import math
@@ -3787,6 +3831,686 @@ def phase_serve_spec(ctx: dict, smi: str) -> None:
         raise AssertionError(f"spec: the engine launched kernels {flash}")
 
 
+# Fleet phase: FLEET_REPLICAS replicas of FLEET_SLOTS slots on one card,
+# paged (16-row blocks, a 96-block pool), resident (auto), decode chunk 4,
+# over FLEET_REQUESTS greedy requests of FLEET_PROMPT tokens whose first
+# FLEET_PREFIX tokens are one of FLEET_PREFIXES shared prefixes, FLEET_NEW
+# new tokens each, all submitted at once.
+FLEET_REPLICAS = 3
+FLEET_SLOTS = 4
+FLEET_REQUESTS = 48
+FLEET_PROMPT = 128
+FLEET_PREFIX = 64
+FLEET_PREFIXES = 4
+FLEET_NEW = 64
+FLEET_BLOCK = 16
+FLEET_POOL_BLOCKS = 96
+FLEET_DECODE_CHUNK = 4
+FLEET_MAX_LEN = FLEET_PROMPT + FLEET_NEW
+FLEET_DRILL = 16          # requests of each fault drill
+FLEET_WAIT_S = 120.0      # every wait of the phase has its own deadline
+FLEET_TICK_BUDGET_S = 0.5
+FLEET_SLOW_S = 0.6        # slow_replica's sleep inside a decode
+FLEET_SLOW_TICKS = 3
+FLEET_GAP = 1e-4          # the margin unit when the phase runs alone
+
+
+def _fleet_prompts(vocab: int, n: int = FLEET_REQUESTS, seed: int = 13):
+    rng = np.random.RandomState(SEED + seed)
+    prefixes = [rng.randint(1, vocab, FLEET_PREFIX).tolist()
+                for _ in range(FLEET_PREFIXES)]
+    return [prefixes[i % FLEET_PREFIXES]
+            + rng.randint(1, vocab, FLEET_PROMPT - FLEET_PREFIX).tolist()
+            for i in range(n)]
+
+
+def _fleet_backend(model):
+    from pipe_tpu_torch.inference import GenerationConfig
+    from pipe_tpu_torch.serve import BucketSpec, SingleDeviceSlotBackend
+    return SingleDeviceSlotBackend(
+        model, num_slots=FLEET_SLOTS, max_len=FLEET_MAX_LEN,
+        gen=GenerationConfig(max_new_tokens=FLEET_NEW, temperature=0.0),
+        buckets=BucketSpec.pow2(16, FLEET_PROMPT),
+        decode_chunk=FLEET_DECODE_CHUNK, kv_block_size=FLEET_BLOCK,
+        kv_pool_blocks=FLEET_POOL_BLOCKS)
+
+
+def _fleet_spec(cfg, role="mixed"):
+    from pipe_tpu_torch.fleet import ReplicaSpec
+    from pipe_tpu_torch.serve import BucketSpec
+    return ReplicaSpec(
+        lm_cfg={f: getattr(cfg, f) for f in ("vocab", "d_model", "nhead",
+                                             "d_ff", "n_layers", "dropout",
+                                             "seq_len")},
+        init_seed=SEED, num_slots=FLEET_SLOTS, max_len=FLEET_MAX_LEN,
+        buckets=list(BucketSpec.pow2(16, FLEET_PROMPT).lengths),
+        decode_chunk=FLEET_DECODE_CHUNK, queue_capacity=256,
+        gen=dict(max_new_tokens=FLEET_NEW, temperature=0.0),
+        kv_block_size=FLEET_BLOCK, kv_pool_blocks=FLEET_POOL_BLOCKS,
+        heartbeat_interval_s=0.1, role=role, device="cuda")
+
+
+def _spawn_children(specs, live):
+    """One ``ProcessReplicaTransport`` per spec, spawned together (each
+    waits for its child's ready frame on a thread of its own); every
+    transport made is appended to ``live`` so the caller's ``finally``
+    ends it."""
+    import threading
+
+    from pipe_tpu_torch.fleet import ProcessReplicaTransport
+    out, errs = [None] * len(specs), []
+
+    def one(i):
+        t0 = time.perf_counter()
+        try:
+            out[i] = ProcessReplicaTransport(
+                specs[i], connect_timeout_s=FLEET_WAIT_S,
+                rpc_timeout_s=FLEET_WAIT_S)
+            # spawn to the child's ready frame: interpreter, imports,
+            # device context, the model drawn on the card, the backend
+            out[i].spawn_to_ready_s = time.perf_counter() - t0
+        except Exception as e:              # noqa: BLE001 -- raised below
+            errs.append(e)
+
+    threads = [threading.Thread(target=one, args=(i,))
+               for i in range(len(specs))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(FLEET_WAIT_S + 30)
+    live.extend(t for t in out if t is not None)
+    if errs:
+        raise errs[0]
+    if any(t is None for t in out):
+        raise AssertionError("fleet: a replica child never became ready")
+    return out
+
+
+def _fleet_drive(ctl, prompts, what, *, pace=0.0, on_tick=None,
+                 first_id=None):
+    """Submit every prompt at once (seed = its index), tick until idle:
+    ``(responses in submit order, wall, [(delivery time, response)])``.
+    Fails unless every id is delivered exactly once, ``ok``, to its
+    length."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ids = [ctl.submit(p, max_new_tokens=FLEET_NEW, seed=i).id
+           for i, p in enumerate(prompts)]
+    got = []
+    deadline = t0 + FLEET_WAIT_S
+    while not ctl.idle:
+        out = ctl.tick()
+        now = time.perf_counter()
+        got += [(now, r) for r in out]
+        if on_tick is not None:
+            on_tick(ctl, got)
+        if pace and not out:
+            time.sleep(pace)
+        if now > deadline:
+            raise AssertionError(f"{what}: the fleet never went idle")
+    wall = time.perf_counter() - t0
+    _exactly_once(ids, [r for _, r in got], what)
+    by = {r.request_id: r for _, r in got}
+    return [by[i] for i in ids], wall, got
+
+
+def _exactly_once(ids, delivered, what):
+    rids = [r.request_id for r in delivered]
+    if sorted(rids) != sorted(ids) or len(set(rids)) != len(rids):
+        raise AssertionError(
+            f"{what}: not exactly once: {len(ids)} submitted, "
+            f"{len(rids)} delivered, {len(set(rids))} distinct")
+    bad = [r.request_id for r in delivered
+           if r.status != "ok" or len(r.tokens) != FLEET_NEW]
+    if bad:
+        raise AssertionError(f"{what}: requests {bad} did not end ok at "
+                             f"{FLEET_NEW} tokens")
+
+
+def _fleet_streams(resps, refs, margins, thresh, what):
+    """Each response against the reference stream of its prompt under the
+    serve phase's near-tie rule: ``(steps compared, steps skipped)``."""
+    compared = skipped = 0
+    for i, (r, ref) in enumerate(zip(resps, refs)):
+        c, k, ok = _walk(list(r.tokens), list(ref.tokens),
+                         margins[i % len(margins)], thresh)
+        if not ok:
+            raise AssertionError(f"{what}: request {i} differs from the "
+                                 f"single engine at a clear step")
+        compared += c
+        skipped += k
+    return compared, skipped
+
+
+@contextlib.contextmanager
+def _json_wire(tmpdir: str):
+    """The process wire's JSON fallback on both ends, whether or not
+    msgpack is installed: the parent's flag, and a ``msgpack`` that fails
+    to import first on the children's path (the ends do not negotiate a
+    codec). Close every transport before leaving: a reader thread left
+    running would decode JSON frames with msgpack."""
+    from pipe_tpu_torch.fleet import proc as fproc
+    stub = os.path.join(tmpdir, "no_msgpack")
+    os.makedirs(stub, exist_ok=True)
+    with open(os.path.join(stub, "msgpack.py"), "w") as f:
+        f.write("raise ImportError('this fleet runs the JSON codec')\n")
+    saved = (fproc.HAVE_MSGPACK, fproc._spawn_env)
+
+    def spawn_env(repo_root=None):
+        env = saved[1](repo_root)
+        env["PYTHONPATH"] = stub + os.pathsep + env["PYTHONPATH"]
+        return env
+
+    fproc.HAVE_MSGPACK, fproc._spawn_env = False, spawn_env
+    try:
+        yield
+    finally:
+        fproc.HAVE_MSGPACK, fproc._spawn_env = saved
+
+
+def _end_children(live):
+    """End every child of ``live``: the transports shut theirs down (an
+    abandoned one's child is ended by its rejoined transport), stragglers
+    are killed, and the reader threads are joined."""
+    for tr in reversed(live):
+        try:
+            tr.close()
+        except Exception:                   # noqa: BLE001 -- ending them all
+            pass
+    for tr in live:
+        proc = getattr(tr, "_proc", None)
+        if proc is not None and proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=10)
+        reader = getattr(tr, "_reader", None)
+        if reader is not None:
+            reader.join(timeout=10)
+
+
+def _abandon(tr):
+    """Drop a process transport's parent end without a goodbye (what a
+    crashed controller leaves): its child keeps running and re-dials."""
+    import socket
+    tr._closed = True
+    for s in (tr._sock, tr._listener):
+        try:
+            s.shutdown(socket.SHUT_RDWR)
+        except OSError:
+            pass
+        s.close()
+
+
+def phase_fleet(smi: str, gap: float = FLEET_GAP) -> dict:
+    """The serving fleet on one card (``pipe_tpu_torch/fleet``,
+    ``serve/router.py``, ``obs/fleet_obs.py``). Gates (a)-(h) of the
+    module docstring; returns the numbers ``PERF.md`` records."""
+    import os as _os
+    import signal
+    import tempfile
+    import urllib.request
+
+    from pipe_tpu_torch.apps.serve import _start_metrics_server
+    from pipe_tpu_torch.core import microbatch as mb
+    from pipe_tpu_torch.core.partition import Stage
+    from pipe_tpu_torch.fleet import (HEALTHY, RETIRED, SUSPECT,
+                                      DisaggController, FleetController,
+                                      ProcessReplicaTransport, ReplicaSpec,
+                                      RequestJournal, RouterPolicy)
+    from pipe_tpu_torch.fleet import proc as fproc
+    from pipe_tpu_torch.inference import head_logits
+    from pipe_tpu_torch.models.transformer_lm import PipelinedLM
+    from pipe_tpu_torch.obs.fleet_obs import (FleetObserver, SloMonitor,
+                                              SloTargets, TraceBuffer)
+    from pipe_tpu_torch.obs.telemetry import get_registry
+    from pipe_tpu_torch.ops import flash_attention as fa
+    from pipe_tpu_torch.parallel import emulator
+    from pipe_tpu_torch.resilience import (ChaosPlan, Fault, HopHealth,
+                                           TickWatchdog)
+    from pipe_tpu_torch.serve import RequestQueue, Router, ServeEngine
+
+    t_phase = time.perf_counter()
+    card = repr(smi.splitlines()[0])
+    cfg, seq, pipe, batches = make_slice(1)
+    model = PipelinedLM.from_sequential(cfg, seq)
+    prompts = _fleet_prompts(cfg.vocab)
+    thresh = MARGIN_OVER_GAP * gap
+    reg = get_registry()
+    out = {"card": card}
+    log("fleet", replicas=FLEET_REPLICAS, slots=FLEET_SLOTS,
+        requests=FLEET_REQUESTS, prompt=FLEET_PROMPT, shared_prefix=
+        FLEET_PREFIX, new=FLEET_NEW, block=FLEET_BLOCK,
+        pool_blocks=FLEET_POOL_BLOCKS, margin_threshold=f"{thresh:.3e}",
+        msgpack_installed=fproc.HAVE_MSGPACK,
+        setup_s=f"{time.perf_counter() - t_phase:.2f}")
+    policy = dict(placement="prefix", backoff_base_s=0.0,
+                  heartbeat_timeout_s=10.0)
+
+    # The reference: one engine, the same traffic; each stream's margins.
+    eng = ServeEngine(_fleet_backend(model), RequestQueue(capacity=256))
+    _fleet_drive(eng, prompts[:8], "fleet warm-up")
+    refs, wall, _ = _fleet_drive(eng, prompts, "fleet single engine")
+    margins = [_margins(model, p, r.tokens)[0]
+               for p, r in zip(prompts, refs)]
+    out["engine_1"] = _rates(refs, wall)
+    log("fleet", run="1 engine", card=card, **out["engine_1"])
+    del eng
+
+    # (a) three replicas in this process: serial ticks, then tick threads.
+    keep = None
+    for mode in ("inproc", "thread"):
+        engines = [ServeEngine(_fleet_backend(model),
+                               RequestQueue(capacity=256),
+                               watchdog=TickWatchdog())
+                   for _ in range(FLEET_REPLICAS)]
+        ctl = Router(engines, RequestQueue(capacity=256),
+                     policy=RouterPolicy(placement="prefix"),
+                     async_tick=mode == "thread")
+        pace = 0.0005 if mode == "thread" else 0.0
+        try:
+            _fleet_drive(ctl, prompts[:8], f"fleet {mode} warm-up",
+                         pace=pace)
+            resps, wall, _ = _fleet_drive(ctl, prompts, f"fleet {mode}",
+                                          pace=pace)
+        finally:
+            ctl.close()
+        c, k = _fleet_streams(resps, refs, margins, thresh, f"fleet {mode}")
+        out[mode] = dict(_rates(resps, wall), compared=c, skipped=k,
+                         resident_graphs=[
+                             e.backend.program_stats().get("resident_graph")
+                             for e in engines])
+        log("fleet", run=f"3 replicas {mode}", card=card, **out[mode])
+        keep = engines if mode == "inproc" else keep
+
+    live = []
+    journal_dir = tempfile.mkdtemp(prefix="fleet-journal-")
+    with _json_wire(journal_dir):
+        try:
+            # (b) three CUDA children: spawn-to-ready, codec, peak, a clean run
+            # (the streams), then SIGKILL one mid-stream
+            t_sp = time.perf_counter()
+            trs = _spawn_children([_fleet_spec(cfg)] * FLEET_REPLICAS, live)
+            status = [tr._rpc({"op": "status"}) for tr in trs]
+            out["spawn_to_ready_s"] = [f"{tr.spawn_to_ready_s:.2f}"
+                                       for tr in trs]
+            log("fleet", children=len(trs), card=card,
+                spawn_wall_s=f"{time.perf_counter() - t_sp:.2f}",
+                spawn_to_ready_s=out["spawn_to_ready_s"],
+                codecs=[st["codec"] for st in status])
+            if any(st["codec"] != "json" for st in status):
+                raise AssertionError(f"fleet: children report codecs "
+                                     f"{[st['codec'] for st in status]}, not "
+                                     f"the JSON fallback")
+            trace_buf = TraceBuffer(maxlen=200_000)
+            ctl = FleetController(trs, RequestQueue(capacity=256),
+                                  policy=RouterPolicy(**policy),
+                                  event_log=trace_buf)
+            _fleet_drive(ctl, prompts[:8], "fleet proc warm-up", pace=0.0005)
+            resps, wall, _ = _fleet_drive(ctl, prompts, "fleet proc",
+                                          pace=0.0005)
+            c, k = _fleet_streams(resps, refs, margins, thresh, "fleet proc")
+            out["proc"] = dict(_rates(resps, wall), compared=c, skipped=k)
+            log("fleet", run="3 replicas proc", card=card, **out["proc"])
+            out["peak_bytes"] = [tr._rpc({"op": "status"})["peak_bytes"]
+                                 for tr in trs]
+            log("fleet", child_peak_bytes=out["peak_bytes"], card=card)
+
+            # (g) observability over the clean run: /metrics, /slo, /fleet,
+            # the reconcile, the stitched traces
+            time.sleep(0.5)                      # the next obs frames land
+            observer = FleetObserver(ctl, parent_events=trace_buf)
+            srv = _start_metrics_server(0, observer.rollup,
+                                        SloMonitor(SloTargets()), observer)
+            try:
+                base = f"http://127.0.0.1:{srv.server_address[1]}"
+                text = urllib.request.urlopen(base + "/metrics",
+                                              timeout=30).read().decode()
+                slo = json.loads(urllib.request.urlopen(
+                    base + "/slo", timeout=30).read())
+                per = json.loads(urllib.request.urlopen(
+                    base + "/fleet", timeout=30).read())
+            finally:
+                srv.shutdown()
+            rec = observer.reconcile()
+            traces = observer.stitch_by_request()
+            path = os.path.join(journal_dir, "traces.jsonl")
+            n_rec = observer.write_stitched(path)
+            missing = [r.request_id for r in resps
+                       if not {"delivered", "terminal"} <= {
+                           x.get("stage") for x in traces.get(r.request_id,
+                                                              [])}]
+            per_rep = [f'serve_fleet_replica_state{{replica="{i}"}}'
+                       for i in range(FLEET_REPLICAS)]
+            log("fleet", gate="g", metrics_lines=len(text.splitlines()),
+                per_replica_series=all(x in text for x in per_rep),
+                shipped_engine_series="serve_engine_tokens" in text,
+                slo_ok=slo["ok"], fleet_view=sorted(per),
+                reconcile=rec, trace_records=n_rec, traced=len(traces),
+                untraced=missing)
+            if not (all(x in text for x in per_rep)
+                    and "serve_engine_tokens" in text
+                    and len(per) == len(trs)):
+                raise AssertionError("fleet (g): /metrics or /fleet lacks the "
+                                     "per-replica series")
+            if not rec["reconciled"]:
+                raise AssertionError(
+                    f"fleet (g): tokens do not reconcile {rec}")
+            if missing:
+                raise AssertionError(f"fleet (g): requests {missing} have no "
+                                     f"stitched delivered/terminal records")
+
+            # (b) the kill: SIGKILL one child while it holds work
+            victim = FLEET_REPLICAS - 1
+            marks = {}
+
+            def kill_when_busy(c, got):
+                if "kill" not in marks and got and trs[victim]._inflight:
+                    _os.kill(trs[victim]._proc.pid, signal.SIGKILL)
+                    marks["kill"] = time.perf_counter()
+                if "kill" in marks and "retired" not in marks \
+                        and c.replicas[victim].state == RETIRED:
+                    marks["retired"] = time.perf_counter()
+
+            t0 = time.perf_counter()
+            resps, wall, got = _fleet_drive(ctl, prompts, "fleet kill",
+                                            pace=0.0005,
+                                            on_tick=kill_when_busy)
+            if "kill" not in marks:
+                raise AssertionError("fleet (b): the victim never held work")
+            c, k = _fleet_streams(resps, refs, margins, thresh, "fleet kill")
+            states = [r.state for r in ctl.replicas]
+            t_end = t0 + wall
+            t_ret = marks.get("retired", t_end)
+
+            def rate(a, b):
+                n = sum(len(r.tokens) for t, r in got if a <= t < b)
+                return f"{n / max(b - a, 1e-9):.1f}"
+
+            out["failover"] = dict(
+                before_tok_s=rate(t0, marks["kill"]),
+                failover_tok_s=rate(marks["kill"], t_ret),
+                after_tok_s=rate(t_ret, t_end + 1e-6),
+                failover_window_s=f"{t_ret - marks['kill']:.3f}",
+                states=states, compared=c, skipped=k)
+            log("fleet", gate="b_kill", card=card, **out["failover"])
+            if states.count(HEALTHY) != FLEET_REPLICAS - 1 \
+                    or states.count(RETIRED) != 1:
+                raise AssertionError(f"fleet (b): replica states {states}")
+
+            # (e) wire chaos on a survivor: a CRC storm and a partition
+            s = states.index(HEALTHY)
+            tr = trs[s]
+            w = tr._wire_index
+            tr.chaos = ChaosPlan([
+                Fault("wire_corrupt", step=w + 1, count=3, stage=s),
+                Fault("wire_partition", step=w + 6, stage=s, magnitude=0.5)])
+            tr.chaos_replica = s
+            resps, wall, _ = _fleet_drive(ctl, prompts[:FLEET_DRILL],
+                                          "fleet wire chaos", pace=0.0005)
+            _fleet_streams(resps, refs, margins, thresh, "fleet wire chaos")
+            out["wire"] = dict(crc_rejects=tr.crc_rejects_total,
+                               parent_rejects=tr.wire_crc_rejects,
+                               partitioned=tr._partition_until > 0,
+                               rpc_retries=tr.rpc_retries,
+                               frames=tr._wire_index - w,
+                               wall_s=f"{wall:.3f}")
+            tr.chaos = None
+            log("fleet", gate="e", **out["wire"])
+            if tr.crc_rejects_total <= 0:
+                raise AssertionError(
+                    "fleet (e): no CRC reject under the storm")
+            survivors = [trs[i] for i, st in enumerate(states)
+                         if st == HEALTHY]
+
+            # (c) disaggregated: prefill, decode, decode children (a survivor
+            # is the mixed fallback); the int8 handoff; then the prefill child
+            # dies mid-handoff. Two fresh mixed children for (d) come up in
+            # the same round: a restarted controller must not meet children
+            # whose retained responses carry another controller's ids.
+            roles = ("prefill", "decode", "decode", "mixed", "mixed")
+            dtrs = _spawn_children([_fleet_spec(cfg, r) for r in roles], live)
+            log("fleet", children=len(dtrs), card=card,
+                spawn_to_ready_s=[f"{t.spawn_to_ready_s:.2f}" for t in dtrs])
+            fresh, dtrs = dtrs[3:], dtrs[:3]
+            dctl = DisaggController(dtrs + survivors[:1],
+                                    RequestQueue(capacity=256),
+                                    policy=RouterPolicy(
+                                        backoff_base_s=0.0,
+                                        heartbeat_timeout_s=10.0))
+            # the int8 codec's own logit gap: the first token's logits over an
+            # imported int8 prefix against a cold prefill, in this process
+            home, dest, cold = (_fleet_backend(model) for _ in range(3))
+            gap8 = 0.0
+            for p in prompts[:FLEET_PREFIXES]:
+                home.prefill(0, p, 0, max_new_tokens=FLEET_NEW)
+                home.release(0)
+                dest.import_prefix_payload(home.export_prefix_payload(p))
+                logits = []
+                for b in (dest, cold):
+                    b.prefill(0, p, 0, max_new_tokens=FLEET_NEW)
+                    logits.append(head_logits(
+                        model, b._chunk_prog.st["h_last"]))
+                    b.release(0)
+                gap8 = max(gap8, (logits[0] - logits[1]).abs().max().item())
+            del home, dest, cold
+            _fleet_drive(dctl, prompts[:8], "fleet disagg warm-up",
+                         pace=0.0005)
+            mixed0 = survivors[0].obs_responses_out
+            resps, wall, _ = _fleet_drive(dctl, prompts, "fleet disagg",
+                                          pace=0.0005)
+            # decode runs over int8-shipped prefix rows: each token against the
+            # fp32 forward's argmax on its own stream, as the paged phase holds
+            # int8 KV rows
+            agree = total = 0
+            for p, r in zip(prompts, resps):
+                am = _margins(model, p, r.tokens)[1].argmax(-1).tolist()
+                agree += sum(a == t for a, t in zip(am, r.tokens))
+                total += len(r.tokens)
+            same = sum(list(r.tokens) == list(f.tokens)
+                       for r, f in zip(resps, refs))
+            time.sleep(0.5)                      # the next obs frames land
+            imported = [int(t.obs_view()[0].counter(
+                "serve.kv.prefix_imported").value) for t in dtrs[1:]]
+            shipped = reg.counter("serve.fleet.disagg_handoff_shipped").value
+            why = {n: reg.counter(f"serve.fleet.disagg_{n}").value
+                   for n in ("handoff_warm", "handoff_cold", "decode_refused",
+                             "mixed_fallback", "reprefill")}
+            out["disagg"] = dict(_rates(resps, wall), **why,
+                                 top1_agreement=f"{agree / total:.4f}",
+                                 streams_equal_reference=same,
+                                 int8_first_token_dlogits=f"{gap8:.3e}",
+                                 prefix_imported=imported,
+                                 handoff_blocks=shipped,
+                                 mixed_served=survivors[0].obs_responses_out
+                                 - mixed0)
+            log("fleet", run="disagg", card=card, **out["disagg"])
+            if not sum(imported) > 0:
+                raise AssertionError("fleet (c): the decode children imported "
+                                     "no prefix block")
+            if agree / total < INT8_AGREE_MIN:
+                raise AssertionError(f"fleet (c): top-1 agreement "
+                                     f"{agree / total:.4f} over int8 prefixes")
+            # one handoff timed alone: export over the JSON wire, import
+            extra = _fleet_prompts(cfg.vocab, 1, seed=29)[0]
+            q = RequestQueue(capacity=8)
+            req = q.submit(extra, max_new_tokens=1, seed=0)
+            dtrs[0].place(req)
+            deadline = time.perf_counter() + FLEET_WAIT_S
+            while not any(r.request_id == req.id for r in dtrs[0].poll()):
+                time.sleep(0.001)
+                if time.perf_counter() > deadline:
+                    raise AssertionError("fleet (c): the timed prefill hung")
+            t1 = time.perf_counter()
+            payload = dtrs[0].export_prefix(extra)
+            t2 = time.perf_counter()
+            seated = dtrs[1].import_prefix(payload)
+            t3 = time.perf_counter()
+            frame = len(fproc._pack({"op": "reply", "rpc": 0,
+                                     "value": payload}))
+            cold_b = _fleet_backend(model)
+            cold_b.prefill(0, extra, 0, max_new_tokens=FLEET_NEW)   # warm
+            cold_b.release(0)
+            cold_b.pool.invalidate(cold_b.pool.prefix_hashes(extra))
+            torch.cuda.synchronize()
+            t4 = time.perf_counter()
+            cold_b.prefill(0, extra, 0, max_new_tokens=FLEET_NEW)
+            t5 = time.perf_counter()
+            del cold_b
+            out["handoff"] = dict(payload_bytes=payload["nbytes"],
+                                  json_frame_bytes=frame, blocks=seated,
+                                  export_ms=f"{(t2 - t1) * 1e3:.2f}",
+                                  import_ms=f"{(t3 - t2) * 1e3:.2f}",
+                                  reprefill_ms=f"{(t5 - t4) * 1e3:.2f}")
+            log("fleet", gate="c_handoff", card=card, **out["handoff"])
+
+            marks = {}
+
+            def kill_prefill(c, got):
+                if "kill" not in marks and any(
+                        getattr(r, "phase", None) == "decode"
+                        for r in c._tracked.values()) and dtrs[0]._inflight:
+                    _os.kill(dtrs[0]._proc.pid, signal.SIGKILL)
+                    marks["kill"] = len(got)
+
+            resps, wall, _ = _fleet_drive(dctl, prompts[:FLEET_DRILL],
+                                          "fleet disagg kill", pace=0.0005,
+                                          on_tick=kill_prefill)
+            log("fleet", gate="c_kill", killed_after=marks.get("kill"),
+                states=[r.state for r in dctl.replicas],
+                mixed_served=survivors[0].obs_responses_out - mixed0,
+                reprefills=reg.counter("serve.fleet.disagg_reprefill").value)
+            if "kill" not in marks:
+                raise AssertionError("fleet (c): the prefill child was never "
+                                     "killed mid-handoff")
+
+            # (d) controller restart over two fresh mixed children: journal,
+            # drop the controller mid-flight, rebuild it from the journal
+            journal = RequestJournal(journal_dir)
+            jctl = FleetController(fresh, RequestQueue(capacity=256),
+                                   policy=RouterPolicy(
+                                       backoff_base_s=0.0,
+                                       heartbeat_timeout_s=10.0),
+                                   journal=journal)
+            for rep in jctl.replicas:
+                journal.record_replica(rep.index,
+                                       **rep.transport.rejoin_info())
+            ids = [jctl.submit(p, max_new_tokens=FLEET_NEW, seed=i).id
+                   for i, p in enumerate(prompts[:FLEET_DRILL])]
+            pre = []
+            deadline = time.perf_counter() + FLEET_WAIT_S
+            while len(pre) < 2:
+                pre += jctl.tick()
+                time.sleep(0.0005)
+                if time.perf_counter() > deadline:
+                    raise AssertionError("fleet (d): nothing delivered")
+            old = [rep.transport for rep in jctl.replicas]
+            for tr in old:
+                _abandon(tr)
+            t_r = time.perf_counter()
+            state = RequestJournal.recover(journal_dir)
+            rtrs = [ProcessReplicaTransport(
+                        ReplicaSpec(**state.replicas[i]["spec"]),
+                        rejoin=state.replicas[i], connect_timeout_s=60)
+                    for i in sorted(state.replicas)]
+            live.extend(rtrs)
+            ctl2 = FleetController.from_journal(
+                state, rtrs, RequestQueue(capacity=256),
+                journal=RequestJournal(journal_dir),
+                policy=RouterPolicy(backoff_base_s=0.0,
+                                    heartbeat_timeout_s=10.0))
+            post = []
+            deadline = time.perf_counter() + FLEET_WAIT_S
+            while not ctl2.idle:
+                post += ctl2.tick()
+                time.sleep(0.0005)
+                if time.perf_counter() > deadline:
+                    raise AssertionError("fleet (d): the rebuilt fleet hung")
+            pre_ids = set(state.terminal)
+            post_ids = [r.request_id for r in post]
+            once = (sorted(pre_ids | set(post_ids)) == sorted(ids)
+                    and len(post_ids) == len(set(post_ids))
+                    and not pre_ids & set(post_ids))
+            out["restart"] = dict(pre_crash=len(pre_ids),
+                                  orphans=len(state.orphans),
+                                  recovered=len(post_ids),
+                                  recover_s=f"{time.perf_counter() - t_r:.3f}",
+                                  exactly_once=once)
+            log("fleet", gate="d", **out["restart"])
+            if not once or not all(r.status == "ok" for r in post):
+                raise AssertionError("fleet (d): the orphans were not "
+                                     "delivered exactly once")
+        finally:
+            _end_children(live)             # the abandoned ones' included
+
+    # (f) the watchdog: slow_replica sleeps inside replica 0's decode for
+    # FLEET_SLOW_TICKS router ticks, over a tick budget; the warm inproc
+    # engines of (a)
+    for e in keep:
+        e.watchdog = TickWatchdog(tick_budget_s=FLEET_TICK_BUDGET_S)
+    slow0 = reg.counter("resilience.watchdog_slow_ticks").value
+    wctl = Router(keep, RequestQueue(capacity=256),
+                  policy=RouterPolicy(suspect_slow_streak=2,
+                                      recover_healthy_ticks=2),
+                  chaos=ChaosPlan([Fault("slow_replica", step=1,
+                                         count=FLEET_SLOW_TICKS, stage=0,
+                                         magnitude=FLEET_SLOW_S)]))
+    walk = []
+
+    def record(c, got):
+        if not walk or walk[-1] != c.replicas[0].state:
+            walk.append(c.replicas[0].state)
+
+    _fleet_drive(wctl, prompts[:2 * FLEET_DRILL], "fleet watchdog",
+                 on_tick=record)
+    for _ in range(4):                       # idle ticks: the recovery
+        wctl.tick()
+        record(wctl, [])
+    slow = reg.counter("resilience.watchdog_slow_ticks").value - slow0
+    out["watchdog"] = dict(slow_ticks=slow,
+                           replica0=keep[0].watchdog.slow_ticks, walk=walk)
+    log("fleet", gate="f", **out["watchdog"])
+    if slow != FLEET_SLOW_TICKS or keep[0].watchdog.slow_ticks \
+            != FLEET_SLOW_TICKS or walk[:3] != [HEALTHY, SUSPECT, HEALTHY]:
+        raise AssertionError(f"fleet (f): slow ticks {slow}, walk {walk}")
+    del keep, wctl
+
+    # (h) the emulator's hop fault on the eval Pipe: transport_drop on the
+    # hop leaving stage 0 for micro-batch 1, and a persistent drop
+    x = batches[0][0]
+    stages = [Stage(p, name=f"stage{j}")
+              for j, p in enumerate(pipe.partitions)]
+
+    def run_emulator(plan, health=None):
+        with torch.inference_mode():
+            out_b = emulator.run(stages, mb.scatter((x,), CHUNKS),
+                                 chaos=plan, hop_health=health)
+        return [b.values[0] for b in out_b]
+
+    _zero_launches()
+    clean = run_emulator(None)
+    clean_launches = fa.flash_attention_fwd.launches
+    hh = HopHealth()
+    hit = run_emulator(ChaosPlan([Fault("transport_drop", step=0, stage=0,
+                                        microbatch=1)]), hh)
+    hp = HopHealth()
+    run_emulator(ChaosPlan([Fault("persistent_hop_drop", step=0, stage=0)]),
+                 hp)
+    same = [torch.equal(a, b) for a, b in zip(hit, clean)]
+    out["emulator"] = dict(
+        launches=clean_launches, expected=cfg.n_layers * CHUNKS,
+        same=same, streak=(hh.streak(0), hh.faults(0), hh.dead_hops),
+        persistent=(hp.streak(0), hp.faults(0), hp.dead_hops))
+    log("fleet", gate="h", **out["emulator"])
+    if same != [i != 1 for i in range(CHUNKS)] or clean_launches != \
+            cfg.n_layers * CHUNKS or (hh.streak(0), hh.faults(0),
+                                      hh.dead_hops) != (0, 1, []) \
+            or (hp.streak(0), hp.faults(0), hp.dead_hops) != (
+                CHUNKS, CHUNKS, [0]):
+        raise AssertionError(f"fleet (h): {out['emulator']}")
+    out["seconds"] = f"{time.perf_counter() - t_phase:.1f}"
+    log("fleet", seconds=out["seconds"])
+    return out
+
+
 def main() -> int:
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     t_start = time.perf_counter()
@@ -3807,6 +4531,8 @@ def main() -> int:
     ctx["resident"] = phase_serve_paged(ctx, smi)
     phase_serve_spec(ctx, smi)
     del ctx
+    torch.cuda.empty_cache()
+    phase_fleet(smi, gap)
     torch.cuda.empty_cache()
     sources = {"flash_attn_fwd": ("flash_attn_fwd.cu", 87,
                                   "flash_attention_fwd"),

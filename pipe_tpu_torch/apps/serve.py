@@ -15,6 +15,24 @@ TTFT percentiles, queue-depth/occupancy gauges). ``--events`` additionally
 writes the request-span EventLog. SIGTERM/SIGINT drain the engine: live
 slots finish, queued requests are shed.
 
+``--replicas N`` serves through the fleet instead (``pipe_tpu``'s): N
+replicas behind one front queue with health-gated failover; the summary gains
+per-replica lines and a fleet rollup, and SIGTERM drains the whole fleet.
+``--fleet`` picks the replica transport: ``inproc`` (default; engines in this
+process, ticked serially), ``thread`` (one tick thread per engine) or
+``proc`` (each replica a child process, ``python -m
+pipe_tpu_torch.fleet.proc``, on ``--device``; needs ``--family lm`` without
+``--resume`` or ``--spec-tokens``: the child rebuilds the model from the
+config and ``--seed``). ``--roles prefill,decode,...`` (or ``auto``) splits
+the fleet by phase, ``--placement least_loaded|session|prefix`` and
+``--kv-hot-refs`` steer placement by KV prefix, ``--journal DIR`` (``--fleet
+proc`` only) keeps the fsync'd request journal a restarted controller
+recovers from. The observability plane rides along: ``--metrics-port``
+serves ``/metrics`` (Prometheus text), ``/slo`` and ``/fleet`` (JSON) on
+127.0.0.1, ``--slo-*`` targets are scored into ``summary["slo"]``, and
+``--trace-out`` writes the stitched per-request traces as JSONL.
+``--tick-budget-s`` and ``--shed-ewma`` arm the engines' tick watchdog.
+
 Usage:
     python -m pipe_tpu_torch.apps.serve [--resume DIR] [--requests N --rate R]
         [--prompts-file F] [--slots S] [--max-new N] [--temperature T]
@@ -24,16 +42,19 @@ Usage:
         [--kv-offload] [--kv-offload-blocks N] [--resident auto|on|off]
         [--resident-chunks R] [--spec-tokens K] [--draft ngram|truncated|tree]
         [--draft-stages N] [--spec-branches B] [--spec-adaptive]
+        [--replicas N] [--fleet inproc|thread|proc] [--journal DIR]
+        [--roles R,R,...|auto] [--placement least_loaded|session|prefix]
+        [--kv-hot-refs N] [--metrics-port P] [--trace-out F.jsonl]
+        [--slo-ttft-p50 S] [--slo-ttft-p99 S] [--slo-e2e-p99 S]
+        [--slo-goodput-min F] [--slo-deadline-miss-max F] [--slo-shed-max F]
+        [--tick-budget-s S] [--shed-ewma F]
         [--tiny] [--seed S] [--device cuda|cpu]
 
 A model draft (``--draft truncated|tree``) is a strict prefix of the model:
 with ``--stages 1`` the model is partitioned into ``--draft-stages + 1``
-logical stages to carve it, as ``pipe_tpu`` does. Not ported yet, each
-refused with rc 2 and the ROADMAP.md item it waits for: ``--stages > 1``
-(the ring backend), ``--replicas``, ``--fleet``, ``--journal``,
-``--roles``, ``--placement``, ``--kv-hot-refs``, ``--metrics-port``,
-``--trace-out``, the ``--slo-*`` flags and the watchdog flags (the fleet
-and its observability). ``--family gpt2`` serves ``PipelinedGPT2`` (fresh
+logical stages to carve it, as ``pipe_tpu`` does. ``--stages > 1`` (the
+ring backend) is not ported yet: it exits 2 naming ROADMAP.md A.8.
+``--family gpt2`` serves ``PipelinedGPT2`` (fresh
 weights from ``--seed``); its model has no ``embed_tree``, so ``--draft
 tree`` exits 2 with the engine's message, as in ``pipe_tpu``. A request
 that does not fit the model's positional table or the slot cache exits 2.
@@ -49,28 +70,55 @@ import time
 
 from .generate import UsageError, build_model, family_config, model_source
 
-_FLEET = "A.7, fleet/* and serve/router.py"
-_OBS = "A.7, the rest of obs/* (fleet observability)"
 
-# (flag, is it set away from its default?, the ROADMAP.md item that ports it)
-_NOT_PORTED = (
-    ("--stages > 1", lambda a: a.stages > 1,
-     "A.8, serve/ring.py over a stage mesh"),
-    ("--replicas > 1", lambda a: a.replicas > 1, _FLEET),
-    ("--fleet", lambda a: a.fleet is not None, _FLEET),
-    ("--journal", lambda a: a.journal is not None, _FLEET),
-    ("--roles", lambda a: a.roles is not None, _FLEET),
-    ("--placement", lambda a: a.placement is not None, _FLEET),
-    ("--kv-hot-refs", lambda a: a.kv_hot_refs is not None, _FLEET),
-    ("--metrics-port", lambda a: a.metrics_port is not None, _OBS),
-    ("--trace-out", lambda a: a.trace_out is not None, _OBS),
-    ("--slo-*", lambda a: any(getattr(a, f) is not None for f in (
-        "slo_ttft_p50", "slo_ttft_p99", "slo_e2e_p99", "slo_goodput_min",
-        "slo_deadline_miss_max", "slo_shed_max")), _OBS),
-    ("--tick-budget-s/--shed-ewma",
-     lambda a: a.tick_budget_s is not None or a.shed_ewma is not None,
-     "A.7, resilience/* (the tick watchdog)"),
-)
+
+def _start_metrics_server(port, registry_fn, slo, observer):
+    """Daemon-thread HTTP server on 127.0.0.1 exposing the fleet
+    observability plane: ``/metrics`` renders ``registry_fn()`` as
+    Prometheus text, ``/slo`` the verdict JSON, ``/fleet`` the per-replica
+    JSON view. Returns the server (``.server_address[1]`` is the bound
+    port)."""
+    import http.server
+    import threading
+
+    from pipe_tpu_torch.obs.fleet_obs import prometheus_text
+
+    class _Handler(http.server.BaseHTTPRequestHandler):
+        def do_GET(self):
+            path = self.path.split("?", 1)[0].rstrip("/") or "/metrics"
+            try:
+                if path == "/metrics":
+                    body = prometheus_text(registry_fn()).encode()
+                    ctype = "text/plain; version=0.0.4"
+                elif path == "/slo":
+                    body = json.dumps(slo.verdict(registry_fn())).encode()
+                    ctype = "application/json"
+                elif path == "/fleet":
+                    per = (observer.per_replica()
+                           if observer is not None else {})
+                    body = json.dumps(
+                        {str(k): v for k, v in per.items()}).encode()
+                    ctype = "application/json"
+                else:
+                    self.send_error(404)
+                    return
+            except Exception as e:               # surface, don't crash
+                self.send_error(500, str(e))
+                return
+            self.send_response(200)
+            self.send_header("Content-Type", ctype)
+            self.send_header("Content-Length", str(len(body)))
+            self.end_headers()
+            self.wfile.write(body)
+
+        def log_message(self, *a):               # keep stdout JSON-clean
+            pass
+
+    srv = http.server.ThreadingHTTPServer(("127.0.0.1", port), _Handler)
+    srv.daemon_threads = True
+    threading.Thread(target=srv.serve_forever, daemon=True,
+                     name="metrics-http").start()
+    return srv
 
 
 def build_argparser() -> argparse.ArgumentParser:
@@ -146,21 +194,64 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--kv-offload-blocks", type=int, default=None,
                    help="host store capacity in blocks for --kv-offload "
                         "(default: the device pool size)")
-    # Not ported yet: each refused with rc 2 (see _NOT_PORTED).
-    p.add_argument("--stages", type=int, default=1)
-    p.add_argument("--replicas", type=int, default=1)
-    p.add_argument("--fleet", default=None)
-    p.add_argument("--journal", default=None)
-    p.add_argument("--roles", default=None)
-    p.add_argument("--placement", default=None)
-    p.add_argument("--kv-hot-refs", type=int, default=None)
-    p.add_argument("--metrics-port", type=int, default=None)
-    p.add_argument("--trace-out", default=None)
-    for name in ("ttft-p50", "ttft-p99", "e2e-p99", "goodput-min",
-                 "deadline-miss-max", "shed-max"):
-        p.add_argument(f"--slo-{name}", type=float, default=None)
-    p.add_argument("--tick-budget-s", type=float, default=None)
-    p.add_argument("--shed-ewma", type=float, default=None)
+    p.add_argument("--stages", type=int, default=1,
+                   help=">1: the pipeline ring (not ported: exits 2)")
+    p.add_argument("--replicas", type=int, default=1,
+                   help=">1: run N engine replicas behind the fleet "
+                        "Router (health-gated failover)")
+    p.add_argument("--fleet", choices=["inproc", "thread", "proc"],
+                   default="inproc",
+                   help="replica transport with --replicas > 1: same-"
+                        "process serial ticks (inproc), one tick thread "
+                        "per replica (thread), or one OS process per "
+                        "replica (proc)")
+    p.add_argument("--journal", default=None,
+                   help="directory for the durable request journal "
+                        "(fsync'd lifecycle log; a crashed controller "
+                        "restarts from it via FleetController."
+                        "from_journal). --fleet proc only")
+    p.add_argument("--metrics-port", type=int, default=None,
+                   help="serve the merged fleet registry on "
+                        "127.0.0.1:<port>: /metrics (Prometheus text), "
+                        "/slo (verdict JSON), /fleet (per-replica JSON). "
+                        "0 picks a free port (printed to stderr)")
+    p.add_argument("--trace-out", default=None,
+                   help="with --replicas > 1: write the stitched "
+                        "per-request trace timelines here (.jsonl)")
+    p.add_argument("--slo-ttft-p50", type=float, default=None,
+                   help="SLO target: TTFT p50 seconds")
+    p.add_argument("--slo-ttft-p99", type=float, default=None,
+                   help="SLO target: TTFT p99 seconds")
+    p.add_argument("--slo-e2e-p99", type=float, default=None,
+                   help="SLO target: end-to-end latency p99 seconds")
+    p.add_argument("--slo-goodput-min", type=float, default=None,
+                   help="SLO target: minimum ok/delivered fraction")
+    p.add_argument("--slo-deadline-miss-max", type=float, default=None,
+                   help="SLO target: max timed_out/delivered fraction")
+    p.add_argument("--slo-shed-max", type=float, default=None,
+                   help="SLO target: max shed/delivered fraction")
+    p.add_argument("--tick-budget-s", type=float, default=None,
+                   help="watchdog: count ticks slower than this "
+                        "(resilience.watchdog_slow_ticks)")
+    p.add_argument("--shed-ewma", type=float, default=None,
+                   help="watchdog: deadline-miss EWMA above which "
+                        "lowest-priority queued requests are shed")
+    p.add_argument("--placement",
+                   choices=["least_loaded", "session", "prefix"],
+                   default="least_loaded",
+                   help="fleet placement: least_loaded, session pinning, "
+                        "or prefix (score replicas by matched prefix depth "
+                        "x occupancy headroom)")
+    p.add_argument("--kv-hot-refs", type=int, default=None,
+                   help="fleet: replicate prefixes shared by at least N "
+                        "live slots to a sibling proactively (requires "
+                        "--kv paged; >= 2)")
+    p.add_argument("--roles", default=None,
+                   help="disaggregated fleet: comma-separated per-replica "
+                        "roles (prefill|decode|mixed), length == "
+                        "--replicas, e.g. 'prefill,decode,decode', or "
+                        "'auto' (suggest_roles). Pair with --kv paged so "
+                        "decode replicas resume from shipped blocks")
     p.add_argument("--family", choices=["lm", "gpt2"], default="lm")
     return p
 
@@ -183,6 +274,128 @@ def read_prompts(path: str, vocab: int):
     return prompts
 
 
+def _fleet_checks(args, prompts):
+    """``pipe_tpu``'s fleet argument checks, with its messages: the roles
+    list (``auto`` sized by ``suggest_roles``), or None. UsageError."""
+    replicas = max(args.replicas, 1)
+    if (args.kv_hot_refs is not None or args.placement == "prefix") \
+            and args.kv != "paged":
+        raise UsageError("--kv-offload/--kv-hot-refs/--placement prefix "
+                         "need --kv paged (the slab has no blocks to "
+                         "spill, share, or advertise)")
+    roles = None
+    if args.roles:
+        if args.roles == "auto":
+            from pipe_tpu_torch.fleet import suggest_roles
+            roles = suggest_roles(
+                replicas, prompt_len=max(len(p) for p in prompts),
+                max_new_tokens=args.max_new).roles
+        else:
+            roles = [r.strip() for r in args.roles.split(",")]
+        bad = [r for r in roles if r not in ("prefill", "decode", "mixed")]
+        if bad or len(roles) != replicas:
+            raise UsageError(
+                f"--roles must name one of prefill|decode|mixed per "
+                f"replica ({replicas} expected, got {roles})")
+        if replicas < 2:
+            raise UsageError("--roles needs --replicas >= 2 (one replica "
+                             "cannot be split by phase)")
+    if args.journal and not (replicas > 1 and args.fleet == "proc"):
+        # the journal recovers a crashed controller; in-process engines
+        # die WITH their controller, so journaling them would promise a
+        # restart that cannot happen
+        raise UsageError("--journal requires --fleet proc with --replicas "
+                         "> 1 (only the process fleet survives its "
+                         "controller)")
+    if replicas > 1 and args.fleet == "proc" and (
+            args.family != "lm" or args.resume or args.spec_tokens):
+        raise UsageError("--fleet proc requires --family lm without "
+                         "--resume/--spec-tokens (children rebuild the "
+                         "model from the spec + seed)")
+    return roles
+
+
+def _build_fleet(args, roles, model, model_cfg, backend, backend_kw,
+                 events):
+    """The fleet front (``Router``, ``FleetController`` or
+    ``DisaggController``) over ``--replicas`` replicas, and the journal
+    (or None). Process replicas are spawned one after another, each
+    waiting for its child's ready frame, as ``pipe_tpu`` does."""
+    from pipe_tpu_torch.serve import (RequestQueue, Router, RouterPolicy,
+                                      ServeEngine, SingleDeviceSlotBackend)
+
+    policy = RouterPolicy(placement=args.placement,
+                          kv_hot_refs=args.kv_hot_refs)
+    queue = RequestQueue(capacity=args.queue_capacity, policy=args.policy)
+    if args.fleet == "proc":
+        import dataclasses
+
+        from pipe_tpu_torch.fleet import (DisaggController, FleetController,
+                                          ProcessReplicaTransport,
+                                          ReplicaSpec, RequestJournal)
+        b = backend
+        spec = ReplicaSpec(
+            lm_cfg={f: getattr(model_cfg, f)
+                    for f in ("vocab", "d_model", "nhead", "d_ff",
+                              "n_layers", "dropout", "seq_len")},
+            n_stages=1, init_seed=args.seed, num_slots=args.slots,
+            max_len=b.max_len, buckets=list(b.buckets.lengths),
+            decode_chunk=args.decode_chunk,
+            queue_capacity=args.queue_capacity,
+            gen=dict(max_new_tokens=args.max_new,
+                     temperature=args.temperature, top_k=args.top_k,
+                     eos_token_id=args.eos),
+            device=str(b.device),
+            **({"kv_block_size": args.kv_block_size,
+                "kv_pool_blocks": args.kv_pool_blocks,
+                "kv_offload": args.kv_offload,
+                "kv_offload_blocks": args.kv_offload_blocks,
+                "kv_hot_refs": args.kv_hot_refs}
+               if args.kv == "paged" else {}))
+        transports = []
+        try:
+            for role in (roles or ["mixed"] * args.replicas):
+                transports.append(ProcessReplicaTransport(
+                    dataclasses.replace(spec, role=role)))
+        except Exception:
+            for tr in transports:
+                tr.close()
+            raise
+        journal = RequestJournal(args.journal) if args.journal else None
+        ctl_cls = DisaggController if roles is not None else FleetController
+        eng = ctl_cls(transports, queue, policy=policy, event_log=events,
+                      journal=journal)
+        if journal is not None:
+            # each child's wire coordinates (and the fleet.json snapshot)
+            # so a restarted controller re-dials the RUNNING children
+            for i, tr in enumerate(transports):
+                journal.record_replica(i, **tr.rejoin_info())
+        return eng, journal
+    # in-process fleet: one front queue, N engines each with its own queue
+    # and watchdog; --fleet thread gives each its own tick thread
+    backends = [backend] + [SingleDeviceSlotBackend(model, **backend_kw)
+                            for _ in range(args.replicas - 1)]
+    engines = [ServeEngine(b, RequestQueue(capacity=args.queue_capacity),
+                           event_log=events, watchdog=_watchdog(args),
+                           phase=roles[i] if roles is not None else "mixed")
+               for i, b in enumerate(backends)]
+    if roles is not None:
+        from pipe_tpu_torch.fleet import DisaggController, InProcessTransport
+        return DisaggController(
+            [InProcessTransport(e, async_tick=(args.fleet == "thread"))
+             for e in engines], queue, event_log=events, policy=policy), None
+    return Router(engines, queue, event_log=events, policy=policy,
+                  async_tick=(args.fleet == "thread")), None
+
+
+def _watchdog(args):
+    if args.tick_budget_s is None and args.shed_ewma is None:
+        return None
+    from pipe_tpu_torch.resilience import TickWatchdog
+    return TickWatchdog(tick_budget_s=args.tick_budget_s,
+                        shed_ewma_threshold=args.shed_ewma)
+
+
 def main(argv=None) -> int:
     args = build_argparser().parse_args(argv)
 
@@ -190,17 +403,20 @@ def main(argv=None) -> int:
 
     from pipe_tpu_torch.inference import GenerationConfig
     from pipe_tpu_torch.obs.events import NULL_EVENT_LOG, EventLog
+    from pipe_tpu_torch.obs.fleet_obs import (FleetObserver, SloMonitor,
+                                              SloTargets, TraceBuffer)
     from pipe_tpu_torch.obs.telemetry import (get_registry,
                                               host_overhead_per_token)
     from pipe_tpu_torch.serve import (BucketSpec, EngineDraining, QueueFull,
                                       RequestQueue, ServeEngine,
                                       SingleDeviceSlotBackend)
 
+    replicas = max(args.replicas, 1)
     try:
-        for flag, is_set, item in _NOT_PORTED:
-            if is_set(args):
-                raise UsageError(f"{flag} is not ported to pipe_tpu_torch "
-                                 f"yet (ROADMAP.md {item})")
+        if args.stages > 1:
+            raise UsageError("--stages > 1 is not ported to pipe_tpu_torch "
+                             "yet (ROADMAP.md A.8, serve/ring.py over a "
+                             "stage mesh)")
         model_cfg, state = model_source(args, family_config(args))
         # a model draft runs "the first stage(s)": --stages 1 serves an
         # unpartitioned model, so split it into draft-stages+1 logical
@@ -233,6 +449,7 @@ def main(argv=None) -> int:
         if args.kv_offload and args.kv != "paged":
             raise UsageError("--kv-offload needs --kv paged (the slab has "
                              "no blocks to spill)")
+        roles = _fleet_checks(args, prompts)
         kv_kwargs = {} if args.kv == "slab" else {
             "kv_block_size": args.kv_block_size,
             "kv_pool_blocks": args.kv_pool_blocks,
@@ -246,8 +463,8 @@ def main(argv=None) -> int:
         # chunk writes branches x (K-1) rows past the accepted frontier
         spec_slack = ((args.spec_branches or 1) * (args.spec_tokens - 1)
                       if args.spec_tokens else 0)
-        backend = SingleDeviceSlotBackend(
-            model, num_slots=args.slots,
+        backend_kw = dict(
+            num_slots=args.slots,
             max_len=buckets.max_len + args.max_new + spec_slack,
             gen=gen_cfg, buckets=buckets, decode_chunk=args.decode_chunk,
             resident=resident, resident_chunks=args.resident_chunks,
@@ -255,19 +472,61 @@ def main(argv=None) -> int:
             draft_stages=args.draft_stages,
             spec_branches=args.spec_branches,
             spec_adaptive=args.spec_adaptive, **kv_kwargs)
+        backend = SingleDeviceSlotBackend(model, **backend_kw)
         for p in prompts:
             backend.validate(len(p), gen_cfg.max_new_tokens)
-        queue = RequestQueue(capacity=args.queue_capacity,
-                             policy=args.policy)
     except (UsageError, ValueError, TypeError) as e:
         print(str(e), file=sys.stderr)
         return 2
 
-    events = EventLog(args.events) if args.events else NULL_EVENT_LOG
-    eng = ServeEngine(backend, queue, event_log=events)
+    trace_buf = None
+    if args.events:
+        events = EventLog(args.events)
+    elif args.trace_out and replicas > 1:
+        # --trace-out without --events: hold the parent-side request
+        # skeleton (queued/placed/delivered) in memory, or the stitched
+        # timelines would carry child-side stages only
+        trace_buf = TraceBuffer(maxlen=200_000)
+        events = trace_buf
+    else:
+        events = NULL_EVENT_LOG
+
+    journal = None
+    if replicas > 1:
+        eng, journal = _build_fleet(args, roles, model, model_cfg, backend,
+                                    backend_kw, events)
+    else:
+        queue = RequestQueue(capacity=args.queue_capacity,
+                             policy=args.policy)
+        eng = ServeEngine(backend, queue, event_log=events,
+                          watchdog=_watchdog(args))
+
+    # the observability plane: the observer merges the replicas' metrics
+    # into one rollup registry, the SLO monitor scores it, and
+    # --metrics-port serves both live
+    slo = SloMonitor(SloTargets(
+        ttft_p50_s=args.slo_ttft_p50, ttft_p99_s=args.slo_ttft_p99,
+        e2e_p99_s=args.slo_e2e_p99, goodput_min=args.slo_goodput_min,
+        deadline_miss_max=args.slo_deadline_miss_max,
+        shed_max=args.slo_shed_max))
+    observer = FleetObserver(eng, parent_events=(args.events or trace_buf)) \
+        if replicas > 1 else None
+
+    def _fleet_registry():
+        return observer.rollup() if observer is not None \
+            else get_registry()
+
+    metrics_server = None
+    if args.metrics_port is not None:
+        metrics_server = _start_metrics_server(
+            args.metrics_port, _fleet_registry, slo, observer)
+        print(f"metrics: http://127.0.0.1:"
+              f"{metrics_server.server_address[1]}/metrics",
+              file=sys.stderr, flush=True)
 
     # Graceful drain on SIGTERM/SIGINT: live slots finish, queued work is
-    # shed back to callers, new admissions stop — then a clean summary.
+    # shed back to callers, new admissions stop -- then a clean summary.
+    # With --replicas this drains the whole fleet.
     import signal as _signal
 
     def _drain_handler(signum, frame):
@@ -277,7 +536,7 @@ def main(argv=None) -> int:
         try:
             _signal.signal(_sig, _drain_handler)
         except (ValueError, OSError):
-            pass  # not the main thread (embedded use) — skip handlers
+            pass  # not the main thread (embedded use) -- skip handlers
 
     if args.prompts_file or args.rate <= 0:
         arrivals = [0.0] * len(prompts)
@@ -288,38 +547,45 @@ def main(argv=None) -> int:
 
     t0 = time.monotonic()
     i = rejected = done = 0
-    while i < len(prompts) or not eng.idle:
-        if eng.draining:
-            i = len(prompts)      # stop submitting; finish what's live
-        now = time.monotonic() - t0
-        while i < len(prompts) and arrivals[i] <= now:
-            try:
-                eng.submit(prompts[i], seed=args.seed + i,
-                           timeout_s=args.timeout_s)
-            except QueueFull:
-                rejected += 1
-            except EngineDraining:
-                i = len(prompts)
-                break
-            i += 1
-        if eng.idle and i < len(prompts):
-            time.sleep(min(arrivals[i] - now, 0.005))
-            continue
-        for r in eng.tick():
-            done += 1
-            print(json.dumps({
-                "request": r.request_id, "status": r.status,
-                "finish_reason": r.finish_reason,
-                "prompt_len": r.prompt_len, "tokens": r.tokens,
-                "ttft_s": (round(r.ttft, 4)
-                           if r.ttft is not None else None),
-                "latency_s": round(r.latency, 4)}), flush=True)
+    try:
+        while i < len(prompts) or not eng.idle:
+            if eng.draining:
+                i = len(prompts)      # stop submitting; finish what's live
+            now = time.monotonic() - t0
+            while i < len(prompts) and arrivals[i] <= now:
+                try:
+                    eng.submit(prompts[i], seed=args.seed + i,
+                               timeout_s=args.timeout_s)
+                except QueueFull:
+                    rejected += 1
+                except EngineDraining:
+                    i = len(prompts)
+                    break
+                i += 1
+            if eng.idle and i < len(prompts):
+                time.sleep(min(arrivals[i] - now, 0.005))
+                continue
+            for r in eng.tick():
+                done += 1
+                print(json.dumps({
+                    "request": r.request_id, "status": r.status,
+                    "finish_reason": r.finish_reason,
+                    "prompt_len": r.prompt_len, "tokens": r.tokens,
+                    "ttft_s": (round(r.ttft, 4)
+                               if r.ttft is not None else None),
+                    "latency_s": round(r.latency, 4)}), flush=True)
+    except BaseException:
+        if replicas > 1:
+            eng.close()       # stop tick threads, end the child processes
+        raise
     elapsed = time.monotonic() - t0
 
     snap = {k: v for k, v in get_registry().scalars().items()
             if k.startswith(("serve.", "resilience."))}
     summary = {
-        "backend": type(backend).__name__,
+        "backend": (f"Fleet[{args.fleet}]({type(backend).__name__} x "
+                    f"{replicas})"
+                    if replicas > 1 else type(backend).__name__),
         "device": str(backend.device),
         "finished": done, "rejected": rejected,
         "drained": eng.draining,
@@ -332,8 +598,42 @@ def main(argv=None) -> int:
         "host_overhead_per_token_us": round(
             1e6 * host_overhead_per_token(), 2),
         "buckets": list(buckets.lengths), "metrics": snap}
+    summary["slo"] = slo.verdict(_fleet_registry())
+    if replicas > 1:
+        def _rep_line(rep):
+            line = {"replica": rep.index, "state": rep.state}
+            try:
+                # a retired process transport may be gone
+                line["queue_depth"] = rep.transport.queue_depth
+                line["live_slots"] = rep.transport.live_slots
+            except Exception:
+                line["queue_depth"] = line["live_slots"] = None
+            return line
+        summary["fleet"] = {
+            "transport": args.fleet,
+            "rollup": eng.counts(),
+            "per_replica": [_rep_line(rep) for rep in eng.replicas]}
+        eng.close()   # stops tick threads / shuts replica processes down
+        # after close: the children ship their final obs deltas on the
+        # shutdown RPC, and every read below is parent-side state
+        if observer is not None:
+            per = observer.per_replica()
+            summary["fleet"]["staleness_s"] = {
+                str(i): v["staleness_s"] for i, v in per.items()}
+            summary["fleet"]["reconcile"] = observer.reconcile()
+            summary["slo"] = slo.verdict(_fleet_registry())
+            if args.trace_out:
+                events.flush()
+                summary["fleet"]["trace_records"] = \
+                    observer.write_stitched(args.trace_out)
+    if journal is not None:
+        # the loop ran to quiescence: everything submitted is terminal,
+        # so a restart on this journal skips reconciliation
+        journal.close(clean=True)
     print(json.dumps({"summary": summary}))
     events.close()
+    if metrics_server is not None:
+        metrics_server.shutdown()
     return 0
 
 

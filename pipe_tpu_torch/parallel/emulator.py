@@ -16,13 +16,20 @@ thrown away, so nothing is stashed or counted twice, and a pop's gradient
 flows back to its stash site through autograd. Each task's forward runs in
 the profiler range ``chunk{i}-stage{j}`` (``obs.meters.stage_scope``); while a
 profiler runs, its backward gets the same label (``obs.meters.mark_backward``).
-The chaos and hop-health hooks of ``pipe_tpu`` are not ported yet
-(ROADMAP.md: A.7).
+
+A :class:`~pipe_tpu_torch.resilience.ChaosPlan` (``chaos=``) faults the
+stage-boundary hops: after stage ``j`` produced micro-batch ``i``, a planned
+``transport_drop`` zeroes the hop and ``transport_corrupt`` scales it by NaN
+(an integer payload is filled with -1) before stage ``j+1`` reads it. With no
+plan nothing extra runs. A :class:`~pipe_tpu_torch.resilience.HopHealth`
+(``hop_health=``) records every crossing, faulted or clean.
 """
 
 from __future__ import annotations
 
 from typing import List, Optional, Sequence
+
+import torch
 
 from ..core import microbatch as mb
 from ..core.partition import Stage, StageCtx
@@ -89,6 +96,29 @@ def _marked(batch: mb.Batch, ctx: StageCtx) -> mb.Batch:
                     atomic=batch.atomic)
 
 
+def _corrupt_hop(batch: mb.Batch, mode: str) -> mb.Batch:
+    """Chaos-plan transport fault on a stage-boundary hop: 'drop' zeroes
+    the payload (a lost transfer), 'corrupt' scales it by NaN (a torn one;
+    an integer payload is filled with -1). Non-tensor riders pass
+    through."""
+
+    def one(v):
+        if not isinstance(v, torch.Tensor):
+            return v
+        if mode == "drop":
+            return torch.zeros_like(v)
+        if v.is_floating_point() or v.is_complex():
+            return v * torch.tensor(float("nan"), dtype=v.dtype,
+                                    device=v.device)
+        return torch.full_like(v, -1)
+
+    def hit(*vals):
+        out = tuple(one(v) for v in vals)
+        return out[0] if len(out) == 1 else out
+
+    return batch.call(hit)
+
+
 def run(stages: Sequence[Stage],
         batches: List[mb.Batch],
         *,
@@ -97,7 +127,9 @@ def run(stages: Sequence[Stage],
         train: bool = False,
         seed: Optional[int] = None,
         remat_policy=None,
-        skip_tracker=None) -> List[mb.Batch]:
+        skip_tracker=None,
+        chaos=None,
+        hop_health=None) -> List[mb.Batch]:
     """Execute the clock-cycle schedule serially; returns transformed batches.
 
     Each task's ctx seed is ``seed`` folded over ``(i, j)``. A
@@ -124,4 +156,11 @@ def run(stages: Sequence[Stage],
                                       remat=i < stop,
                                       remat_policy=remat_policy,
                                       skip_tracker=skip_tracker)
+            if j < n - 1:
+                mode = (chaos.transport_fault(i, j)
+                        if chaos is not None else None)
+                if mode is not None:
+                    batches[i] = _corrupt_hop(batches[i], mode)
+                if hop_health is not None:
+                    hop_health.record(j, mode is not None)
     return batches

@@ -6,8 +6,8 @@ tick (serve) index for a known duration: everything decided up front,
 nothing random at run time (the ``seed`` only derives payload content,
 never whether a fault fires).
 
-Every fault kind of ``pipe_tpu`` is accepted in a plan, so plans round-trip.
-The port injects the train and data kinds:
+Every fault kind of ``pipe_tpu`` is accepted in a plan, with its injection
+site:
 
 ==================  =======================================================
 ``nan_grads``       gradients scaled by NaN inside the guarded train step
@@ -18,13 +18,34 @@ The port injects the train and data kinds:
                     ``pre_fn``; corrupts loss and grads the way a real
                     numeric blowup does)
 ``data_raise``      :class:`ChaosError` raised from the data iterator
+``transport_drop``  a stage-boundary hop zeroed in the emulator executor
+``transport_corrupt`` the same hop scaled by NaN instead
+``persistent_hop_drop`` the hop leaving ``stage`` zeroed for every
+                    micro-batch (feeds :class:`~.detect.HopHealth`)
+``wire_partition``  fleet process wire: the parent drops the covered
+                    outgoing frame, severs the connection and refuses the
+                    child's re-dial for ``magnitude`` seconds (capped 30s)
+``wire_delay``      the covered outgoing frame held ``magnitude`` seconds
+                    (capped 5s) before send
+``wire_corrupt``    the covered frame's last byte flipped after the
+                    checksum, so the receiver's CRC32 rejects it
+``wire_dup``        the covered frame sent twice (sequence dedup collapses
+                    them)
+``stall_tick``      the serve engine sleeps ``magnitude`` seconds in-tick
+``queue_flood``     the serve queue force-filled to capacity with junk
+``backend_raise``   :class:`ChaosError` raised at the next backend prefill
+``wedge_replica``   router fleet: replica ``stage``'s decode raises while
+                    the fault covers the tick
+``kill_replica``    router fleet: replica ``stage``'s decode raises from
+                    ``step`` onward, permanently
+``slow_replica``    router fleet: replica ``stage``'s decode sleeps
+                    ``magnitude`` seconds per tick while covered
 ==================  =======================================================
 
-The emulator's transport faults, the fleet wire faults, the serve and
-replica faults (ROADMAP.md A.7) and the ``kill_stage`` channel of elastic
-training (A.7/A.8) are not ported: their lookups raise
-``NotImplementedError`` naming the item, and so does a ``Trainer`` given a
-plan that holds them.
+Only ``kill_stage``, the channel of elastic training, is not ported: its
+lookup raises ``NotImplementedError`` naming its ROADMAP.md item
+(A.7/A.8, ``resilience/elastic.py``), and so does a ``Trainer`` given a plan
+that holds it.
 
 Train-step faults ride an ``inject`` code, a 0-dim int32 tensor on the
 training device: the host writes the code of each step into it
@@ -67,14 +88,10 @@ REPLICA_KINDS = ("wedge_replica", "kill_replica", "slow_replica")
 STAGE_KINDS = ("kill_stage",)
 KINDS = TRAIN_KINDS + DATA_KINDS + TRANSPORT_KINDS + WIRE_KINDS \
     + SERVE_KINDS + REPLICA_KINDS + STAGE_KINDS
-# The kinds the port injects; the others name their ROADMAP.md item.
-PORTED_KINDS = TRAIN_KINDS + DATA_KINDS
-_NOT_PORTED_ITEM = dict(
-    [(k, "A.7, the emulator's chaos and hop-health hooks")
-     for k in TRANSPORT_KINDS]
-    + [(k, "A.7, fleet/*") for k in WIRE_KINDS + REPLICA_KINDS]
-    + [(k, "A.7, the engine's watchdog and chaos") for k in SERVE_KINDS]
-    + [(k, "A.7/A.8, resilience/elastic.py") for k in STAGE_KINDS])
+# The kinds the port injects; ``kill_stage`` names its ROADMAP.md item.
+PORTED_KINDS = TRAIN_KINDS + DATA_KINDS + TRANSPORT_KINDS + WIRE_KINDS \
+    + SERVE_KINDS + REPLICA_KINDS
+_NOT_PORTED_ITEM = {k: "A.7/A.8, resilience/elastic.py" for k in STAGE_KINDS}
 
 
 def _not_ported(kind: str) -> NotImplementedError:
@@ -192,30 +209,78 @@ class ChaosPlan:
                 f"injected data-iterator fault at batch {index} "
                 f"(plan seed {self.seed})")
 
-    # -- hooks of the unported executors -----------------------------------
+    # -- emulator transport -------------------------------------------------
 
     def transport_fault(self, microbatch: int, stage: int) -> Optional[str]:
-        """The emulator's hop faults: not ported (ROADMAP.md A.7)."""
-        raise _not_ported("transport_drop")
+        """'drop' | 'corrupt' | None for the hop leaving ``stage`` with
+        micro-batch ``microbatch`` (emulator executor only). A
+        ``persistent_hop_drop`` on the hop matches EVERY micro-batch —
+        the failure-streak counter sees it never clear."""
+        for f in self.faults:
+            if f.kind not in TRANSPORT_KINDS or f.stage != stage:
+                continue
+            if f.kind == "persistent_hop_drop":
+                return "drop"
+            if f.microbatch == microbatch:
+                return "drop" if f.kind == "transport_drop" else "corrupt"
+        return None
+
+    # -- fleet proc wire ----------------------------------------------------
 
     def wire_fault(self, kind: str, index: int,
                    replica: int = 0) -> Optional[Fault]:
-        """The fleet wire's faults: not ported (ROADMAP.md A.7)."""
-        raise _not_ported(kind if kind in WIRE_KINDS else WIRE_KINDS[0])
+        """The first ``kind`` wire fault hitting ``replica``'s proc
+        wire (addressed via ``Fault.stage``, like replica faults) at
+        outgoing frame ``index``. Consulted by
+        :func:`pipe_tpu_torch.fleet.proc.apply_wire_chaos` per parent->child
+        frame — frame index, not tick, is the coverage key, so a drill
+        can corrupt exactly the Nth frame regardless of timing."""
+        if kind not in WIRE_KINDS:
+            raise ValueError(f"{kind!r} is not a wire fault kind; "
+                             f"one of {WIRE_KINDS}")
+        for f in self.faults:
+            if f.kind == kind and f.stage == replica and f.covers(index):
+                return f
+        return None
+
+    # -- serve tick ---------------------------------------------------------
 
     def serve_fault(self, kind: str, tick: int) -> Optional[Fault]:
-        """The serve tick's faults: not ported (ROADMAP.md A.7)."""
-        raise _not_ported(kind if kind in SERVE_KINDS else SERVE_KINDS[0])
+        if kind not in SERVE_KINDS:
+            raise ValueError(f"{kind!r} is not a serve fault kind")
+        return self.active(kind, tick)
+
+    # -- router fleet -------------------------------------------------------
 
     def replica_fault(self, kind: str, tick: int,
                       replica: int) -> Optional[Fault]:
-        """The router fleet's faults: not ported (ROADMAP.md A.7)."""
-        raise _not_ported(kind if kind in REPLICA_KINDS
-                          else REPLICA_KINDS[0])
+        """The first ``kind`` fault hitting ``replica`` (addressed via
+        ``Fault.stage``) at router tick ``tick``. ``kill_replica`` is
+        permanent — it matches every tick from ``step`` onward, however
+        small ``count`` is; a killed replica never recovers."""
+        if kind not in REPLICA_KINDS:
+            raise ValueError(f"{kind!r} is not a replica fault kind; "
+                             f"one of {REPLICA_KINDS}")
+        for f in self.faults:
+            if f.kind != kind or f.stage != replica:
+                continue
+            if kind == "kill_replica":
+                if tick >= f.step:
+                    return f
+            elif f.covers(tick):
+                return f
+        return None
+
+    def flood_prompt(self, i: int) -> list:
+        """Deterministic junk prompt ``i`` for queue_flood (content from
+        the plan seed, so floods are reproducible)."""
+        import numpy as np
+        rng = np.random.RandomState(self.seed * 1_000_003 + i)
+        return [int(t) for t in rng.randint(1, 32, size=4)]
 
     def check_ported(self) -> None:
         """Raise ``NotImplementedError`` naming the ROADMAP.md item of the
-        first fault whose injection site is not ported."""
+        first fault whose injection site is not ported (``kill_stage``)."""
         for f in self.faults:
             if f.kind not in PORTED_KINDS:
                 raise _not_ported(f.kind)

@@ -13,16 +13,23 @@ per-slot KV slab, or the paged pool of :mod:`.kvpool`
 host offload, int8 rows) with one chunked prefill program, and runs the
 resident loop (several decode chunks per launch) on the card, whose
 chunks become speculative draft/verify rounds with ``spec_tokens``. The
-ring backend and the fleet router are not ported yet (ROADMAP.md A.8,
-A.7). ``apps/serve.py`` is the driver.
+fleet router
+(:class:`~.router.Router`, a shim over :mod:`~..fleet`) runs N engines behind
+one front queue with health-gated failover. The ring backend is not ported
+yet (ROADMAP.md A.8). ``apps/serve.py`` is the driver.
 """
 
 from .buckets import BucketSpec
 from .engine import EngineDraining, ServeEngine, SingleDeviceSlotBackend
-from .kvpool import HostKvStore, KvPool, PoolExhausted, block_demand
+from .kvpool import (Admission, HostKvStore, KvPool, PoolExhausted,
+                     block_demand)
 from .queue import QueueFull, Request, RequestQueue, Response
+from .router import (DRAINING, HEALTHY, RETIRED, SUSPECT, WEDGED, Replica,
+                     Router, RouterPolicy)
 
 __all__ = ["BucketSpec", "ServeEngine", "SingleDeviceSlotBackend",
            "QueueFull", "Request", "RequestQueue", "Response",
-           "EngineDraining", "KvPool", "PoolExhausted", "HostKvStore",
+           "EngineDraining", "Router", "RouterPolicy", "Replica",
+           "HEALTHY", "SUSPECT", "WEDGED", "DRAINING", "RETIRED",
+           "KvPool", "PoolExhausted", "Admission", "HostKvStore",
            "block_demand"]

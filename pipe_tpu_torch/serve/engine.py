@@ -85,13 +85,28 @@ state and the token history as they were, and recomputes the next real
 round exactly (drafts and tree relocation included). Each rung of the
 adaptive ladder is its own captured graph.
 
-Not ported yet, each refused with ``NotImplementedError`` naming its
-ROADMAP.md item: the watchdog, chaos and disaggregated phases, and the
-fleet's KV handoff.
+The fleet hooks (``pipe_tpu``'s, host-side): a
+:class:`~..resilience.TickWatchdog` (slow ticks, stuck slots, degraded-mode
+shedding), a :class:`~..resilience.ChaosPlan` of serve faults, the
+disaggregated ``phase`` ("prefill" | "decode"), and the paged backend's KV
+handoff (:meth:`SingleDeviceSlotBackend.export_prefix_payload` /
+:meth:`~SingleDeviceSlotBackend.import_prefix_payload`). An import writes
+the shipped rows INTO the pool tensors in place (``index_copy_``), never
+rebinding them: every captured graph reads those tensors' storage. A slot
+admitted over an imported prefix gets its view refreshed by the prefill
+epilogue, as every paged admission does.
+
+Capture is safe under the thread fleet (``fleet.InProcessTransport(
+async_tick=True)``, one tick thread per engine): every capture in the
+process runs under one lock with ``capture_error_mode="thread_local"``, so
+a replica's launches, copies and allocations on other threads neither break
+nor join another replica's capture. Replicas share the process's default
+stream.
 """
 
 from __future__ import annotations
 
+import threading
 import time
 import warnings
 from typing import Callable, Dict, List, Optional, Sequence
@@ -102,6 +117,7 @@ import torch
 from ..inference.draft import DraftSource, resolve_draft, tree_layout
 from ..inference.generate import (GenerationConfig, head_logits,
                                   keyed_uniform, sample_logits, seed_word)
+from ..inference.quant import quantize_kv_rows
 from ..obs.events import NULL_EVENT_LOG, REQUEST
 from ..obs.telemetry import get_registry, host_overhead_per_token
 from ..ops.layers import causal_table, tree_mask
@@ -114,7 +130,10 @@ from .queue import QueueFull, Request, RequestQueue, Response
 __all__ = ["SingleDeviceSlotBackend", "ServeEngine", "EngineDraining",
            "resolve_resident"]
 
-_FLEET = "A.7, fleet handoff"
+# One capture at a time in the process: the fleet's tick threads each own
+# an engine, and a capture on one thread must not be joined by another
+# thread's work (see _Program._capture).
+_CAPTURE_LOCK = threading.Lock()
 
 
 class EngineDraining(RuntimeError):
@@ -126,12 +145,14 @@ class EngineDraining(RuntimeError):
 class _Slot:
     """Host-side state of one running request."""
 
-    __slots__ = ("req", "tokens", "ttft")
+    __slots__ = ("req", "tokens", "ttft", "admitted_tick")
 
-    def __init__(self, req: Request, first_token: int, ttft: float):
+    def __init__(self, req: Request, first_token: int, ttft: float,
+                 admitted_tick: int = 0):
         self.req = req
         self.tokens: List[int] = [first_token]
         self.ttft = ttft
+        self.admitted_tick = admitted_tick
 
 
 def resolve_resident(resident, device: torch.device) -> bool:
@@ -151,7 +172,10 @@ class _Program:
     eagerly otherwise. The first call counts ``counter``: the capture, or
     the eager first run. The capture's warm-up (cuBLAS handles, the
     allocator) runs ``body(scratch())`` on a side stream, where
-    ``scratch()`` gives buffers whose writes cannot touch live state."""
+    ``scratch()`` gives buffers whose writes cannot touch live state.
+    Captures are serialized process-wide and capture in ``thread_local``
+    error mode, so other threads (the thread fleet's replicas) may launch,
+    copy and allocate while one captures."""
 
     def __init__(self, backend, body: Callable[[dict], None], st: dict,
                  scratch: Callable[[], dict], counter: Optional[str] = None):
@@ -177,16 +201,18 @@ class _Program:
 
     def _capture(self) -> None:
         dev = self.backend.device
-        scratch = self.scratch()
-        side = torch.cuda.Stream(dev)
-        side.wait_stream(torch.cuda.current_stream(dev))
-        with torch.cuda.stream(side):
-            self.body(scratch)
-        torch.cuda.current_stream(dev).wait_stream(side)
-        del scratch
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph, pool=self.backend._graph_pool):
-            self.body(self.st)
+        with _CAPTURE_LOCK:
+            scratch = self.scratch()
+            side = torch.cuda.Stream(dev)
+            side.wait_stream(torch.cuda.current_stream(dev))
+            with torch.cuda.stream(side):
+                self.body(scratch)
+            torch.cuda.current_stream(dev).wait_stream(side)
+            del scratch
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph, pool=self.backend._graph_pool,
+                                  capture_error_mode="thread_local"):
+                self.body(self.st)
         self.graph = graph
 
 
@@ -1229,16 +1255,116 @@ class SingleDeviceSlotBackend:
             out["resident_graph"] = self._resident_prog.graph is not None
         return out
 
+    # -- KV handoff (fleet session remap) ----------------------------------
+
     def export_prefix_payload(self, prompt: Sequence[int],
                               codec: str = "int8") -> Optional[dict]:
-        raise NotImplementedError(
-            f"export_prefix_payload is not ported to pipe_tpu_torch yet "
-            f"(ROADMAP.md {_FLEET})")
+        """Serialize this backend's cached shared-prefix blocks covering
+        ``prompt`` for a fleet KV handoff, as ``pipe_tpu`` does.
+        ``codec="raw"`` ships the pool's stored rows exactly (in-process
+        handoff: bitwise, so prefix hits on the destination keep token
+        parity); ``codec="int8"`` quantizes float rows through
+        :func:`~..inference.quant.quantize_kv_rows` for the wire (int8
+        pools ship their own codes raw either way). Host numpy arrays
+        ``[n_layers, blocks, block_size, heads, head_dim]``. None when
+        there is no pool or no cached prefix."""
+        if not self.paged:
+            return None
+        if codec not in ("raw", "int8"):
+            raise ValueError(f"codec must be raw|int8, got {codec!r}")
+        entries = self.pool.cached_prefix_entries(prompt)
+        if not entries:
+            return None
+        bids = torch.tensor([b for _, b in entries], dtype=torch.int64,
+                            device=self.device)
+        int8_storage = "k_scale" in self._pool_kv
+        arrays = {}
+        with torch.no_grad():
+            if int8_storage or codec == "raw":
+                names = (("k", "v", "k_scale", "v_scale") if int8_storage
+                         else ("k", "v"))
+                for name in names:
+                    arrays[name] = self._pool_kv[name].index_select(
+                        1, bids).cpu().numpy()
+                wire_codec = "raw"
+            else:
+                for name in ("k", "v"):
+                    q, sc = quantize_kv_rows(
+                        self._pool_kv[name].index_select(1, bids))
+                    arrays[name] = q.cpu().numpy()
+                    arrays[name + "_scale"] = sc.cpu().numpy()
+                wire_codec = "int8"
+        nbytes = sum(a.nbytes for a in arrays.values())
+        get_registry().counter("serve.kv.prefix_exported").inc(len(entries))
+        return {"hashes": [h for h, _ in entries],
+                "block_size": self.pool.block_size,
+                "n_layers": self._n_layers,
+                "codec": wire_codec,
+                "int8_storage": int8_storage,
+                "arrays": arrays,
+                "nbytes": nbytes}
 
     def import_prefix_payload(self, payload: dict) -> int:
-        raise NotImplementedError(
-            f"import_prefix_payload is not ported to pipe_tpu_torch yet "
-            f"(ROADMAP.md {_FLEET})")
+        """Seat an exported prefix payload into this backend's pool:
+        allocate destination blocks, write the rows into the pool tensors
+        in place (``index_copy_``: the captured graphs read these tensors'
+        storage, so they must never be rebound), and register the hashes
+        as refs-0 cached entries (the next admission takes the refs, and
+        its prefill epilogue refreshes the slot's view from the imported
+        blocks). Hashes already cached locally are skipped; returns the
+        number of blocks seated (0 for a slab backend or a geometry
+        mismatch: the destination then re-prefills cold)."""
+        if not self.paged:
+            return 0
+        if (payload.get("block_size") != self.pool.block_size
+                or payload.get("n_layers") != self._n_layers):
+            return 0
+        int8_storage = "k_scale" in self._pool_kv
+        fresh = [(i, h) for i, h in enumerate(payload["hashes"])
+                 if h not in self.pool._cached]
+        if not fresh:
+            return 0
+        dst = self.pool.take_blocks(len(fresh))
+        fresh = fresh[:len(dst)]
+        if not fresh:
+            return 0
+        src_idx = torch.tensor([i for i, _ in fresh], dtype=torch.int64)
+        dst_idx = torch.tensor(dst, dtype=torch.int64, device=self.device)
+        arrays = payload["arrays"]
+        codec = payload.get("codec", "raw")
+
+        def rows_of(name):
+            return torch.as_tensor(np.asarray(arrays[name])).index_select(
+                1, src_idx).to(self.device)
+
+        with torch.no_grad():
+            if codec == "raw" and payload.get("int8_storage") == int8_storage:
+                names = (("k", "v", "k_scale", "v_scale") if int8_storage
+                         else ("k", "v"))
+                for name in names:
+                    pool = self._pool_kv[name]
+                    pool.index_copy_(1, dst_idx, rows_of(name).to(pool.dtype))
+            else:
+                # cross-codec: float rows first, then this pool's own
+                # layout (re-quantized for int8 storage)
+                for name in ("k", "v"):
+                    rows = rows_of(name)
+                    if codec == "int8" or payload.get("int8_storage"):
+                        rows = rows.to(torch.float32) * rows_of(
+                            name + "_scale")
+                    pool = self._pool_kv[name]
+                    if int8_storage:
+                        q, sc = quantize_kv_rows(rows)
+                        pool.index_copy_(1, dst_idx, q)
+                        self._pool_kv[name + "_scale"].index_copy_(
+                            1, dst_idx, sc)
+                    else:
+                        pool.index_copy_(1, dst_idx, rows.to(pool.dtype))
+        seated = self.pool.seat_prefix(
+            [(h, int(b)) for (_, h), b in zip(fresh, dst)],
+            chain=payload["hashes"])
+        get_registry().counter("serve.kv.prefix_imported").inc(seated)
+        return seated
 
 
 class ServeEngine:
@@ -1261,9 +1387,13 @@ class ServeEngine:
     ``pool.observe()`` feeds the ``serve.kv.*`` gauges every tick. On a
     resident backend each tick's decode is one resident launch whose
     horizon (:meth:`_resident_horizon`) is sized from the soonest deadline
-    and the observed per-chunk latency. ``watchdog``, ``chaos`` and the
-    disaggregated ``phase`` values are not ported yet (ROADMAP.md A.7) and
-    raise ``NotImplementedError``.
+    and the observed per-chunk latency.
+
+    ``watchdog`` (a :class:`~..resilience.TickWatchdog`) arms the host-side
+    health policies: slow-tick accounting, stuck-slot retirement,
+    degraded-mode shedding; None changes nothing. ``chaos`` (a
+    :class:`~..resilience.ChaosPlan`) injects serve faults by tick index.
+    ``phase`` is the disaggregated role (:meth:`_check_phase`).
     """
 
     def __init__(self, backend, queue: Optional[RequestQueue] = None,
@@ -1275,14 +1405,6 @@ class ServeEngine:
             raise ValueError(
                 f"phase must be 'mixed', 'prefill' or 'decode', got "
                 f"{phase!r}")
-        for name, value, default in (("watchdog", watchdog, None),
-                                     ("chaos", chaos, None),
-                                     ("phase", phase, "mixed")):
-            if value != default:
-                raise NotImplementedError(
-                    f"ServeEngine({name}={value!r}) is not ported to "
-                    f"pipe_tpu_torch yet (ROADMAP.md A.7, resilience/* "
-                    f"and fleet/*)")
         self.phase = phase
         self.backend = backend
         if queue is None:
@@ -1296,12 +1418,15 @@ class ServeEngine:
         self.queue = queue
         self.clock = queue.clock
         self.events = event_log if event_log is not None else NULL_EVENT_LOG
+        self.watchdog = watchdog
+        self.chaos = chaos
         self.decode_error_limit = decode_error_limit
         self._slots: List[Optional[_Slot]] = [None] * backend.num_slots
         self._free = list(range(backend.num_slots - 1, -1, -1))
         self._responses = {}
         self._tick_index = 0
         self._decode_errors = 0
+        self._miss_ewma = 0.0
         self._draining = False
         # observed per-chunk decode latency (EWMA): sizes the resident
         # deadline horizon in chunks; None until the first decode
@@ -1323,6 +1448,7 @@ class ServeEngine:
                 "new work is admitted")
         if max_new_tokens is None:
             max_new_tokens = self.backend.gen.max_new_tokens
+        self._check_phase(prompt, max_new_tokens)
         self.backend.validate(len(prompt), max_new_tokens)
         try:
             req = self.queue.submit(prompt, max_new_tokens=max_new_tokens,
@@ -1347,12 +1473,48 @@ class ServeEngine:
             raise EngineDraining(
                 "engine is draining: live requests are finishing and no "
                 "new work is admitted")
+        self._check_phase(req.prompt, req.max_new_tokens)
         self.backend.validate(len(req.prompt), req.max_new_tokens)
         self.queue.requeue(req)
         req.attempts += 1
         reg.counter("serve.engine.placed").inc()
         reg.gauge("serve.engine.queue_depth").set(self.queue.depth)
         return req
+
+    def _check_phase(self, prompt: Sequence[int],
+                     max_new_tokens: int) -> None:
+        """Disaggregated operating modes (``fleet/disagg.py``). A prefill
+        replica serves only the chunked prefill: requests arrive clamped
+        to ``max_new_tokens=1`` (the first token retires the slot straight
+        off the prefill, leaving the prompt's prefix blocks cached for
+        export). A decode replica never prefills from scratch: a prompt
+        spanning at least one full KV block must have its prefix seated
+        already (:meth:`SingleDeviceSlotBackend.import_prefix_payload`),
+        and the imported prefix must fit the decode slot span
+        (``GenerationConfig.check_decode_headroom``). Mixed mode (the
+        default) changes nothing."""
+        if self.phase == "prefill" and max_new_tokens != 1:
+            raise ValueError(
+                f"prefill-only replica: requests must arrive clamped to "
+                f"max_new_tokens=1, got {max_new_tokens} — route the "
+                f"decode phase to a decode or mixed replica "
+                f"(fleet/disagg.py owns the split)")
+        if self.phase == "decode":
+            pool = self.backend.pool
+            if pool is not None:
+                if self.backend.buckets is not None:
+                    self.backend.gen.check_decode_headroom(
+                        len(prompt), max_new_tokens,
+                        self.backend.buckets.max_len,
+                        self.backend._spec_overshoot)
+                if (len(prompt) >= pool.block_size
+                        and pool.cached_prefix_blocks(prompt) == 0):
+                    raise ValueError(
+                        f"decode-only replica: no cached KV prefix for "
+                        f"this {len(prompt)}-token prompt — import the "
+                        f"prefill replica's blocks first "
+                        f"(import_prefix_payload) or route to a mixed "
+                        f"replica; decode replicas never re-prefill")
 
     def cancel(self, request_id: int) -> bool:
         return self.queue.cancel(request_id)
@@ -1367,6 +1529,13 @@ class ServeEngine:
     @property
     def idle(self) -> bool:
         return self.live_slots == 0 and self.queue.depth == 0
+
+    @property
+    def consecutive_decode_errors(self) -> int:
+        """Consecutive failed decode ticks (reset by any success): a fleet
+        health signal the router reads beside the watchdog's;
+        ``decode_error_limit`` of these retires the live set."""
+        return self._decode_errors
 
     # -- graceful drain ------------------------------------------------------
 
@@ -1421,6 +1590,12 @@ class ServeEngine:
             reg.counter("serve.engine.errors").inc()
         elif resp.status == "shed":
             reg.counter("serve.engine.shed").inc()
+        wd = self.watchdog
+        if wd is not None and resp.status in ("ok", "timeout"):
+            # only served outcomes move the deadline-miss EWMA: shedding
+            # is the response to misses and must not latch degraded mode
+            self._miss_ewma = wd.record_outcome(resp.status == "timeout")
+            reg.gauge("resilience.deadline_miss_ewma").set(self._miss_ewma)
         self.events.event(
             REQUEST, request=resp.request_id, status=resp.status,
             finish_reason=resp.finish_reason, prompt_len=resp.prompt_len,
@@ -1440,8 +1615,8 @@ class ServeEngine:
 
     def _shed_queued(self, req: Request, reason: str,
                      now: float) -> Response:
-        """Queued request pushed back out unserved (drain):
-        ``status="shed"``."""
+        """Queued request pushed back out unserved (degraded-mode shedding
+        or drain): ``status="shed"``."""
         resp = Response(request_id=req.id, tokens=[], status="shed",
                         finish_reason=reason, prompt_len=len(req.prompt),
                         ttft=None, latency=now - req.submitted_at)
@@ -1487,16 +1662,20 @@ class ServeEngine:
     # -- the tick ----------------------------------------------------------
 
     def tick(self) -> List[Response]:
-        """One scheduler step: sweep deadlines/cancellations, admit into
-        free slots, run one decode chunk, retire. Returns the requests
-        that reached a terminal state during this tick."""
+        """One scheduler step: sweep deadlines/cancellations, apply the
+        watchdog policies, admit into free slots, run one decode chunk,
+        retire. Returns the requests that reached a terminal state during
+        this tick."""
         reg = get_registry()
         tick_idx = self._tick_index
         self._tick_index += 1
+        if self.chaos is not None:
+            self._apply_chaos(reg, tick_idx)
         t_start = self.clock()
         now = t_start
         finished: List[Response] = []
         eos = self.backend.gen.eos_token_id
+        wd = self.watchdog
 
         # 0) drain — everything still queued goes back to its caller
         if self._draining and self.queue.depth:
@@ -1516,6 +1695,37 @@ class ServeEngine:
             elif st.req.deadline is not None and now >= st.req.deadline:
                 finished.append(
                     self._retire(slot, "timeout", "deadline", now))
+
+        # 1b) stuck slots -- alive far past the ticks their token budget
+        # can possibly need; retired as errors instead of squatting
+        if wd is not None and wd.stuck_slack_ticks is not None:
+            chunk = self.backend.decode_chunk
+            for slot in range(self.backend.num_slots):
+                st = self._slots[slot]
+                if st is None:
+                    continue
+                limit = wd.stuck_after(st.req.max_new_tokens, chunk)
+                if tick_idx - st.admitted_tick >= limit:
+                    reg.counter("resilience.stuck_slots").inc()
+                    wd.record_stuck()
+                    self.events.event("resilience", action="stuck_slot",
+                                      request=st.req.id, slot=slot,
+                                      age_ticks=tick_idx - st.admitted_tick)
+                    finished.append(self._retire(slot, "error", "stuck", now))
+
+        # 1c) degraded mode -- shed lowest-priority queued work while the
+        # deadline-miss EWMA sits above the threshold
+        if wd is not None and wd.shed_ewma_threshold is not None \
+                and not self._draining \
+                and self._miss_ewma > wd.shed_ewma_threshold \
+                and self.queue.depth:
+            n = max(1, self.queue.depth // 2)
+            reg.counter("resilience.shed").inc(n)
+            self.events.event("resilience", action="shed", count=n,
+                              miss_ewma=self._miss_ewma,
+                              queued=self.queue.depth)
+            for req in self.queue.shed_lowest(n):
+                finished.append(self._shed_queued(req, "shed", now))
 
         # 2) admissions — prefill straight into the freed slots; a
         # backend failure here is attributable to ONE request: fail it,
@@ -1557,6 +1767,11 @@ class ServeEngine:
             slot = self._free.pop()
             t_pre = self.clock()
             try:
+                if self.chaos is not None and self.chaos.serve_fault(
+                        "backend_raise", tick_idx) is not None:
+                    from ..resilience.chaos import ChaosError
+                    raise ChaosError(
+                        f"injected backend fault at tick {tick_idx}")
                 tok0 = self.backend.prefill(
                     slot, req.prompt, req.seed,
                     max_new_tokens=req.max_new_tokens)
@@ -1566,7 +1781,8 @@ class ServeEngine:
                 continue
             device_sec += self.clock() - t_pre
             t_first = self.clock()
-            st = _Slot(req, tok0, ttft=t_first - req.submitted_at)
+            st = _Slot(req, tok0, ttft=t_first - req.submitted_at,
+                       admitted_tick=tick_idx)
             self._slots[slot] = st
             reg.counter("serve.engine.admitted").inc()
             reg.histogram("serve.engine.ttft_sec").observe(st.ttft)
@@ -1646,6 +1862,11 @@ class ServeEngine:
         reg.gauge("serve.engine.host_overhead_per_token").set(
             host_overhead_per_token(reg))
         reg.gauge("resilience.tick_sec").set(dur)
+        if wd is not None and wd.record_tick(dur):
+            reg.counter("resilience.watchdog_slow_ticks").inc()
+            self.events.event("resilience", action="slow_tick",
+                              tick=tick_idx, duration_s=dur,
+                              budget_s=wd.tick_budget_s)
         return finished
 
     def _resident_horizon(self, now: float) -> int:
@@ -1667,6 +1888,21 @@ class ServeEngine:
         if ew is None or ew <= 0.0 or left <= 0.0:
             return 1
         return int(max(1, min(R, left / ew)))
+
+    def _apply_chaos(self, reg, tick_idx: int) -> None:
+        """Serve-side fault injection (chaos plan only).
+        ``backend_raise`` is handled at the prefill site."""
+        f = self.chaos.serve_fault("stall_tick", tick_idx)
+        if f is not None:
+            reg.counter("resilience.chaos_stalls").inc()
+            time.sleep(f.magnitude)
+        if self.chaos.serve_fault("queue_flood", tick_idx) is not None:
+            i = 0
+            while self.queue.depth < self.queue.capacity:
+                self.queue.submit(self.chaos.flood_prompt(i),
+                                  max_new_tokens=1, priority=-(10 ** 6))
+                i += 1
+            reg.counter("resilience.chaos_floods").inc()
 
     def _on_decode_error(self, reg, exc: Exception, tick_idx: int,
                          finished: List[Response]) -> None:

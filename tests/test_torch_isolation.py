@@ -116,8 +116,43 @@ pt.Pipe(pt.build_sequential(cfg, device="cpu"), plan=plan, device="cpu")
 assert lm_tutorial.main(["never", "--tiny", "--device", "cpu", "--steps", "1",
                          "--plan", "auto", "--profile",
                          os.path.join(d, "p")]) == 0
+from pipe_tpu_torch import fleet
+from pipe_tpu_torch.fleet import control, disagg, journal, proc, topology
+from pipe_tpu_torch.obs import fleet_obs
+from pipe_tpu_torch.serve import router
+from pipe_tpu_torch.parallel import emulator
+assert serve_app.main(["--tiny", "--device", "cpu", "--requests", "4",
+                       "--max-new", "4", "--replicas", "2", "--fleet",
+                       "thread", "--kv", "paged", "--kv-block-size", "4",
+                       "--placement", "prefix", "--metrics-port", "0",
+                       "--trace-out", os.path.join(d, "t.jsonl"),
+                       "--tick-budget-s", "5"]) == 0
 bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib")
        and sys.modules[m] is not None]
+assert not bad, bad
+print("ok")
+"""
+
+# What ``python -m pipe_tpu_torch.fleet.proc`` imports: the entry point
+# (``--help`` exits after parsing) and the replica engine it builds.
+_CHILD = """
+import runpy, sys
+sys.argv = ["proc", "--help"]
+try:
+    runpy.run_module("pipe_tpu_torch.fleet.proc", run_name="__main__")
+except SystemExit as e:
+    assert e.code == 0, e.code
+from pipe_tpu_torch.fleet import proc
+from pipe_tpu_torch.obs.fleet_obs import TraceBuffer
+cfg = dict(vocab=61, d_model=16, nhead=2, d_ff=32, n_layers=2, seq_len=64,
+           dropout=0.0)
+eng = proc._build_engine(proc.ReplicaSpec(
+    lm_cfg=cfg, num_slots=2, max_len=48, kv_block_size=8, device="cpu",
+    gen=dict(max_new_tokens=4, temperature=0.0)), event_log=TraceBuffer())
+eng.submit([1, 2, 3], max_new_tokens=4)
+assert eng.run_until_idle()[0].status == "ok"
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "pipe_tpu"))
 assert not bad, bad
 print("ok")
 """
@@ -155,7 +190,12 @@ for make in (lambda: Linear(4, 4),
                                        lambda h, x, c: h, n_stages=1,
                                        module=Linear(4, 4, device="cpu")),
              lambda: lm_tutorial.main(["never", "--tiny"]),
-             lambda: lm_tutorial.main(["never", "--tiny", "--plan", "auto"])):
+             lambda: lm_tutorial.main(["never", "--tiny", "--plan", "auto"]),
+             lambda: __import__("pipe_tpu_torch.fleet.proc").fleet.proc
+             ._build_engine(__import__("pipe_tpu_torch.fleet.proc").fleet
+                            .proc.ReplicaSpec(lm_cfg=dict(
+                                vocab=61, d_model=16, nhead=2, d_ff=32,
+                                n_layers=2, seq_len=64)))):
     try:
         make()
     except RuntimeError as e:
@@ -180,6 +220,13 @@ def test_imports_and_runs_with_jax_and_pipe_tpu_blocked():
 
 def test_default_device_raises_without_cuda():
     _run(_NO_CUDA)
+
+
+def test_child_entry_point_imports_no_jax():
+    """The process replica's entry point and the engine it builds import
+    neither JAX nor ``pipe_tpu`` (nothing blocks them here: the child's own
+    imports must not reach them)."""
+    _run(_CHILD)
 
 
 @pytest.mark.parametrize("path", sorted(

@@ -283,13 +283,26 @@ def test_chaos_plan_matches_pipe_tpu():
 
 
 @pytest.mark.parametrize("call,item", [
-    (lambda p: p.transport_fault(0, 0), "A.7"),
-    (lambda p: p.wire_fault("wire_dup", 0), "A.7, fleet"),
-    (lambda p: p.serve_fault("stall_tick", 0), "A.7"),
-    (lambda p: p.replica_fault("kill_replica", 0, 0), "A.7, fleet"),
+    (lambda p: p.transport_fault(0, 0), None),
+    (lambda p: p.wire_fault("wire_dup", 0), None),
+    (lambda p: p.serve_fault("stall_tick", 0), None),
+    (lambda p: p.replica_fault("kill_replica", 0, 0), None),
     (lambda p: p.train_kill(0), "A.7/A.8"),
 ])
 def test_unported_fault_hooks_name_their_item(call, item):
+    """Only the elastic channel still names its ROADMAP.md item; the
+    emulator, wire, serve and replica lookups (ported with A.7) answer as
+    ``pipe_tpu``'s do for the same plan."""
+    if item is None:
+        plan = [jchaos.Fault("kill_replica", 0), jchaos.Fault("wire_dup", 0),
+                jchaos.Fault("stall_tick", 0),
+                jchaos.Fault("transport_drop", 0)]
+        want = call(jchaos.ChaosPlan(plan))
+        got = call(tchaos.ChaosPlan([tchaos.Fault(f.kind, f.step)
+                                     for f in plan]))
+        assert repr(got) == repr(want)
+        assert call(tchaos.ChaosPlan([])) is None
+        return
     with pytest.raises(NotImplementedError, match=item):
         call(tchaos.ChaosPlan([]))
 

@@ -379,8 +379,9 @@ def test_unbucketed_prefill_warns_past_threshold(models):
 
 
 def test_not_ported_options_name_their_roadmap_item(models):
-    """The fleet handoff is refused naming its ROADMAP.md item; the
-    speculative lane, ported, is validated with JAX's messages (it needs
+    """The fleet hooks, ported, are accepted (the slab's handoff is a
+    no-op); the speculative lane, ported, is validated with JAX's messages
+    (it needs
     the resident loop, and its draft knobs need spec_tokens); the paged
     pool and the resident loop, ported, are accepted (and
     ``resident="auto"`` stays the single-chunk tick on the CPU)."""
@@ -414,14 +415,17 @@ def test_not_ported_options_name_their_roadmap_item(models):
                                                  else "slab")
     backend = _backend(tmodel, gen_cfg, resident="auto")
     assert not backend.resident
-    for call in (lambda: backend.export_prefix_payload([1]),
-                 lambda: backend.import_prefix_payload({})):
-        with pytest.raises(NotImplementedError, match="A.7"):
-            call()
-    for kw in (dict(watchdog=object()), dict(chaos=object()),
+    # ported (A.7): the slab has no prefix to hand off, and the engine
+    # takes a watchdog, a chaos plan and a phase
+    assert backend.export_prefix_payload([1]) is None
+    assert backend.import_prefix_payload({}) == 0
+    from pipe_tpu_torch.resilience import ChaosPlan, TickWatchdog
+    for kw in (dict(watchdog=TickWatchdog()), dict(chaos=ChaosPlan()),
                dict(phase="decode")):
-        with pytest.raises(NotImplementedError, match="A.7"):
-            ServeEngine(backend, **kw)
+        eng = ServeEngine(backend, **kw)
+        assert getattr(eng, next(iter(kw))) is next(iter(kw.values()))
+    with pytest.raises(ValueError, match="phase must be"):
+        ServeEngine(backend, phase="verify")
 
 
 # ---------------------------------------------------------------------------
@@ -623,9 +627,16 @@ def test_generate_cli_prompts_file_serves_through_the_engine(
 
 
 @pytest.mark.parametrize("argv,message", [
-    (["--stages", "2"], "A.8"), (["--replicas", "2"], "A.7"),
-    (["--fleet", "proc"], "A.7"), (["--metrics-port", "0"], "A.7"),
-    (["--slo-ttft-p99", "1"], "A.7"), (["--trace-out", "t.jsonl"], "A.7"),
+    (["--stages", "2"], "A.8, serve/ring.py"),
+    (["--journal", "j"], "--journal requires --fleet proc with --replicas"),
+    (["--replicas", "2", "--fleet", "proc", "--family", "gpt2"],
+     r"--fleet proc requires --family lm without --resume/--spec-tokens"),
+    (["--replicas", "2", "--roles", "prefill"],
+     r"--roles must name one of prefill\|decode\|mixed per replica "
+     r"\(2 expected"),
+    (["--roles", "mixed"], "--roles needs --replicas >= 2"),
+    (["--replicas", "2", "--placement", "prefix"],
+     "--kv-offload/--kv-hot-refs/--placement prefix need --kv paged"),
     (["--spec-tokens", "1"], "spec_tokens must be >= 2"),
     (["--draft", "tree", "--spec-tokens", "4", "--resident", "on"],
      "spec_branches >= 2"),
