@@ -293,6 +293,31 @@ exits non-zero without a result line:
    spawn-to-ready and peak bytes per child, the handoff's bytes, JSON frame
    and ms against a re-prefill, and the failover rates.
 
+11. mesh -- the tutorial LM at full width (random weights from one seed,
+   dropout 0.2, batch 32, chunks 4, lr 1e-4) over a world of 4 ranks on the
+   one card (2 stages x 2 data, gloo, CUDA tensors staged through pinned
+   host memory; ``runtime.distributed.World``, kernels built once before the
+   spawn). The weights are drawn once, saved, and read by every rank and by
+   the one-device twins, which run before the ranks exist. Gates: (a) one
+   step of the Trainer's executors (``SpmdPipeline`` for gpipe,
+   ``ScheduledPipeline`` for 1f1b) and of ``Pipe(mesh=)`` (gpipe and 1f1b
+   tables), except_last, against the one-device table executors over the
+   same weights and seed (C.16: each data rank draws its rows of the whole
+   micro-batch's masks): loss within 1e-5 relative, every gradient within
+   1e-4 x max(1, max|g|); (b) eval logits through ``SpmdPipeline`` and
+   ``Pipe(mesh=)`` against the one-device ``Pipe`` eval, within the same
+   bound; (c) each rank's forward, dQ and dK/dV launches equal to its
+   column of the tables (``stage_passes(column=)`` x 8 layers); (d) 8
+   ``Trainer`` steps with ``zero=True`` (1f1b) with finite, falling losses,
+   its parameters after 3 steps within the gradient bound of the plain
+   Adam's, and ``apps.lm_tutorial --world 4 --schedule interleaved`` for 8
+   steps with finite, falling losses on every rank. Prints, per rank, ms per
+   step, the bytes and host seconds of the point-to-point exchanges and of
+   the all-reduces, the staged bytes, peak bytes, spawn-to-ready time and
+   the backend, beside the card's name and power limit; the kernels phase
+   times the kernels at the data ranks' shape (128, 128, 64) causal with
+   dropout 0.2 (``mesh_shape``) and checks ``bh_base``.
+
 The last two lines are the kernels JSON object and
 ``{"ok": true, "device": {...}}``.
 """
@@ -485,6 +510,9 @@ EDGE_SHAPES = [(3, 24, 8, True), (2, 8, 16, False), (4, 40, 48, True),
 SDPA_RUNS = 5   # graph timings of SDPA's backward
 # Kernels that must run on tensor cores with asynchronous copies (SASS).
 TC_KERNELS = ("flash_fwd_kernel", "flash_bwd_dq_kernel", "flash_bwd_dkv_kernel")
+# A data rank's attention call in the mesh phase: batch 32 in 4 chunks of 8
+# rows, half of them on each of 2 data ranks: (4 rows x 32 heads, 128, 64).
+MESH_SHAPE = (128, 128, 64, True)
 
 
 def log(phase: str, **fields) -> None:
@@ -630,8 +658,9 @@ def phase_kernels() -> dict:
              "flash_attn_bwd_dkv": 0.0}
     rows = {}
 
-    def keep_of(seed, rate, bh, s):
-        return fa.dropout_keep(seed, rate, bh, s, device="cuda") if rate else None
+    def keep_of(seed, rate, bh, s, base=0):
+        return (fa.dropout_keep(seed, rate, bh, s, device="cuda", bh_base=base)
+                if rate else None)
 
     def check(name, errs, scale, tol, where):
         if tol == TOL_KERNEL:                 # fp32: what max_abs_err reports
@@ -641,26 +670,29 @@ def phase_kernels() -> dict:
                 f"{name} disagrees with its plain version at {where}: "
                 f"max|err|={max(errs):.3e} > {tol} x {scale:.3g}")
 
-    def compare_fwd(bh, s, d, causal, dtype, tol, seed=0, rate=0.0):
+    def compare_fwd(bh, s, d, causal, dtype, tol, seed=0, rate=0.0, base=0):
         q, k, v = _qkv(bh, s, d, dtype, gen)
         scale = 1.0 / math.sqrt(d)
         o, lse = fa.flash_attention_fwd(q, k, v, causal=causal, scale=scale,
-                                        seed=seed, rate=rate)
+                                        seed=seed, rate=rate, bh_base=base)
         torch.cuda.synchronize()
         o_ref, lse_ref = fa.flash_attention_ref(q, k, v, causal, scale,
-                                                keep_of(seed, rate, bh, s))
+                                                keep_of(seed, rate, bh, s,
+                                                        base))
         errs = (_err(o, o_ref), _err(lse, lse_ref))
         check("flash_attn_fwd", errs, _scale_of(o_ref), tol,
-              f"bh={bh} s={s} d={d} causal={causal} {dtype} rate={rate}")
+              f"bh={bh} s={s} d={d} causal={causal} {dtype} rate={rate} "
+              f"bh_base={base}")
         return q, k, v, scale, errs
 
-    def compare_bwd(bh, s, d, causal, dtype, tol, seed=0, rate=0.0):
+    def compare_bwd(bh, s, d, causal, dtype, tol, seed=0, rate=0.0, base=0):
         q, k, v, do = _qkv(bh, s, d, dtype, gen, n=4)
         scale = 1.0 / math.sqrt(d)
-        keep = keep_of(seed, rate, bh, s)
+        keep = keep_of(seed, rate, bh, s, base)
         o, lse = fa.flash_attention_ref(q, k, v, causal, scale, keep)
         delta = fa.attention_delta(o, do)
-        kw = dict(causal=causal, scale=scale, seed=seed, rate=rate)
+        kw = dict(causal=causal, scale=scale, seed=seed, rate=rate,
+                  bh_base=base)
         dq = fa.flash_attention_bwd_dq(q, k, v, do, lse, delta, **kw)
         dk, dv = fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, **kw)
         torch.cuda.synchronize()
@@ -668,7 +700,8 @@ def phase_kernels() -> dict:
         dq_r = fa.flash_attention_bwd_dq_ref(q, k, v, do, lse, delta, **ref)
         dk_r, dv_r = fa.flash_attention_bwd_dkv_ref(q, k, v, do, lse, delta,
                                                     **ref)
-        where = f"bh={bh} s={s} d={d} causal={causal} {dtype} rate={rate}"
+        where = (f"bh={bh} s={s} d={d} causal={causal} {dtype} rate={rate} "
+                 f"bh_base={base}")
         e_dq = _err(dq, dq_r)
         e_dkv = (_err(dk, dk_r), _err(dv, dv_r))
         check("flash_attn_bwd_dq", (e_dq,), _scale_of(dq_r), tol, where)
@@ -709,6 +742,18 @@ def phase_kernels() -> dict:
                 rate=rate, seed=seed, max_abs_dO=f"{err_o:.3e}",
                 max_abs_dL=f"{err_l:.3e}", max_abs_ddq=f"{errs[0]:.3e}",
                 max_abs_ddk=f"{errs[1]:.3e}", max_abs_ddv=f"{errs[2]:.3e}")
+    # A data rank's share of the mesh phase's micro-batch: rows 4.. of 8 at
+    # 32 heads, its mask the whole micro-batch's (bh_base = 4 x 32).
+    for base in (0, MESH_SHAPE[0]):
+        for seed, rate in ((DROP_SEEDS[0], DROPOUT), (DROP_SEEDS[1], DROPOUT)):
+            *_, (err_o, err_l) = compare_fwd(*MESH_SHAPE, torch.float32,
+                                             TOL_KERNEL, seed, rate, base)
+            _, errs = compare_bwd(*MESH_SHAPE, torch.float32, TOL_KERNEL,
+                                  seed, rate, base)
+            log("kernels", check="bh_base", shape=MESH_SHAPE, bh_base=base,
+                seed=seed, rate=rate, max_abs_dO=f"{err_o:.3e}",
+                max_abs_ddq=f"{errs[0]:.3e}", max_abs_ddk=f"{errs[1]:.3e}",
+                max_abs_ddv=f"{errs[2]:.3e}")
     # bf16 in and out (fp32 inside): results round to bf16, 8 bits of
     # mantissa, so the tolerance is 1e-2 of the largest value.
     for seed, rate in ((0, 0.0), (DROP_SEEDS[0], DROPOUT)):
@@ -834,7 +879,8 @@ def phase_kernels() -> dict:
     # blocks of 128 threads.
     rows = timed(TRAIN_SHAPE, DROPOUT)
     for key, (shape, rate) in (("gpt2_shape", (GPT2_SHAPE, GPT2_DROPOUT)),
-                               ("bert_shape", (BERT_SHAPE, BERT_DROPOUT))):
+                               ("bert_shape", (BERT_SHAPE, BERT_DROPOUT)),
+                               ("mesh_shape", (MESH_SHAPE, DROPOUT))):
         bh, s = shape[:2]
         log("kernels", shape=key, grid_blocks=bh * -(-s // 64),
             sms=torch.cuda.get_device_properties(0).multi_processor_count)
@@ -4511,6 +4557,411 @@ def phase_fleet(smi: str, gap: float = FLEET_GAP) -> dict:
     return out
 
 
+
+# --- 11. mesh ---------------------------------------------------------------
+
+MESH_STAGES = 2
+MESH_DATA = 2
+MESH_WORLD = MESH_STAGES * MESH_DATA
+MESH_WEIGHT_SEED = 11
+MESH_STEP_SEED = 5
+MESH_STEPS = 8
+MESH_ZERO_CMP = 3           # ZeRO against the plain Adam after this many steps
+MESH_THREADS = 2            # each rank's CPU threads (4 ranks, 8 cores)
+MESH_TIMEOUT_S = 600.0
+TOL_MESH_LOSS = 1e-5        # relative, against the one-device table walk
+TOL_MESH_GRAD = 1e-4        # of max(1, max|g|) per parameter
+
+
+def _mesh_cfg(vocab: int, dropout: float = DROPOUT):
+    from pipe_tpu_torch.models.transformer_lm import LMConfig
+    return LMConfig(vocab=vocab, attn_impl="flash", dropout=dropout)
+
+
+def _layer_params(layers):
+    """``{"layers.{k}.{name}": parameter}`` over a layer sequence (a
+    ``Sequential`` or a ``Pipe``), this process's tensors only."""
+    return {f"layers.{k}.{n}": p for k, layer in enumerate(layers)
+            for n, p in layer.named_parameters() if p.device.type != "meta"}
+
+
+def _load_layers(layers, weights) -> None:
+    with torch.no_grad():
+        for name, p in _layer_params(layers).items():
+            p.copy_(weights[name])
+
+
+def _grad_err(got: dict, ref: dict) -> float:
+    """Worst ``max|g - g_ref| / max(1, max|g_ref|)`` over the parameters."""
+    worst = 0.0
+    for name, g in got.items():
+        r = ref[name].to(g.device)
+        worst = max(worst, (g - r).abs().max().item()
+                    / max(1.0, r.abs().max().item()))
+    return worst
+
+
+def _mesh_refs(tmp: str, vocab: int, x, w, eval_tokens) -> dict:
+    """The one-device twins: one step of the LM's gpipe and 1f1b tables and
+    of the ``Pipe`` partitions' (``HeteroScheduledPipeline``), except_last,
+    dropout 0.2, from the weights the ranks get; the eval logits. Each
+    reference goes to a file the ranks read."""
+    from pipe_tpu_torch import Pipe
+    from pipe_tpu_torch.models.common import per_row_ce
+    from pipe_tpu_torch.models.transformer_lm import (PipelinedLM,
+                                                      build_sequential,
+                                                      pipelined_lm_balance)
+    from pipe_tpu_torch.parallel.hetero_scheduled import \
+        HeteroScheduledPipeline
+    from pipe_tpu_torch.parallel.scheduled import ScheduledPipeline
+
+    cfg = _mesh_cfg(vocab)
+    seq = build_sequential(cfg, device="cuda", generator=torch.Generator(
+        device="cuda").manual_seed(MESH_WEIGHT_SEED))
+    params = _layer_params(seq)
+    torch.save({n: p.detach().cpu() for n, p in params.items()},
+               os.path.join(tmp, "weights.pt"))
+    out = {}
+    model = PipelinedLM.from_sequential(cfg, seq, MESH_STAGES)
+    pipe = Pipe(seq, chunks=CHUNKS, checkpoint="except_last",
+                balance=pipelined_lm_balance(cfg.n_layers, MESH_STAGES),
+                device="cuda")
+    tokens, targets = x["tokens"].reshape(-1, BPTT), x["targets"].reshape(
+        -1, BPTT)
+    for sched in ("gpipe", "1f1b"):
+        for kind in ("trainer", "pipe"):
+            for p in params.values():
+                p.grad = None
+            t0 = time.perf_counter()
+            if kind == "trainer":
+                ex = ScheduledPipeline(
+                    model.stage_fn, model.pre_fn, model.loss_post_fn,
+                    n_stages=MESH_STAGES, module=model,
+                    checkpoint="except_last", schedule=sched, device="cuda")
+                loss, _ = ex.loss_and_grad(x, w, seed=MESH_STEP_SEED)
+            else:
+                ex = HeteroScheduledPipeline(
+                    pipe.partitions, pipe.skip_layout, CHUNKS, "except_last",
+                    sched, device="cuda")
+                loss, _ = ex.loss_and_grad(tokens, targets=targets,
+                                           loss_fn=per_row_ce,
+                                           seed=MESH_STEP_SEED)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            torch.save({"loss": float(loss),
+                        "grads": {n: p.grad.detach().cpu()
+                                  for n, p in params.items()}},
+                       os.path.join(tmp, f"ref_{kind}_{sched}.pt"))
+            out[(kind, sched)] = float(loss)
+            log("mesh", twin=f"{kind}/{sched}", loss=f"{float(loss):.6f}",
+                one_device_step_ms=f"{ms:.1f}")
+    with torch.no_grad():
+        logits = pipe(eval_tokens)
+    torch.save(logits.cpu(), os.path.join(tmp, "ref_logits.pt"))
+    for p in params.values():
+        p.grad = None
+    del model, pipe, seq, params, logits
+    torch.cuda.empty_cache()
+    return out
+
+
+def _rank_counts() -> dict:
+    return _launch_counts()
+
+
+def _mesh_rank_steps(tmp: str, vocab: int) -> dict:
+    """On each rank: gates (a)-(c) over the world (the Trainer's gpipe and
+    1f1b executors and ``Pipe(mesh=)``'s, one step each, and the eval
+    forwards), against the twins' files."""
+    import torch.distributed as dist
+
+    from pipe_tpu_torch import Pipe
+    from pipe_tpu_torch.models.common import per_row_ce
+    from pipe_tpu_torch.models.transformer_lm import (build_sequential,
+                                                      pipelined_lm_balance)
+    from pipe_tpu_torch.parallel.mesh import make_mesh
+    from pipe_tpu_torch.parallel.spmd import SpmdPipeline
+    from pipe_tpu_torch.train.loop import Trainer, TrainerConfig
+
+    mesh = make_mesh(MESH_STAGES, MESH_DATA)
+    cfg = _mesh_cfg(vocab)
+    weights = torch.load(os.path.join(tmp, "weights.pt"), mmap=True)
+    batch = torch.load(os.path.join(tmp, "batch.pt"))
+    x = {k: v.cuda() for k, v in batch["x"].items()}
+    w = batch["w"].cuda()
+    lps = cfg.n_layers // MESH_STAGES
+    res = {"rank": mesh.rank, "stage": mesh.stage, "data": mesh.data,
+           "backend": mesh.backend, "device": str(mesh.device), "runs": {}}
+
+    def run(name, ex, step, params, ref_file):
+        torch.cuda.synchronize()
+        _zero_launches()
+        mesh.reset_stats()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        loss = step()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        ref = torch.load(os.path.join(tmp, ref_file), mmap=True)
+        passes = ex.stage_passes(CHUNKS, column=mesh.stage)
+        res["runs"][name] = dict(
+            loss=float(loss), ref_loss=ref["loss"],
+            loss_rel=abs(float(loss) - ref["loss"]) / abs(ref["loss"]),
+            grad_err=_grad_err({n: p.grad for n, p in params.items()},
+                               ref["grads"]),
+            launches=_rank_counts(),
+            expected={"flash_attention_fwd": passes["forward"] * lps,
+                      "flash_attention_bwd_dq": passes["backward"] * lps,
+                      "flash_attention_bwd_dkv": passes["backward"] * lps},
+            ms=ms, peak_bytes=torch.cuda.max_memory_allocated(),
+            transport=mesh.stats.as_dict())
+
+    for sched in ("gpipe", "1f1b"):
+        tr = Trainer(cfg, TrainerConfig(
+            batch_size=TRAIN_BATCH, bptt=BPTT, chunks=CHUNKS,
+            n_stages=MESH_STAGES, n_data=MESH_DATA, schedule=sched,
+            checkpoint="except_last", lr=TRAIN_LR))
+        _load_layers(tr.pipe, weights)
+        params = _layer_params(tr.pipe)
+        run(f"trainer/{sched}", tr.scheduled, lambda: tr.scheduled.loss_and_grad(
+            x, w, seed=MESH_STEP_SEED)[0], params, f"ref_trainer_{sched}.pt")
+        if sched == "gpipe":
+            # (b) the eval logits through SpmdPipeline (the LM's decoder as
+            # the post) over the trainer's rank-local model
+            ev = SpmdPipeline(tr.model.stage_fn, tr.model.pre_fn,
+                              tr.model.post_fn, MESH_STAGES, module=tr.model,
+                              mesh=mesh)
+            ref_logits = torch.load(os.path.join(tmp, "ref_logits.pt"))
+            ex_tokens = batch["eval"].cuda()
+            from pipe_tpu_torch.core import microbatch as mb
+            xe, _ = mb.stack_scatter({"tokens": ex_tokens}, CHUNKS)
+            with torch.no_grad():
+                got = ev(xe).reshape(ref_logits.shape)
+            res["spmd_logits_err"] = _grad_err({"l": got},
+                                               {"l": ref_logits})
+        del tr, params
+        torch.cuda.empty_cache()
+    for sched in ("gpipe", "1f1b"):
+        seq = build_sequential(cfg, device="cuda")
+        pipe = Pipe(seq, chunks=CHUNKS, checkpoint="except_last",
+                    balance=pipelined_lm_balance(cfg.n_layers, MESH_STAGES),
+                    schedule=sched, mesh=mesh)
+        del seq
+        _load_layers(pipe, weights)
+        params = _layer_params(pipe)
+        tokens = x["tokens"].reshape(-1, BPTT)
+        targets = x["targets"].reshape(-1, BPTT)
+        run(f"pipe/{sched}", pipe._train_executor,
+            lambda: pipe.loss_and_grad(tokens, targets=targets,
+                                       loss_fn=per_row_ce,
+                                       seed=MESH_STEP_SEED)[0],
+            params, f"ref_pipe_{sched}.pt")
+        if sched == "gpipe":
+            ref_logits = torch.load(os.path.join(tmp, "ref_logits.pt"))
+            with torch.no_grad():
+                got = pipe(batch["eval"].cuda())
+            res["pipe_logits_err"] = _grad_err({"l": got}, {"l": ref_logits})
+        del pipe, params
+        torch.cuda.empty_cache()
+    dist.barrier()
+    return res
+
+
+def _mesh_rank_zero(vocab: int, tmp: str) -> dict:
+    """On each rank: gate (d)'s ZeRO half. The plain Adam for
+    ``MESH_ZERO_CMP`` steps, then ``zero=True`` for ``MESH_STEPS`` steps
+    from the same weights (1f1b, except_last, dropout 0.2), on the
+    tutorial corpus."""
+    from pipe_tpu_torch.data import lm_text
+    from pipe_tpu_torch.parallel.mesh import make_mesh
+    from pipe_tpu_torch.train.loop import Trainer, TrainerConfig
+    from pipe_tpu_torch.train.zero import zero_report
+
+    mesh = make_mesh(MESH_STAGES, MESH_DATA)
+    cfg = _mesh_cfg(vocab)
+    weights = torch.load(os.path.join(tmp, "weights.pt"), mmap=True)
+    source = torch.load(os.path.join(tmp, "batch.pt"))["source"].numpy()
+    lps = cfg.n_layers // MESH_STAGES
+    out = {"rank": mesh.rank}
+    snap = {}
+    for zero, steps in ((False, MESH_ZERO_CMP), (True, MESH_STEPS)):
+        tr = Trainer(cfg, TrainerConfig(
+            batch_size=TRAIN_BATCH, bptt=BPTT, chunks=CHUNKS,
+            n_stages=MESH_STAGES, n_data=MESH_DATA, schedule="1f1b",
+            checkpoint="except_last", lr=TRAIN_LR, zero=zero))
+        _load_layers(tr.pipe, weights)
+        state = tr._capture(0)
+        losses, step_ms = [], []
+        _zero_launches()
+        mesh.reset_stats()
+        torch.cuda.reset_peak_memory_stats()
+        for b in range(steps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, info = tr.train_epoch(source, state=state, max_steps=b + 1,
+                                         start_step=b, log_every=0)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            losses.append(info["loss"])
+            if b + 1 == MESH_ZERO_CMP:
+                snap[zero] = {n: p.detach().clone()
+                              for n, p in _layer_params(tr.pipe).items()}
+        passes = tr.scheduled.stage_passes(CHUNKS, column=mesh.stage)
+        out["zero" if zero else "plain"] = dict(
+            losses=losses, step_ms=step_ms,
+            peak_bytes=torch.cuda.max_memory_allocated(),
+            launches=_rank_counts(),
+            expected={"flash_attention_fwd": passes["forward"] * lps * steps,
+                      "flash_attention_bwd_dq": passes["backward"] * lps
+                      * steps,
+                      "flash_attention_bwd_dkv": passes["backward"] * lps
+                      * steps},
+            transport=mesh.stats.as_dict(),
+            report=zero_report(tr.optimizer) if zero else None)
+        del tr, state
+        torch.cuda.empty_cache()
+    out["zero_param_err"] = _grad_err(snap[True], snap[False])
+    return out
+
+
+def phase_mesh(smi: str) -> dict:
+    """Phase 11: the tutorial LM over a (stage, data) world of ranks."""
+    import tempfile
+
+    from pipe_tpu_torch.apps import lm_tutorial
+    from pipe_tpu_torch.core import microbatch as mb
+    from pipe_tpu_torch.data import lm_text
+    from pipe_tpu_torch.runtime.distributed import World
+
+    t_phase = time.perf_counter()
+    train_lines, _, _ = lm_text.load_corpus(vocab_size=28782)
+    vocab = lm_text.Vocab(map(lm_text.basic_english_tokenize, train_lines))
+    ids = lm_text.data_process(train_lines, vocab)
+    source = lm_text.batchify(ids, TRAIN_BATCH)
+    data, target = lm_text.get_batch(source, 0, BPTT)
+    x, rows = mb.stack_scatter(
+        {"tokens": torch.from_numpy(data).long().cuda(),
+         "targets": torch.from_numpy(target).long().cuda()}, CHUNKS)
+    w = mb.valid_row_mask(x, rows)
+    eval_tokens = torch.from_numpy(lm_text.batchify(ids, EVAL_BATCH)[
+        BPTT:2 * BPTT].T.copy()).long().cuda()
+    tmp = tempfile.mkdtemp(prefix="pipe_tpu_mesh_")
+    torch.save({"x": {k: v.cpu() for k, v in x.items()}, "w": w.cpu(),
+                "eval": eval_tokens.cpu(),
+                "source": torch.from_numpy(source)},
+               os.path.join(tmp, "batch.pt"))
+    n_params = None
+    refs = _mesh_refs(tmp, len(vocab), x, w, eval_tokens)
+    log("mesh", world=MESH_WORLD, stages=MESH_STAGES, data=MESH_DATA,
+        backend="gloo", device="cuda:0 (shared)", vocab=len(vocab),
+        batch=TRAIN_BATCH, chunks=CHUNKS, dropout=DROPOUT,
+        twins_s=f"{time.perf_counter() - t_phase:.1f}")
+    with World(MESH_WORLD, device="cuda", backend="gloo",
+               timeout=MESH_TIMEOUT_S, threads=MESH_THREADS) as world:
+        t0 = time.perf_counter()
+        steps = world.run(_mesh_rank_steps, tmp, len(vocab))
+        log("mesh", spawn_to_ready_s=f"{world.spawn_to_ready_s:.2f}",
+            backend=steps[0]["backend"], card=smi.splitlines()[0],
+            steps_s=f"{time.perf_counter() - t0:.1f}")
+        t0 = time.perf_counter()
+        zero = world.run(_mesh_rank_zero, len(vocab), tmp)
+        log("mesh", zero_s=f"{time.perf_counter() - t0:.1f}")
+    launches = {}
+    for r in steps:
+        for name, run in r["runs"].items():
+            log("mesh", rank=r["rank"], stage=r["stage"], data=r["data"],
+                run=name, loss=f"{run['loss']:.6f}",
+                ref_loss=f"{run['ref_loss']:.6f}",
+                loss_rel=f"{run['loss_rel']:.2e}",
+                grad_err=f"{run['grad_err']:.2e}", ms=f"{run['ms']:.1f}",
+                peak_bytes=run["peak_bytes"], launches=run["launches"],
+                expected=run["expected"],
+                p2p_bytes=run["transport"]["p2p_bytes"],
+                p2p_messages=run["transport"]["p2p_messages"],
+                p2p_s=f"{run['transport']['p2p_s']:.3f}",
+                allreduce_bytes=run["transport"]["collective_bytes"],
+                allreduce_s=f"{run['transport']['collective_s']:.3f}",
+                staged_bytes=run["transport"]["staged_bytes"])
+            if run["loss_rel"] > TOL_MESH_LOSS:
+                raise AssertionError(
+                    f"mesh {name} rank {r['rank']}: loss {run['loss']} vs the "
+                    f"one-device {run['ref_loss']} (rel {run['loss_rel']:.2e}"
+                    f" > {TOL_MESH_LOSS})")
+            if run["grad_err"] > TOL_MESH_GRAD:
+                raise AssertionError(
+                    f"mesh {name} rank {r['rank']}: gradient off by "
+                    f"{run['grad_err']:.2e} of max(1, max|g|) "
+                    f"(> {TOL_MESH_GRAD})")
+            if run["launches"] != run["expected"]:
+                raise AssertionError(
+                    f"mesh {name} rank {r['rank']}: launches "
+                    f"{run['launches']} != the table's {run['expected']}")
+            for k, v in run["launches"].items():
+                launches.setdefault(name, {}).setdefault(k, 0)
+                launches[name][k] += v
+        for key in ("spmd_logits_err", "pipe_logits_err"):
+            log("mesh", rank=r["rank"], **{key: f"{r[key]:.2e}"})
+            if r[key] > TOL_MESH_GRAD:
+                raise AssertionError(f"mesh rank {r['rank']}: {key} "
+                                     f"{r[key]:.2e} > {TOL_MESH_GRAD}")
+    for r in zero:
+        for kind in ("plain", "zero"):
+            run = r[kind]
+            mean_ms = sum(run["step_ms"][1:]) / max(len(run["step_ms"]) - 1, 1)
+            log("mesh", rank=r["rank"], run=f"trainer/1f1b zero={kind}",
+                losses=[f"{l:.4f}" for l in run["losses"]],
+                ms_per_step=f"{mean_ms:.1f}",
+                first_step_ms=f"{run['step_ms'][0]:.1f}",
+                peak_bytes=run["peak_bytes"], launches=run["launches"],
+                p2p_bytes_per_step=run["transport"]["p2p_bytes"]
+                // len(run["losses"]),
+                p2p_s_per_step=f"{run['transport']['p2p_s'] / len(run['losses']):.3f}",
+                allreduce_s_per_step=f"{run['transport']['collective_s'] / len(run['losses']):.3f}",
+                staged_bytes_per_step=run["transport"]["staged_bytes"]
+                // len(run["losses"]),
+                zero_report=run["report"])
+            if run["launches"] != run["expected"]:
+                raise AssertionError(
+                    f"mesh zero={kind} rank {r['rank']}: launches "
+                    f"{run['launches']} != the table's {run['expected']}")
+            for k, v in run["launches"].items():
+                launches.setdefault(f"trainer/1f1b/{kind}", {}).setdefault(
+                    k, 0)
+                launches[f"trainer/1f1b/{kind}"][k] += v
+        ls = r["zero"]["losses"]
+        if not (all(math.isfinite(l) for l in ls) and ls[-1] < ls[0]):
+            raise AssertionError(f"mesh ZeRO losses not finite and falling: "
+                                 f"{ls}")
+        log("mesh", rank=r["rank"], zero_param_err=f"{r['zero_param_err']:.2e}")
+        if r["zero_param_err"] > TOL_MESH_GRAD:
+            raise AssertionError(
+                f"mesh rank {r['rank']}: ZeRO's parameters after "
+                f"{MESH_ZERO_CMP} steps off the plain run's by "
+                f"{r['zero_param_err']:.2e} (> {TOL_MESH_GRAD})")
+    # (d) the tutorial app over its own world, interleaved
+    t0 = time.perf_counter()
+    app = lm_tutorial.run_world(
+        ["except_last", "--world", str(MESH_WORLD), "--stages",
+         str(MESH_STAGES), "--schedule", "interleaved", "--steps",
+         str(MESH_STEPS), "--lr", str(TRAIN_LR)], timeout=MESH_TIMEOUT_S)
+    ls = app[0]["losses"]
+    log("mesh", run="lm_tutorial --world 4 --schedule interleaved",
+        losses=[f"{l:.4f}" for l in ls],
+        ms_per_step=f"{app[0]['sec_per_step'] * 1e3:.1f}",
+        val_loss=f"{app[0]['val_loss']:.4f}",
+        wall_s=f"{time.perf_counter() - t0:.1f}")
+    if not (len(ls) == MESH_STEPS and all(math.isfinite(l) for l in ls)
+            and ls[-1] < ls[0]):
+        raise AssertionError(f"lm_tutorial --world: losses {ls}")
+    if any(a["losses"] != ls for a in app):
+        raise AssertionError("lm_tutorial --world: ranks disagree on the loss")
+    import shutil
+    shutil.rmtree(tmp, ignore_errors=True)
+    log("mesh", seconds=f"{time.perf_counter() - t_phase:.1f}",
+        card=smi.splitlines()[0])
+    return launches
+
+
 def main() -> int:
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     t_start = time.perf_counter()
@@ -4534,6 +4985,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_fleet(smi, gap)
     torch.cuda.empty_cache()
+    mesh_launches = phase_mesh(smi)
     sources = {"flash_attn_fwd": ("flash_attn_fwd.cu", 87,
                                   "flash_attention_fwd"),
                "flash_attn_bwd_dq": ("flash_attn_bwd.cu", 162,
@@ -4570,8 +5022,11 @@ def main() -> int:
         entry["launches_vit"] = 0
         entry["launches_train_obs"] = {
             run: launches[wrapper] for run, launches in obs_launches.items()}
+        entry["launches_mesh"] = {
+            run: launches[wrapper] for run, launches in mesh_launches.items()}
         entry["gpt2_shape"] = row["gpt2_shape"]
         entry["bert_shape"] = row["bert_shape"]
+        entry["mesh_shape"] = row["mesh_shape"]
         kernels["kernels"].append(entry)
     log("done", seconds=f"{time.perf_counter() - t_start:.1f}")
     print(smi.splitlines()[0], flush=True)

@@ -12,25 +12,31 @@ Usage (mirrors ``python main.py <checkpoint-mode>``, ``main.py:164-169``):
         [--schedule gpipe|1f1b|zb-h1|interleaved-1f1b] [--interleave V]
         [--lr LR] [--plan auto|PLAN.json] [--tiny] [--profile DIR]
         [--save DIR] [--resume DIR] [--autosave DIR] [--device cuda|cpu]
+        [--world N]
 
 ``--schedule gpipe`` trains through ``Pipe``; ``1f1b``, ``zb-h1`` and
 ``interleaved-1f1b`` (``--interleave`` virtual stages a stage) through the
-table executor (``parallel/scheduled.py``). ``interleaved`` raises
-``NotImplementedError`` as the ``Trainer`` refuses it (ROADMAP.md A.8).
+table executor (``parallel/scheduled.py``), ``interleaved`` through the
+interleaved wavefront's tables (``parallel/interleaved.py``).
 ``--plan`` resolves a planner plan (``core/planner.py``; ``auto`` searches
 schedule x chunks over the cost model and overrides ``--schedule`` and
 ``--chunks``) and prints it; ``--profile DIR`` writes a ``torch.profiler``
 Chrome trace of the training into ``DIR/trace.json``; ``--autosave DIR``
 checkpoints into ``DIR`` on SIGTERM after the step in flight and exits.
-The virtual CPU mesh
-(``--cpu``) of the JAX entry point is not ported; ``--device cpu`` runs
-every kernel's plain version.
+``--device cpu`` runs every kernel's plain version.
+
+``--world N``, the counterpart of the JAX entry point's ``--cpu N`` virtual
+mesh, spawns ``N`` ranks (``runtime.distributed.launch``, backend ``gloo``,
+each rank on ``--device``: on the card they share it) and trains the same
+flow over a ``--stages`` x ``N / --stages`` mesh; rank 0 prints, and saves
+the one-device trainer's checkpoint with ``--save``.
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import os
 import sys
 
 
@@ -71,19 +77,58 @@ def build_argparser() -> argparse.ArgumentParser:
                         "(SIGTERM finishes the step, saves, exits cleanly)")
     p.add_argument("--device", default="cuda",
                    help="cuda (default) or cpu (the kernels' plain versions)")
+    p.add_argument("--world", type=int, default=1,
+                   help="ranks of a (--stages x N/--stages) mesh, spawned "
+                        "here over gloo (the JAX entry point's --cpu N)")
     return p
 
 
 def main(argv=None) -> int:
     args = build_argparser().parse_args(argv)
+    if args.world > 1:
+        if args.world % args.stages:
+            print(f"--world {args.world} does not divide into --stages "
+                  f"{args.stages}", file=sys.stderr)
+            return 2
+        run_world(list(sys.argv[1:] if argv is None else argv))
+        return 0
+    train(args)
+    return 0
 
+
+def run_world(argv, timeout: float = 3600.0) -> list:
+    """Spawn ``--world`` ranks and run :func:`train` on each: their result
+    dicts, in rank order."""
+    from pipe_tpu_torch.runtime.distributed import launch
+
+    args = build_argparser().parse_args(argv)
+    # CPU ranks share the host's cores; on the card torch's default
+    threads = (max(1, (os.cpu_count() or 1) // args.world)
+               if args.device == "cpu" else 0)
+    return launch(_rank_main, args.world, list(argv), device=args.device,
+                  backend="gloo", timeout=timeout, threads=threads)
+
+
+def _rank_main(argv) -> dict:
+    import torch.distributed as dist
+    return train(build_argparser().parse_args(argv),
+                 rank0=dist.get_rank() == 0)
+
+
+def train(args, rank0: bool = True) -> dict:
+    """The tutorial flow on this process (one rank of a world when
+    ``--world`` > 1); prints on ``rank0`` only. Returns the per-step losses,
+    the validation loss and the ms per step."""
     import contextlib
+
+    def say(*a):
+        if rank0:
+            print(*a, flush=True)
 
     from pipe_tpu_torch.data import lm_text
     from pipe_tpu_torch.models.transformer_lm import LMConfig
     from pipe_tpu_torch.obs.meters import profile_trace
     from pipe_tpu_torch.train.loop import Trainer, TrainerConfig, plan_line
-    from pipe_tpu_torch.train.state import restore_checkpoint
 
     train_lines, val_lines, _ = lm_text.load_corpus(args.corpus)
     vocab = lm_text.Vocab(map(lm_text.basic_english_tokenize, train_lines))
@@ -97,7 +142,8 @@ def main(argv=None) -> int:
             n_layers=2 * args.stages)
     cfg = TrainerConfig(chunks=args.chunks, checkpoint=args.checkpoint,
                         n_stages=args.stages, schedule=args.schedule,
-                        interleave=args.interleave, plan=args.plan)
+                        interleave=args.interleave, plan=args.plan,
+                        n_data=max(args.world // args.stages, 1))
     if args.tiny:
         cfg = dataclasses.replace(cfg, batch_size=8, eval_batch_size=8,
                                   bptt=model_cfg.seq_len, lr=1e-3)
@@ -112,36 +158,47 @@ def main(argv=None) -> int:
 
     trainer = Trainer(model_cfg, cfg, device=args.device)
     if args.plan:
-        print(plan_line(trainer.cfg))
+        say(plan_line(trainer.cfg))
     if args.autosave:
         trainer.install_autosave(args.autosave)
     state = trainer.init_state()
     if args.resume:
-        state = restore_checkpoint(args.resume, state)
-        print(f"resumed from step {state.step}")
-    print(f"Total parameters in model: {trainer.num_params(state):,}")
+        state = trainer.restore(args.resume, state)
+        say(f"resumed from step {state.step}")
+    say(f"Total parameters in model: {trainer.num_params(state):,}")
+    if trainer.mesh is not None:
+        from pipe_tpu_torch.runtime.distributed import process_summary
+        say(f"mesh {cfg.n_stages} x {cfg.n_data}: {process_summary()}")
 
     metrics = {"loss": float("nan"), "sec_per_step": float("nan")}
-    with (profile_trace(args.profile) if args.profile
+    losses = []
+    profile = args.profile
+    if profile and trainer.mesh is not None:
+        profile = os.path.join(profile, f"rank{trainer.mesh.rank}")
+    with (profile_trace(profile) if profile
           else contextlib.nullcontext()):
         for epoch in range(args.epochs):
             state, metrics = trainer.train_epoch(
                 train_data, epoch=epoch, state=state, max_steps=args.steps,
-                log_every=max(args.steps // 4, 1))
+                log_every=max(args.steps // 4, 1),
+                log_fn=say)
+            losses += metrics["losses"]
             if trainer._autosave_pending():
                 break  # preemption: checkpoint written, exit cleanly
     if args.profile:
-        print(f"profiler trace written to {args.profile}")
+        say(f"profiler trace written to {args.profile}")
 
+    val_loss = None
     if val_data.shape[0] > cfg.bptt:
         val_loss = trainer.evaluate(val_data, state, max_steps=4)
-        print(f"val loss {val_loss:.3f}")
+        say(f"val loss {val_loss:.3f}")
     if args.save:
         trainer.save(args.save, state)
-        print(f"checkpoint saved to {args.save} @ step {state.step}")
-    print(f"final train loss {metrics['loss']:.3f} "
-          f"({metrics['sec_per_step']*1000:.1f} ms/step)")
-    return 0
+        say(f"checkpoint saved to {args.save} @ step {state.step}")
+    say(f"final train loss {metrics['loss']:.3f} "
+        f"({metrics['sec_per_step']*1000:.1f} ms/step)")
+    return {"losses": losses, "val_loss": val_loss,
+            "sec_per_step": metrics["sec_per_step"]}
 
 
 if __name__ == "__main__":

@@ -34,6 +34,16 @@ model of the same family.
 :func:`pipelined_lm_arrays` maps such a triple (params, or the gradients
 ``pipe_tpu``'s ``ScheduledPipeline.loss_and_grad`` returns) onto a port
 model's parameter names, as numpy, without copying anything in.
+
+The mesh layouts: the triple's ``stage_params`` may be stage-stacked
+(``stack_stage_params``) or stacked device-major for an interleaved
+placement (``stack_interleaved_params``; pass ``interleaved_devices``);
+:func:`load_packed_rows` carries ``pipe_tpu``'s ``StageParamPack`` rows
+(``Pipe(mesh=...).shard_params``) into a ``Pipe``'s partitions. A rank of a
+mesh holds only its own partitions: the others' parameters sit on the
+``meta`` device and every loader here passes them by. Back the other way,
+:func:`stage_trees` and :func:`pipelined_lm_tree` put arrays named as the
+port names them (a rank's gradients, gathered) into ``pipe_tpu``'s layouts.
 """
 
 from __future__ import annotations
@@ -54,7 +64,8 @@ from .ops.layers import (Decoder, Dropout, Embedding, LayerNorm, Lambda,
                          Sequential, _TransformerBlockBase)
 
 __all__ = ["load_params", "load_stage_params", "load_pipelined_lm_params",
-           "load_pipelined_lm", "pipelined_lm_arrays", "stage_arrays"]
+           "load_pipelined_lm", "pipelined_lm_arrays", "stage_arrays",
+           "load_packed_rows", "stage_trees", "pipelined_lm_tree"]
 
 
 def _array(dst: torch.Tensor, src: Any, transpose: bool = False
@@ -129,12 +140,17 @@ def _pairs(layer: nn.Module, params: Any
         raise TypeError(f"no pipe_tpu layout known for {type(layer).__name__}")
 
 
+def _copy_in(pairs) -> None:
+    with torch.no_grad():
+        for dst, arr in list(pairs):
+            if dst.device.type != "meta":           # another rank's
+                dst.copy_(torch.from_numpy(np.array(arr)))  # a writable copy
+
+
 def load_params(layer: nn.Module, params: Any) -> None:
     """Copy one layer's ``pipe_tpu`` params into ``layer`` in place (running
     statistics into its buffers)."""
-    with torch.no_grad():
-        for dst, arr in list(_pairs(layer, params)):
-            dst.copy_(torch.from_numpy(np.array(arr)))   # a writable copy
+    _copy_in(_pairs(layer, params))
 
 
 def load_stage_params(pipe, params_per_stage: Sequence[Any]) -> None:
@@ -162,7 +178,8 @@ def stage_arrays(pipe, trees: Sequence[Any]) -> Dict[str, np.ndarray]:
             for dst, arr in _pairs(part, tree)}
 
 
-def load_pipelined_lm_params(pipe, params: Sequence[Any]) -> None:
+def load_pipelined_lm_params(pipe, params: Sequence[Any],
+                             interleaved_devices: int = None) -> None:
     """Copy ``pipe_tpu``'s ``PipelinedLM`` params into ``pipe``, a ``Pipe``
     over ``build_sequential`` with the ``pipelined_lm_balance`` cut.
 
@@ -171,9 +188,11 @@ def load_pipelined_lm_params(pipe, params: Sequence[Any]) -> None:
     embedding, ``post_params["decoder"]`` to the decoder, and block ``l`` of
     stage ``s`` to that stage's ``l``-th transformer block. ``stage_params``
     is stage-stacked (a list of blocks whose leaves lead with the stage axis,
-    as ``stack_stage_params`` leaves them) or a per-stage list of block lists.
+    as ``stack_stage_params`` leaves them), stacked device-major over
+    ``interleaved_devices`` devices (``stack_interleaved_params``), or a
+    per-stage list of block lists.
     """
-    stage_params, pre, post = params
+    stage_params, pre, post = _unstacked(params, interleaved_devices)
     blocks = _flat_blocks(stage_params)
     layers = list(pipe)
     if len(layers) != len(blocks) + 3:
@@ -185,6 +204,17 @@ def load_pipelined_lm_params(pipe, params: Sequence[Any]) -> None:
     for layer, block in zip(layers[2:-1], blocks):
         load_params(layer, block)
     load_params(layers[-1], post["decoder"])
+
+
+def _unstacked(params: Sequence[Any], interleaved_devices) -> tuple:
+    """The triple with an interleaved stacking put back in virtual-stage
+    order (a per-stage list)."""
+    stage_params, pre, post = params
+    if interleaved_devices:
+        from .parallel.interleaved import unstack_interleaved_params
+        stage_params = unstack_interleaved_params(stage_params,
+                                                  interleaved_devices)
+    return stage_params, pre, post
 
 
 def _pipelined_lm_pairs(model, params: Sequence[Any]
@@ -200,15 +230,15 @@ def _pipelined_lm_pairs(model, params: Sequence[Any]
     yield from _pairs(model.head, post[model.post_key])
 
 
-def load_pipelined_lm(model, params: Sequence[Any]) -> None:
+def load_pipelined_lm(model, params: Sequence[Any],
+                      interleaved_devices: int = None) -> None:
     """Copy ``pipe_tpu``'s ``PipelinedLM`` (or ``PipelinedGPT2``,
     ``PipelinedBERT``, ``PipelinedViT``) params, the triple of
-    :func:`load_pipelined_lm_params` in either stage layout, into ``model``,
-    the port's model of that family (any stage count: the blocks go in
-    layer order)."""
-    with torch.no_grad():
-        for dst, arr in list(_pipelined_lm_pairs(model, params)):
-            dst.copy_(torch.from_numpy(np.array(arr)))
+    :func:`load_pipelined_lm_params` in any of its stage layouts, into
+    ``model``, the port's model of that family (any stage count: the blocks
+    go in layer order)."""
+    _copy_in(_pipelined_lm_pairs(model, _unstacked(params,
+                                                    interleaved_devices)))
 
 
 def pipelined_lm_arrays(model, params: Sequence[Any]) -> Dict[str, np.ndarray]:
@@ -223,6 +253,65 @@ def pipelined_lm_arrays(model, params: Sequence[Any]) -> Dict[str, np.ndarray]:
     names = {id(p): name for name, p in model.named_parameters()}
     return {names[id(dst)]: arr
             for dst, arr in _pipelined_lm_pairs(model, params)}
+
+
+def load_packed_rows(pipe, rows: Dict[str, Any], templates: Sequence[Any],
+                     v: int = 1) -> None:
+    """Copy ``pipe_tpu``'s packed stage rows (``{dtype: [S, cap]}``, as
+    ``Pipe(mesh=...).shard_params`` returns them, here as numpy) into
+    ``pipe``'s partitions. ``templates``: the per-partition param trees the
+    rows were packed from (``Pipe.init``'s, any values: they give the
+    layout); ``v``: the interleave depth, whose rows are device-major (row
+    ``p * v + g`` holds partition ``g * d + p``)."""
+    from .core.packing import StageParamPack
+
+    S = len(templates)
+    d = S // v
+    of_row = [(r % v) * d + r // v for r in range(S)]
+    trees = StageParamPack([templates[s] for s in of_row]).unshard(rows)
+    for r, tree in enumerate(trees):
+        load_params(pipe.partitions[of_row[r]], tree)
+
+
+def _filled(pairs, named: Dict[str, Any], names) -> None:
+    """Write each port-named array into the template leaf ``_pairs`` reads
+    it from (a transposed view writes through)."""
+    for dst, arr in list(pairs):
+        arr[...] = np.asarray(named[names[id(dst)]])
+
+
+def _writable(tree: Any) -> Any:
+    if isinstance(tree, dict):
+        return {k: _writable(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_writable(v) for v in tree)
+    return np.array(tree)
+
+
+def stage_trees(pipe, named: Dict[str, Any], templates: Sequence[Any]
+                ) -> list:
+    """Per-partition trees in ``pipe_tpu``'s layout (``Pipe.init``'s, the
+    shapes of ``templates``) holding the arrays ``named`` by ``pipe``'s
+    parameter names (gradients gathered from the ranks, say)."""
+    names = {id(t): n for n, t in (*pipe.named_parameters(),
+                                   *pipe.named_buffers())}
+    out = _writable(list(templates))
+    for part, tree in zip(pipe.partitions, out):
+        _filled(_pairs(part, tree), named, names)
+    return out
+
+
+def pipelined_lm_tree(model, named: Dict[str, Any], template: Sequence[Any]
+                      ) -> tuple:
+    """The ``(stage_params, pre, post)`` triple in ``pipe_tpu``'s layout of
+    ``template`` (a per-stage list of block lists, or stage-stacked) holding
+    the arrays ``named`` by ``model``'s parameter names."""
+    names = {id(p): n for n, p in model.named_parameters()}
+    triple = _writable(tuple(template))
+    # a stage-stacked template is read through views of its stage rows,
+    # which write through
+    _filled(_pipelined_lm_pairs(model, triple), named, names)
+    return triple
 
 
 def _flat_blocks(stage_params: Sequence[Any]) -> list:

@@ -11,7 +11,7 @@ from __future__ import annotations
 
 import dataclasses
 import inspect
-from typing import Any, Callable, List, Optional, Sequence
+from typing import Any, Callable, List, Optional, Sequence, Tuple
 
 from torch import nn
 
@@ -50,12 +50,22 @@ class StageCtx:
     ``seed`` (an optional integer) seeds dropout: the same seed is passed
     again to a recomputed forward, so its masks are the same. ``microbatch``
     and ``stage`` name the task (profiler ranges ``chunk{i}-stage{j}``).
+
+    On a mesh (``parallel/mesh.py``) with more than one data rank,
+    ``data_axis`` is the :class:`~pipe_tpu_torch.parallel.mesh.Mesh`, whose
+    ``psum`` sums over the data group (batch statistics), and ``rows`` is
+    ``(offset, total)``: this rank's rows are rows ``offset ..`` of the
+    whole micro-batch of ``total`` rows. Dropout draws its mask for the whole
+    micro-batch and keeps this rank's rows, so a data-sharded step drops
+    what the one-device step drops (ROADMAP.md C.16).
     """
 
     seed: Optional[int] = None
     train: bool = False
     microbatch: int = 0
     stage: int = 0
+    data_axis: Any = None
+    rows: Optional[Tuple[int, int]] = None
 
     def fold(self, *data: int) -> "StageCtx":
         """Derive a ctx whose seed is folded over the given integers."""

@@ -224,11 +224,11 @@ int pipe_flash_attn_bwd_dq(const void* q, const void* k, const void* v, const vo
                            const void* lse, const void* delta, void* dq, int bh, int s, int d,
                            int causal, float scale, int dtype, int dropout,
                            unsigned long long seed, unsigned int threshold, float keep_scale,
-                           void* stream) {
+                           unsigned int bh_base, void* stream) {
   if (bh <= 0 || s <= 0 || d <= 0) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const pipe_philox::Dropout drop{dropout, (uint32_t)seed, (uint32_t)(seed >> 32), threshold,
-                                  keep_scale};
+                                  keep_scale, bh_base};
   switch (dtype) {
     case 0:
       return (int)dispatch_dq<float>(q, k, v, dout, lse, delta, dq, bh, s, d, causal, scale,

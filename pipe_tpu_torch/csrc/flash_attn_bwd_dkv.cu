@@ -73,8 +73,8 @@ __device__ __forceinline__ void keep_quad(const pipe_philox::Dropout& drop, int 
                                           int kb, int qn, float f[4]) {
   const int i = (threadIdx.x >> 2) & 3;
   const uint4 r = pipe_philox::philox4x32_10(
-      make_uint4((uint32_t)((i < 2 ? ka : kb) >> 2), (uint32_t)(qn + (i & 1)), (uint32_t)bh,
-                 0u),
+      make_uint4((uint32_t)((i < 2 ? ka : kb) >> 2), (uint32_t)(qn + (i & 1)),
+                 (uint32_t)bh + drop.bh_base, 0u),
       drop.seed_lo, drop.seed_hi);
   const uint32_t got[4] = {word(r, i), __shfl_xor_sync(FULL, word(r, i ^ 1), 4),
                            __shfl_xor_sync(FULL, word(r, i ^ 2), 8),
@@ -276,11 +276,11 @@ int pipe_flash_attn_bwd_dkv(const void* q, const void* k, const void* v, const v
                             const void* lse, const void* delta, void* dk, void* dv, int bh,
                             int s, int d, int causal, float scale, int dtype, int dropout,
                             unsigned long long seed, unsigned int threshold, float keep_scale,
-                            void* stream) {
+                            unsigned int bh_base, void* stream) {
   if (bh <= 0 || s <= 0 || d <= 0) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const pipe_philox::Dropout drop{dropout, (uint32_t)seed, (uint32_t)(seed >> 32), threshold,
-                                  keep_scale};
+                                  keep_scale, bh_base};
   switch (dtype) {
     case 0:
       return (int)dispatch_dkv<float>(q, k, v, dout, lse, delta, dk, dv, bh, s, d, causal,

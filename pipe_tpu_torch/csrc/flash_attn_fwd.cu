@@ -248,15 +248,15 @@ extern "C" {
 
 // dtype: 0 float32, 1 bfloat16 (q, k, v and o share it; lse is float32).
 // dropout: 0 off; else pairs are kept when their Philox bits (philox.cuh, keyed by seed)
-// are >= threshold, and scaled by keep_scale.
+// are >= threshold, and scaled by keep_scale; bh_base offsets the b*h counter word.
 int pipe_flash_attn_fwd(const void* q, const void* k, const void* v, void* o, void* lse,
                         int bh, int s, int d, int causal, float scale, int dtype,
                         int dropout, unsigned long long seed, unsigned int threshold,
-                        float keep_scale, void* stream) {
+                        float keep_scale, unsigned int bh_base, void* stream) {
   if (bh <= 0 || s <= 0 || d <= 0) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const pipe_philox::Dropout drop{dropout, (uint32_t)seed, (uint32_t)(seed >> 32), threshold,
-                                  keep_scale};
+                                  keep_scale, bh_base};
   switch (dtype) {
     case 0: return (int)dispatch_d<float>(q, k, v, o, lse, bh, s, d, causal, scale, drop, st);
     case 1:

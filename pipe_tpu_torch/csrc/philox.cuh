@@ -6,10 +6,13 @@
 // The attention-dropout keep mask of the three flash kernels is a function of
 // (seed, b*h, query position, key position) only, never of a kernel's tiling:
 //   key     = (seed low 32 bits, seed high 32 bits)
-//   counter = (key position / 4, query position, b*h, 0)
+//   counter = (key position / 4, query position, bh_base + b*h, 0)
 //   bits    = word (key position % 4) of the output
 // and the pair is kept when bits >= threshold, where the wrapper passes
 // threshold = min(int(rate * 2^32), 2^32 - 1), the keep rule of the Pallas _drop_mask.
+// bh_base is 0 unless the call holds rows of a larger batch (a data rank of a mesh, whose
+// rows start at row r of the micro-batch: bh_base = r * heads), so that its mask is the
+// one the whole batch's call draws for those rows.
 
 #pragma once
 
@@ -38,6 +41,7 @@ struct Dropout {
   uint32_t seed_lo, seed_hi;
   uint32_t threshold;  // kept when bits >= threshold
   float scale;         // 1 / (1 - rate), rounded to float32 by the wrapper
+  uint32_t bh_base;    // added to the b*h counter word
 };
 
 // Keep factors of this lane's four (query, key) pairs in the C layout of mma.sync
@@ -50,7 +54,8 @@ __device__ __forceinline__ void keep_pair(const Dropout& drop, int bh, int grp, 
   const int t = threadIdx.x & 3;
   const bool odd = t & 1;
   const uint4 r = philox4x32_10(
-      make_uint4((uint32_t)(grp + (t >> 1)), (uint32_t)(odd ? qb : qa), (uint32_t)bh, 0u),
+      make_uint4((uint32_t)(grp + (t >> 1)), (uint32_t)(odd ? qb : qa),
+                 (uint32_t)bh + drop.bh_base, 0u),
       drop.seed_lo, drop.seed_hi);
   const uint32_t got0 = __shfl_xor_sync(0xffffffffu, odd ? r.x : r.z, 1);
   const uint32_t got1 = __shfl_xor_sync(0xffffffffu, odd ? r.y : r.w, 1);

@@ -14,8 +14,12 @@ returns new params instead, its layers being pure).
 
 Normalization in training uses the micro-batch's biased variance (as
 ``jnp.var``); the commit folds in the unbiased whole-mini-batch variance (as
-torch's ``BatchNorm``). The data-axis reduction of ``pipe_tpu``'s
-``_batch_stats`` belongs to the multi-device executors (ROADMAP.md: A.8).
+torch's ``BatchNorm``). On a mesh of several data ranks
+(``StageCtx.data_axis``) a micro-batch's statistics are summed over the data
+group with a differentiable all-reduce (``Mesh.psum``), so each rank
+normalizes by the whole micro-batch's statistics and the backward sees
+them, as ``pipe_tpu``'s ``psum`` over ``DATA_AXIS`` does; the deferred sums
+are summed over the data group by the executor before the commit.
 """
 
 from __future__ import annotations
@@ -68,14 +72,20 @@ class BatchNorm(nn.Module):
         return y * self.scale + self.bias
 
     def _batch_stats(self, x, ctx: StageCtx):
-        """Micro-batch (mean, biased var) over every axis but the last."""
-        if getattr(ctx, "data_axis", None) is not None:
-            raise NotImplementedError(
-                "BatchNorm statistics over a data axis are not ported to "
-                "pipe_tpu_torch yet (ROADMAP.md: A.8, multi-device "
-                "executors)")
+        """Micro-batch (mean, biased var) over every axis but the last:
+        over the whole micro-batch across the data group when ``ctx``
+        carries one (the centered two-pass variance, as ``pipe_tpu``)."""
         axes = tuple(range(x.dim() - 1))
-        return x.mean(dim=axes), x.var(dim=axes, unbiased=False)
+        mesh = ctx.data_axis
+        if mesh is None:
+            return x.mean(dim=axes), x.var(dim=axes, unbiased=False)
+        n = 1
+        for a in axes:
+            n *= x.shape[a]
+        n_tot = n * mesh.n_data
+        mean = mesh.psum(x.sum(dim=axes)) / n_tot
+        var = mesh.psum((x - mean).square().sum(dim=axes)) / n_tot
+        return mean, var
 
     def forward(self, x, ctx: StageCtx = StageCtx()):
         if not ctx.train:

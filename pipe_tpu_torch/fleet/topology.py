@@ -8,9 +8,10 @@ or owns whole processes, never a fractional share of two.
 :func:`replica_device_plan` and :func:`role_device_plan` are the pure
 planning half (validation and index ranges); without ``n_devices`` they read
 ``torch.cuda.device_count()``. :func:`carve_replica_meshes` and
-:func:`carve_role_meshes` build ``pipe_tpu``'s JAX meshes through
-``runtime/distributed.py``, which is not ported: they raise
-``NotImplementedError`` naming ROADMAP.md A.8.
+:func:`carve_role_meshes` build ``pipe_tpu``'s JAX meshes, one per
+replica, over ``runtime/distributed.py``'s world; the carve of a world into
+per-replica meshes is not ported: they raise ``NotImplementedError`` naming
+ROADMAP.md A.8.
 """
 
 from __future__ import annotations

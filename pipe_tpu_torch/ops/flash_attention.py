@@ -16,7 +16,9 @@ three Pallas kernels, over ``[batch*head, seq, head_dim]`` views:
   keep mask (``csrc/philox.cuh``, and :func:`philox4x32` here) that is a
   function of (seed, batch*head, query position, key position) only, so the
   backward kernels regenerate the forward's mask from the seed whatever their
-  tiling. The normaliser is taken before dropout, as in Pallas.
+  tiling. The normaliser is taken before dropout, as in Pallas. A call over
+  rows ``r ..`` of a larger batch (a data rank's share of a micro-batch)
+  passes ``bh_base = r * heads`` and draws that batch's mask for its rows.
 
 Each kernel has a wrapper with a launch counter (``.launches``):
 :func:`flash_attention_fwd`, :func:`flash_attention_bwd_dq` and
@@ -117,23 +119,26 @@ def _threshold(rate: float) -> int:
 
 
 def dropout_keep(seed: int, rate: float, bh: int, s: int, *,
-                 device=None) -> torch.Tensor:
+                 device=None, bh_base: int = 0) -> torch.Tensor:
     """Keep-scale mask ``[bh, s, s]`` float32 of attention dropout at
     ``rate``: ``1 / (1 - rate)`` where the pair is kept, 0 where dropped —
-    the factor the three kernels apply for the same seed."""
+    the factor the three kernels apply for the same seed (and
+    ``bh_base``)."""
     pos = torch.arange(s, dtype=torch.int64, device=device)
-    bits = keep_bits(seed, torch.arange(bh, device=device)[:, None, None],
+    bits = keep_bits(seed, torch.arange(bh_base, bh_base + bh,
+                                        device=device)[:, None, None],
                      pos[None, :, None], pos[None, None, :])
     scale = torch.full((), 1.0 / (1.0 - rate), dtype=torch.float32,
                        device=device)
     return torch.where(bits >= _threshold(rate), scale, torch.zeros_like(scale))
 
 
-def _keep(seed: int, rate: float, q3: torch.Tensor) -> Optional[torch.Tensor]:
+def _keep(seed: int, rate: float, q3: torch.Tensor,
+          bh_base: int = 0) -> Optional[torch.Tensor]:
     if rate <= 0.0:
         return None
     bh, s, _ = q3.shape
-    return dropout_keep(seed, rate, bh, s, device=q3.device)
+    return dropout_keep(seed, rate, bh, s, device=q3.device, bh_base=bh_base)
 
 
 # --- plain versions ------------------------------------------------------------
@@ -261,10 +266,12 @@ def _check_cuda(ts, stats=()):
                              f"[{bh}, 1, {s}] on {ts[0].device}")
 
 
-def _dropout_args(seed: int, rate: float):
+def _dropout_args(seed: int, rate: float, bh_base: int = 0):
     if rate <= 0.0:
-        return 0, 0, 0, 1.0
-    return 1, int(seed), _threshold(rate), 1.0 / (1.0 - rate)
+        return 0, 0, 0, 1.0, 0
+    if not 0 <= bh_base < 1 << 32:
+        raise ValueError(f"bh_base must be in [0, 2**32), got {bh_base}")
+    return 1, int(seed), _threshold(rate), 1.0 / (1.0 - rate), int(bh_base)
 
 
 def _raise_on(err: int, lib, what: str) -> None:
@@ -274,7 +281,7 @@ def _raise_on(err: int, lib, what: str) -> None:
 
 
 _DROP_ARGTYPES = [ctypes.c_int, ctypes.c_int, ctypes.c_uint64, ctypes.c_uint32,
-                  ctypes.c_float, ctypes.c_void_p]
+                  ctypes.c_float, ctypes.c_uint32, ctypes.c_void_p]
 
 
 @functools.lru_cache(maxsize=None)
@@ -287,7 +294,8 @@ def _lib(source: str) -> ctypes.CDLL:
     for name, n_ptrs in entry.items():
         fn = getattr(lib, name)
         fn.restype = ctypes.c_int
-        # pointers, then bh, s, d, causal, scale, then dtype and dropout.
+        # pointers, then bh, s, d, causal, scale, then dtype, dropout and
+        # bh_base.
         fn.argtypes = ([ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * 4
                        + [ctypes.c_float] + _DROP_ARGTYPES)
     lib.pipe_cuda_error_string.restype = ctypes.c_char_p
@@ -295,24 +303,27 @@ def _lib(source: str) -> ctypes.CDLL:
     return lib
 
 
-def _launch(source: str, name: str, ptrs, q3, causal, scale, seed, rate):
+def _launch(source: str, name: str, ptrs, q3, causal, scale, seed, rate,
+            bh_base=0):
     lib = _lib(source)
     bh, s, d = q3.shape
     with torch.cuda.device(q3.device):
         stream = torch.cuda.current_stream(q3.device).cuda_stream
         err = getattr(lib, name)(
             *[t.data_ptr() for t in ptrs], bh, s, d, int(bool(causal)),
-            float(scale), _DTYPE_CODES[q3.dtype], *_dropout_args(seed, rate),
+            float(scale), _DTYPE_CODES[q3.dtype],
+            *_dropout_args(seed, rate, bh_base),
             stream)
     _raise_on(err, lib, name)
 
 
 def flash_attention_fwd(q3: torch.Tensor, k3: torch.Tensor, v3: torch.Tensor,
                         *, causal: bool, scale: float, seed: int = 0,
-                        rate: float = 0.0
+                        rate: float = 0.0, bh_base: int = 0
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The forward kernel's wrapper on ``[bh, s, d]``: ``(o, lse [bh, 1, s])``,
-    with attention dropout at ``rate`` from ``seed``.
+    with attention dropout at ``rate`` from ``seed`` (the mask of rows
+    ``bh_base ..`` of a larger batch).
 
     CPU tensors run :func:`flash_attention_ref` (mask from
     :func:`dropout_keep`); CUDA tensors launch the kernel (contiguous float32
@@ -321,13 +332,13 @@ def flash_attention_fwd(q3: torch.Tensor, k3: torch.Tensor, v3: torch.Tensor,
     _check(q3, k3, v3)
     if q3.device.type == "cpu":
         return flash_attention_ref(q3, k3, v3, causal, scale,
-                                   _keep(seed, rate, q3))
+                                   _keep(seed, rate, q3, bh_base))
     _check_cuda((q3, k3, v3))
     bh, s, _ = q3.shape
     o = torch.empty_like(q3)
     lse = torch.empty((bh, 1, s), dtype=torch.float32, device=q3.device)
     _launch("flash_attn_fwd.cu", "pipe_flash_attn_fwd", (q3, k3, v3, o, lse),
-            q3, causal, scale, seed, rate)
+            q3, causal, scale, seed, rate, bh_base)
     flash_attention_fwd.launches += 1
     return o, lse
 
@@ -337,7 +348,7 @@ flash_attention_fwd.launches = 0
 
 def flash_attention_bwd_dq(q3, k3, v3, do3, lse, delta, *, causal: bool,
                            scale: float, seed: int = 0,
-                           rate: float = 0.0) -> torch.Tensor:
+                           rate: float = 0.0, bh_base: int = 0) -> torch.Tensor:
     """The dQ kernel's wrapper: dQ ``[bh, s, d]`` from q, k, v, dO and the row
     statistics ``lse`` and ``delta`` (``[bh, 1, s]`` float32). The seed and
     rate must be the forward's. CPU tensors run
@@ -346,11 +357,12 @@ def flash_attention_bwd_dq(q3, k3, v3, do3, lse, delta, *, causal: bool,
     if q3.device.type == "cpu":
         return flash_attention_bwd_dq_ref(q3, k3, v3, do3, lse, delta,
                                           causal=causal, scale=scale,
-                                          keep=_keep(seed, rate, q3))
+                                          keep=_keep(seed, rate, q3, bh_base))
     _check_cuda((q3, k3, v3, do3), (lse, delta))
     dq = torch.empty_like(q3)
     _launch("flash_attn_bwd.cu", "pipe_flash_attn_bwd_dq",
-            (q3, k3, v3, do3, lse, delta, dq), q3, causal, scale, seed, rate)
+            (q3, k3, v3, do3, lse, delta, dq), q3, causal, scale, seed, rate,
+            bh_base)
     flash_attention_bwd_dq.launches += 1
     return dq
 
@@ -359,7 +371,8 @@ flash_attention_bwd_dq.launches = 0
 
 
 def flash_attention_bwd_dkv(q3, k3, v3, do3, lse, delta, *, causal: bool,
-                            scale: float, seed: int = 0, rate: float = 0.0
+                            scale: float, seed: int = 0, rate: float = 0.0,
+                            bh_base: int = 0
                             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The dK/dV kernel's wrapper: ``(dk, dv)``, arguments as for
     :func:`flash_attention_bwd_dq`. CPU tensors run
@@ -368,13 +381,14 @@ def flash_attention_bwd_dkv(q3, k3, v3, do3, lse, delta, *, causal: bool,
     if q3.device.type == "cpu":
         return flash_attention_bwd_dkv_ref(q3, k3, v3, do3, lse, delta,
                                            causal=causal, scale=scale,
-                                           keep=_keep(seed, rate, q3))
+                                           keep=_keep(seed, rate, q3,
+                                                      bh_base))
     _check_cuda((q3, k3, v3, do3), (lse, delta))
     dk = torch.empty_like(k3)
     dv = torch.empty_like(v3)
     _launch("flash_attn_bwd_dkv.cu", "pipe_flash_attn_bwd_dkv",
             (q3, k3, v3, do3, lse, delta, dk, dv), q3, causal, scale, seed,
-            rate)
+            rate, bh_base)
     flash_attention_bwd_dkv.launches += 1
     return dk, dv
 
@@ -388,11 +402,15 @@ class _FlashAttention(torch.autograd.Function):
     which regenerate the forward's mask from the seed."""
 
     @staticmethod
-    def forward(ctx, q3, k3, v3, causal, scale, seed, rate):
+    def forward(ctx, q3, k3, v3, causal, scale, seed, rate, *bh_base):
+        # bh_base (optional, 0 when omitted): a data rank's row offset
+        base = bh_base[0] if bh_base else 0
         o3, lse = flash_attention_fwd(q3, k3, v3, causal=causal, scale=scale,
-                                      seed=seed, rate=rate)
+                                      seed=seed, rate=rate, bh_base=base)
         ctx.save_for_backward(q3, k3, v3, o3, lse)
-        ctx.args = dict(causal=causal, scale=scale, seed=seed, rate=rate)
+        ctx.args = dict(causal=causal, scale=scale, seed=seed, rate=rate,
+                        bh_base=base)
+        ctx.n_inputs = 7 + len(bh_base)
         return o3
 
     @staticmethod
@@ -403,14 +421,15 @@ class _FlashAttention(torch.autograd.Function):
         dq = flash_attention_bwd_dq(q3, k3, v3, do3, lse, delta, **ctx.args)
         dk, dv = flash_attention_bwd_dkv(q3, k3, v3, do3, lse, delta,
                                          **ctx.args)
-        return dq, dk, dv, None, None, None, None
+        return (dq, dk, dv) + (None,) * (ctx.n_inputs - 3)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, scale: Optional[float] = None,
                     block_q: int = 128, block_k: int = 128,
                     dropout_rate: float = 0.0,
-                    dropout_seed: Optional[int] = None) -> torch.Tensor:
+                    dropout_seed: Optional[int] = None,
+                    dropout_row_base: int = 0) -> torch.Tensor:
     """Flash attention over ``[batch, seq, heads, head_dim]`` inputs.
 
     Takes and refuses the shapes the Pallas ``flash_attention`` does: gate
@@ -421,8 +440,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
     ``dropout_rate`` > 0 drops attention weights inside the kernels, with a
     mask that is a function of the integer ``dropout_seed`` (required then,
-    as the Pallas wrapper requires ``dropout_key``). Differentiable: the
-    backward runs the dQ and dK/dV kernels.
+    as the Pallas wrapper requires ``dropout_key``); ``dropout_row_base``
+    > 0 draws the mask of rows ``dropout_row_base ..`` of a larger batch
+    (``StageCtx.rows``). Differentiable: the backward runs the dQ and dK/dV
+    kernels.
     """
     b, s, h, d = q.shape
     if not supports(s, block=min(block_q, block_k)):
@@ -434,6 +455,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if dropout_rate > 0.0 and dropout_seed is None:
         raise ValueError("dropout_rate > 0 requires dropout_seed")
     seed = int(dropout_seed) if dropout_rate > 0.0 else 0
+    bh_base = int(dropout_row_base) * h if dropout_rate > 0.0 else 0
     scale = float(scale if scale is not None else 1.0 / math.sqrt(d))
     bq = min(block_q, s)
     bk = min(block_k, s)
@@ -449,8 +471,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
         o3 = _FlashAttention.apply(q3, k3, v3, causal, scale, seed,
-                                   float(dropout_rate))
+                                   float(dropout_rate), bh_base)
     else:
         o3, _ = flash_attention_fwd(q3, k3, v3, causal=causal, scale=scale,
-                                    seed=seed, rate=float(dropout_rate))
+                                    seed=seed, rate=float(dropout_rate),
+                                    bh_base=bh_base)
     return o3.reshape(b, h, s, d).transpose(1, 2)

@@ -22,7 +22,7 @@ host integer for the whole batch or an int64 tensor with one per row.
 from __future__ import annotations
 
 import math
-from typing import Callable, Optional, Sequence
+from typing import Callable, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -161,10 +161,17 @@ class LayerNorm(nn.Module):
                             self.bias.to(x.dtype), self.eps)
 
 
-def _dropout(x: torch.Tensor, rate: float, seed: int) -> torch.Tensor:
+def _dropout(x: torch.Tensor, rate: float, seed: int,
+             rows: Optional[Tuple[int, int]] = None) -> torch.Tensor:
+    """Inverted dropout of ``x`` from ``seed``. With ``rows = (offset,
+    total)`` (``StageCtx.rows``, a data rank's share of the micro-batch) the
+    mask is drawn for all ``total`` rows and rows ``offset ..`` kept."""
     keep = 1.0 - rate
     gen = torch.Generator(device=x.device).manual_seed(seed)
-    mask = torch.rand(x.shape, generator=gen, device=x.device) < keep
+    shape = tuple(x.shape) if rows is None else (rows[1],) + tuple(x.shape[1:])
+    mask = torch.rand(shape, generator=gen, device=x.device) < keep
+    if rows is not None:
+        mask = mask[rows[0]:rows[0] + x.shape[0]]
     return torch.where(mask, x / keep, torch.zeros_like(x))
 
 
@@ -179,16 +186,17 @@ class Dropout(nn.Module):
     def forward(self, x, ctx: StageCtx = StageCtx()):
         if not ctx.train or self.rate <= 0.0 or ctx.seed is None:
             return x
-        return _dropout(x, self.rate, ctx.seed)
+        return _dropout(x, self.rate, ctx.seed, ctx.rows)
 
 
 def dot_product_attention(q, k, v, *, causal: bool = False,
                           dropout_rate: float = 0.0,
                           dropout_seed: Optional[int] = None,
-                          train: bool = False):
+                          train: bool = False,
+                          dropout_rows: Optional[Tuple[int, int]] = None):
     """Softmax attention with float32 logits (float64 for float64 inputs)
     over ``[b, s, h, d]``: the plain path (``impl="xla"``), and the path
-    under attention-weight dropout."""
+    under attention-weight dropout (``dropout_rows``: ``StageCtx.rows``)."""
     d = q.shape[-1]
     logits = torch.einsum("bqhd,bkhd->bhqk", q, k)
     logits = logits.to(torch.promote_types(logits.dtype, torch.float32))
@@ -200,7 +208,7 @@ def dot_product_attention(q, k, v, *, causal: bool = False,
         logits = logits.masked_fill(~mask, -1e30)
     weights = torch.softmax(logits, dim=-1).to(q.dtype)
     if train and dropout_rate > 0.0 and dropout_seed is not None:
-        weights = _dropout(weights, dropout_rate, dropout_seed)
+        weights = _dropout(weights, dropout_rate, dropout_seed, dropout_rows)
     return torch.einsum("bhqk,bkhd->bqhd", weights, v)
 
 
@@ -281,11 +289,13 @@ class MultiHeadAttention(nn.Module):
             o = flash_attention(
                 q, k, v, causal=self.causal,
                 dropout_rate=self.dropout if dropout_active else 0.0,
-                dropout_seed=dk if dropout_active else None)
+                dropout_seed=dk if dropout_active else None,
+                dropout_row_base=ctx.rows[0] if ctx.rows else 0)
         else:
             o = dot_product_attention(q, k, v, causal=self.causal,
                                       dropout_rate=self.dropout,
-                                      dropout_seed=dk, train=ctx.train)
+                                      dropout_seed=dk, train=ctx.train,
+                                      dropout_rows=ctx.rows)
         return self.wo(o.reshape(b, s, self.d_model))
 
     def make_cache(self, batch: int, max_len: int, dtype=None) -> dict:

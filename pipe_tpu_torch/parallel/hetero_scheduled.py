@@ -25,20 +25,34 @@ emulator's masks under every table.
 ``_train_remat_policy`` passes it: dropped under ``never``, where every
 micro-batch keeps its graph and the policy would be inert.
 
-Dropped against ``pipe_tpu``: the packing, the stage-sharded rows
-(``shard_params``), the uniform-partition fast path, overlapped transport
-and phase compilation (ROADMAP.md: A.8).
-``Pipe(mesh=...)``, which owns this executor in ``pipe_tpu``, still raises.
+**Over a mesh** (``mesh=``, ``Pipe(mesh=...)``'s training executor, as in
+``pipe_tpu``) a rank holds and runs only its partitions, virtual stages
+``g * d + p`` of its stage column ``p``; the table walk over ranks is
+``parallel/scheduled.py``'s. The stage-sharded layout is
+:class:`~pipe_tpu_torch.core.packing.StageParamPack` rows over the
+partitions' parameter trees (``{name: tensor}``, in the device-major row
+order of ``pipe_tpu``: row ``p * v + g`` holds virtual stage ``g * d + p``):
+:meth:`shard_params` packs this rank's rows, :meth:`unshard_params` gathers
+every rank's into per-partition trees, and :meth:`loss_and_grad` returns the
+gradients as this rank's rows. ``pipe_tpu``'s ``lax.switch`` over stage
+branches and its uniform fast path have no counterpart: a rank that owns one
+partition has nothing to switch over.
+
+Dropped against ``pipe_tpu``: overlapped transport and phase compilation
+(ROADMAP.md: A.8).
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 from torch import nn
 
 from ..core import microbatch as mb
+from ..core.packing import StageParamPack
 from ..core.partition import StageCtx
 from ..core.remat import resolve_policy
 from ..core.schedule import Schedule, get_schedule
@@ -64,12 +78,15 @@ class HeteroScheduledPipeline:
       device: where the step runs (the card unless ``"cpu"`` is asked for).
       remat_policy: a ``core.remat.checkpoint_policies`` member or its name
         (``Pipe.remat_policy``), for the recompute micro-batches.
+      mesh: a ``parallel.mesh.Mesh``: this rank runs its partitions
+        (module docstring) on ``mesh.device``, which ``device`` then yields
+        to.
     """
 
     def __init__(self, partitions: Sequence[nn.Module], skip_layout,
                  chunks: int, checkpoint: str = "except_last",
                  schedule: Any = "1f1b", device=DEFAULT_DEVICE,
-                 remat_policy=None):
+                 remat_policy=None, mesh=None):
         self.schedule: Schedule = (get_schedule(schedule)
                                    if isinstance(schedule, str) else schedule)
         self.v = self.schedule.v
@@ -85,7 +102,13 @@ class HeteroScheduledPipeline:
         self.chunks = chunks
         self.checkpoint = checkpoint
         self.remat_policy = resolve_policy(remat_policy)
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        if mesh is not None and mesh.n_stages != self.d:
+            raise ValueError(
+                f"{self.S} partitions at interleave {self.v} need "
+                f"{self.d} stages; the mesh has {mesh.n_stages}")
+        self.device = mesh.device if mesh is not None else resolve_device(
+            device)
         # stable lane order for cross-stage skips
         self.lane_keys: List[Tuple[Any, str, int, int]] = []
         if skip_layout is not None:
@@ -110,7 +133,73 @@ class HeteroScheduledPipeline:
                           else None),
             skip_lanes=(SkipLanes(self.lane_pairs, ())
                         if self.lane_pairs else None),
-            stat_spec="deferred_stats" if self.has_bn else None)
+            stat_spec="deferred_stats" if self.has_bn else None, mesh=mesh)
+        # the stage-sharded layout over every partition's parameter tree,
+        # rows device-major (row_of); shapes are known on every rank
+        self.param_pack = StageParamPack(
+            [dict(self.partitions[self.stage_of_row(r)].named_parameters())
+             for r in range(self.S)])
+
+    # --- the stage-sharded layout ---
+
+    def row_of(self, s: int) -> int:
+        """Packed row of virtual stage ``s``: ``p * v + g`` for
+        ``s = g * d + p`` (``pipe_tpu``'s device-major order)."""
+        return (s % self.d) * self.v + s // self.d
+
+    def stage_of_row(self, r: int) -> int:
+        return (r % self.v) * self.d + r // self.v
+
+    def local_stages(self) -> List[int]:
+        """The virtual stages this rank holds (every one without a mesh)."""
+        if self.mesh is None:
+            return list(range(self.S))
+        return [g * self.d + self.mesh.stage for g in range(self.v)]
+
+    def _rows_of(self, trees: Dict[int, Any]) -> Dict[str, torch.Tensor]:
+        """``{dtype: [v, cap]}``: this rank's rows from its stages' trees."""
+        pack = self.param_pack
+        rows = [pack.row(self.row_of(s), trees[s], device=self.device)
+                for s in sorted(self.local_stages(), key=self.row_of)]
+        return {dt: torch.stack([r[dt] for r in rows])
+                for dt in pack.capacities}
+
+    def shard_params(self, state_dicts: Optional[Sequence[Any]] = None
+                     ) -> Dict[str, torch.Tensor]:
+        """This rank's packed rows ``{dtype: [v, cap]}`` of its partitions'
+        parameters (every partition's, ``[S, cap]``, without a mesh). With
+        ``state_dicts`` (one per partition, ``{name: tensor or array}`` as
+        the partition's ``state_dict`` names them) this rank's partitions
+        load theirs first; the others' entries are not read."""
+        if state_dicts is not None:
+            if len(state_dicts) != self.S:
+                raise ValueError(f"{len(state_dicts)} state dicts for "
+                                 f"{self.S} partitions")
+            with torch.no_grad():
+                for s in self.local_stages():
+                    part = self.partitions[s]
+                    own = part.state_dict()
+                    for name, value in state_dicts[s].items():
+                        own[name].copy_(torch.as_tensor(np.asarray(value))
+                                        if not isinstance(value, torch.Tensor)
+                                        else value)
+        return self._rows_of({s: dict(self.partitions[s].named_parameters())
+                              for s in self.local_stages()})
+
+    def unshard_params(self, packed: Dict[str, torch.Tensor]) -> List[dict]:
+        """Every partition's tree ``{name: numpy array}`` from the ranks'
+        packed rows (parameters or gradients); collective over this rank's
+        pipeline, and every rank of it gets all."""
+        rows = {dt: packed[dt] for dt in self.param_pack.capacities}
+        if self.mesh is not None:
+            rows = {dt: torch.cat(self.mesh.all_gather(r.contiguous(),
+                                                       "stage"))
+                    for dt, r in rows.items()}
+        rows = {dt: r.detach().cpu().numpy() for dt, r in rows.items()}
+        return [self.param_pack.unpack_row(self.row_of(s),
+                                           {dt: r[self.row_of(s)]
+                                            for dt, r in rows.items()})
+                for s in range(self.S)]
 
     # --- what the tables imply ---
 
@@ -123,9 +212,12 @@ class HeteroScheduledPipeline:
         """Peak slots of the last step's rings and skip parks."""
         return self._exec.last_slots
 
-    def stage_passes(self, m: Optional[int] = None) -> Dict[str, int]:
-        """Stage-body passes of one step (``ScheduledPipeline.stage_passes``)."""
-        return self._exec.stage_passes(m if m is not None else self.chunks)
+    def stage_passes(self, m: Optional[int] = None,
+                     column: Optional[int] = None) -> Dict[str, int]:
+        """Stage-body passes of one step (``ScheduledPipeline.stage_passes``;
+        ``column``: one stage rank's)."""
+        return self._exec.stage_passes(m if m is not None else self.chunks,
+                                       column)
 
     # --- the executor's bodies ---
 
@@ -139,9 +231,8 @@ class HeteroScheduledPipeline:
             it = iter(vals)
             vals = [call["closed"][p] if p in call["closed"] else next(it)
                     for p in range(call["n_inputs"])]
-        seed = call["seed"]
-        ctx = StageCtx(seed=seed, train=ctx.train, microbatch=ctx.microbatch,
-                       stage=s).fold(ctx.microbatch, s)
+        ctx = dataclasses.replace(ctx, seed=call["seed"], stage=s).fold(
+            ctx.microbatch, s)
         part = self.partitions[s]
         if not self.lane_keys and not self.has_bn:
             return self._as_tuple(part(*vals, ctx=ctx))
@@ -192,12 +283,14 @@ class HeteroScheduledPipeline:
         if not dyn:
             raise TypeError("the executor needs at least one array input")
         stacked, true_rows = mb.stack_scatter(dyn, self.chunks)
+        n_data = self.mesh.n_data if self.mesh is not None else 1
         if check_batch_stats and self.has_batch_stats \
-                and true_rows % self.chunks:
+                and true_rows % (self.chunks * n_data):
             raise ValueError(
                 f"BatchNorm needs the batch ({true_rows} rows) to divide "
-                f"evenly into chunks*data ({self.chunks}*1): padded "
-                "rows would contaminate the batch statistics")
+                f"evenly into chunks*data ({self.chunks}*"
+                f"{self.mesh.n_data if self.mesh is not None else 1}): "
+                "padded rows would contaminate the batch statistics")
         self._call.update(closed=closed, n_inputs=len(inputs),
                           dyn_pos=[p for p in range(len(inputs))
                                    if p not in closed])
@@ -213,9 +306,11 @@ class HeteroScheduledPipeline:
         the loss is their mean over the real rows (padding rows weigh 0).
         Without ``targets``, ``loss_fn(*outputs)``. Gradients accumulate
         into ``.grad`` (zero them first); ``grads`` is ``{name: grad}`` over
-        ``self.module`` (the partitions). A deferred-BatchNorm model's
-        running stats are committed once, in place. ``seed`` drives dropout
-        (None: none)."""
+        ``self.module`` (the partitions), and on a mesh this rank's packed
+        gradient rows ``{dtype: [v, cap]}`` (:meth:`shard_params`' layout),
+        summed over the data group. A deferred-BatchNorm model's running
+        stats are committed once, in place (the whole batch's, on a mesh).
+        ``seed`` drives dropout (None: none)."""
         x, true_rows = self._lower(inputs, check_batch_stats=True)
         w = mb.valid_row_mask(x, true_rows)
         if targets is not None:
@@ -230,17 +325,25 @@ class HeteroScheduledPipeline:
             res = self._exec.loss_and_grad(x, w, seed=None)
         finally:
             self._call.clear()
-        if not self.has_bn:
-            return res
-        loss, grads, stats = res
-        commit_batchnorm_stats(self.partitions, stats)
+        if self.has_bn:
+            loss, grads, stats = res
+            commit_batchnorm_stats(self.partitions, stats)
+        else:
+            loss, grads = res
+        if self.mesh is not None:
+            grads = self._rows_of({
+                s: {n: (p.grad if p.grad is not None
+                        else torch.zeros_like(p))
+                    for n, p in self.partitions[s].named_parameters()}
+                for s in self.local_stages()})
         return loss, grads
 
     def forward(self, *inputs, seed: Optional[int] = None,
                 train: bool = False):
         """Forward outputs through the op tables with BWD rows masked to
         IDLE: the gathered final-partition outputs (a tensor, or a tuple
-        for a multi-value boundary), as ``Pipe.forward`` returns them. A
+        for a multi-value boundary), as ``Pipe.forward`` returns them (on a
+        mesh, on every rank of the pipeline: ``Mesh.gather_outputs``). A
         train forward of a deferred-BatchNorm model commits its stats once,
         in place. Runs under the caller's grad mode."""
         x, true_rows = self._lower(inputs, check_batch_stats=train)
@@ -252,6 +355,8 @@ class HeteroScheduledPipeline:
         outs, stats = res if self.has_bn else (res, None)
         if stats is not None and train:
             commit_batchnorm_stats(self.partitions, stats)
+        if self.mesh is not None:
+            outs = self.mesh.gather_outputs(outs)
         gathered = tuple(o.reshape((-1,) + tuple(o.shape[2:]))[:true_rows]
                          for o in outs)
         return gathered if len(gathered) > 1 else gathered[0]

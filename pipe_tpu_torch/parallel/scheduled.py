@@ -61,6 +61,25 @@ Dropout seeds fold as JAX folds its keys: ``(seed, i, s)``, then 0 for the
 pre, 1 for the stage and 2 for the post, so one seed gives the same masks
 under every schedule and checkpoint mode.
 
+**Over a mesh** (``mesh=``, a :class:`~pipe_tpu_torch.parallel.mesh.Mesh`
+of ``n_stages`` x ``n_data`` ranks) each rank walks only its own column
+``p`` of the tables (its ``v`` groups under interleaving) and holds only the
+parameters of its stages; the others may sit on the ``meta`` device. What
+the one-device walk writes at the end of a cycle into another stage's rings
+(a stage output into the next stage's stash, a cotangent for the stage
+before, a lane value into its forward park, a pop gradient into its reverse
+park) goes to the rank that owns that stage instead, as one packed message
+per peer per cycle (``parallel/buffers.py``, its layout in the message's
+first words), with ``dist.batch_isend_irecv`` (``Mesh.exchange``): both ends
+read who sends what at cycle ``t`` from the same tables. ``x`` and ``w`` are
+the global batch, as JAX's executor takes them: each data rank runs rows
+``data * r / n_data ..`` of every micro-batch (``StageCtx.rows``; dropout
+masks are the one-device step's, ROADMAP.md C.16) and its data group is the
+``StageCtx.data_axis`` of batch statistics. ``sum(w)`` is taken once on the
+host, as JAX hoists it. After the walk the parameter gradients are summed
+over the data group (one flat buffer per dtype), the loss over the world
+and the stats over the data group, as JAX's psums over ``DATA_AXIS`` do.
+
 The structural split, context parallelism, tensor-parallel specs,
 overlapped transport and phase compilation (A.8) are not ported: their
 fields raise ``NotImplementedError`` when set.
@@ -82,6 +101,7 @@ from ..core.remat import apply_remat, resolve_policy, validate_mode
 from ..core.schedule import BWD, FWD, IDLE, WGRAD, get_schedule
 from ..obs.telemetry import get_registry
 from ..utils.platform import DEFAULT_DEVICE, resolve_device
+from .buffers import pack_words, unpack_words
 
 __all__ = ["ScheduledPipeline", "SkipLanes"]
 
@@ -262,6 +282,65 @@ class _Step:
         default_factory=dict)
     arrivals: List[Tuple[_Ring, int, int, Any]] = dataclasses.field(
         default_factory=list)
+    outbox: Dict[int, list] = dataclasses.field(default_factory=dict)
+
+
+# --- messages between ranks ---
+
+_KINDS = ("h", "g", "f", "r")   # stash, cotangent, lane park, reverse park
+_DTYPES = (torch.float32, torch.float64, torch.bfloat16, torch.float16,
+           torch.int64, torch.int32, torch.int16, torch.int8, torch.uint8)
+
+
+def _encode(items, device) -> torch.Tensor:
+    """One cycle's items for one peer as one ``int32`` word vector: the
+    layout (``[n_layout, n_items, per item: kind, target, micro-batch,
+    is_tuple, n_leaves, per leaf: dtype code (-1: None), ndim, dims]``) and
+    then the tensors' words (``pack_words``)."""
+    layout: List[int] = [len(items)]
+    tensors = []
+    for kind, target, i, value in items:
+        vals = _leaves(value)
+        layout += [_KINDS.index(kind), target, i,
+                   int(isinstance(value, (tuple, list))), len(vals)]
+        for v in vals:
+            if v is None:
+                layout.append(-1)
+                continue
+            if not isinstance(v, torch.Tensor):
+                raise TypeError(
+                    f"a stage boundary crossing ranks carries tensors only, "
+                    f"got {type(v).__name__}")
+            layout += [_DTYPES.index(v.dtype), v.dim(), *v.shape]
+            tensors.append(v)
+    head = torch.tensor([len(layout)] + layout, dtype=torch.int32,
+                        device=device)
+    return torch.cat([head, pack_words(tensors).to(device)])
+
+
+def _decode(vec: torch.Tensor) -> list:
+    """Inverse of :func:`_encode`: ``[(kind, target, i, value)]``."""
+    n = int(vec[0])
+    lay = iter(vec[1:1 + n].tolist())
+    n_items = next(lay)
+    heads, specs = [], []
+    for _ in range(n_items):
+        kind, target, i, is_tuple, n_leaves = (next(lay) for _ in range(5))
+        codes = []
+        for _ in range(n_leaves):
+            code = next(lay)
+            if code >= 0:
+                shape = [next(lay) for _ in range(next(lay))]
+                specs.append(torch.empty(shape, dtype=_DTYPES[code],
+                                         device="meta"))
+            codes.append(code)
+        heads.append((_KINDS[kind], target, i, is_tuple, codes))
+    got = iter(unpack_words(vec[1 + n:], specs))
+    items = []
+    for kind, target, i, is_tuple, codes in heads:
+        vals = [next(got) if c >= 0 else None for c in codes]
+        items.append((kind, target, i, tuple(vals) if is_tuple else vals[0]))
+    return items
 
 
 def _index(x, i: int):
@@ -275,6 +354,11 @@ def _leading(x) -> int:
     if not isinstance(leaf, torch.Tensor):
         raise TypeError("x must be a tensor or a dict of tensors")
     return int(leaf.shape[0])
+
+
+def _leading_rows(x) -> int:
+    leaf = next(iter(x.values())) if isinstance(x, dict) else x
+    return int(leaf.shape[1])
 
 
 def _to(x, device):
@@ -311,6 +395,8 @@ class ScheduledPipeline:
       remat_policy: a ``core.remat.checkpoint_policies`` member or its name,
         for the recompute micro-batches (module docstring); inert, with a
         warning, under ``never``.
+      mesh: a ``parallel.mesh.Mesh`` of ``n_stages`` stages: this rank walks
+        its column of the tables (module docstring) on ``mesh.device``.
     """
 
     stage_fn: Callable
@@ -329,6 +415,7 @@ class ScheduledPipeline:
     stat_spec: Optional[Any] = None
     overlap_transport: Optional[bool] = None
     phase_compile: Optional[bool] = None
+    mesh: Optional[Any] = None
 
     def __post_init__(self):
         validate_mode(self.checkpoint)
@@ -386,7 +473,15 @@ class ScheduledPipeline:
                 f"compute and the zero-bubble advantage is lost. Pair "
                 f"zero-bubble schedules with checkpoint='never'.",
                 stacklevel=2)
-        self.device = resolve_device(self.device)
+        if self.mesh is not None:
+            if self.mesh.n_stages != self.n_stages:
+                raise ValueError(
+                    f"a mesh of {self.mesh.n_stages} stages for an executor "
+                    f"of {self.n_stages}")
+            self.device = self.mesh.device
+        else:
+            self.device = resolve_device(self.device)
+        self._rows = None
         self.v = self.schedule.v
         self.n_virtual = self.v * self.n_stages
         self.last_slots: Dict[str, int] = {}
@@ -485,7 +580,8 @@ class ScheduledPipeline:
                 kg.append(fifo_depth(wg))
         return kf, kg
 
-    def stage_passes(self, m: int) -> Dict[str, int]:
+    def stage_passes(self, m: int, column: Optional[int] = None
+                     ) -> Dict[str, int]:
         """Stage-body passes one :meth:`loss_and_grad` runs, read from the
         tables: ``forward`` counts every FWD and every recompute at B;
         ``backward`` every walk of a stage's backward graph — one per BWD,
@@ -493,12 +589,16 @@ class ScheduledPipeline:
         (stage 0's B has no input cotangent to take: its input is the
         micro-batch). A layer with a kernel in its forward and backward
         launches it this many times per stage it sits in (the totals
-        divide evenly by the stage count when no table is split)."""
+        divide evenly by the stage count when no table is split).
+        ``column``: the passes of that stage column only (a mesh rank's)."""
         op, mbi, grp = self._tables(m)
+        if column is not None:
+            op, mbi, grp = (a[:, column:column + 1] for a in (op, mbi, grp))
         split = bool((op == WGRAD).any()) and self.checkpoint == "never"
         n_fwd, n_bwd = int((op == FWD).sum()), int((op == BWD).sum())
         if split:
-            b_stage0 = int(((op[:, 0] == BWD) & (grp[:, 0] == 0)).sum())
+            b_stage0 = (int(((op[:, 0] == BWD) & (grp[:, 0] == 0)).sum())
+                        if column in (None, 0) else 0)
             return {"forward": n_fwd,
                     "backward": n_bwd - b_stage0 + int((op == WGRAD).sum())}
         recompute = sum(not self._keeps_graph(int(i), m)
@@ -533,14 +633,21 @@ class ScheduledPipeline:
         """Pre (stage 0) then stage ``s``; returns ``(h, stashes, stats)``
         (None for the extras not configured)."""
         if s == 0:
-            h_in = self.pre_fn(x_mb, StageCtx(seed=seeds[0], train=train,
-                                              microbatch=i))
-        ctx = StageCtx(seed=seeds[1], train=train, microbatch=i, stage=s)
+            h_in = self.pre_fn(x_mb, self._ctx(seeds[0], train, i, 0))
+        ctx = self._ctx(seeds[1], train, i, s)
         if self.skip_lanes is None:
             out = self.stage_fn(s, h_in, ctx)
         else:
             out = self.stage_fn(s, h_in, ctx, pops)
         return self._split_out(out)
+
+    def _ctx(self, seed, train: bool, i: int, s: int) -> StageCtx:
+        """The task's ctx; on a mesh of several data ranks it carries the
+        data group and this rank's rows of the micro-batch."""
+        if self._rows is None:
+            return StageCtx(seed=seed, train=train, microbatch=i, stage=s)
+        return StageCtx(seed=seed, train=train, microbatch=i, stage=s,
+                        data_axis=self.mesh, rows=self._rows)
 
     def _split_out(self, out):
         """Destructure a stage output into ``(h, stashes, stats)`` per the
@@ -571,12 +678,12 @@ class ScheduledPipeline:
         for l in self._stashes_at[s]:
             v = stashes[l]
             _check_lane_dtype(v.dtype)
-            st.arrivals.append((st.fpark[l], 0, i, v.detach()))
+            self._route(st, "f", l, i, v.detach())
 
     def _post(self, h, x_mb, w_mb, seeds, i: int) -> torch.Tensor:
         """The unnormalized loss contribution ``sum(w · per_row)``."""
-        per_row = self.post_fn(h, x_mb, StageCtx(
-            seed=seeds[2], train=True, microbatch=i, stage=self.n_virtual - 1))
+        per_row = self.post_fn(h, x_mb, self._ctx(seeds[2], True, i,
+                                                  self.n_virtual - 1))
         return (w_mb * per_row).sum().float()
 
     # --- the step ---
@@ -603,7 +710,7 @@ class ScheduledPipeline:
         if save:
             entry.out, entry.stashes, entry.pops = out, stashes, pops
         if s < self.n_virtual - 1:
-            st.arrivals.append((st.stash, s + 1, i, _detached(out)))
+            self._route(st, "h", s + 1, i, _detached(out))
             return
         with torch.no_grad(), torch.profiler.record_function(
                 f"table:post-F{i}"):
@@ -637,30 +744,164 @@ class ScheduledPipeline:
             outs.append(stashes[l])
             seeds_out.append(st.gpark[l].get(0, i, pop=True))
         if st.split:
-            ins = [t for t in _leaves(entry.h_in) if _differentiable(t)] \
-                if s > 0 else []
-            if ins:
+            if s > 0:
+                ins = [t for t in _leaves(entry.h_in) if _differentiable(t)]
                 pairs = [(o, g) for o, g in zip(outs, seeds_out)
                          if g is not None and o.requires_grad]
                 got = iter(torch.autograd.grad(
                     [o for o, _ in pairs], ins, [g for _, g in pairs],
-                    retain_graph=True, allow_unused=True))
-                st.gbuf[(i, s - 1)] = _like(entry.h_in, [
+                    retain_graph=True, allow_unused=True) if ins else ())
+                self._route(st, "g", s - 1, i, _like(entry.h_in, [
                     _or_zeros(next(got), t) if _differentiable(t) else None
-                    for t in _leaves(entry.h_in)])
+                    for t in _leaves(entry.h_in)]))
             st.wstash.put(s, i, seed_h)
         else:
             _backward(outs, seeds_out)
             if s > 0:
-                st.gbuf[(i, s - 1)] = _grads_of(entry.h_in)
+                self._route(st, "g", s - 1, i, _grads_of(entry.h_in))
         for l in self._pops_at[s]:
-            st.arrivals.append((st.gpark[l], 0, i,
-                                _or_zeros(pops[l].grad, pops[l])))
+            self._route(st, "r", l, i, _or_zeros(pops[l].grad, pops[l]))
 
     def _w_op(self, st: _Step, i: int, s: int, x_mb, w_mb) -> None:
         entry = st.stash.get(s, i, pop=True)
         _backward(_leaves(entry.out), _leaves(st.wstash.get(s, i, pop=True)),
                   inputs=st.params)
+
+    # --- the transport ---
+
+    def _owner(self, kind: str, target: int) -> int:
+        """The virtual stage a routed value is for."""
+        if kind in ("h", "g"):
+            return target
+        src, dst = self.skip_lanes.pairs[target]
+        return dst if kind == "f" else src
+
+    def _route(self, st: _Step, kind: str, target: int, i: int,
+               value) -> None:
+        """An op's write for another stage: ``kind`` ``"h"`` (stage
+        ``target``'s stash), ``"g"`` (stage ``target``'s cotangent),
+        ``"f"``/``"r"`` (lane ``target``'s forward/reverse park). Delivered
+        here when this rank holds that stage, else to its rank's outbox."""
+        col = self._owner(kind, target) % self.n_stages
+        if self.mesh is None or col == self.mesh.stage:
+            self._deliver(st, kind, target, i, value)
+        else:
+            st.outbox.setdefault(self.mesh.rank_of(col), []).append(
+                (kind, target, i, value))
+
+    @staticmethod
+    def _deliver(st: _Step, kind: str, target: int, i: int, value) -> None:
+        if kind == "g":
+            st.gbuf[(i, target)] = value
+        elif kind == "h":
+            st.arrivals.append((st.stash, target, i, value))
+        else:
+            park = st.fpark if kind == "f" else st.gpark
+            st.arrivals.append((park[target], 0, i, value))
+
+    def _senders(self, t: int, op, grp, fwd_only: bool) -> List[int]:
+        """The ranks that send to this one at the end of cycle ``t``: every
+        other column whose op writes into a stage of this rank."""
+        d, me = self.n_stages, self.mesh.stage
+        pairs = self.skip_lanes.pairs if self.skip_lanes is not None else ()
+        peers = []
+        for q in range(d):
+            code, s = int(op[t, q]), int(grp[t, q]) * d + q
+            if q == me:
+                continue
+            if code == FWD:
+                dests = [s + 1] if s < self.n_virtual - 1 else []
+                dests += [dst for src, dst in pairs if src == s]
+            elif code == BWD and not fwd_only:
+                dests = [s - 1] if s > 0 else []
+                dests += [src for src, dst in pairs if dst == s]
+            else:
+                continue
+            if any(x % d == me for x in dests):
+                peers.append(self.mesh.rank_of(q))
+        return peers
+
+    def _exchange(self, st: _Step, t: int, op, grp,
+                  fwd_only: bool = False) -> None:
+        """End of cycle ``t`` on a mesh: one packed message to each peer
+        this rank wrote for, one from each peer that wrote for it."""
+        if self.mesh is None:
+            return
+        sends = {peer: _encode(items, self.device)
+                 for peer, items in st.outbox.items()}
+        st.outbox = {}
+        got = self.mesh.exchange(sends, self._senders(t, op, grp, fwd_only),
+                                 tag=2 * t)
+        for peer in sorted(got):
+            for kind, target, i, value in _decode(got[peer]):
+                self._deliver(st, kind, target, i, value)
+
+    def _columns(self) -> range:
+        d = self.n_stages
+        return (range(d) if self.mesh is None
+                else range(self.mesh.stage, self.mesh.stage + 1))
+
+    def _local_params(self) -> List[Tuple[str, torch.Tensor]]:
+        """``module``'s parameters this rank holds (not on ``meta``)."""
+        return [(n, p) for n, p in self.module.named_parameters()
+                if p.device.type != "meta"]
+
+    def _shard_rows(self, x, w=None):
+        """On a mesh, this data rank's rows of ``x`` (and ``w``), with the
+        ctx's ``(offset, total)``; unchanged without one."""
+        self._rows = None
+        if self.mesh is None or self.mesh.n_data == 1:
+            return x, w
+        from ..runtime.distributed import host_local_batch, rows_of
+        total = _leading_rows(x)
+        self._rows = tuple(rows_of(self.mesh, total))
+        return (host_local_batch(self.mesh, x),
+                None if w is None else host_local_batch(self.mesh, w))
+
+    def _reduce_grads(self, params: List[torch.Tensor]) -> None:
+        """Sum the gradients over the data group: one flat buffer per
+        dtype, one all-reduce each."""
+        if self.mesh is None or self.mesh.n_data == 1:
+            return
+        by_dtype: Dict[torch.dtype, List[torch.Tensor]] = {}
+        for p in params:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+            by_dtype.setdefault(p.grad.dtype, []).append(p.grad)
+        for grads in by_dtype.values():
+            flat = torch.cat([g.reshape(-1) for g in grads])
+            self.mesh.all_reduce(flat, "data")
+            off = 0
+            for g in grads:
+                g.copy_(flat[off:off + g.numel()].view_as(g))
+                off += g.numel()
+
+    def _reduce_stats(self, stats):
+        """Stats summed over the data group (one flat buffer)."""
+        if stats is None or self.mesh is None or self.mesh.n_data == 1:
+            return stats
+        leaves: List[torch.Tensor] = []
+
+        def walk(a):
+            if isinstance(a, dict):
+                for v in a.values():
+                    walk(v)
+            elif isinstance(a, (tuple, list)):
+                for v in a:
+                    walk(v)
+            elif isinstance(a, torch.Tensor):
+                leaves.append(a)
+
+        walk(stats)
+        if not leaves:
+            return stats
+        flat = torch.cat([l.reshape(-1).float() for l in leaves])
+        self.mesh.all_reduce(flat, "data")
+        off = 0
+        for l in leaves:
+            l.copy_(flat[off:off + l.numel()].view_as(l))
+            off += l.numel()
+        return stats
 
     def _parks(self, m: int, op, mbi, grp, *, fwd_only: bool = False):
         if self.skip_lanes is None:
@@ -682,29 +923,33 @@ class ScheduledPipeline:
         ``.grad`` as ``backward()`` does (zero them first), and ``grads`` is
         ``{name: grad}`` over ``module``'s parameters. ``seed`` drives
         dropout (None: none). ``stats`` is the sum of every FWD op's stats
-        output."""
+        output. On a mesh ``x`` and ``w`` are the global batch, ``grads``
+        this rank's parameters' (summed over the data group), and the loss
+        and stats the whole batch's on every rank."""
         m = _leading(x)
         x = _to(x, self.device)
         w = w.to(self.device, torch.float32)
         if tuple(w.shape[:1]) != (m,):
             raise ValueError(f"w must be [m={m}, rows], got {tuple(w.shape)}")
+        inv_wsum = 1.0 / w.sum()          # the global sum, once
+        x, w = self._shard_rows(x, w)
         op, mbi, grp = self._tables(m)
         d, S = self.n_stages, self.n_virtual
         get_registry().gauge("scheduled.cycles").set(int(op.shape[0]))
         split = bool((op == WGRAD).any()) and self.checkpoint == "never"
         Sg = self.schedule.stash_slots(m, d)
         fpark, gpark = self._parks(m, op, mbi, grp)
+        local = [p for _, p in self._local_params() if p.requires_grad]
         st = _Step(
-            m=m, seed=seed, split=split, inv_wsum=1.0 / w.sum(),
+            m=m, seed=seed, split=split, inv_wsum=inv_wsum,
             stash=_Ring(S, Sg, "stash"), h_last=_Ring(1, Sg, "h_last"),
             wstash=_Ring(S, self.schedule.wstash_slots(m, d) if split else 1,
                          "wstash"),
-            params=[p for p in self.module.parameters() if p.requires_grad],
-            loss=torch.zeros((), device=self.device), fpark=fpark,
-            gpark=gpark)
+            params=local, loss=torch.zeros((), device=self.device),
+            fpark=fpark, gpark=gpark)
         run = {FWD: self._fwd_op, BWD: self._bwd_op, WGRAD: self._w_op}
         for t in range(op.shape[0]):
-            for p in range(d):
+            for p in self._columns():
                 code = int(op[t, p])
                 if code == IDLE or (code == WGRAD and not split):
                     continue
@@ -712,6 +957,7 @@ class ScheduledPipeline:
                 with torch.profiler.record_function(
                         f"table:{'FBW'[code - 1]}{i}-stage{s}"):
                     run[code](st, i, s, _index(x, i), w[i])
+            self._exchange(st, t, op, grp)
             for ring, s, i, h in st.arrivals:
                 ring.put(s, i, _Entry(h) if ring is st.stash else h)
             st.arrivals.clear()
@@ -724,11 +970,15 @@ class ScheduledPipeline:
         if self.skip_lanes is not None:
             self.last_slots["skip_fwd_park"] = sum(r.peak for r in fpark)
             self.last_slots["skip_bwd_park"] = sum(r.peak for r in gpark)
+        self._reduce_grads(local)
         grads = {name: (p.grad if p.grad is not None else torch.zeros_like(p))
-                 for name, p in self.module.named_parameters()}
-        loss = (st.loss * st.inv_wsum).detach()
+                 for name, p in self._local_params()}
+        total = st.loss.detach()
+        if self.mesh is not None:
+            self.mesh.all_reduce(total, "world")
+        loss = total * st.inv_wsum
         if self.stat_spec is not None:
-            return loss, grads, st.stats
+            return loss, grads, self._reduce_stats(st.stats)
         return loss, grads
 
     def forward(self, x, *, seed: Optional[int] = 0, train: bool = False):
@@ -737,9 +987,12 @@ class ScheduledPipeline:
         tuple boundary), no post applied, and ``(outputs, stats)`` with
         ``stat_spec``: every micro-batch runs once per stage, so stats
         count once. Skips ride the forward parks, no reverse. Runs under
-        the caller's grad mode."""
+        the caller's grad mode. On a mesh ``x`` is the global batch and the
+        outputs are this data rank's rows, on the ranks of the last virtual
+        stage (None on the others); the stats are the whole batch's."""
         m = _leading(x)
         x = _to(x, self.device)
+        x, _ = self._shard_rows(x)
         op, mbi, grp = self._tables(m)
         d, S = self.n_stages, self.n_virtual
         fpark, _ = self._parks(m, op, mbi, grp, fwd_only=True)
@@ -749,7 +1002,7 @@ class ScheduledPipeline:
                    fpark=fpark)
         outs: List[Any] = [None] * m
         for t in range(op.shape[0]):
-            for p in range(d):
+            for p in self._columns():
                 if int(op[t, p]) != FWD:
                     continue
                 i, s = int(mbi[t, p]), int(grp[t, p]) * d + p
@@ -765,12 +1018,17 @@ class ScheduledPipeline:
                 if s == S - 1:
                     outs[i] = out
                 else:
-                    st.arrivals.append((st.stash, s + 1, i, out))
+                    self._route(st, "h", s + 1, i, out)
+            self._exchange(st, t, op, grp, fwd_only=True)
             for ring, s, i, h in st.arrivals:
                 ring.put(s, i, h)
             st.arrivals.clear()
-        if isinstance(outs[0], (tuple, list)):
+        if outs[0] is None:                  # the last stage is elsewhere
+            res = None
+        elif isinstance(outs[0], (tuple, list)):
             res = tuple(torch.stack(col) for col in zip(*outs))
         else:
             res = torch.stack(outs)
-        return (res, st.stats) if self.stat_spec is not None else res
+        if self.stat_spec is not None:
+            return res, self._reduce_stats(st.stats)
+        return res

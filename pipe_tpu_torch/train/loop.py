@@ -23,10 +23,29 @@ TensorBoard scalars with ``tb_dir``; the native batch prefetcher with
 guarded step, rewind and data retry with ``resilience`` (and a ``ChaosPlan``
 to inject faults); a SIGTERM autosave (:meth:`Trainer.install_autosave`).
 With none of them set the step is the plain one, kernel for kernel, with no
-clock read or file write of its own. ``schedule="interleaved"`` (the
-interleaved executors), ZeRO, ``mu_dtype``, ``n_data`` and elastic training
-are not ported yet: their ``TrainerConfig`` values raise
-``NotImplementedError``.
+clock read or file write of its own. ``schedule="interleaved"`` trains
+through the interleaved wavefront's tables (``parallel/interleaved.py``);
+``mu_dtype`` and ``zero`` through ``train/zero.py``'s ``ShardedAdam``.
+
+**Over a world of ranks** (``mesh=``, or an initialized world of
+``n_stages * n_data`` ranks, where the trainer makes the mesh itself as
+``pipe_tpu``'s makes ``make_mesh(cfg.n_stages, cfg.n_data)``) each rank
+builds the model from the seed as the one-device trainer does, keeps only
+its stage's modules (the rest go to the ``meta`` device) and trains through
+the executor ``pipe_tpu``'s trainer picks: ``SpmdPipeline`` for gpipe,
+``ScheduledPipeline`` for 1f1b, zb-h1 and interleaved-1f1b,
+``InterleavedSpmdPipeline`` for interleaved, all walking the tables over the
+ranks; eval runs ``SpmdPipeline`` (``InterleavedSpmdPipeline`` for the
+interleaved placements). The global batch is read on every rank and each
+data rank trains on its rows; the gradient clip's global norm sums over
+the stages; Adam is ``train/zero.py``'s ``ShardedAdam``, its moments
+sharded over the data group with ``zero``.
+Rank 0 writes the one-device trainer's checkpoint files (:meth:`Trainer.save`
+gathers the model and Adam state), and a one-device checkpoint resumes on a
+mesh. One ``StepReport`` a rank, ``n_devices=1`` (ROADMAP.md C.9), each
+rank's events under ``telemetry_dir/rank{r}``, TensorBoard from rank 0.
+Elastic training, and the guarded step and chaos over a mesh, are not
+ported: their values raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -44,7 +63,8 @@ import torch
 
 from ..core import microbatch as mb
 from ..core.partition import fold_seed
-from ..core.schedule import InterleavedOneFOneBSchedule, bubble_fraction
+from ..core.schedule import (InterleavedOneFOneBSchedule,
+                             InterleavedSchedule, bubble_fraction)
 from ..data import lm_text
 from ..models.common import per_row_ce
 from ..models.transformer_lm import (LMConfig, PipelinedLM,
@@ -55,7 +75,9 @@ from ..obs.telemetry import (StepReport, card_name_and_power_limit,
                              device_memory_peaks, get_registry,
                              peak_flops_per_chip)
 from ..ops.layers import Sequential
+from ..parallel.interleaved import InterleavedSpmdPipeline
 from ..parallel.scheduled import ScheduledPipeline
+from ..parallel.spmd import SpmdPipeline
 from ..pipe import Pipe
 from ..utils.platform import DEFAULT_DEVICE, resolve_device
 from .state import TrainState, save_checkpoint
@@ -93,32 +115,56 @@ class TrainerConfig:
     plan_memory_cap: Optional[int] = None
 
 
-# Schedules the trainer runs; "interleaved" needs the interleaved executors
-# of parallel/interleaved.py (ROADMAP.md A.8).
-_SCHEDULES = ("gpipe", "1f1b", "zb-h1", "interleaved-1f1b")
+_SCHEDULES = ("gpipe", "1f1b", "zb-h1", "interleaved", "interleaved-1f1b")
 
 # (field, its default, the ROADMAP.md item that ports it)
 _NOT_PORTED = (
-    ("n_data", 1, "queue A, the multi-device executors"),
-    ("mu_dtype", None, "queue A, ZeRO and optimizer-state options"),
-    ("zero", False, "queue A, ZeRO and optimizer-state options"),
     ("elastic", None, "A.7/A.8, resilience/elastic.py"),
+)
+# not ported over a mesh (ROADMAP.md A.8)
+_NOT_ON_A_MESH = (
+    ("resilience", None, "A.8, the guarded step over a mesh"),
 )
 
 
-def _check_ported(cfg: TrainerConfig) -> None:
-    if cfg.schedule == "interleaved":
-        raise NotImplementedError(
-            f"TrainerConfig.schedule={cfg.schedule!r} is not ported to "
-            f"pipe_tpu_torch yet (ROADMAP.md: A.8, the interleaved executors "
-            f"of parallel/interleaved.py)")
+def _check_ported(cfg: TrainerConfig, mesh=None) -> None:
     if cfg.schedule not in _SCHEDULES:
         raise ValueError(f"unknown schedule {cfg.schedule!r}")
-    for name, default, item in _NOT_PORTED:
+    for name, default, item in _NOT_PORTED + (_NOT_ON_A_MESH if mesh
+                                               else ()):
         if getattr(cfg, name) != default:
             raise NotImplementedError(
                 f"TrainerConfig.{name}={getattr(cfg, name)!r} is not ported "
                 f"to pipe_tpu_torch yet (ROADMAP.md: {item})")
+    if cfg.mu_dtype is not None and cfg.mu_dtype not in _MU_DTYPES:
+        raise ValueError(f"mu_dtype must be one of {sorted(_MU_DTYPES)}, "
+                         f"got {cfg.mu_dtype!r}")
+
+
+_MU_DTYPES = {"bfloat16": torch.bfloat16, "float16": torch.float16,
+              "float32": torch.float32}
+
+
+def _world_mesh(cfg: TrainerConfig, mesh):
+    """The mesh the trainer runs over: ``mesh``, else one over an
+    initialized world of more than one rank, else None (one device)."""
+    import torch.distributed as dist
+
+    if mesh is None and dist.is_initialized() and dist.get_world_size() > 1:
+        from ..parallel.mesh import make_mesh
+        mesh = make_mesh(cfg.n_stages, cfg.n_data)
+    if mesh is None:
+        if cfg.n_data != 1:
+            raise ValueError(
+                f"TrainerConfig.n_data={cfg.n_data} needs a world of "
+                f"n_stages * n_data = {cfg.n_stages * cfg.n_data} ranks "
+                f"(runtime.distributed.launch, initialize or torchrun)")
+        return None
+    if (mesh.n_stages, mesh.n_data) != (cfg.n_stages, cfg.n_data):
+        raise ValueError(
+            f"a {mesh.n_stages}x{mesh.n_data} mesh for n_stages="
+            f"{cfg.n_stages}, n_data={cfg.n_data}")
+    return mesh
 
 
 def _resolve_plan_config(model_cfg: LMConfig,
@@ -213,14 +259,20 @@ def lm_loss(pipe: Pipe, tokens: torch.Tensor, targets: torch.Tensor, *,
 
 
 def clip_by_global_norm(grads: Iterable[torch.Tensor],
-                        max_norm: float) -> torch.Tensor:
+                        max_norm: float, mesh=None) -> torch.Tensor:
     """``optax.clip_by_global_norm`` in place: left alone when the global
     norm is below ``max_norm``, else ``g / norm * max_norm``. Unlike
     ``torch.nn.utils.clip_grad_norm_`` it adds nothing to the norm, and it
     reads nothing back to the host. Returns the norm before clipping (the
-    guarded step's ``step_guard`` reads it)."""
+    guarded step's ``step_guard`` reads it). On a ``mesh`` the grads are
+    this rank's stage's and the squares are summed over the pipeline."""
     grads = list(grads)
-    norm = torch.sqrt(sum(g.float().square().sum() for g in grads))
+    sq = sum(g.float().square().sum() for g in grads)
+    if mesh is not None:
+        sq = torch.as_tensor(sq, dtype=torch.float32,
+                             device=mesh.device).clone()
+        mesh.all_reduce(sq, "stage")
+    norm = torch.sqrt(sq)
     keep = norm < max_norm
     one = torch.ones_like(norm)
     div = torch.where(keep, one, norm)
@@ -248,33 +300,59 @@ class Trainer:
     """
 
     def __init__(self, model_cfg: LMConfig, cfg: TrainerConfig,
-                 device=DEFAULT_DEVICE, chaos=None):
+                 device=DEFAULT_DEVICE, chaos=None, mesh=None):
         if cfg.plan is not None:
             cfg = _resolve_plan_config(model_cfg, cfg)
-        _check_ported(cfg)
+        mesh = _world_mesh(cfg, mesh)
+        _check_ported(cfg, mesh)
+        if cfg.resilience is not None and (cfg.zero or cfg.mu_dtype):
+            raise NotImplementedError(
+                "TrainerConfig.resilience with zero or mu_dtype is not "
+                "ported to pipe_tpu_torch yet (ROADMAP.md: A.8, the guarded "
+                "step over ShardedAdam)")
         if chaos is not None:
+            if mesh is not None:
+                raise NotImplementedError(
+                    "Trainer(chaos=...) over a mesh is not ported to "
+                    "pipe_tpu_torch yet (ROADMAP.md: A.8, the guarded step "
+                    "over a mesh)")
             chaos.check_ported()
         self.model_cfg = model_cfg
         self.cfg = cfg
         self.chaos = chaos
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.device = (mesh.device if mesh is not None
+                       else resolve_device(device))
         self.pipe = Pipe(self._build(cfg.seed), chunks=cfg.chunks,
                          checkpoint=cfg.checkpoint,
                          balance=pipelined_lm_balance(model_cfg.n_layers,
                                                       cfg.n_stages),
                          device=self.device)
         self.scheduled = self._build_scheduled()
+        self.eval_exec = self._build_eval() if mesh is not None else None
         if chaos is not None:
             from ..resilience.chaos import poison_activations
             # the embedding's output, in Pipe and in the tables' pre_fn
             self.pipe[1].register_forward_hook(
                 lambda module, args, out: poison_activations(out))
-        # optax.scale_by_adam(0.9, 0.999, eps 1e-8) then -lr * u.
-        self.optimizer = torch.optim.Adam(self.pipe.parameters(), lr=cfg.lr,
-                                          betas=(0.9, 0.999), eps=1e-8)
+        # this rank's parameters (every one on one device)
+        self.params = [p for p in self.pipe.parameters()
+                       if p.device.type != "meta"]
+        # optax.scale_by_adam(0.9, 0.999, eps 1e-8) then -lr * u. Over a
+        # mesh: ShardedAdam, whose update is the same with its moments
+        # sharded (zero) or not, operation for operation.
+        if mesh is not None or cfg.zero or cfg.mu_dtype is not None:
+            from .zero import ShardedAdam
+            self.optimizer: Any = ShardedAdam(
+                self.params, lr=cfg.lr, betas=(0.9, 0.999), eps=1e-8,
+                mesh=mesh, zero=cfg.zero,
+                mu_dtype=_MU_DTYPES.get(cfg.mu_dtype))
+        else:
+            self.optimizer = torch.optim.Adam(self.params, lr=cfg.lr,
+                                              betas=(0.9, 0.999), eps=1e-8)
         self._state: Optional[TrainState] = None
         self.tb = None
-        if cfg.tb_dir is not None:
+        if cfg.tb_dir is not None and (mesh is None or mesh.rank == 0):
             from ..obs.tb_writer import ScalarWriter
             self.tb = ScalarWriter(cfg.tb_dir)
         # The registry (cheap counters) and the event log; with no
@@ -282,22 +360,25 @@ class Trainer:
         self.registry = get_registry()
         self.events: Any = ev.NULL_EVENT_LOG
         if cfg.telemetry_dir is not None:
-            os.makedirs(cfg.telemetry_dir, exist_ok=True)
-            self.events = ev.EventLog(
-                os.path.join(cfg.telemetry_dir, "events.jsonl"))
+            tdir = (cfg.telemetry_dir if mesh is None else
+                    os.path.join(cfg.telemetry_dir, f"rank{mesh.rank}"))
+            os.makedirs(tdir, exist_ok=True)
+            self.events = ev.EventLog(os.path.join(tdir, "events.jsonl"))
         self._stop_requested = False
         self._autosave_dir: Optional[str] = None
         self._guard_bufs: Optional[List[torch.Tensor]] = None
         self._pending_verdict = None
 
-    def _build_scheduled(self) -> Optional[ScheduledPipeline]:
+    def _build_scheduled(self):
         """The table executor for ``1f1b``/``zb-h1``/``interleaved-1f1b``
         (and for ``gpipe`` with ``loss_block``, whose fused loss lives on
-        the last stage), over ``PipelinedLM.from_sequential`` of the
-        ``Pipe``'s own modules: one set of weights, one state dict. None:
-        ``Pipe`` trains."""
-        cfg = self.cfg
-        if cfg.schedule == "gpipe" and not self.model_cfg.loss_block:
+        the last stage, and for every schedule over a mesh: ``SpmdPipeline``
+        for gpipe), the interleaved wavefront for ``interleaved``, over
+        ``PipelinedLM.from_sequential`` of the ``Pipe``'s own modules: one
+        set of weights, one state dict. None: ``Pipe`` trains."""
+        cfg, mesh = self.cfg, self.mesh
+        if cfg.schedule == "gpipe" and not self.model_cfg.loss_block \
+                and mesh is None:
             return None
         if cfg.schedule == "zb-h1" and cfg.checkpoint != "never":
             from ..obs.zb_model import crossover
@@ -310,18 +391,59 @@ class Trainer:
                 f"{row['breakeven_sigma']:.2f}, obs/zb_model.py crossover) "
                 f"is forfeited.", stacklevel=3)
         schedule, n_virtual = cfg.schedule, cfg.n_stages
-        if schedule == "interleaved-1f1b":
+        if schedule in ("interleaved", "interleaved-1f1b"):
             # n_stages devices' worth of tables, each hosting `interleave`
             # virtual stages: the model factors into n_stages*interleave
-            schedule = InterleavedOneFOneBSchedule(interleave=cfg.interleave)
             n_virtual = cfg.n_stages * cfg.interleave
+        if schedule == "interleaved-1f1b":
+            schedule = InterleavedOneFOneBSchedule(interleave=cfg.interleave)
         self.model = PipelinedLM.from_sequential(
             self.model_cfg, Sequential(list(self.pipe)), n_virtual)
+        if mesh is not None:
+            self._localize(n_virtual)
+        kw = dict(module=self.model, checkpoint=cfg.checkpoint, mesh=mesh,
+                  device=self.device)
+        if cfg.schedule == "interleaved":
+            return InterleavedSpmdPipeline(
+                self.model.stage_fn, self.model.pre_fn,
+                self.model.loss_post_fn, cfg.n_stages,
+                post_with_batch=True, v=cfg.interleave, **kw)
+        if cfg.schedule == "gpipe" and mesh is not None:
+            return SpmdPipeline(
+                self.model.stage_fn, self.model.pre_fn,
+                self.model.loss_post_fn, cfg.n_stages, post_with_batch=True,
+                **kw)
         return ScheduledPipeline(
             self.model.stage_fn, self.model.pre_fn, self.model.loss_post_fn,
-            n_stages=cfg.n_stages, module=self.model,
-            checkpoint=cfg.checkpoint, schedule=schedule,
-            device=self.device)
+            n_stages=cfg.n_stages, schedule=schedule, **kw)
+
+    def _localize(self, n_virtual: int) -> None:
+        """Keep this rank's stage on its device (its blocks, the embedding
+        on the first stage, the decoder on the last); the rest to meta."""
+        from ..parallel.mesh import localize
+
+        d, p = self.mesh.n_stages, self.mesh.stage
+        keep = [self.model.stage_blocks(s) for s in range(n_virtual)
+                if s % d == p]
+        if p == 0:
+            keep += [self.model.embed, self.model.posenc]
+        if p == d - 1:
+            keep.append(self.model.decoder)
+        localize(self.pipe, keep, self.device)
+
+    def _build_eval(self):
+        """Eval over the mesh, ``pipe_tpu``'s ``eval_pipe``: the wavefront
+        with no remat, interleaved for the interleaved placements."""
+        cfg = self.cfg
+        kw = dict(module=self.model, checkpoint="never", mesh=self.mesh,
+                  device=self.device, post_with_batch=True)
+        if cfg.schedule in ("interleaved", "interleaved-1f1b"):
+            return InterleavedSpmdPipeline(
+                self.model.stage_fn, self.model.pre_fn,
+                self.model.loss_post_fn, cfg.n_stages, v=cfg.interleave,
+                **kw)
+        return SpmdPipeline(self.model.stage_fn, self.model.pre_fn,
+                            self.model.loss_post_fn, cfg.n_stages, **kw)
 
     def _build(self, seed: int):
         gen = torch.Generator(device=self.device).manual_seed(seed)
@@ -332,7 +454,11 @@ class Trainer:
 
     def _capture(self, step: int) -> TrainState:
         self._settle_steps()
-        self._state = TrainState(model=self.pipe.state_dict(),
+        model = self.pipe.state_dict()
+        if self.mesh is not None:         # this rank's entries
+            model = {k: v for k, v in model.items()
+                     if v.device.type != "meta"}
+        self._state = TrainState(model=model,
                                  optimizer=self.optimizer.state_dict(),
                                  step=step)
         return self._state
@@ -341,26 +467,148 @@ class Trainer:
         if state is self._state:
             return
         self._pending_verdict = None      # the live state it was for goes
-        self.pipe.load_state_dict(state.model)
-        self.optimizer.load_state_dict(copy.deepcopy(state.optimizer))
+        if self.mesh is None and not isinstance(self.optimizer,
+                                                torch.optim.Optimizer):
+            self.pipe.load_state_dict(state.model)
+            self._load_optimizer(state)
+        elif self.mesh is None:
+            self.pipe.load_state_dict(state.model)
+            self.optimizer.load_state_dict(copy.deepcopy(state.optimizer))
+        else:
+            own = {k for k, v in self.pipe.state_dict().items()
+                   if v.device.type != "meta"}
+            self.pipe.load_state_dict({k: state.model[k] for k in own},
+                                      strict=False)
+            self._load_optimizer(state)
         self._state = None
+
+    def _global_index(self) -> List[int]:
+        """Each local parameter's index among all the model's (the
+        one-device optimizer's numbering)."""
+        index = {id(p): k for k, p in enumerate(self.pipe.parameters())}
+        return [index[id(p)] for p in self.params]
+
+    def _load_optimizer(self, state: TrainState) -> None:
+        """The optimizer state of ``state``: this trainer's own, or a
+        one-device trainer's (``torch.optim.Adam`` over every parameter,
+        as a checkpoint holds it), cut to this rank's parameters."""
+        sd = state.optimizer
+        if "exp_avg" in sd:                        # a ShardedAdam's own
+            self.optimizer.load_state_dict(sd)
+            return
+        n_all = sum(1 for _ in self.pipe.parameters())
+        full = len(sd["param_groups"][0]["params"]) == n_all
+        gidx = self._global_index() if full else list(range(len(
+            self.params)))
+        if isinstance(self.optimizer, torch.optim.Optimizer):
+            local = {"state": {j: sd["state"][g] for j, g in enumerate(gidx)
+                               if g in sd["state"]},
+                     "param_groups": [{**sd["param_groups"][0],
+                                       "params": list(range(len(
+                                           self.params)))}]}
+            self.optimizer.load_state_dict(copy.deepcopy(local))
+            return
+        steps = [int(st["step"]) for st in sd["state"].values()]
+        moments = {j: sd["state"][g] for j, g in enumerate(gidx)
+                   if g in sd["state"]}
+        if len(moments) != len(self.params):       # a fresh Adam
+            moments = {j: {"exp_avg": torch.zeros_like(p),
+                           "exp_avg_sq": torch.zeros_like(p)}
+                       for j, p in enumerate(self.params)}
+        self.optimizer.load_full_moments(moments, max(steps, default=0))
+
+    def _full_state(self, state: TrainState) -> Optional[TrainState]:
+        """The one-device trainer's state of the whole model, gathered on
+        rank 0 (None on the others; collective over the world)."""
+        import torch.distributed as dist
+
+        self._adopt(state)
+        mesh = self.mesh
+        if isinstance(self.optimizer, torch.optim.Optimizer):
+            st = self.optimizer.state_dict()["state"]
+            moments = {j: {k: (v.detach().cpu() if isinstance(
+                v, torch.Tensor) else v) for k, v in st[j].items()}
+                for j in st}
+        else:
+            step = torch.tensor(float(self.optimizer.step_count))
+            moments = {j: {"step": step.clone(),
+                           "exp_avg": m["exp_avg"].float().cpu(),
+                           "exp_avg_sq": m["exp_avg_sq"].cpu()}
+                       for j, m in self.optimizer.full_moments().items()}
+        mine = None
+        if mesh.data == 0:
+            mine = ({k: v.detach().cpu() for k, v in
+                     self.pipe.state_dict().items()
+                     if v.device.type != "meta"},
+                    {g: moments[j] for j, g in
+                     enumerate(self._global_index()) if j in moments})
+        got = [None] * dist.get_world_size() if mesh.rank == 0 else None
+        dist.gather_object(mine, got, dst=0)
+        if mesh.rank != 0:
+            return None
+        model, opt = {}, {}
+        for part in got:
+            if part is not None:
+                model.update(part[0])
+                opt.update(part[1])
+        order = list(self.pipe.state_dict())
+        tmpl = torch.optim.Adam(list(self.pipe.parameters()), lr=self.cfg.lr,
+                                betas=(0.9, 0.999), eps=1e-8).state_dict()
+        tmpl["param_groups"][0]["lr"] = self.optimizer.param_groups[0]["lr"]
+        tmpl["state"] = {g: opt[g] for g in sorted(opt)}
+        return TrainState(model={k: model[k] for k in order},
+                          optimizer=tmpl, step=state.step)
 
     def init_state(self, seed: Optional[int] = None) -> TrainState:
         """Fresh weights drawn from ``seed`` (default ``cfg.seed``) and an
         empty Adam state, loaded into the trainer: the live state at step 0."""
         fresh = self._build(self.cfg.seed if seed is None else seed)
         for dst, src in zip(self.pipe, fresh):
+            if any(t.device.type == "meta" for t in dst.state_dict().values()):
+                continue                  # another rank's layer
             dst.load_state_dict(src.state_dict())
-        self.optimizer.state.clear()
+        del fresh
+        if isinstance(self.optimizer, torch.optim.Optimizer):
+            self.optimizer.state.clear()
+        else:
+            self.optimizer.reset()
         self._pending_verdict = None
         return self._capture(0)
 
+    def restore(self, directory: str, template: TrainState,
+                step: Optional[int] = None) -> TrainState:
+        """``restore_checkpoint`` of a checkpoint of this model (a
+        one-device trainer's, or one this trainer saved), into ``template``'s
+        devices; over a mesh each rank keeps its own tensors and
+        :meth:`train_epoch` loads them."""
+        from .state import restore_checkpoint
+
+        if self.mesh is not None:       # the whole model's names
+            template = TrainState(model=self.pipe.state_dict(),
+                                  optimizer=template.optimizer,
+                                  step=template.step)
+        return restore_checkpoint(directory, template, step=step)
+
     def num_params(self, state: TrainState) -> int:
+        if self.mesh is not None:              # the whole model's
+            return sum(t.numel() for t in self.pipe.state_dict().values())
         return sum(t.numel() for t in state.model.values())
 
     def save(self, directory: str, state: TrainState,
              step: Optional[int] = None) -> None:
-        save_checkpoint(directory, state, state.step if step is None else step)
+        """Write ``state`` as a checkpoint. Over a mesh every rank calls
+        it: rank 0 writes the one-device trainer's files, the whole model
+        and Adam state gathered from the ranks."""
+        step = state.step if step is None else step
+        if self.mesh is None:
+            save_checkpoint(directory, state, step)
+            return
+        import torch.distributed as dist
+
+        full = self._full_state(state)
+        if full is not None:
+            save_checkpoint(directory, full, step)
+        dist.barrier()
 
     def install_autosave(self, directory: str,
                          signals: Optional[List[int]] = None) -> None:
@@ -392,6 +640,9 @@ class Trainer:
 
     def analytic_bubble(self) -> float:
         cfg = self.cfg
+        if cfg.schedule == "interleaved":
+            return InterleavedSchedule(v=cfg.interleave).device_bubble(
+                cfg.chunks, cfg.n_stages)
         if cfg.schedule == "interleaved-1f1b":
             return InterleavedOneFOneBSchedule(
                 interleave=cfg.interleave).bubble(cfg.chunks, cfg.n_stages)
@@ -408,6 +659,11 @@ class Trainer:
         from ..inference import GenerationConfig, Generator
         from ..ops.layers import Sequential
 
+        if self.mesh is not None:
+            raise NotImplementedError(
+                "Trainer.generate over a mesh is not ported to "
+                "pipe_tpu_torch yet (ROADMAP.md: A.8, inference/pipelined.py"
+                "); generate from a saved checkpoint on one device")
         self._adopt(state)
         model = PipelinedLM.from_sequential(
             self.model_cfg, Sequential(list(self.pipe)), self.cfg.n_stages)
@@ -440,8 +696,8 @@ class Trainer:
     def _step(self, data: np.ndarray, target: np.ndarray,
               seed: int) -> torch.Tensor:
         loss = self._loss_and_grads(data, target, seed)
-        clip_by_global_norm([p.grad for p in self.pipe.parameters()],
-                            self.cfg.grad_clip)
+        clip_by_global_norm([p.grad for p in self.params],
+                            self.cfg.grad_clip, mesh=self.mesh)
         self.optimizer.step()
         return loss
 
@@ -577,7 +833,8 @@ class Trainer:
                     log_fn: Callable[[str], None] = print,
                     start_step: int = 0):
         """One pass over ``source`` (a ``batchify``'d id matrix); returns
-        ``(state, {"loss", "steps", "sec_per_step"})``, plus ``anomalies``,
+        ``(state, {"loss", "losses", "steps", "sec_per_step"})`` (``losses``
+        one a step), plus ``anomalies``,
         ``rewinds`` and ``loss_ewma`` under ``cfg.resilience``.
 
         The learning rate is ``cfg.lr * cfg.lr_gamma ** epoch`` (StepLR);
@@ -737,6 +994,7 @@ class Trainer:
             self.events.metrics_snapshot(self.registry)
             self.events.flush()
         info = {"loss": final,
+                "losses": [float(l) for l in losses],
                 "steps": len(losses),
                 "sec_per_step": (time.perf_counter() - t0)
                 / max(len(losses) - 1, 1)}
@@ -762,8 +1020,15 @@ class Trainer:
                                                  cfg.bptt)
                 if data.shape[1] < cfg.bptt:
                     break
-                loss = lm_loss(self.pipe, self._tensor(data),
-                               self._tensor(target), train=False)
+                if self.mesh is None:
+                    loss = lm_loss(self.pipe, self._tensor(data),
+                                   self._tensor(target), train=False)
+                else:
+                    x, rows = mb.stack_scatter(
+                        {"tokens": self._tensor(data),
+                         "targets": self._tensor(target)}, cfg.chunks)
+                    w = mb.valid_row_mask(x, rows)
+                    loss = (self.eval_exec(x) * w).sum() / w.sum()
                 total += float(loss) * data.size
                 count += data.size
         mean = total / max(count, 1)

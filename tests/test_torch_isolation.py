@@ -127,6 +127,11 @@ assert serve_app.main(["--tiny", "--device", "cpu", "--requests", "4",
                        "--placement", "prefix", "--metrics-port", "0",
                        "--trace-out", os.path.join(d, "t.jsonl"),
                        "--tick-budget-s", "5"]) == 0
+from pipe_tpu_torch import runtime
+from pipe_tpu_torch.core import packing
+from pipe_tpu_torch.parallel import (buffers, hetero, interleaved, mesh,
+                                     spmd)
+from pipe_tpu_torch.train import zero
 bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib")
        and sys.modules[m] is not None]
 assert not bad, bad
@@ -191,6 +196,9 @@ for make in (lambda: Linear(4, 4),
                                        module=Linear(4, 4, device="cpu")),
              lambda: lm_tutorial.main(["never", "--tiny"]),
              lambda: lm_tutorial.main(["never", "--tiny", "--plan", "auto"]),
+             lambda: lm_tutorial.main(["never", "--tiny", "--world", "2"]),
+             lambda: __import__("pipe_tpu_torch.runtime").runtime.initialize(
+                 "gloo", rank=0, world_size=1, init_method="file:///x"),
              lambda: __import__("pipe_tpu_torch.fleet.proc").fleet.proc
              ._build_engine(__import__("pipe_tpu_torch.fleet.proc").fleet
                             .proc.ReplicaSpec(lm_cfg=dict(

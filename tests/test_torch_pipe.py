@@ -207,8 +207,14 @@ _SPLIT_PLAN = Plan(schedule="zb-h1", m=4, v=1, balance=(2, 2),
                                     {"plan": _SPLIT_PLAN},
                                     {"mesh": object(), "schedule": "1f1b"}])
 def test_pipe_refuses_what_is_not_ported(kwargs):
-    """The mesh executors (A.8), and a plan that prescribes the structural
-    B/W split (A.8; pipe_tpu warns and runs its stored-vjp split)."""
+    """A plan that prescribes the structural B/W split (A.8; pipe_tpu warns
+    and runs its stored-vjp split). ``mesh=`` is ported: it takes the port's
+    ``Mesh`` of a world of ranks (tests/test_torch_mesh*.py) and refuses
+    anything else."""
+    if "mesh" in kwargs:
+        with pytest.raises(TypeError, match="make_mesh"):
+            pipe_tpu_torch.Pipe(_tseq(), device="cpu", **kwargs)
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         pipe_tpu_torch.Pipe(_tseq(), device="cpu", **kwargs)
 
@@ -442,20 +448,32 @@ def test_recompute_replays_attention_dropout(monkeypatch):
         torch.testing.assert_close(a, b, rtol=0, atol=1e-6)
 
 
-@pytest.mark.parametrize("checkpoint", ["never", "except_last", "always"])
-def test_pipe_grads_match_pipe_tpu(checkpoint):
-    """Loss and every parameter's gradient of a training step through the
-    flash path, against the JAX ``Pipe`` on the emulator with the Pallas
-    kernels in interpret mode, from converted weights (dropout 0)."""
+@pytest.fixture(scope="module")
+def pallas_grads():
+    """The JAX ``Pipe``'s loss and gradients of one training step through the
+    Pallas kernels in interpret mode, computed once for the module: JAX's
+    checkpoint modes give the same gradient (tests/test_pipe.py::
+    test_gradient_transparency pins that in ``pipe_tpu``), so every port
+    mode is held to the ``never`` step, the one with no recompute to
+    interpret."""
     vocab, x, y = _corpus_batch()
     jcfg = dataclasses.replace(jlm.LMConfig().tiny(), vocab=vocab,
                                attn_impl="flash")
     jpipe = pipe_tpu.Pipe(jlm.build_sequential(jcfg), chunks=4, n_stages=2,
-                          checkpoint=checkpoint)
+                          checkpoint="never")
     params = jpipe.init(jax.random.key(1), jnp.asarray(x))
     jx, jy = jnp.asarray(x), jnp.asarray(y)
     want, jgrads = jax.value_and_grad(lambda p: jlm.cross_entropy(
         jpipe(p, jx, key=jax.random.key(2), train=True), jy))(params)
+    return vocab, x, y, params, want, jgrads
+
+
+@pytest.mark.parametrize("checkpoint", ["never", "except_last", "always"])
+def test_pipe_grads_match_pipe_tpu(checkpoint, pallas_grads):
+    """Loss and every parameter's gradient of a training step through the
+    flash path, against the JAX ``Pipe`` on the emulator with the Pallas
+    kernels in interpret mode, from converted weights (dropout 0)."""
+    vocab, x, y, params, want, jgrads = pallas_grads
 
     tcfg = dataclasses.replace(tlm.LMConfig().tiny(), vocab=vocab,
                                attn_impl="flash")

@@ -573,28 +573,40 @@ def test_state_captured_only_on_the_check_cadence(source, check_every):
     the end. The cadence changes when the host reads, not what the steps
     do: a skip at batch 1 inside a window of 4 leaves the same losses and
     state, Adam's step count included, as a read every step."""
-    runs = []
-    for every in (1, check_every):
-        tr = _trainer(tchaos.ChaosPlan([tchaos.Fault("nan_grads", 1)]),
-                      resilience=trecover.ResilienceConfig(
-                          warmup_steps=100, check_every=every))
-        captured = []
-        capture = tr._capture
-
-        def rec(step, capture=capture, captured=captured):
-            captured.append(step)
-            return capture(step)
-
-        tr._capture = rec
-        losses = _recorded(tr, "_guarded_step")
-        state, info = tr.train_epoch(source, max_steps=8, log_every=0)
-        assert info["anomalies"] == 1 and state.step == 8
-        assert captured == [0, *range(every, 9, every), 8]
-        runs.append(([float(l) for l in losses], tstate.state_manifest(state),
-                     sorted(float(st["step"])
-                            for st in tr.optimizer.state.values())))
+    runs = [_cadence_run(source, every) for every in (1, check_every)]
     assert runs[1] == runs[0]
     assert set(runs[0][2]) == {7.0}
+
+
+_CADENCE_RUNS = {}
+
+
+def _cadence_run(source, every):
+    """One guarded run with a skip at batch 1, reading the verdict every
+    ``every`` steps (its captures checked), once per ``every`` for the
+    module: ``(losses, state manifest, Adam's step counts)``."""
+    if every in _CADENCE_RUNS:
+        return _CADENCE_RUNS[every]
+    tr = _trainer(tchaos.ChaosPlan([tchaos.Fault("nan_grads", 1)]),
+                  resilience=trecover.ResilienceConfig(
+                      warmup_steps=100, check_every=every))
+    captured = []
+    capture = tr._capture
+
+    def rec(step):
+        captured.append(step)
+        return capture(step)
+
+    tr._capture = rec
+    losses = _recorded(tr, "_guarded_step")
+    state, info = tr.train_epoch(source, max_steps=8, log_every=0)
+    assert info["anomalies"] == 1 and state.step == 8
+    assert captured == [0, *range(every, 9, every), 8]
+    _CADENCE_RUNS[every] = ([float(l) for l in losses],
+                            tstate.state_manifest(state),
+                            sorted(float(st["step"])
+                                   for st in tr.optimizer.state.values()))
+    return _CADENCE_RUNS[every]
 
 
 def test_autosave_on_sigterm_resumes_bitwise(source, tmp_path):

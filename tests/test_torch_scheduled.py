@@ -7,7 +7,9 @@ pipe_tpu's ``ScheduledPipeline``, and against itself under dropout.
   weights: loss within 1e-5 relative, every gradient within rtol 1e-4 /
   atol 1e-5 (JAX's own tolerance, tests/test_scheduled.py), and
   ``memory_plan`` equal dict for dict. JAX runs on the suite's virtual CPU
-  devices (tests/conftest.py).
+  devices (tests/conftest.py); its step is computed once per schedule and
+  geometry, under ``never``, and every port mode is held to it (JAX's
+  modes give the same step), with each mode's own ``memory_plan``.
 * Dropout 0.2, the port against itself: the checkpoint modes replay the
   masks, and gpipe, 1f1b and zb-h1 give the same step.
 * Exact ``except_last`` (stage calls counted), the stash caps, padded
@@ -75,21 +77,31 @@ def lm_case(schedule, n, m, seed=0):
 _JAX_CACHE = {}
 
 
+def _jax_pipeline(jm, schedule, mode, n):
+    v = _interleave(schedule)
+    sched = (InterleavedOneFOneBSchedule(interleave=v) if v > 1
+             else schedule)
+    return JPipeline(make_mesh(n, 1), jm.stage_fn, pre_fn=jm.pre_fn,
+                     post_fn=jm.loss_post_fn, checkpoint=mode,
+                     schedule=sched)
+
+
 def jax_step(schedule, mode, n, m):
-    """JAX's ``ScheduledPipeline.loss_and_grad`` on :func:`lm_case`, once per
-    key: ``(loss, grads by port name, memory_plan, port model, x)``."""
-    key = (schedule, mode, n, m)
+    """JAX's ``ScheduledPipeline.loss_and_grad`` on :func:`lm_case`:
+    ``(loss, grads by port name, memory_plan, port model, x)``. The loss and
+    gradients are computed once per ``(schedule, n, m)``, under ``never``
+    (nothing to recompute): JAX's checkpoint modes give the same step
+    (tests/test_scheduled.py holds them to each other), so every port mode
+    is held to it. The memory plan is ``mode``'s, read from JAX's
+    executor without a step."""
+    key = (schedule, n, m)
     if key not in _JAX_CACHE:
         jm, params, tm, x = lm_case(schedule, n, m)
         sp, pre, post = params
         v = _interleave(schedule)
-        sched = (InterleavedOneFOneBSchedule(interleave=v) if v > 1
-                 else schedule)
         stacked = (stack_interleaved_params(sp, n) if v > 1
                    else stack_stage_params(sp))
-        pipe = JPipeline(make_mesh(n, 1), jm.stage_fn, pre_fn=jm.pre_fn,
-                         post_fn=jm.loss_post_fn, checkpoint=mode,
-                         schedule=sched)
+        pipe = _jax_pipeline(jm, schedule, "never", n)
         w = jnp.ones((m, ROWS), jnp.float32)
         loss, (gs, gpre, gpost) = jax.jit(pipe.loss_and_grad)(
             stacked, pre, post, jax.tree_util.tree_map(jnp.asarray, x), w,
@@ -99,8 +111,10 @@ def jax_step(schedule, mode, n, m):
             gs = unstack_interleaved_params(gs, n)
         grads = convert.pipelined_lm_arrays(
             tm, (gs, *jax.tree_util.tree_map(np.asarray, (gpre, gpost))))
-        _JAX_CACHE[key] = (float(loss), grads, pipe.memory_plan(m), tm, x)
-    return _JAX_CACHE[key]
+        _JAX_CACHE[key] = (float(loss), grads, jm, tm, x)
+    loss, grads, jm, tm, x = _JAX_CACHE[key]
+    plan = _jax_pipeline(jm, schedule, mode, n).memory_plan(m)
+    return loss, grads, plan, tm, x
 
 
 def port_pipeline(model, n, schedule, mode, **kw):

@@ -67,24 +67,42 @@ def _per_step_losses(trainer, source, state, steps=8):
     return state, losses
 
 
+_JAX_TRAJECTORIES = {}
+
+
+def _jax_trajectory(source, steps, n_layers=2, **kw):
+    """The JAX ``Trainer``'s initial params and per-step losses, once per
+    configuration for the module."""
+    key = (steps, n_layers, tuple(sorted(kw.items())))
+    if key not in _JAX_TRAJECTORIES:
+        attn_impl = kw.pop("attn_impl", "xla")
+        jmodel = dataclasses.replace(jlm.LMConfig().tiny(), n_layers=n_layers,
+                                     attn_impl=attn_impl)
+        jtrainer = jloop.Trainer(jmodel, jloop.TrainerConfig(
+            batch_size=8, eval_batch_size=8, bptt=jmodel.seq_len, chunks=2,
+            n_stages=2, n_data=1, lr=1e-2, **kw))
+        jstate = jtrainer.init_state()
+        params = jax.tree_util.tree_map(np.asarray, jstate.params)
+        _, want = _per_step_losses(jtrainer, source, jstate, steps=steps)
+        _JAX_TRAJECTORIES[key] = (params, want)
+    return _JAX_TRAJECTORIES[key]
+
+
 @pytest.mark.parametrize("attn_impl", ["xla", "flash"])
 @pytest.mark.parametrize("checkpoint", ["never", "except_last", "always"])
 def test_trainer_trajectory_matches_pipe_tpu(corpus, checkpoint, attn_impl):
     """Eight steps from the JAX Trainer's initial weights: the per-step
     losses agree within TOL_TRAJECTORY relative. ``flash``: the Pallas
     kernels in interpret mode against the port's autograd Function over the
-    kernels' plain versions (dropout 0)."""
+    kernels' plain versions (dropout 0). JAX's trajectory is computed once
+    per ``attn_impl``, under ``never``, and every port mode is held to it:
+    JAX's checkpoint modes give the same step (tests/test_spmd.py's
+    gradient transparency)."""
     source, _ = corpus
     model, cfg = _configs(checkpoint=checkpoint)
     model = dataclasses.replace(model, attn_impl=attn_impl)
-    jmodel = dataclasses.replace(jlm.LMConfig().tiny(), n_layers=2,
-                                 attn_impl=attn_impl)
-    jtrainer = jloop.Trainer(jmodel, jloop.TrainerConfig(
-        batch_size=8, eval_batch_size=8, bptt=jmodel.seq_len, chunks=2,
-        n_stages=2, n_data=1, lr=1e-2, checkpoint=checkpoint))
-    jstate = jtrainer.init_state()
-    params = jax.tree_util.tree_map(np.asarray, jstate.params)
-    _, want = _per_step_losses(jtrainer, source, jstate)
+    params, want = _jax_trajectory(source, 8, attn_impl=attn_impl,
+                                   checkpoint="never")
 
     trainer = tloop.Trainer(model, cfg, device="cpu")
     state = trainer.init_state()
@@ -210,23 +228,28 @@ def test_checkpoints_keep_the_newest_three(tmp_path, corpus):
 
 
 @pytest.mark.parametrize("field,value", [
-    ("schedule", "interleaved"), ("n_data", 2), ("mu_dtype", "bfloat16"),
-    ("zero", True), ("elastic", object())])
+    ("n_data", 2), ("elastic", object())])
 def test_unported_trainer_fields_raise(field, value):
+    """Elastic training is not ported (ROADMAP A.8); ``n_data`` > 1 needs a
+    world of ranks (tests/test_torch_mesh_train.py) and says so."""
     assert getattr(tloop.TrainerConfig(), field) == \
         getattr(jloop.TrainerConfig(), field)
     model, cfg = _configs()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    error, match = ((ValueError, "world") if field == "n_data"
+                    else (NotImplementedError, "ROADMAP"))
+    with pytest.raises(error, match=match):
         tloop.Trainer(model, dataclasses.replace(cfg, **{field: value}),
                       device="cpu")
 
 
 @pytest.mark.parametrize("field", ["tb_dir", "telemetry_dir",
                                    "profile_every", "prefetch_depth",
-                                   "resilience", "plan"])
+                                   "resilience", "plan", "schedule",
+                                   "mu_dtype", "zero"])
 def test_ported_trainer_fields_build(field, tmp_path):
-    """The fields this slice ported build a trainer (their behaviour is held
-    to pipe_tpu's in tests/test_torch_{obs,native,planner,resilience}.py)."""
+    """The fields the slices ported build a trainer (their behaviour is held
+    to pipe_tpu's in tests/test_torch_{obs,native,planner,resilience,
+    mesh_train}.py)."""
     from pipe_tpu_torch.resilience import ResilienceConfig
 
     assert getattr(tloop.TrainerConfig(), field) == \
@@ -234,8 +257,11 @@ def test_ported_trainer_fields_build(field, tmp_path):
     value = {"tb_dir": str(tmp_path / "tb"),
              "telemetry_dir": str(tmp_path / "t"), "profile_every": 2,
              "prefetch_depth": 2, "resilience": ResilienceConfig(),
-             "plan": "auto"}[field]
+             "plan": "auto", "schedule": "interleaved",
+             "mu_dtype": "bfloat16", "zero": True}[field]
     model, cfg = _configs()
+    if field == "schedule":         # two blocks: one virtual stage each
+        cfg = dataclasses.replace(cfg, interleave=1)
     trainer = tloop.Trainer(model, dataclasses.replace(cfg, **{field: value}),
                             device="cpu")
     assert trainer.cfg.plan is not None or field != "plan"
@@ -290,14 +316,8 @@ def test_table_trainer_tracks_pipe_tpus_1f1b_trainer(corpus, schedule,
     ``never`` is the stored-graph split, C.7): losses within
     TOL_TRAJECTORY relative."""
     source, _ = corpus
-    jmodel = dataclasses.replace(jlm.LMConfig().tiny(), n_layers=2)
-    jtrainer = jloop.Trainer(jmodel, jloop.TrainerConfig(
-        batch_size=8, eval_batch_size=8, bptt=jmodel.seq_len, chunks=2,
-        n_stages=2, n_data=1, lr=1e-2, checkpoint="except_last",
-        schedule="1f1b"))
-    jstate = jtrainer.init_state()
-    params = jax.tree_util.tree_map(np.asarray, jstate.params)
-    _, want = _per_step_losses(jtrainer, source, jstate, steps=4)
+    params, want = _jax_trajectory(source, 4, checkpoint="except_last",
+                                   schedule="1f1b")
 
     trainer, _, _ = tiny_trainer(schedule=schedule, checkpoint=checkpoint)
     state = trainer.init_state()
@@ -359,9 +379,15 @@ def test_lm_tutorial_trains_on_the_cpu(tmp_path, capsys):
     ["never", "--tiny", "--device", "cpu", "--schedule", "interleaved",
      "--interleave", "3"],
     ["always", "--tiny", "--device", "cpu", "--schedule", "interleaved"]])
-def test_lm_tutorial_refuses_other_schedules(argv):
-    with pytest.raises(NotImplementedError, match="schedule.*A.8"):
-        lm_tutorial.main(argv)
+def test_lm_tutorial_refuses_other_schedules(argv, capsys):
+    """Every schedule of the JAX entry point trains since the mesh slice
+    ported ``interleaved``; what the app refuses is a schedule it does not
+    know and a ``--world`` that ``--stages`` does not divide."""
+    assert lm_tutorial.main(argv + ["--steps", "1"]) == 0
+    assert "final train loss" in capsys.readouterr().out
+    with pytest.raises(SystemExit):
+        lm_tutorial.main(argv[:4] + ["--schedule", "pipedream"])
+    assert lm_tutorial.main(argv + ["--world", "3"]) == 2
 
 
 def test_lm_tutorial_trains_and_resumes_through_the_tables(tmp_path, capsys):
