@@ -318,6 +318,37 @@ exits non-zero without a result line:
    times the kernels at the data ranks' shape (128, 128, 64) causal with
    dropout 0.2 (``mesh_shape``) and checks ``bh_base``.
 
+12. ring -- the tutorial LM at full width (``LMConfig`` defaults, random
+   weights from one seed, 16 layers, 4 a stage) over a ring of 4 stage
+   ranks on the one card (gloo, CUDA tensors staged through pinned host
+   memory). (a) The world trains 2 ``Trainer`` steps (1f1b, except_last,
+   dropout 0.2, batch 32, chunks 4, lr 1e-4): losses finite, each rank's
+   forward, dQ and dK/dV launches equal to its column of the table
+   (``stage_passes(column=)`` x 4 layers x 2 steps). (b) On those
+   stage-sharded weights, greedy, batch 8 (2 rows a ring group) x 128
+   prompt tokens of the corpus, 64 new: ``Trainer.generate`` over the mesh
+   (the model gathered over the stage group, the one-device ``Generator``
+   on every rank) equals the ``Generator`` on the gathered weights bit for
+   bit, and ``PipelinedGenerator`` over the ring, where the weights lie,
+   equals it under the near-tie rule. (c) ``RingSlotBackend`` under
+   ``ServeEngine`` on the same weights (the engine on the rank of stage 0,
+   the others following): 16 requests of 32-128 corpus tokens, four before
+   the first tick and then two a tick, 64 new each, 12 greedy and 4
+   sampled (T 0.8, top-k 50), through the slab tick, the paged pool
+   (blocks of 16) with the resident loop, and the n-gram spec lane (K 4,
+   resident): every request ``ok``, one decode (or resident) trace per
+   backend, and every stream equal to the one-device engine's with the
+   same configuration on the gathered weights under the near-tie rule.
+   (d) ``apps.generate --stages 4`` and ``apps.serve --stages 4`` exit 0
+   at full width. The near-tie rule: a stream may depart from its
+   reference only at a step where the reference's top-2 scores lie within
+   1e-4 x max|score| (the logits, or for sampled streams the keyed
+   Gumbel-max scores); departures are counted and printed. Prints per
+   rank: ms per generated token of the ring decoder, cycles per decode
+   call, ring bytes and messages, staged bytes, p2p seconds, peak bytes,
+   spawn-to-ready; per serve run TTFT p50/p99 and tokens/s beside the
+   one-device engine's and PR 13's 1,126.3.
+
 The last two lines are the kernels JSON object and
 ``{"ok": true, "device": {...}}``.
 """
@@ -4962,6 +4993,367 @@ def phase_mesh(smi: str) -> dict:
     return launches
 
 
+RING_STAGES = 4
+RING_WORLD = RING_STAGES     # 4 stage ranks x 1 data
+RING_WEIGHT_SEED = 13
+RING_STEPS = 2
+RING_GEN_BATCH = 8           # 2 rows a ring group
+RING_GEN_PROMPT = 128
+RING_GEN_NEW = 64
+RING_REQUESTS = 16
+RING_SAMPLED = 4             # the last 4 of the 16 requests
+RING_PROMPT = (32, 128)
+RING_NEW = 64
+RING_BUCKETS = (32, 64, 128)
+RING_MAX_LEN = 128 + RING_NEW + 4   # + the spec lane's headroom K - 1, rounded
+RING_BLOCK = 16
+RING_RESIDENT = 8
+RING_SPEC_K = 4
+RING_TIE = 1e-4              # near tie: top-2 within this x max|logit|
+RING_TEMPERATURE = 0.8
+RING_TOP_K = 50
+RING_ENGINE_TPS = 1126.3     # the one-device engine's tokens/s (PR 13)
+RING_THREADS = 2
+RING_TIMEOUT_S = 600.0
+RING_CONFIGS = (
+    ("slab", {}),
+    ("paged+resident", dict(kv_block_size=RING_BLOCK, resident=True)),
+    ("ngram K4+resident", dict(spec_tokens=RING_SPEC_K, resident=True)),
+)
+
+
+def _rel_margins(model, prompt, toks, cfg=None, seed=0):
+    """At each step of ``toks`` after ``prompt``: the top-2 gap of the
+    scores that picked it over the largest |score| (the near-tie rule's
+    unit), from the whole model's forward (every stage of ``model``).
+    Greedy: the logits; sampled (``cfg``): the keyed Gumbel-max scores,
+    as ``_margins`` scores them."""
+    from pipe_tpu_torch.inference import keyed_uniform, seed_word
+
+    dev = next(model.parameters()).device
+    x = torch.tensor([list(prompt) + list(toks)], device=dev)
+    with torch.no_grad():
+        h = model.pre_fn(x)
+        for s in range(model.n_stages):
+            h = model.stage_fn(s, h)
+        scores = model.post_fn(h)[0][len(prompt) - 1:-1].float()
+    if cfg is not None:
+        scores = scores / cfg.temperature
+        kth = torch.topk(scores, cfg.top_k, dim=-1).values[..., -1:]
+        scores = torch.where(scores >= kth, scores, -1e30)
+        n, vocab = scores.shape
+        u = keyed_uniform(torch.full((n,), seed_word(seed), device=dev),
+                          torch.arange(n, device=dev), vocab)
+        scores = scores + -torch.log(-torch.log(u))
+        scores = torch.where(scores > -1e29, scores, 0.0)
+    top2 = torch.topk(scores, 2, dim=-1).values
+    scale = scores.abs().amax(dim=-1).clamp(min=1e-30)
+    return ((top2[:, 0] - top2[:, 1]) / scale).tolist()
+
+
+def _ring_streams(got, ref, margins, what):
+    """Each stream against its reference under the near-tie rule:
+    ``(steps compared, departures at a near tie)``; a departure at a clear
+    step, or a stream of another length, fails."""
+    compared = departures = 0
+    for i, (g, r) in enumerate(zip(got, ref)):
+        c, k, ok = _walk(list(g), list(r), margins[i], RING_TIE)
+        if not ok:
+            raise AssertionError(
+                f"ring {what}: stream {i} departs from the one-device "
+                f"reference at a clear step ({list(g)} vs {list(r)})")
+        compared += c
+        departures += int(list(g) != list(r))
+    return compared, departures
+
+
+def _ring_traffic(eng, reqs, seeds):
+    """Four requests before the first tick, then two a tick, then ticks
+    until idle: (responses in submit order, wall)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ids = [eng.submit(p, max_new_tokens=RING_NEW, seed=sd).id
+           for p, sd in zip(reqs[:4], seeds[:4])]
+    for i in range(4, len(reqs), 2):
+        eng.tick()
+        ids += [eng.submit(p, max_new_tokens=RING_NEW, seed=sd).id
+                for p, sd in zip(reqs[i:i + 2], seeds[i:i + 2])]
+    eng.run_until_idle()
+    torch.cuda.synchronize()
+    return [eng.response(r) for r in ids], time.perf_counter() - t0
+
+
+def _ring_rank(tmp: str, vocab: int) -> dict:
+    """On each rank of the 4-stage world: gates (a)-(c) of phase 12 (its
+    docstring). Rank 0 also runs the one-device references and holds the
+    ring's streams to them; every rank returns its own numbers."""
+    import torch.distributed as dist
+
+    from pipe_tpu_torch.inference import GenerationConfig, Generator
+    from pipe_tpu_torch.inference.pipelined import PipelinedGenerator
+    from pipe_tpu_torch.models.transformer_lm import PipelinedLM
+    from pipe_tpu_torch.obs.telemetry import get_registry
+    from pipe_tpu_torch.ops.layers import Sequential
+    from pipe_tpu_torch.parallel.mesh import make_mesh
+    from pipe_tpu_torch.serve import (BucketSpec, RingSlotBackend,
+                                      ServeEngine, SingleDeviceSlotBackend,
+                                      drive_ring)
+    from pipe_tpu_torch.train.loop import Trainer, TrainerConfig
+
+    mesh = make_mesh(RING_STAGES, 1)
+    cfg = _mesh_cfg(vocab)
+    data = torch.load(os.path.join(tmp, "ring.pt"))
+    source = data["source"].numpy()
+    lps = cfg.n_layers // RING_STAGES
+    out = {"rank": mesh.rank, "stage": mesh.stage}
+    rank0 = mesh.stage == 0
+
+    # (a) train over the world: the kernels' launches against the table
+    tr = Trainer(cfg, TrainerConfig(
+        batch_size=TRAIN_BATCH, bptt=BPTT, chunks=CHUNKS,
+        n_stages=RING_STAGES, n_data=1, schedule="1f1b",
+        checkpoint="except_last", lr=TRAIN_LR))
+    state = tr.init_state(RING_WEIGHT_SEED)
+    torch.cuda.synchronize()
+    _zero_launches()
+    mesh.reset_stats()
+    torch.cuda.reset_peak_memory_stats()
+    losses, step_ms = [], []
+    for b in range(RING_STEPS):
+        t0 = time.perf_counter()
+        state, info = tr.train_epoch(source, state=state, max_steps=b + 1,
+                                     start_step=b, log_every=0)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(info["loss"])
+    passes = tr.scheduled.stage_passes(CHUNKS, column=mesh.stage)
+    out["train"] = dict(
+        losses=losses, step_ms=step_ms, launches=_rank_counts(),
+        expected={"flash_attention_fwd": passes["forward"] * lps
+                  * RING_STEPS,
+                  "flash_attention_bwd_dq": passes["backward"] * lps
+                  * RING_STEPS,
+                  "flash_attention_bwd_dkv": passes["backward"] * lps
+                  * RING_STEPS},
+        transport=mesh.stats.as_dict(),
+        peak_bytes=torch.cuda.max_memory_allocated())
+
+    # (b) Trainer.generate over the mesh; the ring decoder where the
+    # weights lie; the one-device Generator on the gathered weights
+    prompt = data["prompt"].cuda()
+    gcfg = GenerationConfig(max_new_tokens=RING_GEN_NEW, temperature=0.0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    tg = tr.generate(state, prompt, max_new_tokens=RING_GEN_NEW)
+    torch.cuda.synchronize()
+    tg_ms = (time.perf_counter() - t0) * 1e3
+    tg_peak = torch.cuda.max_memory_allocated()
+    full = PipelinedLM.from_sequential(
+        cfg, Sequential(tr._gathered_layers()), RING_STAGES)
+    full.eval()
+    ref = Generator(full, gcfg).generate(prompt)
+    pg = PipelinedGenerator(mesh, tr.model, gcfg)
+    pg.generate(prompt[:RING_STAGES, :8])             # warm-up
+    torch.cuda.synchronize()
+    mesh.reset_stats()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    ring = pg.generate(prompt)
+    torch.cuda.synchronize()
+    ring_ms = (time.perf_counter() - t0) * 1e3
+    out["generate"] = dict(
+        trainer_ms=tg_ms, trainer_peak_bytes=tg_peak, ring_ms=ring_ms,
+        ring_ms_per_token=ring_ms / (RING_GEN_BATCH * RING_GEN_NEW),
+        transport=mesh.stats.as_dict(),
+        peak_bytes=torch.cuda.max_memory_allocated(),
+        trainer_equals_generator=bool(torch.equal(tg, ref)))
+    if rank0:
+        margins = [_rel_margins(full, prompt[i].tolist(), ref[i].tolist())
+                   for i in range(RING_GEN_BATCH)]
+        for name, got in (("Trainer.generate", tg),
+                          ("PipelinedGenerator", ring)):
+            c, d = _ring_streams(got.tolist(), ref.tolist(), margins, name)
+            out["generate"][name] = dict(compared=c, departures=d)
+
+    # (c) the ring engine over the trained weights, three configurations,
+    # greedy and sampled traffic, against the one-device engine's
+    reqs = [t.tolist() for t in data["requests"]]
+    seeds = list(range(100, 100 + RING_REQUESTS))
+    buckets = BucketSpec.of(*RING_BUCKETS)
+    reg = get_registry()
+    out["serve"] = {}
+    for name, kw in RING_CONFIGS:
+        for sampled in (False, True):
+            part = slice(RING_REQUESTS - RING_SAMPLED, None) if sampled \
+                else slice(0, RING_REQUESTS - RING_SAMPLED)
+            gen = GenerationConfig(
+                max_new_tokens=RING_NEW,
+                temperature=RING_TEMPERATURE if sampled else 0.0,
+                top_k=RING_TOP_K if sampled else None)
+            mesh.reset_stats()
+            torch.cuda.reset_peak_memory_stats()
+            traces0 = reg.counter("serve.ring.decode_traces").value + \
+                reg.counter("serve.ring.resident_traces").value
+            backend = RingSlotBackend(
+                mesh, tr.model, max_len=RING_MAX_LEN, gen=gen,
+                buckets=buckets, resident_revolutions=RING_RESIDENT,
+                **{"resident": False, **kw})
+            got = drive_ring(backend, lambda b: _ring_traffic(
+                ServeEngine(b), reqs[part], seeds[part]))
+            key = f"{name}/{'sampled' if sampled else 'greedy'}"
+            run = dict(transport=mesh.stats.as_dict(),
+                       peak_bytes=torch.cuda.max_memory_allocated(),
+                       cycles_per_call=backend.cycles_run
+                       / max(backend.decode_calls, 1),
+                       decode_calls=backend.decode_calls,
+                       traces=reg.counter("serve.ring.decode_traces").value
+                       + reg.counter("serve.ring.resident_traces").value
+                       - traces0)
+            if rank0:
+                resps, wall = got
+                one = SingleDeviceSlotBackend(
+                    full, num_slots=RING_STAGES, max_len=RING_MAX_LEN,
+                    gen=gen, buckets=buckets,
+                    resident_chunks=RING_RESIDENT,
+                    **{"resident": False, **kw})
+                refs, ref_wall = _ring_traffic(ServeEngine(one),
+                                               reqs[part], seeds[part])
+                margins = [_rel_margins(
+                    full, p, r.tokens, gen if sampled else None, sd)
+                    for p, r, sd in zip(reqs[part], refs, seeds[part])]
+                c, d = _ring_streams([r.tokens for r in resps],
+                                     [r.tokens for r in refs], margins, key)
+                run.update(compared=c, departures=d,
+                           status=sorted({r.status for r in resps}),
+                           rates=_rates(resps, wall),
+                           one_device_rates=_rates(refs, ref_wall))
+                del one
+            out["serve"][key] = run
+            dist.barrier()
+    del full, tr, state
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_ring(smi: str) -> dict:
+    """Phase 12: the tutorial LM trained, decoded and served over a ring of
+    4 stage ranks; returns the kernels' launches per rank of its training."""
+    import tempfile
+
+    from pipe_tpu_torch.apps import generate as gen_app
+    from pipe_tpu_torch.apps import serve as serve_app
+    from pipe_tpu_torch.data import lm_text
+    from pipe_tpu_torch.runtime.distributed import World
+
+    t_phase = time.perf_counter()
+    train_lines, _, _ = lm_text.load_corpus(vocab_size=28782)
+    vocab = lm_text.Vocab(map(lm_text.basic_english_tokenize, train_lines))
+    ids = lm_text.data_process(train_lines, vocab)
+    source = lm_text.batchify(ids, TRAIN_BATCH)
+    flat = np.asarray(ids)
+    rng = np.random.default_rng(7)
+    prompt = np.stack([flat[i * RING_GEN_PROMPT:(i + 1) * RING_GEN_PROMPT]
+                       for i in range(RING_GEN_BATCH)])
+    reqs = []
+    for i in range(RING_REQUESTS):
+        n = int(rng.integers(RING_PROMPT[0], RING_PROMPT[1] + 1))
+        at = int(rng.integers(0, flat.size - n))
+        reqs.append(torch.from_numpy(flat[at:at + n].copy()).long())
+    tmp = tempfile.mkdtemp(prefix="pipe_tpu_ring_")
+    torch.save({"source": torch.from_numpy(source),
+                "prompt": torch.from_numpy(prompt.copy()).long(),
+                "requests": reqs}, os.path.join(tmp, "ring.pt"))
+    log("ring", world=RING_WORLD, stages=RING_STAGES, backend="gloo",
+        device="cuda:0 (shared)", vocab=len(vocab), card=smi.splitlines()[0])
+    with World(RING_WORLD, device="cuda", backend="gloo",
+               timeout=RING_TIMEOUT_S, threads=RING_THREADS) as world:
+        t0 = time.perf_counter()
+        res = world.run(_ring_rank, tmp, len(vocab))
+        spawn = world.spawn_to_ready_s
+    log("ring", spawn_to_ready_s=f"{spawn:.2f}",
+        world_s=f"{time.perf_counter() - t0:.1f}")
+    launches = {}
+    for r in res:
+        tr = r["train"]
+        ls = tr["losses"]
+        log("ring", rank=r["rank"], stage=r["stage"], run="train/1f1b",
+            losses=[f"{l:.4f}" for l in ls],
+            step_ms=[f"{m:.1f}" for m in tr["step_ms"]],
+            launches=tr["launches"], expected=tr["expected"],
+            peak_bytes=tr["peak_bytes"],
+            p2p_bytes=tr["transport"]["p2p_bytes"],
+            staged_bytes=tr["transport"]["staged_bytes"])
+        if tr["launches"] != tr["expected"]:
+            raise AssertionError(f"ring rank {r['rank']}: launches "
+                                 f"{tr['launches']} != {tr['expected']}")
+        if not all(math.isfinite(l) for l in ls):
+            raise AssertionError(f"ring rank {r['rank']}: losses {ls}")
+        for k, v in tr["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+        g = r["generate"]
+        t = g["transport"]
+        log("ring", rank=r["rank"], run="generate",
+            trainer_generate_ms=f"{g['trainer_ms']:.1f}",
+            trainer_generate_peak_bytes=g["trainer_peak_bytes"],
+            ring_ms=f"{g['ring_ms']:.1f}",
+            ms_per_generated_token=f"{g['ring_ms_per_token']:.4f}",
+            ring_tokens_per_s=f"{1e3 / g['ring_ms_per_token']:.1f}",
+            ring_bytes=t["p2p_bytes"], ring_messages=t["p2p_messages"],
+            staged_bytes=t["staged_bytes"], p2p_s=f"{t['p2p_s']:.3f}",
+            peak_bytes=g["peak_bytes"], spawn_to_ready_s=f"{spawn:.2f}")
+        if not g["trainer_equals_generator"]:
+            raise AssertionError("Trainer.generate over the mesh differs "
+                                 "from the Generator on its gathered weights")
+        for name in ("Trainer.generate", "PipelinedGenerator"):
+            if name in g:
+                log("ring", run=name, **g[name])
+        for key, run in r["serve"].items():
+            t = run["transport"]
+            line = dict(rank=r["rank"], run=f"serve {key}",
+                        cycles_per_call=f"{run['cycles_per_call']:.2f}",
+                        decode_calls=run["decode_calls"],
+                        ring_bytes=t["p2p_bytes"],
+                        ring_messages=t["p2p_messages"],
+                        staged_bytes=t["staged_bytes"],
+                        p2p_s=f"{t['p2p_s']:.3f}",
+                        plan_broadcasts=t["collectives"],
+                        peak_bytes=run["peak_bytes"], traces=run["traces"])
+            if "rates" in run:
+                line.update(compared=run["compared"],
+                            departures=run["departures"],
+                            status=run["status"],
+                            **{f"ring_{k}": v for k, v in
+                               run["rates"].items()},
+                            one_device_tokens_per_s=run["one_device_rates"][
+                                "generated_tokens_per_s"],
+                            pr13_engine_tokens_per_s=RING_ENGINE_TPS)
+                if run["status"] != ["ok"]:
+                    raise AssertionError(f"ring serve {key}: statuses "
+                                         f"{run['status']}")
+            log("ring", **line)
+            if run["traces"] != 1:
+                raise AssertionError(f"ring serve {key}: {run['traces']} "
+                                     f"decode traces, not 1")
+    # (d) the apps over their own worlds, at full width
+    for name, app, argv in (
+            ("apps.generate --stages 4", gen_app,
+             ["--stages", "4", "--max-new", "16", "--batch", "8"]),
+            ("apps.serve --stages 4", serve_app,
+             ["--stages", "4", "--requests", "8", "--max-new", "16"])):
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(open(os.devnull, "w")):
+            rc = app.main(argv)
+        log("ring", run=name, rc=rc, wall_s=f"{time.perf_counter() - t0:.1f}")
+        if rc != 0:
+            raise AssertionError(f"{name} exited {rc}")
+    import shutil
+    shutil.rmtree(tmp, ignore_errors=True)
+    log("ring", seconds=f"{time.perf_counter() - t_phase:.1f}",
+        card=smi.splitlines()[0])
+    return launches
+
+
 def main() -> int:
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     t_start = time.perf_counter()
@@ -4986,6 +5378,8 @@ def main() -> int:
     phase_fleet(smi, gap)
     torch.cuda.empty_cache()
     mesh_launches = phase_mesh(smi)
+    torch.cuda.empty_cache()
+    ring_launches = phase_ring(smi)
     sources = {"flash_attn_fwd": ("flash_attn_fwd.cu", 87,
                                   "flash_attention_fwd"),
                "flash_attn_bwd_dq": ("flash_attn_bwd.cu", 162,
@@ -5024,6 +5418,7 @@ def main() -> int:
             run: launches[wrapper] for run, launches in obs_launches.items()}
         entry["launches_mesh"] = {
             run: launches[wrapper] for run, launches in mesh_launches.items()}
+        entry["launches_ring_train"] = ring_launches[wrapper]
         entry["gpt2_shape"] = row["gpt2_shape"]
         entry["bert_shape"] = row["bert_shape"]
         entry["mesh_shape"] = row["mesh_shape"]

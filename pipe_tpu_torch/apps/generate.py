@@ -10,15 +10,25 @@ then sample continuations with the KV-cached ``Generator`` on one device.
 prompt a line) through the continuous-batching engine (``serve/``) with
 ``--slots`` decode slots instead, and prints one row per prompt.
 
+``--stages N`` (N > 1) decodes over a ring of N stage ranks, each holding
+only its stage's weights, as ``pipe_tpu`` decodes over a stage mesh: the
+app spawns its own world of N ranks (``runtime.distributed.launch``,
+backend ``gloo``; on the card they share it) and runs the ring-pipelined
+``PipelinedGenerator`` (``inference/pipelined.py``; ``--batch``, default
+N, must divide into N ring groups), or with ``--prompts-file`` the ring
+backend (``serve/ring.py``) under the engine, whose N slots are the ring's
+groups. Rank 0 prints.
+
 Usage:
     python -m pipe_tpu_torch.apps.generate [--resume DIR] [--prompt "ids,..."]
         [--prompts-file F [--slots S]] [--batch N] [--max-new N]
         [--temperature T] [--top-k K] [--beams K] [--eos ID] [--int8]
-        [--family lm|gpt2] [--tiny] [--seed S] [--device cuda|cpu]
+        [--family lm|gpt2] [--stages N] [--tiny] [--seed S]
+        [--device cuda|cpu]
 
 A restored model takes its vocabulary from the checkpoint. A request past
-the model's positional table exits 2. Not ported yet, each refused with rc
-2: ``--stages > 1`` (the ring decoder) and ``--context-shards > 1``.
+the model's positional table exits 2. Not ported yet, refused with rc 2:
+``--context-shards > 1``.
 """
 
 from __future__ import annotations
@@ -30,8 +40,6 @@ import sys
 
 # (flag, is it set away from its default?, the ROADMAP.md item that ports it)
 _NOT_PORTED = (
-    ("--stages > 1", lambda a: a.stages > 1,
-     "A.8, the ring-pipelined decoder over a stage mesh"),
     ("--context-shards > 1", lambda a: a.context_shards > 1,
      "A.10, the context-sharded generator"),
 )
@@ -83,7 +91,8 @@ def build_argparser() -> argparse.ArgumentParser:
                    help="--prompts-file: decode slots of the serve engine")
     p.add_argument("--eos", type=int, default=None,
                    help="eos token id: a finished row emits pad after it")
-    p.add_argument("--batch", type=int, default=1)
+    p.add_argument("--batch", type=int, default=None,
+                   help="rows (default: --stages, one a ring group)")
     p.add_argument("--max-new", type=int, default=32)
     p.add_argument("--temperature", type=float, default=0.0,
                    help="0 = greedy")
@@ -97,7 +106,7 @@ def build_argparser() -> argparse.ArgumentParser:
                    help="model family: the tutorial LM (sinusoid positions, "
                         "post-LN) or GPT-2 (learned positions, pre-LN)")
     p.add_argument("--stages", type=int, default=1,
-                   help="not ported yet beyond 1 (the ring decoder)")
+                   help=">1: decode over a ring of this many stage ranks")
     p.add_argument("--context-shards", type=int, default=1,
                    help="not ported yet beyond 1")
     p.add_argument("--tiny", action="store_true")
@@ -136,8 +145,12 @@ def _check_args(args, model_cfg):
         raise UsageError(f"--eos must be in [0, {model_cfg.vocab})")
     if args.eos is not None and args.beams > 1:
         raise UsageError("--eos with beam search is not implemented")
+    if args.batch is None:
+        args.batch = max(args.stages, 1)
     if args.batch < 1:
         raise UsageError(f"--batch must be >= 1, got {args.batch}")
+    if args.stages > 1:
+        _check_ring(args, model_cfg)
     try:
         gen_cfg = GenerationConfig(max_new_tokens=args.max_new,
                                    temperature=args.temperature,
@@ -146,6 +159,28 @@ def _check_args(args, model_cfg):
     except ValueError as e:
         raise UsageError(str(e))
     return prompts, gen_cfg
+
+
+def _check_ring(args, model_cfg) -> None:
+    """``pipe_tpu``'s checks of ``--stages > 1``, with its messages."""
+    n = args.stages
+    if not args.prompts_file and args.batch % n:
+        raise UsageError(f"--batch {args.batch} must divide into --stages "
+                         f"{n} ring groups")
+    if args.beams > 1:
+        raise UsageError("--beams > 1 is single-device only (the ring "
+                         "decoder does not reorder beams)")
+    if model_cfg.n_layers % n:
+        raise UsageError(f"--stages {n} must divide the model's "
+                         f"{model_cfg.n_layers} layers")
+
+
+def position_limit(args, model_cfg) -> int:
+    """The positional table's rows of the ``--family`` model, from its
+    config (the ring's parent process builds no model)."""
+    if args.family == "gpt2":
+        return model_cfg.seq_len
+    return max(5000, model_cfg.seq_len)
 
 
 def _checkpoint_state(resume: str) -> dict:
@@ -235,15 +270,32 @@ def main(argv=None) -> int:
                                   f"yet (ROADMAP.md {item})")
         model_cfg, state = model_source(args, family_config(args))
         prompts, gen_cfg = _check_args(args, model_cfg)
-        model = build_model(args, model_cfg, state)
+        longest = max(len(p) for p in prompts)
+        if args.stages > 1:      # the ranks build the model
+            import types
+            model = types.SimpleNamespace(
+                max_position=lambda: position_limit(args, model_cfg))
+        else:
+            model = build_model(args, model_cfg, state)
         try:
-            check_positions(model, max(len(p) for p in prompts),
-                            gen_cfg.max_new_tokens)
+            check_positions(model, longest, gen_cfg.max_new_tokens)
         except ValueError as e:
             raise UsageError(str(e))
     except UsageError as e:
         print(str(e), file=sys.stderr)
         return 2
+
+    if args.stages > 1:
+        from pipe_tpu_torch.runtime.distributed import launch
+        threads = (max(1, (os.cpu_count() or 1) // args.stages)
+                   if args.device == "cpu" else 0)
+        rows = launch(_ring_rank, args.stages,
+                      list(sys.argv[1:] if argv is None else argv),
+                      device=args.device, backend="gloo",
+                      threads=threads)[0]
+        for row in rows:
+            print(",".join(str(int(t)) for t in row))
+        return 0
 
     if args.prompts_file:
         # the serve engine: bucketed prefill + one shared decode step for
@@ -251,7 +303,6 @@ def main(argv=None) -> int:
         # generator calls)
         from pipe_tpu_torch.serve import (BucketSpec, ServeEngine,
                                           SingleDeviceSlotBackend)
-        longest = max(len(p) for p in prompts)
         buckets = BucketSpec.pow2(min_len=min(8, longest), max_len=longest)
         backend = SingleDeviceSlotBackend(
             model, num_slots=args.slots,
@@ -267,6 +318,41 @@ def main(argv=None) -> int:
     for row in out.tolist():
         print(",".join(str(t) for t in row))
     return 0
+
+
+def _ring_rank(argv) -> list:
+    """One rank of ``--stages N``: its stage of the model (the weights
+    drawn from ``--seed`` or restored, as on one device, then the rest
+    freed), then the ring decoder, or the ring engine with
+    ``--prompts-file``. Rank 0 returns the rows; the others an empty
+    list."""
+    import torch
+
+    from pipe_tpu_torch.inference.pipelined import (PipelinedGenerator,
+                                                    localize_stage)
+    from pipe_tpu_torch.parallel.mesh import make_mesh
+
+    args = build_argparser().parse_args(argv)
+    model_cfg, state = model_source(args, family_config(args))
+    prompts, gen_cfg = _check_args(args, model_cfg)
+    mesh = make_mesh(args.stages, 1)
+    model = localize_stage(build_model(args, model_cfg, state, args.stages),
+                           mesh)
+    if args.prompts_file:
+        from pipe_tpu_torch.serve import (BucketSpec, RingSlotBackend,
+                                          ServeEngine, drive_ring)
+        longest = max(len(p) for p in prompts)
+        buckets = BucketSpec.pow2(min_len=min(8, longest), max_len=longest)
+        backend = RingSlotBackend(
+            mesh, model, max_len=buckets.max_len + args.max_new,
+            gen=gen_cfg, buckets=buckets)
+        resps = drive_ring(backend, lambda b: ServeEngine(b).serve(
+            prompts, seeds=[args.seed + 1] * len(prompts)))
+        return [] if resps is None else [r.tokens for r in resps]
+    prompt = torch.tensor(prompts * args.batch, dtype=torch.int64)
+    out = PipelinedGenerator(mesh, model, gen_cfg).generate(
+        prompt, seed=args.seed + 1)
+    return out.tolist() if mesh.stage == 0 else []
 
 
 if __name__ == "__main__":

@@ -52,8 +52,15 @@ Usage:
 
 A model draft (``--draft truncated|tree``) is a strict prefix of the model:
 with ``--stages 1`` the model is partitioned into ``--draft-stages + 1``
-logical stages to carve it, as ``pipe_tpu`` does. ``--stages > 1`` (the
-ring backend) is not ported yet: it exits 2 naming ROADMAP.md A.8.
+logical stages to carve it, as ``pipe_tpu`` does. ``--stages N`` (N > 1)
+serves over a ring of N stage ranks that the app spawns
+(``runtime.distributed.launch``, backend ``gloo``; on the card they share
+it), each holding its stage of the model: the engine runs on rank 0 over
+``RingSlotBackend`` (``serve/ring.py``), whose N slots are the ring's
+groups (``--slots`` is not read); ``--kv paged``, ``--resident`` and
+``--spec-tokens`` (``--draft ngram|truncated``) come through, with
+``pipe_tpu``'s refusals; ``--replicas`` with it exits 2 naming ROADMAP.md
+A.8, the mesh carve.
 ``--family gpt2`` serves ``PipelinedGPT2`` (fresh
 weights from ``--seed``); its model has no ``embed_tree``, so ``--draft
 tree`` exits 2 with the engine's message, as in ``pipe_tpu``. A request
@@ -195,7 +202,8 @@ def build_argparser() -> argparse.ArgumentParser:
                    help="host store capacity in blocks for --kv-offload "
                         "(default: the device pool size)")
     p.add_argument("--stages", type=int, default=1,
-                   help=">1: the pipeline ring (not ported: exits 2)")
+                   help=">1: serve over a ring of this many stage ranks "
+                        "(serve/ring.py; the ring's groups are the slots)")
     p.add_argument("--replicas", type=int, default=1,
                    help=">1: run N engine replicas behind the fleet "
                         "Router (health-gated failover)")
@@ -398,7 +406,55 @@ def _watchdog(args):
 
 def main(argv=None) -> int:
     args = build_argparser().parse_args(argv)
+    if args.stages > 1:
+        return _main_ring(args, list(sys.argv[1:] if argv is None
+                                     else argv))
+    return _serve(args)
 
+
+def _main_ring(args, argv) -> int:
+    """``--stages N``: a world of N ranks (``runtime.distributed.launch``,
+    backend ``gloo``; on the card they share it), each holding its stage of
+    the model. The engine runs on rank 0 over the ring backend
+    (``serve/ring.py``) and its output is printed here; the other ranks
+    follow the ring. The flags' checks run on every rank, as on one
+    device."""
+    if args.replicas > 1:
+        print("--replicas with --stages > 1 is not ported to pipe_tpu_torch "
+              "yet (ROADMAP.md A.8, the mesh carve of fleet/topology.py: "
+              "runtime/distributed.py)", file=sys.stderr)
+        return 2
+    from pipe_tpu_torch.runtime.distributed import launch
+
+    threads = (max(1, (os.cpu_count() or 1) // args.stages)
+               if args.device == "cpu" else 0)
+    rc, out, err = launch(_ring_rank, args.stages, argv, device=args.device,
+                          backend="gloo", threads=threads)[0]
+    sys.stdout.write(out)
+    sys.stderr.write(err)
+    return rc
+
+
+def _ring_rank(argv) -> tuple:
+    """One rank of ``--stages N``: rank 0 serves (its output captured and
+    returned as ``(rc, stdout, stderr)``), the others follow the ring."""
+    import contextlib
+    import io
+
+    from pipe_tpu_torch.parallel.mesh import make_mesh
+
+    args = build_argparser().parse_args(argv)
+    mesh = make_mesh(args.stages, 1)
+    out, err = io.StringIO(), io.StringIO()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        rc = _serve(args, mesh)
+    return rc, out.getvalue(), err.getvalue()
+
+
+def _serve(args, mesh=None) -> int:
+    """The serving flow on this process: one device, or with ``mesh`` this
+    rank's stage of the ring (rank 0 drives the engine; the others run the
+    follower loop and return)."""
     import numpy as np
 
     from pipe_tpu_torch.inference import GenerationConfig
@@ -413,17 +469,18 @@ def main(argv=None) -> int:
 
     replicas = max(args.replicas, 1)
     try:
-        if args.stages > 1:
-            raise UsageError("--stages > 1 is not ported to pipe_tpu_torch "
-                             "yet (ROADMAP.md A.8, serve/ring.py over a "
-                             "stage mesh)")
         model_cfg, state = model_source(args, family_config(args))
         # a model draft runs "the first stage(s)": --stages 1 serves an
         # unpartitioned model, so split it into draft-stages+1 logical
         # stages (the same weights, grouped differently)
         n_model_stages = 1
-        if args.draft != "ngram":
+        if mesh is not None:
+            n_model_stages = mesh.n_stages
+        elif args.draft != "ngram":
             n_model_stages = max(args.draft_stages, 1) + 1
+        if mesh is not None and model_cfg.n_layers % n_model_stages:
+            raise UsageError(f"--stages {n_model_stages} must divide the "
+                             f"model's {model_cfg.n_layers} layers")
         if model_cfg.n_layers % n_model_stages:
             raise UsageError(
                 f"--draft {args.draft} with --stages 1 partitions the "
@@ -472,12 +529,29 @@ def main(argv=None) -> int:
             draft_stages=args.draft_stages,
             spec_branches=args.spec_branches,
             spec_adaptive=args.spec_adaptive, **kv_kwargs)
-        backend = SingleDeviceSlotBackend(model, **backend_kw)
+        if mesh is None:
+            backend = SingleDeviceSlotBackend(model, **backend_kw)
+        else:
+            from pipe_tpu_torch.inference.pipelined import localize_stage
+            from pipe_tpu_torch.serve import RingSlotBackend
+
+            ring_kw = dict(backend_kw)
+            for name, ring_name in (("decode_chunk", "revolutions"),
+                                    ("resident_chunks",
+                                     "resident_revolutions")):
+                ring_kw[ring_name] = ring_kw.pop(name)
+            del ring_kw["num_slots"]
+            backend = RingSlotBackend(mesh, localize_stage(model, mesh),
+                                      **ring_kw)
         for p in prompts:
             backend.validate(len(p), gen_cfg.max_new_tokens)
-    except (UsageError, ValueError, TypeError) as e:
+    except (UsageError, ValueError, TypeError,
+            NotImplementedError) as e:
         print(str(e), file=sys.stderr)
         return 2
+    if mesh is not None and not backend.is_driver:
+        backend.follow()
+        return 0
 
     trace_buf = None
     if args.events:
@@ -631,6 +705,8 @@ def main(argv=None) -> int:
         # so a restart on this journal skips reconciliation
         journal.close(clean=True)
     print(json.dumps({"summary": summary}))
+    if mesh is not None:
+        backend.close()
     events.close()
     if metrics_server is not None:
         metrics_server.shutdown()

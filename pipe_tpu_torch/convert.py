@@ -39,7 +39,10 @@ The mesh layouts: the triple's ``stage_params`` may be stage-stacked
 (``stack_stage_params``) or stacked device-major for an interleaved
 placement (``stack_interleaved_params``; pass ``interleaved_devices``);
 :func:`load_packed_rows` carries ``pipe_tpu``'s ``StageParamPack`` rows
-(``Pipe(mesh=...).shard_params``) into a ``Pipe``'s partitions. A rank of a
+(``Pipe(mesh=...).shard_params``) into a ``Pipe``'s partitions;
+:func:`load_ring_stage` gives one rank of a stage ring its stage of the
+stage-stacked triple the ring decoders take (``QuantLeaf`` int8 leaves
+included). A rank of a
 mesh holds only its own partitions: the others' parameters sit on the
 ``meta`` device and every loader here passes them by. Back the other way,
 :func:`stage_trees` and :func:`pipelined_lm_tree` put arrays named as the
@@ -55,6 +58,7 @@ import torch
 from torch import nn
 
 from .extras.norm import BatchNorm
+from .inference.quant import QuantLinear
 from .extras.skip import Skippable
 from .models.bert import BertEmbed, MLMHead
 from .models.gpt2 import GPT2Embed, GPT2Head
@@ -64,7 +68,7 @@ from .ops.layers import (Decoder, Dropout, Embedding, LayerNorm, Lambda,
                          Sequential, _TransformerBlockBase)
 
 __all__ = ["load_params", "load_stage_params", "load_pipelined_lm_params",
-           "load_pipelined_lm", "pipelined_lm_arrays", "stage_arrays",
+           "load_pipelined_lm", "load_ring_stage", "pipelined_lm_arrays", "stage_arrays",
            "load_packed_rows", "stage_trees", "pipelined_lm_tree"]
 
 
@@ -79,8 +83,27 @@ def _array(dst: torch.Tensor, src: Any, transpose: bool = False
     return dst, arr
 
 
-def _linear(lin: Linear, w, b) -> Iterator[Tuple[torch.Tensor, np.ndarray]]:
-    yield _array(lin.weight, w, transpose=True)
+def _is_quant(w: Any) -> bool:
+    """``pipe_tpu``'s ``QuantLeaf`` (int8 codes ``q`` and float32 scales
+    ``scale``), told by its fields: this package imports no JAX."""
+    return hasattr(w, "q") and hasattr(w, "scale")
+
+
+def _linear(lin, w, b) -> Iterator[Tuple[torch.Tensor, np.ndarray]]:
+    """A ``Linear``'s weight (transposed) and bias; a ``QuantLinear``'s
+    codes and scales from a ``QuantLeaf`` (``q [in, out]`` and ``scale
+    [1, out]``, both transposed)."""
+    if isinstance(lin, QuantLinear):
+        if not _is_quant(w):
+            raise TypeError("a QuantLinear takes pipe_tpu's QuantLeaf "
+                            "(quantize_params' int8 codes and scales)")
+        yield _array(lin.q, w.q, transpose=True)
+        yield _array(lin.scale, w.scale, transpose=True)
+    else:
+        if _is_quant(w):
+            raise TypeError("int8 QuantLeaf params need a quantized model "
+                            "(inference.quantize_params)")
+        yield _array(lin.weight, w, transpose=True)
     if lin.bias is not None:
         yield _array(lin.bias, b)
 
@@ -95,7 +118,7 @@ def _pairs(layer: nn.Module, params: Any
                              f"{len(params)} param entries")
         for sub, p in zip(layer, params):
             yield from _pairs(sub, p)
-    elif isinstance(layer, Linear):
+    elif isinstance(layer, (Linear, QuantLinear)):
         yield from _linear(layer, params["w"], params.get("b"))
     elif isinstance(layer, Decoder):
         yield from _linear(layer.proj, params["w"], params.get("b"))
@@ -241,6 +264,30 @@ def load_pipelined_lm(model, params: Sequence[Any],
                                                     interleaved_devices)))
 
 
+def load_ring_stage(model, params: Sequence[Any], stage: int,
+                    n_stages: int, device=None) -> None:
+    """One rank's share of ``pipe_tpu``'s ring layout: ``params`` is the
+    ``PipelinedLM`` triple with ``stage_params`` stage-stacked
+    (``stack_stage_params``: leaves lead with the stage axis, as
+    ``PipelinedGenerator`` and ``RingSlotBackend`` take them sharded over
+    ``stage``), or per-stage lists, float or ``quantize_params``' int8
+    ``QuantLeaf`` form (then ``model`` is the port's ``quantize_params``
+    copy). Stage ``stage`` of ``n_stages`` keeps its own blocks, the
+    embedding on stage 0 and the head on stage n-1
+    (:func:`~.inference.pipelined.stage_modules`) on ``device`` (default:
+    the model's); the rest of ``model`` goes to the ``meta`` device."""
+    from .inference.pipelined import stage_modules
+    from .parallel.mesh import localize
+
+    stage_params, pre, post = params
+    keep = stage_modules(model, stage, n_stages)
+    if device is None:
+        device = next(p.device for p in model.parameters()
+                      if p.device.type != "meta")
+    localize(model, keep, device)
+    _copy_in(_pipelined_lm_pairs(model, (stage_params, pre, post)))
+
+
 def pipelined_lm_arrays(model, params: Sequence[Any]) -> Dict[str, np.ndarray]:
     """``{name: array}`` over the parameter names of ``model`` (a port
     ``PipelinedTransformer``: the LM, GPT-2, BERT or ViT), from a
@@ -324,13 +371,23 @@ def _flat_blocks(stage_params: Sequence[Any]) -> list:
 
 
 def _first_leaf(tree: Any):
-    while isinstance(tree, dict):
-        tree = next(iter(tree.values()))
+    while isinstance(tree, dict) or _is_quant(tree):
+        tree = tree.q if _is_quant(tree) else next(iter(tree.values()))
     return np.asarray(tree)
 
 
+class _Quant:
+    """One stage's slice of a stacked ``QuantLeaf``."""
+
+    def __init__(self, q, scale):
+        self.q, self.scale = q, scale
+
+
 def _take(tree: Any, j: int) -> Any:
-    """Index ``j`` of the leading (stage) axis of every leaf of ``tree``."""
+    """Index ``j`` of the leading (stage) axis of every leaf of ``tree``
+    (a ``QuantLeaf``'s codes and scales both)."""
     if isinstance(tree, dict):
         return {k: _take(v, j) for k, v in tree.items()}
+    if _is_quant(tree):
+        return _Quant(np.asarray(tree.q)[j], np.asarray(tree.scale)[j])
     return np.asarray(tree)[j]

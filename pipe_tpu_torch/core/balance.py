@@ -57,30 +57,30 @@ def _nbytes(tensors) -> int:
                    if isinstance(t, torch.Tensor)))
 
 
+def _time_once(fn, device: torch.device) -> float:
+    """Seconds of one synchronized call of ``fn`` (CUDA events on the
+    card, the host clock elsewhere)."""
+    if device.type == "cuda":
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end) / 1e3
+    t0 = time.perf_counter()
+    fn()
+    return time.perf_counter() - t0
+
+
 def _timed(fn, device: torch.device, repeat: int, warmup: int) -> float:
     """Median seconds of ``repeat`` synchronized calls of ``fn`` after one
     untimed call and ``warmup`` discarded timed ones."""
-    cuda = device.type == "cuda"
     fn()
-    if cuda:
+    if device.type == "cuda":
         torch.cuda.synchronize(device)
-    samples: List[float] = []
-    for r in range(warmup + repeat):
-        if cuda:
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            fn()
-            end.record()
-            end.synchronize()
-            dt = start.elapsed_time(end) / 1e3
-        else:
-            t0 = time.perf_counter()
-            fn()
-            dt = time.perf_counter() - t0
-        if r >= warmup:
-            samples.append(dt)
-    return statistics.median(samples)
+    samples = [_time_once(fn, device) for _ in range(warmup + repeat)]
+    return statistics.median(samples[warmup:])
 
 
 def profile_times(module, sample, *, backward: bool = True, repeat: int = 3,

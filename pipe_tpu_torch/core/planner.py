@@ -68,6 +68,9 @@ __all__ = ["CostProfile", "Plan", "CalibrationError", "MAX_REL_RESIDUAL",
 # calibrations pipe_tpu committed sit well below (ZB_CROSSOVER_r05:
 # <= 0.06).
 MAX_REL_RESIDUAL = 0.25
+# Rounds of the step fit's round-robin timing: each m's wall is the least
+# of at least this many.
+FIT_ROUNDS = 11
 
 # pipe_tpu's defaults for profiles built without a fresh fit, from its
 # virtual-CPU-mesh calibrations (ZB_CROSSOVER_r05.json, structural split:
@@ -571,9 +574,17 @@ def fit_step_costs(module, sample, profile: CostProfile, *, n_devices: int,
     ``wall(m) = scale * priced(m) + cycles(m) * o`` (``scale`` > 0,
     ``o`` >= 0, ``cycles`` the table's length) gives the returned profile
     its scaled layer costs, ``o`` and the fit's relative residual, which
-    :class:`CostProfile` refuses above :data:`MAX_REL_RESIDUAL`."""
+    :class:`CostProfile` refuses above :data:`MAX_REL_RESIDUAL`.
+
+    The m points are timed round robin: ``warmup`` untimed steps of every
+    m, then at least :data:`FIT_ROUNDS` (or ``repeat``) rounds of one timed
+    step at each m; each m's wall is the least of its rounds. A busy host
+    only lengthens a step, and only the steps it bounds: at a small m the
+    step is device-bound and steady, at a large m host-bound, so a slow
+    stretch of the host that spans several rounds still bends a median of
+    them (``PERF.md`` §6, B.14), and the least is the step's own cost."""
     from ..pipe import Pipe
-    from .balance import _timed
+    from . import balance as _balance
 
     ms = sorted({int(m) for m in m_points})
     if len(ms) < 2:
@@ -581,7 +592,7 @@ def fit_step_costs(module, sample, profile: CostProfile, *, n_devices: int,
     d = int(n_devices)
     balance = split_balance(profile.n_layers, d)
     table = get_schedule("gpipe")
-    priced, cycles, walls = [], [], []
+    priced, cycles, steps = [], [], []
     for m in ms:
         rows = batch_rows if batch_rows is not None else m * profile.rows
         if rows % m:
@@ -595,7 +606,7 @@ def fit_step_costs(module, sample, profile: CostProfile, *, n_devices: int,
             module.zero_grad(set_to_none=True)
             pipe(x, train=True, seed=seed).float().square().mean().backward()
 
-        walls.append(_timed(step, x.device, repeat, warmup))
+        steps.append(step)
         scale = rows / m / profile.rows
         op = table.op_tables(m, d)[0]
         priced.append(predict_wall(
@@ -605,6 +616,20 @@ def fit_step_costs(module, sample, profile: CostProfile, *, n_devices: int,
             d=d, sigma=profile.sigma_legacy, o=0.0, mode=profile.mode,
             recompute=checkpoint != "never"))
         cycles.append(float(op.shape[0]))
+    # Round robin: untimed warm-ups of every m, then each round times one
+    # step at every m.
+    device = sample.device
+    for _ in range(max(int(warmup), 1)):
+        for step in steps:
+            step()
+    if device.type == "cuda":
+        import torch
+        torch.cuda.synchronize(device)
+    samples = [[] for _ in ms]
+    for _ in range(max(int(repeat), FIT_ROUNDS)):
+        for i, step in enumerate(steps):
+            samples[i].append(_balance._time_once(step, device))
+    walls = [min(s) for s in samples]
     module.zero_grad(set_to_none=True)
     a, w = np.array([priced, cycles]).T, np.array(walls)
     (k, o), *_ = np.linalg.lstsq(a, w, rcond=None)

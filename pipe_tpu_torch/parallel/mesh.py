@@ -13,7 +13,10 @@ timeout.
 
 The mesh also moves tensors, in torch's idiom: per-cycle point-to-point
 exchanges with ``dist.batch_isend_irecv`` (every receive posted before any
-send), ``all_reduce`` and ``all_gather``. The backend is the caller's
+send), ``all_reduce`` and ``all_gather``; for the ring decoders
+(``inference/pipelined.py``, ``serve/ring.py``) a shift by one over the
+stage ring (:meth:`Mesh.ring_shift`) and a small broadcast of a host plan
+(:meth:`Mesh.broadcast_plan`). The backend is the caller's
 (``runtime/distributed.py``): over ``nccl`` CUDA tensors go as they are;
 over ``gloo`` a CUDA tensor is staged through a pinned host buffer,
 explicitly, and the staged bytes are counted in :attr:`Mesh.stats` beside
@@ -27,7 +30,7 @@ from __future__ import annotations
 import dataclasses
 import time
 from datetime import timedelta
-from typing import Dict, Iterable, List, Optional, Tuple
+from typing import Dict, Iterable, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -195,6 +198,69 @@ class Mesh:
         if ops:
             for work in dist.batch_isend_irecv(ops):
                 work.wait()
+
+    # --- the stage ring ---
+
+    def ring_shift(self, send: Optional[Sequence[torch.Tensor]] = None,
+                   recv: Optional[Sequence[torch.Tensor]] = None, *,
+                   tag: int = 0) -> None:
+        """One hop round this pipeline's stage ring: the tensors of ``send``
+        go to the next stage (stage n-1's over the wrap edge to stage 0)
+        and the previous stage's land in ``recv``, buffers of the shapes and
+        dtypes the caller's program fixes, written in place. Either may be
+        None: no message that way this hop. A ring message's length is fixed
+        by its program, so no length header goes first; every rank must
+        agree with its neighbours on which messages a hop carries. CUDA
+        tensors are staged as :meth:`exchange` stages them. Counted in
+        :attr:`stats` as point-to-point messages. One stage: the ring is a
+        loop, and ``send`` is copied into ``recv``."""
+        send, recv = list(send or ()), list(recv or ())
+        if not send and not recv:
+            return
+        t0 = time.perf_counter()
+        if self.next == self.rank:
+            for src, dst in zip(send, recv):
+                dst.copy_(src)
+            return
+        land = [self._landing(t, ("ring_recv", k)) for k, t in
+                enumerate(recv)]
+        out = [self._out(t.contiguous(), ("ring_send", k)) for k, t in
+               enumerate(send)]
+        ops = [dist.P2POp(dist.irecv, t, self.prev, tag=tag + k)
+               for k, t in enumerate(land)]
+        ops += [dist.P2POp(dist.isend, t, self.next, tag=tag + k)
+                for k, t in enumerate(out)]
+        for work in dist.batch_isend_irecv(ops):
+            work.wait()
+        for host, dst in zip(land, recv):
+            self._into(host, dst)
+        self.stats.p2p_messages += len(out) + len(land)
+        self.stats.p2p_bytes += sum(t.numel() * t.element_size()
+                                    for t in (*out, *land))
+        self.stats.p2p_s += time.perf_counter() - t0
+
+    def broadcast_plan(self, words: Optional[np.ndarray], n: int,
+                       stage: int = 0) -> np.ndarray:
+        """A host plan of ``n`` int64 words from stage ``stage`` (``words``
+        there, None on the others) to every rank of this pipeline, as
+        numpy: one broadcast of a length the caller's protocol fixes. The
+        ring's driving rank tells the others each call this way."""
+        if self.n_stages == 1:
+            return np.asarray(words, np.int64)
+        dev = self.device if self.backend == "nccl" else torch.device("cpu")
+        buf = torch.zeros(n, dtype=torch.int64, device=dev)
+        if words is not None:
+            w = np.asarray(words, np.int64).reshape(-1)
+            if w.size > n:
+                raise ValueError(f"a plan of {w.size} words does not fit "
+                                 f"the {n} the protocol fixes")
+            buf[:w.size] = torch.from_numpy(w).to(dev)
+        t0 = time.perf_counter()
+        dist.broadcast(buf, src=self.rank_of(stage), group=self.column_group)
+        self.stats.collectives += 1
+        self.stats.collective_bytes += 8 * n
+        self.stats.collective_s += time.perf_counter() - t0
+        return buf.cpu().numpy()
 
     # --- collectives ---
 

@@ -1,4 +1,4 @@
-"""Continuous-batching serving over the port's generator, on one device.
+"""Continuous-batching serving over the port's generator.
 
 Counterpart of the single-device part of ``pipe_tpu/serve``:
 :class:`~.queue.RequestQueue` is the bounded front door (backpressure,
@@ -15,8 +15,10 @@ resident loop (several decode chunks per launch) on the card, whose
 chunks become speculative draft/verify rounds with ``spec_tokens``. The
 fleet router
 (:class:`~.router.Router`, a shim over :mod:`~..fleet`) runs N engines behind
-one front queue with health-gated failover. The ring backend is not ported
-yet (ROADMAP.md A.8). ``apps/serve.py`` is the driver.
+one front queue with health-gated failover. :class:`~.ring.RingSlotBackend`
+serves over a stage ring of ranks, each holding its stage's weights: the
+ring's groups are the slots, and the engine runs on the rank of stage 0.
+``apps/serve.py`` is the driver.
 """
 
 from .buckets import BucketSpec
@@ -24,6 +26,7 @@ from .engine import EngineDraining, ServeEngine, SingleDeviceSlotBackend
 from .kvpool import (Admission, HostKvStore, KvPool, PoolExhausted,
                      block_demand)
 from .queue import QueueFull, Request, RequestQueue, Response
+from .ring import RingSlotBackend, drive_ring
 from .router import (DRAINING, HEALTHY, RETIRED, SUSPECT, WEDGED, Replica,
                      Router, RouterPolicy)
 
@@ -32,4 +35,4 @@ __all__ = ["BucketSpec", "ServeEngine", "SingleDeviceSlotBackend",
            "EngineDraining", "Router", "RouterPolicy", "Replica",
            "HEALTHY", "SUSPECT", "WEDGED", "DRAINING", "RETIRED",
            "KvPool", "PoolExhausted", "Admission", "HostKvStore",
-           "block_demand"]
+           "block_demand", "RingSlotBackend", "drive_ring"]

@@ -655,22 +655,58 @@ class Trainer:
         """Sample continuations of ``prompt [b, prompt_len]`` from
         ``state``'s weights: the trainer's own layers, wrapped by
         ``PipelinedLM.from_sequential`` with no copy, run the KV-cached
-        ``Generator`` (sampling seeded with ``seed``)."""
+        ``Generator`` (sampling seeded with ``seed``). Over a mesh, as
+        ``pipe_tpu`` gathers the stage-stacked params to the host: every
+        rank of a pipeline gathers the whole model over its stage group
+        (:meth:`_gathered_layers`, any layout, interleaved included) and
+        runs the ``Generator`` on it, so every rank returns the same
+        tokens; every rank of the mesh calls it."""
         from ..inference import GenerationConfig, Generator
         from ..ops.layers import Sequential
 
-        if self.mesh is not None:
-            raise NotImplementedError(
-                "Trainer.generate over a mesh is not ported to "
-                "pipe_tpu_torch yet (ROADMAP.md: A.8, inference/pipelined.py"
-                "); generate from a saved checkpoint on one device")
         self._adopt(state)
+        layers = (list(self.pipe) if self.mesh is None
+                  else self._gathered_layers())
         model = PipelinedLM.from_sequential(
-            self.model_cfg, Sequential(list(self.pipe)), self.cfg.n_stages)
+            self.model_cfg, Sequential(layers), self.cfg.n_stages)
         gen = Generator(model, GenerationConfig(
             max_new_tokens=max_new_tokens, temperature=temperature,
             top_k=top_k, num_beams=num_beams))
         return gen.generate(prompt, seed=seed)
+
+    def _gathered_layers(self) -> list:
+        """The whole model's layers on this rank's device, gathered over
+        the stage group: each tensor broadcast from the stage that holds
+        it, into a fresh ``build_sequential`` of the model's config (this
+        trainer's own layers stay as they are)."""
+        import torch.distributed as dist
+
+        mesh = self.mesh
+        seq = build_sequential(self.model_cfg, device=self.device)
+        src = dict(self.pipe.named_parameters())
+        src.update(self.pipe.named_buffers())
+        names = list(src)
+        mine = [n for n in names if src[n].device.type != "meta"]
+        held = [None] * mesh.n_stages
+        dist.all_gather_object(held, mine, group=mesh.column_group)
+        owner = {}
+        for stage, have in enumerate(held):
+            for n in have:
+                owner.setdefault(n, stage)
+        dst = dict(seq.named_parameters())
+        dst.update(seq.named_buffers())
+        # a Pipe tensor's name, partitions.{j}.layers.{i}.*, is layers.{k}.*
+        # in the model's Sequential
+        offsets = np.cumsum([0] + [len(part) for part in
+                                   self.pipe.partitions])
+        with torch.no_grad():
+            for n in names:
+                _, j, _, i, rest = n.split(".", 4)
+                t = mesh.broadcast_from(
+                    src[n].detach() if owner[n] == mesh.stage else None,
+                    owner[n])
+                dst[f"layers.{offsets[int(j)] + int(i)}.{rest}"].copy_(t)
+        return list(seq)
 
     # --- steps ---
 

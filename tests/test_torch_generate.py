@@ -540,7 +540,8 @@ def test_generate_cli_resumes_a_trainer_checkpoint(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("argv,message", [
-    (["--stages", "2"], "A.8"),
+    (["--stages", "2", "--batch", "3"],
+     "--batch 3 must divide into --stages 2 ring groups"),
     (["--prompts-file", "p.txt"], "no such file"),
     (["--context-shards", "2"], "A.10"),
     (["--family", "gpt2", "--context-shards", "2"], "A.10"),

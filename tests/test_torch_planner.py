@@ -327,20 +327,27 @@ def test_profile_model_and_auto_plan_feed_pipe():
 
 
 def _stub_walls(monkeypatch, walls):
-    """Time the fit's steps by ``walls`` (one a point, in the order of m),
-    running each step once, as the real timer does first."""
-    it = iter(walls)
+    """Time the fit's steps by ``walls`` (one a point, in the order of m; a
+    point may be a list, one wall a round), running each step as the real
+    timer does; the fit times its m points round robin, so ``ran`` lists
+    the chunks of every timed step in turn."""
+    ms = []
     ran = []
-    real = tbal._timed
+    real = tbal._time_once
 
-    def timed(fn, device, repeat, warmup):
+    def timed(fn, device):
         if not isinstance((fn.__defaults__ or (None,))[0], Pipe):
-            return real(fn, device, repeat, warmup)    # a layer's profile
+            return real(fn, device)                    # a layer's profile
         fn()
-        ran.append(fn.__defaults__[0].chunks)
-        return next(it)
+        m = fn.__defaults__[0].chunks
+        ran.append(m)
+        if m not in ms:
+            ms.append(m)
+        w = walls[sorted(ms).index(m)] if len(ms) == len(walls) \
+            else walls[len(ms) - 1]
+        return w[ran.count(m) - 1] if isinstance(w, list) else w
 
-    monkeypatch.setattr(tbal, "_timed", timed)
+    monkeypatch.setattr(tbal, "_time_once", timed)
     return ran
 
 
@@ -364,7 +371,7 @@ def test_fit_step_costs_recovers_scale_and_overhead(monkeypatch, k, o):
     seq, x, prof, ran, priced, cycles = _fit_case(monkeypatch, k, o)
     fit = tplan.fit_step_costs(seq, x, prof, n_devices=2, m_points=(8, 2, 4),
                                batch_rows=8, checkpoint="except_last")
-    assert ran == [2, 4, 8]
+    assert ran == [2, 4, 8] * tplan.FIT_ROUNDS
     assert fit.o == pytest.approx(o, abs=1e-12)
     assert fit.layer_fwd_s == pytest.approx([k * 1e-3] * 6)
     assert fit.layer_bwd_s == pytest.approx([k * 2e-3] * 6)
@@ -375,6 +382,36 @@ def test_fit_step_costs_recovers_scale_and_overhead(monkeypatch, k, o):
                          checkpoint="except_last", uniform_only=True)
     assert [p.predicted_step_s for p in plans] == pytest.approx(
         [k * priced + c * o for c in cycles])
+
+
+def test_fit_step_costs_takes_each_ms_least_wall(monkeypatch):
+    """A slow stretch of the host over all but the first and last rounds
+    lengthens only the host-bound large-m steps (the m 2 step stays
+    device-bound): each m's wall is the least of its rounds, so the fit is
+    the clean walls' (a median of the rounds would bend the curve and
+    refuse it)."""
+    k, o = 0.5, 2e-3
+    cycles = [get_schedule("gpipe").op_tables(m, 2)[0].shape[0]
+              for m in (2, 4, 8)]
+    priced = 8 / 4 * 6 * (1e-3 + 2e-3 + 1e-3)
+    clean = [k * priced + c * o for c in cycles]
+    slow = (1.0, 1.3, 2.5)                  # the host's stretch, per m
+    walls = [[w * (f if 0 < r < tplan.FIT_ROUNDS - 1 else 1.0)
+              for r in range(tplan.FIT_ROUNDS)]
+             for w, f in zip(clean, slow)]
+    _stub_walls(monkeypatch, walls)
+    seq, x = _seq(width=16, n=6), torch.randn(4, 16)
+    prof = tplan.uniform_profile(6, rows=4, f=1e-3, o_over_f=0.0,
+                                 mode="serialized")
+    fit = tplan.fit_step_costs(seq, x, prof, n_devices=2, m_points=(2, 4, 8),
+                               batch_rows=8, checkpoint="except_last")
+    assert fit.o == pytest.approx(o, abs=1e-12)
+    assert fit.layer_fwd_s == pytest.approx([k * 1e-3] * 6)
+    assert fit.rel_residual == pytest.approx(0.0, abs=1e-9)
+    medians = [float(np.median(w)) for w in walls]
+    a = np.array([[priced] * 3, cycles], dtype=float).T
+    (k_median, _), *_ = np.linalg.lstsq(a, np.array(medians), rcond=None)
+    assert k_median <= 0
 
 
 def test_fit_step_costs_without_growth_fits_no_overhead(monkeypatch):
@@ -418,7 +455,7 @@ def test_auto_plan_ranks_m_by_the_fitted_overhead(monkeypatch):
     plan = tplan.auto_plan(seq, x, n_devices=2, m_candidates=(2, 4, 8),
                            batch_rows=8, schedules=("gpipe",),
                            checkpoint="except_last")
-    assert ran == [2, 4, 8]
+    assert ran == [2, 4, 8] * tplan.FIT_ROUNDS
     assert plan.profile_source == "profile_model+steps"
     assert plan.m == 2 and plan.predicted_step_s == pytest.approx(3e-3,
                                                                  rel=0.2)

@@ -627,7 +627,7 @@ def test_generate_cli_prompts_file_serves_through_the_engine(
 
 
 @pytest.mark.parametrize("argv,message", [
-    (["--stages", "2"], "A.8, serve/ring.py"),
+    (["--stages", "2", "--replicas", "2"], "A.8, the mesh carve"),
     (["--journal", "j"], "--journal requires --fleet proc with --replicas"),
     (["--replicas", "2", "--fleet", "proc", "--family", "gpt2"],
      r"--fleet proc requires --family lm without --resume/--spec-tokens"),
