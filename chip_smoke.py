@@ -74,19 +74,35 @@ exits non-zero without a result line:
    from it takes steps 4-8 with the plain run's losses, bit for bit.
 5b. schedules -- the table executor (``parallel/scheduled.py``) over the
    same LM at full width, with the kernels. (a) Dropout 0: one step of the
-   gpipe, 1f1b and zb-h1 tables under except_last and under never, from one
-   set of weights, against the emulator ``Pipe`` path's ``lm_loss``
-   backward: loss within 1e-5 relative, every gradient within 1e-4 x
-   max(1, max|g|). (b) Dropout 0.2: 8 ``Trainer`` steps each of the table
-   gpipe (except_last), 1f1b (except_last), zb-h1 (never) and 1f1b (never,
-   zb-h1's yardstick): losses finite, every trajectory within 1e-4
-   relative of the table gpipe's (one seed, the same masks). (c) Each run's forward, dQ and
-   dK/dV launches equal what its tables imply (``stage_passes`` x 8 layers
-   a stage), pinned exactly. (d) Under never, one step's peak memory for
-   the emulator gpipe, the table gpipe and the table 1f1b (after a warm-up
-   step, Adam state resident): 1f1b's below the table gpipe's. (e) Per
-   schedule: ms per step (mean of steps 2-8, each ending in a
-   synchronize), train tokens/s and peak bytes, with ``memory_plan``.
+   gpipe, 1f1b and zb-h1 tables under except_last and under never (zb-h1
+   under never twice: the stored-graph split, ``split_stage=None``, and
+   the structural split, ``split_stage="auto"``), from one set of weights,
+   against the emulator ``Pipe`` path's ``lm_loss`` backward: loss within
+   1e-5 relative, every gradient within 1e-4 x max(1, max|g|); the
+   structural twin within the same bounds of the stored-graph twin too,
+   its dQ and dK/dV launched 64 times (2 stages x 4 micro-batches x 8
+   layers). (b) Dropout 0.2: 8 ``Trainer`` steps each of the table gpipe
+   (except_last), 1f1b (except_last), zb-h1 (never: the Trainer's
+   structural split, and the stored-graph split) and 1f1b (never, zb-h1's
+   yardstick): losses finite, every trajectory within 1e-4 relative of
+   the table gpipe's (one seed, the same masks). (c) Each run's forward, dQ
+   and dK/dV launches equal what its tables imply (``stage_passes`` x 8
+   layers a stage), pinned exactly; one micro-batch of stage 1 under
+   ``core.remat.count_dots``: the tapped forward dispatches the plain
+   forward's matrix products, W exactly the 48 weight-gradient products
+   (6 a block), B the fused backward's less those, and W launches neither
+   dQ nor dK/dV; each pass's host time to enqueue it and time to the end
+   of its device work (least of 5). (d) Under never, one step's peak
+   memory for the emulator gpipe, the table gpipe and the table 1f1b
+   (after a warm-up step, Adam state resident): 1f1b's below the table
+   gpipe's. (e) Per schedule: ms
+   per step (mean of steps 2-8, each ending in a synchronize), train
+   tokens/s and peak bytes, with ``memory_plan``, and per step the
+   allocator's new device segments (``num_device_alloc``), the garbage
+   collector's pauses and the bytes still allocated at its end; under
+   never, the forward-only walk's ms
+   (``ScheduledPipeline.forward``, mean of 3 after one) and sigma = (step -
+   walk) / (1f1b/never's step - its walk) of both splits.
 5c. gpt2 -- GPT-2-small at its published width (vocab 50,257, d_model 768,
    12 heads, d_ff 3,072, 12 layers, seq 1,024, dropout 0.1; untied head,
    ~163.0M parameters; random weights and tokens from seeds) built with the
@@ -307,7 +323,10 @@ exits non-zero without a result line:
    1e-4 x max(1, max|g|); (b) eval logits through ``SpmdPipeline`` and
    ``Pipe(mesh=)`` against the one-device ``Pipe`` eval, within the same
    bound; (c) each rank's forward, dQ and dK/dV launches equal to its
-   column of the tables (``stage_passes(column=)`` x 8 layers); (d) 8
+   column of the tables (``stage_passes(column=)`` x 8 layers); (e) one
+   step of the Trainer's zb-h1 under never (the structural B/W split, W on
+   each rank's own column) against the one-device table executor with
+   ``split_stage="auto"``, within (a)'s bounds, launches as (c); (d) 8
    ``Trainer`` steps with ``zero=True`` (1f1b) with finite, falling losses,
    its parameters after 3 steps within the gradient bound of the plain
    Adam's, and ``apps.lm_tutorial --world 4 --schedule interleaved`` for 8
@@ -397,10 +416,19 @@ TRAIN_STEPS = 8
 TRAIN_LR = 1e-4          # lr 5.0 (the reference's) diverges at full width
 # Schedules phase: (schedule, checkpoint) of the dropout-0 twins and of the
 # 8-step trajectories; the first trajectory is the one the others are held to.
+# A third entry "stored-graph" runs zb-h1/never's stored-graph split
+# (split_stage=None) where the Trainer and the structural twin run the
+# structural one; SPLIT_SIGMA_RUNS are the runs whose sigma is printed
+# against the 1f1b/never run's, over FWD_WALKS timed forward-only walks.
 SCHED_TWINS = [(s, c) for s in ("gpipe", "1f1b", "zb-h1")
-               for c in ("except_last", "never")]
+               for c in ("except_last", "never")] + [
+                   ("zb-h1", "never", "structural")]
 SCHED_RUNS = (("gpipe", "except_last"), ("1f1b", "except_last"),
-              ("zb-h1", "never"), ("1f1b", "never"))
+              ("zb-h1", "never"), ("zb-h1", "never", "stored-graph"),
+              ("1f1b", "never"))
+SPLIT_SIGMA_RUNS = ("zb-h1/never", "zb-h1/never/stored-graph")
+FWD_WALKS = 3
+SPLIT_TIME_REPS = 5      # gate (c)'s host and device times of each pass
 TOL_SCHED_LOSS = 1e-5    # twin loss, relative to the emulator's
 TOL_SCHED_GRAD = 1e-4    # twin gradient, of max(1, max|g|) per parameter
 TOL_SCHED_TRAJ = 1e-4    # trajectory, relative to the table gpipe's
@@ -1693,10 +1721,32 @@ def phase_train_obs(smi: str) -> dict:
     return runs
 
 
-def _sched_trainer(cfg, schedule, checkpoint):
+@contextlib.contextmanager
+def _gc_pauses():
+    """The seconds of each garbage-collector pass while the block runs
+    (``gc.callbacks``), as a list filled in place."""
+    import gc
+
+    pauses, started = [], []
+
+    def timer(phase, info):
+        if phase == "start":
+            started.append(time.perf_counter())
+        elif started:
+            pauses.append(time.perf_counter() - started.pop())
+
+    gc.callbacks.append(timer)
+    try:
+        yield pauses
+    finally:
+        gc.callbacks.remove(timer)
+
+
+def _sched_trainer(cfg, schedule, checkpoint, split=None):
     """A ``Trainer`` whose table executor runs ``schedule`` (gpipe through
     the tables too: the trainer is built for 1f1b, then its executor is
-    replaced over the same modules)."""
+    replaced over the same modules); ``split="stored-graph"``: zb-h1/never
+    with the stored-graph split in place of the Trainer's structural one."""
     from pipe_tpu_torch.train.loop import Trainer, TrainerConfig
 
     tcfg = TrainerConfig(batch_size=TRAIN_BATCH, bptt=BPTT, chunks=CHUNKS,
@@ -1707,7 +1757,101 @@ def _sched_trainer(cfg, schedule, checkpoint):
     if schedule == "gpipe":
         trainer.scheduled = dataclasses.replace(trainer.scheduled,
                                                 schedule="gpipe")
+    if split == "stored-graph":
+        trainer.scheduled = dataclasses.replace(trainer.scheduled,
+                                                split_stage=None)
     return trainer
+
+
+def _split_dots(model, lps: int) -> dict:
+    """Gate (c) of phase 5b: one micro-batch (8 rows) of stage 1 of
+    ``model`` at full width, once fused (forward, then the whole backward)
+    and once split (the tapped forward, B, W), each under ``count_dots``;
+    the attention backward launches during W."""
+    from pipe_tpu_torch.core.partition import StageCtx
+    from pipe_tpu_torch.core.remat import count_dots, split_backward_stage
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    rows = TRAIN_BATCH // CHUNKS
+    h = torch.randn(rows, BPTT, model.cfg.d_model, device="cuda",
+                    generator=gen)
+    seed = torch.randn(h.shape, device="cuda", generator=gen)
+    ctx = StageCtx(train=True, stage=1)
+    h0 = h.clone().requires_grad_(True)
+    with count_dots() as f_fwd:
+        out = model.stage_fn(1, h0, ctx)
+    with count_dots() as fused:
+        out.backward(seed)
+    model.zero_grad(set_to_none=True)
+    split = split_backward_stage(model.stage_fn, model)
+    h1 = h.clone().requires_grad_(True)
+    with count_dots() as s_fwd:
+        out, ys, taps = split.tapped_fn(1, h1, ctx)
+    with count_dots() as b:
+        got = torch.autograd.grad(out, [h1, *ys], seed, allow_unused=True)
+    torch.cuda.synchronize()
+    _zero_launches()
+    with count_dots() as w:
+        pairs = split.wgrad_fn(1, taps, list(got[1:]))
+        torch.autograd.backward([t for t, _ in pairs], [g for _, g in pairs])
+    torch.cuda.synchronize()
+    w_launches = _launch_counts()
+    model.zero_grad(set_to_none=True)
+    res = dict(forward_fused=f_fwd.count, forward_tapped=s_fwd.count,
+               fused_backward=fused.count, b=b.count, w=w.count,
+               weight_products=6 * lps, w_launches=w_launches)
+    log("schedules", gate="c", **res)
+    if not (res["forward_fused"] == res["forward_tapped"]
+            and res["w"] == res["weight_products"]
+            and res["b"] + res["w"] == res["fused_backward"]
+            and res["b"] == res["fused_backward"] - res["weight_products"]
+            and w_launches["flash_attention_bwd_dq"] == 0
+            and w_launches["flash_attention_bwd_dkv"] == 0):
+        raise AssertionError(f"schedules (c): the split's products {res}")
+    _split_times(model, split, h, seed, ctx)
+    return res
+
+
+def _split_times(model, split, h, seed, ctx, reps: int = SPLIT_TIME_REPS):
+    """Where the split's time goes on one micro-batch of stage 1: per pass
+    (the plain forward and the fused backward; the tapped forward, B and
+    W), the host's time to enqueue it (no synchronize) and its time to the
+    end of its device work (a synchronize), each the least over ``reps``
+    repetitions after a first one (which builds the split's plan)."""
+    best: dict = {}
+
+    def timed(name, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        host = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        if k:
+            old = best.get(name, (math.inf, math.inf))
+            best[name] = (min(old[0], host * 1e3),
+                          min(old[1], (time.perf_counter() - t0) * 1e3))
+        return out
+
+    for k in range(reps + 1):
+        h0 = h.clone().requires_grad_(True)
+        out = timed("forward", lambda: model.stage_fn(1, h0, ctx))
+        timed("fused_backward", lambda: out.backward(seed))
+        model.zero_grad(set_to_none=True)
+        h1 = h.clone().requires_grad_(True)
+        out, ys, taps = timed("tapped_forward",
+                              lambda: split.tapped_fn(1, h1, ctx))
+        got = timed("b", lambda: torch.autograd.grad(
+            out, [h1, *ys], seed, allow_unused=True))
+        del out, ys
+
+        def w_pass():
+            pairs = split.wgrad_fn(1, taps, list(got[1:]))
+            torch.autograd.backward([t for t, _ in pairs],
+                                    [g for _, g in pairs])
+        timed("w", w_pass)
+        model.zero_grad(set_to_none=True)
+    log("schedules", gate="c", times=f"host_ms/ms, least of {reps}",
+        **{name: f"{host:.2f}/{ms:.2f}" for name, (host, ms) in best.items()})
 
 
 def _expected_launches(executor, lps: int, steps: int = 1,
@@ -1755,11 +1899,13 @@ def phase_schedules() -> dict:
     ref = [p.grad.clone() for p in trainer.model.parameters()]
     scale = [max(1.0, g.abs().max().item()) for g in ref]
     base = trainer.scheduled
-    for schedule, checkpoint in SCHED_TWINS:
+    stored = None
+    for schedule, checkpoint, *split in SCHED_TWINS:
         with warnings.catch_warnings():
             warnings.simplefilter("ignore")     # zb-h1 under except_last
             ex = dataclasses.replace(base, schedule=schedule,
-                                     checkpoint=checkpoint)
+                                     checkpoint=checkpoint,
+                                     split_stage="auto" if split else None)
         trainer.optimizer.zero_grad(set_to_none=True)
         _zero_launches()
         loss, grads = ex.loss_and_grad(x, w, seed=SEED)
@@ -1770,10 +1916,33 @@ def phase_schedules() -> dict:
                 for n, g, m in zip(names, ref, scale)]
         worst = max(errs)
         rel = abs(loss - loss_ref) / abs(loss_ref)
-        log("schedules", twin=f"{schedule}/{checkpoint}", dropout=0.0,
-            loss=f"{loss:.9f}", emulator_loss=f"{loss_ref:.9f}",
+        log("schedules", twin="/".join([schedule, checkpoint, *split]),
+            dropout=0.0, loss=f"{loss:.9f}", emulator_loss=f"{loss_ref:.9f}",
             loss_rel=f"{rel:.3e}", max_grad_err_of_scale=f"{worst:.3e}",
             worst_param=names[errs.index(worst)], **launches)
+        if (schedule, checkpoint) == ("zb-h1", "never") and not split:
+            stored = (loss, {n: grads[n].clone() for n in names})
+        elif split:
+            # (a) the structural split against the stored-graph twin too;
+            # (b) dQ and dK/dV once a micro-batch, stage and layer
+            s_rel = abs(loss - stored[0]) / abs(stored[0])
+            s_worst = max((grads[n] - stored[1][n]).abs().max().item()
+                          / max(1.0, stored[1][n].abs().max().item())
+                          for n in names)
+            log("schedules", twin="zb-h1/never/structural",
+                against="zb-h1/never (stored-graph)",
+                loss_rel=f"{s_rel:.3e}",
+                max_grad_err_of_scale=f"{s_worst:.3e}")
+            if not (s_rel <= TOL_SCHED_LOSS and s_worst <= TOL_SCHED_GRAD):
+                raise AssertionError(
+                    f"structural twin off the stored-graph twin: loss rel "
+                    f"{s_rel:.3e}, gradients {s_worst:.3e}")
+            per_step = N_STAGES * CHUNKS * lps
+            if not (launches["flash_attention_bwd_dq"]
+                    == launches["flash_attention_bwd_dkv"] == per_step):
+                raise AssertionError(
+                    f"structural twin launched {launches}: dQ and dK/dV "
+                    f"must run {per_step} times a step")
         if not rel <= TOL_SCHED_LOSS:
             raise AssertionError(f"{schedule}/{checkpoint} twin loss {loss} "
                                  f"is not within {TOL_SCHED_LOSS} of the "
@@ -1786,28 +1955,37 @@ def phase_schedules() -> dict:
             raise AssertionError(f"{schedule}/{checkpoint} launched "
                                  f"{launches}, its tables imply "
                                  f"{_expected_launches(ex, lps)}")
-    del trainer, ref, grads, base, ex
+    # (c) the split's matrix products on one micro-batch of one stage
+    _split_dots(trainer.model, lps)
+    del trainer, ref, grads, base, ex, stored
     torch.cuda.empty_cache()
 
-    # (b, c, e) dropout 0.2: 8 Trainer steps a schedule, one seed
-    runs, by_schedule = {}, {}
-    for schedule, checkpoint in SCHED_RUNS:
-        key = f"{schedule}/{checkpoint}"
+    # (b, d, e) dropout 0.2: 8 Trainer steps a schedule, one seed; under
+    # never, the forward-only walk too (sigma)
+    runs, by_schedule, steady_s, fwd_s = {}, {}, {}, {}
+    for schedule, checkpoint, *split in SCHED_RUNS:
+        key = "/".join([schedule, checkpoint, *split])
         t0 = time.perf_counter()
-        trainer = _sched_trainer(cfg, schedule, checkpoint)
+        trainer = _sched_trainer(cfg, schedule, checkpoint, *split)
         state = trainer.init_state()
         torch.cuda.synchronize()
         setup_s = time.perf_counter() - t0
         _zero_launches()
         torch.cuda.reset_peak_memory_stats()
-        losses, step_s = [], []
+        losses, step_s, mallocs, gc_s, held = [], [], [], [], []
         for b in range(TRAIN_STEPS):
-            t_step = time.perf_counter()
-            state, info = trainer.train_epoch(source, epoch=0, state=state,
-                                              max_steps=b + 1, start_step=b,
-                                              log_every=0)
-            torch.cuda.synchronize()
-            step_s.append(time.perf_counter() - t_step)
+            n_malloc = torch.cuda.memory_stats()["num_device_alloc"]
+            with _gc_pauses() as pauses:
+                t_step = time.perf_counter()
+                state, info = trainer.train_epoch(
+                    source, epoch=0, state=state, max_steps=b + 1,
+                    start_step=b, log_every=0)
+                torch.cuda.synchronize()
+                step_s.append(time.perf_counter() - t_step)
+            gc_s.append(sum(pauses))
+            mallocs.append(torch.cuda.memory_stats()["num_device_alloc"]
+                           - n_malloc)
+            held.append(torch.cuda.memory_allocated())
             losses.append(info["loss"])
         launches = _launch_counts()
         peak = torch.cuda.max_memory_allocated()
@@ -1815,12 +1993,26 @@ def phase_schedules() -> dict:
         expected = _expected_launches(trainer.scheduled, lps, TRAIN_STEPS)
         runs[key] = losses
         by_schedule[key] = launches
+        steady_s[key] = steady
+        if checkpoint == "never":
+            for k in range(FWD_WALKS + 1):          # the first warms up
+                torch.cuda.synchronize()
+                t_walk = time.perf_counter()
+                with torch.no_grad():
+                    trainer.scheduled.forward(x, seed=SEED, train=True)
+                torch.cuda.synchronize()
+                if k:
+                    fwd_s[key] = fwd_s.get(key, 0.0) + (
+                        time.perf_counter() - t_walk) / FWD_WALKS
         log("schedules", run=key, dropout=cfg.dropout, steps=TRAIN_STEPS,
             losses=[f"{l:.6f}" for l in losses],
             ms_per_step=[f"{t * 1e3:.1f}" for t in step_s],
             steady_ms_per_step=f"{steady * 1e3:.1f}",
             train_tokens_per_s=f"{tokens_per_step / steady:.1f}",
-            peak_bytes=peak, setup_s=f"{setup_s:.2f}",
+            peak_bytes=peak, setup_s=f"{setup_s:.2f}", cuda_mallocs=mallocs,
+            gc_pause_ms=[f"{t * 1e3:.1f}" for t in gc_s], held_bytes=held,
+            forward_walk_ms=(f"{fwd_s[key] * 1e3:.1f}" if key in fwd_s
+                             else None),
             memory_plan=trainer.scheduled.memory_plan(CHUNKS), **launches)
         if not all(math.isfinite(l) for l in losses):
             raise AssertionError(f"{key}: non-finite training loss {losses}")
@@ -1830,6 +2022,16 @@ def phase_schedules() -> dict:
                                  f"{expected}")
         del trainer, state
         torch.cuda.empty_cache()
+    # (d) sigma of each split: its backward's time over 1f1b/never's
+    base_key = "1f1b/never"
+    for key in SPLIT_SIGMA_RUNS:
+        sigma = ((steady_s[key] - fwd_s[key])
+                 / (steady_s[base_key] - fwd_s[base_key]))
+        log("schedules", sigma=key, against=base_key, value=f"{sigma:.4f}",
+            step_ms=f"{steady_s[key] * 1e3:.2f}",
+            forward_walk_ms=f"{fwd_s[key] * 1e3:.2f}",
+            base_step_ms=f"{steady_s[base_key] * 1e3:.2f}",
+            base_forward_walk_ms=f"{fwd_s[base_key] * 1e3:.2f}")
     ref_key = "/".join(SCHED_RUNS[0])
     for key, losses in runs.items():
         rel = max(abs(a - b) / abs(b) for a, b in zip(losses, runs[ref_key]))
@@ -4602,6 +4804,10 @@ MESH_THREADS = 2            # each rank's CPU threads (4 ranks, 8 cores)
 MESH_TIMEOUT_S = 600.0
 TOL_MESH_LOSS = 1e-5        # relative, against the one-device table walk
 TOL_MESH_GRAD = 1e-4        # of max(1, max|g|) per parameter
+# The Trainer's table executors held to their one-device twins: (schedule,
+# checkpoint); zb-h1 under never runs the structural B/W split.
+MESH_TRAINER_RUNS = (("gpipe", "except_last"), ("1f1b", "except_last"),
+                     ("zb-h1", "never"))
 
 
 def _mesh_cfg(vocab: int, dropout: float = DROPOUT):
@@ -4635,8 +4841,9 @@ def _grad_err(got: dict, ref: dict) -> float:
 def _mesh_refs(tmp: str, vocab: int, x, w, eval_tokens) -> dict:
     """The one-device twins: one step of the LM's gpipe and 1f1b tables and
     of the ``Pipe`` partitions' (``HeteroScheduledPipeline``), except_last,
-    dropout 0.2, from the weights the ranks get; the eval logits. Each
-    reference goes to a file the ranks read."""
+    and of its zb-h1 table under never with the structural split, dropout
+    0.2, from the weights the ranks get; the eval logits. Each reference
+    goes to a file the ranks read."""
     from pipe_tpu_torch import Pipe
     from pipe_tpu_torch.models.common import per_row_ce
     from pipe_tpu_torch.models.transformer_lm import (PipelinedLM,
@@ -4659,33 +4866,35 @@ def _mesh_refs(tmp: str, vocab: int, x, w, eval_tokens) -> dict:
                 device="cuda")
     tokens, targets = x["tokens"].reshape(-1, BPTT), x["targets"].reshape(
         -1, BPTT)
-    for sched in ("gpipe", "1f1b"):
-        for kind in ("trainer", "pipe"):
-            for p in params.values():
-                p.grad = None
-            t0 = time.perf_counter()
-            if kind == "trainer":
-                ex = ScheduledPipeline(
-                    model.stage_fn, model.pre_fn, model.loss_post_fn,
-                    n_stages=MESH_STAGES, module=model,
-                    checkpoint="except_last", schedule=sched, device="cuda")
-                loss, _ = ex.loss_and_grad(x, w, seed=MESH_STEP_SEED)
-            else:
-                ex = HeteroScheduledPipeline(
-                    pipe.partitions, pipe.skip_layout, CHUNKS, "except_last",
-                    sched, device="cuda")
-                loss, _ = ex.loss_and_grad(tokens, targets=targets,
-                                           loss_fn=per_row_ce,
-                                           seed=MESH_STEP_SEED)
-            torch.cuda.synchronize()
-            ms = (time.perf_counter() - t0) * 1e3
-            torch.save({"loss": float(loss),
-                        "grads": {n: p.grad.detach().cpu()
-                                  for n, p in params.items()}},
-                       os.path.join(tmp, f"ref_{kind}_{sched}.pt"))
-            out[(kind, sched)] = float(loss)
-            log("mesh", twin=f"{kind}/{sched}", loss=f"{float(loss):.6f}",
-                one_device_step_ms=f"{ms:.1f}")
+    runs = [(kind, sched, "except_last") for sched in ("gpipe", "1f1b")
+            for kind in ("trainer", "pipe")]
+    for kind, sched, ckpt in runs + [("trainer", "zb-h1", "never")]:
+        for p in params.values():
+            p.grad = None
+        t0 = time.perf_counter()
+        if kind == "trainer":
+            ex = ScheduledPipeline(
+                model.stage_fn, model.pre_fn, model.loss_post_fn,
+                n_stages=MESH_STAGES, module=model, checkpoint=ckpt,
+                schedule=sched, device="cuda",
+                split_stage="auto" if sched == "zb-h1" else None)
+            loss, _ = ex.loss_and_grad(x, w, seed=MESH_STEP_SEED)
+        else:
+            ex = HeteroScheduledPipeline(
+                pipe.partitions, pipe.skip_layout, CHUNKS, "except_last",
+                sched, device="cuda")
+            loss, _ = ex.loss_and_grad(tokens, targets=targets,
+                                       loss_fn=per_row_ce,
+                                       seed=MESH_STEP_SEED)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        torch.save({"loss": float(loss),
+                    "grads": {n: p.grad.detach().cpu()
+                              for n, p in params.items()}},
+                   os.path.join(tmp, f"ref_{kind}_{sched}.pt"))
+        out[(kind, sched)] = float(loss)
+        log("mesh", twin=f"{kind}/{sched}/{ckpt}", loss=f"{float(loss):.6f}",
+            one_device_step_ms=f"{ms:.1f}")
     with torch.no_grad():
         logits = pipe(eval_tokens)
     torch.save(logits.cpu(), os.path.join(tmp, "ref_logits.pt"))
@@ -4701,9 +4910,9 @@ def _rank_counts() -> dict:
 
 
 def _mesh_rank_steps(tmp: str, vocab: int) -> dict:
-    """On each rank: gates (a)-(c) over the world (the Trainer's gpipe and
-    1f1b executors and ``Pipe(mesh=)``'s, one step each, and the eval
-    forwards), against the twins' files."""
+    """On each rank: gates (a)-(c) and (e) over the world (the Trainer's
+    gpipe, 1f1b and zb-h1/never executors and ``Pipe(mesh=)``'s, one step
+    each, and the eval forwards), against the twins' files."""
     import torch.distributed as dist
 
     from pipe_tpu_torch import Pipe
@@ -4747,11 +4956,11 @@ def _mesh_rank_steps(tmp: str, vocab: int) -> dict:
             ms=ms, peak_bytes=torch.cuda.max_memory_allocated(),
             transport=mesh.stats.as_dict())
 
-    for sched in ("gpipe", "1f1b"):
+    for sched, ckpt in MESH_TRAINER_RUNS:
         tr = Trainer(cfg, TrainerConfig(
             batch_size=TRAIN_BATCH, bptt=BPTT, chunks=CHUNKS,
             n_stages=MESH_STAGES, n_data=MESH_DATA, schedule=sched,
-            checkpoint="except_last", lr=TRAIN_LR))
+            checkpoint=ckpt, lr=TRAIN_LR))
         _load_layers(tr.pipe, weights)
         params = _layer_params(tr.pipe)
         run(f"trainer/{sched}", tr.scheduled, lambda: tr.scheduled.loss_and_grad(

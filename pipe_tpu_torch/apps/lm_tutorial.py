@@ -16,7 +16,8 @@ Usage (mirrors ``python main.py <checkpoint-mode>``, ``main.py:164-169``):
 
 ``--schedule gpipe`` trains through ``Pipe``; ``1f1b``, ``zb-h1`` and
 ``interleaved-1f1b`` (``--interleave`` virtual stages a stage) through the
-table executor (``parallel/scheduled.py``), ``interleaved`` through the
+table executor (``parallel/scheduled.py``; zb-h1 under ``never`` with the
+structural B/W split), ``interleaved`` through the
 interleaved wavefront's tables (``parallel/interleaved.py``).
 ``--plan`` resolves a planner plan (``core/planner.py``; ``auto`` searches
 schedule x chunks over the cost model and overrides ``--schedule`` and

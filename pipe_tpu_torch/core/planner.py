@@ -32,10 +32,10 @@ profile it ranks the same plans as ``pipe_tpu``'s, JSON for JSON
 On one device every stage shares the card, so a step costs the sum of its
 ops: the honest mode is ``serialized``, which ``Trainer(plan="auto")`` uses
 (``pipe_tpu`` picks ``parallel`` on an accelerator, where a stage is a chip;
-ROADMAP.md C.9). The port's zb-h1 under ``never`` runs the stored-graph B/W
-split (C.7), which the search prices as ``split_stage=False``
-(``sigma_legacy``); ``split_stage=True`` plans price the structural split of
-A.8, which ``Pipe`` refuses.
+ROADMAP.md C.9). The ``Trainer``'s zb-h1 under ``never`` runs the
+structural B/W split (``split_stage="auto"``), which ``split_stage=True``
+plans price; ``Pipe(plan=)`` warns on such a plan and runs the stored-graph
+split, as ``pipe_tpu``'s ``Pipe`` runs its stored-vjp one.
 """
 
 from __future__ import annotations

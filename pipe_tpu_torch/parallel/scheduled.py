@@ -29,11 +29,21 @@ table), the op runs:
   first rebuilds the post's graph from the parked output and seeds it with
   ``1 / sum(w)``. The stage-input cotangent goes to stage ``s - 1``;
   parameter gradients accumulate into ``.grad``.
-* **WGRAD** (split tables, ``zb-h1``): under ``checkpoint="never"`` B takes
-  only the input cotangent from the retained graph (``retain_graph=True``)
-  and parks its seed in slot ``i % wstash_slots``; W takes the parameter
-  gradients from the same graph and seed (JAX's stored-vjp ``split_dce``
-  path). In recompute modes the whole backward runs at B and W is idle.
+* **WGRAD** (split tables, ``zb-h1``): under ``checkpoint="never"``, with
+  ``split_stage`` set (:class:`SplitBackwardStage`, or ``"auto"``:
+  ``core.remat.split_backward_stage``), the structural split: FWD runs the
+  tapped body (weights enter its products detached), B takes the input
+  cotangent and the cotangents at the products' outputs in one
+  ``torch.autograd.grad`` and parks them in slot ``i % wstash_slots``, and
+  W turns them and the taps into weight gradients, with nothing but the
+  weight-gradient products (JAX's ``SplitBackwardStage`` path). Stage 0's B
+  runs too (W needs its cotangents), and the pre's and post's parameters
+  get their gradients at B. Without ``split_stage`` the stored-graph split:
+  B takes only the input cotangent from the retained graph
+  (``retain_graph=True``) and parks its seed; W takes the parameter
+  gradients from the same graph and seed, walking the data-side backward
+  again (JAX's stored-vjp path). In recompute modes the whole backward runs
+  at B and W is idle.
 * **IDLE** does nothing.
 
 **Skip lanes** (:class:`SkipLanes`, the cross-stage ``@skippable`` carries):
@@ -80,9 +90,9 @@ host, as JAX hoists it. After the walk the parameter gradients are summed
 over the data group (one flat buffer per dtype), the loss over the world
 and the stats over the data group, as JAX's psums over ``DATA_AXIS`` do.
 
-The structural split, context parallelism, tensor-parallel specs,
-overlapped transport and phase compilation (A.8) are not ported: their
-fields raise ``NotImplementedError`` when set.
+Context parallelism, tensor-parallel specs, overlapped transport and phase
+compilation (A.8) are not ported: their fields raise ``NotImplementedError``
+when set.
 """
 
 from __future__ import annotations
@@ -103,11 +113,10 @@ from ..obs.telemetry import get_registry
 from ..utils.platform import DEFAULT_DEVICE, resolve_device
 from .buffers import pack_words, unpack_words
 
-__all__ = ["ScheduledPipeline", "SkipLanes"]
+__all__ = ["ScheduledPipeline", "SkipLanes", "SplitBackwardStage"]
 
 # (field, the ROADMAP.md item that ports it)
 _NOT_PORTED = (
-    ("split_stage", "A.8, the structural B/W split"),
     ("context_axis", "A.8, context parallelism"),
     ("stage_param_specs", "A.8, tensor-parallel stage params"),
     ("overlap_transport", "A.8, overlapped transport"),
@@ -133,6 +142,36 @@ class SkipLanes:
 
     pairs: tuple
     specs: tuple
+
+
+@dataclasses.dataclass(frozen=True)
+class SplitBackwardStage:
+    """Structural B/W split of a stage body (zero-bubble's real contract):
+    B takes input cotangents only, W weight gradients only. Counterpart of
+    ``pipe_tpu``'s ``SplitBackwardStage``, in torch's idiom.
+
+    * ``tapped_fn(s, h, ctx) -> (h_out, ys, taps)``: stage ``s``'s forward
+      with every parameter entering its weight products detached, so the
+      graph from ``h`` to ``h_out`` holds no weight path; ``ys`` are those
+      products' outputs (float tensors in that graph), ``taps`` whatever W
+      needs (the products' data inputs);
+    * B (the executor): ``torch.autograd.grad`` of ``h_out`` at ``h`` and
+      ``ys``, which gives the input cotangent and ``g_ys``, the cotangents at
+      the products' outputs (None where none reached);
+    * ``wgrad_fn(s, taps, g_ys) -> [(tensor, gradient)]``: the W op, nothing
+      but the weight-gradient products; the executor accumulates each
+      gradient into the parameters behind its tensor (a parameter, or a
+      value computed from parameters with its graph) by autograd.
+
+    Pair with ``checkpoint='never'`` and a ``splits_backward`` schedule
+    (zb-h1); the executor refuses other combinations. The taps ride the
+    stash slots (FWD to W) and ``g_ys`` the W park, both activation-sized.
+    ``split_stage="auto"`` derives one from any stage body
+    (``core.remat.split_backward_stage``).
+    """
+
+    tapped_fn: Callable
+    wgrad_fn: Callable
 
 
 def _leaves(h) -> tuple:
@@ -210,12 +249,17 @@ def _check_lane_dtype(dtype) -> None:
 class _Entry:
     """A stash slot: the stage input (None on stage 0, whose input is the
     micro-batch itself) and, for a saved micro-batch, the stage output and
-    stash outputs with their graph and the pops fed in as leaves."""
+    stash outputs with their graph and the pops fed in as leaves. Under the
+    structural split, the gradient edges of the tapped products' outputs
+    (``edges``, for B) and their taps (for W); ``h_in`` is then the pre's
+    output on stage 0."""
 
     h_in: Any
     out: Any = None
     stashes: Optional[tuple] = None
     pops: Optional[tuple] = None
+    edges: Optional[list] = None
+    taps: Any = None
 
 
 class _Ring:
@@ -397,6 +441,9 @@ class ScheduledPipeline:
         warning, under ``never``.
       mesh: a ``parallel.mesh.Mesh`` of ``n_stages`` stages: this rank walks
         its column of the tables (module docstring) on ``mesh.device``.
+      split_stage: None, ``"auto"`` or a :class:`SplitBackwardStage`, the
+        structural B/W split of a split table under ``never`` (module
+        docstring); None keeps the stored-graph split there.
     """
 
     stage_fn: Callable
@@ -434,6 +481,7 @@ class ScheduledPipeline:
         if not hasattr(self.schedule, "op_tables"):
             raise ValueError(f"schedule {self.schedule!r} has no op_tables")
         splits = getattr(self.schedule, "splits_backward", False)
+        self._check_split(splits)
         if self.skip_lanes is not None and not self.skip_lanes.pairs:
             self.skip_lanes = None          # empty lanes = no skips
         if self.skip_lanes is not None:
@@ -454,6 +502,10 @@ class ScheduledPipeline:
             for spec in self.skip_lanes.specs:
                 if hasattr(spec, "dtype"):
                     _check_lane_dtype(spec.dtype)
+        if self.stat_spec is not None and self.split_stage is not None:
+            raise ValueError(
+                "split_stage's tapped/wgrad fns have no stats output; "
+                "stat lanes need plain stage bodies")
         if self.stat_spec is not None and splits:
             raise NotImplementedError(
                 "stat lanes do not compose with split-backward "
@@ -491,6 +543,33 @@ class ScheduledPipeline:
         self._stashes_at = [[l for l, (src, _) in enumerate(pairs)
                              if src == s] for s in range(self.n_virtual)]
 
+    def _check_split(self, splits: bool) -> None:
+        """``split_stage``: ``"auto"`` derived from the stage body, then
+        ``pipe_tpu``'s guards, in its order, types and words."""
+        if isinstance(self.split_stage, str):
+            if self.split_stage != "auto":
+                raise ValueError(
+                    f"split_stage must be a SplitBackwardStage or 'auto', "
+                    f"got {self.split_stage!r}")
+            from ..core.remat import split_backward_stage
+            self.split_stage = split_backward_stage(self.stage_fn,
+                                                    self.module)
+        if self.split_stage is None:
+            return
+        if not splits:
+            raise ValueError(
+                "split_stage requires a splits_backward schedule "
+                "(zb-h1): B/W table ops are where the split executes")
+        if self.checkpoint != "never":
+            raise ValueError(
+                "split_stage requires checkpoint='never': the stored "
+                "params-constant vjp IS the activation store")
+        if self.remat_policy is not None:
+            raise ValueError(
+                "split_stage already defines its storage (full "
+                "residuals + taps); remat_policy would be silently "
+                "inert — drop one of the two")
+
     # --- tables ---
 
     def _tables(self, m: int) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
@@ -511,7 +590,8 @@ class ScheduledPipeline:
                     v=self.v, stash_slots=self.schedule.stash_slots(m, d),
                     wstash_slots=self.schedule.wstash_slots(m, d),
                     checkpoint=self.checkpoint,
-                    has_remat_policy=self.remat_policy is not None)),
+                    has_remat_policy=self.remat_policy is not None,
+                    split_stage=self.split_stage is not None)),
                 "transport": "serialized"}
         if self.skip_lanes is not None:
             kf, kg = self._skip_tables(m, op, mbi, grp)
@@ -584,19 +664,20 @@ class ScheduledPipeline:
                      ) -> Dict[str, int]:
         """Stage-body passes one :meth:`loss_and_grad` runs, read from the
         tables: ``forward`` counts every FWD and every recompute at B;
-        ``backward`` every walk of a stage's backward graph — one per BWD,
-        and under the ``never`` split one per W plus one per B off stage 0
-        (stage 0's B has no input cotangent to take: its input is the
-        micro-batch). A layer with a kernel in its forward and backward
-        launches it this many times per stage it sits in (the totals
-        divide evenly by the stage count when no table is split).
+        ``backward`` every walk of a stage's backward graph — one per BWD
+        (the structural split walks it at B only: its W runs the weight
+        products alone), and under the stored-graph split one per W plus
+        one per B off stage 0 (stage 0's B has no input cotangent to take:
+        its input is the micro-batch). A layer with a kernel in its forward
+        and backward launches it this many times per stage it sits in (the
+        totals divide evenly by the stage count when no table is split).
         ``column``: the passes of that stage column only (a mesh rank's)."""
         op, mbi, grp = self._tables(m)
         if column is not None:
             op, mbi, grp = (a[:, column:column + 1] for a in (op, mbi, grp))
         split = bool((op == WGRAD).any()) and self.checkpoint == "never"
         n_fwd, n_bwd = int((op == FWD).sum()), int((op == BWD).sum())
-        if split:
+        if split and self.split_stage is None:
             b_stage0 = (int(((op[:, 0] == BWD) & (grp[:, 0] == 0)).sum())
                         if column in (None, 0) else 0)
             return {"forward": n_fwd,
@@ -688,11 +769,30 @@ class ScheduledPipeline:
 
     # --- the step ---
 
+    def _tapped(self, entry: _Entry, s: int, x_mb, seeds, i: int):
+        """The structural split's FWD: the pre on stage 0 (with its graph,
+        for B), then the tapped body; keeps the products' gradient edges and
+        taps in ``entry`` and returns the stage output."""
+        with torch.enable_grad():
+            if s == 0:
+                entry.h_in = self.pre_fn(x_mb, self._ctx(seeds[0], True, i, 0))
+            else:
+                _require_grad(entry.h_in)
+            out, ys, entry.taps = self.split_stage.tapped_fn(
+                s, entry.h_in, self._ctx(seeds[1], True, i, s))
+        entry.out = out
+        entry.edges = [torch.autograd.graph.get_gradient_edge(y) for y in ys]
+        return out
+
     def _fwd_op(self, st: _Step, i: int, s: int, x_mb, w_mb) -> None:
         seeds = self._seeds(st.seed, i, s)
         if s == 0:
             st.stash.put(0, i, _Entry(None))
         entry = st.stash.get(s, i)
+        if self.split_stage is not None:
+            self._fwd_out(st, i, s, x_mb, w_mb, seeds,
+                          self._tapped(entry, s, x_mb, seeds, i))
+            return
         save = not self._reruns_at_b(i, st.m)
         policy = save and not self._keeps_graph(i, st.m)
         pops = self._pops(st, s, i, leaf=save, last=save)
@@ -709,6 +809,12 @@ class ScheduledPipeline:
             self._park_stashes(st, s, i, stashes)
         if save:
             entry.out, entry.stashes, entry.pops = out, stashes, pops
+        self._fwd_out(st, i, s, x_mb, w_mb, seeds, out)
+
+    def _fwd_out(self, st: _Step, i: int, s: int, x_mb, w_mb, seeds,
+                 out) -> None:
+        """A stage output's way on: to the next stage's stash, or on the
+        last stage into the loss (no graph) and the ``h_last`` park."""
         if s < self.n_virtual - 1:
             self._route(st, "h", s + 1, i, _detached(out))
             return
@@ -731,6 +837,9 @@ class ScheduledPipeline:
             seed_h = _grads_of(hl)
         else:
             seed_h = st.gbuf.pop((i, s))
+        if self.split_stage is not None:
+            self._split_b(st, entry, i, s, seed_h)
+            return
         out, stashes, pops = entry.out, entry.stashes, entry.pops
         if out is None:                                 # recompute
             pops = self._pops(st, s, i, leaf=True, last=True)
@@ -762,10 +871,40 @@ class ScheduledPipeline:
         for l in self._pops_at[s]:
             self._route(st, "r", l, i, _or_zeros(pops[l].grad, pops[l]))
 
+    def _split_b(self, st: _Step, entry: _Entry, i: int, s: int,
+                 seed_h) -> None:
+        """The structural split's B: one ``autograd.grad`` of the stage
+        output at its input and at the products' outputs. The input
+        cotangent goes to stage ``s - 1`` (on stage 0 through the pre's
+        backward, into its parameters); the products' cotangents park for
+        W. The graph is freed here; the taps stay in the stash until W."""
+        ins = [t for t in _leaves(entry.h_in)
+               if isinstance(t, torch.Tensor) and t.requires_grad]
+        pairs = [(o, g) for o, g in zip(_leaves(entry.out), _leaves(seed_h))
+                 if g is not None and isinstance(o, torch.Tensor)
+                 and o.requires_grad]
+        wanted = ins + entry.edges
+        got = (torch.autograd.grad([o for o, _ in pairs], wanted,
+                                   [g for _, g in pairs], allow_unused=True)
+               if pairs and wanted else [None] * len(wanted))
+        g_in = dict(zip(map(id, ins), got))
+        if s > 0:
+            self._route(st, "g", s - 1, i, _like(entry.h_in, [
+                _or_zeros(g_in.get(id(t)), t) if _differentiable(t) else None
+                for t in _leaves(entry.h_in)]))
+        else:
+            _backward(ins, got[:len(ins)])
+        st.wstash.put(s, i, list(got[len(ins):]))
+        entry.h_in = entry.out = entry.edges = None
+
     def _w_op(self, st: _Step, i: int, s: int, x_mb, w_mb) -> None:
         entry = st.stash.get(s, i, pop=True)
-        _backward(_leaves(entry.out), _leaves(st.wstash.get(s, i, pop=True)),
-                  inputs=st.params)
+        seed = st.wstash.get(s, i, pop=True)
+        if self.split_stage is None:
+            _backward(_leaves(entry.out), _leaves(seed), inputs=st.params)
+            return
+        pairs = self.split_stage.wgrad_fn(s, entry.taps, seed)
+        _backward([t for t, _ in pairs], [g for _, g in pairs])
 
     # --- the transport ---
 

@@ -20,8 +20,10 @@ Counterpart of ``pipe_tpu/pipe.py``:
 * ``plan=``: a planner ``Plan`` (or the path of a saved one,
   ``core/planner.py``) fixes chunks, checkpoint, schedule and balance, with
   ``pipe_tpu``'s conflict errors. A plan with ``split_stage`` set prescribes
-  the structural B/W split, which raises (ROADMAP.md A.8; ``pipe_tpu`` warns
-  and runs its stored-vjp split instead);
+  the structural B/W split: ``Pipe`` warns, with ``pipe_tpu``'s words, and
+  its tables run the stored-graph split (``pipe_tpu``'s runs its stored-vjp
+  one); the ``Trainer`` and ``ScheduledPipeline(split_stage=)`` run the
+  structural split;
 * ``deferred_batch_norm=True``: plain ``BatchNorm`` layers become
   ``DeferredBatchNorm``, and a train forward commits one running-stats
   update per mini-batch, in place on their buffers (``pipe_tpu`` returns
@@ -51,6 +53,7 @@ through ``loss_and_grad``.
 
 from __future__ import annotations
 
+import warnings
 from typing import List, Optional, Sequence
 
 import torch
@@ -71,11 +74,6 @@ from .utils.platform import DEFAULT_DEVICE, resolve_device
 __all__ = ["Pipe", "NoChunk", "BalanceError"]
 
 NoChunk = mb.NoChunk
-
-
-def _not_ported(what: str, item: str):
-    return NotImplementedError(
-        f"{what} is not ported to pipe_tpu_torch yet (ROADMAP.md: {item})")
 
 
 class Pipe(nn.Module):
@@ -115,15 +113,19 @@ class Pipe(nn.Module):
                     f"checkpoint={checkpoint!r} conflicts with the plan's "
                     f"{plan.checkpoint!r} (the plan was scored under its "
                     f"own checkpoint mode)")
-            if plan.split_stage:
-                raise _not_ported(
-                    "a plan with split_stage=True (the structural B/W split "
-                    "of core/remat.py)", "A.8")
             chunks = plan.m
             checkpoint = plan.checkpoint
             schedule = plan.schedule_obj()
             balance = list(plan.balance)
             n_stages = len(balance)
+            if plan.split_stage:
+                warnings.warn(
+                    "this plan prescribes the structural B/W split "
+                    "(split_stage=True); the Pipe front door's "
+                    "heterogeneous executor runs split-backward tables "
+                    "via the stored-vjp path instead — drive "
+                    "ScheduledPipeline (or Trainer) with the plan to "
+                    "engage the split", stacklevel=2)
         self.plan = plan
         # --- fail-fast validation ---
         if not isinstance(chunks, int) or isinstance(chunks, bool):

@@ -7,7 +7,8 @@ the last stage, the same log line. The model is the tutorial LM as a
 (``pipelined_lm_balance``). ``schedule="gpipe"`` trains through ``Pipe``
 (GPipe on the serial emulator); ``"1f1b"``, ``"zb-h1"`` and
 ``"interleaved-1f1b"`` train through the table executor
-(``parallel/scheduled.py``) over ``PipelinedLM.from_sequential`` of the same
+(``parallel/scheduled.py``; zb-h1 under ``never`` with the structural B/W
+split, ``split_stage="auto"``) over ``PipelinedLM.from_sequential`` of the same
 modules, with the loss on the last stage (``loss_post_fn``), as gpipe does
 when ``LMConfig.loss_block`` fuses the decoder into the loss;
 ``interleaved-1f1b`` cuts the model into ``n_stages * interleave`` virtual
@@ -33,7 +34,9 @@ through the interleaved wavefront's tables (``parallel/interleaved.py``);
 builds the model from the seed as the one-device trainer does, keeps only
 its stage's modules (the rest go to the ``meta`` device) and trains through
 the executor ``pipe_tpu``'s trainer picks: ``SpmdPipeline`` for gpipe,
-``ScheduledPipeline`` for 1f1b, zb-h1 and interleaved-1f1b,
+``ScheduledPipeline`` for 1f1b, zb-h1 and interleaved-1f1b (zb-h1 under
+``never`` with the structural B/W split, ``split_stage="auto"``, as on one
+device),
 ``InterleavedSpmdPipeline`` for interleaved, all walking the tables over the
 ranks; eval runs ``SpmdPipeline`` (``InterleavedSpmdPipeline`` for the
 interleaved placements). The global batch is read on every rank and each
@@ -226,15 +229,14 @@ def _resolve_plan_config(model_cfg: LMConfig,
 
 def plan_line(cfg: TrainerConfig) -> str:
     """The resolved plan, as ``apps/lm_tutorial.py --plan`` prints it, with
-    the split the port runs: its zb-h1 under ``never`` is the stored-graph
-    B/W split (ROADMAP.md C.7), whatever split the plan was priced at."""
+    the split the trainer runs: zb-h1 under ``never`` runs the structural
+    B/W split (``split_stage="auto"``), under a recompute mode the fused
+    backward at B."""
     plan = cfg.plan
     line = (f"plan resolved: schedule={cfg.schedule} chunks={cfg.chunks} "
             f"interleave={cfg.interleave} checkpoint={cfg.checkpoint}")
     if cfg.schedule == "zb-h1":
-        line += (" split=stored-graph (priced "
-                 f"split_stage={plan.split_stage})"
-                 if cfg.checkpoint == "never" else
+        line += (" split=structural" if cfg.checkpoint == "never" else
                  " split=none (fused backward at B)")
     if plan.profile_source != "uniform":
         # uniform (analytic) profiles rank in abstract units: only a
@@ -380,7 +382,10 @@ class Trainer:
         if cfg.schedule == "gpipe" and not self.model_cfg.loss_block \
                 and mesh is None:
             return None
-        if cfg.schedule == "zb-h1" and cfg.checkpoint != "never":
+        split_kw = {}
+        if cfg.schedule == "zb-h1" and cfg.checkpoint == "never":
+            split_kw["split_stage"] = "auto"     # as pipe_tpu's trainer
+        elif cfg.schedule == "zb-h1":
             from ..obs.zb_model import crossover
             row = crossover(cfg.chunks, cfg.n_stages, sigma=1.0)
             warnings.warn(
@@ -415,7 +420,7 @@ class Trainer:
                 **kw)
         return ScheduledPipeline(
             self.model.stage_fn, self.model.pre_fn, self.model.loss_post_fn,
-            n_stages=cfg.n_stages, schedule=schedule, **kw)
+            n_stages=cfg.n_stages, schedule=schedule, **split_kw, **kw)
 
     def _localize(self, n_virtual: int) -> None:
         """Keep this rank's stage on its device (its blocks, the embedding

@@ -21,7 +21,9 @@ JAX):
 * a cross-stage skip lane (GPT-2 tiny with the embedding skip) against the
   port's one-device table executor, which tests/test_torch_skip.py holds to
   ``pipe_tpu``;
-* C.16: the mesh table step with dropout equals the one-device step;
+* C.16: the mesh table step with dropout equals the one-device step, and
+  so does the structural B/W split's zb-h1 step (W on each rank's own
+  column, the gradients summed over the data group);
 * a rank that raises fails the call within seconds and the world serves
   the next call.
 """
@@ -259,6 +261,27 @@ def test_mesh_dropout_step_is_the_one_device_step_c16(world):
     nodrop = cases.table_step("1f1b", "except_last", x, w, seed=None,
                               shape=None)
     assert nodrop["loss"] != pytest.approx(ref["loss"], rel=1e-3)
+
+
+def test_mesh_structural_split_step_is_the_one_device_step(world):
+    """zb-h1 under never with ``split_stage="auto"`` and dropout 0.3: the
+    (2 x 2) step equals the one-device structural step, which equals the
+    one-device 1f1b step."""
+    rng = np.random.default_rng(9)
+    toks = rng.integers(0, 101, (4, 4, 16)).astype(np.int64)
+    x = {"tokens": toks, "targets": np.roll(toks, -1, -1)}
+    w = np.ones((4, 4), np.float32)
+    ref = cases.table_step("zb-h1", "never", x, w, seed=7, shape=None,
+                           split_stage="auto")
+    fused = cases.table_step("1f1b", "never", x, w, seed=7, shape=None)
+    assert ref["loss"] == pytest.approx(fused["loss"], rel=TOL_LOSS)
+    _close(ref["grads"], fused["grads"], "structural vs 1f1b")
+    res = world.run(cases.structural_pair)
+    for r in res:
+        assert r["loss"] == pytest.approx(ref["loss"], rel=TOL_LOSS)
+        _close(r["grads"], {k: ref["grads"][k] for k in r["grads"]},
+               "structural mesh grads")
+        assert r["stats"]["p2p_messages"] > 0
 
 
 def test_a_rank_that_raises_fails_the_call_and_the_world_recovers(world):

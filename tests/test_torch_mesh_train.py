@@ -95,7 +95,8 @@ def test_mesh_trainer_trajectory_matches_pipe_tpu(world, corpus, schedule,
                                                   checkpoint, kw):
     """zb-h1 is held to JAX's 1f1b trainer: JAX's zb-h1 trainer asks for
     the structural split, whose tests are red (ROADMAP C.4); the port's
-    zb-h1 under ``never`` is the stored-graph split (C.7)."""
+    zb-h1 trainer under ``never`` runs the port's structural split over the
+    mesh, each rank's W on its own column."""
     source, vocab = corpus
     params, want = _jax_run("1f1b" if schedule == "zb-h1" else schedule,
                             checkpoint, source, vocab, **kw)

@@ -296,8 +296,8 @@ def test_refusals_name_their_items(monkeypatch):
         tmesh.make_mesh(2, 1, n_context=2)
     with pytest.raises(NotImplementedError, match="A.10, tensor-parallel"):
         tmesh.make_mesh(2, 1, n_model=2)
-    for field in ("overlap_transport", "phase_compile", "split_stage",
-                  "context_axis", "stage_param_specs"):
+    for field in ("overlap_transport", "phase_compile", "context_axis",
+                  "stage_param_specs"):
         with pytest.raises(NotImplementedError, match="ROADMAP.md: A.8"):
             ScheduledPipeline(lambda s, h, c: h, lambda x, c: x,
                               lambda h, x, c: h, n_stages=1,

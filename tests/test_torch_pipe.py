@@ -207,16 +207,18 @@ _SPLIT_PLAN = Plan(schedule="zb-h1", m=4, v=1, balance=(2, 2),
                                     {"plan": _SPLIT_PLAN},
                                     {"mesh": object(), "schedule": "1f1b"}])
 def test_pipe_refuses_what_is_not_ported(kwargs):
-    """A plan that prescribes the structural B/W split (A.8; pipe_tpu warns
-    and runs its stored-vjp split). ``mesh=`` is ported: it takes the port's
-    ``Mesh`` of a world of ranks (tests/test_torch_mesh*.py) and refuses
-    anything else."""
+    """``mesh=`` is ported: it takes the port's ``Mesh`` of a world of ranks
+    (tests/test_torch_mesh*.py) and refuses anything else. A plan that
+    prescribes the structural B/W split is taken, with ``pipe_tpu``'s
+    warning (its tables run the stored-graph split, as ``pipe_tpu``'s run
+    its stored-vjp one; tests/test_torch_planner.py trains it)."""
     if "mesh" in kwargs:
         with pytest.raises(TypeError, match="make_mesh"):
             pipe_tpu_torch.Pipe(_tseq(), device="cpu", **kwargs)
         return
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        pipe_tpu_torch.Pipe(_tseq(), device="cpu", **kwargs)
+    with pytest.warns(UserWarning, match="structural B/W split"):
+        pipe = pipe_tpu_torch.Pipe(_tseq(4), device="cpu", **kwargs)
+    assert pipe.plan is kwargs["plan"]
 
 
 @pytest.mark.parametrize("schedule", sorted(jsched._SCHEDULES))

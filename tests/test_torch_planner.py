@@ -301,10 +301,37 @@ def test_pipe_plan_conflicts_rejected_as_pipe_tpu(kwargs):
 
 
 def test_pipe_refuses_a_split_stage_plan_naming_a8():
+    """A plan prescribing the structural split (A.8's first item, now
+    ported): ``Pipe`` no longer refuses it but warns with ``pipe_tpu``'s
+    words, and trains its zb-h1 tables (the stored-graph split) to the
+    plain backward's gradients."""
+    import pipe_tpu
+
+    from pipe_tpu_torch.parallel.hetero_scheduled import (
+        HeteroScheduledPipeline)
+
     top = _plan_4x2("zb-h1", "never")
     assert top.split_stage
-    with pytest.raises(NotImplementedError, match="A.8"):
-        Pipe(_seq(), plan=top, device="cpu")
+    with pytest.warns(UserWarning) as jwarn:
+        pipe_tpu.Pipe(jl.Sequential([jl.Linear(8) for _ in range(4)]),
+                      plan=jplan.Plan.from_json(top.to_json()))
+    with pytest.warns(UserWarning) as twarn:
+        pipe = Pipe(_seq(), plan=top, device="cpu")
+    assert [str(w.message) for w in twarn] == \
+        [str(w.message) for w in jwarn]
+    assert "structural B/W split" in str(twarn[0].message)
+    x = torch.randn(8, 8, generator=torch.Generator().manual_seed(1))
+    ex = HeteroScheduledPipeline(pipe.partitions, pipe.skip_layout, top.m,
+                                 top.checkpoint, top.schedule_obj(),
+                                 device="cpu")
+    loss, grads = ex.loss_and_grad(x, loss_fn=lambda y: y.square().mean(1))
+    grads = [g.clone() for g in grads.values()]
+    pipe.zero_grad(set_to_none=True)
+    want = pipe.partitions[1](pipe.partitions[0](x)).square().mean()
+    want.backward()
+    assert loss.item() == pytest.approx(want.item(), rel=1e-6)
+    for g, p in zip(grads, pipe.parameters()):
+        torch.testing.assert_close(g, p.grad, rtol=1e-5, atol=1e-7)
 
 
 def test_profile_model_and_auto_plan_feed_pipe():
@@ -513,8 +540,8 @@ def test_trainer_plan_from_a_path_and_the_zb_split_line(tmp_path):
         (jtr.cfg.schedule, jtr.cfg.chunks, jtr.cfg.checkpoint) == \
         ("zb-h1", 4, "never")
     assert tr.scheduled.schedule.name == "zb-h1"
-    assert "split=stored-graph (priced split_stage=True)" in \
-        tloop.plan_line(tr.cfg)
+    assert tr.scheduled.split_stage is not None
+    assert "split=structural" in tloop.plan_line(tr.cfg)
     with pytest.raises(FileNotFoundError):
         tloop.Trainer(model, tloop.TrainerConfig(
             plan=str(tmp_path / "none.json"), **base), device="cpu")

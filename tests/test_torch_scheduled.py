@@ -77,23 +77,24 @@ def lm_case(schedule, n, m, seed=0):
 _JAX_CACHE = {}
 
 
-def _jax_pipeline(jm, schedule, mode, n):
+def _jax_pipeline(jm, schedule, mode, n, **kw):
     v = _interleave(schedule)
     sched = (InterleavedOneFOneBSchedule(interleave=v) if v > 1
              else schedule)
     return JPipeline(make_mesh(n, 1), jm.stage_fn, pre_fn=jm.pre_fn,
                      post_fn=jm.loss_post_fn, checkpoint=mode,
-                     schedule=sched)
+                     schedule=sched, **kw)
 
 
-def jax_step(schedule, mode, n, m):
+def jax_step(schedule, mode, n, m, **kw):
     """JAX's ``ScheduledPipeline.loss_and_grad`` on :func:`lm_case`:
     ``(loss, grads by port name, memory_plan, port model, x)``. The loss and
     gradients are computed once per ``(schedule, n, m)``, under ``never``
     (nothing to recompute): JAX's checkpoint modes give the same step
     (tests/test_scheduled.py holds them to each other), so every port mode
     is held to it. The memory plan is ``mode``'s, read from JAX's
-    executor without a step."""
+    executor without a step (``kw``: its ``split_stage``, read by the plan
+    only: the step is the unsplit one)."""
     key = (schedule, n, m)
     if key not in _JAX_CACHE:
         jm, params, tm, x = lm_case(schedule, n, m)
@@ -113,7 +114,7 @@ def jax_step(schedule, mode, n, m):
             tm, (gs, *jax.tree_util.tree_map(np.asarray, (gpre, gpost))))
         _JAX_CACHE[key] = (float(loss), grads, jm, tm, x)
     loss, grads, jm, tm, x = _JAX_CACHE[key]
-    plan = _jax_pipeline(jm, schedule, mode, n).memory_plan(m)
+    plan = _jax_pipeline(jm, schedule, mode, n, **kw).memory_plan(m)
     return loss, grads, plan, tm, x
 
 
@@ -128,10 +129,13 @@ def _torch_x(x):
     return {k: torch.from_numpy(np.asarray(v)) for k, v in x.items()}
 
 
-def check_against_pipe_tpu(schedule, mode, n, m):
-    want_loss, want_grads, want_plan, tm, x = jax_step(schedule, mode, n, m)
+def check_against_pipe_tpu(schedule, mode, n, m, **kw):
+    """The port's step held to :func:`jax_step`'s; ``kw`` (``split_stage``)
+    goes to both executors, and so to the memory plans."""
+    want_loss, want_grads, want_plan, tm, x = jax_step(schedule, mode, n, m,
+                                                       **kw)
     tm.zero_grad(set_to_none=True)
-    pipe = port_pipeline(tm, n, schedule, mode)
+    pipe = port_pipeline(tm, n, schedule, mode, **kw)
     with warnings.catch_warnings():
         warnings.simplefilter("ignore")            # zb-h1 under recompute
         loss, grads = pipe.loss_and_grad(_torch_x(x), torch.ones(m, ROWS))
@@ -301,7 +305,7 @@ def test_forward_walks_the_fwd_ops(schedule):
 # --- construction -------------------------------------------------------------
 
 @pytest.mark.parametrize("field,value,item", [
-    ("split_stage", "auto", "A.8"), ("context_axis", "ctx", "A.8"),
+    ("context_axis", "ctx", "A.8"),
     ("stage_param_specs", {}, "A.8"), ("overlap_transport", True, "A.8"),
     ("phase_compile", True, "A.8")])
 def test_unported_fields_raise_naming_their_item(field, value, item):
@@ -332,17 +336,22 @@ def test_construction_validates_like_pipe_tpu(monkeypatch):
                           n_stages=2, module=model)
 
 
-@pytest.mark.parametrize("schedule,mode", [
-    ("gpipe", "except_last"), ("1f1b", "except_last"), ("1f1b", "always"),
-    ("1f1b", "never"), ("zb-h1", "never"), ("zb-h1", "except_last"),
-    ("interleaved-1f1b", "except_last")])
-def test_kernel_calls_follow_stage_passes(monkeypatch, schedule, mode):
+@pytest.mark.parametrize("schedule,mode,split", [
+    pytest.param(s, c, x, id=f"{s}-{c}" + ("-auto" if x else ""))
+    for s, c, x in (
+        ("gpipe", "except_last", None), ("1f1b", "except_last", None),
+        ("1f1b", "always", None), ("1f1b", "never", None),
+        ("zb-h1", "never", None), ("zb-h1", "except_last", None),
+        ("interleaved-1f1b", "except_last", None),
+        ("zb-h1", "never", "auto"))])
+def test_kernel_calls_follow_stage_passes(monkeypatch, schedule, mode, split):
     """The tiny LM with ``attn_impl="flash"`` (the wrappers run their plain
     versions on the CPU): per step the forward wrapper is called
     ``stage_passes()["forward"]`` times per attention layer of a stage, dQ
     and dK/dV ``["backward"]`` times. 1f1b/except_last at m 4 is the
-    emulator's 7 forwards and 4 backwards a layer; zb-h1/never walks the
-    backward twice (B, then W) except at stage 0's B."""
+    emulator's 7 forwards and 4 backwards a layer; zb-h1/never's
+    stored-graph split walks the backward twice (B, then W) except at stage
+    0's B, its structural split (``split_stage="auto"``) once, at B."""
     from pipe_tpu_torch.ops import flash_attention as tfa
 
     calls = {"fwd": 0, "dq": 0, "dkv": 0}
@@ -363,7 +372,7 @@ def test_kernel_calls_follow_stage_passes(monkeypatch, schedule, mode):
                               "targets": tokens.roll(-1, -1)}, m)
     with warnings.catch_warnings():
         warnings.simplefilter("ignore")
-        pipe = port_pipeline(model, n, schedule, mode)
+        pipe = port_pipeline(model, n, schedule, mode, split_stage=split)
     pipe.loss_and_grad(x, torch.ones(m, ROWS))
     passes = pipe.stage_passes(m)
     lps = model.layers_per_stage
@@ -374,7 +383,8 @@ def test_kernel_calls_follow_stage_passes(monkeypatch, schedule, mode):
                             ("gpipe", "except_last")):
         assert passes == {"forward": n * (2 * m - 1), "backward": n * m}
     if (schedule, mode) == ("zb-h1", "never"):
-        assert passes == {"forward": n * m, "backward": (2 * n - 1) * m}
+        assert passes == {"forward": n * m, "backward": (
+            n * m if split else (2 * n - 1) * m)}
 
 
 @pytest.mark.parametrize("batch,chunks", [(8, 4), (10, 4), (3, 4), (7, 1)])

@@ -312,9 +312,9 @@ def test_table_trainer_tracks_pipe_tpus_1f1b_trainer(corpus, schedule,
     """Four steps of the port's ``Trainer`` through the table executor, from
     the JAX ``Trainer``'s initial weights, against JAX's
     ``Trainer(schedule="1f1b")`` (its zb-h1 Trainer asks for the structural
-    split, whose tests are red, ROADMAP C.4; the port's zb-h1 under
-    ``never`` is the stored-graph split, C.7): losses within
-    TOL_TRAJECTORY relative."""
+    split, whose tests are red, ROADMAP C.4; the port's zb-h1 Trainer under
+    ``never`` runs the port's structural split, held here to JAX's 1f1b):
+    losses within TOL_TRAJECTORY relative."""
     source, _ = corpus
     params, want = _jax_trajectory(source, 4, checkpoint="except_last",
                                    schedule="1f1b")
@@ -323,6 +323,8 @@ def test_table_trainer_tracks_pipe_tpus_1f1b_trainer(corpus, schedule,
     state = trainer.init_state()
     convert.load_pipelined_lm_params(trainer.pipe, params)
     assert trainer.scheduled.schedule.name == schedule
+    assert (trainer.scheduled.split_stage is not None) == \
+        (schedule == "zb-h1")
     _, got = _per_step_losses(trainer, source, state, steps=4)
     np.testing.assert_allclose(got, want, rtol=TOL_TRAJECTORY, atol=0)
     assert got[-1] < got[0]

@@ -103,10 +103,11 @@ def bn_stack(width=6):
 
 
 def table_step(schedule, checkpoint, x, w, seed, shape=(2, 2),
-               dropout=0.3, interleave=2):
+               dropout=0.3, interleave=2, split_stage=None):
     """One ``ScheduledPipeline`` step of the tiny LM (weights from a seed);
-    on a mesh with ``shape``, one device without (``shape=None``). Returns
-    the loss and the gradients of this process's parameters by name."""
+    on a mesh with ``shape``, one device without (``shape=None``);
+    ``split_stage`` goes to the executor. Returns the loss and the
+    gradients of this process's parameters by name."""
     from pipe_tpu_torch.core.schedule import InterleavedOneFOneBSchedule
     from pipe_tpu_torch.parallel.mesh import localize
     from pipe_tpu_torch.parallel.scheduled import ScheduledPipeline
@@ -126,7 +127,8 @@ def table_step(schedule, checkpoint, x, w, seed, shape=(2, 2),
         localize(model, keep, "cpu")
     ex = ScheduledPipeline(model.stage_fn, model.pre_fn, model.loss_post_fn,
                            n_stages=2, module=model, checkpoint=checkpoint,
-                           schedule=sched, device="cpu", mesh=mesh)
+                           schedule=sched, device="cpu", mesh=mesh,
+                           split_stage=split_stage)
     x = {k: torch.from_numpy(v) for k, v in x.items()}
     loss, grads = ex.loss_and_grad(x, torch.from_numpy(w), seed=seed)
     return dict(loss=float(loss), grads=_np(grads),
@@ -176,6 +178,17 @@ def dropout_pair(seed=9):
     x = {"tokens": toks, "targets": np.roll(toks, -1, -1)}
     w = np.ones((4, 4), np.float32)
     return table_step("1f1b", "except_last", x, w, seed=7)
+
+
+def structural_pair(seed=9):
+    """The tiny LM's zb-h1 step under never with the structural split
+    (``split_stage="auto"``) and dropout 0.3 on a mesh: its loss and
+    gradients, by name (the test runs the one-device step itself)."""
+    rng = np.random.default_rng(seed)
+    toks = rng.integers(0, 101, (4, 4, 16)).astype(np.int64)
+    x = {"tokens": toks, "targets": np.roll(toks, -1, -1)}
+    w = np.ones((4, 4), np.float32)
+    return table_step("zb-h1", "never", x, w, seed=7, split_stage="auto")
 
 
 def raise_on_rank(rank):
