@@ -368,6 +368,45 @@ exits non-zero without a result line:
    spawn-to-ready; per serve run TTFT p50/p99 and tokens/s beside the
    one-device engine's and PR 13's 1,126.3.
 
+13. elastic -- elastic training over a world of 4 ranks on the one card
+   (gloo): the tutorial LM at full width (d_model 2048, 32 heads, d_ff
+   2048, bptt 128, the corpus's vocabulary, random weights from one seed,
+   dropout 0.2, batch 32, chunks 4, 1f1b, except_last, lr 1e-4) cut to 12
+   layers, ``pipe_tpu``'s drill geometry: a uniform regroup from n to n-1
+   stages needs the layers to divide by both, with n-1 >= 2, and the
+   tutorial's 16 divide by no such pair. ``ElasticConfig(snapshot_every=3,
+   dead_after=2)`` over 4 stage ranks, a ``kill_stage`` fault on stage 1
+   at step 6, 10 steps under ``train_elastic``. Gates: (a) one re-plan:
+   stage 1, snapshot 5, detected 7, resume 6, 3 stages; the rank of stage
+   1 retires. (b) The recovered run's losses, parameters and Adam moments
+   equal, bit for bit, a reference on the same 3 survivor ranks that
+   trains the unkilled 4-stage world to step 5, gathers and restacks the
+   state (each rank's part through a file, not the buddy ring) and finishes
+   steps 6-9 on a trainer born with 3 stages. (c) Every capture verified
+   (``verify_replication``); a flipped byte in a held copy is refused. (d)
+   Each rank's forward, dQ and dK/dV launches per step: 21 / 12 / 12 with
+   3 layers a rank before the loss, 28 / 16 / 16 with 4 after (except_last:
+   4 micro-batches, one recompute fewer). (e) The guarded step over phase
+   11's 2 x 2 world (the drill's 12 layers, ``zero=True``) under
+   ``nan_grads`` at steps 1-2 (a rewind), ``loss_spike`` at 4 and
+   ``data_raise`` at 5, 6 steps:
+   anomalies, rewinds, steps and Adam's accepted steps equal the
+   one-device guarded twin's under the same plan (run first, from the same
+   seed), losses within 1e-5 relative, and the parameters: at most 1e-5 of
+   the elements past 1e-4 x max(1, max|p|) of their tensor, none past lr x
+   the accepted steps (Adam turns a gradient whose sign the summation order
+   decides into a step of lr either way; the elements past the bound are
+   printed). ``tools/torch_guard_probe.py`` runs this gate alone with the
+   twin's gradient of those elements by step, and with a planted fault
+   (data rank 1's gradients zeroed before the data all-reduce) that must
+   fail the parameter limb on every rank.
+   Prints, with the card's name and power limit: each capture's bytes and
+   ms per rank, the detection-to-resume seconds and the lost steps, steady
+   ms per step before and after the loss for the recovered and the
+   unkilled run, peak bytes per rank and the phase's seconds.
+
+Before every phase the collector runs and the allocator's cache is
+emptied, and the phase's starting ``memory_allocated`` is printed.
 The last two lines are the kernels JSON object and
 ``{"ok": true, "device": {...}}``.
 """
@@ -376,6 +415,8 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
+import gc
 import json
 import math
 import os
@@ -577,6 +618,16 @@ MESH_SHAPE = (128, 128, 64, True)
 def log(phase: str, **fields) -> None:
     print(f"[{phase}] " + " ".join(f"{k}={v}" for k, v in fields.items()),
           flush=True)
+
+
+@functools.lru_cache(maxsize=None)
+def _corpus():
+    """The synthetic corpus every phase trains on: ``(train lines, val
+    lines, vocabulary)``, made once a process (it takes seconds)."""
+    from pipe_tpu_torch.data import lm_text
+    train_lines, val_lines, _ = lm_text.load_corpus(vocab_size=28782)
+    return train_lines, val_lines, lm_text.Vocab(
+        map(lm_text.basic_english_tokenize, train_lines))
 
 
 def phase_device() -> str:
@@ -956,8 +1007,7 @@ def make_slice(n_batches: int = N_BATCHES):
     from pipe_tpu_torch.data import lm_text
     from pipe_tpu_torch.models.transformer_lm import LMConfig, build_sequential
 
-    train_lines, val_lines, _ = lm_text.load_corpus(vocab_size=28782)
-    vocab = lm_text.Vocab(map(lm_text.basic_english_tokenize, train_lines))
+    train_lines, val_lines, vocab = _corpus()
     val = lm_text.batchify(lm_text.data_process(val_lines, vocab), EVAL_BATCH)
     batches = []
     for b in range(n_batches):
@@ -1076,8 +1126,7 @@ def phase_train() -> dict:
     from pipe_tpu_torch.train.loop import Trainer, TrainerConfig, lm_loss
 
     t0 = time.perf_counter()
-    train_lines, _, _ = lm_text.load_corpus(vocab_size=28782)
-    vocab = lm_text.Vocab(map(lm_text.basic_english_tokenize, train_lines))
+    train_lines, _, vocab = _corpus()
     cfg = LMConfig(vocab=len(vocab), attn_impl="flash")   # dropout 0.2
     tcfg = TrainerConfig(batch_size=TRAIN_BATCH, bptt=BPTT, chunks=CHUNKS,
                          n_stages=N_STAGES, checkpoint="except_last",
@@ -1202,8 +1251,7 @@ def _obs_setup():
     from pipe_tpu_torch.models.transformer_lm import LMConfig
     from pipe_tpu_torch.train.loop import TrainerConfig
 
-    train_lines, val_lines, _ = lm_text.load_corpus(vocab_size=28782)
-    vocab = lm_text.Vocab(map(lm_text.basic_english_tokenize, train_lines))
+    train_lines, val_lines, vocab = _corpus()
     cfg = LMConfig(vocab=len(vocab), attn_impl="flash")   # dropout 0.2
     tcfg = TrainerConfig(batch_size=TRAIN_BATCH, bptt=BPTT, chunks=CHUNKS,
                          n_stages=N_STAGES, checkpoint="except_last",
@@ -1872,8 +1920,7 @@ def phase_schedules() -> dict:
     from pipe_tpu_torch.train.loop import lm_loss
 
     t_phase = time.perf_counter()
-    train_lines, _, _ = lm_text.load_corpus(vocab_size=28782)
-    vocab = lm_text.Vocab(map(lm_text.basic_english_tokenize, train_lines))
+    train_lines, _, vocab = _corpus()
     source = lm_text.batchify(lm_text.data_process(train_lines, vocab),
                               TRAIN_BATCH)
     cfg = LMConfig(vocab=len(vocab), attn_impl="flash")     # dropout 0.2
@@ -2483,8 +2530,7 @@ def phase_remat() -> dict:
     from pipe_tpu_torch.models.transformer_lm import LMConfig
 
     t_phase = time.perf_counter()
-    train_lines, _, _ = lm_text.load_corpus(vocab_size=28782)
-    vocab = lm_text.Vocab(map(lm_text.basic_english_tokenize, train_lines))
+    train_lines, _, vocab = _corpus()
     source = lm_text.batchify(lm_text.data_process(train_lines, vocab),
                               TRAIN_BATCH)
     cfg = LMConfig(vocab=len(vocab), attn_impl="flash")     # dropout 0.2
@@ -4482,7 +4528,9 @@ def phase_fleet(smi: str, gap: float = FLEET_GAP) -> dict:
             marks = {}
 
             def kill_when_busy(c, got):
-                if "kill" not in marks and got and trs[victim]._inflight:
+                # at the victim's first tick with work in flight (waiting
+                # for a delivery first let the victim drain on some runs)
+                if "kill" not in marks and trs[victim]._inflight:
                     _os.kill(trs[victim]._proc.pid, signal.SIGKILL)
                     marks["kill"] = time.perf_counter()
                 if "kill" in marks and "retired" not in marks \
@@ -5064,18 +5112,40 @@ def _mesh_rank_zero(vocab: int, tmp: str) -> dict:
     return out
 
 
-def phase_mesh(smi: str) -> dict:
+def _rank_release() -> None:
+    """On each rank of a shared world, after a phase: drop what the phase
+    left and hand the allocator's cache back to the card."""
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+@contextlib.contextmanager
+def _world(world, n: int, timeout: float, threads: int):
+    """The world of ``n`` ranks on the card (gloo) that a phase runs on:
+    ``world`` when the caller shares one across phases (each rank then
+    releases its memory when the phase is done with it), else its own."""
+    from pipe_tpu_torch.runtime.distributed import World
+    if world is None:
+        with World(n, device="cuda", backend="gloo", timeout=timeout,
+                   threads=threads) as own:
+            yield own
+        return
+    if world.n != n:
+        raise ValueError(f"a phase of {n} ranks got a world of {world.n}")
+    yield world
+    world.run(_rank_release)
+
+
+def phase_mesh(smi: str, world=None) -> dict:
     """Phase 11: the tutorial LM over a (stage, data) world of ranks."""
     import tempfile
 
     from pipe_tpu_torch.apps import lm_tutorial
     from pipe_tpu_torch.core import microbatch as mb
     from pipe_tpu_torch.data import lm_text
-    from pipe_tpu_torch.runtime.distributed import World
 
     t_phase = time.perf_counter()
-    train_lines, _, _ = lm_text.load_corpus(vocab_size=28782)
-    vocab = lm_text.Vocab(map(lm_text.basic_english_tokenize, train_lines))
+    train_lines, _, vocab = _corpus()
     ids = lm_text.data_process(train_lines, vocab)
     source = lm_text.batchify(ids, TRAIN_BATCH)
     data, target = lm_text.get_batch(source, 0, BPTT)
@@ -5096,8 +5166,7 @@ def phase_mesh(smi: str) -> dict:
         backend="gloo", device="cuda:0 (shared)", vocab=len(vocab),
         batch=TRAIN_BATCH, chunks=CHUNKS, dropout=DROPOUT,
         twins_s=f"{time.perf_counter() - t_phase:.1f}")
-    with World(MESH_WORLD, device="cuda", backend="gloo",
-               timeout=MESH_TIMEOUT_S, threads=MESH_THREADS) as world:
+    with _world(world, MESH_WORLD, MESH_TIMEOUT_S, MESH_THREADS) as world:
         t0 = time.perf_counter()
         steps = world.run(_mesh_rank_steps, tmp, len(vocab))
         log("mesh", spawn_to_ready_s=f"{world.spawn_to_ready_s:.2f}",
@@ -5445,7 +5514,7 @@ def _ring_rank(tmp: str, vocab: int) -> dict:
     return out
 
 
-def phase_ring(smi: str) -> dict:
+def phase_ring(smi: str, world=None) -> dict:
     """Phase 12: the tutorial LM trained, decoded and served over a ring of
     4 stage ranks; returns the kernels' launches per rank of its training."""
     import tempfile
@@ -5453,11 +5522,9 @@ def phase_ring(smi: str) -> dict:
     from pipe_tpu_torch.apps import generate as gen_app
     from pipe_tpu_torch.apps import serve as serve_app
     from pipe_tpu_torch.data import lm_text
-    from pipe_tpu_torch.runtime.distributed import World
 
     t_phase = time.perf_counter()
-    train_lines, _, _ = lm_text.load_corpus(vocab_size=28782)
-    vocab = lm_text.Vocab(map(lm_text.basic_english_tokenize, train_lines))
+    train_lines, _, vocab = _corpus()
     ids = lm_text.data_process(train_lines, vocab)
     source = lm_text.batchify(ids, TRAIN_BATCH)
     flat = np.asarray(ids)
@@ -5475,8 +5542,7 @@ def phase_ring(smi: str) -> dict:
                 "requests": reqs}, os.path.join(tmp, "ring.pt"))
     log("ring", world=RING_WORLD, stages=RING_STAGES, backend="gloo",
         device="cuda:0 (shared)", vocab=len(vocab), card=smi.splitlines()[0])
-    with World(RING_WORLD, device="cuda", backend="gloo",
-               timeout=RING_TIMEOUT_S, threads=RING_THREADS) as world:
+    with _world(world, RING_WORLD, RING_TIMEOUT_S, RING_THREADS) as world:
         t0 = time.perf_counter()
         res = world.run(_ring_rank, tmp, len(vocab))
         spawn = world.spawn_to_ready_s
@@ -5563,32 +5629,551 @@ def phase_ring(smi: str) -> dict:
     return launches
 
 
+ELASTIC_STAGES = 4
+ELASTIC_WORLD = ELASTIC_STAGES     # 4 stage ranks x 1 data
+ELASTIC_LAYERS = 12                # regroups over 4 and over 3 stages
+ELASTIC_WEIGHT_SEED = 17
+ELASTIC_STEPS = 10
+ELASTIC_KILL = dict(step=6, stage=1)
+ELASTIC_RECORD = dict(stage=1, snapshot_step=5, detected_step=7,
+                      resume_step=6, n_stages=3)
+ELASTIC_LAUNCHES = {3: (21, 12, 12), 4: (28, 16, 16)}  # by layers a rank
+GUARD_FAULTS = (("nan_grads", 1, dict(count=2)), ("loss_spike", 4, {}),
+                ("data_raise", 5, {}))
+GUARD_STEPS = 6
+GUARD_WEIGHT_SEED = 19
+ELASTIC_THREADS = 2
+ELASTIC_TIMEOUT_S = 600.0
+# gate (e)'s parameters: Adam turns a gradient whose sign the summation
+# order decides into a step of lr either way, so at most this share of the
+# elements may pass the gradient bound (sound runs on an H100: 3.1e-7 and
+# 6.2e-7), none by more than lr x Adam's accepted steps
+TOL_FLIPPED = 1e-5
+GUARD_SHOWN = 4     # elements past the bound shown a rank
+
+
+def _elastic_cfg(vocab: int, n_layers: int = ELASTIC_LAYERS):
+    return dataclasses.replace(_mesh_cfg(vocab), n_layers=n_layers)
+
+
+def _elastic_rc():
+    from pipe_tpu_torch.resilience import ResilienceConfig
+    return ResilienceConfig(warmup_steps=100, rewind_after=3,
+                            snapshot_every=3, data_backoff_s=0.0,
+                            rewind_backoff_s=0.0)
+
+
+def _elastic_tc(n_stages: int, elastic: bool):
+    from pipe_tpu_torch.resilience import ElasticConfig
+    from pipe_tpu_torch.train.loop import TrainerConfig
+    return TrainerConfig(
+        batch_size=TRAIN_BATCH, bptt=BPTT, chunks=CHUNKS, n_stages=n_stages,
+        schedule="1f1b", checkpoint="except_last", lr=TRAIN_LR,
+        resilience=_elastic_rc(),
+        elastic=(ElasticConfig(snapshot_every=3, dead_after=2) if elastic
+                 else None))
+
+
+def _guard_tc(n_data: int):
+    from pipe_tpu_torch.resilience import ResilienceConfig
+    from pipe_tpu_torch.train.loop import TrainerConfig
+    return TrainerConfig(
+        batch_size=TRAIN_BATCH, bptt=BPTT, chunks=CHUNKS,
+        n_stages=MESH_STAGES, n_data=n_data, schedule="1f1b",
+        checkpoint="except_last", lr=TRAIN_LR, zero=True,
+        resilience=ResilienceConfig(warmup_steps=1, rewind_after=2,
+                                    snapshot_every=2, data_backoff_s=0.0,
+                                    rewind_backoff_s=0.0))
+
+
+def _guard_plan():
+    from pipe_tpu_torch.resilience import ChaosPlan, Fault
+    return ChaosPlan([Fault(k, s, **kw) for k, s, kw in GUARD_FAULTS],
+                     seed=3)
+
+
+class _StepClock:
+    """Wraps ``Trainer._guarded_step`` for the phase: each step's wall (to
+    the end of its device work), the trainer's stage count, the kernels'
+    launches in it, and whether a buddy capture came just before it (the
+    step then waits for the slowest rank's capture)."""
+
+    def __init__(self):
+        from pipe_tpu_torch.train.loop import Trainer
+        self.steps = []
+        self.captured = False
+        self._orig = Trainer._guarded_step
+        clock = self
+
+        def timed(tr, *a, **kw):
+            torch.cuda.synchronize()
+            before = _rank_counts()
+            t0 = time.perf_counter()
+            out = clock._orig(tr, *a, **kw)
+            torch.cuda.synchronize()
+            after = _rank_counts()
+            clock.steps.append(dict(
+                ms=(time.perf_counter() - t0) * 1e3,
+                after_capture=clock.captured, n_stages=tr.cfg.n_stages,
+                layers=tr.model_cfg.n_layers // tr.cfg.n_stages,
+                launches={k: after[k] - before[k] for k in after}))
+            clock.captured = False
+            return out
+
+        Trainer._guarded_step = timed
+
+    def close(self):
+        from pipe_tpu_torch.train.loop import Trainer
+        Trainer._guarded_step = self._orig
+
+
+def _steady(steps, n_stages):
+    """Median ms of the steps at ``n_stages``, the first of each trainer
+    and those right after a buddy capture left out, and how many."""
+    ms = [s["ms"] for s in [s for s in steps
+                            if s["n_stages"] == n_stages][1:]
+          if not s["after_capture"]]
+    return (f"{float(np.median(ms)):.1f} ({len(ms)})" if ms else "nan")
+
+
+def _compare_parts(a, b):
+    """Whether two ``Trainer._own_state`` parts are equal bit for bit (the
+    same names, every tensor and Adam's step count), and their largest
+    difference."""
+    same = a[0].keys() == b[0].keys() and a[1].keys() == b[1].keys()
+    diff = 0.0
+    pairs = [(v, b[0][k]) for k, v in a[0].items() if k in b[0]]
+    pairs += [(st[k], b[1][g][k]) for g, st in a[1].items() if g in b[1]
+              for k in st]
+    for x, y in pairs:
+        same = same and torch.equal(x, y)
+        diff = max(diff, (x.float() - y.float()).abs().max().item())
+    return same, diff
+
+
+def _elastic_rank(tmp: str, vocab: int) -> dict:
+    """On each rank of the 4-stage world: gates (a)-(d) of phase 13."""
+    import torch.distributed as dist
+
+    from pipe_tpu_torch.parallel.mesh import make_mesh, survivor_mesh
+    from pipe_tpu_torch.resilience import (BuddyStore, ChaosPlan, Fault,
+                                           restack_state, train_elastic)
+    from pipe_tpu_torch.train.loop import Trainer
+
+    mesh = make_mesh(ELASTIC_STAGES, 1)
+    cfg = _elastic_cfg(vocab)
+    source = torch.load(os.path.join(tmp, "elastic.pt"))["source"].numpy()
+    out = {"rank": mesh.rank, "stage": mesh.stage}
+    captures = []
+    capture = BuddyStore.capture
+    clock = _StepClock()
+
+    def recorded(store, state, step):
+        capture(store, state, step)
+        captures.append(dict(step=step, verified=store.verify,
+                             **store.last_capture))
+        clock.captured = True
+
+    BuddyStore.capture = recorded
+    torch.cuda.reset_peak_memory_stats()
+    _zero_launches()
+    lines = []
+    try:
+        tr = Trainer(cfg, _elastic_tc(ELASTIC_STAGES, True),
+                     chaos=ChaosPlan([Fault("kill_stage", **ELASTIC_KILL)]))
+        state = tr.init_state(ELASTIC_WEIGHT_SEED)
+        tr2, state, info = train_elastic(tr, source, state=state,
+                                         max_steps=ELASTIC_STEPS,
+                                         log_fn=lines.append)
+    finally:
+        clock.close()
+        BuddyStore.capture = capture
+    out["recovered"] = dict(
+        launches=_rank_counts(), steps=clock.steps, captures=captures,
+        lines=lines, retired=tr2 is None, recoveries=info["recoveries"],
+        peak_bytes=torch.cuda.max_memory_allocated(),
+        loss_by_step=info.get("loss_by_step"))
+    mine = None
+    if tr2 is not None:
+        # (c) a flipped byte in a held copy is refused
+        store = tr2.elastic_store()
+        held = next(iter(store._held.values()))
+        held[0] ^= 1
+        try:
+            store._check()
+            out["corrupt_refused"] = False
+        except RuntimeError as e:
+            out["corrupt_refused"] = "manifest" in str(e)
+        held[0] ^= 1
+        mine = tr2._own_state()
+        out["loss_by_step"] = info["loss_by_step"]
+    del tr, tr2, state
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (b) the reference: unkilled to the snapshot step, each rank's part
+    # through a file, restacked, finished on a trainer born with 3 stages
+    clock = _StepClock()
+    try:
+        ref = Trainer(cfg, _elastic_tc(ELASTIC_STAGES, False))
+        state = ref.init_state(ELASTIC_WEIGHT_SEED)
+        state, _ = ref.train_epoch(source, state=state,
+                                   max_steps=ELASTIC_KILL["step"],
+                                   log_every=0)
+        torch.save(ref._own_state(), os.path.join(tmp,
+                                                  f"part{mesh.rank}.pt"))
+        dist.barrier()
+        whole = ref._whole_state(
+            [torch.load(os.path.join(tmp, f"part{r}.pt"), mmap=True)
+             for r in range(ELASTIC_WORLD)], ELASTIC_KILL["step"])
+        del ref, state
+        gc.collect()
+        torch.cuda.empty_cache()
+        new = survivor_mesh(mesh, ELASTIC_KILL["stage"])
+        if new is not None:
+            narrow = Trainer(cfg, _elastic_tc(ELASTIC_STAGES - 1, False),
+                             mesh=new)
+            state, rinfo = narrow.train_epoch(
+                source, state=restack_state(whole, ELASTIC_STAGES,
+                                            ELASTIC_STAGES - 1),
+                max_steps=ELASTIC_STEPS, start_step=ELASTIC_KILL["step"],
+                log_every=0)
+            theirs = narrow._own_state()
+            out["ref_loss_by_step"] = {ELASTIC_KILL["step"] + i: l for i, l
+                                       in enumerate(rinfo["losses"])}
+            same, diff = _compare_parts(theirs, mine)
+            out["bitwise"] = same
+            out["max_diff"] = diff
+            del narrow, state
+    finally:
+        clock.close()
+    out["reference_steps"] = clock.steps
+    gc.collect()
+    torch.cuda.empty_cache()
+    dist.barrier()
+    return out
+
+
+def _guard_rank(tmp: str, vocab: int, plant: bool = False) -> dict:
+    """On each rank: gate (e), the guarded 2 x 2 run with ZeRO under the
+    chaos plan, held to the one-device twin's file. With ``plant`` the
+    rank of data index 1 zeroes its gradients before the data all-reduce
+    (a planted fault that the gate must catch)."""
+    from pipe_tpu_torch.parallel.mesh import make_mesh
+    from pipe_tpu_torch.parallel.scheduled import ScheduledPipeline
+    from pipe_tpu_torch.train.loop import Trainer
+
+    mesh = make_mesh(MESH_STAGES, MESH_DATA)
+    cfg = _elastic_cfg(vocab)
+    source = torch.load(os.path.join(tmp, "elastic.pt"))["source"].numpy()
+    reduce = ScheduledPipeline._reduce_grads
+
+    def dropped(self, params):
+        for p in params:
+            if p.grad is not None:
+                p.grad.zero_()
+        reduce(self, params)
+
+    if plant and mesh.data == 1:
+        ScheduledPipeline._reduce_grads = dropped
+    try:
+        tr = Trainer(cfg, _guard_tc(MESH_DATA), chaos=_guard_plan())
+        state = tr.init_state(GUARD_WEIGHT_SEED)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, info = tr.train_epoch(source, state=state, max_steps=GUARD_STEPS,
+                                 log_every=0, log_fn=lambda m: None)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        ScheduledPipeline._reduce_grads = reduce
+    twin = torch.load(os.path.join(tmp, "guard_twin.pt"), mmap=True)
+    worst = 0.0
+    worst_name = None
+    beyond = total = 0
+    past = []
+    for name, p in _layer_params(tr.pipe).items():
+        ref = twin["params"][name]
+        mine = p.detach().cpu()
+        diff = (mine - ref).abs().reshape(-1)
+        over = diff > TOL_MESH_GRAD * max(1.0, ref.abs().max().item())
+        beyond += int(over.sum())
+        total += diff.numel()
+        if diff.max().item() > worst:
+            worst, worst_name = diff.max().item(), name
+        if over.any():
+            top = torch.topk(diff, min(GUARD_SHOWN, int(over.sum())))
+            past += [dict(name=name, index=int(k), diff=float(d),
+                          mine=float(mine.reshape(-1)[k]),
+                          twin=float(ref.reshape(-1)[k]))
+                     for d, k in zip(top.values, top.indices)]
+    past = sorted(past, key=lambda e: -e["diff"])[:GUARD_SHOWN]
+    return dict(rank=mesh.rank, anomalies=info["anomalies"],
+                rewinds=info["rewinds"], steps=info["steps"],
+                accepted=tr.optimizer.step_count, losses=info["losses"],
+                param_err=worst, worst_param=worst_name,
+                flipped=beyond / total, past=past, wall_s=wall,
+                peak_bytes=torch.cuda.max_memory_allocated())
+
+
+def _guard_twin(tmp: str, vocab: int, watch=()) -> dict:
+    """Gate (e)'s one-device guarded twin, in this process, saved for the
+    ranks: its counts, losses, Adam's accepted steps and final parameters.
+    With ``watch``, ``(parameter name, flat index)`` pairs, it saves
+    nothing and returns instead under ``grads``, for each watched element,
+    its gradient as the update reads it (after the faults and the clip) and
+    its tensor's gradient RMS, by step."""
+    from pipe_tpu_torch.train.loop import Trainer
+
+    cfg = _elastic_cfg(vocab)
+    source = torch.load(os.path.join(tmp, "elastic.pt"))["source"].numpy()
+    tr = Trainer(cfg, _guard_tc(1), chaos=_guard_plan())
+    state = tr.init_state(GUARD_WEIGHT_SEED)
+    params = _layer_params(tr.pipe)
+    grads = []
+    step = Trainer._guarded_step
+
+    def read(self, *a, **kw):
+        out = step(self, *a, **kw)
+        grads.append([(params[n].grad.reshape(-1)[k].item(),
+                       params[n].grad.float().square().mean().sqrt().item())
+                      for n, k in watch])
+        return out
+
+    if watch:
+        Trainer._guarded_step = read
+    try:
+        _, info = tr.train_epoch(source, state=state, max_steps=GUARD_STEPS,
+                                 log_every=0, log_fn=lambda m: None)
+    finally:
+        Trainer._guarded_step = step
+    twin = {k: info[k] for k in ("anomalies", "rewinds", "steps", "losses")}
+    twin["accepted"] = tr.optimizer.step_count
+    if watch:
+        twin["grads"] = {w: [st[k] for st in grads]
+                         for k, w in enumerate(watch)}
+    else:
+        torch.save(dict(twin, params={n: p.detach().cpu() for n, p in
+                                      params.items()}),
+                   os.path.join(tmp, "guard_twin.pt"))
+    del tr, state, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return twin
+
+
+def _guard_verdict(g, twin) -> tuple:
+    """Gate (e)'s limbs for one rank's run against the twin: ``(counts
+    equal, loss rel, loss ok, parameters ok)``."""
+    rel = max(abs(a - b) / abs(b) for a, b in zip(g["losses"],
+                                                  twin["losses"]))
+    counts = (g["anomalies"], g["rewinds"], g["steps"], g["accepted"]) == (
+        twin["anomalies"], twin["rewinds"], twin["steps"], twin["accepted"])
+    params = (g["flipped"] <= TOL_FLIPPED
+              and g["param_err"] <= TRAIN_LR * twin["accepted"])
+    return counts, rel, rel <= TOL_MESH_LOSS, params
+
+
+def _guard_gate(guard, twin, watched=None) -> None:
+    """Gate (e): print each rank's run of the guarded 2 x 2 world against
+    the twin and the elements past the gradient bound (with ``watched``,
+    :func:`_guard_twin`'s gradients of them by step), and fail unless the
+    counts, the losses and the parameters hold."""
+    cap = TRAIN_LR * twin["accepted"]
+    for g in guard:
+        counts, rel, loss_ok, params_ok = _guard_verdict(g, twin)
+        log("elastic", run="guard 2x2 zero", rank=g["rank"],
+            anomalies=g["anomalies"], rewinds=g["rewinds"], steps=g["steps"],
+            accepted=g["accepted"], loss_rel=f"{rel:.2e}",
+            param_err=f"{g['param_err']:.2e}", cap=f"{cap:.1e}",
+            worst_param=g["worst_param"], flipped=f"{g['flipped']:.2e}",
+            wall_s=f"{g['wall_s']:.1f}", peak_bytes=g["peak_bytes"])
+        for e in g["past"]:
+            grads = {} if watched is None else dict(
+                twin_grad_by_step=[f"{st[0]:.3e}" for st in
+                                   watched[(e["name"], e["index"])]],
+                tensor_grad_rms_by_step=[f"{st[1]:.3e}" for st in
+                                         watched[(e["name"], e["index"])]])
+            log("elastic", run="guard 2x2 zero", rank=g["rank"],
+                past=e["name"], index=e["index"], diff=f"{e['diff']:.3e}",
+                mesh=f"{e['mine']:.6e}", twin=f"{e['twin']:.6e}", **grads)
+        if not counts:
+            raise AssertionError(f"elastic guard rank {g['rank']}: {g} vs "
+                                 f"the twin's {twin}")
+        if not (loss_ok and params_ok):
+            raise AssertionError(
+                f"elastic guard rank {g['rank']}: loss rel {rel:.2e}, "
+                f"{g['flipped']:.2e} of the parameters past the gradient "
+                f"bound, the worst off by {g['param_err']:.2e} (cap "
+                f"{cap:.1e})")
+
+
+def phase_elastic(smi: str, world=None) -> dict:
+    """Phase 13: elastic training over 4 stage ranks and the guarded step
+    over a 2 x 2 world with ZeRO; returns the kernels' launches of the
+    recovered run, summed over the ranks."""
+    import shutil
+    import tempfile
+
+    from pipe_tpu_torch.data import lm_text
+
+    t_phase = time.perf_counter()
+    train_lines, _, vocab = _corpus()
+    source = lm_text.batchify(lm_text.data_process(train_lines, vocab),
+                              TRAIN_BATCH)
+    tmp = tempfile.mkdtemp(prefix="pipe_tpu_elastic_")
+    torch.save({"source": torch.from_numpy(source)},
+               os.path.join(tmp, "elastic.pt"))
+    card = smi.splitlines()[0]
+    log("elastic", world=ELASTIC_WORLD, stages=ELASTIC_STAGES,
+        layers=ELASTIC_LAYERS, vocab=len(vocab), backend="gloo",
+        device="cuda:0 (shared)", card=card)
+    t0 = time.perf_counter()
+    twin = _guard_twin(tmp, len(vocab))
+    log("elastic", run="guard twin (one device, zero)", **{
+        k: twin[k] for k in ("anomalies", "rewinds", "steps")},
+        losses=[f"{l:.6f}" for l in twin["losses"]],
+        seconds=f"{time.perf_counter() - t0:.1f}")
+    with _world(world, ELASTIC_WORLD, ELASTIC_TIMEOUT_S,
+                ELASTIC_THREADS) as world:
+        t0 = time.perf_counter()
+        ranks = world.run(_elastic_rank, tmp, len(vocab))
+        log("elastic", spawn_to_ready_s=f"{world.spawn_to_ready_s:.2f}",
+            drill_s=f"{time.perf_counter() - t0:.1f}")
+        t0 = time.perf_counter()
+        guard = world.run(_guard_rank, tmp, len(vocab))
+        log("elastic", guard_s=f"{time.perf_counter() - t0:.1f}")
+    shutil.rmtree(tmp, ignore_errors=True)
+
+    launches = {"flash_attention_fwd": 0, "flash_attention_bwd_dq": 0,
+                "flash_attention_bwd_dkv": 0}
+    for r in ranks:
+        rec = r["recovered"]
+        for k, v in rec["launches"].items():
+            launches[k] += v
+        for c in rec["captures"]:
+            log("elastic", rank=r["rank"], capture_step=c["step"],
+                bytes=c["bytes"], ms=f"{c['seconds'] * 1e3:.1f}",
+                verified=c["verified"])
+            if not c["verified"]:
+                raise AssertionError(f"elastic rank {r['rank']}: an "
+                                     f"unverified capture")
+        # (d) launches per step by the layers a rank held
+        for k, st in enumerate(rec["steps"]):
+            want = dict(zip(launches, ELASTIC_LAUNCHES[st["layers"]]))
+            if st["launches"] != want:
+                raise AssertionError(
+                    f"elastic rank {r['rank']} step {k} ({st['layers']} "
+                    f"layers): launches {st['launches']} != {want}")
+        for st in r["reference_steps"]:
+            want = dict(zip(launches, ELASTIC_LAUNCHES[st["layers"]]))
+            if st["launches"] != want:
+                raise AssertionError(
+                    f"elastic reference rank {r['rank']}: launches "
+                    f"{st['launches']} != {want}")
+        # (a) the recovery record
+        recs = rec["recoveries"]
+        if len(recs) != 1 or any(
+                recs[0][k] != v for k, v in ELASTIC_RECORD.items()
+                if not (rec["retired"] and k in ("n_stages",
+                                                 "resume_step"))):
+            raise AssertionError(f"elastic rank {r['rank']}: recoveries "
+                                 f"{recs}")
+        if rec["retired"] != (r["stage"] == ELASTIC_KILL["stage"]):
+            raise AssertionError(f"elastic rank {r['rank']}: retired "
+                                 f"{rec['retired']}")
+        log("elastic", rank=r["rank"], stage=r["stage"],
+            retired=rec["retired"],
+            recovery_s=f"{recs[0]['recovery_s']:.3f}",
+            lost_steps=recs[0]["lost_steps"],
+            steady_ms_4_stages=_steady(rec["steps"], 4),
+            steady_ms_3_stages=_steady(rec["steps"], 3),
+            unkilled_ms_4_stages=_steady(r["reference_steps"], 4),
+            unkilled_ms_3_stages=_steady(r["reference_steps"], 3),
+            step_ms=[f"{st['ms']:.0f}{'*' if st['after_capture'] else ''}"
+                     for st in rec["steps"]],
+            peak_bytes=rec["peak_bytes"], launches=rec["launches"],
+            card=card)
+        if rec["retired"]:
+            continue
+        # (b) and (c)
+        log("elastic", rank=r["rank"], bitwise=r["bitwise"],
+            max_diff=r["max_diff"], corrupt_refused=r["corrupt_refused"],
+            losses={b: f"{l:.6f}" for b, l in r["loss_by_step"].items()})
+        if not (r["bitwise"] and r["loss_by_step"] == r["ref_loss_by_step"]):
+            raise AssertionError(
+                f"elastic rank {r['rank']}: the recovered run is not the "
+                f"restacked reference (max diff {r['max_diff']}, losses "
+                f"{r['loss_by_step']} vs {r['ref_loss_by_step']})")
+        if not r["corrupt_refused"]:
+            raise AssertionError(f"elastic rank {r['rank']}: a corrupt "
+                                 f"buddy copy was not refused")
+        if not all(math.isfinite(l) for l in r["loss_by_step"].values()):
+            raise AssertionError(f"elastic losses {r['loss_by_step']}")
+    # (e) the guarded step over 2 x 2 with ZeRO against its twin
+    _guard_gate(guard, twin)
+    if (twin["anomalies"], twin["rewinds"]) != (3, 1):
+        raise AssertionError(f"elastic guard twin: {twin}")
+    log("elastic", seconds=f"{time.perf_counter() - t_phase:.1f}", card=card)
+    return launches
+
+
+def fresh(phase: str) -> None:
+    """Start ``phase`` clean: collect the cyclic garbage earlier phases
+    left, empty the allocator's cache, print what is still allocated."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(phase, start_memory_allocated=torch.cuda.memory_allocated())
+
+
 def main() -> int:
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     t_start = time.perf_counter()
     smi = phase_device()
+    fresh("build")
     phase_build()
+    fresh("kernels")
     rows = phase_kernels()
+    fresh("slice")
     eval_launches = phase_slice()
+    fresh("train")
     train_launches = phase_train()
+    fresh("train_obs")
     obs_launches = phase_train_obs(smi)
+    fresh("schedules")
     sched_launches = phase_schedules()
+    fresh("remat")
     remat_launches = phase_remat()
+    fresh("gpt2")
     gpt2_launches = phase_gpt2()
+    fresh("gpt2_serve")
     phase_gpt2_serve()
+    fresh("bert")
     bert_launches = phase_bert()
+    fresh("vit")
     phase_vit()
+    fresh("generate")
     gap = phase_generate()
+    fresh("serve")
     ctx = phase_serve(gap, smi)
+    fresh("paged")
     ctx["resident"] = phase_serve_paged(ctx, smi)
+    fresh("spec")
     phase_serve_spec(ctx, smi)
     del ctx
-    torch.cuda.empty_cache()
+    fresh("fleet")
     phase_fleet(smi, gap)
-    torch.cuda.empty_cache()
-    mesh_launches = phase_mesh(smi)
-    torch.cuda.empty_cache()
-    ring_launches = phase_ring(smi)
+    # phases 11-13 share one world of 4 ranks: it is spawned, and each
+    # rank's CUDA context made, once
+    from pipe_tpu_torch.runtime.distributed import World
+    with World(MESH_WORLD, device="cuda", backend="gloo",
+               timeout=MESH_TIMEOUT_S, threads=MESH_THREADS) as world:
+        fresh("mesh")
+        mesh_launches = phase_mesh(smi, world)
+        fresh("ring")
+        ring_launches = phase_ring(smi, world)
+        fresh("elastic")
+        elastic_launches = phase_elastic(smi, world)
     sources = {"flash_attn_fwd": ("flash_attn_fwd.cu", 87,
                                   "flash_attention_fwd"),
                "flash_attn_bwd_dq": ("flash_attn_bwd.cu", 162,
@@ -5628,6 +6213,7 @@ def main() -> int:
         entry["launches_mesh"] = {
             run: launches[wrapper] for run, launches in mesh_launches.items()}
         entry["launches_ring_train"] = ring_launches[wrapper]
+        entry["launches_elastic"] = elastic_launches[wrapper]
         entry["gpt2_shape"] = row["gpt2_shape"]
         entry["bert_shape"] = row["bert_shape"]
         entry["mesh_shape"] = row["mesh_shape"]

@@ -16,7 +16,10 @@ exchanges with ``dist.batch_isend_irecv`` (every receive posted before any
 send), ``all_reduce`` and ``all_gather``; for the ring decoders
 (``inference/pipelined.py``, ``serve/ring.py``) a shift by one over the
 stage ring (:meth:`Mesh.ring_shift`) and a small broadcast of a host plan
-(:meth:`Mesh.broadcast_plan`). The backend is the caller's
+(:meth:`Mesh.broadcast_plan`). After elastic training loses a stage,
+:func:`survivor_mesh` is the mesh over the ranks left: its grid leaves out
+the dead stage's row, and its "world" is the survivors' group, so that
+nothing waits on a retired rank. The backend is the caller's
 (``runtime/distributed.py``): over ``nccl`` CUDA tensors go as they are;
 over ``gloo`` a CUDA tensor is staged through a pinned host buffer,
 explicitly, and the staged bytes are counted in :attr:`Mesh.stats` beside
@@ -36,8 +39,8 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-__all__ = ["Mesh", "make_mesh", "localize", "STAGE_AXIS", "DATA_AXIS",
-           "CONTEXT_AXIS", "MODEL_AXIS", "mesh_grid"]
+__all__ = ["Mesh", "make_mesh", "survivor_mesh", "localize", "STAGE_AXIS",
+           "DATA_AXIS", "CONTEXT_AXIS", "MODEL_AXIS", "mesh_grid"]
 
 STAGE_AXIS = "stage"
 DATA_AXIS = "data"
@@ -76,7 +79,8 @@ class Mesh:
     Made by :func:`make_mesh`."""
 
     def __init__(self, n_stages: int, n_data: int, *, device: torch.device,
-                 timeout: timedelta, grid: Optional[np.ndarray] = None):
+                 timeout: timedelta, grid: Optional[np.ndarray] = None,
+                 world_group=None):
         self.n_stages = n_stages
         self.n_data = n_data
         self.rank = dist.get_rank()
@@ -86,14 +90,11 @@ class Mesh:
                      else np.asarray(grid))
         self.stage, self.data = (int(a[0]) for a in
                                  np.nonzero(self.grid == self.rank))
-        # one group per data column (a pipeline) and per stage row (the
-        # data replicas of a stage), made by every rank in the same order
-        columns = [dist.new_group([int(r) for r in self.grid[:, j]],
-                                  timeout=timeout)
-                   for j in range(n_data)]
-        rows = [dist.new_group([int(r) for r in self.grid[i, :]],
-                               timeout=timeout)
-                for i in range(n_stages)]
+        # the group of every rank of the mesh (None: the default group) and
+        # the rank that writes for the mesh (checkpoints, TensorBoard)
+        self.world_group = world_group
+        self.lead = int(self.grid[0, 0])
+        columns, rows = _make_groups(self.grid, timeout)
         self.column_group = columns[self.data]
         self.data_group = rows[self.stage]
         self.prev = self.rank_of((self.stage - 1) % n_stages)
@@ -270,7 +271,7 @@ class Mesh:
         if over == STAGE_AXIS:
             return self.column_group, self.n_stages
         if over == "world":
-            return None, self.n_stages * self.n_data
+            return self.world_group, self.n_stages * self.n_data
         raise ValueError(f"no mesh axis {over!r}")
 
     def all_reduce(self, t: torch.Tensor, over: str = DATA_AXIS) -> None:
@@ -377,6 +378,44 @@ class _PSum(torch.autograd.Function):
         g = g.detach().clone()
         ctx.mesh.all_reduce(g, DATA_AXIS)
         return g, None
+
+
+def _make_groups(grid: np.ndarray, timeout: timedelta):
+    """One group per data column (a pipeline) and per stage row (the data
+    replicas of a stage) of ``grid``. ``dist.new_group`` is collective over
+    the default group: every rank of the world makes every group, in the
+    same order, whether it is a member or not."""
+    columns = [dist.new_group([int(r) for r in grid[:, j]], timeout=timeout)
+               for j in range(grid.shape[1])]
+    rows = [dist.new_group([int(r) for r in grid[i, :]], timeout=timeout)
+            for i in range(grid.shape[0])]
+    return columns, rows
+
+
+def survivor_mesh(mesh: Mesh, lost_stage: int) -> Optional[Mesh]:
+    """The mesh over the ranks that survive the loss of stage
+    ``lost_stage``: ``mesh``'s grid without that stage's row (every data
+    replica of the dead stage goes, as ``pipe_tpu`` drops the mesh row),
+    stages renumbered, its "world" the survivors' own group. Every rank of
+    the default group calls it, the dead stage's ranks too: they take part
+    in making the groups without joining them, then get None and retire.
+    A mesh made this way never touches the default group again."""
+    from ..runtime import distributed as rd
+
+    if mesh.world_group is not None:
+        raise RuntimeError(
+            "survivor_mesh of a survivor mesh: the ranks retired by the "
+            "first loss no longer take part in making groups (ROADMAP.md "
+            "C.19)")
+    timeout = rd.world_timeout()
+    grid = np.delete(mesh.grid, lost_stage, axis=0)
+    world = dist.new_group(sorted(int(r) for r in grid.reshape(-1)),
+                           timeout=timeout)
+    if mesh.stage == lost_stage:
+        _make_groups(grid, timeout)              # a member of none of them
+        return None
+    return Mesh(grid.shape[0], grid.shape[1], device=mesh.device,
+                timeout=timeout, grid=grid, world_group=world)
 
 
 _MESHES: Dict[Tuple[int, int], Mesh] = {}

@@ -1,5 +1,5 @@
-"""Fault injection, anomaly detection and recovery on one device:
-counterpart of ``pipe_tpu/resilience`` without elastic training.
+"""Fault injection, anomaly detection and recovery, on one device and over
+a mesh of ranks: counterpart of ``pipe_tpu/resilience``.
 
 * :mod:`.chaos` -- deterministic, seeded, step/tick-indexed fault injection
   (:class:`ChaosPlan`): NaN/inf into grads or activations, loss spikes,
@@ -11,16 +11,23 @@ counterpart of ``pipe_tpu/resilience`` without elastic training.
   tick's health policy;
 * :mod:`.recover` -- skip-step happens inside the guarded step;
   :class:`ResilienceController` adds bounded rewind-to-snapshot with
-  exponential backoff, :class:`RetryingIterator` retries the data iterator.
+  exponential backoff, :class:`RetryingIterator` retries the data iterator;
+* :mod:`.elastic` -- the top rung: :class:`BuddyStore` replication one hop
+  round the stage ring, :class:`ElasticController`'s dead-stage verdict
+  from the gradient heartbeat, :func:`replan_after_loss` over the ``n-1``
+  survivors and :func:`train_elastic`, which drives the ladder.
 
 With ``TrainerConfig.resilience=None`` and no :class:`ChaosPlan` (the
-defaults) the train step is the unguarded step, kernel for kernel. Elastic
-training (``resilience/elastic.py``) is not ported yet (ROADMAP.md A.8).
+defaults) the train step is the unguarded step, kernel for kernel; with
+``elastic=None`` it is the guarded one.
 """
 
 from .chaos import (KILL_NONE, ChaosError, ChaosPlan, Fault, current_kill,
                     kill_scope, wrap_stage_fn)
 from .detect import HopHealth, TickWatchdog, stage_heartbeat, step_guard
+from .elastic import (BuddyStore, ElasticConfig, ElasticController,
+                      StageLost, replan_after_loss, restack_state,
+                      train_elastic)
 from .recover import (DataIteratorFailed, ResilienceConfig,
                       ResilienceController, RetryingIterator,
                       TrainingAborted)
@@ -31,4 +38,6 @@ __all__ = [
     "HopHealth", "TickWatchdog",
     "DataIteratorFailed", "ResilienceConfig", "ResilienceController",
     "RetryingIterator", "TrainingAborted",
+    "ElasticConfig", "StageLost", "BuddyStore", "ElasticController",
+    "restack_state", "replan_after_loss", "train_elastic",
 ]

@@ -40,12 +40,11 @@ site:
                     ``step`` onward, permanently
 ``slow_replica``    router fleet: replica ``stage``'s decode sleeps
                     ``magnitude`` seconds per tick while covered
+``kill_stage``      pipeline stage ``stage``'s output zeroed permanently
+                    from ``step`` on, through a kill code the elastic step
+                    reads (``resilience/elastic.py``); the stage never
+                    comes back
 ==================  =======================================================
-
-Only ``kill_stage``, the channel of elastic training, is not ported: its
-lookup raises ``NotImplementedError`` naming its ROADMAP.md item
-(A.7/A.8, ``resilience/elastic.py``), and so does a ``Trainer`` given a plan
-that holds it.
 
 Train-step faults ride an ``inject`` code, a 0-dim int32 tensor on the
 training device: the host writes the code of each step into it
@@ -66,9 +65,9 @@ import torch
 __all__ = ["ChaosError", "Fault", "ChaosPlan",
            "INJECT_NONE", "INJECT_NAN_GRADS", "INJECT_INF_GRADS",
            "INJECT_NAN_LOSS", "INJECT_LOSS_SPIKE", "INJECT_NAN_ACT",
-           "KILL_NONE", "PORTED_KINDS", "inject_scope", "current_inject",
+           "KILL_NONE", "inject_scope", "current_inject",
            "kill_scope", "current_kill", "apply_train_faults",
-           "wrap_pre_fn", "wrap_stage_fn"]
+           "wrap_pre_fn", "wrap_stage_fn", "kill_output"]
 
 
 class ChaosError(RuntimeError):
@@ -88,16 +87,6 @@ REPLICA_KINDS = ("wedge_replica", "kill_replica", "slow_replica")
 STAGE_KINDS = ("kill_stage",)
 KINDS = TRAIN_KINDS + DATA_KINDS + TRANSPORT_KINDS + WIRE_KINDS \
     + SERVE_KINDS + REPLICA_KINDS + STAGE_KINDS
-# The kinds the port injects; ``kill_stage`` names its ROADMAP.md item.
-PORTED_KINDS = TRAIN_KINDS + DATA_KINDS + TRANSPORT_KINDS + WIRE_KINDS \
-    + SERVE_KINDS + REPLICA_KINDS
-_NOT_PORTED_ITEM = {k: "A.7/A.8, resilience/elastic.py" for k in STAGE_KINDS}
-
-
-def _not_ported(kind: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"fault kind {kind!r} is not ported to pipe_tpu_torch yet "
-        f"(ROADMAP.md: {_NOT_PORTED_ITEM[kind]})")
 
 # Inject codes (the 0-dim int32 tensor the guarded step reads).
 INJECT_NONE = 0
@@ -112,8 +101,8 @@ _TRAIN_CODE = {"nan_grads": INJECT_NAN_GRADS,
                "loss_spike": INJECT_LOSS_SPIKE,
                "nan_activations": INJECT_NAN_ACT}
 
-# Kill code of elastic training (pipe_tpu's elastic step; A.7/A.8 here):
-# the stage index to silence, or KILL_NONE for a healthy step.
+# Kill code of the elastic step: the stage index to silence, or KILL_NONE
+# for a healthy step.
 KILL_NONE = -1
 
 
@@ -187,9 +176,14 @@ class ChaosPlan:
         return INJECT_NONE, 1.0
 
     def train_kill(self, step: int) -> int:
-        """The stage a ``kill_stage`` fault silences (elastic training):
-        not ported, raises naming its ROADMAP.md item."""
-        raise _not_ported("kill_stage")
+        """The stage index a ``kill_stage`` fault silences at ``step``,
+        or :data:`KILL_NONE`. Like ``kill_replica``, a stage kill is
+        permanent: it matches every step from ``step`` onward whatever
+        ``count`` is — a dead stage never comes back on its own."""
+        for f in self.faults:
+            if f.kind == "kill_stage" and step >= f.step:
+                return int(f.stage)
+        return KILL_NONE
 
     def last_train_fault_step(self) -> int:
         """Last step index any train-visible fault covers (-1 if none):
@@ -277,13 +271,6 @@ class ChaosPlan:
         import numpy as np
         rng = np.random.RandomState(self.seed * 1_000_003 + i)
         return [int(t) for t in rng.randint(1, 32, size=4)]
-
-    def check_ported(self) -> None:
-        """Raise ``NotImplementedError`` naming the ROADMAP.md item of the
-        first fault whose injection site is not ported (``kill_stage``)."""
-        for f in self.faults:
-            if f.kind not in PORTED_KINDS:
-                raise _not_ported(f.kind)
 
 
 # ---------------------------------------------------------------------------
@@ -396,6 +383,25 @@ def poison_activations(h: torch.Tensor) -> torch.Tensor:
                       == INJECT_NAN_ACT, float("nan"), 1.0, h).to(h.dtype)
 
 
+def kill_output(out, stage: int):
+    """``out`` (a tensor, or a tuple or list of them) zeroed when the
+    current kill code is ``stage``, scaled by 1.0 otherwise (bitwise
+    ``out``); ``out`` itself outside a :class:`kill_scope`."""
+    code = current_kill()
+    if code is None:
+        return out
+
+    def scaled(o):
+        if not isinstance(o, torch.Tensor):
+            return o
+        dead = torch.as_tensor(code, device=o.device) == stage
+        return o * _where(dead, 0.0, 1.0, o).to(o.dtype)
+
+    if isinstance(out, (tuple, list)):
+        return type(out)(scaled(o) for o in out)
+    return scaled(out)
+
+
 def wrap_stage_fn(stage_fn):
     """Wrap a stage fn ``stage_fn(*args, ctx)`` so a kill code equal to
     ``ctx.stage`` zeroes the stage's whole output (a dead stage emits
@@ -404,19 +410,7 @@ def wrap_stage_fn(stage_fn):
 
     def chaos_stage_fn(*args, **kwargs):
         out = stage_fn(*args, **kwargs)
-        code = current_kill()
-        if code is None:
-            return out
         ctx = kwargs["ctx"] if "ctx" in kwargs else args[2]
-
-        def scaled(o):
-            if not isinstance(o, torch.Tensor):
-                return o
-            dead = torch.as_tensor(code, device=o.device) == ctx.stage
-            return o * _where(dead, 0.0, 1.0, o).to(o.dtype)
-
-        if isinstance(out, (tuple, list)):
-            return type(out)(scaled(o) for o in out)
-        return scaled(out)
+        return kill_output(out, ctx.stage)
 
     return chaos_stage_fn

@@ -46,9 +46,18 @@ sharded over the data group with ``zero``.
 Rank 0 writes the one-device trainer's checkpoint files (:meth:`Trainer.save`
 gathers the model and Adam state), and a one-device checkpoint resumes on a
 mesh. One ``StepReport`` a rank, ``n_devices=1`` (ROADMAP.md C.9), each
-rank's events under ``telemetry_dir/rank{r}``, TensorBoard from rank 0.
-Elastic training, and the guarded step and chaos over a mesh, are not
-ported: their values raise ``NotImplementedError``.
+rank's events under ``telemetry_dir/rank{r}``, TensorBoard from rank 0. The guarded step and chaos run over a mesh as on
+one device: the loss and the gradient norm are the world's, so every rank
+reaches the same verdict, and each rank selects back, or rewinds, its own
+shard.
+
+**Elastic training** (``elastic``, ``resilience/elastic.py``): the guarded
+step plus a kill channel (a forward hook on each stage's last block zeroes
+its output under a ``kill_stage`` fault) and a per-stage gradient heartbeat,
+a ``[n_stages]`` silent-streak vector in the guard's carry (over a mesh each
+rank beats for its own stage and the vector is summed over the pipeline).
+:meth:`Trainer.elastic_store` keeps the buddy copies that
+``replan_after_loss`` restores from.
 """
 
 from __future__ import annotations
@@ -120,28 +129,28 @@ class TrainerConfig:
 
 _SCHEDULES = ("gpipe", "1f1b", "zb-h1", "interleaved", "interleaved-1f1b")
 
-# (field, its default, the ROADMAP.md item that ports it)
-_NOT_PORTED = (
-    ("elastic", None, "A.7/A.8, resilience/elastic.py"),
-)
-# not ported over a mesh (ROADMAP.md A.8)
-_NOT_ON_A_MESH = (
-    ("resilience", None, "A.8, the guarded step over a mesh"),
-)
 
-
-def _check_ported(cfg: TrainerConfig, mesh=None) -> None:
+def _check_config(cfg: TrainerConfig, mesh=None) -> None:
     if cfg.schedule not in _SCHEDULES:
         raise ValueError(f"unknown schedule {cfg.schedule!r}")
-    for name, default, item in _NOT_PORTED + (_NOT_ON_A_MESH if mesh
-                                               else ()):
-        if getattr(cfg, name) != default:
-            raise NotImplementedError(
-                f"TrainerConfig.{name}={getattr(cfg, name)!r} is not ported "
-                f"to pipe_tpu_torch yet (ROADMAP.md: {item})")
     if cfg.mu_dtype is not None and cfg.mu_dtype not in _MU_DTYPES:
         raise ValueError(f"mu_dtype must be one of {sorted(_MU_DTYPES)}, "
                          f"got {cfg.mu_dtype!r}")
+    if cfg.elastic is not None:
+        if cfg.resilience is None:
+            raise ValueError(
+                "TrainerConfig.elastic requires resilience= (the "
+                "elastic rung extends the guarded step's ladder)")
+        if cfg.schedule in ("interleaved", "interleaved-1f1b"):
+            raise ValueError(
+                "elastic training needs one stage per device "
+                f"(schedule {cfg.schedule!r} interleaves "
+                f"{cfg.interleave} virtual stages per device)")
+        if mesh is not None and mesh.backend != "gloo":
+            raise ValueError(
+                f"elastic training over a mesh needs the gloo backend, not "
+                f"{mesh.backend!r}: the buddy copies are host buffers "
+                f"(ROADMAP.md C.22)")
 
 
 _MU_DTYPES = {"bfloat16": torch.bfloat16, "float16": torch.float16,
@@ -306,19 +315,7 @@ class Trainer:
         if cfg.plan is not None:
             cfg = _resolve_plan_config(model_cfg, cfg)
         mesh = _world_mesh(cfg, mesh)
-        _check_ported(cfg, mesh)
-        if cfg.resilience is not None and (cfg.zero or cfg.mu_dtype):
-            raise NotImplementedError(
-                "TrainerConfig.resilience with zero or mu_dtype is not "
-                "ported to pipe_tpu_torch yet (ROADMAP.md: A.8, the guarded "
-                "step over ShardedAdam)")
-        if chaos is not None:
-            if mesh is not None:
-                raise NotImplementedError(
-                    "Trainer(chaos=...) over a mesh is not ported to "
-                    "pipe_tpu_torch yet (ROADMAP.md: A.8, the guarded step "
-                    "over a mesh)")
-            chaos.check_ported()
+        _check_config(cfg, mesh)
         self.model_cfg = model_cfg
         self.cfg = cfg
         self.chaos = chaos
@@ -332,11 +329,19 @@ class Trainer:
                          device=self.device)
         self.scheduled = self._build_scheduled()
         self.eval_exec = self._build_eval() if mesh is not None else None
+        # each stage's blocks, as PipelinedLM's stage_fn runs them (the
+        # heartbeat reads their gradients, the kill zeroes their output)
+        layers, lps = list(self.pipe), model_cfg.n_layers // cfg.n_stages
+        self._stage_blocks = [layers[2 + s * lps:2 + (s + 1) * lps]
+                              for s in range(cfg.n_stages)]
         if chaos is not None:
-            from ..resilience.chaos import poison_activations
+            from ..resilience.chaos import kill_output, poison_activations
             # the embedding's output, in Pipe and in the tables' pre_fn
             self.pipe[1].register_forward_hook(
                 lambda module, args, out: poison_activations(out))
+            for s, blocks in enumerate(self._stage_blocks):
+                blocks[-1].register_forward_hook(
+                    lambda module, args, out, s=s: kill_output(out, s))
         # this rank's parameters (every one on one device)
         self.params = [p for p in self.pipe.parameters()
                        if p.device.type != "meta"]
@@ -354,7 +359,7 @@ class Trainer:
                                               betas=(0.9, 0.999), eps=1e-8)
         self._state: Optional[TrainState] = None
         self.tb = None
-        if cfg.tb_dir is not None and (mesh is None or mesh.rank == 0):
+        if cfg.tb_dir is not None and (mesh is None or mesh.rank == mesh.lead):
             from ..obs.tb_writer import ScalarWriter
             self.tb = ScalarWriter(cfg.tb_dir)
         # The registry (cheap counters) and the event log; with no
@@ -370,6 +375,7 @@ class Trainer:
         self._autosave_dir: Optional[str] = None
         self._guard_bufs: Optional[List[torch.Tensor]] = None
         self._pending_verdict = None
+        self._buddy_store = None
 
     def _build_scheduled(self):
         """The table executor for ``1f1b``/``zb-h1``/``interleaved-1f1b``
@@ -522,13 +528,11 @@ class Trainer:
                        for j, p in enumerate(self.params)}
         self.optimizer.load_full_moments(moments, max(steps, default=0))
 
-    def _full_state(self, state: TrainState) -> Optional[TrainState]:
-        """The one-device trainer's state of the whole model, gathered on
-        rank 0 (None on the others; collective over the world)."""
-        import torch.distributed as dist
-
-        self._adopt(state)
-        mesh = self.mesh
+    def _own_state(self):
+        """This rank's part of the one-device trainer's state, on the host:
+        its model tensors by name, and the Adam state of its parameters by
+        their index over the whole model (under ``zero`` the moments are
+        gathered whole over the data group: collective)."""
         if isinstance(self.optimizer, torch.optim.Optimizer):
             st = self.optimizer.state_dict()["state"]
             moments = {j: {k: (v.detach().cpu() if isinstance(
@@ -540,29 +544,125 @@ class Trainer:
                            "exp_avg": m["exp_avg"].float().cpu(),
                            "exp_avg_sq": m["exp_avg_sq"].cpu()}
                        for j, m in self.optimizer.full_moments().items()}
-        mine = None
-        if mesh.data == 0:
-            mine = ({k: v.detach().cpu() for k, v in
-                     self.pipe.state_dict().items()
-                     if v.device.type != "meta"},
-                    {g: moments[j] for j, g in
-                     enumerate(self._global_index()) if j in moments})
-        got = [None] * dist.get_world_size() if mesh.rank == 0 else None
-        dist.gather_object(mine, got, dst=0)
-        if mesh.rank != 0:
+        return ({k: v.detach().cpu() for k, v in
+                 self.pipe.state_dict().items() if v.device.type != "meta"},
+                {g: moments[j] for j, g in enumerate(self._global_index())
+                 if j in moments})
+
+    def _full_state(self, state: TrainState) -> Optional[TrainState]:
+        """The one-device trainer's state of the whole model, gathered on
+        the mesh's lead rank (None on the others; collective over the
+        mesh's world)."""
+        import torch.distributed as dist
+
+        self._adopt(state)
+        mesh = self.mesh
+        part = self._own_state()
+        mine = part if mesh.data == 0 else None
+        size = mesh.n_stages * mesh.n_data
+        got = [None] * size if mesh.rank == mesh.lead else None
+        dist.gather_object(mine, got, dst=mesh.lead, group=mesh.world_group)
+        if mesh.rank != mesh.lead:
             return None
+        return self._whole_state([p for p in got if p is not None],
+                                 state.step)
+
+    def _whole_state(self, parts, step: int) -> TrainState:
+        """The one-device trainer's :class:`TrainState` of the ranks'
+        :meth:`_own_state` parts (together, the whole model)."""
         model, opt = {}, {}
-        for part in got:
-            if part is not None:
-                model.update(part[0])
-                opt.update(part[1])
-        order = list(self.pipe.state_dict())
+        for part in parts:
+            model.update(part[0])
+            opt.update(part[1])
+        tmpl = self._adam_template()
+        tmpl["state"] = {g: opt[g] for g in sorted(opt)}
+        return TrainState(model={k: model[k] for k in self.pipe.state_dict()},
+                          optimizer=tmpl, step=step)
+
+    def _adam_template(self) -> Dict[str, Any]:
+        """An empty one-device optimizer state: ``torch.optim.Adam``'s over
+        every parameter of the model, at the current learning rate."""
         tmpl = torch.optim.Adam(list(self.pipe.parameters()), lr=self.cfg.lr,
                                 betas=(0.9, 0.999), eps=1e-8).state_dict()
         tmpl["param_groups"][0]["lr"] = self.optimizer.param_groups[0]["lr"]
-        tmpl["state"] = {g: opt[g] for g in sorted(opt)}
-        return TrainState(model={k: model[k] for k in order},
-                          optimizer=tmpl, step=state.step)
+        return tmpl
+
+    # --- stage shards (the elastic rung's buddy copies) ---
+
+    def _shard_layout(self, stage: int) -> List[tuple]:
+        """Stage ``stage``'s shard, entry by entry, as every rank can derive
+        it from the model (another rank's tensors are ``meta`` here):
+        ``(name, layer in the partition, shape, dtype)`` for each model
+        tensor of the partition (``model/{key}``) and both Adam moments of
+        each of its parameters (``exp_avg/{g}``, ``exp_avg_sq/{g}``, ``g``
+        the parameter's index among all the model's)."""
+        prefix = f"partitions.{stage}.layers."
+
+        def layer(name):
+            return int(name[len(prefix):].split(".", 1)[0])
+
+        out = [(f"model/{k}", layer(k), t.shape, t.dtype)
+               for k, t in self.pipe.state_dict().items()
+               if k.startswith(prefix)]
+        mu = _MU_DTYPES.get(self.cfg.mu_dtype)
+        params = [(g, n, p) for g, (n, p) in
+                  enumerate(self.pipe.named_parameters())
+                  if n.startswith(prefix)]
+        out += [(f"exp_avg/{g}", layer(n), p.shape, mu or p.dtype)
+                for g, n, p in params]
+        out += [(f"exp_avg_sq/{g}", layer(n), p.shape, p.dtype)
+                for g, n, p in params]
+        return out
+
+    def _stage_shards(self):
+        """This process's stage shards, ``{stage: tensors}`` in
+        :meth:`_shard_layout` order (every stage on one device, this rank's
+        over a mesh), and Adam's step count. Under ``zero`` the moments are
+        gathered whole over the data group (collective)."""
+        self._settle_steps()
+        if isinstance(self.optimizer, torch.optim.Optimizer):
+            self._guarded_tensors()          # Adam's state, made if empty
+            params = list(self.pipe.parameters())
+            moments = {g: self.optimizer.state[p]
+                       for g, p in enumerate(params)}
+            steps = int(moments[0]["step"])
+        else:
+            full = self.optimizer.full_moments()
+            moments = {g: full[j] for j, g in enumerate(self._global_index())}
+            steps = self.optimizer.step_count
+        sd = self.pipe.state_dict()
+
+        def tensor(name):
+            kind, key = name.split("/", 1)
+            return sd[key] if kind == "model" else moments[int(key)][kind]
+
+        stages = (range(self.cfg.n_stages) if self.mesh is None
+                  else [self.mesh.stage])
+        return ({s: [tensor(e[0]) for e in self._shard_layout(s)]
+                 for s in stages}, steps)
+
+    def _state_from_shards(self, entries: Dict[str, torch.Tensor],
+                           adam_steps: int, step: int) -> TrainState:
+        """A one-device trainer's :class:`TrainState` (``torch.optim.Adam``'s
+        state, indexed over the whole model) of the entries of
+        :meth:`_shard_layout`: the whole model's, or some stages'."""
+        scalar = (torch.float64 if torch.get_default_dtype() == torch.float64
+                  else torch.float32)
+        order = {k: i for i, k in enumerate(self.pipe.state_dict())}
+        model = {k[6:]: v for k, v in sorted(
+            ((k, v) for k, v in entries.items() if k.startswith("model/")),
+            key=lambda kv: order[kv[0][6:]])}
+        index = sorted(int(k.split("/")[1]) for k in entries
+                       if k.startswith("exp_avg/"))
+        opt = ({"param_groups": copy.deepcopy(
+            self.optimizer.state_dict()["param_groups"])} if isinstance(
+            self.optimizer, torch.optim.Optimizer) else self._adam_template())
+        opt["state"] = {g: {"step": torch.tensor(float(adam_steps),
+                                                 dtype=scalar),
+                            "exp_avg": entries[f"exp_avg/{g}"],
+                            "exp_avg_sq": entries[f"exp_avg_sq/{g}"]}
+                        for g in index}
+        return TrainState(model=model, optimizer=opt, step=step)
 
     def init_state(self, seed: Optional[int] = None) -> TrainState:
         """Fresh weights drawn from ``seed`` (default ``cfg.seed``) and an
@@ -613,7 +713,7 @@ class Trainer:
         full = self._full_state(state)
         if full is not None:
             save_checkpoint(directory, full, step)
-        dist.barrier()
+        dist.barrier(group=self.mesh.world_group)
 
     def install_autosave(self, directory: str,
                          signals: Optional[List[int]] = None) -> None:
@@ -744,7 +844,8 @@ class Trainer:
 
     def _guarded_step(self, data: np.ndarray, target: np.ndarray, seed: int,
                       step: int, aux, inject: torch.Tensor,
-                      magnitude: torch.Tensor):
+                      magnitude: torch.Tensor,
+                      kill: Optional[torch.Tensor] = None):
         """The resilient step: the plain step's update plus (a) the chaos
         faults selected by the ``inject`` code (with a plan) and (b)
         ``step_guard``'s verdict, which selects the pre-step parameters and
@@ -752,6 +853,14 @@ class Trainer:
         still advances, so the LR and dropout-seed walk is unaffected).
         ``aux`` is ``(loss EWMA, consecutive anomalies, total anomalies)``
         on the device. The pre-step copies and the select are device work.
+        Over a mesh the loss and the clip's norm are the world's, so every
+        rank reaches the same verdict and selects back its own shard.
+
+        The elastic step (``kill``, a 0-dim int32 kill code): the forward
+        runs under ``kill_scope``, and ``aux`` carries a fourth entry, the
+        ``[n_stages]`` int32 silent streaks, which a guard-accepted step
+        advances where the stage's gradient heartbeat is exactly zero and
+        resets elsewhere (a rejected step leaves them).
         Adam's step count is a host number, so before this step's update
         the host waits for the previous step's verdict (:meth:`_settle_steps`)
         and puts the count back if that step was skipped. That wait is one
@@ -759,17 +868,20 @@ class Trainer:
         the device queue does not drain and the host runs at most one step
         ahead. The loop reads the verdict itself (a full sync) only every
         ``check_every`` steps. Returns ``(loss, aux)``."""
-        from ..resilience.chaos import apply_train_faults, inject_scope
+        from ..resilience.chaos import (apply_train_faults, inject_scope,
+                                        kill_scope)
         from ..resilience.detect import step_guard
 
         rc = self.cfg.resilience
-        with inject_scope(inject if self.chaos is not None else None):
+        with inject_scope(inject if self.chaos is not None else None), \
+                kill_scope(kill):
             loss = self._loss_and_grads(data, target, seed)
-        grads = [p.grad for p in self.pipe.parameters()]
+        grads = [p.grad for p in self.params]
         if self.chaos is not None:
             loss, _ = apply_train_faults(inject, magnitude, loss, grads)
-        norm = clip_by_global_norm(grads, self.cfg.grad_clip)
-        ewma, consec, total = aux
+        beat = self._heartbeat() if kill is not None else None
+        norm = clip_by_global_norm(grads, self.cfg.grad_clip, mesh=self.mesh)
+        ewma, consec, total = aux[:3]
         ok, new_ewma = step_guard(
             loss, None, ewma, step, spike_factor=rc.spike_factor,
             warmup_steps=rc.warmup_steps, ewma_alpha=rc.ewma_alpha,
@@ -785,13 +897,56 @@ class Trainer:
                 torch.where(ok, t, old, out=t)
         self._hold_verdict(ok)
         bad = (~ok).to(total.dtype)
-        return loss, (new_ewma, torch.where(ok, torch.zeros_like(consec),
-                                            consec + 1), total + bad)
+        new_aux = (new_ewma, torch.where(ok, torch.zeros_like(consec),
+                                         consec + 1), total + bad)
+        if beat is not None:
+            hb = aux[3]
+            streak = torch.where(beat == 0, hb + 1, torch.zeros_like(hb))
+            new_aux += (torch.where(ok, streak, hb),)
+        return loss, new_aux
+
+    def _heartbeat(self) -> torch.Tensor:
+        """``stage_heartbeat`` of each stage's block gradients, ``[n_stages]``
+        float32: exactly 0.0 for a stage whose output a kill zeroed and for
+        every stage before it. Over a mesh this rank beats for its own
+        stage and the vector is summed over its pipeline."""
+        from ..resilience.detect import stage_heartbeat
+
+        def beat(blocks):
+            grads = [p.grad if p.grad is not None else torch.zeros_like(p)
+                     for m in blocks for p in m.parameters()]
+            return stage_heartbeat([g.unsqueeze(0) for g in grads], 1)
+
+        if self.mesh is None:
+            return torch.cat([beat(b) for b in self._stage_blocks])
+        out = torch.zeros(self.cfg.n_stages, device=self.device)
+        out[self.mesh.stage] = beat(self._stage_blocks[self.mesh.stage])[0]
+        self.mesh.all_reduce(out, "stage")
+        return out
+
+    def elastic_store(self):
+        """The trainer's buddy-replication store, made on first use. It
+        lives on the trainer, not the epoch, so the snapshot survives the
+        ``StageLost`` raise and ``replan_after_loss`` restores from it."""
+        if self._buddy_store is None:
+            from ..resilience.elastic import BuddyStore
+            el = self.cfg.elastic
+            self._buddy_store = BuddyStore(
+                self, verify=getattr(el, "verify_replication", True),
+                registry=self.registry, events=self.events,
+                snapshot_dir=getattr(el, "snapshot_dir", None))
+        return self._buddy_store
 
     def _guarded_tensors(self) -> List[torch.Tensor]:
         """The parameters and both Adam moments, the moments created as
         ``torch.optim.Adam`` creates them at its first step (zeros, step
-        0) so that a skipped first step has a state to keep."""
+        0) so that a skipped first step has a state to keep. Under
+        ``ShardedAdam`` the moments are its flat buffers (this rank's
+        shard under ``zero``, the first moment in ``mu_dtype``)."""
+        if not isinstance(self.optimizer, torch.optim.Optimizer):
+            opt = self.optimizer
+            return (list(self.params) + list(opt.exp_avg.values())
+                    + list(opt.exp_avg_sq.values()))
         params = [p for g in self.optimizer.param_groups for p in g["params"]]
         scalar = (torch.float64 if torch.get_default_dtype() == torch.float64
                   else torch.float32)
@@ -834,10 +989,14 @@ class Trainer:
         verdict, done = pending
         if done is not None:
             done.synchronize()
-        if not bool(verdict):
-            for st in self.optimizer.state.values():
-                if "step" in st:
-                    st["step"].sub_(1)
+        if bool(verdict):
+            return
+        if not isinstance(self.optimizer, torch.optim.Optimizer):
+            self.optimizer.step_count -= 1
+            return
+        for st in self.optimizer.state.values():
+            if "step" in st:
+                st["step"].sub_(1)
 
     def _batches(self, source: np.ndarray, n: int, start: int = 0):
         """Full (data, target) batches ``start`` .. ``n``-1, stopping at the
@@ -876,7 +1035,10 @@ class Trainer:
         """One pass over ``source`` (a ``batchify``'d id matrix); returns
         ``(state, {"loss", "losses", "steps", "sec_per_step"})`` (``losses``
         one a step), plus ``anomalies``,
-        ``rewinds`` and ``loss_ewma`` under ``cfg.resilience``.
+        ``rewinds`` and ``loss_ewma`` under ``cfg.resilience``, and
+        ``buddy_snapshots`` and ``loss_by_step`` (keyed by the global batch
+        index) under ``cfg.elastic``, whose controller may raise
+        ``StageLost`` (``resilience.elastic.train_elastic`` recovers).
 
         The learning rate is ``cfg.lr * cfg.lr_gamma ** epoch`` (StepLR);
         batch ``b`` is the global batch index ``start_step + i``, and its
@@ -918,7 +1080,7 @@ class Trainer:
                               if cuda else None)
 
         rc = cfg.resilience
-        resil = aux = None
+        resil = aux = elastic = kill = None
         if rc is not None:
             from ..resilience.recover import (ResilienceController,
                                               RetryingIterator)
@@ -930,6 +1092,17 @@ class Trainer:
                    torch.zeros((), dtype=torch.int32, device=dev))
             inject = torch.zeros((), dtype=torch.int32, device=dev)
             magnitude = torch.ones((), device=dev)
+            if cfg.elastic is not None:
+                from ..resilience.chaos import KILL_NONE
+                from ..resilience.elastic import ElasticController
+                elastic = ElasticController(
+                    cfg.elastic, self.elastic_store(),
+                    registry=self.registry, events=self.events,
+                    log_fn=log_fn)
+                aux = aux + (torch.zeros(cfg.n_stages, dtype=torch.int32,
+                                         device=dev),)
+                kill = torch.full((), KILL_NONE, dtype=torch.int32,
+                                  device=dev)
             batch_iter = RetryingIterator(
                 lambda pos: self._batches(source, n, start=pos),
                 retries=rc.data_retries, backoff_s=rc.data_backoff_s,
@@ -960,8 +1133,11 @@ class Trainer:
                         code, mag = self.chaos.train_inject(b)
                         inject.fill_(code)
                         magnitude.fill_(mag)
+                        if kill is not None:
+                            kill.fill_(self.chaos.train_kill(b))
                     loss, aux = self._guarded_step(data, target, seed, step,
-                                                   aux, inject, magnitude)
+                                                   aux, inject, magnitude,
+                                                   kill)
             step += 1
             steps_ctr.inc()
             tokens_ctr.inc(tokens_per_step)
@@ -998,12 +1174,19 @@ class Trainer:
             if resil is not None and (b + 1) % rc.check_every == 0:
                 # the verdict is read on the check cadence only (the host
                 # waits for the device here): rewind/abort may load a
-                # known-good copy or raise TrainingAborted after the budget
+                # known-good copy or raise TrainingAborted after the budget;
+                # the heartbeat streaks ride outside the numeric triple and
+                # survive a rewind
                 live = self._capture(step)
-                kept, aux = resil.after_step(b, live, aux)
+                kept, aux3 = resil.after_step(b, live, aux[:3])
+                aux = aux3 + aux[3:]
                 if kept is not live:
                     self._adopt(kept)
                     step = kept.step
+            if elastic is not None and (b + 1) % cfg.elastic.check_every == 0:
+                # buddy capture on the healthy cadence; StageLost once a
+                # stage's silent streak reaches dead_after
+                elastic.after_step(b, self._capture(step), aux)
             if self._autosave_pending():
                 self._autosave(step, log_fn)
                 break
@@ -1043,6 +1226,10 @@ class Trainer:
             info["anomalies"] = resil.anomalies
             info["rewinds"] = resil.rewinds
             info["loss_ewma"] = float(aux[0])
+        if elastic is not None:
+            info["buddy_snapshots"] = elastic.snapshots
+            info["loss_by_step"] = {start_step + i: l for i, l in
+                                    enumerate(info["losses"])}
         return self._capture(step), info
 
     def evaluate(self, source: np.ndarray, state: TrainState,

@@ -7,8 +7,10 @@ resumable step needs: the model's ``state_dict``, the optimizer's
 sha256 manifest beside it (``manifest_step{N}.json``); both are written under
 a temporary name, synced and renamed, so a crash leaves either no file or a
 whole one. :func:`restore_checkpoint` re-hashes what it loaded and raises
-:class:`CheckpointCorrupt` naming the first tensor that disagrees. The buddy
-and stage-shard manifests of elastic training are not ported yet.
+:class:`CheckpointCorrupt` naming the first tensor that disagrees. Elastic
+training pins its buddy copies with per-stage digests
+(:func:`stage_shard_manifest`) and can persist them
+(:func:`write_buddy_manifest`, :func:`read_buddy_manifest`).
 """
 
 from __future__ import annotations
@@ -21,13 +23,14 @@ import re
 import shutil
 import warnings
 from pathlib import Path
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Sequence
 
 import torch
 
 __all__ = ["TrainState", "CheckpointCorrupt", "state_manifest",
            "save_checkpoint", "restore_checkpoint", "restore_params",
-           "latest_step"]
+           "latest_step", "stage_shard_manifest", "write_buddy_manifest",
+           "read_buddy_manifest"]
 
 _STEP_DIR = re.compile(r"^step_(\d+)$")
 
@@ -67,6 +70,14 @@ def _as_tree(state: TrainState) -> dict:
             "step": state.step}
 
 
+def _hash_tensor(h, t: torch.Tensor) -> None:
+    """Fold a tensor's dtype, shape and raw bytes into ``h``."""
+    t = t.detach().cpu().contiguous()
+    h.update(str(t.dtype).encode())
+    h.update(str(tuple(t.shape)).encode())
+    h.update(t.reshape(-1).view(torch.uint8).numpy().data)
+
+
 def state_manifest(state: TrainState) -> Dict[str, str]:
     """Per-leaf sha256 content hashes, keyed by path. A tensor's hash covers
     its dtype, shape and raw bytes, so any bit flip changes it."""
@@ -74,14 +85,29 @@ def state_manifest(state: TrainState) -> Dict[str, str]:
     for name, leaf in _leaves(_as_tree(state)):
         h = hashlib.sha256()
         if isinstance(leaf, torch.Tensor):
-            t = leaf.detach().cpu().contiguous()
-            h.update(str(t.dtype).encode())
-            h.update(str(tuple(t.shape)).encode())
-            h.update(t.reshape(-1).view(torch.uint8).numpy().tobytes())
+            _hash_tensor(h, leaf)
         else:
             h.update(repr(leaf).encode())
         out[name] = h.hexdigest()
     return out
+
+
+def stage_shard_manifest(shards: Dict[int, Sequence[torch.Tensor]]
+                         ) -> Dict[str, str]:
+    """Per-STAGE sha256 hashes, the buddy-replication pin: ``shards`` maps
+    a stage to its tensors in a fixed order, and each stage's digest covers
+    the dtype, shape and raw bytes of every one of them, so a buddy copy of
+    shard ``j`` is verified bitwise against the source shard without
+    shipping the source around. ``pipe_tpu`` hashes the stage slices of
+    stage-stacked leaves; the port's stages differ in shape (the embedding
+    rides stage 0, the decoder the last), so a shard is a list."""
+    digests = {}
+    for j in sorted(shards):
+        h = hashlib.sha256()
+        for t in shards[j]:
+            _hash_tensor(h, t)
+        digests[str(j)] = h.hexdigest()
+    return digests
 
 
 def _fsync_dir(path: Path) -> None:
@@ -185,6 +211,36 @@ def restore_params(directory: str, step: Optional[int] = None,
     caller that needs the weights and not the optimizer (generation). Its
     keys are the training ``Pipe``'s (``partitions.{stage}.layers.{i}.*``)."""
     return _load(directory, step, verify).model
+
+
+def _buddy_manifest_path(directory: Path, step: int) -> Path:
+    return directory / f"buddy_step{step}.json"
+
+
+def write_buddy_manifest(directory: str, step: int, shards: Dict[str, str],
+                         n_stages: int) -> None:
+    """Persist a buddy-snapshot manifest (the per-stage digests of
+    :func:`stage_shard_manifest`) with the checkpoint manifests' discipline:
+    a temporary name, fsync, rename, fsync the directory. The elastic
+    controller writes one per capture when given a directory, so a
+    post-crash audit can tell which buddy generation was consistent."""
+    root = Path(directory)
+    root.mkdir(parents=True, exist_ok=True)
+    doc = json.dumps({"step": int(step), "n_stages": int(n_stages),
+                      "stage_shards": shards}, indent=0,
+                     sort_keys=True).encode()
+    _atomic_write(_buddy_manifest_path(root, int(step)),
+                  lambda f: f.write(doc))
+
+
+def read_buddy_manifest(directory: str, step: int) -> Optional[dict]:
+    """A buddy-snapshot manifest, or None when absent. A temporary file
+    left by a torn write (``.buddy_step{N}.json.tmp``) is never read: only a
+    completed rename counts."""
+    record = _buddy_manifest_path(Path(directory), int(step))
+    if not record.exists():
+        return None
+    return json.loads(record.read_text())
 
 
 def _verify_manifest(root: Path, step: int, restored: TrainState) -> None:

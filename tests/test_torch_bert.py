@@ -24,6 +24,7 @@ import numpy as np
 import pytest
 import torch
 
+from torch_threads import one_torch_thread  # noqa: F401
 from pipe_tpu.core import microbatch as jmb
 from pipe_tpu.core.partition import StageCtx as JCtx
 from pipe_tpu.core.schedule import InterleavedOneFOneBSchedule as JIl1f1b

@@ -19,6 +19,7 @@ import numpy as np
 import pytest
 import torch
 
+from torch_threads import one_torch_thread  # noqa: F401
 from pipe_tpu.ops import pallas_attention as jfa
 from pipe_tpu_torch.ops import flash_attention as tfa
 

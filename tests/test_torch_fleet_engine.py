@@ -26,6 +26,7 @@ import numpy as np
 import pytest
 import torch
 
+from torch_threads import one_torch_thread  # noqa: F401
 from pipe_tpu.core import microbatch as jmb
 from pipe_tpu.inference import GenerationConfig as JGen
 from pipe_tpu.models import transformer_lm as jlm

@@ -28,6 +28,7 @@ import time
 import numpy as np
 import pytest
 
+from torch_threads import one_torch_thread  # noqa: F401
 import pipe_tpu.fleet.proc as jproc
 from pipe_tpu.resilience import ChaosPlan as JPlan
 from pipe_tpu.resilience import Fault as JFault

@@ -27,6 +27,7 @@ import numpy as np
 import pytest
 import torch
 
+from torch_threads import one_torch_thread  # noqa: F401
 from pipe_tpu.core.partition import StageCtx as JCtx
 from pipe_tpu.inference import GenerationConfig as JGenCfg
 from pipe_tpu.models import gpt2 as jgpt2

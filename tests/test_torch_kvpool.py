@@ -32,6 +32,7 @@ import torch
 from hypothesis import HealthCheck, given, settings
 from hypothesis import strategies as st
 
+from torch_threads import one_torch_thread  # noqa: F401
 from pipe_tpu.core.partition import StageCtx as JCtx
 from pipe_tpu.inference import GenerationConfig as JGenCfg
 from pipe_tpu.models import transformer_lm as jlm

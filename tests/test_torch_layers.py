@@ -13,6 +13,7 @@ import numpy as np
 import pytest
 import torch
 
+from torch_threads import one_torch_thread  # noqa: F401
 from pipe_tpu.core.partition import StageCtx as JCtx
 from pipe_tpu.ops import layers as jl
 from pipe_tpu_torch import convert

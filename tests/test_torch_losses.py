@@ -13,6 +13,7 @@ import numpy as np
 import pytest
 import torch
 
+from torch_threads import one_torch_thread  # noqa: F401
 from pipe_tpu.models import transformer_lm as jlm
 from pipe_tpu.ops.losses import streaming_xent as jxent
 from pipe_tpu_torch import convert

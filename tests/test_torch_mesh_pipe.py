@@ -37,6 +37,7 @@ import numpy as np
 import pytest
 import torch
 
+from torch_threads import one_torch_thread  # noqa: F401
 import pipe_tpu
 import pipe_tpu_torch
 import torch_mesh_cases as cases

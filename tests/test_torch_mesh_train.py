@@ -25,6 +25,7 @@ import numpy as np
 import pytest
 
 import torch_mesh_cases as cases
+from torch_threads import one_torch_thread  # noqa: F401
 from pipe_tpu.data import lm_text as jtext
 from pipe_tpu.models import transformer_lm as jlm
 from pipe_tpu.train import loop as jloop

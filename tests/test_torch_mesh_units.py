@@ -30,6 +30,7 @@ import numpy as np
 import pytest
 import torch
 
+from torch_threads import one_torch_thread  # noqa: F401
 import pipe_tpu
 from pipe_tpu.core import packing as jpacking
 from pipe_tpu.models import transformer_lm as jlm

@@ -13,6 +13,7 @@ import os
 import numpy as np
 import pytest
 
+from torch_threads import one_torch_thread  # noqa: F401
 from pipe_tpu.data import lm_text as jtext
 from pipe_tpu.data import native as jnative
 from pipe_tpu_torch.data import lm_text

@@ -16,6 +16,7 @@ import numpy as np
 import pytest
 import torch
 
+from torch_threads import one_torch_thread  # noqa: F401
 from pipe_tpu.models import transformer_lm as jlm
 from pipe_tpu.obs import meters as jmeters
 from pipe_tpu.obs import tb_writer as jtb

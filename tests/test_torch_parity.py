@@ -19,6 +19,7 @@ torch = pytest.importorskip("torch")
 import jax
 import jax.numpy as jnp
 
+from torch_threads import one_torch_thread  # noqa: F401
 from pipe_tpu.core.partition import StageCtx
 from pipe_tpu.ops.layers import TransformerEncoderLayer
 

@@ -25,6 +25,7 @@ import numpy as np
 import pytest
 
 import torch_ring_cases as cases
+from torch_threads import one_torch_thread  # noqa: F401
 from pipe_tpu.inference import GenerationConfig as JGenCfg
 from pipe_tpu.inference.pipelined import PipelinedGenerator as JRing
 from pipe_tpu.inference.quant import QuantLeaf

@@ -16,6 +16,7 @@ import numpy as np
 import pytest
 import torch
 
+from torch_threads import one_torch_thread  # noqa: F401
 from pipe_tpu.core import balance as jbal
 from pipe_tpu.core import planner as jplan
 from pipe_tpu.core.schedule import get_schedule as jget_schedule

@@ -11,6 +11,7 @@ import numpy as np
 import pytest
 import torch
 
+from torch_threads import one_torch_thread  # noqa: F401
 from pipe_tpu.inference import GenerationConfig as JGenCfg
 from pipe_tpu.inference import Generator as JGenerator
 from pipe_tpu.inference import quant as jquant

@@ -22,6 +22,7 @@ import numpy as np
 import pytest
 import torch
 
+from torch_threads import one_torch_thread  # noqa: F401
 from pipe_tpu.core.schedule import InterleavedOneFOneBSchedule
 from pipe_tpu.parallel.interleaved import (stack_interleaved_params,
                                            unstack_interleaved_params)

@@ -31,6 +31,7 @@ import numpy as np
 import pytest
 import torch
 
+from torch_threads import one_torch_thread  # noqa: F401
 import pipe_tpu
 import pipe_tpu_torch
 from pipe_tpu_torch import convert

@@ -22,6 +22,7 @@ import numpy as np
 import pytest
 import torch
 
+from torch_threads import one_torch_thread  # noqa: F401
 from pipe_tpu.models import transformer_lm as jlm
 from pipe_tpu.obs.events import NULL_EVENT_LOG as JNULL
 from pipe_tpu.obs.telemetry import get_registry as jget_registry
@@ -282,36 +283,40 @@ def test_chaos_plan_matches_pipe_tpu():
     t.maybe_raise_data(5)
 
 
-@pytest.mark.parametrize("call,item", [
-    (lambda p: p.transport_fault(0, 0), None),
-    (lambda p: p.wire_fault("wire_dup", 0), None),
-    (lambda p: p.serve_fault("stall_tick", 0), None),
-    (lambda p: p.replica_fault("kill_replica", 0, 0), None),
-    (lambda p: p.train_kill(0), "A.7/A.8"),
-])
-def test_unported_fault_hooks_name_their_item(call, item):
-    """Only the elastic channel still names its ROADMAP.md item; the
-    emulator, wire, serve and replica lookups (ported with A.7) answer as
-    ``pipe_tpu``'s do for the same plan."""
-    if item is None:
-        plan = [jchaos.Fault("kill_replica", 0), jchaos.Fault("wire_dup", 0),
-                jchaos.Fault("stall_tick", 0),
-                jchaos.Fault("transport_drop", 0)]
-        want = call(jchaos.ChaosPlan(plan))
-        got = call(tchaos.ChaosPlan([tchaos.Fault(f.kind, f.step)
-                                     for f in plan]))
-        assert repr(got) == repr(want)
-        assert call(tchaos.ChaosPlan([])) is None
-        return
-    with pytest.raises(NotImplementedError, match=item):
-        call(tchaos.ChaosPlan([]))
+@pytest.mark.parametrize("call", [
+    lambda p: p.transport_fault(0, 0),
+    lambda p: p.wire_fault("wire_dup", 0),
+    lambda p: p.serve_fault("stall_tick", 0),
+    lambda p: p.replica_fault("kill_replica", 0, 0),
+    lambda p: [p.train_kill(b) for b in range(4)],
+], ids=["transport", "wire", "serve", "replica", "train_kill"])
+def test_fault_hooks_answer_as_pipe_tpus(call):
+    """Every lookup answers as ``pipe_tpu``'s does for the same plan, the
+    elastic channel too: ``train_kill`` is permanent from its step on."""
+    plan = [jchaos.Fault("kill_replica", 0), jchaos.Fault("wire_dup", 0),
+            jchaos.Fault("stall_tick", 0), jchaos.Fault("transport_drop", 0),
+            jchaos.Fault("kill_stage", 2, stage=1)]
+    tplan = tchaos.ChaosPlan([tchaos.Fault(f.kind, f.step, stage=f.stage)
+                              for f in plan])
+    assert repr(call(tplan)) == repr(call(jchaos.ChaosPlan(plan)))
+    assert repr(call(tchaos.ChaosPlan([]))) == repr(call(
+        jchaos.ChaosPlan([])))
+    assert tplan.without("kill_stage").train_kill(9) == tchaos.KILL_NONE
 
 
-def test_trainer_refuses_a_plan_with_unported_faults():
-    model = tlm.LMConfig(**CFG)
-    with pytest.raises(NotImplementedError, match="A.7/A.8"):
-        tloop.Trainer(model, tloop.TrainerConfig(**TC), device="cpu",
-                      chaos=tchaos.ChaosPlan([tchaos.Fault("kill_stage", 1)]))
+def test_trainer_takes_a_kill_stage_plan(source):
+    """A ``kill_stage`` fault fires only in the elastic step: the guarded
+    trainer without ``elastic`` takes the plan and trains as with none,
+    as ``pipe_tpu``'s does (its kill code reaches no stage)."""
+    rc = trecover.ResilienceConfig(warmup_steps=100)
+    runs = []
+    for chaos in (tchaos.ChaosPlan([]),
+                  tchaos.ChaosPlan([tchaos.Fault("kill_stage", 1)])):
+        tr = tloop.Trainer(tlm.LMConfig(**CFG), tloop.TrainerConfig(
+            resilience=rc, **TC), device="cpu", chaos=chaos)
+        _, info = tr.train_epoch(source, max_steps=3, log_every=0)
+        runs.append(info["losses"])
+    assert runs[1] == runs[0]
 
 
 @pytest.mark.parametrize("code", range(6))

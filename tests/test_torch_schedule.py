@@ -8,6 +8,7 @@ same exception type on the same corrupted table. Numpy only on both sides.
 import numpy as np
 import pytest
 
+from torch_threads import one_torch_thread  # noqa: F401
 from pipe_tpu.core import schedule as jsched
 from pipe_tpu.obs import zb_model as jzb
 from pipe_tpu_torch.core import schedule as tsched

@@ -15,6 +15,7 @@ import pytest
 import torch
 from torch import nn
 
+from torch_threads import one_torch_thread  # noqa: F401
 from pipe_tpu.core.schedule import InterleavedOneFOneBSchedule
 from pipe_tpu.ops.layers import Linear as JLinear
 from pipe_tpu.parallel.interleaved import (stack_interleaved_params,

@@ -12,6 +12,7 @@ and its ``memory_plan`` to JAX's executor with ``split_stage="auto"``.
 
 import pytest
 
+from torch_threads import one_torch_thread  # noqa: F401
 from test_torch_scheduled import GEOMS, MODES, check_against_pipe_tpu
 
 

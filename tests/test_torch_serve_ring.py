@@ -22,6 +22,7 @@ import numpy as np
 import pytest
 
 import torch_ring_cases as cases
+from torch_threads import one_torch_thread  # noqa: F401
 from pipe_tpu.inference import GenerationConfig as JGenCfg
 from pipe_tpu.models import transformer_lm as jlm
 from pipe_tpu.parallel.mesh import make_mesh as jmake_mesh

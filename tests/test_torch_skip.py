@@ -20,6 +20,7 @@ import pytest
 import torch
 from torch import nn
 
+from torch_threads import one_torch_thread  # noqa: F401
 import pipe_tpu
 import pipe_tpu_torch
 from pipe_tpu.core.partition import StageCtx as JCtx

@@ -22,6 +22,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from torch_threads import one_torch_thread  # noqa: F401
 from pipe_tpu.parallel.mesh import make_mesh
 from pipe_tpu.parallel.scheduled import ScheduledPipeline as JPipeline
 from pipe_tpu.parallel.scheduled import SkipLanes as JSkipLanes

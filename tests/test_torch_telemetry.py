@@ -15,6 +15,7 @@ import numpy as np
 import pytest
 import torch
 
+from torch_threads import one_torch_thread  # noqa: F401
 from pipe_tpu.obs import events as jev
 from pipe_tpu.obs import telemetry as jtel
 from pipe_tpu_torch.inference import GenerationConfig, Generator

@@ -21,6 +21,8 @@ import numpy as np
 import pytest
 import torch
 
+from torch_threads import one_torch_thread  # noqa: F401
+
 BH, S, D = 256, 128, 64
 SCALE = 1.0 / D ** 0.5
 TOL = 1e-4            # the kernels' fp32 gate, x max(1, max|ref|)

@@ -16,6 +16,7 @@ import optax
 import pytest
 import torch
 
+from torch_threads import one_torch_thread  # noqa: F401
 from pipe_tpu.data import lm_text as jtext
 from pipe_tpu.models import common as jcommon
 from pipe_tpu.models import transformer_lm as jlm
@@ -230,13 +231,14 @@ def test_checkpoints_keep_the_newest_three(tmp_path, corpus):
 @pytest.mark.parametrize("field,value", [
     ("n_data", 2), ("elastic", object())])
 def test_unported_trainer_fields_raise(field, value):
-    """Elastic training is not ported (ROADMAP A.8); ``n_data`` > 1 needs a
-    world of ranks (tests/test_torch_mesh_train.py) and says so."""
+    """``n_data`` > 1 needs a world of ranks (tests/test_torch_mesh_train.py)
+    and says so; ``elastic`` without ``resilience`` raises ``pipe_tpu``'s
+    refusal (elastic training itself: tests/test_torch_elastic.py)."""
     assert getattr(tloop.TrainerConfig(), field) == \
         getattr(jloop.TrainerConfig(), field)
     model, cfg = _configs()
     error, match = ((ValueError, "world") if field == "n_data"
-                    else (NotImplementedError, "ROADMAP"))
+                    else (ValueError, "requires resilience="))
     with pytest.raises(error, match=match):
         tloop.Trainer(model, dataclasses.replace(cfg, **{field: value}),
                       device="cpu")
