@@ -116,16 +116,16 @@ exits non-zero without a result line:
    loss within 1e-5 relative and every gradient (``wte``/``wpe`` among them,
    fed partly through the skip lane) within 1e-4 x max(1, max|g|) of the
    emulator's; ``memory_plan`` reports one skip lane and its park slots.
-   (c) Dropout 0.1: 8 steps each of the emulator and of the 1f1b table with
+   (c) Dropout 0.1: 4 steps each of the emulator and of the 1f1b table with
    the lane (except_last), Adam at lr 1e-4, one seed: every loss finite, the
    trajectories within 1e-4 relative (the table walk folds seeds as the
    emulator's ``ctx.fold(i, j)``, so the masks are the same). (d) Every
    run's forward, dQ and dK/dV launches pinned exactly to what it implies
    (per stage, 16 forwards plus the recomputes and 16 backwards, times the
    12 blocks): the emulator's 372 / 192 / 192 a step under except_last.
-   (e) ``apps.zoo.main(["gpt2", "--stages", "4", "--chunks", "16",
-   "--batch", "32", "--schedule", "1f1b", "--steps", "8"])`` exits 0 with
-   finite losses; its ms per step is printed. (f) A 4-stage stack of
+   (e) ``apps.zoo``'s ``train`` over ``["gpt2", "--stages", "4",
+   "--chunks", "16", "--batch", "32", "--schedule", "1f1b", "--steps",
+   "4"]``: finite losses, kept for phase 14; its ms per step is printed. (f) A 4-stage stack of
    (Linear 1024 -> BatchNorm -> ReLU) x 4, chunks 8, batch 256, through
    ``Pipe(deferred_batch_norm=True)`` and the 1f1b table: the running stats
    after one step equal one whole-batch momentum update within 1e-5; zb-h1
@@ -141,7 +141,7 @@ exits non-zero without a result line:
    1e-5 relative, every gradient within 1e-4 x max(1, max|g|); forward, dQ
    and dK/dV launches equal with and without the policy and pinned to
    ``stage_passes`` x 8 layers; fewer matrix products dispatched under the
-   policy (``core.remat.count_dots``). (b) Dropout 0.2: 8 ``Trainer`` steps
+   policy (``core.remat.count_dots``). (b) Dropout 0.2: 4 ``Trainer`` steps
    of the 1f1b table without, with, with and without the policy (in turns):
    launches pinned, trajectories within 1e-4 of each other; ms per step,
    train tokens/s and peak bytes of each. In this phase and the three
@@ -172,10 +172,10 @@ exits non-zero without a result line:
    over the 24 stages: loss within 1e-5 relative and every gradient within
    1e-4 x max(1, max|g|) of the interleaved table's. (c) ``apps.zoo bert
    --stages 8 --interleave 3 --schedule interleaved-1f1b --chunks 32
-   --batch 32 --lr 1e-4``: 8 dropout-0.1 steps, every loss finite. (d)
+   --batch 32 --lr 1e-4``: 4 dropout-0.1 steps, every loss finite. (d)
    Its forward, dQ and dK/dV launches pinned to ``stage_passes``: 24 x (32
    + 31) forwards and 768 each of dQ and dK/dV a step. (e) The zoo's first
-   4 steps again with ``remat_policy="dots_saveable"``: trajectory within
+   2 steps again with ``remat_policy="dots_saveable"``: trajectory within
    1e-4 of the zoo's, launches equal; ms per step, train tokens/s and peak
    bytes of both.
 5g. vit -- ViT-L/16 at its published width (224 x 224 x 3, patch 16, 197
@@ -207,7 +207,7 @@ exits non-zero without a result line:
 7. serve -- continuous batching (``ServeEngine`` over
    ``SingleDeviceSlotBackend``: 8 slots, 256 cache rows, buckets 16 to 128,
    one decode step a tick captured once in a CUDA graph) over the eval
-   weights: 32 greedy requests of 16-128 eval tokens and 32-128 new tokens
+   weights: 16 greedy requests of 16-128 eval tokens and 32-128 new tokens
    (a seeded rng), four before the first tick and then two a tick, served
    twice (cold: the capture; warm). Gates: every request runs to its
    length; the decode step is captured exactly once over both runs; one
@@ -250,9 +250,10 @@ exits non-zero without a result line:
 9. spec -- the speculative lane (K 4, 8 rounds a launch, 272 cache rows)
    over the serve phase's model: n-gram (slab and paged), truncated (the
    first 8 of 16 layers, slab), tree (2 branches, paged) and n-gram on the
-   adaptive ladder 2/3/4 (slab), each over the serve phase's 32 greedy and
-   8 sampled requests and 8 greedy requests whose 128-token prompts repeat
-   one 16-token span of eval text. Gates: (a) greedy and sampled tokens
+   adaptive ladder 2/3/4 (slab), each over the serve phase's 16 greedy
+   requests and 8 greedy requests whose 128-token prompts repeat one
+   16-token span of eval text, n-gram slab and tree paged over its 8
+   sampled requests too. Gates: (a) greedy and sampled tokens
    equal the non-spec resident path's (the paged phase's runs; a warm run
    of the repeated spans) at clear steps, every request to its length;
    (b) one capture per rung, and a second drive captures nothing and gives
@@ -268,7 +269,7 @@ exits non-zero without a result line:
 
 10. fleet -- the serving fleet on one card (``pipe_tpu_torch/fleet``,
    ``serve/router.py``, ``obs/fleet_obs.py``) over the tutorial LM at full
-   width (the eval weights, drawn again from the seed by every child): 48
+   width (the eval weights, drawn again from the seed by every child): 24
    greedy requests of 128 tokens whose first 64 are one of 4 shared
    prefixes, 64 new tokens each, all at once; replicas of 4 slots, paged
    (16-row blocks, 96 blocks), resident. The reference is one engine on the
@@ -326,11 +327,16 @@ exits non-zero without a result line:
    column of the tables (``stage_passes(column=)`` x 8 layers); (e) one
    step of the Trainer's zb-h1 under never (the structural B/W split, W on
    each rank's own column) against the one-device table executor with
-   ``split_stage="auto"``, within (a)'s bounds, launches as (c); (d) 8
+   ``split_stage="auto"``, within (a)'s bounds, launches as (c); (d) 4
    ``Trainer`` steps with ``zero=True`` (1f1b) with finite, falling losses,
    its parameters after 3 steps within the gradient bound of the plain
-   Adam's, and ``apps.lm_tutorial --world 4 --schedule interleaved`` for 8
-   steps with finite, falling losses on every rank. Prints, per rank, ms per
+   Adam's, and ``apps.lm_tutorial``'s ranks (``--world 4 --schedule
+   interleaved``, at its full 16 layers) over the phase's world for 4
+   steps with finite, falling losses on every rank. The model of gates
+   (a)-(c) and (e) and of ZeRO is the full width cut to 8 layers
+   (``MESH_LAYERS``). The Trainer's 1f1b and zb-h1 tables and
+   ``Pipe(mesh=)``'s run phase-compiled (the auto setting on CUDA ranks);
+   the gpipe ``SpmdPipeline`` stays serialized, as ``pipe_tpu``'s. Prints, per rank, ms per
    step, the bytes and host seconds of the point-to-point exchanges and of
    the all-reduces, the staged bytes, peak bytes, spawn-to-ready time and
    the backend, beside the card's name and power limit; the kernels phase
@@ -338,12 +344,12 @@ exits non-zero without a result line:
    dropout 0.2 (``mesh_shape``) and checks ``bh_base``.
 
 12. ring -- the tutorial LM at full width (``LMConfig`` defaults, random
-   weights from one seed, 16 layers, 4 a stage) over a ring of 4 stage
+   weights from one seed) cut to 8 layers, 2 a stage, over a ring of 4 stage
    ranks on the one card (gloo, CUDA tensors staged through pinned host
    memory). (a) The world trains 2 ``Trainer`` steps (1f1b, except_last,
    dropout 0.2, batch 32, chunks 4, lr 1e-4): losses finite, each rank's
    forward, dQ and dK/dV launches equal to its column of the table
-   (``stage_passes(column=)`` x 4 layers x 2 steps). (b) On those
+   (``stage_passes(column=)`` x 2 layers x 2 steps). (b) On those
    stage-sharded weights, greedy, batch 8 (2 rows a ring group) x 128
    prompt tokens of the corpus, 64 new: ``Trainer.generate`` over the mesh
    (the model gathered over the stage group, the one-device ``Generator``
@@ -351,8 +357,8 @@ exits non-zero without a result line:
    bit, and ``PipelinedGenerator`` over the ring, where the weights lie,
    equals it under the near-tie rule. (c) ``RingSlotBackend`` under
    ``ServeEngine`` on the same weights (the engine on the rank of stage 0,
-   the others following): 16 requests of 32-128 corpus tokens, four before
-   the first tick and then two a tick, 64 new each, 12 greedy and 4
+   the others following): 8 requests of 32-128 corpus tokens, four before
+   the first tick and then two a tick, 64 new each, 6 greedy and 2
    sampled (T 0.8, top-k 50), through the slab tick, the paged pool
    (blocks of 16) with the resident loop, and the n-gram spec lane (K 4,
    resident): every request ``ok``, one decode (or resident) trace per
@@ -405,9 +411,33 @@ exits non-zero without a result line:
    ms per step before and after the loss for the recovered and the
    unkilled run, peak bytes per rank and the phase's seconds.
 
+14. overlap -- run after phase 11, in the same world of 4 ranks, as 4
+   stage ranks. (a) The tutorial LM at full width (``LMConfig`` defaults:
+   d_model 2048, 16 layers, 4 a rank; random weights and tokens from
+   seeds; dropout 0.2, batch 32, chunks 4): a serialized warm-up step, then
+   1f1b/except_last steps through ``ScheduledPipeline(mesh=)`` serialized,
+   overlapped, overlapped, serialized (3 steps each, from one set of
+   weights): every step's loss and gradients bit for bit the warm-up's, and
+   each rank's forward, dQ and dK/dV launches equal to its column of the
+   table. (b) Phase-compiled 1f1b/except_last against (a)'s warm-up step,
+   and phase-compiled zb-h1/never (the structural split) against its
+   interpreted step (3 steps each): bit for bit, launches as (a); the
+   programs' cycles
+   and segments printed. (c) ``obs/bubble_probe.py``'s ranks with
+   ``--schedules --transport`` at ``pipe_tpu``'s widths (d_model 256, d_ff
+   512, seq 64, m 8, 4 stages) on the card: its JSON line, every row timed
+   and the phase rows accepted. (d) ``apps.zoo``'s stage ranks over the
+   world (GPT-2-small at full width, phase gpt2's argv (e) with ``--world
+   4`` for 3 steps): losses within 1e-5 relative of phase gpt2's one-device
+   zoo, each rank's launches equal to its column of the table x 3 blocks.
+   Prints per rank and step: ms, the point-to-point host seconds
+   (``p2p_s``) and the seconds waited on posted messages (``wait_s``), the
+   header bytes; the means per walk, beside the card's name and power
+   limit.
+
 Before every phase the collector runs and the allocator's cache is
-emptied, and the phase's starting ``memory_allocated`` is printed.
-The last two lines are the kernels JSON object and
+emptied, and the phase's starting ``memory_allocated`` and the script's
+seconds so far are printed. The last two lines are the kernels JSON object and
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -417,6 +447,7 @@ import contextlib
 import dataclasses
 import functools
 import gc
+import io
 import json
 import math
 import os
@@ -483,6 +514,7 @@ GPT2_BATCH = 32
 GPT2_TWINS = [(s, c) for s in ("gpipe", "1f1b")
               for c in ("except_last", "never")]
 GPT2_RUNS = ("emulator", "1f1b")          # both under except_last
+GPT2_STEPS = 4            # the trajectories' and the zoo's steps
 BN_WIDTH, BN_DEPTH, BN_CHUNKS, BN_BATCH = 1024, 4, 8, 256
 TOL_BN = 1e-5
 # Remat phase: the policy the tables take (JAX's headline program is
@@ -506,6 +538,7 @@ PLAN_FIT_M = (2, 4, 8)      # the m at which auto_plan fits its step costs
 TOL_PLAN = 0.05             # the plan's step may be this much over a runner-up's
 REMAT_POLICY = "dots_saveable"
 REMAT_RUNS = (None, REMAT_POLICY, REMAT_POLICY, None)
+REMAT_STEPS = 4          # each trajectory's steps
 # GPT-2 serve phase: slots, requests (prompt and new-token lengths drawn
 # from a seeded rng), the prompt buckets, the speculative depth, and the
 # top-2 margin below which a step is a near tie.
@@ -519,7 +552,8 @@ GPT2_TIE = 1e-4
 # 24 virtual stages of one block, chunks 32 of one 512-token row), and the
 # steps of (e) under the policy.
 BERT_STAGES, BERT_INTERLEAVE, BERT_CHUNKS, BERT_BATCH = 8, 3, 32, 32
-BERT_POLICY_STEPS = 4
+BERT_POLICY_STEPS = 2
+BERT_ZOO_STEPS = 4
 # ViT phase: BASELINE config #5 (8 stages, chunks 8, batch 32) and its
 # uneven Pipe balance over embed + 24 blocks + head.
 VIT_STAGES, VIT_CHUNKS, VIT_BATCH = 8, 8, 32
@@ -546,7 +580,7 @@ MARGIN_OVER_GAP = 10     # greedy is compared where top-2 margin > 10 x gap
 SERVE_SLOTS = 8
 SERVE_MAX_LEN = 256
 SERVE_BUCKETS = (16, 128)
-SERVE_REQUESTS = 32
+SERVE_REQUESTS = 16
 SERVE_FIRST = 4          # submitted before the first tick, then 2 a tick
 SERVE_PROMPT = (16, 128)
 SERVE_NEW = (32, 128)
@@ -583,6 +617,8 @@ REPEAT_REQUESTS = 8
 REPEAT_SPAN = 16
 SPEC_TIMED_LAUNCHES = 5  # timed, then as many profiled, per rung
 SPEC_EAGER = (4, 32)     # graph vs eager: the first 4 requests, 32 tokens
+# the runs whose sampled traffic is held to the non-spec resident path
+SPEC_SAMPLED_RUNS = (("ngram", "slab"), ("tree", "paged"))
 # H100 SXM peaks (NVIDIA data sheet, dense): HBM3 bytes/s, and the fastest
 # fp32-accurate product rate the card has: TF32 tensor cores (495 TFLOP/s)
 # in three passes (big*big + big*small + small*big), which keep fp32-level
@@ -608,6 +644,9 @@ EDGE_SHAPES = [(3, 24, 8, True), (2, 8, 16, False), (4, 40, 48, True),
                (3, 72, 8, True), (2, 136, 48, False), (2, 200, 96, True),
                (1, 128, 128, True)]
 SDPA_RUNS = 5   # graph timings of SDPA's backward
+# the plain versions' timing: fewer calls (each is 4-53 ms at the main
+# paths' shapes, far above any launch overhead)
+PLAIN_TIMING = dict(iters=2, reps=5)
 # Kernels that must run on tensor cores with asynchronous copies (SASS).
 TC_KERNELS = ("flash_fwd_kernel", "flash_bwd_dq_kernel", "flash_bwd_dkv_kernel")
 # A data rank's attention call in the mesh phase: batch 32 in 4 chunks of 8
@@ -826,7 +865,7 @@ def phase_kernels() -> dict:
         ms = time_ms(lambda: fa.flash_attention_fwd(q, k, v, causal=causal,
                                                     scale=scale))
         plain = time_ms(lambda: fa.flash_attention_ref(q, k, v, causal,
-                                                       scale))
+                                                       scale), **PLAIN_TIMING)
         lib = time_ms(lambda: F.scaled_dot_product_attention(
             q, k, v, is_causal=causal, scale=scale))
         bound, bound_by = attention_bound(bh, s, d, causal, 4)
@@ -914,15 +953,17 @@ def phase_kernels() -> dict:
         fwd_ms = time_ms(lambda: fa.flash_attention_fwd(
             q, k, v, causal=causal, scale=scale, seed=seed, rate=rate))
         fwd_plain = time_ms(lambda: fa.flash_attention_ref(
-            q, k, v, causal, scale, plain_keep()))
+            q, k, v, causal, scale, plain_keep()), **PLAIN_TIMING)
         dq_ms = time_ms(lambda: fa.flash_attention_bwd_dq(
             q, k, v, do, lse, delta, **kw))
         dq_plain = time_ms(lambda: fa.flash_attention_bwd_dq_ref(
-            q, k, v, do, lse, delta, keep=plain_keep(), **ref_kw))
+            q, k, v, do, lse, delta, keep=plain_keep(), **ref_kw),
+            **PLAIN_TIMING)
         dkv_ms = time_ms(lambda: fa.flash_attention_bwd_dkv(
             q, k, v, do, lse, delta, **kw))
         dkv_plain = time_ms(lambda: fa.flash_attention_bwd_dkv_ref(
-            q, k, v, do, lse, delta, keep=plain_keep(), **ref_kw))
+            q, k, v, do, lse, delta, keep=plain_keep(), **ref_kw),
+            **PLAIN_TIMING)
         # Library yardsticks, timed like the kernels (CUDA graphs). The forward's:
         # SDPA with the same dropout rate (the same function up to the mask's
         # bits, which come from PyTorch's own generator); without dropout beside
@@ -2136,7 +2177,7 @@ def _gpt2_expected(ex, checkpoint: str, n_blocks: int, steps: int = 1
                 steps * n_blocks * per_stage["backward"]}
 
 
-def phase_gpt2() -> dict:
+def phase_gpt2() -> tuple:
     """GPT-2-small with the embedding skip; returns each (c) run's kernel
     launches. The gates of the module docstring's phase 5c."""
     import contextlib
@@ -2276,7 +2317,7 @@ def phase_gpt2() -> dict:
         _zero_launches()
         torch.cuda.reset_peak_memory_stats()
         losses, step_s = [], []
-        for b in range(TRAIN_STEPS):
+        for b in range(GPT2_STEPS):
             tokens, targets = batch(b)
             t_step = time.perf_counter()
             opt.zero_grad(set_to_none=True)
@@ -2287,11 +2328,11 @@ def phase_gpt2() -> dict:
             step_s.append(time.perf_counter() - t_step)
             losses.append(loss.item())
         launches = _launch_counts()
-        steady = sum(step_s[1:]) / (TRAIN_STEPS - 1)
+        steady = sum(step_s[1:]) / (GPT2_STEPS - 1)
         key = f"{run}/except_last"
         runs[key], by_run[key] = losses, launches
-        expected = _gpt2_expected(ex, "except_last", n_blocks, TRAIN_STEPS)
-        log("gpt2", run=key, dropout=cfg.dropout, steps=TRAIN_STEPS,
+        expected = _gpt2_expected(ex, "except_last", n_blocks, GPT2_STEPS)
+        log("gpt2", run=key, dropout=cfg.dropout, steps=GPT2_STEPS,
             losses=[f"{l:.6f}" for l in losses],
             ms_per_step=[f"{t * 1e3:.1f}" for t in step_s],
             steady_ms_per_step=f"{steady * 1e3:.1f}",
@@ -2303,7 +2344,7 @@ def phase_gpt2() -> dict:
             raise AssertionError(f"gpt2 {key}: non-finite loss {losses}")
         if launches != expected:
             raise AssertionError(f"gpt2 {key} launched {launches} in "
-                                 f"{TRAIN_STEPS} steps, expected {expected}")
+                                 f"{GPT2_STEPS} steps, expected {expected}")
         del pipe, ex, opt
         torch.cuda.empty_cache()
     (k_e, l_e), (k_t, l_t) = runs.items()
@@ -2336,24 +2377,22 @@ def phase_gpt2() -> dict:
     del pipe, ex
     torch.cuda.empty_cache()
 
-    # (e) the zoo at full size
+    # (e) the zoo at full size (its losses kept for phase 14's world run)
     out = io.StringIO()
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(out):
-        rc = zoo.main(["gpt2", "--stages", "4", "--chunks", "16", "--batch",
-                       "32", "--schedule", "1f1b", "--steps",
-                       str(TRAIN_STEPS)])
+        res = zoo.train(zoo.build_argparser().parse_args(
+            _zoo_gpt2_argv(GPT2_STEPS)))
     lines = out.getvalue().splitlines()
     for line in lines:
         print("    " + line, flush=True)
-    zoo_losses = [float(l.split("loss ")[1]) for l in lines
-                  if l.startswith("| step")]
-    log("gpt2", zoo_rc=rc, zoo_losses=zoo_losses,
-        zoo_ms_per_step=lines[-1].split("(")[-1].rstrip(")"),
+    zoo_losses = res["losses"]
+    log("gpt2", zoo_losses=[f"{l:.6f}" for l in zoo_losses],
+        zoo_ms_per_step=f"{res['ms_per_step']:.1f}",
         zoo_seconds=f"{time.perf_counter() - t0:.1f}")
-    if rc != 0 or len(zoo_losses) != TRAIN_STEPS or not all(
+    if len(zoo_losses) != GPT2_STEPS or not all(
             math.isfinite(l) for l in zoo_losses):
-        raise AssertionError(f"apps.zoo gpt2: rc {rc}, losses {zoo_losses}")
+        raise AssertionError(f"apps.zoo gpt2: losses {zoo_losses}")
     torch.cuda.empty_cache()
 
     # (f) deferred BN: one step commits one whole-batch momentum update
@@ -2416,7 +2455,7 @@ def phase_gpt2() -> dict:
     del pipe, seq, seen
     torch.cuda.empty_cache()
     log("gpt2", seconds=f"{time.perf_counter() - t_phase:.1f}")
-    return by_run
+    return by_run, zoo_losses
 
 
 def _hold_twins(phase: str, twins: dict, names) -> None:
@@ -2595,7 +2634,7 @@ def phase_remat() -> dict:
     del trainer, params, runs
     torch.cuda.empty_cache()
 
-    # (b) dropout 0.2: 8 Trainer steps a run, in turns
+    # (b) dropout 0.2: REMAT_STEPS Trainer steps a run, in turns
     by_run, trajectories = {}, {}
     for k, policy in enumerate(REMAT_RUNS):
         trainer = _sched_trainer(cfg, "1f1b", "except_last")
@@ -2605,7 +2644,7 @@ def phase_remat() -> dict:
         _zero_launches()
         resident = _reset_peak()
         losses, step_s = [], []
-        for b in range(TRAIN_STEPS):
+        for b in range(REMAT_STEPS):
             t_step = time.perf_counter()
             state, info = trainer.train_epoch(source, epoch=0, state=state,
                                               max_steps=b + 1, start_step=b,
@@ -2614,24 +2653,24 @@ def phase_remat() -> dict:
             step_s.append(time.perf_counter() - t_step)
             losses.append(info["loss"])
         launches = _launch_counts()
-        steady = sum(step_s[1:]) / (TRAIN_STEPS - 1)
+        steady = sum(step_s[1:]) / (REMAT_STEPS - 1)
         key = f"1f1b/except_last/{policy or 'none'}"
         by_run.setdefault(key, launches)
         trajectories.setdefault(key, losses)
         log("remat", run=f"{key}#{k}", dropout=cfg.dropout,
-            steps=TRAIN_STEPS, losses=[f"{l:.6f}" for l in losses],
+            steps=REMAT_STEPS, losses=[f"{l:.6f}" for l in losses],
             ms_per_step=[f"{t * 1e3:.1f}" for t in step_s],
             steady_ms_per_step=f"{steady * 1e3:.1f}",
             train_tokens_per_s=f"{tokens_per_step / steady:.1f}",
             resident_bytes=resident,
             peak_bytes=torch.cuda.max_memory_allocated(),
             memory_plan=trainer.scheduled.memory_plan(CHUNKS), **launches)
-        expected = _expected_launches(trainer.scheduled, lps, TRAIN_STEPS)
+        expected = _expected_launches(trainer.scheduled, lps, REMAT_STEPS)
         if not all(math.isfinite(l) for l in losses):
             raise AssertionError(f"remat {key}: non-finite loss {losses}")
         if launches != expected:
             raise AssertionError(f"remat {key} launched {launches} in "
-                                 f"{TRAIN_STEPS} steps, expected {expected}")
+                                 f"{REMAT_STEPS} steps, expected {expected}")
         del trainer, state
         torch.cuda.empty_cache()
     (key_a, traj_a), (key_b, traj_b) = trajectories.items()
@@ -2862,9 +2901,9 @@ def phase_bert() -> dict:
     argv = ["bert", "--stages", str(BERT_STAGES), "--interleave",
             str(BERT_INTERLEAVE), "--schedule", "interleaved-1f1b",
             "--chunks", str(BERT_CHUNKS), "--batch", str(BERT_BATCH),
-            "--lr", str(TRAIN_LR), "--steps", str(TRAIN_STEPS)]
+            "--lr", str(TRAIN_LR), "--steps", str(BERT_ZOO_STEPS)]
     zoo_losses, zoo_ms, zoo_peak, launches = _run_zoo("bert", argv)
-    expected = {k: TRAIN_STEPS * v for k, v in per_step.items()}
+    expected = {k: BERT_ZOO_STEPS * v for k, v in per_step.items()}
     by_run["zoo/interleaved-1f1b"] = launches
     log("bert", run="zoo/interleaved-1f1b", dropout=cfg.dropout,
         losses=zoo_losses, steady_ms_per_step=f"{zoo_ms:.1f}",
@@ -2872,7 +2911,7 @@ def phase_bert() -> dict:
         peak_bytes=zoo_peak, **launches)
     if launches != expected:
         raise AssertionError(f"bert zoo launched {launches} in "
-                             f"{TRAIN_STEPS} steps, expected {expected}")
+                             f"{BERT_ZOO_STEPS} steps, expected {expected}")
     torch.cuda.empty_cache()
 
     # (e) the zoo's first steps again, with dots_saveable
@@ -2903,7 +2942,7 @@ def phase_bert() -> dict:
         resident_bytes=resident, peak_bytes=torch.cuda.max_memory_allocated(),
         memory_plan=ex.memory_plan(BERT_CHUNKS), **launches)
     rel = max(abs(a - b) / abs(b) for a, b in zip(losses, zoo_losses))
-    want = {k: v * steps // TRAIN_STEPS for k, v in expected.items()}
+    want = {k: v * steps // BERT_ZOO_STEPS for k, v in expected.items()}
     if launches != want or not rel <= TOL_SCHED_TRAJ:
         raise AssertionError(f"bert {key}: launches {launches} (expected "
                              f"{want}), trajectory {rel:.3e} from the zoo's")
@@ -3471,10 +3510,11 @@ def phase_serve(gap: float, smi: str) -> dict:
         alone_eng.run_until_idle()
         alone.append(alone_eng.response(rid).tokens)
     mixed, mixed_seeds, where = [], [], []
+    every = SERVE_REQUESTS // SERVE_SAMPLED     # a sampled one every `every`
     for i, (req, sd) in enumerate(zip(requests, seeds)):
         mixed.append(req)
         mixed_seeds.append(sd)
-        if i % 4 == 1:
+        if i % every == 1:
             where.append(len(mixed))
             mixed.append(sampled[len(where) - 1])
             mixed_seeds.append(s_seeds[len(where) - 1])
@@ -4062,7 +4102,7 @@ def phase_serve_spec(ctx: dict, smi: str) -> None:
                    if k != "generated_tokens"})
         # (a) sampled against the non-spec resident path (the ladder's
         # rungs are the programs the runs above hold)
-        if name != "ngram_adaptive":
+        if (name, layout) in SPEC_SAMPLED_RUNS:
             s_eng = ServeEngine(backend(sampled, layout, m, spec_tokens=K,
                                         **kw))
             s_resps, s_wall = _traffic(s_eng, s_reqs, s_seeds)
@@ -4163,7 +4203,7 @@ def phase_serve_spec(ctx: dict, smi: str) -> None:
 # new tokens each, all submitted at once.
 FLEET_REPLICAS = 3
 FLEET_SLOTS = 4
-FLEET_REQUESTS = 48
+FLEET_REQUESTS = 24
 FLEET_PROMPT = 128
 FLEET_PREFIX = 64
 FLEET_PREFIXES = 4
@@ -4846,7 +4886,9 @@ MESH_DATA = 2
 MESH_WORLD = MESH_STAGES * MESH_DATA
 MESH_WEIGHT_SEED = 11
 MESH_STEP_SEED = 5
-MESH_STEPS = 8
+MESH_STEPS = 4              # ZeRO's and the lm_tutorial world's steps
+# the mesh world's model (phases 11 and 12): the full width cut to 8 layers
+MESH_LAYERS = 8
 MESH_ZERO_CMP = 3           # ZeRO against the plain Adam after this many steps
 MESH_THREADS = 2            # each rank's CPU threads (4 ranks, 8 cores)
 MESH_TIMEOUT_S = 600.0
@@ -4858,9 +4900,11 @@ MESH_TRAINER_RUNS = (("gpipe", "except_last"), ("1f1b", "except_last"),
                      ("zb-h1", "never"))
 
 
-def _mesh_cfg(vocab: int, dropout: float = DROPOUT):
+def _mesh_cfg(vocab: int, dropout: float = DROPOUT,
+              n_layers: int = MESH_LAYERS):
     from pipe_tpu_torch.models.transformer_lm import LMConfig
-    return LMConfig(vocab=vocab, attn_impl="flash", dropout=dropout)
+    return LMConfig(vocab=vocab, attn_impl="flash", dropout=dropout,
+                    n_layers=n_layers)
 
 
 def _layer_params(layers):
@@ -5175,6 +5219,13 @@ def phase_mesh(smi: str, world=None) -> dict:
         t0 = time.perf_counter()
         zero = world.run(_mesh_rank_zero, len(vocab), tmp)
         log("mesh", zero_s=f"{time.perf_counter() - t0:.1f}")
+        # (d) the tutorial app's ranks over the phase's world, interleaved
+        t0 = time.perf_counter()
+        app = world.run(lm_tutorial._rank_main, [
+            "except_last", "--world", str(MESH_WORLD), "--stages",
+            str(MESH_STAGES), "--schedule", "interleaved", "--steps",
+            str(MESH_STEPS), "--lr", str(TRAIN_LR)])
+        app_s = time.perf_counter() - t0
     launches = {}
     for r in steps:
         for name, run in r["runs"].items():
@@ -5247,18 +5298,11 @@ def phase_mesh(smi: str, world=None) -> dict:
                 f"mesh rank {r['rank']}: ZeRO's parameters after "
                 f"{MESH_ZERO_CMP} steps off the plain run's by "
                 f"{r['zero_param_err']:.2e} (> {TOL_MESH_GRAD})")
-    # (d) the tutorial app over its own world, interleaved
-    t0 = time.perf_counter()
-    app = lm_tutorial.run_world(
-        ["except_last", "--world", str(MESH_WORLD), "--stages",
-         str(MESH_STAGES), "--schedule", "interleaved", "--steps",
-         str(MESH_STEPS), "--lr", str(TRAIN_LR)], timeout=MESH_TIMEOUT_S)
     ls = app[0]["losses"]
     log("mesh", run="lm_tutorial --world 4 --schedule interleaved",
         losses=[f"{l:.4f}" for l in ls],
         ms_per_step=f"{app[0]['sec_per_step'] * 1e3:.1f}",
-        val_loss=f"{app[0]['val_loss']:.4f}",
-        wall_s=f"{time.perf_counter() - t0:.1f}")
+        val_loss=f"{app[0]['val_loss']:.4f}", wall_s=f"{app_s:.1f}")
     if not (len(ls) == MESH_STEPS and all(math.isfinite(l) for l in ls)
             and ls[-1] < ls[0]):
         raise AssertionError(f"lm_tutorial --world: losses {ls}")
@@ -5278,8 +5322,8 @@ RING_STEPS = 2
 RING_GEN_BATCH = 8           # 2 rows a ring group
 RING_GEN_PROMPT = 128
 RING_GEN_NEW = 64
-RING_REQUESTS = 16
-RING_SAMPLED = 4             # the last 4 of the 16 requests
+RING_REQUESTS = 8
+RING_SAMPLED = 2             # the last 2 of the 8 requests
 RING_PROMPT = (32, 128)
 RING_NEW = 64
 RING_BUCKETS = (32, 64, 128)
@@ -6118,12 +6162,358 @@ def phase_elastic(smi: str, world=None) -> dict:
     return launches
 
 
+# --- 14. overlap --------------------------------------------------------------
+
+OV_STAGES = 4                # 4 stage ranks x 1 data, the world of 11-13
+OV_WEIGHT_SEED = 19
+OV_STEP_SEED = 7
+# (a): the transports, in turns, OV_TURN_STEPS steps each
+OV_TURNS = (("serialized", False, False), ("overlapped", True, False),
+            ("overlapped", True, False), ("serialized", False, False))
+OV_TURN_STEPS = 3
+# (b): (schedule, checkpoint) of the phase-compiled steps held to the
+# interpreted walk; zb-h1 under never with the structural split
+OV_PHASE_RUNS = (("1f1b", "except_last"), ("zb-h1", "never"))
+# (c): the probe's geometry and widths (pipe_tpu's defaults)
+OV_PROBE = dict(n_stages=OV_STAGES, chunks=8, d_model=256, d_ff=512,
+                seq_len=64, iters=4)
+# (d): the zoo over the world: phase gpt2's argv (e), for a few steps
+ZOO_WORLD_STEPS = 3
+TOL_ZOO_WORLD = 1e-5         # relative, against the one-device zoo's losses
+
+
+def _zoo_gpt2_argv(steps: int) -> list:
+    return ["gpt2", "--stages", "4", "--chunks", "16", "--batch", "32",
+            "--schedule", "1f1b", "--steps", str(steps)]
+
+
+def _sync(device) -> None:
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _overlap_rank(cfg_overrides=None) -> dict:
+    """On each rank: gates (a) and (b) over the full-width tutorial LM
+    (``LMConfig`` defaults, random weights and tokens from seeds, dropout
+    0.2, batch 32, chunks 4), each rank holding its 4 layers on its mesh's
+    device. ``cfg_overrides``: a smaller config, for a CPU rehearsal."""
+    import torch.distributed as dist
+
+    from pipe_tpu_torch.core import microbatch as mb
+    from pipe_tpu_torch.inference.pipelined import localize_stage
+    from pipe_tpu_torch.models.transformer_lm import (LMConfig, PipelinedLM,
+                                                      build_sequential)
+    from pipe_tpu_torch.parallel.mesh import make_mesh
+    from pipe_tpu_torch.parallel.scheduled import ScheduledPipeline
+
+    mesh = make_mesh(OV_STAGES, 1)
+    dev = mesh.device
+    cfg = dataclasses.replace(LMConfig(attn_impl="flash", dropout=DROPOUT),
+                              **(cfg_overrides or {}))
+    seq = build_sequential(cfg, device=dev, generator=torch.Generator(
+        device=dev).manual_seed(OV_WEIGHT_SEED))
+    model = localize_stage(PipelinedLM.from_sequential(cfg, seq, OV_STAGES),
+                           mesh)
+    del seq
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    params = [p for p in model.parameters() if p.device.type != "meta"]
+    gen = torch.Generator(device=dev).manual_seed(OV_STEP_SEED)
+    tokens = torch.randint(0, cfg.vocab, (TRAIN_BATCH, cfg.seq_len),
+                           generator=gen, device=dev)
+    x, rows = mb.stack_scatter(
+        {"tokens": tokens, "targets": torch.roll(tokens, -1, -1)}, CHUNKS)
+    w = mb.valid_row_mask(x, rows)
+    lps = cfg.n_layers // OV_STAGES
+    out = {"rank": mesh.rank, "stage": mesh.stage, "steps": [],
+           "phase": {}}
+
+    def executor(sched, ckpt, overlap, phase):
+        return ScheduledPipeline(
+            model.stage_fn, model.pre_fn, model.loss_post_fn,
+            n_stages=OV_STAGES, module=model, checkpoint=ckpt,
+            schedule=sched, mesh=mesh, overlap_transport=overlap,
+            phase_compile=phase,
+            split_stage="auto" if ckpt == "never" else None)
+
+    def step(ex):
+        for p in params:
+            p.grad = None
+        _sync(dev)
+        dist.barrier()
+        _zero_launches()
+        mesh.reset_stats()
+        t0 = time.perf_counter()
+        loss, _ = ex.loss_and_grad(x, w, seed=OV_STEP_SEED)
+        _sync(dev)
+        ms = (time.perf_counter() - t0) * 1e3
+        passes = ex.stage_passes(CHUNKS, column=mesh.stage)
+        return dict(loss=float(loss), ms=ms, p2p_s=mesh.stats.p2p_s,
+                    wait_s=mesh.stats.wait_s,
+                    header_bytes=mesh.stats.header_bytes,
+                    p2p_bytes=mesh.stats.p2p_bytes,
+                    launches=_launch_counts(),
+                    expected={"flash_attention_fwd": passes["forward"] * lps,
+                              "flash_attention_bwd_dq":
+                                  passes["backward"] * lps,
+                              "flash_attention_bwd_dkv":
+                                  passes["backward"] * lps},
+                    transport=ex.memory_plan(CHUNKS)["transport"])
+
+    def same(ref) -> bool:
+        return all(torch.equal(p.grad, g) for p, g in zip(params, ref))
+
+    # (a) serialized against overlapped, in turns, from one set of weights,
+    # after a serialized warm-up step (the first step in a fresh executor
+    # pays its ranks' first kernels and gloo pairs), which is the reference
+    s = step(executor("1f1b", "except_last", False, False))
+    ref = (s["loss"], [p.grad.clone() for p in params])
+    s.update(run="warm-up", bitwise=True)
+    out["steps"].append(s)
+    for name, overlap, phase in OV_TURNS:
+        ex = executor("1f1b", "except_last", overlap, phase)
+        for _ in range(OV_TURN_STEPS):
+            s = step(ex)
+            s.update(run=name, bitwise=s["loss"] == ref[0] and same(ref[1]))
+            out["steps"].append(s)
+    # (b) phase-compiled against interpreted (1f1b: (a)'s serialized steps)
+    for sched, ckpt in OV_PHASE_RUNS:
+        base = ref
+        if sched != "1f1b":
+            s = step(executor(sched, ckpt, False, False))
+            base = (s["loss"], [p.grad.clone() for p in params])
+            s.update(run=f"{sched}/{ckpt}/interpreted", bitwise=True)
+            out["steps"].append(s)
+        ex = executor(sched, ckpt, None, True)
+        for _ in range(OV_TURN_STEPS):
+            s = step(ex)
+            s.update(run=f"{sched}/{ckpt}/phase-compiled",
+                     bitwise=s["loss"] == base[0] and same(base[1]))
+            out["steps"].append(s)
+        plan = ex.memory_plan(CHUNKS)
+        out["phase"][f"{sched}/{ckpt}"] = {
+            k: plan[k] for k in ("cycles", "phase_segments",
+                                 "phase_unrolled_cycles",
+                                 "phase_scan_cycles", "grad_park_slots",
+                                 "stash_slots")}
+    del ref, base, model, params
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    dist.barrier()
+    return out
+
+
+def _probe_rank(n: int, m: int, kw: dict) -> dict:
+    """On each rank: the bubble probe's rank (``obs/bubble_probe.py``) with
+    its kernels' launches, and the launches its rows' tables imply: per
+    row and step, this rank's column's passes x its one layer (the probe's
+    model has a layer a stage), times the steps the row times (a warm-up
+    and ``iters``, at m and, for the slope rows, at 2m)."""
+    from pipe_tpu_torch.obs import bubble_probe
+    from pipe_tpu_torch.parallel.mesh import make_mesh
+    from pipe_tpu_torch.parallel.scheduled import (ScheduledPipeline,
+                                                   SplitBackwardStage)
+
+    mesh = make_mesh(n, 1)
+    _sync(mesh.device)
+    _zero_launches()
+    record = bubble_probe._rank_probe(n, m, kw)
+    _sync(mesh.device)
+    launches = _launch_counts()
+
+    def passes(mm, **row):
+        if row.pop("split_stage", None) is not None:
+            row["split_stage"] = SplitBackwardStage(None, None)
+        for k in ("overlap_transport", "phase_compile", "remat_policy"):
+            row.pop(k, None)
+        table = ScheduledPipeline(lambda s_, h, c: h, lambda x, c: x,
+                                  lambda h, x, c: h, n_stages=n,
+                                  module=torch.nn.Linear(1, 1),
+                                  device="cpu", **row)
+        return table.stage_passes(mm, column=mesh.stage)
+
+    steps = 1 + kw["iters"]
+    per_step, total = {}, {"forward": 0, "backward": 0}
+    runs = []
+    if not kw["skip_slope"]:
+        runs += [("slope m", dict(schedule="gpipe", checkpoint="never"), m),
+                 ("slope 2m", dict(schedule="gpipe", checkpoint="never"),
+                  2 * m)]
+    for name, row in bubble_probe.schedule_rows(kw["compare_transport"]):
+        runs.append((name, row, m))
+        if kw["compare_transport"] and name in ("1f1b", "1f1b-overlap"):
+            runs.append((f"{name} 2m", row, 2 * m))
+    for name, row, mm in runs:
+        ps = passes(mm, **dict(row))     # a remat policy changes no count
+        per_step[name] = ps
+        for k in total:
+            total[k] += ps[k] * steps
+    expected = {"flash_attention_fwd": total["forward"],
+                "flash_attention_bwd_dq": total["backward"],
+                "flash_attention_bwd_dkv": total["backward"]}
+    return dict(record=record, rank=mesh.rank, launches=launches,
+                expected=expected, per_step=per_step)
+
+
+def _zoo_world_rank(argv) -> dict:
+    """On each rank: ``apps.zoo``'s stage rank over the world, with its
+    kernels' launches and the ones its column of the table implies."""
+    from pipe_tpu_torch.apps import zoo
+    from pipe_tpu_torch.parallel.mesh import make_mesh
+    from pipe_tpu_torch.parallel.scheduled import ScheduledPipeline
+
+    mesh = make_mesh(OV_STAGES, 1)
+    args = zoo.build_argparser().parse_args(argv)
+    _sync(mesh.device)
+    _zero_launches()
+    res = zoo._rank_main(argv)
+    _sync(mesh.device)
+    res["launches"] = _launch_counts()
+    table = ScheduledPipeline(lambda s, h, c: h, lambda x, c: x,
+                              lambda h, x, c: h, n_stages=OV_STAGES,
+                              module=torch.nn.Linear(1, 1),
+                              checkpoint=args.checkpoint,
+                              schedule=args.schedule, device="cpu")
+    passes = table.stage_passes(args.chunks, column=mesh.stage)
+    blocks = res["n_layers"] // OV_STAGES
+    res["expected"] = {
+        "flash_attention_fwd": passes["forward"] * blocks * args.steps,
+        "flash_attention_bwd_dq": passes["backward"] * blocks * args.steps,
+        "flash_attention_bwd_dkv": passes["backward"] * blocks * args.steps}
+    res["rank"] = mesh.rank
+    gc.collect()
+    if mesh.device.type == "cuda":
+        torch.cuda.empty_cache()
+    return res
+
+
+def phase_overlap(smi: str, world=None, zoo_losses=None) -> dict:
+    """Phase 14: overlapped transport, the phase-compiled walk, the bubble
+    probe and the zoo over the world of 4 stage ranks; returns the zoo
+    world's launches, summed over the ranks. ``zoo_losses``: phase gpt2's
+    one-device zoo losses (full precision), run here when not given."""
+    from pipe_tpu_torch.apps import zoo
+    from pipe_tpu_torch.obs import bubble_probe
+
+    t_phase = time.perf_counter()
+    card = smi.splitlines()[0]
+    if zoo_losses is None:                 # phase gpt2 did not run
+        with contextlib.redirect_stdout(io.StringIO()):
+            zoo_losses = zoo.train(zoo.build_argparser().parse_args(
+                _zoo_gpt2_argv(ZOO_WORLD_STEPS)))["losses"]
+    with _world(world, OV_STAGES, MESH_TIMEOUT_S, MESH_THREADS) as world:
+        t0 = time.perf_counter()
+        ranks = world.run(_overlap_rank)
+        log("overlap", stages=OV_STAGES, backend="gloo",
+            device="cuda:0 (shared)", layers_per_rank=16 // OV_STAGES,
+            dropout=DROPOUT, batch=TRAIN_BATCH, chunks=CHUNKS, card=card,
+            steps_s=f"{time.perf_counter() - t0:.1f}")
+        for r in ranks:
+            for s in r["steps"]:
+                log("overlap", rank=r["rank"], run=s["run"],
+                    transport=s["transport"], loss=f"{s['loss']:.6f}",
+                    ms=f"{s['ms']:.1f}", p2p_s=f"{s['p2p_s']:.4f}",
+                    wait_s=f"{s['wait_s']:.4f}",
+                    header_bytes=s["header_bytes"],
+                    p2p_bytes=s["p2p_bytes"], bitwise=s["bitwise"],
+                    launches=list(s["launches"].values()))
+                if not s["bitwise"]:
+                    raise AssertionError(
+                        f"overlap rank {r['rank']} {s['run']}: loss or "
+                        f"gradients differ from the serialized, interpreted "
+                        f"walk's")
+                if s["launches"] != s["expected"]:
+                    raise AssertionError(
+                        f"overlap rank {r['rank']} {s['run']}: launches "
+                        f"{s['launches']} != the table's {s['expected']}")
+                want = ("phase-compiled" if "phase" in s["run"] else
+                        "overlapped" if s["run"] == "overlapped"
+                        else "serialized")          # and the warm-up
+                if s["transport"] != want:
+                    raise AssertionError(
+                        f"overlap {s['run']}: walked {s['transport']}")
+            for run, plan in r["phase"].items():
+                log("overlap", rank=r["rank"], phase_program=run, **plan)
+        for name in ("serialized", "overlapped",
+                     "1f1b/except_last/phase-compiled",
+                     "zb-h1/never/interpreted",
+                     "zb-h1/never/phase-compiled"):
+            per = [s for r in ranks for s in r["steps"] if s["run"] == name]
+            log("overlap", summary=name,
+                mean_ms=f"{sum(s['ms'] for s in per) / len(per):.1f}",
+                mean_p2p_s=f"{sum(s['p2p_s'] for s in per) / len(per):.4f}",
+                mean_wait_s=f"{sum(s['wait_s'] for s in per) / len(per):.4f}",
+                card=card)
+        # (c) the bubble probe's ranks, on the card
+        t0 = time.perf_counter()
+        kw = dict(OV_PROBE, compare_schedules=True, compare_transport=True,
+                  skip_slope=False)
+        n, m = kw.pop("n_stages"), kw.pop("chunks")
+        probes = world.run(_probe_rank, n, m, kw)
+        record = probes[0]["record"]
+        print(f"[overlap] probe={json.dumps(record)}", flush=True)
+        log("overlap", probe_s=f"{time.perf_counter() - t0:.1f}", card=card)
+        for r in probes:
+            log("overlap", probe_rank=r["rank"], launches=r["launches"],
+                expected=r["expected"], passes_per_step=json.dumps(
+                    r["per_step"]).replace(" ", ""))
+            if r["launches"] != r["expected"]:
+                raise AssertionError(
+                    f"bubble probe rank {r['rank']}: launches "
+                    f"{r['launches']} != its rows' tables' {r['expected']}")
+        rows = record.get("schedules", {})
+        if (record.get("platform") != f"cuda-gloo{OV_STAGES}"
+                or list(rows) != [r for r, _ in
+                                  bubble_probe.schedule_rows(True)]
+                or not all(row["sec_per_step"] > 0 for row in rows.values())
+                or any(rows[r].get("phase") == "rejected"
+                       for r in ("1f1b-phase", "zb-h1-phase"))):
+            raise AssertionError(f"bubble probe record: {record}")
+        # (d) the zoo over the world against the one-device zoo
+        t0 = time.perf_counter()
+        argv = _zoo_gpt2_argv(ZOO_WORLD_STEPS) + ["--world", str(OV_STAGES)]
+        zres = world.run(_zoo_world_rank, argv)
+        want = zoo_losses[:ZOO_WORLD_STEPS]
+        for line in zres[0]["stdout"].splitlines():
+            print("    " + line, flush=True)
+        launches = {}
+        for r in zres:
+            rel = max(abs(a - b) / abs(b) for a, b in zip(r["losses"], want))
+            log("overlap", zoo_rank=r["rank"],
+                losses=[f"{l:.6f}" for l in r["losses"]],
+                one_device=[f"{l:.6f}" for l in want], max_rel=f"{rel:.2e}",
+                ms_per_step=f"{r['ms_per_step']:.1f}",
+                launches=r["launches"], expected=r["expected"])
+            if len(r["losses"]) != ZOO_WORLD_STEPS or rel > TOL_ZOO_WORLD:
+                raise AssertionError(
+                    f"zoo --world {OV_STAGES} rank {r['rank']}: losses "
+                    f"{r['losses']} vs the one-device {want} (rel {rel:.2e} "
+                    f"> {TOL_ZOO_WORLD})")
+            if r["launches"] != r["expected"]:
+                raise AssertionError(
+                    f"zoo --world rank {r['rank']}: launches {r['launches']}"
+                    f" != the table's {r['expected']}")
+            for k, v in r["launches"].items():
+                launches[k] = launches.get(k, 0) + v
+        log("overlap", zoo_world_s=f"{time.perf_counter() - t0:.1f}")
+    log("overlap", seconds=f"{time.perf_counter() - t_phase:.1f}", card=card)
+    return launches
+
+
+_T_START = time.perf_counter()
+
+
 def fresh(phase: str) -> None:
     """Start ``phase`` clean: collect the cyclic garbage earlier phases
-    left, empty the allocator's cache, print what is still allocated."""
+    left, empty the allocator's cache, print what is still allocated and
+    the script's seconds so far (a phase's wall is the next phase's
+    ``script_s`` less its own)."""
     gc.collect()
     torch.cuda.empty_cache()
-    log(phase, start_memory_allocated=torch.cuda.memory_allocated())
+    log(phase, start_memory_allocated=torch.cuda.memory_allocated(),
+        script_s=f"{time.perf_counter() - _T_START:.1f}")
 
 
 def main() -> int:
@@ -6145,7 +6535,7 @@ def main() -> int:
     fresh("remat")
     remat_launches = phase_remat()
     fresh("gpt2")
-    gpt2_launches = phase_gpt2()
+    gpt2_launches, gpt2_zoo_losses = phase_gpt2()
     fresh("gpt2_serve")
     phase_gpt2_serve()
     fresh("bert")
@@ -6170,6 +6560,8 @@ def main() -> int:
                timeout=MESH_TIMEOUT_S, threads=MESH_THREADS) as world:
         fresh("mesh")
         mesh_launches = phase_mesh(smi, world)
+        fresh("overlap")
+        zoo_world_launches = phase_overlap(smi, world, gpt2_zoo_losses)
         fresh("ring")
         ring_launches = phase_ring(smi, world)
         fresh("elastic")
@@ -6214,6 +6606,7 @@ def main() -> int:
             run: launches[wrapper] for run, launches in mesh_launches.items()}
         entry["launches_ring_train"] = ring_launches[wrapper]
         entry["launches_elastic"] = elastic_launches[wrapper]
+        entry["launches_zoo_world"] = zoo_world_launches[wrapper]
         entry["gpt2_shape"] = row["gpt2_shape"]
         entry["bert_shape"] = row["bert_shape"]
         entry["mesh_shape"] = row["mesh_shape"]

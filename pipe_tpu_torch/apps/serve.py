@@ -59,8 +59,8 @@ it), each holding its stage of the model: the engine runs on rank 0 over
 ``RingSlotBackend`` (``serve/ring.py``), whose N slots are the ring's
 groups (``--slots`` is not read); ``--kv paged``, ``--resident`` and
 ``--spec-tokens`` (``--draft ngram|truncated``) come through, with
-``pipe_tpu``'s refusals; ``--replicas`` with it exits 2 naming ROADMAP.md
-A.8, the mesh carve.
+``pipe_tpu``'s refusals; ``--replicas`` with it exits 2 with
+``pipe_tpu``'s message before any rank is spawned.
 ``--family gpt2`` serves ``PipelinedGPT2`` (fresh
 weights from ``--seed``); its model has no ``embed_tree``, so ``--draft
 tree`` exits 2 with the engine's message, as in ``pipe_tpu``. A request
@@ -420,9 +420,8 @@ def _main_ring(args, argv) -> int:
     follow the ring. The flags' checks run on every rank, as on one
     device."""
     if args.replicas > 1:
-        print("--replicas with --stages > 1 is not ported to pipe_tpu_torch "
-              "yet (ROADMAP.md A.8, the mesh carve of fleet/topology.py: "
-              "runtime/distributed.py)", file=sys.stderr)
+        print("--replicas > 1 requires --stages 1 (the fleet router "
+              "shards single-device engines)", file=sys.stderr)
         return 2
     from pipe_tpu_torch.runtime.distributed import launch
 

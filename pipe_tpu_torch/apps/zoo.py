@@ -12,17 +12,26 @@ executor (``parallel/scheduled.py``) with Adam:
   ``mlm_weights``;
 * ``vit``: image classification on random images and labels (config #5).
 
-Every schedule runs on the tables: the table ``gpipe`` stands in for
-``pipe_tpu``'s ``SpmdPipeline`` (ROADMAP.md: A.8); ``1f1b``, ``zb-h1`` and
+Every schedule runs on the tables: on one device the table ``gpipe`` stands
+in for ``pipe_tpu``'s ``SpmdPipeline``; ``1f1b``, ``zb-h1`` and
 ``interleaved-1f1b`` (``--stages`` x ``--interleave`` virtual stages) are the
 tables of ``pipe_tpu``. ``--tiny`` keeps it CPU-sized; ``--device cpu`` runs
-every kernel's plain version (``pipe_tpu``'s ``--cpu N`` virtual mesh has no
-counterpart on one device).
+every kernel's plain version.
+
+``--world N`` (N = ``--stages``; ``pipe_tpu``'s ``make_mesh(args.stages,
+1)`` over its ``--cpu N`` virtual mesh) spawns N stage ranks
+(``runtime.distributed.launch``, backend ``gloo``; on the card they share
+it): ``gpipe`` trains through ``SpmdPipeline(mesh=)``, the other schedules
+through ``ScheduledPipeline(mesh=)``, as ``pipe_tpu`` picks them. Each rank
+builds the model from the seed and keeps its stage (``parallel.mesh.
+localize``); rank 0 prints the lines of the one-device run.
 """
 
 from __future__ import annotations
 
 import argparse
+import os
+import sys
 import time
 
 
@@ -68,6 +77,9 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--tiny", action="store_true")
     p.add_argument("--device", default="cuda",
                    help="cuda (default) or cpu (the kernels' plain versions)")
+    p.add_argument("--world", type=int, default=1,
+                   help="stage ranks spawned here over gloo, one a stage "
+                        "(must equal --stages)")
     return p
 
 
@@ -78,7 +90,67 @@ def main(argv=None) -> int:
         parser.error("--steps must be >= 1")
     if args.stages < 1 or args.interleave < 1:
         parser.error("--stages and --interleave must be >= 1")
+    if args.world > 1:
+        if args.world != args.stages:
+            print(f"--world {args.world} must equal --stages {args.stages} "
+                  f"(one rank a stage)", file=sys.stderr)
+            return 2
+        out = run_world(list(sys.argv[1:] if argv is None else argv))[0]
+        sys.stdout.write(out["stdout"])
+        return 0
+    train(args)
+    return 0
 
+
+def run_world(argv, timeout: float = 3600.0) -> list:
+    """Spawn ``--world`` stage ranks and run :func:`train` on each: their
+    result dicts in rank order (rank 0's with its printed lines under
+    ``stdout``)."""
+    from pipe_tpu_torch.runtime.distributed import launch
+
+    args = build_argparser().parse_args(argv)
+    threads = (max(1, (os.cpu_count() or 1) // args.world)
+               if args.device == "cpu" else 0)
+    return launch(_rank_main, args.world, list(argv), device=args.device,
+                  backend="gloo", timeout=timeout, threads=threads)
+
+
+def _rank_main(argv) -> dict:
+    """One stage rank of ``--world``: :func:`train` over the world's mesh,
+    rank 0's lines captured."""
+    import contextlib
+    import io
+
+    from pipe_tpu_torch.parallel.mesh import make_mesh
+
+    args = build_argparser().parse_args(argv)
+    mesh = make_mesh(args.stages, 1)
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out if mesh.rank == 0
+                                    else io.StringIO()):
+        res = train(args, mesh)
+    res["stdout"] = out.getvalue()
+    return res
+
+
+def _local_modules(model, mesh, n_virtual: int) -> list:
+    """What this stage rank runs of ``model``: the blocks of its virtual
+    stages ``s % d == stage``, the embedding on stage 0, the head on the
+    last."""
+    d, p = mesh.n_stages, mesh.stage
+    keep = [model.stage_blocks(s) for s in range(n_virtual) if s % d == p]
+    if p == 0:
+        keep += [m for name, m in model.named_children()
+                 if name not in ("blocks", model.post_key)]
+    if p == d - 1:
+        keep.append(model.head)
+    return keep
+
+
+def train(args, mesh=None) -> dict:
+    """The zoo's training flow on this process: one device, or with ``mesh``
+    this stage rank's part of the world. Prints the step lines; returns the
+    losses, the ms per step and the model's layer count."""
     import dataclasses
     import warnings
 
@@ -90,9 +162,10 @@ def main(argv=None) -> int:
                                        PipelinedGPT2, PipelinedViT,
                                        ViTConfig)
     from pipe_tpu_torch.parallel.scheduled import ScheduledPipeline
+    from pipe_tpu_torch.parallel.spmd import SpmdPipeline
     from pipe_tpu_torch.utils.platform import resolve_device
 
-    device = resolve_device(args.device)
+    device = mesh.device if mesh is not None else resolve_device(args.device)
     v = args.interleave if args.schedule == "interleaved-1f1b" else 1
     n_virtual = args.stages * v
 
@@ -112,6 +185,9 @@ def main(argv=None) -> int:
     model = model_cls(cfg, n_virtual, device=device,
                       generator=torch.Generator(device=device)
                       .manual_seed(0))
+    if mesh is not None:
+        from pipe_tpu_torch.parallel.mesh import localize
+        localize(model, _local_modules(model, mesh, n_virtual), device)
 
     if args.schedule == "interleaved-1f1b" and v == 1:
         print("note: --interleave 1 makes interleaved-1f1b the plain 1f1b "
@@ -122,17 +198,29 @@ def main(argv=None) -> int:
         # zb-h1 under a recompute mode warns that W carries no compute;
         # pipe_tpu's zoo passes the mode through all the same
         warnings.simplefilter("ignore")
-        sched = ScheduledPipeline(model.stage_fn, model.pre_fn,
-                                  model.loss_post_fn, n_stages=args.stages,
-                                  module=model, checkpoint=args.checkpoint,
-                                  schedule=sched_obj, device=device)
-    opt = torch.optim.Adam(model.parameters(), lr=args.lr)
+        if mesh is not None and args.schedule == "gpipe":
+            sched = SpmdPipeline(model.stage_fn, model.pre_fn,
+                                 model.loss_post_fn, args.stages, module=model,
+                                 checkpoint=args.checkpoint,
+                                 post_with_batch=True, mesh=mesh)
+        else:
+            sched = ScheduledPipeline(model.stage_fn, model.pre_fn,
+                                      model.loss_post_fn,
+                                      n_stages=args.stages, module=model,
+                                      checkpoint=args.checkpoint,
+                                      schedule=sched_obj, device=device,
+                                      mesh=mesh)
+    opt = torch.optim.Adam([p for p in model.parameters()
+                            if p.device.type != "meta"], lr=args.lr)
 
     n_params = sum(p.numel() for p in model.parameters())
+    where = (f"{args.stages} stage ranks" if mesh is not None
+             else f"{args.stages} stages of 1 device")
     print(f"{args.family}: {n_params:,} params, {n_virtual} virtual stages "
-          f"on {args.stages} stages of 1 device, schedule={args.schedule}, "
+          f"on {where}, schedule={args.schedule}, "
           f"checkpoint={args.checkpoint}")
     t_start = t0 = time.perf_counter()
+    losses = []
     for b in range(args.steps):
         x, n_rows = mb.stack_scatter(
             synthetic_batch(args.family, cfg, args.batch, b, device),
@@ -143,6 +231,7 @@ def main(argv=None) -> int:
         loss, _ = sched.loss_and_grad(x, w, seed=b)
         opt.step()
         l = loss.item()
+        losses.append(l)
         if b == 0:
             t0 = time.perf_counter()  # timing from step 2 (skip warm-up)
         print(f"| step {b + 1}/{args.steps} | loss {l:.4f}")
@@ -151,7 +240,7 @@ def main(argv=None) -> int:
     else:
         ms = (time.perf_counter() - t_start) * 1000  # warm-up inclusive
     print(f"final loss {l:.4f} ({ms:.1f} ms/step)")
-    return 0
+    return {"losses": losses, "ms_per_step": ms, "n_layers": cfg.n_layers}
 
 
 if __name__ == "__main__":

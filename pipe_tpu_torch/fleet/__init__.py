@@ -18,8 +18,8 @@ transport that reaches them:
 * :mod:`.journal` -- the fsync'd request journal a restarted controller
   recovers from (``FleetController.from_journal``).
 * :mod:`.disagg` -- prefill/decode role-split fleets.
-* :mod:`.topology` -- device-range plans per replica (the mesh carve is
-  ROADMAP.md A.8).
+* :mod:`.topology` -- device-range plans per replica, and the carve of a
+  world of ranks into per-replica meshes.
 
 ``serve/router.py``'s :class:`~..serve.router.Router` is a thin shim over
 this package.

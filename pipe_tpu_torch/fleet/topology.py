@@ -8,10 +8,15 @@ or owns whole processes, never a fractional share of two.
 :func:`replica_device_plan` and :func:`role_device_plan` are the pure
 planning half (validation and index ranges); without ``n_devices`` they read
 ``torch.cuda.device_count()``. :func:`carve_replica_meshes` and
-:func:`carve_role_meshes` build ``pipe_tpu``'s JAX meshes, one per
-replica, over ``runtime/distributed.py``'s world; the carve of a world into
-per-replica meshes is not ported: they raise ``NotImplementedError`` naming
-ROADMAP.md A.8.
+:func:`carve_role_meshes` carve the initialized world of
+``runtime/distributed.py`` the same way, its global ranks in place of
+``pipe_tpu``'s device list: replica *i*'s grid is ``pipeline_grid`` of its
+shape, offset by its ``start``, as ``pipe_tpu``'s ``global_pipeline_mesh``
+lays out its slice of devices. Every rank of the world calls them (making a
+group is collective over the default group, ROADMAP.md C.19) and gets the
+list in the plan's order: its own replica's entry is a working
+``parallel.mesh.Mesh``, the others ``RemoteMesh`` records of shape and ranks
+(C.23).
 """
 
 from __future__ import annotations
@@ -23,9 +28,6 @@ __all__ = ["ReplicaDevices", "RoleReplicaDevices", "replica_device_plan",
            "role_device_plan", "carve_replica_meshes", "carve_role_meshes"]
 
 _ROLES = ("prefill", "decode", "mixed")
-_CARVE = ("per-replica stage meshes are not ported to pipe_tpu_torch yet "
-          "(ROADMAP.md A.8, runtime/distributed.py); replica_device_plan "
-          "and role_device_plan give the device ranges")
 
 
 def _device_count() -> int:
@@ -179,18 +181,58 @@ def role_device_plan(specs: Sequence, *,
     return plan
 
 
+def _carve_grids(plan, ranks: Sequence[int], stage_across: bool) -> list:
+    """Each plan entry's ``[n_stages, n_data]`` grid of global ranks:
+    ``pipeline_grid`` of its shape over ``ranks[start:stop]``, as
+    ``pipe_tpu``'s ``global_pipeline_mesh`` lays out its slice of
+    devices."""
+    import numpy as np
+
+    from ..runtime.distributed import pipeline_grid
+    ranks = np.asarray(ranks)
+    return [ranks[rd.start + pipeline_grid(rd.n_stages, rd.n_data,
+                                           stage_across)] for rd in plan]
+
+
+def _carve(plan, ranks: Sequence[int], stage_across: bool) -> list:
+    from ..parallel.mesh import carve_meshes
+    return carve_meshes(_carve_grids(plan, ranks, stage_across))
+
+
+def _world_ranks(devices: Optional[Sequence[int]]) -> List[int]:
+    if devices is not None:
+        return [int(r) for r in devices]
+    import torch.distributed as dist
+    if not dist.is_initialized():
+        raise RuntimeError(
+            "the carve needs an initialized world: "
+            "runtime.distributed.initialize (or launch) first")
+    return list(range(dist.get_world_size()))
+
+
 def carve_role_meshes(specs: Sequence, *,
-                      devices: Optional[Sequence] = None,
+                      devices: Optional[Sequence[int]] = None,
                       stage_across: bool = False) -> list:
-    """One ``(stage, data)`` mesh per role-specialized replica: not ported
-    (the stage mesh is ``runtime/distributed.py``'s)."""
-    raise NotImplementedError(_CARVE)
+    """One ``(stage, data)`` mesh per role-specialized replica, carved
+    contiguously per :func:`role_device_plan` over the world's ranks
+    (``devices``: the global ranks to carve, default every rank):
+    index-aligned with the plan, this rank's replica a working ``Mesh`` and
+    the others ``RemoteMesh`` records. Every rank of the world calls it."""
+    ranks = _world_ranks(devices)
+    plan = role_device_plan(specs, n_devices=len(ranks))
+    return _carve(plan, ranks, stage_across)
 
 
 def carve_replica_meshes(n_replicas: int, n_stages: int,
                          n_data: Optional[int] = None, *,
-                         devices: Optional[Sequence] = None,
+                         devices: Optional[Sequence[int]] = None,
                          stage_across: bool = False) -> list:
-    """One ``(stage, data)`` mesh per replica: not ported (the stage mesh
-    is ``runtime/distributed.py``'s)."""
-    raise NotImplementedError(_CARVE)
+    """One ``(stage, data)`` mesh per replica, carved contiguously from the
+    world's ranks (``devices``: the global ranks to carve, default every
+    rank) as :func:`replica_device_plan` plans them: index-aligned with the
+    plan, this rank's replica a working ``Mesh`` and the others
+    ``RemoteMesh`` records. Every rank of the world calls it."""
+    ranks = _world_ranks(devices)
+    plan = replica_device_plan(n_replicas, n_stages, n_data,
+                               n_devices=len(ranks))
+    return _carve(plan, ranks, stage_across)

@@ -35,7 +35,8 @@ class HeteroSpmdPipeline(HeteroScheduledPipeline):
                  mesh=None, device=DEFAULT_DEVICE, remat_policy=None):
         super().__init__(partitions, skip_layout, chunks, checkpoint,
                          "gpipe", device=device, remat_policy=remat_policy,
-                         mesh=mesh)
+                         mesh=mesh, overlap_transport=False,
+                         phase_compile=False)
 
     def __call__(self, *inputs, seed: Optional[int] = None,
                  train: bool = False):

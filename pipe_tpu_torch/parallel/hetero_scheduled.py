@@ -38,8 +38,10 @@ gradients as this rank's rows. ``pipe_tpu``'s ``lax.switch`` over stage
 branches and its uniform fast path have no counterpart: a rank that owns one
 partition has nothing to switch over.
 
-Dropped against ``pipe_tpu``: overlapped transport and phase compilation
-(ROADMAP.md: A.8).
+``overlap_transport`` and ``phase_compile`` go to the table walk as
+``pipe_tpu``'s do (``parallel/scheduled.py``; tri-states, on by default
+only for a mesh of CUDA ranks); the eval forward's FWD-masked tables always
+run serialized.
 """
 
 from __future__ import annotations
@@ -81,12 +83,15 @@ class HeteroScheduledPipeline:
       mesh: a ``parallel.mesh.Mesh``: this rank runs its partitions
         (module docstring) on ``mesh.device``, which ``device`` then yields
         to.
+      overlap_transport, phase_compile: the table walk's tri-states
+        (``ScheduledPipeline``), passed through as they are.
     """
 
     def __init__(self, partitions: Sequence[nn.Module], skip_layout,
                  chunks: int, checkpoint: str = "except_last",
                  schedule: Any = "1f1b", device=DEFAULT_DEVICE,
-                 remat_policy=None, mesh=None):
+                 remat_policy=None, mesh=None, overlap_transport=None,
+                 phase_compile=None):
         self.schedule: Schedule = (get_schedule(schedule)
                                    if isinstance(schedule, str) else schedule)
         self.v = self.schedule.v
@@ -103,6 +108,8 @@ class HeteroScheduledPipeline:
         self.checkpoint = checkpoint
         self.remat_policy = resolve_policy(remat_policy)
         self.mesh = mesh
+        self.overlap_transport = overlap_transport
+        self.phase_compile = phase_compile
         if mesh is not None and mesh.n_stages != self.d:
             raise ValueError(
                 f"{self.S} partitions at interleave {self.v} need "
@@ -133,7 +140,8 @@ class HeteroScheduledPipeline:
                           else None),
             skip_lanes=(SkipLanes(self.lane_pairs, ())
                         if self.lane_pairs else None),
-            stat_spec="deferred_stats" if self.has_bn else None, mesh=mesh)
+            stat_spec="deferred_stats" if self.has_bn else None, mesh=mesh,
+            overlap_transport=overlap_transport, phase_compile=phase_compile)
         # the stage-sharded layout over every partition's parameter tree,
         # rows device-major (row_of); shapes are known on every rank
         self.param_pack = StageParamPack(

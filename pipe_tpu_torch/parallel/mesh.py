@@ -13,13 +13,19 @@ timeout.
 
 The mesh also moves tensors, in torch's idiom: per-cycle point-to-point
 exchanges with ``dist.batch_isend_irecv`` (every receive posted before any
-send), ``all_reduce`` and ``all_gather``; for the ring decoders
+send), waited for in full (:meth:`Mesh.exchange`) or posted now and waited
+for later (:meth:`Mesh.post`, :meth:`Mesh.wait`: the table executor's
+overlapped transport, whose payload lengths both ends know),
+``all_reduce`` and ``all_gather``; for the ring decoders
 (``inference/pipelined.py``, ``serve/ring.py``) a shift by one over the
 stage ring (:meth:`Mesh.ring_shift`) and a small broadcast of a host plan
 (:meth:`Mesh.broadcast_plan`). After elastic training loses a stage,
 :func:`survivor_mesh` is the mesh over the ranks left: its grid leaves out
 the dead stage's row, and its "world" is the survivors' group, so that
-nothing waits on a retired rank. The backend is the caller's
+nothing waits on a retired rank. :func:`carve_meshes` makes one mesh per
+disjoint sub-grid of the world (the fleet's replica carve): this rank's
+entry is a working mesh whose "world" is its sub-grid's group, the others
+a :class:`RemoteMesh` (shape and ranks only). The backend is the caller's
 (``runtime/distributed.py``): over ``nccl`` CUDA tensors go as they are;
 over ``gloo`` a CUDA tensor is staged through a pinned host buffer,
 explicitly, and the staged bytes are counted in :attr:`Mesh.stats` beside
@@ -33,14 +39,15 @@ from __future__ import annotations
 import dataclasses
 import time
 from datetime import timedelta
-from typing import Dict, Iterable, List, Optional, Sequence, Tuple
+from typing import Any, Dict, Iterable, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 import torch.distributed as dist
 
-__all__ = ["Mesh", "make_mesh", "survivor_mesh", "localize", "STAGE_AXIS",
-           "DATA_AXIS", "CONTEXT_AXIS", "MODEL_AXIS", "mesh_grid"]
+__all__ = ["Mesh", "RemoteMesh", "make_mesh", "carve_meshes",
+           "survivor_mesh", "localize", "STAGE_AXIS", "DATA_AXIS",
+           "CONTEXT_AXIS", "MODEL_AXIS", "mesh_grid"]
 
 STAGE_AXIS = "stage"
 DATA_AXIS = "data"
@@ -59,11 +66,14 @@ class TransportStats:
     of the point-to-point exchanges (payload and layout headers) and of the
     collectives, the host seconds spent in each (staging copies included),
     and the bytes staged through pinned host memory (device to host plus
-    host to device)."""
+    host to device). ``wait_s`` is the host seconds blocked in
+    :meth:`Mesh.wait` on posted messages, which ``p2p_s`` leaves out (it
+    holds the posting and the landing copies)."""
 
     p2p_bytes: int = 0
     p2p_messages: int = 0
     p2p_s: float = 0.0
+    wait_s: float = 0.0
     header_bytes: int = 0
     collective_bytes: int = 0
     collectives: int = 0
@@ -102,7 +112,11 @@ class Mesh:
         # gloo moves host tensors: CUDA tensors are staged explicitly
         self.staged = self.backend == "gloo" and device.type == "cuda"
         self.stats = TransportStats()
-        self._pinned: Dict[Tuple[str, int], torch.Tensor] = {}
+        self._pinned: Dict[tuple, torch.Tensor] = {}
+        # posted messages: the staging parity of the next post, and per
+        # parity the event after which its landing buffers are free again
+        self._parity = 0
+        self._landed: Dict[int, Any] = {}
 
     def __repr__(self) -> str:
         return (f"Mesh(stage={self.stage}/{self.n_stages}, "
@@ -119,10 +133,11 @@ class Mesh:
 
     # --- staging ---
 
-    def _host(self, t: torch.Tensor, key: Tuple[str, int]) -> torch.Tensor:
+    def _host(self, t: torch.Tensor, key: tuple) -> torch.Tensor:
         """A pinned host buffer of ``t``'s size and dtype, reused per
         ``key`` (an exchange waits for every transfer before it returns, so
-        a buffer is free again at the next use of its key)."""
+        a buffer is free again at the next use of its key; posted messages
+        alternate between two keys, :meth:`post`)."""
         nbytes = t.numel() * t.element_size()
         buf = self._pinned.get(key)
         if buf is None or buf.numel() < nbytes:
@@ -131,7 +146,7 @@ class Mesh:
             self._pinned[key] = buf
         return buf[:nbytes].view(t.dtype).view(t.shape)
 
-    def _out(self, t: torch.Tensor, key: Tuple[str, int]) -> torch.Tensor:
+    def _out(self, t: torch.Tensor, key: tuple) -> torch.Tensor:
         """The tensor the backend sends: ``t``, or its pinned host copy."""
         if not (self.staged and t.is_cuda):
             return t
@@ -145,7 +160,7 @@ class Mesh:
             dst.copy_(host)
             self.stats.staged_bytes += dst.numel() * dst.element_size()
 
-    def _landing(self, t: torch.Tensor, key: Tuple[str, int]) -> torch.Tensor:
+    def _landing(self, t: torch.Tensor, key: tuple) -> torch.Tensor:
         """Where the backend receives into for ``t``: ``t`` itself, or a
         pinned host buffer of its size."""
         if not (self.staged and t.is_cuda):
@@ -191,14 +206,66 @@ class Mesh:
 
     @staticmethod
     def _p2p(recvs: Dict[int, torch.Tensor], sends: Dict[int, torch.Tensor],
-             tag: int) -> None:
+             tag: int, wait: bool = True) -> list:
         ops = [dist.P2POp(dist.irecv, t, p, tag=tag)
                for p, t in sorted(recvs.items())]
         ops += [dist.P2POp(dist.isend, t, p, tag=tag)
                 for p, t in sorted(sends.items())]
-        if ops:
-            for work in dist.batch_isend_irecv(ops):
+        works = dist.batch_isend_irecv(ops) if ops else []
+        if wait:
+            for work in works:
                 work.wait()
+        return works
+
+    def post(self, sends: Dict[int, torch.Tensor], recvs: Dict[int, int], *,
+             dtype=torch.int32, tag: int = 0) -> "Posted":
+        """Start one cycle's messages and return at once: ``sends[peer]``
+        (a flat tensor on the mesh's device) to each peer, and from each
+        peer of ``recvs`` a message of ``recvs[peer]`` elements, a length
+        both ends know, so no header goes first. Staged messages alternate
+        between two sets of pinned buffers, so the buffers of a message
+        still in flight, or still being copied to the device, are never
+        rewritten. :meth:`wait` completes them."""
+        t0 = time.perf_counter()
+        parity, self._parity = self._parity, self._parity ^ 1
+        landed = self._landed.pop(parity, None)
+        if landed is not None:
+            landed.synchronize()     # the last copies out of these buffers
+        got = {p: torch.empty(int(n), dtype=dtype, device=self.device)
+               for p, n in sorted(recvs.items())}
+        land = {p: self._landing(t, ("post_recv", p, parity))
+                for p, t in got.items()}
+        out = {p: self._out(t.contiguous(), ("post_send", p, parity))
+               for p, t in sends.items()}
+        works = self._p2p(land, out, tag, wait=False)
+        self.stats.p2p_messages += len(out) + len(land)
+        self.stats.p2p_bytes += sum(t.numel() * t.element_size()
+                                    for t in (*out.values(), *land.values()))
+        self.stats.p2p_s += time.perf_counter() - t0
+        return Posted(works, got, land, parity)
+
+    def wait(self, posted: "Posted") -> Dict[int, torch.Tensor]:
+        """Complete what :meth:`post` started: every receive and send
+        waited for (the seconds counted in ``stats.wait_s``), and each
+        received message landed on the device (``{peer: tensor}``)."""
+        t0 = time.perf_counter()
+        for work in posted.works:
+            work.wait()
+        t1 = time.perf_counter()
+        self.stats.wait_s += t1 - t0
+        staged = False
+        for p, dst in posted.got.items():
+            host = posted.land[p]
+            if host is not dst:
+                dst.copy_(host, non_blocking=True)
+                self.stats.staged_bytes += dst.numel() * dst.element_size()
+                staged = True
+        if staged:
+            event = torch.cuda.Event()
+            event.record()
+            self._landed[posted.parity] = event
+        self.stats.p2p_s += time.perf_counter() - t1
+        return posted.got
 
     # --- the stage ring ---
 
@@ -362,6 +429,18 @@ class Mesh:
         return _PSum.apply(t, self)
 
 
+@dataclasses.dataclass
+class Posted:
+    """Messages :meth:`Mesh.post` started: the backend's work handles, the
+    device tensors they land in, the buffers they arrive in (pinned host
+    buffers when staged, else the device tensors) and the staging parity."""
+
+    works: list
+    got: Dict[int, torch.Tensor]
+    land: Dict[int, torch.Tensor]
+    parity: int
+
+
 class _PSum(torch.autograd.Function):
     """``all_reduce`` over the data group, forward and backward (the
     adjoint of a replicated sum is the sum of the cotangents)."""
@@ -416,6 +495,54 @@ def survivor_mesh(mesh: Mesh, lost_stage: int) -> Optional[Mesh]:
         return None
     return Mesh(grid.shape[0], grid.shape[1], device=mesh.device,
                 timeout=timeout, grid=grid, world_group=world)
+
+
+@dataclasses.dataclass(frozen=True)
+class RemoteMesh:
+    """A mesh of :func:`carve_meshes` that this rank is not part of: its
+    shape and the global ranks of its positions; it moves nothing."""
+
+    n_stages: int
+    n_data: int
+    grid: np.ndarray
+
+
+def carve_meshes(grids: Sequence[np.ndarray], *, device=None) -> list:
+    """One mesh per grid of global ranks (``[n_stages, n_data]`` each,
+    disjoint sub-grids of the initialized world), in order: this rank's
+    own entry is a :class:`Mesh` whose "world" is its grid's group, every
+    other entry a :class:`RemoteMesh`. ``dist.new_group`` is collective
+    over the default group, so every rank of the world calls this with the
+    same grids and makes every mesh's groups, in the same order, whether it
+    is a member or not (ROADMAP.md C.19)."""
+    from ..runtime import distributed as rd
+
+    if not dist.is_initialized():
+        raise RuntimeError(
+            "carve_meshes needs an initialized world: "
+            "runtime.distributed.initialize (or launch) first")
+    grids = [np.asarray(g) for g in grids]
+    ranks = [int(r) for g in grids for r in g.reshape(-1)]
+    world = dist.get_world_size()
+    if len(set(ranks)) != len(ranks) or not all(0 <= r < world
+                                                for r in ranks):
+        raise ValueError(f"the grids must hold distinct ranks of the "
+                         f"world's {world}, got {ranks}")
+    timeout = rd.world_timeout()
+    me = dist.get_rank()
+    out: list = []
+    for grid in grids:
+        group = dist.new_group(sorted(int(r) for r in grid.reshape(-1)),
+                               timeout=timeout)
+        if me in grid:
+            out.append(Mesh(grid.shape[0], grid.shape[1],
+                            device=torch.device(device) if device is not None
+                            else rd.rank_device(),
+                            timeout=timeout, grid=grid, world_group=group))
+        else:
+            _make_groups(grid, timeout)          # a member of none of them
+            out.append(RemoteMesh(grid.shape[0], grid.shape[1], grid))
+    return out
 
 
 _MESHES: Dict[Tuple[int, int], Mesh] = {}

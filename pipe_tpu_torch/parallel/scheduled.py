@@ -90,9 +90,44 @@ host, as JAX hoists it. After the walk the parameter gradients are summed
 over the data group (one flat buffer per dtype), the loss over the world
 and the stats over the data group, as JAX's psums over ``DATA_AXIS`` do.
 
-Context parallelism, tensor-parallel specs, overlapped transport and phase
-compilation (A.8) are not ported: their fields raise ``NotImplementedError``
-when set.
+**Overlapped transport** (``overlap_transport``, ``pipe_tpu``'s tri-state)
+walks the tables of ``core.schedule.shift_comm_tables``, in which every
+consumer runs at least two cycles after its producer: what a cycle routes to
+another rank goes out at the start of the next cycle
+(:meth:`~pipe_tpu_torch.parallel.mesh.Mesh.post`, one round: both ends read
+the payload's length from the tables and the boundary's layout) and is waited
+for and parked after that cycle's compute (``Mesh.wait``), so the backend's
+threads carry it while the stream computes. Cotangents park in a grad park
+of ``Gg`` slots until their BWD; a skip lane of ``H`` hops parks ``max(H,
+1)`` cycles after its value was made, as ``pipe_tpu``'s relay. The slot
+counts (``Sg``, ``Gg``, ``Wg``) come from the shifted tables as
+``pipe_tpu``'s ``_overlap_plans`` derives them, proved by
+``verify_shifted_op_tables`` before the first cycle. A boundary's layout
+(dtypes and shapes) is learned from its first crossing in an executor, which
+goes as :meth:`Mesh.exchange` sends it (a length, then the layout and the
+words); every later crossing of it is the one round. Each rank keeps its op
+order, so losses, gradients and stats are the serialized walk's bit for bit.
+``None``: on for a mesh of CUDA ranks with more than one stage, off for CPU
+ranks, at one stage and without a mesh (``True`` walks the shifted tables
+on one device too).
+
+**Phase compilation** (``phase_compile``) walks the tables of
+``core.schedule.compile_phases``, which re-times them so that every cycle
+runs one op code on every rank: the ramps cycle by cycle (a rank idle in a
+ramp cycle skips it, where ``pipe_tpu`` computes on garbage and masks it,
+ROADMAP.md C.23), the steady state as repeated periods of one concrete op
+sequence, with the overlapped transport's plans. Each (stage, op code)
+stream keeps its order, so results are the interpreted walk's bit for bit.
+``None``: on for a mesh of CUDA ranks with more than one stage when the
+compiler accepts the table; a table it rejects under ``True`` warns naming
+the compiler's reason and runs interpreted, as ``pipe_tpu``'s. The
+counters ``scheduled.phase.compiled`` and ``scheduled.phase.rejected`` and
+the gauges ``scheduled.phase.active``, ``scheduled.phase.scan_cycles``,
+``scheduled.phase.unrolled_cycles`` and ``scheduled.transport.overlap`` are
+``pipe_tpu``'s.
+
+Context parallelism and tensor-parallel specs (A.8, with A.10) are not
+ported: their fields raise ``NotImplementedError`` when set.
 """
 
 from __future__ import annotations
@@ -108,10 +143,13 @@ from torch import nn
 from ..core.memplan import MemoryPlanInputs, activation_slot_plan
 from ..core.partition import StageCtx, fold_seed
 from ..core.remat import apply_remat, resolve_policy, validate_mode
-from ..core.schedule import BWD, FWD, IDLE, WGRAD, get_schedule
+from ..core.schedule import (BWD, FWD, IDLE, WGRAD, _times_by_code,
+                             compile_phases, get_schedule,
+                             overlap_joint_capacity, shift_comm_tables,
+                             verify_shifted_op_tables)
 from ..obs.telemetry import get_registry
 from ..utils.platform import DEFAULT_DEVICE, resolve_device
-from .buffers import pack_words, unpack_words
+from .buffers import pack_words, packed_words, unpack_words
 
 __all__ = ["ScheduledPipeline", "SkipLanes", "SplitBackwardStage"]
 
@@ -119,8 +157,6 @@ __all__ = ["ScheduledPipeline", "SkipLanes", "SplitBackwardStage"]
 _NOT_PORTED = (
     ("context_axis", "A.8, context parallelism"),
     ("stage_param_specs", "A.8, tensor-parallel stage params"),
-    ("overlap_transport", "A.8, overlapped transport"),
-    ("phase_compile", "A.8, the phase-compiled executor"),
 )
 
 
@@ -327,6 +363,33 @@ class _Step:
     arrivals: List[Tuple[_Ring, int, int, Any]] = dataclasses.field(
         default_factory=list)
     outbox: Dict[int, list] = dataclasses.field(default_factory=dict)
+    # overlapped transport: the cycle being walked, the grad park, and the
+    # values on their way, each with the cycle after whose compute it parks
+    overlap: bool = False
+    t: int = 0
+    gradpark: Optional[_Ring] = None
+    pending: List[tuple] = dataclasses.field(default_factory=list)
+
+
+@dataclasses.dataclass(frozen=True)
+class _WalkPlan:
+    """The tables one :meth:`ScheduledPipeline.loss_and_grad` walks and
+    their slot counts: the schedule's (``serialized``), the comm-shifted
+    ones (``overlapped``) or a phase program's (``phase-compiled``, with
+    ``program``); ``grad_slots`` is the grad park's, 0 when serialized."""
+
+    op: np.ndarray
+    mbi: np.ndarray
+    grp: np.ndarray
+    stash_slots: int
+    grad_slots: int
+    wstash_slots: int
+    transport: str
+    program: Any = None
+
+    @property
+    def overlap(self) -> bool:
+        return self.transport != "serialized"
 
 
 # --- messages between ranks ---
@@ -360,6 +423,39 @@ def _encode(items, device) -> torch.Tensor:
     head = torch.tensor([len(layout)] + layout, dtype=torch.int32,
                         device=device)
     return torch.cat([head, pack_words(tensors).to(device)])
+
+
+def _item_key(item) -> tuple:
+    """The order of a message's items on both ends: kind, target,
+    micro-batch."""
+    return _KINDS.index(item[0]), item[1], item[2]
+
+
+def _layout_of(value) -> tuple:
+    """A boundary value's layout: whether it is a tuple, and per leaf its
+    dtype and shape (None for a None leaf)."""
+    return (isinstance(value, (tuple, list)),
+            tuple(None if v is None else (v.dtype, tuple(v.shape))
+                  for v in _leaves(value)))
+
+
+def _specs(layout) -> list:
+    """A layout's tensor leaves as ``meta`` tensors (shapes and dtypes)."""
+    return [torch.empty(shape, dtype=dtype, device="meta")
+            for dtype, shape in (l for l in layout[1] if l is not None)]
+
+
+def _unpack_items(vec: torch.Tensor, keys, layouts) -> list:
+    """The values of ``keys`` (``(kind, target, i)``, in message order) from
+    one message of packed words, each laid out as ``layouts`` holds it for
+    its ``(kind, target)``."""
+    plans = [layouts[(kind, target)] for kind, target, _ in keys]
+    got = iter(unpack_words(vec, [t for lay in plans for t in _specs(lay)]))
+    out = []
+    for is_tuple, leaves in plans:
+        vals = [None if l is None else next(got) for l in leaves]
+        out.append(tuple(vals) if is_tuple else vals[0])
+    return out
 
 
 def _decode(vec: torch.Tensor) -> list:
@@ -444,6 +540,9 @@ class ScheduledPipeline:
       split_stage: None, ``"auto"`` or a :class:`SplitBackwardStage`, the
         structural B/W split of a split table under ``never`` (module
         docstring); None keeps the stored-graph split there.
+      overlap_transport, phase_compile: None (auto), True or False: the
+        overlapped transport and the phase-compiled walk (module
+        docstring).
     """
 
     stage_fn: Callable
@@ -537,6 +636,14 @@ class ScheduledPipeline:
         self.v = self.schedule.v
         self.n_virtual = self.v * self.n_stages
         self.last_slots: Dict[str, int] = {}
+        # per-m phase verdicts (the rejection warns once per m) and walk
+        # plans; the boundary layouts the overlapped transport learned
+        # (received, and sent) for the batch signature ``_signature``
+        self._phase_cache: Dict[int, Any] = {}
+        self._plans: Dict[int, _WalkPlan] = {}
+        self._layouts: Dict[Tuple[str, int], tuple] = {}
+        self._sent: Dict[Tuple[str, int], tuple] = {}
+        self._signature = None
         pairs = self.skip_lanes.pairs if self.skip_lanes is not None else ()
         self._pops_at = [[l for l, (_, dst) in enumerate(pairs) if dst == s]
                          for s in range(self.n_virtual)]
@@ -572,36 +679,191 @@ class ScheduledPipeline:
 
     # --- tables ---
 
-    def _tables(self, m: int) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    def _raw_tables(self, m: int):
+        """The schedule's tables as it gives them: ``(op, mbi, grp)``, grp
+        None for a table without groups."""
         tables = self.schedule.op_tables(m, self.n_stages)
-        op, mbi = tables[0], tables[1]
-        grp = tables[2] if len(tables) > 2 else np.zeros_like(op)
-        return op, mbi, grp
+        return tables[0], tables[1], (tables[2] if len(tables) > 2
+                                      else None)
+
+    def _tables(self, m: int) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+        op, mbi, grp = self._raw_tables(m)
+        return op, mbi, (grp if grp is not None else np.zeros_like(op))
 
     def memory_plan(self, m: int) -> dict:
         """Per-stage buffer counts of the walk: ``activation_slot_plan``
-        over its slot counts, with the cycle count and the (serialized)
-        transport, and the skip parks' slots, as ``pipe_tpu``'s
+        over the active transport's slot counts (under overlapped transport
+        and phase compilation those of the re-timed tables, with the grad
+        park), the cycle count and the transport, the phase program's
+        segments, and the skip parks' slots, as ``pipe_tpu``'s
         ``memory_plan`` reports them."""
-        d = self.n_stages
-        op, mbi, grp = self._tables(m)
-        plan = {"cycles": int(op.shape[0]),
-                **activation_slot_plan(MemoryPlanInputs(
-                    v=self.v, stash_slots=self.schedule.stash_slots(m, d),
-                    wstash_slots=self.schedule.wstash_slots(m, d),
-                    checkpoint=self.checkpoint,
-                    has_remat_policy=self.remat_policy is not None,
-                    split_stage=self.split_stage is not None)),
-                "transport": "serialized"}
+        plan = self._walk_plan(m)
+        out = {"cycles": int(plan.op.shape[0]),
+               **activation_slot_plan(MemoryPlanInputs(
+                   v=self.v, stash_slots=plan.stash_slots,
+                   wstash_slots=plan.wstash_slots,
+                   checkpoint=self.checkpoint,
+                   has_remat_policy=self.remat_policy is not None,
+                   split_stage=self.split_stage is not None,
+                   overlap=plan.overlap, grad_park_slots=plan.grad_slots)),
+               "transport": plan.transport}
+        prog = plan.program
+        if prog is not None:
+            out["phase_segments"] = tuple((g.kind, g.t0, g.t1, g.period)
+                                          for g in prog.segments)
+            out["phase_unrolled_cycles"] = prog.unrolled_cycles
+            out["phase_scan_cycles"] = prog.scan_cycles
         if self.skip_lanes is not None:
-            kf, kg = self._skip_tables(m, op, mbi, grp)
-            plan["skip_lanes"] = len(self.skip_lanes.pairs)
-            plan["skip_fwd_park_slots"] = sum(kf)
-            plan["skip_bwd_park_slots"] = sum(kg)
+            kf, kg = self._skip_tables(m, plan.op, plan.mbi, plan.grp,
+                                       overlap=plan.overlap)
+            out["skip_lanes"] = len(self.skip_lanes.pairs)
+            out["skip_fwd_park_slots"] = sum(kf)
+            out["skip_bwd_park_slots"] = sum(kg)
+        return out
+
+    def _on_card_mesh(self) -> bool:
+        """Whether this walk runs over a mesh of CUDA ranks: where the auto
+        settings turn overlapped transport and phase compilation on, as
+        ``pipe_tpu`` turns them on for accelerator meshes."""
+        return self.mesh is not None and self.mesh.device.type == "cuda"
+
+    def _overlap_enabled(self) -> bool:
+        """The ``overlap_transport`` tri-state: always off at one stage
+        (there is no boundary transport to shift), else as set, else on for
+        a mesh of CUDA ranks only."""
+        if self.n_stages <= 1:
+            return False
+        if self.overlap_transport is not None:
+            return bool(self.overlap_transport)
+        return self._on_card_mesh()
+
+    def _phase_verdict(self, m: int):
+        """Phase-compile this walk's table at ``m`` (cached per m). On
+        rejection: count it and, when phase compilation was asked for
+        explicitly, warn once naming the compiler's reason."""
+        if m not in self._phase_cache:
+            op0, mb0, grp0 = self._raw_tables(m)
+            verdict = compile_phases(op0, mb0, grp0, m=m, d=self.n_stages,
+                                     v=self.v)
+            if verdict.accepted:
+                get_registry().counter("scheduled.phase.compiled").inc()
+            else:
+                get_registry().counter("scheduled.phase.rejected").inc()
+                if self.phase_compile:
+                    warnings.warn(
+                        f"phase_compile=True but the phase compiler "
+                        f"rejected the {self.schedule.name!r} op table at "
+                        f"m={m} ({verdict.reason}); falling back to the "
+                        f"interpreted table executor", stacklevel=5)
+            self._phase_cache[m] = verdict
+        return self._phase_cache[m]
+
+    def _phase_program(self, m: int):
+        """The ``phase_compile`` tri-state as an accepted ``PhaseProgram``,
+        or None for the interpreted walk (off, one stage, auto off the
+        card's meshes, or a table the compiler rejected)."""
+        if self.n_stages <= 1 or self.phase_compile is False:
+            return None
+        if self.phase_compile is None and not self._on_card_mesh():
+            return None
+        verdict = self._phase_verdict(m)
+        return verdict.program if verdict.accepted else None
+
+    def _walk_plan(self, m: int) -> _WalkPlan:
+        """The tables and slot counts of a step of ``m`` micro-batches under
+        the active transport (cached per m)."""
+        plan = self._plans.get(m)
+        if plan is not None:
+            return plan
+        d = self.n_stages
+        prog = self._phase_program(m)
+        if prog is not None:
+            plan = self._overlap_plan(prog.op, prog.mbi, prog.grp, m,
+                                      has_grp=self.v > 1,
+                                      transport="phase-compiled",
+                                      program=prog)
+        elif self._overlap_enabled():
+            op0, mb0, grp0 = self._raw_tables(m)
+            op, mbi, grp = shift_comm_tables(op0, mb0, grp0, m=m, d=d,
+                                             v=self.v)
+            plan = self._overlap_plan(op, mbi, grp, m,
+                                      has_grp=grp0 is not None,
+                                      transport="overlapped")
+        else:
+            op, mbi, grp = self._tables(m)
+            plan = _WalkPlan(op, mbi, grp, self.schedule.stash_slots(m, d),
+                             0, self.schedule.wstash_slots(m, d),
+                             "serialized")
+        self._plans[m] = plan
         return plan
 
-    def _skip_tables(self, m: int, op, mbi, grp, *, fwd_only: bool = False
-                     ) -> Tuple[List[int], List[int]]:
+    def _overlap_plan(self, op, mbi, grp, m: int, *, has_grp: bool,
+                      transport: str, program=None) -> _WalkPlan:
+        """Slot counts of hop-2 tables (comm-shifted or phase-aligned), as
+        ``pipe_tpu``'s ``_overlap_plans`` derives them: one joint ``Sg`` for
+        the arriving stash, the saved graphs and the ``h_last`` park, ``Gg``
+        for the grad park, ``Wg`` for the W park of a split table under
+        never; then ``verify_shifted_op_tables`` proves the tables and those
+        counts."""
+        d, v = self.n_stages, self.v
+        S = v * d
+        t_f, t_b, t_w = _times_by_code(op, mbi, grp, m, d, v)
+        read_last = np.maximum(t_f, np.maximum(t_b, t_w))
+        wins = [(t_f[:, s - 1] + 1, read_last[:, s]) for s in range(1, S)]
+        wins += [(t_f[:, s], read_last[:, s]) for s in range(S)]
+        wins += [(t_f[:, S - 1], t_b[:, S - 1])]        # h_last park
+        Sg = overlap_joint_capacity(wins, m)
+        gw = [(t_b[:, s + 1] + 1, t_b[:, s]) for s in range(S - 1)]
+        Gg = overlap_joint_capacity(gw, m) if gw else 1
+        has_w = bool((op == WGRAD).any())
+        split = has_w and self.checkpoint == "never"
+        Wg = (overlap_joint_capacity(
+            [(t_b[:, s], t_w[:, s]) for s in range(S)], m) if split else 0)
+        verify_shifted_op_tables(
+            op, mbi, grp if has_grp else None, m=m, d=d, v=v,
+            splits_backward=has_w, stash_slots=Sg, grad_slots=Gg,
+            wstash_slots=Wg if split else None)
+        return _WalkPlan(op, mbi, grp, Sg, Gg, Wg, transport, program)
+
+    @staticmethod
+    def _cycle_codes(plan: _WalkPlan):
+        """``(t, code)`` per cycle of the walk: code None reads each
+        column's op from the table (serialized and overlapped walks, a phase
+        program's ramps); the cycles of a steady-state period carry its
+        concrete op code, every rank busy."""
+        prog = plan.program
+        if prog is None:
+            for t in range(plan.op.shape[0]):
+                yield t, None
+            return
+        for seg in prog.segments:
+            if seg.kind != "scan":
+                for t in range(seg.t0, seg.t1):
+                    yield t, None
+                continue
+            for k in range(seg.iters):
+                for j, code in enumerate(seg.codes):
+                    yield seg.t0 + k * seg.period + j, code
+
+    def _lane_hops(self) -> Tuple[int, ...]:
+        """Hops of each skip lane around the stage ring: ``(dst % d - src %
+        d) % d``. Under overlapped transport a lane's value parks ``max(H,
+        1)`` cycles after it was made, as ``pipe_tpu``'s relay carries it
+        one hop a cycle (a 0-hop lane stays on its rank, one cycle)."""
+        d = self.n_stages
+        return tuple(((dst % d) - (src % d)) % d
+                     for (src, dst) in self.skip_lanes.pairs)
+
+    def _lag(self, kind: str, target: int) -> int:
+        """Cycles from making a routed value to parking it under
+        overlapped transport: 1 for a boundary or a cotangent, a lane's
+        ``max(H, 1)``."""
+        if kind in ("h", "g"):
+            return 1
+        return max(self._lane_hops()[target], 1)
+
+    def _skip_tables(self, m: int, op, mbi, grp, *, fwd_only: bool = False,
+                     overlap: bool = False) -> Tuple[List[int], List[int]]:
         """Host-side skip-lane plan from the op tables: per lane ``(src,
         dst)`` the FIFO depths ``Kf`` (forward park at ``dst``) and ``Kg``
         (reverse park at ``src``), the smallest with no collision of
@@ -612,9 +874,14 @@ class ScheduledPipeline:
         gradient arrives the cycle after BWD(i, dst) and lives until
         BWD(i, src). A table that uses a value before it arrives raises.
         ``fwd_only`` plans the FWD-masked tables of :meth:`forward` (no
-        re-read, no reverse park). Counterpart of ``pipe_tpu``'s
-        ``_skip_tables`` without its overlapped-transport branch."""
+        re-read, no reverse park). ``overlap`` plans the re-timed tables: a
+        value parks ``max(H, 1)`` cycles after it was made (H the lane's
+        hops) and after that cycle's compute, so its consumer must come
+        strictly later. Counterpart of ``pipe_tpu``'s ``_skip_tables``."""
         d, S = self.n_stages, self.n_virtual
+        hops = self._lane_hops() if overlap else None
+        slack = 1 if overlap else 0            # park after compute: strict
+        timing = "relay" if overlap else "direct-hop"
         fwd_c = np.full((m, S), -1, np.int64)
         bwd_c = np.full((m, S), -1, np.int64)
         for t in range(op.shape[0]):
@@ -633,27 +900,28 @@ class ScheduledPipeline:
             return m
 
         kf, kg = [], []
-        for (src, dst) in self.skip_lanes.pairs:
+        for lane, (src, dst) in enumerate(self.skip_lanes.pairs):
+            lag = max(hops[lane], 1) if overlap else 1
             wf, wg = [], []
             for i in range(m):
-                arr_f, use_f = fwd_c[i, src] + 1, fwd_c[i, dst]
-                if not (0 <= fwd_c[i, src] and arr_f <= use_f):
+                arr_f, use_f = fwd_c[i, src] + lag, fwd_c[i, dst]
+                if not (0 <= fwd_c[i, src] and arr_f + slack <= use_f):
                     raise ValueError(
                         f"skip lane ({src},{dst}): stash for micro-batch "
                         f"{i} arrives at cycle {arr_f} after its FWD "
-                        f"{use_f} — the schedule violates the direct-hop "
+                        f"{use_f} — the schedule violates the {timing} "
                         f"timing assumption")
                 reread = not fwd_only and self._reruns_at_b(i, m)
                 wf.append((arr_f, bwd_c[i, dst] if reread else use_f))
                 if fwd_only:
                     continue
-                arr_g, use_g = bwd_c[i, dst] + 1, bwd_c[i, src]
-                if not (0 <= bwd_c[i, dst] and arr_g <= use_g):
+                arr_g, use_g = bwd_c[i, dst] + lag, bwd_c[i, src]
+                if not (0 <= bwd_c[i, dst] and arr_g + slack <= use_g):
                     raise ValueError(
                         f"skip lane ({src},{dst}): cotangent for "
                         f"micro-batch {i} arrives at cycle {arr_g} after "
                         f"its BWD {use_g} — the schedule violates the "
-                        f"direct-hop timing assumption")
+                        f"{timing} timing assumption")
                 wg.append((arr_g, use_g))
             kf.append(fifo_depth(wf))
             if not fwd_only:
@@ -835,6 +1103,8 @@ class ScheduledPipeline:
                     c = self._post(hl, x_mb, w_mb, seeds, i)
                 c.backward(st.inv_wsum)
             seed_h = _grads_of(hl)
+        elif st.gradpark is not None:
+            seed_h = st.gradpark.get(s, i, pop=True)
         else:
             seed_h = st.gbuf.pop((i, s))
         if self.split_stage is not None:
@@ -922,11 +1192,14 @@ class ScheduledPipeline:
         ``"f"``/``"r"`` (lane ``target``'s forward/reverse park). Delivered
         here when this rank holds that stage, else to its rank's outbox."""
         col = self._owner(kind, target) % self.n_stages
-        if self.mesh is None or col == self.mesh.stage:
-            self._deliver(st, kind, target, i, value)
-        else:
+        if self.mesh is not None and col != self.mesh.stage:
             st.outbox.setdefault(self.mesh.rank_of(col), []).append(
                 (kind, target, i, value))
+        elif st.overlap:
+            st.pending.append((st.t + self._lag(kind, target), kind, target,
+                               i, value))
+        else:
+            self._deliver(st, kind, target, i, value)
 
     @staticmethod
     def _deliver(st: _Step, kind: str, target: int, i: int, value) -> None:
@@ -938,29 +1211,142 @@ class ScheduledPipeline:
             park = st.fpark if kind == "f" else st.gpark
             st.arrivals.append((park[target], 0, i, value))
 
-    def _senders(self, t: int, op, grp, fwd_only: bool) -> List[int]:
-        """The ranks that send to this one at the end of cycle ``t``: every
-        other column whose op writes into a stage of this rank."""
-        d, me = self.n_stages, self.mesh.stage
+    @staticmethod
+    def _park(st: _Step, kind: str, target: int, i: int, value) -> None:
+        """Overlapped transport: a value into its ring after its arrival
+        cycle's compute (a cotangent into the grad park)."""
+        if kind == "g":
+            st.gradpark.put(target, i, value)
+        elif kind == "h":
+            st.stash.put(target, i, _Entry(value))
+        else:
+            park = st.fpark if kind == "f" else st.gpark
+            park[target].put(0, i, value)
+
+    def _park_due(self, st: _Step, t: int) -> None:
+        """End of cycle ``t`` under overlapped transport: park every value
+        due now, in message order."""
+        due = [e for e in st.pending if e[0] <= t]
+        if any(e[0] < t for e in due):
+            raise RuntimeError("overlapped transport: a value missed its "
+                               "park cycle")
+        st.pending = [e for e in st.pending if e[0] > t]
+        for _, kind, target, i, value in sorted(
+                due, key=lambda e: _item_key(e[1:])):
+            self._park(st, kind, target, i, value)
+
+    def _expected(self, t: int, op, mbi, grp, fwd_only: bool = False
+                  ) -> Dict[int, list]:
+        """What each other rank routes to this one in cycle ``t``:
+        ``{rank: [(kind, target, i)]}`` in message order, read from the
+        tables as both ends read them (``fwd_only``: the FWD ops alone, as
+        :meth:`forward` runs them)."""
+        d, me, S = self.n_stages, self.mesh.stage, self.n_virtual
         pairs = self.skip_lanes.pairs if self.skip_lanes is not None else ()
-        peers = []
+        out: Dict[int, list] = {}
         for q in range(d):
-            code, s = int(op[t, q]), int(grp[t, q]) * d + q
             if q == me:
                 continue
+            code, i = int(op[t, q]), int(mbi[t, q])
+            s = int(grp[t, q]) * d + q
+            keys = []
             if code == FWD:
-                dests = [s + 1] if s < self.n_virtual - 1 else []
-                dests += [dst for src, dst in pairs if src == s]
+                if s < S - 1 and (s + 1) % d == me:
+                    keys.append(("h", s + 1, i))
+                keys += [("f", l, i) for l, (src, dst) in enumerate(pairs)
+                         if src == s and dst % d == me]
             elif code == BWD and not fwd_only:
-                dests = [s - 1] if s > 0 else []
-                dests += [src for src, dst in pairs if dst == s]
-            else:
-                continue
-            if any(x % d == me for x in dests):
-                peers.append(self.mesh.rank_of(q))
-        return peers
+                if s > 0 and (s - 1) % d == me:
+                    keys.append(("g", s - 1, i))
+                keys += [("r", l, i) for l, (src, dst) in enumerate(pairs)
+                         if dst == s and src % d == me]
+            if keys:
+                out[self.mesh.rank_of(q)] = sorted(keys, key=_item_key)
+        return out
 
-    def _exchange(self, st: _Step, t: int, op, grp,
+    def _learn_signature(self, x, w) -> None:
+        """Forget the learned boundary layouts when the batch's shapes or
+        dtypes change (every rank sees the same global batch)."""
+        leaves = list(x.values()) if isinstance(x, dict) else [x]
+        sig = tuple((tuple(t.shape), t.dtype) for t in (*leaves, w))
+        if sig != self._signature:
+            self._signature = sig
+            self._layouts.clear()
+            self._sent.clear()
+
+    def _send(self, st: _Step, t: int, plan: _WalkPlan):
+        """Start of cycle ``t`` on a mesh under overlapped transport: what
+        this rank routed in cycle ``t - 1`` goes to each peer as one message
+        of packed words, and a receive is posted for each peer that routed
+        to this rank then, both read from the tables. A pair's first
+        crossing of a boundary goes through :meth:`Mesh.exchange`, its
+        layout in the message (then learned on both ends); the rest is one
+        :meth:`Mesh.post` round whose lengths both ends know."""
+        if self.mesh is None:
+            return None
+        outbox, st.outbox = st.outbox, {}
+        expect = (self._expected(t - 1, plan.op, plan.mbi, plan.grp)
+                  if t > 0 else {})
+        sends = {peer: sorted(items, key=_item_key)
+                 for peer, items in outbox.items()}
+        slow_out = {peer: items for peer, items in sends.items()
+                    if any((k, g) not in self._sent for k, g, _, _ in items)}
+        slow_in = [peer for peer, keys in expect.items()
+                   if any((k, g) not in self._layouts for k, g, _ in keys)]
+        if slow_out or slow_in:
+            got = self.mesh.exchange(
+                {peer: _encode(items, self.device)
+                 for peer, items in slow_out.items()},
+                slow_in, tag=4 * t)
+            for items in slow_out.values():
+                for kind, target, _, value in items:
+                    self._sent[(kind, target)] = _layout_of(value)
+            for peer in sorted(got):
+                items = _decode(got[peer])
+                if [it[:3] for it in items] != expect[peer]:
+                    raise RuntimeError(
+                        f"overlapped transport: rank {peer} sent "
+                        f"{[it[:3] for it in items]} at cycle {t - 1}, the "
+                        f"tables say {expect[peer]}")
+                for kind, target, i, value in items:
+                    self._layouts[(kind, target)] = _layout_of(value)
+                    st.pending.append((t - 1 + self._lag(kind, target),
+                                       kind, target, i, value))
+        fast_out = {}
+        for peer, items in sends.items():
+            if peer in slow_out:
+                continue
+            for kind, target, _, value in items:
+                if _layout_of(value) != self._sent[(kind, target)]:
+                    raise RuntimeError(
+                        f"overlapped transport: the layout of {kind!r} for "
+                        f"{target} changed within one batch signature")
+            fast_out[peer] = pack_words(
+                [v for it in items for v in _leaves(it[3])
+                 if v is not None]).to(self.device)
+        fast_in = {peer: keys for peer, keys in expect.items()
+                   if peer not in slow_in}
+        words = {peer: sum(packed_words(_specs(self._layouts[(k, g)]))
+                           for k, g, _ in keys)
+                 for peer, keys in fast_in.items()}
+        return (self.mesh.post(fast_out, words, tag=4 * t + 2), fast_in,
+                t - 1)
+
+    def _land(self, st: _Step, handle) -> None:
+        """End of a cycle's compute under overlapped transport: wait for
+        what :meth:`_send` started and put each received value on its way
+        to its park."""
+        if handle is None:
+            return
+        posted, keys, t_made = handle
+        got = self.mesh.wait(posted)
+        for peer in sorted(got):
+            values = _unpack_items(got[peer], keys[peer], self._layouts)
+            for (kind, target, i), value in zip(keys[peer], values):
+                st.pending.append((t_made + self._lag(kind, target), kind,
+                                   target, i, value))
+
+    def _exchange(self, st: _Step, t: int, op, mbi, grp,
                   fwd_only: bool = False) -> None:
         """End of cycle ``t`` on a mesh: one packed message to each peer
         this rank wrote for, one from each peer that wrote for it."""
@@ -969,8 +1355,9 @@ class ScheduledPipeline:
         sends = {peer: _encode(items, self.device)
                  for peer, items in st.outbox.items()}
         st.outbox = {}
-        got = self.mesh.exchange(sends, self._senders(t, op, grp, fwd_only),
-                                 tag=2 * t)
+        got = self.mesh.exchange(
+            sends, list(self._expected(t, op, mbi, grp, fwd_only)),
+            tag=2 * t)
         for peer in sorted(got):
             for kind, target, i, value in _decode(got[peer]):
                 self._deliver(st, kind, target, i, value)
@@ -1042,10 +1429,12 @@ class ScheduledPipeline:
             off += l.numel()
         return stats
 
-    def _parks(self, m: int, op, mbi, grp, *, fwd_only: bool = False):
+    def _parks(self, m: int, op, mbi, grp, *, fwd_only: bool = False,
+               overlap: bool = False):
         if self.skip_lanes is None:
             return [], []
-        kf, kg = self._skip_tables(m, op, mbi, grp, fwd_only=fwd_only)
+        kf, kg = self._skip_tables(m, op, mbi, grp, fwd_only=fwd_only,
+                                   overlap=overlap)
         return ([_Ring(1, k, f"skip lane {l} park", "lane")
                  for l, k in enumerate(kf)],
                 [_Ring(1, k, f"skip lane {l} reverse park", "lane")
@@ -1072,40 +1461,63 @@ class ScheduledPipeline:
             raise ValueError(f"w must be [m={m}, rows], got {tuple(w.shape)}")
         inv_wsum = 1.0 / w.sum()          # the global sum, once
         x, w = self._shard_rows(x, w)
-        op, mbi, grp = self._tables(m)
+        plan = self._walk_plan(m)
+        op, mbi, grp = plan.op, plan.mbi, plan.grp
         d, S = self.n_stages, self.n_virtual
-        get_registry().gauge("scheduled.cycles").set(int(op.shape[0]))
+        reg = get_registry()
+        reg.gauge("scheduled.cycles").set(int(op.shape[0]))
+        reg.gauge("scheduled.transport.overlap").set(int(plan.overlap))
+        reg.gauge("scheduled.phase.active").set(int(plan.program is not None))
+        if plan.program is not None:
+            reg.gauge("scheduled.phase.scan_cycles").set(
+                plan.program.scan_cycles)
+            reg.gauge("scheduled.phase.unrolled_cycles").set(
+                plan.program.unrolled_cycles)
         split = bool((op == WGRAD).any()) and self.checkpoint == "never"
-        Sg = self.schedule.stash_slots(m, d)
-        fpark, gpark = self._parks(m, op, mbi, grp)
+        Sg = plan.stash_slots
+        fpark, gpark = self._parks(m, op, mbi, grp, overlap=plan.overlap)
         local = [p for _, p in self._local_params() if p.requires_grad]
         st = _Step(
             m=m, seed=seed, split=split, inv_wsum=inv_wsum,
             stash=_Ring(S, Sg, "stash"), h_last=_Ring(1, Sg, "h_last"),
-            wstash=_Ring(S, self.schedule.wstash_slots(m, d) if split else 1,
-                         "wstash"),
+            wstash=_Ring(S, plan.wstash_slots if split else 1, "wstash"),
             params=local, loss=torch.zeros((), device=self.device),
-            fpark=fpark, gpark=gpark)
+            fpark=fpark, gpark=gpark, overlap=plan.overlap,
+            gradpark=(_Ring(S, plan.grad_slots, "grad park")
+                      if plan.overlap else None))
+        if plan.overlap:
+            self._learn_signature(x, w)
         run = {FWD: self._fwd_op, BWD: self._bwd_op, WGRAD: self._w_op}
-        for t in range(op.shape[0]):
+        for t, concrete in self._cycle_codes(plan):
+            st.t = t
+            handle = self._send(st, t, plan) if plan.overlap else None
             for p in self._columns():
-                code = int(op[t, p])
+                code = int(op[t, p]) if concrete is None else concrete
                 if code == IDLE or (code == WGRAD and not split):
                     continue
                 i, s = int(mbi[t, p]), int(grp[t, p]) * d + p
                 with torch.profiler.record_function(
                         f"table:{'FBW'[code - 1]}{i}-stage{s}"):
                     run[code](st, i, s, _index(x, i), w[i])
-            self._exchange(st, t, op, grp)
+            if plan.overlap:
+                self._land(st, handle)
+                self._park_due(st, t)
+                continue
+            self._exchange(st, t, op, mbi, grp)
             for ring, s, i, h in st.arrivals:
                 ring.put(s, i, _Entry(h) if ring is st.stash else h)
             st.arrivals.clear()
-        if st.gbuf or not all(r.empty() for r in (st.stash, *fpark, *gpark)):
+        rings = (st.stash, *fpark, *gpark) + ((st.gradpark,) if plan.overlap
+                                               else ())
+        if (st.gbuf or st.outbox or st.pending
+                or not all(r.empty() for r in rings)):
             raise RuntimeError(
                 f"schedule {self.schedule.name!r} left state unconsumed at "
                 f"m={m}: its table misses a BWD or WGRAD op")
         self.last_slots = {"stash": st.stash.peak, "h_last": st.h_last.peak,
                            "wstash": st.wstash.peak if split else 0}
+        if plan.overlap:
+            self.last_slots["grad_park"] = st.gradpark.peak
         if self.skip_lanes is not None:
             self.last_slots["skip_fwd_park"] = sum(r.peak for r in fpark)
             self.last_slots["skip_bwd_park"] = sum(r.peak for r in gpark)
@@ -1158,7 +1570,7 @@ class ScheduledPipeline:
                     outs[i] = out
                 else:
                     self._route(st, "h", s + 1, i, out)
-            self._exchange(st, t, op, grp, fwd_only=True)
+            self._exchange(st, t, op, mbi, grp, fwd_only=True)
             for ring, s, i, h in st.arrivals:
                 ring.put(s, i, h)
             st.arrivals.clear()

@@ -67,10 +67,13 @@ class SpmdPipeline:
     schedule: Any = dataclasses.field(default="gpipe", init=False)
 
     def __post_init__(self):
+        # pipe_tpu's SpmdPipeline is no table executor: its transport is
+        # never overlapped nor phase-compiled
         self.executor = ScheduledPipeline(
             self.stage_fn, self.pre_fn, self._post, n_stages=self.n_stages,
             module=self.module, checkpoint=self.checkpoint,
-            schedule=self.schedule, device=self.device, mesh=self.mesh)
+            schedule=self.schedule, device=self.device, mesh=self.mesh,
+            overlap_transport=False, phase_compile=False)
         self.device = self.executor.device
 
     def _post(self, h, x_mb, ctx):

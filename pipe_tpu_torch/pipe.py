@@ -24,6 +24,9 @@ Counterpart of ``pipe_tpu/pipe.py``:
   its tables run the stored-graph split (``pipe_tpu``'s runs its stored-vjp
   one); the ``Trainer`` and ``ScheduledPipeline(split_stage=)`` run the
   structural split;
+* ``overlap_transport`` and ``phase_compile``: the training executor's
+  tri-states over a mesh (``ScheduledPipeline``'s), passed through as
+  ``pipe_tpu``'s ``Pipe`` passes them;
 * ``deferred_batch_norm=True``: plain ``BatchNorm`` layers become
   ``DeferredBatchNorm``, and a train forward commits one running-stats
   update per mini-batch, in place on their buffers (``pipe_tpu`` returns
@@ -92,6 +95,8 @@ class Pipe(nn.Module):
                  plan=None,
                  deferred_batch_norm: bool = False,
                  remat_policy=None,
+                 overlap_transport: Optional[bool] = None,
+                 phase_compile: Optional[bool] = None,
                  device=DEFAULT_DEVICE):
         super().__init__()
         # --- auto-planner front door (core/planner.py): the plan fixes
@@ -134,6 +139,10 @@ class Pipe(nn.Module):
             raise ValueError("number of chunks must be positive")
         validate_mode(checkpoint)
         self.remat_policy = resolve_policy(remat_policy)
+        # the training executor's transport tri-states
+        # (ScheduledPipeline.overlap_transport / phase_compile)
+        self.overlap_transport = overlap_transport
+        self.phase_compile = phase_compile
         if not isinstance(module, Sequential):
             raise TypeError("module must be a pipe_tpu_torch Sequential")
         seen = set()
@@ -211,7 +220,9 @@ class Pipe(nn.Module):
                  self.device)
         self._train_executor = HeteroScheduledPipeline(
             self.partitions, self.skip_layout, self.chunks, self.checkpoint,
-            self._schedule, remat_policy=remat_policy, mesh=mesh)
+            self._schedule, remat_policy=remat_policy, mesh=mesh,
+            overlap_transport=self.overlap_transport,
+            phase_compile=self.phase_compile)
         if v == 1:
             from .parallel.hetero import HeteroSpmdPipeline
             self._executor = HeteroSpmdPipeline(

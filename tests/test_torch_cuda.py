@@ -7,7 +7,9 @@ the kernels at BERT-large's shape, GPT-2 served against its ``Generator``,
 KV-cached generation (which runs no kernel) against the Pipe forward, and
 the training telemetry's readers of the card (memory peaks, the H100's peak
 FLOP/s, a profiled emulator step's per-stage timeline from the device
-trace). Skipped without a card.
+trace), and the table walk's overlapped and phase-compiled transports over
+two ranks sharing the card (the staged, double-buffered one-round path).
+Skipped without a card.
 
 This file imports only torch and pipe_tpu_torch, so it runs on a machine
 without JAX; there, skip the repo's JAX conftest:
@@ -770,3 +772,34 @@ def test_profile_trace_of_an_emulator_step_has_a_cuda_timeline(cuda,
     lo, hi = tl["span"]
     assert sum(s["busy_sec"] for s in tl["stages"].values()) <= \
         min(busy["_span"], (hi - lo) / 1e9) + 1e-9
+
+
+def test_overlapped_transport_over_ranks_on_the_card(cuda):
+    """Two ranks sharing the card over gloo (``tests/torch_overlap_cases.py``,
+    a 1f1b toy step with a skip lane): the auto settings are on for CUDA
+    ranks, and the overlapped and phase-compiled walks, whose messages are
+    staged through two sets of pinned buffers, give the serialized walk's
+    loss and gradients bit for bit, twice."""
+    import numpy as np
+
+    import torch_overlap_cases as cases
+    from pipe_tpu_torch.runtime import World
+
+    case = ("lane-1f1b", "1f1b", 2, 8, "except_last", ((0, 1),), 1, 1, False)
+    rng = np.random.default_rng(0)
+    params = [{"w": (rng.standard_normal((8, 8)) * 0.3).astype(np.float32),
+               "b": np.zeros(8, np.float32)} for _ in range(2)]
+    x = rng.standard_normal((8, 4, 8)).astype(np.float32)
+    tgt = rng.standard_normal((8, 4, 8)).astype(np.float32)
+    with World(2, device="cuda", threads=1, timeout=300.0) as world:
+        ranks = world.run(cases.world_transports, case, params, x, tgt)
+    for r in ranks:
+        assert r["auto"] == (True, True)
+        base = r["runs"][0]["steps"]
+        for run in r["runs"][1:]:
+            for (l0, g0), (l1, g1) in zip(base, run["steps"]):
+                assert l1 == l0
+                assert all(np.array_equal(g1[k], g0[k]) for k in g0)
+        assert [run["plan"]["transport"] for run in r["runs"]] == [
+            "serialized", "overlapped", "phase-compiled"]
+        assert r["runs"][1]["wait_s"] > 0

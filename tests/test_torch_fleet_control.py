@@ -755,10 +755,26 @@ def test_topology_plans_match_pipe_tpu():
                 outs.append(str(e))
         assert outs[1] == outs[0]
     assert ttopo.replica_device_plan(1, 1, n_devices=1)[0].n_devices == 1
+    # the carve's rank grids, world-free: the plan's slices laid out as
+    # pipe_tpu's carve lays out the 8 CPU devices (tests/test_fleet.py)
+    import jax
+    devices = jax.devices()[:8]
+    ids = np.vectorize(lambda dev: dev.id)
+    for across in (False, True):
+        want = [ids(mesh.devices) for mesh in jtopo.carve_replica_meshes(
+            2, 2, devices=devices, stage_across=across)]
+        got = ttopo._carve_grids(ttopo.replica_device_plan(
+            2, 2, n_devices=8), range(8), across)
+        assert [g.tolist() for g in got] == [w.tolist() for w in want]
+        roles = [("prefill", 1, 4), ("decode", 2, 2)]
+        want = [ids(mesh.devices) for mesh in jtopo.carve_role_meshes(
+            roles, devices=devices, stage_across=across)]
+        got = ttopo._carve_grids(ttopo.role_device_plan(roles, n_devices=8),
+                                 range(8), across)
+        assert [g.tolist() for g in got] == [w.tolist() for w in want]
     for call in (lambda: ttopo.carve_replica_meshes(2, 1),
                  lambda: ttopo.carve_role_meshes([("mixed", 1, 1)])):
-        with pytest.raises(NotImplementedError,
-                           match="A.8, runtime/distributed.py"):
+        with pytest.raises(RuntimeError, match="initialized world"):
             call()
 
 

@@ -2,6 +2,7 @@
 entry points run on CUDA unless the caller asks for the CPU."""
 
 import ast
+import json
 import os
 import subprocess
 import sys
@@ -128,6 +129,8 @@ assert serve_app.main(["--tiny", "--device", "cpu", "--requests", "4",
                        "--trace-out", os.path.join(d, "t.jsonl"),
                        "--tick-budget-s", "5"]) == 0
 from pipe_tpu_torch import runtime
+from pipe_tpu_torch.obs import bubble_probe
+from pipe_tpu_torch.parallel.mesh import carve_meshes
 from pipe_tpu_torch.core import packing
 from pipe_tpu_torch.parallel import (buffers, hetero, interleaved, mesh,
                                      spmd)
@@ -197,6 +200,9 @@ for make in (lambda: Linear(4, 4),
              lambda: lm_tutorial.main(["never", "--tiny"]),
              lambda: lm_tutorial.main(["never", "--tiny", "--plan", "auto"]),
              lambda: lm_tutorial.main(["never", "--tiny", "--world", "2"]),
+             lambda: zoo.main(["gpt2", "--tiny", "--world", "2"]),
+             lambda: __import__("pipe_tpu_torch.obs.bubble_probe").obs
+             .bubble_probe.main(2, 2),
              lambda: __import__("pipe_tpu_torch.runtime").runtime.initialize(
                  "gloo", rank=0, world_size=1, init_method="file:///x"),
              lambda: __import__("pipe_tpu_torch.fleet.proc").fleet.proc
@@ -214,6 +220,19 @@ print("ok")
 """
 
 
+# ``python -m pipe_tpu_torch.obs.bubble_probe`` with JAX and pipe_tpu
+# blocked: its world of 2 CPU ranks at tiny widths prints one JSON line.
+_PROBE_MAIN = """
+import json, runpy, sys
+for name in ("jax", "jaxlib", "pipe_tpu"):
+    sys.modules[name] = None
+sys.argv = ["bubble_probe", "2", "2", "--schedules", "--transport",
+            "--device", "cpu", "--d-model=16", "--d-ff=32", "--seq-len=8",
+            "--iters=1", "--no-slope"]
+runpy.run_module("pipe_tpu_torch.obs.bubble_probe", run_name="__main__")
+"""
+
+
 def _run(code: str) -> None:
     env = dict(os.environ, PYTHONPATH=str(REPO))
     out = subprocess.run([sys.executable, "-c", code], env=env, cwd=REPO,
@@ -228,6 +247,17 @@ def test_imports_and_runs_with_jax_and_pipe_tpu_blocked():
 
 def test_default_device_raises_without_cuda():
     _run(_NO_CUDA)
+
+
+def test_bubble_probe_runs_as_main_without_jax():
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    out = subprocess.run([sys.executable, "-c", _PROBE_MAIN], env=env,
+                         cwd=REPO, capture_output=True, text=True,
+                         timeout=300)
+    assert out.returncode == 0, out.stderr[-4000:]
+    record = json.loads(out.stdout.strip().splitlines()[-1])
+    assert record["platform"] == "cpu-gloo2"
+    assert record["schedules"]["1f1b-phase"]["phase"] != "rejected"
 
 
 def test_child_entry_point_imports_no_jax():

@@ -307,13 +307,37 @@ def test_forward_walks_the_fwd_ops(schedule):
 
 @pytest.mark.parametrize("field,value,item", [
     ("context_axis", "ctx", "A.8"),
-    ("stage_param_specs", {}, "A.8"), ("overlap_transport", True, "A.8"),
-    ("phase_compile", True, "A.8")])
+    ("stage_param_specs", {}, "A.8")])
 def test_unported_fields_raise_naming_their_item(field, value, item):
     model = tlm.PipelinedLM(tlm.LMConfig().tiny(), 2, device="cpu")
     assert field in {f.name for f in dataclasses.fields(JPipeline)}
     with pytest.raises(NotImplementedError, match=f"ROADMAP.md: {item}"):
         port_pipeline(model, 2, "1f1b", "never", **{field: value})
+
+
+@pytest.mark.parametrize("field,transport", [
+    ("overlap_transport", "overlapped"), ("phase_compile", "phase-compiled")])
+def test_transport_fields_reach_the_walk(field, transport):
+    """``overlap_transport`` and ``phase_compile`` (``pipe_tpu``'s fields)
+    are taken and reach the walk: its memory plan names the transport, the
+    step walks the re-timed tables (the cycles gauge) and its loss and
+    gradients are the serialized walk's bit for bit."""
+    n, m = 2, 4
+    _, _, model, x = lm_case("1f1b", n, m)
+    assert field in {f.name for f in dataclasses.fields(JPipeline)}
+    out = []
+    for kw in ({}, {field: True}):
+        model.zero_grad(set_to_none=True)
+        pipe = port_pipeline(model, n, "1f1b", "never", **kw)
+        loss, grads = pipe.loss_and_grad(_torch_x(x), torch.ones(m, ROWS))
+        out.append((loss, {k: g.clone() for k, g in grads.items()},
+                    pipe.memory_plan(m),
+                    get_registry().gauge("scheduled.cycles").value))
+    (l0, g0, p0, c0), (l1, g1, p1, c1) = out
+    assert p0["transport"] == "serialized" and p1["transport"] == transport
+    assert c0 == p0["cycles"] and c1 == p1["cycles"] > c0
+    assert l1.item() == l0.item()
+    assert all(torch.equal(g1[k], g0[k]) for k in g0)
 
 
 def test_construction_validates_like_pipe_tpu(monkeypatch):
