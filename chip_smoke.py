@@ -364,8 +364,10 @@ exits non-zero without a result line:
    resident): every request ``ok``, one decode (or resident) trace per
    backend, and every stream equal to the one-device engine's with the
    same configuration on the gathered weights under the near-tie rule.
-   (d) ``apps.generate --stages 4`` and ``apps.serve --stages 4`` exit 0
-   at full width. The near-tie rule: a stream may depart from its
+   (d) The ranks of ``apps.generate --stages 4`` (rank 0 returns its 8
+   rows of 16 tokens) and of ``apps.serve --stages 4`` (rank 0 exits 0)
+   at full width, over the phase's world (since PR 19; an app spawning its
+   own world runs in phase 15). The near-tie rule: a stream may depart from its
    reference only at a step where the reference's top-2 scores lie within
    1e-4 x max|score| (the logits, or for sampled streams the keyed
    Gumbel-max scores); departures are counted and printed. Prints per
@@ -434,6 +436,40 @@ exits non-zero without a result line:
    (``p2p_s``) and the seconds waited on posted messages (``wait_s``), the
    header bytes; the means per walk, beside the card's name and power
    limit.
+
+15. context -- run after phase 13, in the same world of 4 ranks, the
+   context axis (``make_mesh(..., n_context=)``) at the tutorial LM's full
+   width (d_model 2048, 32 heads, d_ff 2048, 16 layers, dropout 0, the
+   corpus vocabulary; random weights and tokens from seeds, batch 4 x
+   2,048 tokens). The one-device twin runs first in the parent: the LM on
+   the same weights over the whole sequence with the flash kernels
+   (per-row losses, the gradients of their mean), and the one-device
+   ``Generator``'s tokens. (a) Ulysses: ``SpmdPipeline(context_axis=)``
+   over ``ContextParallelLM(sp_impl="ulysses")`` on a (1, 1, 4) mesh,
+   chunks 2, 3 ``loss_and_grad`` steps: per-row losses and the loss within
+   1e-5 relative of the twin's, every gradient within 1e-4 x max(1,
+   max|g|), each rank's forward, dQ and dK/dV launches a step equal to the
+   table's (32 each: 2 micro-batches x 16 layers, the kernels at (16,
+   2048, 64) causal). (b) The ring: the 1f1b table (except_last) with
+   ``context_axis`` over ``ContextParallelLM(sp_impl="ring")`` on a (2, 1,
+   2) mesh, chunks 4, 3 serialized steps: the same twin gates, no kernel
+   launched (the ring's softmax is einsums); one overlapped and one
+   phase-compiled step bit for bit the first serialized one. (c)
+   ``ContextShardedGenerator`` over a (1, 1, 4) mesh, a 4,096-token prompt,
+   batch 2: 32 greedy tokens equal to the one-device ``Generator``'s except
+   at near ties (top-2 within 1e-4 of max|logit|, phase 12's rule), beam 2
+   over 8 tokens equal with scores within 1e-5 relative, every rank's
+   tokens equal, no kernel launched; the sampled stream's (8 tokens)
+   agreement with the one-device ``Generator``'s for the seed is printed,
+   not gated. (d) ``apps.generate --context-shards 4 --device cuda`` at
+   full width over its own world with a 128-token prompt and 8 new tokens:
+   rc 0 and greedy tokens equal to
+   ``--context-shards 1``'s (seed 3) except at a near tie;
+   ``--context-shards 3`` exits 2 with ``pipe_tpu``'s message. Prints per
+   rank and step: loss, ms, launches, the ring and all-to-all bytes and
+   seconds, the gradient all-reduce, peak bytes; the generator's prefill
+   ms, ms per generated token and the decode collectives' share; all
+   beside the card's name and power limit.
 
 Before every phase the collector runs and the allocator's cache is
 emptied, and the phase's starting ``memory_allocated`` and the script's
@@ -652,6 +688,10 @@ TC_KERNELS = ("flash_fwd_kernel", "flash_bwd_dq_kernel", "flash_bwd_dkv_kernel")
 # A data rank's attention call in the mesh phase: batch 32 in 4 chunks of 8
 # rows, half of them on each of 2 data ranks: (4 rows x 32 heads, 128, 64).
 MESH_SHAPE = (128, 128, 64, True)
+# A context rank's attention call in phase 15's Ulysses step: a micro-batch of
+# 2 rows at the full 2,048-token sequence, 32 / 4 heads a rank: (2 x 8, 2048,
+# 64), causal, no dropout.
+CONTEXT_SHAPE = (16, 2048, 64, True)
 
 
 def log(phase: str, **fields) -> None:
@@ -937,18 +977,23 @@ def phase_kernels() -> dict:
             first, again, other = a(), a(), b()
             if not torch.equal(first, again):
                 raise AssertionError(f"{name}: the same seed gave other bits")
-            if torch.equal(first, other):
+            if rate and torch.equal(first, other):
                 raise AssertionError(f"{name}: another seed gave the same result")
-        keep = fa.dropout_keep(seed, rate, bh, s, device="cuda")
-        kept = (keep > 0).float().mean().item()
-        sigma = math.sqrt(rate * (1 - rate) / keep.numel())
-        log("kernels", check="repeat", same_seed_bitwise=True,
-            keep_rate=f"{kept:.6f}", expected=1 - rate, sigma=f"{sigma:.2e}")
-        if abs(kept - (1 - rate)) > 4 * sigma:
-            raise AssertionError(f"keep rate {kept} is not within 4 sigma of "
-                                 f"{1 - rate}")
+        if rate:
+            keep = fa.dropout_keep(seed, rate, bh, s, device="cuda")
+            kept = (keep > 0).float().mean().item()
+            sigma = math.sqrt(rate * (1 - rate) / keep.numel())
+            log("kernels", check="repeat", same_seed_bitwise=True,
+                keep_rate=f"{kept:.6f}", expected=1 - rate,
+                sigma=f"{sigma:.2e}")
+            if abs(kept - (1 - rate)) > 4 * sigma:
+                raise AssertionError(f"keep rate {kept} is not within 4 sigma "
+                                     f"of {1 - rate}")
+        else:
+            log("kernels", check="repeat", same_seed_bitwise=True, rate=0.0)
 
-        plain_keep = lambda: fa.dropout_keep(seed, rate, bh, s, device="cuda")
+        plain_keep = lambda: (fa.dropout_keep(seed, rate, bh, s, device="cuda")
+                              if rate else None)
         ref_kw = dict(causal=causal, scale=scale)
         fwd_ms = time_ms(lambda: fa.flash_attention_fwd(
             q, k, v, causal=causal, scale=scale, seed=seed, rate=rate))
@@ -989,13 +1034,14 @@ def phase_kernels() -> dict:
             for p in (0.0, rate) * 3:
                 sdpa_grads(p)
         torch.cuda.current_stream().wait_stream(side)
-        bwd_runs = {0.0: [], rate: []}
+        bwd_runs = {p: [] for p in (0.0, rate)}   # one key at rate 0
         for _ in range(SDPA_RUNS):
             for p, runs in bwd_runs.items():
                 with torch.no_grad():
                     fwd_only = time_ms(lambda: sdpa(p))
                 runs.append(time_ms(lambda: sdpa_grads(p)) - fwd_only)
-        lib_bwd, lib_bwd_drop = (sum(r) / len(r) for r in bwd_runs.values())
+        lib_bwd, lib_bwd_drop = (sum(bwd_runs[p]) / len(bwd_runs[p])
+                                 for p in (0.0, rate))
 
         for name, ms, plain, lib, lib_nodrop, (bound, by) in (
                 ("flash_attn_fwd", fwd_ms, fwd_plain, lib_fwd_drop, lib_fwd,
@@ -1031,7 +1077,8 @@ def phase_kernels() -> dict:
     rows = timed(TRAIN_SHAPE, DROPOUT)
     for key, (shape, rate) in (("gpt2_shape", (GPT2_SHAPE, GPT2_DROPOUT)),
                                ("bert_shape", (BERT_SHAPE, BERT_DROPOUT)),
-                               ("mesh_shape", (MESH_SHAPE, DROPOUT))):
+                               ("mesh_shape", (MESH_SHAPE, DROPOUT)),
+                               ("context_shape", (CONTEXT_SHAPE, 0.0))):
         bh, s = shape[:2]
         log("kernels", shape=key, grid_blocks=bh * -(-s // 64),
             sms=torch.cuda.get_device_properties(0).multi_processor_count)
@@ -5590,8 +5637,19 @@ def phase_ring(smi: str, world=None) -> dict:
         t0 = time.perf_counter()
         res = world.run(_ring_rank, tmp, len(vocab))
         spawn = world.spawn_to_ready_s
-    log("ring", spawn_to_ready_s=f"{spawn:.2f}",
-        world_s=f"{time.perf_counter() - t0:.1f}")
+        world_s = time.perf_counter() - t0
+        # (d) the apps' ranks over the phase's world, at full width (an
+        # app's own world is spawned by phase 15's --context-shards 4)
+        apps = []
+        for name, rank_fn, argv in (
+                ("apps.generate --stages 4", gen_app._ring_rank,
+                 ["--stages", "4", "--max-new", "16", "--batch", "8"]),
+                ("apps.serve --stages 4", serve_app._ring_rank,
+                 ["--stages", "4", "--requests", "8", "--max-new", "16"])):
+            t1 = time.perf_counter()
+            apps.append((name, world.run(rank_fn, argv)[0],
+                         time.perf_counter() - t1))
+    log("ring", spawn_to_ready_s=f"{spawn:.2f}", world_s=f"{world_s:.1f}")
     launches = {}
     for r in res:
         tr = r["train"]
@@ -5654,18 +5712,14 @@ def phase_ring(smi: str, world=None) -> dict:
             if run["traces"] != 1:
                 raise AssertionError(f"ring serve {key}: {run['traces']} "
                                      f"decode traces, not 1")
-    # (d) the apps over their own worlds, at full width
-    for name, app, argv in (
-            ("apps.generate --stages 4", gen_app,
-             ["--stages", "4", "--max-new", "16", "--batch", "8"]),
-            ("apps.serve --stages 4", serve_app,
-             ["--stages", "4", "--requests", "8", "--max-new", "16"])):
-        t0 = time.perf_counter()
-        with contextlib.redirect_stdout(open(os.devnull, "w")):
-            rc = app.main(argv)
-        log("ring", run=name, rc=rc, wall_s=f"{time.perf_counter() - t0:.1f}")
-        if rc != 0:
-            raise AssertionError(f"{name} exited {rc}")
+    for name, got, wall in apps:
+        ok = (len(got) == 8 and all(len(row) == 16 for row in got)
+              if "generate" in name else got[0] == 0)
+        log("ring", run=name, rank0=("8 rows" if "generate" in name
+                                     else f"rc {got[0]}"),
+            wall_s=f"{wall:.1f}")
+        if not ok:
+            raise AssertionError(f"{name}: rank 0 returned {got}")
     import shutil
     shutil.rmtree(tmp, ignore_errors=True)
     log("ring", seconds=f"{time.perf_counter() - t_phase:.1f}",
@@ -6502,6 +6556,408 @@ def phase_overlap(smi: str, world=None, zoo_losses=None) -> dict:
     return launches
 
 
+CTX_WORLD = 4
+CTX_WEIGHT_SEED = 23
+CTX_DATA_SEED = 29
+CTX_SEQ = 2048               # the global sequence of (a) and (b)
+CTX_BATCH = 4
+CTX_ULYSSES = ((1, 1, 4), 2)     # (stages, data, context), chunks
+CTX_RING = ((2, 1, 2), 4)
+CTX_STEPS = 3
+CTX_GEN_PROMPT = 4096
+CTX_GEN_BATCH = 2
+CTX_GEN_NEW = 32
+CTX_BEAMS = 2
+CTX_BEAM_NEW = 8
+CTX_SAMPLE_SEED = 31
+CTX_SAMPLED_NEW = 8          # the sampled stream: a figure, not a gate
+CTX_CLI_NEW = 8
+CTX_CLI_PROMPT = 128
+CTX_THREADS = 2
+CTX_TIMEOUT_S = 600.0
+TOL_CTX_LOSS = 1e-5          # per-row loss, relative to the one-device twin
+TOL_CTX_GRAD = 1e-4          # of max(1, max|g|) per parameter
+TOL_CTX_SCORES = 1e-5        # beam scores, relative
+
+
+def _ctx_cfg(vocab: int):
+    """The tutorial LM at full width, 16 layers, dropout 0, the flash
+    kernels where the one-device blocks take them."""
+    return _mesh_cfg(vocab, dropout=0.0, n_layers=16)
+
+
+def _ctx_seq(cfg):
+    """The LM's modules with phase 15's weights (the same bits in every
+    process: one seed on one card)."""
+    from pipe_tpu_torch.models.transformer_lm import build_sequential
+    return build_sequential(cfg, device="cuda", generator=torch.Generator(
+        device="cuda").manual_seed(CTX_WEIGHT_SEED))
+
+
+def _context_refs(tmp: str, vocab: int) -> dict:
+    """The one-device twins, in the parent: the tutorial LM on the weights
+    the ranks draw, over the whole 2,048-token batch with the flash
+    kernels (per-row losses and the gradients of their mean), and the
+    one-device ``Generator``'s greedy, beam and sampled tokens over the
+    4,096-token prompt, with the greedy stream's near-tie margins. Written
+    to files the ranks read."""
+    from pipe_tpu_torch.inference import GenerationConfig, Generator
+    from pipe_tpu_torch.models.transformer_lm import PipelinedLM
+
+    cfg = _ctx_cfg(vocab)
+    model = PipelinedLM.from_sequential(cfg, _ctx_seq(cfg), 1)
+    gen = torch.Generator(device="cuda").manual_seed(CTX_DATA_SEED)
+    tokens = torch.randint(0, vocab, (CTX_BATCH, CTX_SEQ), generator=gen,
+                           device="cuda")
+    prompt = torch.randint(0, vocab, (CTX_GEN_BATCH, CTX_GEN_PROMPT),
+                           generator=gen, device="cuda")
+    cli = torch.randint(0, vocab, (CTX_CLI_PROMPT,), generator=gen,
+                        device="cuda")
+    data = {"tokens": tokens.cpu(), "prompt": prompt.cpu(), "cli": cli.cpu()}
+    torch.save(data, os.path.join(tmp, "context.pt"))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    per_row = model.loss_post_fn(model.stage_fn(0, model.pre_fn(tokens)),
+                                 {"targets": tokens.roll(-1, -1)})
+    per_row.mean().backward()
+    torch.cuda.synchronize()
+    twin_ms = (time.perf_counter() - t0) * 1e3
+    torch.save({"per_row": per_row.detach().cpu(),
+                "grads": {n: p.grad.detach().cpu()
+                          for n, p in model.named_parameters()}},
+               os.path.join(tmp, "twin.pt"))
+    model.zero_grad(set_to_none=True)
+    refs = {"twin_ms": twin_ms, "per_row": per_row.detach().cpu()}
+    with torch.no_grad():
+        greedy = Generator(model, GenerationConfig(
+            max_new_tokens=CTX_GEN_NEW, temperature=0.0)).generate(prompt)
+        refs["greedy"] = greedy.cpu()
+        refs["margins"] = [_rel_margins(model, prompt[i].tolist(),
+                                        greedy[i].tolist())
+                           for i in range(CTX_GEN_BATCH)]
+        toks, scores = Generator(model, GenerationConfig(
+            max_new_tokens=CTX_BEAM_NEW, num_beams=CTX_BEAMS)
+        ).generate_with_scores(prompt)
+        refs["beam"], refs["beam_scores"] = toks.cpu(), scores.cpu()
+        refs["sampled"] = Generator(model, GenerationConfig(
+            max_new_tokens=CTX_SAMPLED_NEW, temperature=RING_TEMPERATURE,
+            top_k=RING_TOP_K)).generate(prompt, seed=CTX_SAMPLE_SEED).cpu()
+    del model, per_row, greedy
+    gc.collect()
+    torch.cuda.empty_cache()
+    return refs
+
+
+def _context_rank(tmp: str, vocab: int) -> dict:
+    """On each rank of the world: gates (a)-(c) of phase 15 (its
+    docstring), against the twins' files; every rank returns its own
+    numbers."""
+    import torch.distributed as dist
+
+    from pipe_tpu_torch.core import microbatch as mb
+    from pipe_tpu_torch.inference import GenerationConfig
+    from pipe_tpu_torch.inference.long_context import ContextShardedGenerator
+    from pipe_tpu_torch.inference.pipelined import stage_modules
+    from pipe_tpu_torch.models.long_context_lm import ContextParallelLM
+    from pipe_tpu_torch.parallel.mesh import localize, make_mesh
+    from pipe_tpu_torch.parallel.scheduled import ScheduledPipeline
+    from pipe_tpu_torch.parallel.spmd import SpmdPipeline
+
+    cfg = _ctx_cfg(vocab)
+    data = torch.load(os.path.join(tmp, "context.pt"))
+    twin = torch.load(os.path.join(tmp, "twin.pt"), mmap=True)
+    tokens = data["tokens"].cuda()
+    out = {"rank": dist.get_rank()}
+
+    def lm(shape, impl):
+        mesh = make_mesh(shape[0], shape[1], n_context=shape[2])
+        model = ContextParallelLM.from_sequential(cfg, _ctx_seq(cfg),
+                                                  shape[0], impl, mesh=mesh)
+        if shape[0] > 1:
+            localize(model, stage_modules(model, mesh.stage, shape[0]),
+                     "cuda")
+        return mesh, model
+
+    def batch(chunks):
+        x, _ = mb.stack_scatter({"tokens": tokens,
+                                 "targets": tokens.roll(-1, -1)}, chunks)
+        return x, torch.ones(chunks, CTX_BATCH // chunks, device="cuda")
+
+    def step(ex, model, mesh, x, w):
+        model.zero_grad(set_to_none=True)
+        torch.cuda.synchronize()
+        _zero_launches()
+        mesh.reset_stats()
+        t0 = time.perf_counter()
+        loss, grads = ex.loss_and_grad(x, w)
+        torch.cuda.synchronize()
+        return dict(loss=float(loss), ms=(time.perf_counter() - t0) * 1e3,
+                    launches=_rank_counts(),
+                    transport=mesh.stats.as_dict()), grads
+
+    def per_row_rel(model, mesh, x):
+        pipe = SpmdPipeline(model.stage_fn, model.pre_fn, model.loss_post_fn,
+                            mesh.n_stages, module=model, post_with_batch=True,
+                            mesh=mesh, context_axis="context")
+        with torch.no_grad():
+            got = pipe(x).reshape(-1).cpu()
+        want = twin["per_row"]
+        return ((got - want).abs() / want.abs()).max().item()
+
+    # (a) Ulysses: SpmdPipeline over a context line of 4, the flash kernels
+    # at the full sequence for heads / 4
+    (shape, chunks), runs = CTX_ULYSSES, []
+    mesh, model = lm(shape, "ulysses")
+    pipe = SpmdPipeline(model.stage_fn, model.pre_fn, model.loss_post_fn, 1,
+                        module=model, post_with_batch=True, mesh=mesh,
+                        context_axis="context")
+    x, w = batch(chunks)
+    torch.cuda.reset_peak_memory_stats()
+    for i in range(CTX_STEPS):
+        rec, grads = step(pipe, model, mesh, x, w)
+        if i == 0:
+            rec["grad_err"] = _grad_err(grads, twin["grads"])
+        runs.append(rec)
+    out["ulysses"] = dict(
+        steps=runs, per_row_rel=per_row_rel(model, mesh, x),
+        expected=_expected_launches(pipe.executor, cfg.n_layers, m=chunks),
+        peak_bytes=torch.cuda.max_memory_allocated(),
+        loss_rel=abs(runs[0]["loss"] - twin["per_row"].mean().item())
+        / twin["per_row"].mean().item())
+    del pipe, model, grads
+    _rank_release()
+
+    # (b) the ring: the 1f1b table (except_last) over 2 stages x a context
+    # line of 2; the serialized walk timed, one overlapped and one
+    # phase-compiled step held to its first bit for bit
+    (shape, chunks), runs = CTX_RING, []
+    mesh, model = lm(shape, "ring")
+    x, w = batch(chunks)
+
+    def table(**kw):
+        return ScheduledPipeline(
+            model.stage_fn, model.pre_fn, model.loss_post_fn,
+            n_stages=shape[0], module=model, checkpoint="except_last",
+            schedule="1f1b", mesh=mesh, context_axis="context", **kw)
+
+    ser = table(overlap_transport=False, phase_compile=False)
+    torch.cuda.reset_peak_memory_stats()
+    for i in range(CTX_STEPS):
+        rec, grads = step(ser, model, mesh, x, w)
+        if i == 0:
+            first = {n: g.clone() for n, g in grads.items()}
+            rec["grad_err"] = _grad_err(grads, twin["grads"])
+        runs.append(rec)
+    peak = torch.cuda.max_memory_allocated()
+    walks = {}
+    for name, ex in (("overlapped", table(overlap_transport=True,
+                                          phase_compile=False)),
+                     ("phase-compiled", table(phase_compile=True))):
+        rec, grads = step(ex, model, mesh, x, w)
+        rec["transport_name"] = ex.memory_plan(chunks)["transport"]
+        rec["bitwise"] = (rec["loss"] == runs[0]["loss"] and all(
+            torch.equal(grads[n], g) for n, g in first.items()))
+        walks[name] = rec
+    out["ring"] = dict(
+        steps=runs, walks=walks, per_row_rel=per_row_rel(model, mesh, x),
+        expected={c.__name__: 0 for c in _counters()},   # einsum softmax
+        peak_bytes=peak, stage=mesh.stage, context=mesh.context,
+        loss_rel=abs(runs[0]["loss"] - twin["per_row"].mean().item())
+        / twin["per_row"].mean().item())
+    del ser, model, grads, first, walks
+    _rank_release()
+
+    # (c) the context-sharded generator over a line of 4: greedy (its
+    # prefill timed alone first), beam, sampled
+    mesh = make_mesh(1, 1, n_context=4)
+    model = ContextParallelLM.from_sequential(cfg, _ctx_seq(cfg), 1,
+                                              mesh=mesh)
+    prompt = data["prompt"].cuda()
+    g = ContextShardedGenerator(mesh, model, GenerationConfig(
+        max_new_tokens=CTX_GEN_NEW, temperature=0.0))
+    _zero_launches()
+    torch.cuda.reset_peak_memory_stats()
+    with torch.inference_mode():
+        torch.cuda.synchronize()
+        mesh.reset_stats()
+        t0 = time.perf_counter()
+        g._prefill(prompt)
+        torch.cuda.synchronize()
+        prefill_ms = (time.perf_counter() - t0) * 1e3
+        prefill_stats = mesh.stats.as_dict()
+    mesh.reset_stats()
+    t0 = time.perf_counter()
+    greedy = g.generate(prompt)
+    torch.cuda.synchronize()
+    total_ms = (time.perf_counter() - t0) * 1e3
+    stats = mesh.stats.as_dict()
+    decode_ms = total_ms - prefill_ms
+    beam, scores = ContextShardedGenerator(mesh, model, GenerationConfig(
+        max_new_tokens=CTX_BEAM_NEW, num_beams=CTX_BEAMS)
+    ).generate_with_scores(prompt)
+    sampled = ContextShardedGenerator(mesh, model, GenerationConfig(
+        max_new_tokens=CTX_SAMPLED_NEW, temperature=RING_TEMPERATURE,
+        top_k=RING_TOP_K)).generate(prompt, seed=CTX_SAMPLE_SEED)
+    out["generate"] = dict(
+        greedy=greedy.cpu(), beam=beam.cpu(), beam_scores=scores.cpu(),
+        sampled=sampled.cpu(), prefill_ms=prefill_ms, total_ms=total_ms,
+        decode_ms_per_token=decode_ms / (CTX_GEN_NEW - 1),
+        ms_per_generated_token=total_ms / CTX_GEN_NEW,
+        collective_s=stats["collective_s"],
+        collectives=stats["collectives"],
+        collective_share=stats["collective_s"] / (decode_ms / 1e3),
+        prefill_p2p_bytes=prefill_stats["p2p_bytes"],
+        prefill_p2p_s=prefill_stats["p2p_s"], launches=_rank_counts(),
+        peak_bytes=torch.cuda.max_memory_allocated())
+    del g, model
+    dist.barrier()
+    return out
+
+
+def phase_context(smi: str, world=None) -> dict:
+    """Phase 15: the context axis over the world of 4 ranks; returns the
+    kernels' launches of the Ulysses steps, summed over ranks and steps,
+    and per rank per step."""
+    import shutil
+    import tempfile
+
+    from pipe_tpu_torch.apps import generate as gen_app
+
+    t_phase = time.perf_counter()
+    card = smi.splitlines()[0]
+    _, _, vocab = _corpus()
+    tmp = tempfile.mkdtemp(prefix="pipe_tpu_context_")
+    refs = _context_refs(tmp, len(vocab))
+    log("context", world=CTX_WORLD, backend="gloo", device="cuda:0 (shared)",
+        vocab=len(vocab), seq=CTX_SEQ, batch=CTX_BATCH,
+        twin_ms=f"{refs['twin_ms']:.1f}",
+        refs_s=f"{time.perf_counter() - t_phase:.1f}", card=card)
+    with _world(world, CTX_WORLD, CTX_TIMEOUT_S, CTX_THREADS) as world:
+        t0 = time.perf_counter()
+        res = world.run(_context_rank, tmp, len(vocab))
+    log("context", world_s=f"{time.perf_counter() - t0:.1f}")
+    launches = {"per_rank_step": None, "total": {}}
+    for r in res:
+        for what in ("ulysses", "ring"):
+            a = r[what]
+            for i, s in enumerate(a["steps"]):
+                t = s["transport"]
+                log("context", rank=r["rank"], run=f"{what}/step{i}",
+                    loss=f"{s['loss']:.6f}", ms=f"{s['ms']:.1f}",
+                    launches=list(s["launches"].values()),
+                    p2p_bytes=t["p2p_bytes"], p2p_s=f"{t['p2p_s']:.3f}",
+                    collective_bytes=t["collective_bytes"],
+                    collectives=t["collectives"],
+                    collective_s=f"{t['collective_s']:.3f}",
+                    staged_bytes=t["staged_bytes"], card=card)
+                if s["launches"] != a["expected"]:
+                    raise AssertionError(
+                        f"context {what} rank {r['rank']} step {i}: "
+                        f"launches {s['launches']} != {a['expected']}")
+                if what == "ulysses":
+                    for k, v in s["launches"].items():
+                        launches["total"][k] = launches["total"].get(k, 0) + v
+            s0 = a["steps"][0]
+            log("context", rank=r["rank"], run=what,
+                per_row_rel=f"{a['per_row_rel']:.3e}",
+                loss_rel=f"{a['loss_rel']:.3e}",
+                grad_err=f"{s0['grad_err']:.3e}",
+                peak_bytes=a["peak_bytes"],
+                mean_ms=f"{sum(s['ms'] for s in a['steps']) / CTX_STEPS:.1f}")
+            if (a["per_row_rel"] > TOL_CTX_LOSS or a["loss_rel"] > TOL_CTX_LOSS
+                    or s0["grad_err"] > TOL_CTX_GRAD):
+                raise AssertionError(
+                    f"context {what} rank {r['rank']}: per-row {a['per_row_rel']:.3e}"
+                    f" / loss {a['loss_rel']:.3e} (> {TOL_CTX_LOSS}) or "
+                    f"gradients {s0['grad_err']:.3e} (> {TOL_CTX_GRAD}) off "
+                    f"the one-device twin")
+        launches["per_rank_step"] = r["ulysses"]["expected"]
+        for name, wk in r["ring"]["walks"].items():
+            log("context", rank=r["rank"], run=f"ring/{name}",
+                transport=wk["transport_name"], ms=f"{wk['ms']:.1f}",
+                bitwise=wk["bitwise"],
+                wait_s=f"{wk['transport']['wait_s']:.3f}")
+            if not wk["bitwise"] or wk["transport_name"] != name:
+                raise AssertionError(
+                    f"context ring {name} rank {r['rank']}: walked "
+                    f"{wk['transport_name']}, bitwise {wk['bitwise']}")
+    # (c) every rank's tokens; rank 0's against the one-device Generator
+    g0 = res[0]["generate"]
+    for r in res:
+        g = r["generate"]
+        for k in ("greedy", "beam", "sampled"):
+            if not torch.equal(g[k], g0[k]):
+                raise AssertionError(f"context generator: rank {r['rank']}'s "
+                                     f"{k} tokens differ from rank 0's")
+        if any(g["launches"].values()):
+            raise AssertionError(f"context generator launched {g['launches']}")
+    compared, departures = _ring_streams(g0["greedy"].tolist(),
+                                         refs["greedy"].tolist(),
+                                         refs["margins"], "context greedy")
+    beam_equal = torch.equal(g0["beam"], refs["beam"])
+    beam_rel = ((g0["beam_scores"] - refs["beam_scores"]).abs()
+                / refs["beam_scores"].abs()).max().item()
+    agree = (g0["sampled"] == refs["sampled"]).float().mean().item()
+    log("context", run="generate", prompt=CTX_GEN_PROMPT, batch=CTX_GEN_BATCH,
+        new=CTX_GEN_NEW, compared=compared, departures=departures,
+        beam_equal=beam_equal, beam_scores_rel=f"{beam_rel:.3e}",
+        sampled_agreement=f"{agree:.4f}",
+        prefill_ms=f"{g0['prefill_ms']:.1f}",
+        total_ms=f"{g0['total_ms']:.1f}",
+        ms_per_generated_token=f"{g0['ms_per_generated_token']:.3f}",
+        decode_ms_per_token=f"{g0['decode_ms_per_token']:.3f}",
+        decode_collectives=g0["collectives"],
+        decode_collective_s=f"{g0['collective_s']:.3f}",
+        decode_collective_share=f"{g0['collective_share']:.3f}",
+        prefill_ring_bytes=g0["prefill_p2p_bytes"],
+        prefill_ring_s=f"{g0['prefill_p2p_s']:.3f}",
+        peak_bytes=g0["peak_bytes"], card=card)
+    if not beam_equal or beam_rel > TOL_CTX_SCORES:
+        raise AssertionError(f"context beam: tokens equal {beam_equal}, "
+                             f"scores rel {beam_rel:.3e}")
+    # (d) the CLI over its own world, against one device; a prompt that
+    # does not divide exits 2 with pipe_tpu's words
+    prompt = ",".join(str(t) for t in torch.load(
+        os.path.join(tmp, "context.pt"))["cli"].tolist())
+    rows = {}
+    for n in (4, 1):
+        t0 = time.perf_counter()
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = gen_app.main(["--context-shards", str(n), "--device", "cuda",
+                               "--prompt", prompt, "--seed", "3",
+                               "--max-new", str(CTX_CLI_NEW)])
+        rows[n] = buf.getvalue().split()
+        log("context", run=f"apps.generate --context-shards {n}", rc=rc,
+            wall_s=f"{time.perf_counter() - t0:.1f}")
+        if rc != 0 or len(rows[n]) != 1:
+            raise AssertionError(f"apps.generate --context-shards {n}: rc "
+                                 f"{rc}, rows {rows[n]}")
+    if rows[4] != rows[1]:
+        # equal but at a near tie: the one-device model's margins decide
+        args = gen_app.build_argparser().parse_args(["--seed", "3"])
+        model = gen_app.build_model(args, gen_app.family_config(args), None)
+        ids = [int(t) for t in prompt.split(",")]
+        got, want = ([int(t) for t in rows[n][0].split(",")] for n in (4, 1))
+        margins = _rel_margins(model, ids, want)
+        del model
+        torch.cuda.empty_cache()
+        _ring_streams([got], [want], [margins], "apps.generate "
+                      "--context-shards 4")
+    err = io.StringIO()
+    with contextlib.redirect_stderr(err):
+        rc = gen_app.main(["--context-shards", "3", "--device", "cuda",
+                           "--prompt", prompt])
+    want = f"prompt length {CTX_CLI_PROMPT} must divide over 3 context shards"
+    log("context", run="apps.generate --context-shards 3", rc=rc,
+        stderr=repr(err.getvalue().strip()))
+    if rc != 2 or err.getvalue().strip() != want:
+        raise AssertionError(f"--context-shards 3: rc {rc}, {err.getvalue()!r}")
+    shutil.rmtree(tmp, ignore_errors=True)
+    log("context", seconds=f"{time.perf_counter() - t_phase:.1f}", card=card)
+    return launches
+
+
 _T_START = time.perf_counter()
 
 
@@ -6566,6 +7022,8 @@ def main() -> int:
         ring_launches = phase_ring(smi, world)
         fresh("elastic")
         elastic_launches = phase_elastic(smi, world)
+        fresh("context")
+        context_launches = phase_context(smi, world)
     sources = {"flash_attn_fwd": ("flash_attn_fwd.cu", 87,
                                   "flash_attention_fwd"),
                "flash_attn_bwd_dq": ("flash_attn_bwd.cu", 162,
@@ -6607,9 +7065,14 @@ def main() -> int:
         entry["launches_ring_train"] = ring_launches[wrapper]
         entry["launches_elastic"] = elastic_launches[wrapper]
         entry["launches_zoo_world"] = zoo_world_launches[wrapper]
+        entry["launches_context"] = {
+            "ulysses_per_rank_step": context_launches["per_rank_step"][wrapper],
+            "ulysses_total": context_launches["total"][wrapper],
+            "ring": 0, "generator": 0}
         entry["gpt2_shape"] = row["gpt2_shape"]
         entry["bert_shape"] = row["bert_shape"]
         entry["mesh_shape"] = row["mesh_shape"]
+        entry["context_shape"] = row["context_shape"]
         kernels["kernels"].append(entry)
     log("done", seconds=f"{time.perf_counter() - t_start:.1f}")
     print(smi.splitlines()[0], flush=True)

@@ -19,16 +19,25 @@ N, must divide into N ring groups), or with ``--prompts-file`` the ring
 backend (``serve/ring.py``) under the engine, whose N slots are the ring's
 groups. Rank 0 prints.
 
+``--context-shards N`` (N > 1) decodes with the prompt's KV cache sharded
+over a context line of N ranks, as ``pipe_tpu`` does over a context mesh:
+the app spawns its own world of N ranks (``gloo``; on the card they share
+it), each holding every weight, and runs ``ContextShardedGenerator``
+(``inference/long_context.py``): a ring-attention prefill of each rank's
+shard of the prompt, then decoding across the shards. It composes only with
+the plain LM's single-stage float path, the prompt length must divide by N,
+and ``--prompts-file`` is refused, with ``pipe_tpu``'s messages. Rank 0
+prints.
+
 Usage:
     python -m pipe_tpu_torch.apps.generate [--resume DIR] [--prompt "ids,..."]
         [--prompts-file F [--slots S]] [--batch N] [--max-new N]
         [--temperature T] [--top-k K] [--beams K] [--eos ID] [--int8]
-        [--family lm|gpt2] [--stages N] [--tiny] [--seed S]
-        [--device cuda|cpu]
+        [--family lm|gpt2] [--stages N] [--context-shards N] [--tiny]
+        [--seed S] [--device cuda|cpu]
 
 A restored model takes its vocabulary from the checkpoint. A request past
-the model's positional table exits 2. Not ported yet, refused with rc 2:
-``--context-shards > 1``.
+the model's positional table exits 2.
 """
 
 from __future__ import annotations
@@ -37,12 +46,6 @@ import argparse
 import os
 import re
 import sys
-
-# (flag, is it set away from its default?, the ROADMAP.md item that ports it)
-_NOT_PORTED = (
-    ("--context-shards > 1", lambda a: a.context_shards > 1,
-     "A.10, the context-sharded generator"),
-)
 
 _PIPE_KEY = re.compile(r"^partitions\.(\d+)\.layers\.(\d+)\.(.+)$")
 
@@ -108,7 +111,9 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--stages", type=int, default=1,
                    help=">1: decode over a ring of this many stage ranks")
     p.add_argument("--context-shards", type=int, default=1,
-                   help="not ported yet beyond 1")
+                   help=">1: context-sharded decode: the prompt KV cache "
+                        "shards over a context line of this many ranks "
+                        "(LM family only; prompt length must divide)")
     p.add_argument("--tiny", action="store_true")
     p.add_argument("--seed", type=int, default=0,
                    help="weights are drawn from seed, sampling from seed + 1")
@@ -151,6 +156,8 @@ def _check_args(args, model_cfg):
         raise UsageError(f"--batch must be >= 1, got {args.batch}")
     if args.stages > 1:
         _check_ring(args, model_cfg)
+    if args.context_shards > 1:
+        _check_context(args, prompts[0])
     try:
         gen_cfg = GenerationConfig(max_new_tokens=args.max_new,
                                    temperature=args.temperature,
@@ -173,6 +180,19 @@ def _check_ring(args, model_cfg) -> None:
     if model_cfg.n_layers % n:
         raise UsageError(f"--stages {n} must divide the model's "
                          f"{model_cfg.n_layers} layers")
+
+
+def _check_context(args, ids) -> None:
+    """``pipe_tpu``'s checks of ``--context-shards > 1``, with its
+    messages."""
+    n = args.context_shards
+    if (args.stages > 1 or args.beams > 1 or args.int8
+            or args.family != "lm"):
+        raise UsageError("--context-shards composes only with the plain LM "
+                         "single-stage float path")
+    if len(ids) % n:
+        raise UsageError(f"prompt length {len(ids)} must divide over {n} "
+                         f"context shards")
 
 
 def position_limit(args, model_cfg) -> int:
@@ -227,10 +247,11 @@ def model_source(args, model_cfg):
     return model_cfg, state
 
 
-def build_model(args, model_cfg, state, n_stages: int = 1):
+def build_model(args, model_cfg, state, n_stages: int = 1, mesh=None):
     """The ``PipelinedLM`` (or ``PipelinedGPT2``) of ``n_stages`` stages on
     ``--device``: weights drawn from ``--seed``, then the checkpoint's
-    (``state``) loaded over them; int8 block weights with ``--int8``.
+    (``state``) loaded over them; int8 block weights with ``--int8``. With
+    a context ``mesh``, the LM as a ``ContextParallelLM`` over it.
     UsageError for a checkpoint tensor of another shape."""
     import torch
 
@@ -252,6 +273,11 @@ def build_model(args, model_cfg, state, n_stages: int = 1):
                 seq.load_state_dict(state)
             except RuntimeError as e:    # a shape the config does not have
                 raise UsageError(f"--resume {args.resume}: {e}")
+        if mesh is not None:
+            from pipe_tpu_torch.models.long_context_lm import (
+                ContextParallelLM)
+            return ContextParallelLM.from_sequential(model_cfg, seq,
+                                                     n_stages, mesh=mesh)
         model = PipelinedLM.from_sequential(model_cfg, seq, n_stages)
     return quantize_params(model) if args.int8 else model
 
@@ -264,14 +290,10 @@ def main(argv=None) -> int:
     from pipe_tpu_torch.inference import Generator, check_positions
 
     try:
-        for flag, is_set, item in _NOT_PORTED:
-            if is_set(args):
-                raise UsageError(f"{flag} is not ported to pipe_tpu_torch "
-                                  f"yet (ROADMAP.md {item})")
         model_cfg, state = model_source(args, family_config(args))
         prompts, gen_cfg = _check_args(args, model_cfg)
         longest = max(len(p) for p in prompts)
-        if args.stages > 1:      # the ranks build the model
+        if args.stages > 1 or args.context_shards > 1:  # the ranks build it
             import types
             model = types.SimpleNamespace(
                 max_position=lambda: position_limit(args, model_cfg))
@@ -285,11 +307,13 @@ def main(argv=None) -> int:
         print(str(e), file=sys.stderr)
         return 2
 
-    if args.stages > 1:
+    if args.stages > 1 or args.context_shards > 1:
         from pipe_tpu_torch.runtime.distributed import launch
-        threads = (max(1, (os.cpu_count() or 1) // args.stages)
+        n = max(args.stages, args.context_shards)
+        threads = (max(1, (os.cpu_count() or 1) // n)
                    if args.device == "cpu" else 0)
-        rows = launch(_ring_rank, args.stages,
+        rank_fn = _ring_rank if args.stages > 1 else _context_rank
+        rows = launch(rank_fn, n,
                       list(sys.argv[1:] if argv is None else argv),
                       device=args.device, backend="gloo",
                       threads=threads)[0]
@@ -353,6 +377,28 @@ def _ring_rank(argv) -> list:
     out = PipelinedGenerator(mesh, model, gen_cfg).generate(
         prompt, seed=args.seed + 1)
     return out.tolist() if mesh.stage == 0 else []
+
+
+def _context_rank(argv) -> list:
+    """One rank of ``--context-shards N``: every weight (drawn from
+    ``--seed`` or restored, as on one device), then the context-sharded
+    generator over a context line of N ranks. Rank 0 returns the rows; the
+    others an empty list."""
+    import torch
+
+    from pipe_tpu_torch.inference.long_context import (
+        ContextShardedGenerator)
+    from pipe_tpu_torch.parallel.mesh import make_mesh
+
+    args = build_argparser().parse_args(argv)
+    model_cfg, state = model_source(args, family_config(args))
+    prompts, gen_cfg = _check_args(args, model_cfg)
+    mesh = make_mesh(1, 1, n_context=args.context_shards)
+    model = build_model(args, model_cfg, state, mesh=mesh)
+    prompt = torch.tensor(prompts * args.batch, dtype=torch.int64)
+    out = ContextShardedGenerator(mesh, model, gen_cfg).generate(
+        prompt, seed=args.seed + 1)
+    return out.tolist() if mesh.context == 0 else []
 
 
 if __name__ == "__main__":

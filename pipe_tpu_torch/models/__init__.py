@@ -6,19 +6,22 @@
 * :mod:`.bert`: BERT-large masked-LM pretraining, interleave-ready
   (config #4).
 * :mod:`.vit`: ViT-L/16 image classification, non-LM shapes (config #5).
+* :mod:`.long_context_lm`: the tutorial LM with its sequence sharded over
+  a context axis (ring or Ulysses attention), ``ContextParallelLM``.
 
-``pipe_tpu``'s ring-attention ``ContextParallelLM`` needs a context mesh
-and is not ported yet (ROADMAP.md: A.10).
+``pipe_tpu``'s tensor-parallel and MoE LMs need the mesh's model axis and
+are not ported yet (ROADMAP.md: A.10).
 """
 
 from .bert import BertConfig, PipelinedBERT, mask_tokens
 from .common import PipelinedTransformer, per_row_ce
 from .gpt2 import GPT2Config, PipelinedGPT2
+from .long_context_lm import ContextParallelLM
 from .transformer_lm import LMConfig, PipelinedLM
 from .vit import PipelinedViT, ViTConfig
 
 __all__ = [
-    "BertConfig", "PipelinedBERT", "mask_tokens",
+    "BertConfig", "PipelinedBERT", "mask_tokens", "ContextParallelLM",
     "GPT2Config", "PipelinedGPT2",
     "LMConfig", "PipelinedLM",
     "PipelinedTransformer", "per_row_ce",

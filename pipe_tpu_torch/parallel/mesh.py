@@ -1,4 +1,4 @@
-"""The ``(stage, data)`` world of ``torch.distributed`` ranks.
+"""The ``(stage, data[, context])`` world of ``torch.distributed`` ranks.
 
 Counterpart of ``pipe_tpu/parallel/mesh.py``. In JAX a mesh is devices in
 one program; here it is processes, one per mesh position, and the mesh is
@@ -8,15 +8,25 @@ rank of every position (``grid``, laid out as JAX's
 its stage-ring neighbours, and the process groups it talks over. The
 pipeline of data index ``j`` is the column ``grid[:, j]`` (``column_group``),
 the data replicas of stage ``i`` the row ``grid[i, :]`` (``data_group``).
-Every group is made by every rank, in the same order, with the world's
-timeout.
+With a context axis (``make_mesh(n_context=)``, sequence parallelism) the
+grid is ``[n_stages, n_data, n_context]``, context innermost as in JAX:
+this rank also has a ``context`` index, a pipeline runs down each
+``(data, context)`` column ``grid[:, j, c]``, the data group is
+``grid[i, :, c]``, the context line ``grid[i, j, :]`` (``context_group``)
+and the stage's whole ``(data, context)`` plane ``grid[i, :, :]``
+(``plane_group``, where replicated gradients are summed). Every group is
+made by every rank, in the same order, with the world's timeout.
 
 The mesh also moves tensors, in torch's idiom: per-cycle point-to-point
 exchanges with ``dist.batch_isend_irecv`` (every receive posted before any
 send), waited for in full (:meth:`Mesh.exchange`) or posted now and waited
 for later (:meth:`Mesh.post`, :meth:`Mesh.wait`: the table executor's
 overlapped transport, whose payload lengths both ends know),
-``all_reduce`` and ``all_gather``; for the ring decoders
+``all_reduce`` (a sum or a max) and ``all_gather``; over the context
+line a shift by one round the context ring (:meth:`Mesh.context_shift`,
+JAX's ``ppermute``) and a tiled all-to-all (:meth:`Mesh.all_to_all`), with
+their autograd forms :func:`context_shift` and :func:`all_to_all` and the
+mean :func:`context_pmean`; for the ring decoders
 (``inference/pipelined.py``, ``serve/ring.py``) a shift by one over the
 stage ring (:meth:`Mesh.ring_shift`) and a small broadcast of a host plan
 (:meth:`Mesh.broadcast_plan`). After elastic training loses a stage,
@@ -29,9 +39,8 @@ a :class:`RemoteMesh` (shape and ranks only). The backend is the caller's
 (``runtime/distributed.py``): over ``nccl`` CUDA tensors go as they are;
 over ``gloo`` a CUDA tensor is staged through a pinned host buffer,
 explicitly, and the staged bytes are counted in :attr:`Mesh.stats` beside
-the bytes and host seconds of every exchange and collective. The context
-and model axes (sequence and tensor parallelism) are not ported (ROADMAP.md
-A.10).
+the bytes and host seconds of every exchange and collective. The model
+axis (tensor parallelism) is not ported (ROADMAP.md A.10).
 """
 
 from __future__ import annotations
@@ -47,17 +56,23 @@ import torch.distributed as dist
 
 __all__ = ["Mesh", "RemoteMesh", "make_mesh", "carve_meshes",
            "survivor_mesh", "localize", "STAGE_AXIS", "DATA_AXIS",
-           "CONTEXT_AXIS", "MODEL_AXIS", "mesh_grid"]
+           "CONTEXT_AXIS", "MODEL_AXIS", "mesh_grid", "context_shift",
+           "all_to_all", "context_pmean"]
 
 STAGE_AXIS = "stage"
 DATA_AXIS = "data"
 CONTEXT_AXIS = "context"
 MODEL_AXIS = "model"
 
-def mesh_grid(n_stages: int, n_data: int) -> np.ndarray:
+def mesh_grid(n_stages: int, n_data: int,
+              n_context: Optional[int] = None) -> np.ndarray:
     """Global rank of each ``(stage, data)`` position: JAX's
-    ``np.asarray(devices).reshape(n_stages, n_data)`` over ranks."""
-    return np.arange(n_stages * n_data).reshape(n_stages, n_data)
+    ``np.asarray(devices).reshape(n_stages, n_data)`` over ranks; with
+    ``n_context`` each ``(stage, data, context)`` position, context
+    innermost."""
+    shape = ((n_stages, n_data) if n_context is None
+             else (n_stages, n_data, n_context))
+    return np.arange(int(np.prod(shape))).reshape(shape)
 
 
 @dataclasses.dataclass
@@ -85,28 +100,41 @@ class TransportStats:
 
 
 class Mesh:
-    """This rank's view of the ``(stage, data)`` world (module docstring).
-    Made by :func:`make_mesh`."""
+    """This rank's view of the ``(stage, data[, context])`` world (module
+    docstring). Made by :func:`make_mesh`."""
 
     def __init__(self, n_stages: int, n_data: int, *, device: torch.device,
                  timeout: timedelta, grid: Optional[np.ndarray] = None,
-                 world_group=None):
+                 world_group=None, n_context: Optional[int] = None):
         self.n_stages = n_stages
         self.n_data = n_data
+        # None: no context axis (a 2-D mesh); else its size
+        self.n_context = n_context
         self.rank = dist.get_rank()
         self.backend = dist.get_backend()
         self.device = device
-        self.grid = (mesh_grid(n_stages, n_data) if grid is None
+        self.grid = (mesh_grid(n_stages, n_data, n_context) if grid is None
                      else np.asarray(grid))
-        self.stage, self.data = (int(a[0]) for a in
-                                 np.nonzero(self.grid == self.rank))
+        where = [int(a[0]) for a in np.nonzero(self.grid == self.rank)]
+        self.stage, self.data = where[:2]
+        self.context = where[2] if n_context is not None else 0
         # the group of every rank of the mesh (None: the default group) and
         # the rank that writes for the mesh (checkpoints, TensorBoard)
         self.world_group = world_group
-        self.lead = int(self.grid[0, 0])
-        columns, rows = _make_groups(self.grid, timeout)
-        self.column_group = columns[self.data]
-        self.data_group = rows[self.stage]
+        self.lead = int(self.grid.flat[0])
+        groups = _make_groups(self.grid, timeout)
+        if n_context is None:
+            columns, rows = groups
+            self.column_group = columns[self.data]
+            self.data_group = rows[self.stage]
+            self.context_group = self.plane_group = None
+        else:
+            columns, rows, lines, planes = groups
+            c = self.context
+            self.column_group = columns[self.data * n_context + c]
+            self.data_group = rows[self.stage * n_context + c]
+            self.context_group = lines[self.stage * n_data + self.data]
+            self.plane_group = planes[self.stage]
         self.prev = self.rank_of((self.stage - 1) % n_stages)
         self.next = self.rank_of((self.stage + 1) % n_stages)
         # gloo moves host tensors: CUDA tensors are staged explicitly
@@ -119,14 +147,32 @@ class Mesh:
         self._landed: Dict[int, Any] = {}
 
     def __repr__(self) -> str:
+        ctx = ("" if self.n_context is None
+               else f"context={self.context}/{self.n_context}, ")
         return (f"Mesh(stage={self.stage}/{self.n_stages}, "
-                f"data={self.data}/{self.n_data}, rank={self.rank}, "
+                f"data={self.data}/{self.n_data}, {ctx}rank={self.rank}, "
                 f"backend={self.backend!r}, device={self.device})")
 
-    def rank_of(self, stage: int, data: Optional[int] = None) -> int:
-        """Global rank of position ``(stage, data)`` (this rank's data
-        index by default)."""
-        return int(self.grid[stage, self.data if data is None else data])
+    @property
+    def axis_names(self) -> Tuple[str, ...]:
+        """The mesh's axes, as JAX's ``Mesh.axis_names``."""
+        return ((STAGE_AXIS, DATA_AXIS) if self.n_context is None
+                else (STAGE_AXIS, DATA_AXIS, CONTEXT_AXIS))
+
+    @property
+    def context_size(self) -> int:
+        """The context axis' size (1 without the axis)."""
+        return self.n_context or 1
+
+    def rank_of(self, stage: int, data: Optional[int] = None,
+                context: Optional[int] = None) -> int:
+        """Global rank of position ``(stage, data[, context])`` (this rank's
+        data and context indices by default)."""
+        data = self.data if data is None else data
+        if self.n_context is None:
+            return int(self.grid[stage, data])
+        return int(self.grid[stage, data,
+                             self.context if context is None else context])
 
     def reset_stats(self) -> None:
         self.stats = TransportStats()
@@ -332,28 +378,102 @@ class Mesh:
 
     # --- collectives ---
 
-    def _group(self, over: str):
+    def _group(self, over):
+        """The group and size of ``over``: an axis name, ``"world"``, or
+        ``("data", "context")``, the stage's plane (its data group without a
+        context axis)."""
+        if isinstance(over, tuple):      # the stage's plane
+            if set(over) != {DATA_AXIS, CONTEXT_AXIS}:
+                raise ValueError(f"no mesh axes {over!r}")
+            if self.n_context is None:
+                return self.data_group, self.n_data
+            return self.plane_group, self.n_data * self.n_context
         if over == DATA_AXIS:
             return self.data_group, self.n_data
         if over == STAGE_AXIS:
             return self.column_group, self.n_stages
+        if over == CONTEXT_AXIS:
+            if self.n_context is None:
+                raise ValueError(f"mesh has no {CONTEXT_AXIS!r} axis")
+            return self.context_group, self.n_context
         if over == "world":
-            return self.world_group, self.n_stages * self.n_data
+            return (self.world_group,
+                    self.n_stages * self.n_data * self.context_size)
         raise ValueError(f"no mesh axis {over!r}")
 
-    def all_reduce(self, t: torch.Tensor, over: str = DATA_AXIS) -> None:
-        """Sum ``t`` in place over the data group (``over="data"``), this
-        rank's pipeline (``"stage"``) or the ``"world"``."""
+    def group_size(self, over) -> int:
+        """How many ranks :meth:`all_reduce` over ``over`` spans."""
+        return self._group(over)[1]
+
+    def all_reduce(self, t: torch.Tensor, over=DATA_AXIS,
+                   op: str = "sum") -> None:
+        """Sum ``t`` in place (``op="max"``: its maximum) over the data
+        group (``over="data"``), this rank's pipeline (``"stage"``), its
+        context line (``"context"``), its stage's plane (``("data",
+        "context")``) or the ``"world"``."""
         group, size = self._group(over)
         if size == 1:
             return
         t0 = time.perf_counter()
         buf = self._out(t, ("reduce", 0))
-        dist.all_reduce(buf, group=group)
+        dist.all_reduce(buf, op=_OPS[op], group=group)
         self._into(buf, t)
         self.stats.collectives += 1
         self.stats.collective_bytes += t.numel() * t.element_size()
         self.stats.collective_s += time.perf_counter() - t0
+
+    # --- the context line ---
+
+    def context_shift(self, t: torch.Tensor, step: int = 1) -> torch.Tensor:
+        """JAX's ``ppermute`` by ``step`` round the context ring: ``t`` goes
+        to context index ``c + step`` and the tensor of ``c - step``
+        (``step`` is +1 or -1; one shape and dtype on every rank) comes
+        back, on the device. CUDA tensors are staged as :meth:`exchange`
+        stages them; counted as point-to-point messages."""
+        n = self.context_size
+        if n == 1:
+            return t.clone()
+        t0 = time.perf_counter()
+        dst = self.rank_of(self.stage, context=(self.context + step) % n)
+        src = self.rank_of(self.stage, context=(self.context - step) % n)
+        got = torch.empty_like(t)
+        land = self._landing(got, ("ctx_recv", 0))
+        out = self._out(t.contiguous(), ("ctx_send", 0))
+        ops = [dist.P2POp(dist.irecv, land, src, group=self.context_group),
+               dist.P2POp(dist.isend, out, dst, group=self.context_group)]
+        for work in dist.batch_isend_irecv(ops):
+            work.wait()
+        self._into(land, got)
+        self.stats.p2p_messages += 2
+        self.stats.p2p_bytes += 2 * t.numel() * t.element_size()
+        self.stats.p2p_s += time.perf_counter() - t0
+        return got
+
+    def all_to_all(self, t: torch.Tensor, split_axis: int,
+                   concat_axis: int) -> torch.Tensor:
+        """JAX's tiled ``all_to_all`` over the context line: ``t`` splits
+        into ``n_context`` blocks along ``split_axis``, block ``j`` goes to
+        context index ``j``, and the blocks received are joined along
+        ``concat_axis`` in context order. One ``all_to_all_single`` (staged
+        for CUDA tensors under gloo)."""
+        n = self.context_size
+        if n == 1:
+            return t
+        if t.shape[split_axis] % n:
+            raise ValueError(
+                f"all_to_all: dim {split_axis} of {tuple(t.shape)} does not "
+                f"split over {n} context ranks")
+        t0 = time.perf_counter()
+        send = torch.stack(t.chunk(n, split_axis)).contiguous()
+        got = torch.empty_like(send)
+        land = self._landing(got, ("a2a_recv", 0))
+        dist.all_to_all_single(land, self._out(send, ("a2a_send", 0)),
+                               group=self.context_group)
+        self._into(land, got)
+        self.stats.collectives += 1
+        self.stats.collective_bytes += 2 * t.numel() * t.element_size()
+        self.stats.collective_s += time.perf_counter() - t0
+        return torch.cat(got.unbind(0), dim=concat_axis)
 
     def all_gather(self, t: torch.Tensor, over: str = DATA_AXIS, *,
                    to_device: bool = True) -> List[torch.Tensor]:
@@ -441,6 +561,99 @@ class Posted:
     parity: int
 
 
+_OPS = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}
+
+
+class _ContextShift(torch.autograd.Function):
+    """:meth:`Mesh.context_shift` of several tensors in one message; the
+    adjoint shifts the cotangents the other way (JAX's ``ppermute``
+    transpose)."""
+
+    @staticmethod
+    def forward(ctx, mesh, step, *ts):
+        ctx.mesh, ctx.step = mesh, step
+        return _split_flat(mesh.context_shift(_flat(ts), step), ts)
+
+    @staticmethod
+    def backward(ctx, *gs):
+        back = ctx.mesh.context_shift(_flat(gs), -ctx.step)
+        return (None, None, *_split_flat(back, gs))
+
+
+def _flat(ts) -> torch.Tensor:
+    return torch.cat([t.reshape(-1) for t in ts]) if len(ts) > 1 \
+        else ts[0].contiguous()
+
+
+def _split_flat(flat: torch.Tensor, like) -> tuple:
+    out, off = [], 0
+    for t in like:
+        out.append(flat[off:off + t.numel()].view(t.shape))
+        off += t.numel()
+    return tuple(out)
+
+
+def context_shift(mesh: Optional["Mesh"], *ts: torch.Tensor,
+                  step: int = 1) -> tuple:
+    """The tensors ``ts`` (one dtype) shifted by ``step`` round the context
+    ring, differentiably: the cotangents go back the other way. Without a
+    context axis the ring is a loop and ``ts`` come back as they are."""
+    if mesh is None or mesh.context_size == 1:
+        return ts
+    return _ContextShift.apply(mesh, step, *ts)
+
+
+class _AllToAll(torch.autograd.Function):
+    """:meth:`Mesh.all_to_all`; its adjoint is the reverse all-to-all
+    (``split_axis`` and ``concat_axis`` swapped), as JAX transposes it."""
+
+    @staticmethod
+    def forward(ctx, t, mesh, split_axis, concat_axis):
+        ctx.mesh, ctx.axes = mesh, (split_axis, concat_axis)
+        return mesh.all_to_all(t, split_axis, concat_axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        split_axis, concat_axis = ctx.axes
+        return (ctx.mesh.all_to_all(g.contiguous(), concat_axis, split_axis),
+                None, None, None)
+
+
+def all_to_all(mesh: Optional["Mesh"], t: torch.Tensor, split_axis: int,
+               concat_axis: int) -> torch.Tensor:
+    """Differentiable tiled all-to-all over the context line
+    (:meth:`Mesh.all_to_all`); the identity without a context axis."""
+    if mesh is None or mesh.context_size == 1:
+        return t
+    return _AllToAll.apply(t, mesh, split_axis, concat_axis)
+
+
+class _ContextMean(torch.autograd.Function):
+    """The mean over the context line of a value that every rank then holds
+    alike; its adjoint divides the (replicated) cotangent by the line's
+    size without moving it, as JAX's ``pmean`` transposes under
+    ``shard_map`` without replication checks."""
+
+    @staticmethod
+    def forward(ctx, t, mesh):
+        ctx.n = mesh.context_size
+        out = t.detach().clone()
+        mesh.all_reduce(out, CONTEXT_AXIS)
+        return out / ctx.n
+
+    @staticmethod
+    def backward(ctx, g):
+        return g / ctx.n, None
+
+
+def context_pmean(mesh: Optional["Mesh"], t: torch.Tensor) -> torch.Tensor:
+    """JAX's ``pmean`` over the context axis (a per-row loss over the global
+    sequence); the identity without a context axis."""
+    if mesh is None or mesh.context_size == 1:
+        return t
+    return _ContextMean.apply(t, mesh)
+
+
 class _PSum(torch.autograd.Function):
     """``all_reduce`` over the data group, forward and backward (the
     adjoint of a replicated sum is the sum of the cotangents)."""
@@ -461,14 +674,25 @@ class _PSum(torch.autograd.Function):
 
 def _make_groups(grid: np.ndarray, timeout: timedelta):
     """One group per data column (a pipeline) and per stage row (the data
-    replicas of a stage) of ``grid``. ``dist.new_group`` is collective over
-    the default group: every rank of the world makes every group, in the
-    same order, whether it is a member or not."""
-    columns = [dist.new_group([int(r) for r in grid[:, j]], timeout=timeout)
-               for j in range(grid.shape[1])]
-    rows = [dist.new_group([int(r) for r in grid[i, :]], timeout=timeout)
-            for i in range(grid.shape[0])]
-    return columns, rows
+    replicas of a stage) of ``grid``; of a ``[stage, data, context]`` grid
+    one per ``(data, context)`` column, per ``(stage, context)`` row, per
+    ``(stage, data)`` context line and per stage's ``(data, context)``
+    plane, each list in row-major order. ``dist.new_group`` is collective
+    over the default group: every rank of the world makes every group, in
+    the same order, whether it is a member or not."""
+    def make(ranks):
+        return dist.new_group([int(r) for r in ranks], timeout=timeout)
+
+    if grid.ndim == 2:
+        columns = [make(grid[:, j]) for j in range(grid.shape[1])]
+        rows = [make(grid[i, :]) for i in range(grid.shape[0])]
+        return columns, rows
+    S, D, C = grid.shape
+    columns = [make(grid[:, j, c]) for j in range(D) for c in range(C)]
+    rows = [make(grid[i, :, c]) for i in range(S) for c in range(C)]
+    lines = [make(grid[i, j, :]) for i in range(S) for j in range(D)]
+    planes = [make(grid[i].reshape(-1)) for i in range(S)]
+    return columns, rows, lines, planes
 
 
 def survivor_mesh(mesh: Mesh, lost_stage: int) -> Optional[Mesh]:
@@ -481,6 +705,10 @@ def survivor_mesh(mesh: Mesh, lost_stage: int) -> Optional[Mesh]:
     A mesh made this way never touches the default group again."""
     from ..runtime import distributed as rd
 
+    if mesh.n_context is not None:
+        raise NotImplementedError(
+            "survivor_mesh takes a (stage, data) mesh; pipe_tpu's elastic "
+            "training has no context axis to carry over")
     if mesh.world_group is not None:
         raise RuntimeError(
             "survivor_mesh of a survivor mesh: the ranks retired by the "
@@ -522,6 +750,10 @@ def carve_meshes(grids: Sequence[np.ndarray], *, device=None) -> list:
             "carve_meshes needs an initialized world: "
             "runtime.distributed.initialize (or launch) first")
     grids = [np.asarray(g) for g in grids]
+    if any(g.ndim != 2 for g in grids):
+        raise ValueError(
+            "carve_meshes takes [n_stages, n_data] grids; pipe_tpu's replica "
+            "carve has no context axis")
     ranks = [int(r) for g in grids for r in g.reshape(-1)]
     world = dist.get_world_size()
     if len(set(ranks)) != len(ranks) or not all(0 <= r < world
@@ -545,7 +777,7 @@ def carve_meshes(grids: Sequence[np.ndarray], *, device=None) -> list:
     return out
 
 
-_MESHES: Dict[Tuple[int, int], Mesh] = {}
+_MESHES: Dict[tuple, Mesh] = {}
 
 
 def make_mesh(n_stages: int, n_data: Optional[int] = None, *,
@@ -553,20 +785,19 @@ def make_mesh(n_stages: int, n_data: Optional[int] = None, *,
               n_model: Optional[int] = None,
               device=None, grid: Optional[np.ndarray] = None) -> Mesh:
     """This rank's :class:`Mesh` over the initialized world
-    (``runtime.distributed.initialize``), ``n_stages`` x ``n_data`` ranks;
-    ``n_data=None`` takes every rank left (``world // n_stages``), as JAX
-    takes every device left. Stage is the outer axis, as in JAX. One mesh
-    per shape is made per process (its groups with it) and returned again.
-    ``device``: this rank's (default: the one ``initialize`` chose);
-    ``grid``: another placement of the ranks (``[n_stages, n_data]`` global
-    ranks; ``runtime.distributed.global_pipeline_mesh``)."""
-    for name, n, item in (("n_context", n_context, "A.10, the context axis"),
-                          ("n_model", n_model,
-                           "A.10, tensor-parallel stage params")):
-        if n is not None:
-            raise NotImplementedError(
-                f"make_mesh({name}={n}) is not ported to pipe_tpu_torch yet "
-                f"(ROADMAP.md: {item})")
+    (``runtime.distributed.initialize``), ``n_stages`` x ``n_data`` ranks,
+    x ``n_context`` with a context axis (innermost, as JAX lays it out);
+    ``n_data=None`` takes every rank left (``world // (n_stages *
+    n_context)``), as JAX takes every device left. Stage is the outer axis,
+    as in JAX. One mesh per shape is made per process (its groups with it)
+    and returned again. ``device``: this rank's (default: the one
+    ``initialize`` chose); ``grid``: another placement of the ranks
+    (``[n_stages, n_data]`` global ranks;
+    ``runtime.distributed.global_pipeline_mesh``)."""
+    if n_model is not None:
+        raise NotImplementedError(
+            f"make_mesh(n_model={n_model}) is not ported to pipe_tpu_torch "
+            f"yet (ROADMAP.md: A.10, tensor-parallel stage params)")
     if not dist.is_initialized():
         raise RuntimeError(
             "make_mesh needs an initialized world: "
@@ -574,25 +805,33 @@ def make_mesh(n_stages: int, n_data: Optional[int] = None, *,
     world = dist.get_world_size()
     if n_stages <= 0:
         raise ValueError("n_stages must be positive")
-    if world % n_stages:
-        raise ValueError(f"{world} ranks not divisible by "
-                         f"n_stages={n_stages}")
+    if n_context is not None and n_context <= 0:
+        raise ValueError("n_context must be positive (or None for no axis)")
+    ctx = n_context or 1
+    if world % (n_stages * ctx):
+        what = (f"n_stages={n_stages}" if n_context is None
+                else f"n_stages*n_context={n_stages * ctx}")
+        raise ValueError(f"{world} ranks not divisible by {what}")
     if n_data is None:
-        n_data = world // n_stages
-    if n_stages * n_data != world:
+        n_data = world // (n_stages * ctx)
+    if n_stages * n_data * ctx != world:
+        shape = f"{n_stages}x{n_data}" + (f"x{ctx}" if n_context else "")
         raise ValueError(
-            f"mesh {n_stages}x{n_data} needs {n_stages * n_data} ranks, the "
+            f"mesh {shape} needs {n_stages * n_data * ctx} ranks, the "
             f"world has {world}")
     if grid is None:
-        grid = mesh_grid(n_stages, n_data)
-    key = (n_stages, n_data, np.asarray(grid).tobytes())
+        grid = mesh_grid(n_stages, n_data, n_context)
+    elif n_context is not None:
+        raise ValueError("make_mesh(grid=) places a (stage, data) mesh only")
+    key = (n_stages, n_data, n_context, np.asarray(grid).tobytes())
     mesh = _MESHES.get(key)
     if mesh is None:
         from ..runtime import distributed as rd
         mesh = Mesh(n_stages, n_data,
                     device=torch.device(device) if device is not None
                     else rd.rank_device(),
-                    timeout=rd.world_timeout(), grid=grid)
+                    timeout=rd.world_timeout(), grid=grid,
+                    n_context=n_context)
         _MESHES[key] = mesh
     return mesh
 

@@ -126,8 +126,21 @@ the gauges ``scheduled.phase.active``, ``scheduled.phase.scan_cycles``,
 ``scheduled.phase.unrolled_cycles`` and ``scheduled.transport.overlap`` are
 ``pipe_tpu``'s.
 
-Context parallelism and tensor-parallel specs (A.8, with A.10) are not
-ported: their fields raise ``NotImplementedError`` when set.
+**Context parallelism** (``context_axis="context"``, over a mesh made with
+``n_context``): dim ``context_dim`` of every input leaf with more dims than
+that (the sequence of ``[m, rows, seq]`` tokens and targets) is sharded over
+the rank's context line beside its rows over data, so the stage bodies see
+sequence shards and attend over the line (``models/long_context_lm.py``).
+A stage's context line runs one column of the tables in one order, so its
+context collectives (inside the ops) never cross its stage messages
+(between them, over the column). The post must return a context-invariant
+value (a per-row loss averaged over the line); its copies on the line count
+once in the loss. Replicated parameters' gradients are summed over the
+stage's whole ``(data, context)`` plane in one all-reduce, as JAX's
+``_grad_reduce_axes``.
+
+Tensor-parallel specs (A.8, with A.10) are not ported: their field raises
+``NotImplementedError`` when set.
 """
 
 from __future__ import annotations
@@ -155,7 +168,6 @@ __all__ = ["ScheduledPipeline", "SkipLanes", "SplitBackwardStage"]
 
 # (field, the ROADMAP.md item that ports it)
 _NOT_PORTED = (
-    ("context_axis", "A.8, context parallelism"),
     ("stage_param_specs", "A.8, tensor-parallel stage params"),
 )
 
@@ -501,6 +513,21 @@ def _leading_rows(x) -> int:
     return int(leaf.shape[1])
 
 
+def _context_block(x, mesh, dim: int):
+    """Block ``mesh.context`` of ``mesh.n_context`` along ``dim`` of each
+    leaf with more than ``dim`` dims (JAX's ``P(..., context)`` in-spec)."""
+    if isinstance(x, dict):
+        return {k: _context_block(v, mesh, dim) for k, v in x.items()}
+    if x.dim() <= dim:
+        return x
+    n = mesh.context_size
+    if x.shape[dim] % n:
+        raise ValueError(f"dim {dim} of {tuple(x.shape)} does not shard "
+                         f"over {n} context ranks")
+    per = x.shape[dim] // n
+    return x.narrow(dim, mesh.context * per, per)
+
+
 def _to(x, device):
     if isinstance(x, dict):
         return {k: v.to(device) for k, v in x.items()}
@@ -543,6 +570,9 @@ class ScheduledPipeline:
       overlap_transport, phase_compile: None (auto), True or False: the
         overlapped transport and the phase-compiled walk (module
         docstring).
+      context_axis, context_dim: ``"context"`` over a mesh with that axis
+        shards dim ``context_dim`` of the input leaves over it (module
+        docstring).
     """
 
     stage_fn: Callable
@@ -562,6 +592,7 @@ class ScheduledPipeline:
     overlap_transport: Optional[bool] = None
     phase_compile: Optional[bool] = None
     mesh: Optional[Any] = None
+    context_dim: int = 2
 
     def __post_init__(self):
         validate_mode(self.checkpoint)
@@ -624,6 +655,10 @@ class ScheduledPipeline:
                 f"compute and the zero-bubble advantage is lost. Pair "
                 f"zero-bubble schedules with checkpoint='never'.",
                 stacklevel=2)
+        if self.context_axis and self.context_axis not in (
+                self.mesh.axis_names if self.mesh is not None else ()):
+            raise ValueError(
+                f"mesh has no {self.context_axis!r} axis for context_axis")
         if self.mesh is not None:
             if self.mesh.n_stages != self.n_stages:
                 raise ValueError(
@@ -1374,20 +1409,31 @@ class ScheduledPipeline:
 
     def _shard_rows(self, x, w=None):
         """On a mesh, this data rank's rows of ``x`` (and ``w``), with the
-        ctx's ``(offset, total)``; unchanged without one."""
+        ctx's ``(offset, total)``, and with ``context_axis`` this context
+        rank's block of dim ``context_dim`` of each leaf that has it;
+        unchanged without one."""
         self._rows = None
-        if self.mesh is None or self.mesh.n_data == 1:
+        if self.mesh is None:
             return x, w
-        from ..runtime.distributed import host_local_batch, rows_of
-        total = _leading_rows(x)
-        self._rows = tuple(rows_of(self.mesh, total))
-        return (host_local_batch(self.mesh, x),
-                None if w is None else host_local_batch(self.mesh, w))
+        if self.mesh.n_data > 1:
+            from ..runtime.distributed import host_local_batch, rows_of
+            total = _leading_rows(x)
+            self._rows = tuple(rows_of(self.mesh, total))
+            x = host_local_batch(self.mesh, x)
+            w = None if w is None else host_local_batch(self.mesh, w)
+        if self.context_axis:
+            x = _context_block(x, self.mesh, self.context_dim)
+        return x, w
+
+    def _grad_axes(self):
+        """The axes gradients sum over: data, and context with the axis."""
+        return ("data", "context") if self.context_axis else "data"
 
     def _reduce_grads(self, params: List[torch.Tensor]) -> None:
-        """Sum the gradients over the data group: one flat buffer per
-        dtype, one all-reduce each."""
-        if self.mesh is None or self.mesh.n_data == 1:
+        """Sum the gradients over the data group (the stage's ``(data,
+        context)`` plane with ``context_axis``): one flat buffer per dtype,
+        one all-reduce each."""
+        if self.mesh is None or self.mesh.group_size(self._grad_axes()) == 1:
             return
         by_dtype: Dict[torch.dtype, List[torch.Tensor]] = {}
         for p in params:
@@ -1396,7 +1442,7 @@ class ScheduledPipeline:
             by_dtype.setdefault(p.grad.dtype, []).append(p.grad)
         for grads in by_dtype.values():
             flat = torch.cat([g.reshape(-1) for g in grads])
-            self.mesh.all_reduce(flat, "data")
+            self.mesh.all_reduce(flat, self._grad_axes())
             off = 0
             for g in grads:
                 g.copy_(flat[off:off + g.numel()].view_as(g))
@@ -1527,6 +1573,8 @@ class ScheduledPipeline:
         total = st.loss.detach()
         if self.mesh is not None:
             self.mesh.all_reduce(total, "world")
+            if self.context_axis:      # each context rank holds a copy
+                total = total / self.mesh.context_size
         loss = total * st.inv_wsum
         if self.stat_spec is not None:
             return loss, grads, self._reduce_stats(st.stats)

@@ -13,6 +13,14 @@ remats every micro-batch, ``spmd.py:19-26``) computes the same numbers and
 is not kept. :func:`stack_stage_params` and :func:`unstack_stage_params`
 are JAX's stage-stacked layout, for carrying weights between the packages
 (``convert.py``).
+
+``context_axis="context"`` (over ``make_mesh(..., n_context=)``) shards dim
+``context_dim`` of the input leaves over the context line
+(``ScheduledPipeline``'s context parallelism); the post must then return a
+context-invariant value, such as ``ContextParallelLM.loss_post_fn``'s loss
+averaged over the line. ``debug_context_check`` checks that at run time:
+an output that differs across the line by more than 1e-5 is poisoned with
+NaN and one line is printed.
 """
 
 from __future__ import annotations
@@ -65,21 +73,68 @@ class SpmdPipeline:
     mesh: Optional[Any] = None
     device: Any = DEFAULT_DEVICE
     schedule: Any = dataclasses.field(default="gpipe", init=False)
+    context_axis: Optional[str] = None
+    context_dim: int = 2
+    debug_context_check: bool = False
 
     def __post_init__(self):
+        if self.context_axis and self.post_fn is None:
+            raise ValueError(
+                "context_axis requires a post_fn whose output is context-"
+                "invariant (e.g. a pmean'd loss); the identity post would "
+                "silently return one context shard's activations")
         # pipe_tpu's SpmdPipeline is no table executor: its transport is
         # never overlapped nor phase-compiled
         self.executor = ScheduledPipeline(
             self.stage_fn, self.pre_fn, self._post, n_stages=self.n_stages,
             module=self.module, checkpoint=self.checkpoint,
             schedule=self.schedule, device=self.device, mesh=self.mesh,
-            overlap_transport=False, phase_compile=False)
+            overlap_transport=False, phase_compile=False,
+            context_axis=self.context_axis, context_dim=self.context_dim)
         self.device = self.executor.device
 
     def _post(self, h, x_mb, ctx):
         if self.post_with_batch:
-            return self.post_fn(h, x_mb, ctx)
-        return self.post_fn(h, ctx)
+            out = self.post_fn(h, x_mb, ctx)
+        else:
+            out = self.post_fn(h, ctx)
+        if self.context_axis and self.debug_context_check:
+            out = self._context_checked(out)
+        return out
+
+    def _context_checked(self, out):
+        """The context-invariance contract, made loud: the largest deviation
+        of a float output from its mean over the context line (the line's
+        largest, so every rank agrees); past 1e-5 every float output is
+        poisoned with NaN and context rank 0 prints one line."""
+        from ..parallel.mesh import CONTEXT_AXIS
+
+        leaves = [o for o in (out if isinstance(out, (tuple, list))
+                              else (out,))
+                  if isinstance(o, torch.Tensor) and o.is_floating_point()]
+        if not leaves or self.mesh is None:
+            return out
+        with torch.no_grad():
+            dev = []
+            for o in leaves:
+                mean = o.detach().float().clone()
+                self.mesh.all_reduce(mean, CONTEXT_AXIS)
+                mean /= self.mesh.context_size
+                dev.append((o.detach().float() - mean).abs().max())
+            delta = torch.stack(dev).max().reshape(1)
+            self.mesh.all_reduce(delta, CONTEXT_AXIS, op="max")
+        if float(delta) <= 1e-5:
+            return out
+        if self.mesh.context == 0:
+            print(f"pipe_tpu context-invariance VIOLATION: post_fn output "
+                  f"differs across context shards by {float(delta):.3e}; it "
+                  f"must end in a pmean/psum over the context axis. Outputs "
+                  f"are poisoned with NaN.", flush=True)
+        poison = lambda o: (o + float("nan") if isinstance(o, torch.Tensor)
+                            and o.is_floating_point() else o)
+        if isinstance(out, (tuple, list)):
+            return type(out)(poison(o) for o in out)
+        return poison(out)
 
     def __call__(self, x, *, seed: Optional[int] = None,
                  train: bool = False):

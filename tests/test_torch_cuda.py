@@ -7,9 +7,12 @@ the kernels at BERT-large's shape, GPT-2 served against its ``Generator``,
 KV-cached generation (which runs no kernel) against the Pipe forward, and
 the training telemetry's readers of the card (memory peaks, the H100's peak
 FLOP/s, a profiled emulator step's per-stage timeline from the device
-trace), and the table walk's overlapped and phase-compiled transports over
-two ranks sharing the card (the staged, double-buffered one-round path).
-Skipped without a card.
+trace), the table walk's overlapped and phase-compiled transports over
+two ranks sharing the card (the staged, double-buffered one-round path),
+Ulysses attention through the kernels at the context phase's (16, 2048, 64)
+shape, and ring and Ulysses attention and a ring LM step over a context
+line of two ranks sharing the card against one device. Skipped without a
+card.
 
 This file imports only torch and pipe_tpu_torch, so it runs on a machine
 without JAX; there, skip the repo's JAX conftest:
@@ -803,3 +806,101 @@ def test_overlapped_transport_over_ranks_on_the_card(cuda):
         assert [run["plan"]["transport"] for run in r["runs"]] == [
             "serialized", "overlapped", "phase-compiled"]
         assert r["runs"][1]["wait_s"] > 0
+
+
+def test_ulysses_attention_runs_the_kernels(cuda):
+    """Ulysses' default attention on the card at the context phase's shape
+    (2 rows x 8 heads, 2,048 tokens, head dim 64, causal): one forward,
+    one dQ and one dK/dV launch, and the output and gradients of its plain
+    version (``attn_fn`` = plain attention) within 1e-4 x max(1, max|ref|)."""
+    from pipe_tpu_torch.ops.layers import dot_product_attention
+    from pipe_tpu_torch.ops.ulysses_attention import ulysses_attention
+
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    q, k, v, do = [torch.randn((2, 2048, 8, 64), generator=gen, device=cuda)
+                   for _ in range(4)]
+    counters = (tfa.flash_attention_fwd, tfa.flash_attention_bwd_dq,
+                tfa.flash_attention_bwd_dkv)
+    before = [c.launches for c in counters]
+    ins = [t.clone().requires_grad_() for t in (q, k, v)]
+    o = ulysses_attention(*ins, None, causal=True)
+    grads = torch.autograd.grad(o, ins, do)
+    torch.cuda.synchronize()
+    assert [c.launches - b for c, b in zip(counters, before)] == [1, 1, 1]
+    ref_in = [t.clone().requires_grad_() for t in (q, k, v)]
+    ref = ulysses_attention(*ref_in, None, causal=True,
+                            attn_fn=lambda a, b, c, causal:
+                            dot_product_attention(a, b, c, causal=causal))
+    ref_grads = torch.autograd.grad(ref, ref_in, do)
+    for got, want in ((o, ref), *zip(grads, ref_grads)):
+        scale = max(1.0, want.abs().max().item())
+        assert (got - want).abs().max().item() <= TOL * scale
+
+
+@pytest.mark.parametrize("impl", ["ring", "ulysses"])
+def test_context_attention_over_two_ranks_on_the_card(cuda, impl):
+    """A context line of two ranks sharing the card over gloo
+    (``tests/torch_context_cases.py``): causal attention's output and the
+    gradients of ``sum(o ** 2)``, the ring's K/V hops and Ulysses'
+    all-to-alls staged through pinned host buffers, against one device's
+    blockwise attention."""
+    import numpy as np
+
+    import torch_context_cases as cases
+    from pipe_tpu_torch.ops.ring_attention import \
+        blockwise_attention_reference
+    from pipe_tpu_torch.runtime import World
+
+    rng = np.random.default_rng(0)
+    q, k, v = (rng.standard_normal((2, 256, 4, 64)).astype(np.float32)
+               for _ in range(3))
+    with World(2, device="cuda", threads=1, timeout=300.0) as world:
+        ranks = world.run(cases.attention, (1, 1, 2), q, k, v, True, impl,
+                          False, False, "cuda")
+    ins = [torch.from_numpy(a).to(cuda).requires_grad_() for a in (q, k, v)]
+    want = blockwise_attention_reference(*ins, causal=True)
+    (want ** 2).sum().backward()
+    ranks.sort(key=lambda r: r["context"])
+    got = np.concatenate([r["o"] for r in ranks], axis=1)
+    pairs = [(got, want)] + [
+        (np.concatenate([r["grads"][i] for r in ranks], axis=1), t.grad)
+        for i, t in enumerate(ins)]
+    for g, w in pairs:
+        w = w.detach().cpu().numpy()
+        assert np.abs(g - w).max() <= TOL * max(1.0, np.abs(w).max())
+    assert all(r["stats"]["staged_bytes"] > 0 for r in ranks)
+
+
+def test_ring_lm_step_over_two_ranks_on_the_card(cuda):
+    """A ``ContextParallelLM`` step through ``SpmdPipeline(context_axis=)``
+    over a context line of two ranks sharing the card (the ring's K/V
+    hops and the loss's context mean staged through host memory): its loss
+    and gradients are the one-device LM's on the same seed-drawn weights,
+    within 1e-5 relative and 1e-4 x max(1, max|g|)."""
+    import numpy as np
+
+    import torch_context_cases as cases
+    from pipe_tpu_torch.models.common import per_row_ce
+    from pipe_tpu_torch.runtime import World
+
+    cfg_kw = dict(vocab=101, d_model=64, nhead=4, d_ff=128, n_layers=2,
+                  seq_len=64, dropout=0.0)
+    rng = np.random.default_rng(0)
+    toks = rng.integers(0, 101, (2, 2, 64)).astype(np.int64)
+    x = {"tokens": toks, "targets": np.roll(toks, -1, -1)}
+    with World(2, device="cuda", threads=1, timeout=300.0) as world:
+        ranks = world.run(cases.seeded_step, cfg_kw, (1, 1, 2), x, "ring",
+                          "cuda")
+    cfg = pt.LMConfig(attn_impl="xla", **cfg_kw)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    model = pt.PipelinedLM(cfg, 1, device=cuda, generator=gen)
+    t = torch.from_numpy(toks.reshape(4, 64)).to(cuda)
+    loss = per_row_ce(model.decoder(model.stage_fn(0, model.pre_fn(t))),
+                      t.roll(-1, -1)).mean()
+    loss.backward()
+    for r in ranks:
+        assert abs(r["loss"] - loss.item()) <= 1e-5 * abs(loss.item())
+        for name, p in model.named_parameters():
+            want = p.grad.cpu().numpy()
+            err = np.abs(r["grads"][name] - want).max()
+            assert err <= TOL * max(1.0, np.abs(want).max()), name

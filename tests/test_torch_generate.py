@@ -544,8 +544,10 @@ def test_generate_cli_resumes_a_trainer_checkpoint(tmp_path, capsys):
     (["--stages", "2", "--batch", "3"],
      "--batch 3 must divide into --stages 2 ring groups"),
     (["--prompts-file", "p.txt"], "no such file"),
-    (["--context-shards", "2"], "A.10"),
-    (["--family", "gpt2", "--context-shards", "2"], "A.10"),
+    (["--context-shards", "3"],
+     "prompt length 4 must divide over 3 context shards"),
+    (["--family", "gpt2", "--context-shards", "2"],
+     "--context-shards composes only with the plain LM"),
     (["--prompt", "1,x"], "comma-separated integer"),
     (["--prompt", "1,101"], r"prompt ids must be in \[0, 101\)"),
     (["--prompt", ""], r"prompt ids must be in \[0, 101\)"),

@@ -135,6 +135,17 @@ from pipe_tpu_torch.core import packing
 from pipe_tpu_torch.parallel import (buffers, hetero, interleaved, mesh,
                                      spmd)
 from pipe_tpu_torch.train import zero
+from pipe_tpu_torch.inference import long_context
+from pipe_tpu_torch.models.long_context_lm import ContextParallelLM
+from pipe_tpu_torch.ops import ring_attention, ulysses_attention
+from pipe_tpu_torch.parallel import context
+cp = ContextParallelLM(cfg, 2, "ulysses", device="cpu")
+x = {"tokens": torch.randint(0, cfg.vocab, (2, cfg.seq_len))}
+x["targets"] = x["tokens"].roll(-1, -1)
+assert cp.loss_post_fn(cp.stage_fn(1, cp.stage_fn(0, cp.pre_fn(x))),
+                       x).shape == (2,)
+assert gen_app.main(["--tiny", "--device", "cpu", "--max-new", "3",
+                     "--context-shards", "2"]) == 0
 bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib")
        and sys.modules[m] is not None]
 assert not bad, bad
@@ -189,6 +200,9 @@ for make in (lambda: Linear(4, 4),
                  [pt.Sequential([Linear(4, 4, device="cpu")])], None, 2),
              lambda: pt.PipelinedLM(pt.LMConfig().tiny()),
              lambda: gen_app.main(["--tiny"]),
+             lambda: gen_app.main(["--tiny", "--context-shards", "2"]),
+             lambda: __import__("pipe_tpu_torch.models.long_context_lm")
+             .models.long_context_lm.ContextParallelLM(pt.LMConfig().tiny()),
              lambda: pt.build_sequential(pt.LMConfig().tiny()),
              lambda: pt.Pipe(pt.Sequential([Linear(4, 4, device="cpu")])),
              lambda: Trainer(pt.LMConfig().tiny(), TrainerConfig()),

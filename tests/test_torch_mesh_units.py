@@ -293,16 +293,22 @@ def test_refusals_name_their_items(monkeypatch):
     from pipe_tpu_torch.parallel.scheduled import ScheduledPipeline
     from pipe_tpu_torch.ops.layers import Linear
 
-    with pytest.raises(NotImplementedError, match="A.10, the context axis"):
+    # the context axis is ported: make_mesh(n_context=) needs a world like
+    # any mesh, and context_axis a mesh with the axis (JAX's words)
+    with pytest.raises(RuntimeError, match="initialize"):
         tmesh.make_mesh(2, 1, n_context=2)
     with pytest.raises(NotImplementedError, match="A.10, tensor-parallel"):
         tmesh.make_mesh(2, 1, n_model=2)
-    for field in ("context_axis", "stage_param_specs"):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md: A.8"):
+    for field, exc, words in (
+            ("context_axis", ValueError,
+             "mesh has no 'context' axis for context_axis"),
+            ("stage_param_specs", NotImplementedError,
+             "ROADMAP.md: A.8, tensor-parallel stage params")):
+        with pytest.raises(exc, match=words):
             ScheduledPipeline(lambda s, h, c: h, lambda x, c: x,
                               lambda h, x, c: h, n_stages=1,
                               module=Linear(2, 2, device="cpu"),
-                              device="cpu", **{field: True})
+                              device="cpu", **{field: "context"})
     with pytest.raises(RuntimeError, match="initialize"):
         tmesh.make_mesh(2, 2)
     with pytest.raises(ValueError, match="'nccl' moves CUDA"):

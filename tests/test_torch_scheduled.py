@@ -309,8 +309,17 @@ def test_forward_walks_the_fwd_ops(schedule):
     ("context_axis", "ctx", "A.8"),
     ("stage_param_specs", {}, "A.8")])
 def test_unported_fields_raise_naming_their_item(field, value, item):
+    """``stage_param_specs`` is not ported and names its item;
+    ``context_axis`` is, and refuses a mesh without the axis (here none)
+    with JAX's ``ValueError``."""
     model = tlm.PipelinedLM(tlm.LMConfig().tiny(), 2, device="cpu")
     assert field in {f.name for f in dataclasses.fields(JPipeline)}
+    if field == "context_axis":
+        with pytest.raises(ValueError,
+                           match=f"mesh has no '{value}' axis for "
+                                 f"context_axis"):
+            port_pipeline(model, 2, "1f1b", "never", **{field: value})
+        return
     with pytest.raises(NotImplementedError, match=f"ROADMAP.md: {item}"):
         port_pipeline(model, 2, "1f1b", "never", **{field: value})
 
