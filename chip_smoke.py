@@ -172,7 +172,7 @@ exits non-zero without a result line:
    over the 24 stages: loss within 1e-5 relative and every gradient within
    1e-4 x max(1, max|g|) of the interleaved table's. (c) ``apps.zoo bert
    --stages 8 --interleave 3 --schedule interleaved-1f1b --chunks 32
-   --batch 32 --lr 1e-4``: 4 dropout-0.1 steps, every loss finite. (d)
+   --batch 32 --lr 1e-4``: 2 dropout-0.1 steps, every loss finite. (d)
    Its forward, dQ and dK/dV launches pinned to ``stage_passes``: 24 x (32
    + 31) forwards and 768 each of dQ and dK/dV a step. (e) The zoo's first
    2 steps again with ``remat_policy="dots_saveable"``: trajectory within
@@ -446,13 +446,13 @@ exits non-zero without a result line:
    (per-row losses, the gradients of their mean), and the one-device
    ``Generator``'s tokens. (a) Ulysses: ``SpmdPipeline(context_axis=)``
    over ``ContextParallelLM(sp_impl="ulysses")`` on a (1, 1, 4) mesh,
-   chunks 2, 3 ``loss_and_grad`` steps: per-row losses and the loss within
+   chunks 2, 1 ``loss_and_grad`` step: per-row losses and the loss within
    1e-5 relative of the twin's, every gradient within 1e-4 x max(1,
    max|g|), each rank's forward, dQ and dK/dV launches a step equal to the
    table's (32 each: 2 micro-batches x 16 layers, the kernels at (16,
    2048, 64) causal). (b) The ring: the 1f1b table (except_last) with
    ``context_axis`` over ``ContextParallelLM(sp_impl="ring")`` on a (2, 1,
-   2) mesh, chunks 4, 3 serialized steps: the same twin gates, no kernel
+   2) mesh, chunks 4, 1 serialized step: the same twin gates, no kernel
    launched (the ring's softmax is einsums); one overlapped and one
    phase-compiled step bit for bit the first serialized one. (c)
    ``ContextShardedGenerator`` over a (1, 1, 4) mesh, a 4,096-token prompt,
@@ -470,6 +470,39 @@ exits non-zero without a result line:
    seconds, the gradient all-reduce, peak bytes; the generator's prefill
    ms, ms per generated token and the decode collectives' share; all
    beside the card's name and power limit.
+
+16. tp -- run after phase 15, in the same world of 4 ranks, the model axis
+   (``make_mesh(..., n_model=)``, tensor parallelism) at the tutorial LM's
+   full width (``LMConfig`` defaults: d_model 2048, 32 heads, d_ff 2048,
+   16 layers, bptt 128, the corpus vocabulary), dropout 0, with random
+   weights and tokens from seeds, through ``TPPipelinedLM`` (Megatron's
+   column/row split: two all-reduces over the model line a block, the
+   attention einsums and a float32 softmax, no kernel). The one-device
+   twins run first in the parent: ``TPPipelinedLM(tp_axis=None)`` on the
+   same weights through the one-device table executor (1f1b,
+   except_last, batch 32, chunks 4; per-row losses, the loss and its
+   gradients), and the one-device ``Generator``'s tokens. (a)
+   ``ScheduledPipeline(stage_param_specs=)`` over a (2, 1, 2) mesh,
+   1f1b/except_last, 2 ``loss_and_grad`` steps: each step's loss and the
+   per-row losses (``forward`` and ``loss_post_fn`` on the last stage's
+   ranks) within 1e-5 relative of the twin's, every gradient, gathered
+   over the model line into whole leaves, within 1e-4 x max(1, max|g|),
+   no flash launch on any rank, and the two ranks of a model line hold
+   bitwise-equal replicated gradients (digests of their bytes). (b) A
+   (1, 2, 2) mesh (data and model) at 8 layers, one step, the same gates
+   against its own twin. (c) ``TPShardedGenerator`` over (1, 1, 4), batch
+   2, a 128-token prompt: 32 greedy tokens equal to the one-device
+   ``Generator``'s except at near ties (phase 12's rule), beam 2 over 8
+   tokens equal with scores within 1e-5 relative, every rank's tokens
+   equal, no kernel launched; the sampled stream's (8 tokens) agreement
+   with the one-device ``Generator``'s for the seed is printed, not
+   gated. (d) In the parent, one zb-h1/never step with
+   ``tp_split_backward_stage`` at 8 layers held to the 1f1b/never step of
+   the same parameters within the same bounds (ROADMAP.md C.4: never to
+   ``pipe_tpu``'s split). Prints per rank and step: ms, the model line's
+   all-reduces (count, bytes, seconds), the staged bytes and the peak; the
+   generator's prefill ms, ms per generated token and the decode
+   collectives' share; all beside the card's name and power limit.
 
 Before every phase the collector runs and the allocator's cache is
 emptied, and the phase's starting ``memory_allocated`` and the script's
@@ -589,7 +622,7 @@ GPT2_TIE = 1e-4
 # steps of (e) under the policy.
 BERT_STAGES, BERT_INTERLEAVE, BERT_CHUNKS, BERT_BATCH = 8, 3, 32, 32
 BERT_POLICY_STEPS = 2
-BERT_ZOO_STEPS = 4
+BERT_ZOO_STEPS = 2
 # ViT phase: BASELINE config #5 (8 stages, chunks 8, batch 32) and its
 # uneven Pipe balance over embed + 24 blocks + head.
 VIT_STAGES, VIT_CHUNKS, VIT_BATCH = 8, 8, 32
@@ -4611,17 +4644,21 @@ def phase_fleet(smi: str, gap: float = FLEET_GAP) -> dict:
                                      f"stitched delivered/terminal records")
 
             # (b) the kill: SIGKILL one child while it holds work
-            victim = FLEET_REPLICAS - 1
             marks = {}
 
             def kill_when_busy(c, got):
-                # at the victim's first tick with work in flight (waiting
-                # for a delivery first let the victim drain on some runs)
-                if "kill" not in marks and trs[victim]._inflight:
-                    _os.kill(trs[victim]._proc.pid, signal.SIGKILL)
+                # at the first tick with work in flight (waiting for a
+                # delivery first let the victim drain on some runs), the
+                # last child that holds some: the placement decides which
+                # children get work in this drive (the prefixes the earlier
+                # drives left hot may keep one child idle throughout)
+                busy = [i for i, t in enumerate(trs) if t._inflight]
+                if "kill" not in marks and busy:
+                    marks["victim"] = busy[-1]
+                    _os.kill(trs[busy[-1]]._proc.pid, signal.SIGKILL)
                     marks["kill"] = time.perf_counter()
                 if "kill" in marks and "retired" not in marks \
-                        and c.replicas[victim].state == RETIRED:
+                        and c.replicas[marks["victim"]].state == RETIRED:
                     marks["retired"] = time.perf_counter()
 
             t0 = time.perf_counter()
@@ -4640,6 +4677,7 @@ def phase_fleet(smi: str, gap: float = FLEET_GAP) -> dict:
                 return f"{n / max(b - a, 1e-9):.1f}"
 
             out["failover"] = dict(
+                victim=marks["victim"],
                 before_tok_s=rate(t0, marks["kill"]),
                 failover_tok_s=rate(marks["kill"], t_ret),
                 after_tok_s=rate(t_ret, t_end + 1e-6),
@@ -6563,7 +6601,7 @@ CTX_SEQ = 2048               # the global sequence of (a) and (b)
 CTX_BATCH = 4
 CTX_ULYSSES = ((1, 1, 4), 2)     # (stages, data, context), chunks
 CTX_RING = ((2, 1, 2), 4)
-CTX_STEPS = 3
+CTX_STEPS = 1
 CTX_GEN_PROMPT = 4096
 CTX_GEN_BATCH = 2
 CTX_GEN_NEW = 32
@@ -6958,6 +6996,444 @@ def phase_context(smi: str, world=None) -> dict:
     return launches
 
 
+TP_WORLD = 4
+TP_WEIGHT_SEED = 37
+TP_DATA_SEED = 41
+TP_BATCH = 32
+TP_CHUNKS = 4
+TP_PP = ((2, 1, 2), 16, 2)       # (stages, data, model), layers, steps
+TP_DP = ((1, 2, 2), MESH_LAYERS, 1)
+TP_SPLIT_LAYERS = 8
+TP_GEN_SHAPE = (1, 1, 4)
+TP_GEN_BATCH = 2
+TP_GEN_PROMPT = 128
+TP_GEN_NEW = 32
+TP_BEAMS = 2
+TP_BEAM_NEW = 8
+TP_SAMPLE_SEED = 43
+TP_SAMPLED_NEW = 8           # the sampled stream: a figure, not a gate
+TP_THREADS = 2
+TP_TIMEOUT_S = 600.0
+TOL_TP_LOSS = 1e-5           # loss and per-row losses, relative to the twin
+TOL_TP_GRAD = 1e-4           # of max(1, max|g|) per parameter
+TOL_TP_SCORES = 1e-5         # beam scores, relative
+
+
+def _tp_model(vocab: int, n_layers: int, n_stages: int, *, mesh=None,
+              tp_axis="model", device="cuda", overrides=None):
+    """``TPPipelinedLM`` at full width (``overrides``: a smaller config,
+    for a CPU rehearsal), dropout 0, on ``device``, its weights drawn from
+    phase 16's seed (the same bits in every process: one seed on one card,
+    whatever the stage count or ``tp_axis``)."""
+    from pipe_tpu_torch.models.tp_lm import TPPipelinedLM
+    from pipe_tpu_torch.models.transformer_lm import LMConfig
+    cfg = dataclasses.replace(
+        LMConfig(vocab=vocab, dropout=0.0, n_layers=n_layers),
+        **(overrides or {}))
+    return TPPipelinedLM(cfg, n_stages, tp_axis, mesh=mesh, device=device,
+                         generator=torch.Generator(device=device).manual_seed(
+                             TP_WEIGHT_SEED))
+
+
+def _tp_batch(tokens):
+    """The micro-batched tokens and unit row weights of phase 16."""
+    from pipe_tpu_torch.core import microbatch as mb
+    x, _ = mb.stack_scatter({"tokens": tokens, "targets": tokens.roll(-1, -1)},
+                            TP_CHUNKS)
+    return x, torch.ones(TP_CHUNKS, TP_BATCH // TP_CHUNKS,
+                         device=tokens.device)
+
+
+def _peak_reset(device) -> None:
+    if torch.device(device).type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+
+
+def _peak(device) -> int:
+    return (torch.cuda.max_memory_allocated()
+            if torch.device(device).type == "cuda" else 0)
+
+
+def _tp_table(model, n_stages, checkpoint="except_last", schedule="1f1b",
+              **kw):
+    from pipe_tpu_torch.parallel.scheduled import ScheduledPipeline
+    return ScheduledPipeline(model.stage_fn, model.pre_fn, model.loss_post_fn,
+                             n_stages=n_stages, module=model,
+                             checkpoint=checkpoint, schedule=schedule, **kw)
+
+
+def _tp_per_row(ex, model, x, rows=None):
+    """Per-row losses ``[m, rows]`` of the forward's last-stage outputs
+    (this data rank's ``rows`` slice of each micro-batch), or None on a
+    rank without the last stage."""
+    with torch.no_grad():
+        outs = ex.forward(x)
+        if outs is None:
+            return None
+        tg = x["targets"] if rows is None else x["targets"][:, rows]
+        return torch.stack([model.loss_post_fn(outs[i], {"targets": tg[i]})
+                            for i in range(outs.shape[0])]).cpu()
+
+
+def _tp_refs(tmp: str, vocab: int, overrides=None, device="cuda") -> dict:
+    """The one-device twins, in the parent: ``TPPipelinedLM(tp_axis=None)``
+    through the one-device table executor (1f1b, except_last) at (a)'s 16
+    layers over 2 stages and (b)'s 8 over 1 (per-row losses, the loss and
+    its gradients, written to files the ranks read), and the one-device
+    ``Generator``'s greedy, beam and sampled tokens over (c)'s prompt with
+    the greedy stream's near-tie margins. ``overrides`` and ``device``: a
+    CPU rehearsal's."""
+    from pipe_tpu_torch.inference import GenerationConfig, Generator
+
+    seq = (overrides or {}).get("seq_len", BPTT)
+    gen = torch.Generator(device=device).manual_seed(TP_DATA_SEED)
+    tokens = torch.randint(0, vocab, (TP_BATCH, seq), generator=gen,
+                           device=device)
+    prompt = torch.randint(0, vocab, (TP_GEN_BATCH, TP_GEN_PROMPT),
+                           generator=gen, device=device)
+    torch.save({"tokens": tokens.cpu(), "prompt": prompt.cpu()},
+               os.path.join(tmp, "tp.pt"))
+    x, w = _tp_batch(tokens)
+    refs = {}
+    for name, ((n_stages, _, _), n_layers, _) in (("pp", TP_PP),
+                                                  ("dp", TP_DP)):
+        model = _tp_model(vocab, n_layers, n_stages, tp_axis=None,
+                          device=device, overrides=overrides)
+        ex = _tp_table(model, n_stages, device=device)
+        _sync(device)
+        t0 = time.perf_counter()
+        loss, grads = ex.loss_and_grad(x, w)
+        _sync(device)
+        refs[f"{name}_ms"] = (time.perf_counter() - t0) * 1e3
+        refs[f"{name}_loss"] = float(loss)
+        refs[f"{name}_per_row"] = _tp_per_row(ex, model, x)
+        torch.save({"grads": {n: g.detach().cpu() for n, g in grads.items()},
+                    "per_row": refs[f"{name}_per_row"], "loss": float(loss)},
+                   os.path.join(tmp, f"twin_{name}.pt"))
+        del grads, ex
+        if name == "pp":
+            with torch.no_grad():
+                greedy = Generator(model, GenerationConfig(
+                    max_new_tokens=TP_GEN_NEW, temperature=0.0)
+                ).generate(prompt)
+                refs["greedy"] = greedy.cpu()
+                refs["margins"] = [_rel_margins(model, prompt[i].tolist(),
+                                                greedy[i].tolist())
+                                   for i in range(TP_GEN_BATCH)]
+                toks, scores = Generator(model, GenerationConfig(
+                    max_new_tokens=TP_BEAM_NEW, num_beams=TP_BEAMS)
+                ).generate_with_scores(prompt)
+                refs["beam"], refs["beam_scores"] = toks.cpu(), scores.cpu()
+                refs["sampled"] = Generator(model, GenerationConfig(
+                    max_new_tokens=TP_SAMPLED_NEW,
+                    temperature=RING_TEMPERATURE, top_k=RING_TOP_K)
+                ).generate(prompt, seed=TP_SAMPLE_SEED).cpu()
+        del model
+        gc.collect()
+        if device == "cuda":
+            torch.cuda.empty_cache()
+    return refs
+
+
+def _tp_rank(tmp: str, vocab: int, overrides=None) -> dict:
+    """On each rank of the world: gates (a)-(c) of phase 16 (its
+    docstring), against the twins' files; every rank returns its own
+    numbers. ``overrides``: a smaller config, for a CPU rehearsal (the
+    mesh's device then is the CPU)."""
+    import hashlib
+
+    import torch.distributed as dist
+
+    from pipe_tpu_torch.inference import GenerationConfig
+    from pipe_tpu_torch.inference.generate import head_logits
+    from pipe_tpu_torch.inference.pipelined import stage_modules
+    from pipe_tpu_torch.inference.tp import TPShardedGenerator
+    from pipe_tpu_torch.ops.layers import causal_table
+    from pipe_tpu_torch.parallel.mesh import MODEL_AXIS, localize, make_mesh
+
+    from pipe_tpu_torch.runtime.distributed import rank_device
+
+    dev = rank_device()
+    data = torch.load(os.path.join(tmp, "tp.pt"))
+    x, w = _tp_batch(data["tokens"].to(dev))
+    out = {"rank": dist.get_rank()}
+
+    for name, (shape, n_layers, steps) in (("pp", TP_PP), ("dp", TP_DP)):
+        twin = torch.load(os.path.join(tmp, f"twin_{name}.pt"), mmap=True)
+        mesh = make_mesh(shape[0], shape[1], n_model=shape[2])
+        model = _tp_model(vocab, n_layers, shape[0], mesh=mesh, device=dev,
+                          overrides=overrides)
+        if shape[0] > 1:
+            localize(model, stage_modules(model, mesh.stage, shape[0]), dev)
+        ex = _tp_table(model, shape[0], mesh=mesh,
+                       stage_param_specs=model.stage_param_specs())
+        sharded = {n for n, spec in ex._param_specs.items()
+                   if spec.dim_of(MODEL_AXIS) is not None}
+        _peak_reset(dev)
+        runs = []
+        for i in range(steps):
+            model.zero_grad(set_to_none=True)
+            _sync(dev)
+            _zero_launches()
+            mesh.reset_stats()
+            t0 = time.perf_counter()
+            loss, grads = ex.loss_and_grad(x, w)
+            _sync(dev)
+            rec = dict(loss=float(loss), ms=(time.perf_counter() - t0) * 1e3,
+                       launches=_rank_counts(),
+                       transport=mesh.stats.as_dict(),
+                       loss_rel=abs(float(loss) - twin["loss"])
+                       / abs(twin["loss"]))
+            if i == 0:
+                rec["digests"] = {
+                    n: hashlib.blake2b(g.detach().cpu().numpy().tobytes(),
+                                       digest_size=16).hexdigest()
+                    for n, g in grads.items() if n not in sharded}
+                rec["n_sharded"] = len(sharded & set(grads))
+                rec["grad_err"] = _grad_err(ex.gather_model_grads(grads),
+                                            twin["grads"])
+            runs.append(rec)
+            del grads
+        peak = _peak(dev)
+        per = TP_BATCH // TP_CHUNKS // shape[1]
+        rows = slice(mesh.data * per, (mesh.data + 1) * per)
+        got = _tp_per_row(ex, model, x, rows)
+        per_row_rel = None
+        if got is not None:
+            want = twin["per_row"][:, rows]
+            per_row_rel = ((got - want).abs() / want.abs()).max().item()
+        out[name] = dict(steps=runs, per_row_rel=per_row_rel,
+                         peak_bytes=peak, stage=mesh.stage, data=mesh.data,
+                         model=mesh.model)
+        del ex, model, twin
+        gc.collect()
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+
+    # (c) the generator over a model line of 4: greedy (its prefill timed
+    # alone first), beam, sampled
+    mesh = make_mesh(*TP_GEN_SHAPE[:2], n_model=TP_GEN_SHAPE[2])
+    model = _tp_model(vocab, 16, 1, mesh=mesh, device=dev,
+                      overrides=overrides)
+    prompt = data["prompt"].to(dev)
+    g = TPShardedGenerator(mesh, model, GenerationConfig(
+        max_new_tokens=TP_GEN_NEW, temperature=0.0))
+    _zero_launches()
+    _peak_reset(dev)
+    total = TP_GEN_PROMPT + TP_GEN_NEW
+    with torch.inference_mode():
+        _sync(dev)
+        mesh.reset_stats()
+        t0 = time.perf_counter()
+        h, _ = g._prefill(prompt, total, causal_table(total, prompt.device))
+        head_logits(model, h[:, -1])
+        _sync(dev)
+        prefill_ms = (time.perf_counter() - t0) * 1e3
+        prefill_stats = mesh.stats.as_dict()
+        del h
+    mesh.reset_stats()
+    t0 = time.perf_counter()
+    greedy = g.generate(prompt)
+    _sync(dev)
+    total_ms = (time.perf_counter() - t0) * 1e3
+    stats = mesh.stats.as_dict()
+    decode_ms = total_ms - prefill_ms
+    beam, scores = TPShardedGenerator(mesh, model, GenerationConfig(
+        max_new_tokens=TP_BEAM_NEW, num_beams=TP_BEAMS)
+    ).generate_with_scores(prompt)
+    sampled = TPShardedGenerator(mesh, model, GenerationConfig(
+        max_new_tokens=TP_SAMPLED_NEW, temperature=RING_TEMPERATURE,
+        top_k=RING_TOP_K)).generate(prompt, seed=TP_SAMPLE_SEED)
+    out["generate"] = dict(
+        greedy=greedy.cpu(), beam=beam.cpu(), beam_scores=scores.cpu(),
+        sampled=sampled.cpu(), prefill_ms=prefill_ms, total_ms=total_ms,
+        ms_per_generated_token=total_ms / TP_GEN_NEW,
+        decode_ms_per_token=decode_ms / (TP_GEN_NEW - 1),
+        collectives=stats["model_collectives"],
+        collective_bytes=stats["model_bytes"],
+        collective_s=stats["model_s"],
+        collective_share=stats["model_s"] / (total_ms / 1e3),
+        prefill_collective_s=prefill_stats["model_s"],
+        heads=int(model.blocks[0].wqkv.shape[2]), nhead=model.cfg.nhead,
+        launches=_rank_counts(), peak_bytes=_peak(dev))
+    del g, model
+    dist.barrier()
+    return out
+
+
+def _tp_split_check(vocab: int, card: str, overrides=None,
+                    device="cuda") -> dict:
+    """Gate (d), in the parent: one zb-h1/never step with
+    ``tp_split_backward_stage`` at 8 layers against the 1f1b/never step of
+    the same parameters (2 stages on the card, batch 32, chunks 4)."""
+    from pipe_tpu_torch.models.tp_lm import tp_split_backward_stage
+
+    seq = (overrides or {}).get("seq_len", BPTT)
+    gen = torch.Generator(device=device).manual_seed(TP_DATA_SEED + 1)
+    x, w = _tp_batch(torch.randint(0, vocab, (TP_BATCH, seq), generator=gen,
+                                   device=device))
+    model = _tp_model(vocab, TP_SPLIT_LAYERS, 2, tp_axis=None, device=device,
+                      overrides=overrides)
+    res = {}
+    for name, schedule, split in (
+            ("1f1b/never", "1f1b", None),
+            ("zb-h1/never/split", "zb-h1", tp_split_backward_stage(model))):
+        ex = _tp_table(model, 2, checkpoint="never", schedule=schedule,
+                       split_stage=split, device=device)
+        model.zero_grad(set_to_none=True)
+        _peak_reset(device)
+        _zero_launches()
+        _sync(device)
+        t0 = time.perf_counter()
+        loss, grads = ex.loss_and_grad(x, w)
+        _sync(device)
+        res[name] = dict(loss=float(loss), ms=(time.perf_counter() - t0) * 1e3,
+                         grads={n: g.clone() for n, g in grads.items()},
+                         launches=_rank_counts(), peak_bytes=_peak(device))
+    ref, got = res["1f1b/never"], res["zb-h1/never/split"]
+    loss_rel = abs(got["loss"] - ref["loss"]) / abs(ref["loss"])
+    grad_err = _grad_err(got["grads"], ref["grads"])
+    for name, r in res.items():
+        log("tp", run=f"split/{name}", layers=TP_SPLIT_LAYERS,
+            loss=f"{r['loss']:.6f}", ms=f"{r['ms']:.1f}",
+            launches=list(r["launches"].values()),
+            peak_bytes=r["peak_bytes"], card=card)
+    log("tp", run="split", loss_rel=f"{loss_rel:.3e}",
+        grad_err=f"{grad_err:.3e}")
+    if (loss_rel > TOL_TP_LOSS or grad_err > TOL_TP_GRAD
+            or set(got["grads"]) != set(ref["grads"])
+            or any(any(r["launches"].values()) for r in res.values())):
+        raise AssertionError(
+            f"tp split: loss {loss_rel:.3e} (> {TOL_TP_LOSS}) or gradients "
+            f"{grad_err:.3e} (> {TOL_TP_GRAD}) off the 1f1b/never step, or "
+            f"a kernel launched")
+    del model, res, ref, got
+    gc.collect()
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    return {"loss_rel": loss_rel, "grad_err": grad_err}
+
+
+def phase_tp(smi: str, world=None, *, overrides=None, device="cuda",
+             vocab=None) -> dict:
+    """Phase 16: the model axis over the world of 4 ranks; returns the
+    kernels' launches of its runs (all 0: the TP block is einsums),
+    summed over ranks and steps. A CPU rehearsal passes a world of CPU
+    ranks, a smaller config (``overrides``), ``device="cpu"`` and a
+    ``vocab`` size (the corpus's otherwise)."""
+    import shutil
+    import tempfile
+
+    t_phase = time.perf_counter()
+    card = smi.splitlines()[0]
+    if vocab is None:
+        vocab = len(_corpus()[2])
+    tmp = tempfile.mkdtemp(prefix="pipe_tpu_tp_")
+    refs = _tp_refs(tmp, vocab, overrides, device)
+    log("tp", world=TP_WORLD, backend="gloo", device=f"{device}:0 (shared)",
+        vocab=vocab, batch=TP_BATCH, chunks=TP_CHUNKS,
+        twin_pp_ms=f"{refs['pp_ms']:.1f}", twin_dp_ms=f"{refs['dp_ms']:.1f}",
+        refs_s=f"{time.perf_counter() - t_phase:.1f}", card=card)
+    with _world(world, TP_WORLD, TP_TIMEOUT_S, TP_THREADS) as world:
+        t0 = time.perf_counter()
+        res = world.run(_tp_rank, tmp, vocab, overrides)
+    log("tp", world_s=f"{time.perf_counter() - t0:.1f}")
+    launches = {c.__name__: 0 for c in _counters()}
+    for what, (shape, n_layers, _) in (("pp", TP_PP), ("dp", TP_DP)):
+        for r in res:
+            a = r[what]
+            for i, s in enumerate(a["steps"]):
+                t = s["transport"]
+                log("tp", rank=r["rank"], run=f"{what}/step{i}",
+                    mesh="x".join(map(str, shape)), layers=n_layers,
+                    loss=f"{s['loss']:.6f}", loss_rel=f"{s['loss_rel']:.3e}",
+                    ms=f"{s['ms']:.1f}",
+                    launches=list(s["launches"].values()),
+                    model_allreduces=t["model_collectives"],
+                    model_bytes=t["model_bytes"],
+                    model_s=f"{t['model_s']:.3f}",
+                    p2p_bytes=t["p2p_bytes"], p2p_s=f"{t['p2p_s']:.3f}",
+                    collectives=t["collectives"],
+                    staged_bytes=t["staged_bytes"],
+                    peak_bytes=a["peak_bytes"], card=card)
+                for k, v in s["launches"].items():
+                    launches[k] += v
+                if s["loss_rel"] > TOL_TP_LOSS or any(s["launches"].values()):
+                    raise AssertionError(
+                        f"tp {what} rank {r['rank']} step {i}: loss "
+                        f"{s['loss_rel']:.3e} (> {TOL_TP_LOSS}) off the twin, "
+                        f"or launches {s['launches']}")
+            s0 = a["steps"][0]
+            log("tp", rank=r["rank"], run=what, stage=a["stage"],
+                data=a["data"], model=a["model"],
+                per_row_rel=("-" if a["per_row_rel"] is None
+                             else f"{a['per_row_rel']:.3e}"),
+                grad_err=f"{s0['grad_err']:.3e}",
+                sharded_leaves=s0["n_sharded"],
+                mean_ms=f"{sum(s['ms'] for s in a['steps']) / len(a['steps']):.1f}")
+            if s0["grad_err"] > TOL_TP_GRAD or (
+                    a["per_row_rel"] is not None
+                    and a["per_row_rel"] > TOL_TP_LOSS):
+                raise AssertionError(
+                    f"tp {what} rank {r['rank']}: per-row "
+                    f"{a['per_row_rel']} (> {TOL_TP_LOSS}) or gradients "
+                    f"{s0['grad_err']:.3e} (> {TOL_TP_GRAD}) off the twin")
+        # the ranks of a model line: bitwise-equal replicated gradients
+        lines = {}
+        for r in res:
+            lines.setdefault((r[what]["stage"], r[what]["data"]),
+                             []).append(r[what]["steps"][0]["digests"])
+        for key, digests in lines.items():
+            if len(digests) != shape[2] or any(d != digests[0]
+                                               for d in digests):
+                raise AssertionError(
+                    f"tp {what}: the model line at (stage, data) {key} "
+                    f"holds replicated gradients that differ")
+        log("tp", run=what, model_lines=len(lines),
+            replicated_equal=True,
+            replicated_leaves=len(next(iter(lines.values()))[0]))
+        if not any(r[what]["per_row_rel"] is not None for r in res):
+            raise AssertionError(f"tp {what}: no rank compared per-row losses")
+    # (c) every rank's tokens; rank 0's against the one-device Generator
+    g0 = res[0]["generate"]
+    for r in res:
+        g = r["generate"]
+        for k in ("greedy", "beam", "sampled"):
+            if not torch.equal(g[k], g0[k]):
+                raise AssertionError(f"tp generator: rank {r['rank']}'s {k} "
+                                     f"tokens differ from rank 0's")
+        if any(g["launches"].values()):
+            raise AssertionError(f"tp generator launched {g['launches']}")
+        if g["heads"] * TP_GEN_SHAPE[2] != g["nhead"]:
+            raise AssertionError(f"tp generator: rank {r['rank']} holds "
+                                 f"{g['heads']} heads")
+    compared, departures = _ring_streams(g0["greedy"].tolist(),
+                                         refs["greedy"].tolist(),
+                                         refs["margins"], "tp greedy")
+    beam_equal = torch.equal(g0["beam"], refs["beam"])
+    beam_rel = ((g0["beam_scores"] - refs["beam_scores"]).abs()
+                / refs["beam_scores"].abs()).max().item()
+    agree = (g0["sampled"] == refs["sampled"]).float().mean().item()
+    log("tp", run="generate", mesh="x".join(map(str, TP_GEN_SHAPE)),
+        prompt=TP_GEN_PROMPT, batch=TP_GEN_BATCH, new=TP_GEN_NEW,
+        compared=compared, departures=departures, beam_equal=beam_equal,
+        beam_scores_rel=f"{beam_rel:.3e}", sampled_agreement=f"{agree:.4f}",
+        prefill_ms=f"{g0['prefill_ms']:.1f}", total_ms=f"{g0['total_ms']:.1f}",
+        ms_per_generated_token=f"{g0['ms_per_generated_token']:.3f}",
+        decode_ms_per_token=f"{g0['decode_ms_per_token']:.3f}",
+        allreduces=g0["collectives"], allreduce_bytes=g0["collective_bytes"],
+        allreduce_s=f"{g0['collective_s']:.3f}",
+        collective_share=f"{g0['collective_share']:.3f}",
+        prefill_allreduce_s=f"{g0['prefill_collective_s']:.3f}",
+        peak_bytes=g0["peak_bytes"], card=card)
+    if not beam_equal or beam_rel > TOL_TP_SCORES:
+        raise AssertionError(f"tp beam: tokens equal {beam_equal}, scores rel "
+                             f"{beam_rel:.3e}")
+    _tp_split_check(vocab, card, overrides, device)
+    shutil.rmtree(tmp, ignore_errors=True)
+    log("tp", seconds=f"{time.perf_counter() - t_phase:.1f}", card=card)
+    return launches
+
 _T_START = time.perf_counter()
 
 
@@ -7009,7 +7485,7 @@ def main() -> int:
     del ctx
     fresh("fleet")
     phase_fleet(smi, gap)
-    # phases 11-13 share one world of 4 ranks: it is spawned, and each
+    # phases 11-16 share one world of 4 ranks: it is spawned, and each
     # rank's CUDA context made, once
     from pipe_tpu_torch.runtime.distributed import World
     with World(MESH_WORLD, device="cuda", backend="gloo",
@@ -7024,6 +7500,8 @@ def main() -> int:
         elastic_launches = phase_elastic(smi, world)
         fresh("context")
         context_launches = phase_context(smi, world)
+        fresh("tp")
+        tp_launches = phase_tp(smi, world)
     sources = {"flash_attn_fwd": ("flash_attn_fwd.cu", 87,
                                   "flash_attention_fwd"),
                "flash_attn_bwd_dq": ("flash_attn_bwd.cu", 162,
@@ -7069,6 +7547,7 @@ def main() -> int:
             "ulysses_per_rank_step": context_launches["per_rank_step"][wrapper],
             "ulysses_total": context_launches["total"][wrapper],
             "ring": 0, "generator": 0}
+        entry["launches_tp"] = tp_launches[wrapper]
         entry["gpt2_shape"] = row["gpt2_shape"]
         entry["bert_shape"] = row["bert_shape"]
         entry["mesh_shape"] = row["mesh_shape"]

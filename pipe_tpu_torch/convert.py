@@ -23,7 +23,12 @@ layer by layer. The layouts that differ:
   their names; ``ViTHead``'s ``ln``/``proj`` map as a ``LayerNorm`` and a
   ``Linear``;
 * ``BatchNorm``: ``scale``/``bias`` go to the parameters, the running
-  ``mean``/``var`` to the buffers of the same names.
+  ``mean``/``var`` to the buffers of the same names;
+* the tensor-parallel block (``ops/tp_layers.py``): its leaves keep
+  ``pipe_tpu``'s names and layouts; a leaf cut to a model shard
+  (``parallel.mesh.shard_params``) takes its block of the whole array, along
+  the dim ``tp_block_specs`` shards, so ``TPPipelinedLM``'s whole triple
+  loads into a whole model and into every rank's shard alike.
 
 :func:`load_pipelined_lm_params` copies the JAX ``Trainer``'s params, the
 ``PipelinedLM`` triple ``(stage_params, pre_params, post_params)``, into a
@@ -66,6 +71,8 @@ from .models.vit import PatchEmbed, ViTHead
 from .ops.layers import (Decoder, Dropout, Embedding, LayerNorm, Lambda,
                          Linear, MultiHeadAttention, PositionalEncoding,
                          Sequential, _TransformerBlockBase)
+from .ops.tp_layers import TPBlock, tp_block_specs
+from .parallel.mesh import MODEL_AXIS
 
 __all__ = ["load_params", "load_stage_params", "load_pipelined_lm_params",
            "load_pipelined_lm", "load_ring_stage", "pipelined_lm_arrays", "stage_arrays",
@@ -134,6 +141,8 @@ def _pairs(layer: nn.Module, params: Any
     elif isinstance(layer, _TransformerBlockBase):
         for name in ("attn", "ff1", "ff2", "ln1", "ln2"):
             yield from _pairs(getattr(layer, name), params[name])
+    elif isinstance(layer, TPBlock):
+        yield from _tp_block(layer, params)
     elif isinstance(layer, GPT2Embed):
         yield _array(layer.wte, params["wte"])
         yield _array(layer.wpe, params["wpe"])
@@ -161,6 +170,26 @@ def _pairs(layer: nn.Module, params: Any
                              f"{sorted(params)}")
     else:
         raise TypeError(f"no pipe_tpu layout known for {type(layer).__name__}")
+
+
+def _tp_block(block: TPBlock, params: Any
+              ) -> Iterator[Tuple[torch.Tensor, np.ndarray]]:
+    """A tensor-parallel block's leaves: ``pipe_tpu``'s layout, no
+    transpose; a leaf ``shard_params`` has cut takes its model block of the
+    whole array, along the dim its spec shards."""
+    specs = tp_block_specs()
+    for name, p in block.named_parameters():
+        arr, spec = params, specs
+        for key in name.split("."):
+            arr, spec = arr[key], spec[key]
+        arr = np.asarray(arr)
+        mark = getattr(p, "_model_shard", None)
+        if mark is not None:
+            dim = spec.dim_of(MODEL_AXIS)
+            k, n = mark
+            per = arr.shape[dim] // n
+            arr = np.take(arr, np.arange(k * per, (k + 1) * per), axis=dim)
+        yield _array(p, arr)
 
 
 def _copy_in(pairs) -> None:

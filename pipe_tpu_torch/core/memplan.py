@@ -1,8 +1,8 @@
 """Shared memory-plan arithmetic: slot counts → estimated bytes.
 
 Counterpart of ``pipe_tpu/core/memplan.py``, copied (it imports only the
-standard library). In the port its consumer is the table executor's
-``memory_plan``; the planner is not ported yet.
+standard library). In the port its consumers are the table executor's
+``memory_plan`` and the planner (``core/planner.py``).
 
 One formula, two consumers. The scheduled executor's ``memory_plan``
 (``parallel/scheduled.py``) reports its static per-device buffer counts,

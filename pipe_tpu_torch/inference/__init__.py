@@ -1,7 +1,8 @@
 """Inference: KV-cached autoregressive generation over the pipelined LM
 (``generate``), int8 weight-only quantization (``quant``), the draft
-sources of the speculative serve lane (``draft``) and decoding with the
-prompt's KV cache sharded over a context axis (``long_context``)."""
+sources of the speculative serve lane (``draft``), decoding with the prompt's KV
+cache sharded over a context axis (``long_context``) and decoding over
+weights sharded over a model axis (``tp``)."""
 
 from .draft import (DraftSource, NgramDraft, TreeDraft, TruncatedDraft,
                     resolve_draft, tree_layout)
@@ -9,6 +10,7 @@ from .generate import (GenerationConfig, Generator, check_positions,
                        head_logits, keyed_uniform, sample_logits, seed_word,
                        sequence_lengths)
 from .long_context import ContextShardedGenerator
+from .tp import TPShardedGenerator
 from .quant import (QuantLeaf, QuantLinear, dequant_tree, quantize_kv_rows,
                     quantize_params)
 
@@ -17,4 +19,4 @@ __all__ = ["GenerationConfig", "Generator", "check_positions", "head_logits",
            "QuantLeaf", "QuantLinear", "quantize_params", "dequant_tree",
            "quantize_kv_rows", "DraftSource", "NgramDraft", "TruncatedDraft",
            "TreeDraft", "tree_layout", "resolve_draft",
-           "ContextShardedGenerator"]
+           "ContextShardedGenerator", "TPShardedGenerator"]

@@ -8,15 +8,17 @@
 * :mod:`.vit`: ViT-L/16 image classification, non-LM shapes (config #5).
 * :mod:`.long_context_lm`: the tutorial LM with its sequence sharded over
   a context axis (ring or Ulysses attention), ``ContextParallelLM``.
+* :mod:`.tp_lm`: the tutorial LM with Megatron-split blocks whose heads
+  and FFN columns shard over the mesh's model axis, ``TPPipelinedLM``.
 
-``pipe_tpu``'s tensor-parallel and MoE LMs need the mesh's model axis and
-are not ported yet (ROADMAP.md: A.10).
+``pipe_tpu``'s MoE LM is not ported yet (ROADMAP.md: A.8 (ii)).
 """
 
 from .bert import BertConfig, PipelinedBERT, mask_tokens
 from .common import PipelinedTransformer, per_row_ce
 from .gpt2 import GPT2Config, PipelinedGPT2
 from .long_context_lm import ContextParallelLM
+from .tp_lm import TPPipelinedLM
 from .transformer_lm import LMConfig, PipelinedLM
 from .vit import PipelinedViT, ViTConfig
 
@@ -25,5 +27,5 @@ __all__ = [
     "GPT2Config", "PipelinedGPT2",
     "LMConfig", "PipelinedLM",
     "PipelinedTransformer", "per_row_ce",
-    "PipelinedViT", "ViTConfig",
+    "PipelinedViT", "ViTConfig", "TPPipelinedLM",
 ]

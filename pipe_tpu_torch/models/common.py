@@ -2,8 +2,9 @@
 
 Counterpart of ``pipe_tpu/models/common.py``: the per-row cross-entropy that
 the trainer's loss is built from, and :class:`PipelinedTransformer`, the
-embed | k blocks per stage | head factorization that the generators run. Its
-stage-stacked SPMD executor is not ported yet (ROADMAP.md, queue A).
+embed | k blocks per stage | head factorization that the generators, the
+table executor and the stage-stacked SPMD executor (``parallel/spmd.py``)
+run.
 """
 
 from __future__ import annotations

@@ -6,8 +6,8 @@ Decoder (projection to vocab); emsize 2048, nhid 2048, nlayers 16, nhead 32,
 dropout 0.2, bptt 128, batch-first. :class:`PipelinedLM` is the
 embed | blocks | decoder factorization that the generators and the table
 executor (``parallel/scheduled.py``) run, with the in-pipeline loss
-:meth:`PipelinedLM.loss_post_fn`; its stage-stacked SPMD executor is not
-ported yet. :func:`pipelined_lm_balance` gives its cut as a ``Pipe`` balance
+:meth:`PipelinedLM.loss_post_fn`, and the stage-stacked SPMD executor
+(``parallel/spmd.py``) too. :func:`pipelined_lm_balance` gives its cut as a ``Pipe`` balance
 over this ``Sequential``, which is how the trainer runs GPipe.
 
 Mixed precision as in ``pipe_tpu``: the weights live in float32 whatever
@@ -115,8 +115,8 @@ class PipelinedLM(PipelinedTransformer):
     blocks | decoder, with ``layers_per_stage`` blocks per stage.
 
     Built as :func:`build_sequential` builds it (same weights from the same
-    generator). Counterpart of ``pipe_tpu``'s ``PipelinedLM``; its
-    stage-stacked executor is not ported yet.
+    generator). Counterpart of ``pipe_tpu``'s ``PipelinedLM``; the
+    stage-stacked executor ``parallel/spmd.py`` runs it too.
     """
 
     post_key = "decoder"

@@ -1,4 +1,5 @@
-"""The ``(stage, data[, context])`` world of ``torch.distributed`` ranks.
+"""The ``(stage, data[, context][, model])`` world of ``torch.distributed``
+ranks.
 
 Counterpart of ``pipe_tpu/parallel/mesh.py``. In JAX a mesh is devices in
 one program; here it is processes, one per mesh position, and the mesh is
@@ -14,8 +15,16 @@ this rank also has a ``context`` index, a pipeline runs down each
 ``(data, context)`` column ``grid[:, j, c]``, the data group is
 ``grid[i, :, c]``, the context line ``grid[i, j, :]`` (``context_group``)
 and the stage's whole ``(data, context)`` plane ``grid[i, :, :]``
-(``plane_group``, where replicated gradients are summed). Every group is
-made by every rank, in the same order, with the world's timeout.
+(``plane_group``, where replicated gradients are summed). With a model
+axis (``make_mesh(n_model=)``, tensor parallelism) the grid gains a last,
+innermost dim, as JAX lays it out: ``[n_stages, n_data[, n_context],
+n_model]``. This rank has a ``model`` index, every group above is taken at
+its model index (a pipeline runs down ``grid[:, j, (c,) k]``, the plane is
+``grid[i, :, (:,) k]``), and the model line ``grid[i, j, (c,) :]``
+(``model_group``) carries the tensor-parallel blocks' all-reduces
+(``ops/tp_layers.py``): gradients are never summed over it, as JAX's
+``_grad_reduce_axes`` leaves the model axis out. Every group is made by
+every rank, in the same order, with the world's timeout.
 
 The mesh also moves tensors, in torch's idiom: per-cycle point-to-point
 exchanges with ``dist.batch_isend_irecv`` (every receive posted before any
@@ -39,8 +48,7 @@ a :class:`RemoteMesh` (shape and ranks only). The backend is the caller's
 (``runtime/distributed.py``): over ``nccl`` CUDA tensors go as they are;
 over ``gloo`` a CUDA tensor is staged through a pinned host buffer,
 explicitly, and the staged bytes are counted in :attr:`Mesh.stats` beside
-the bytes and host seconds of every exchange and collective. The model
-axis (tensor parallelism) is not ported (ROADMAP.md A.10).
+the bytes and host seconds of every exchange and collective.
 """
 
 from __future__ import annotations
@@ -57,7 +65,9 @@ import torch.distributed as dist
 __all__ = ["Mesh", "RemoteMesh", "make_mesh", "carve_meshes",
            "survivor_mesh", "localize", "STAGE_AXIS", "DATA_AXIS",
            "CONTEXT_AXIS", "MODEL_AXIS", "mesh_grid", "context_shift",
-           "all_to_all", "context_pmean"]
+           "all_to_all", "context_pmean", "PartitionSpec", "param_tree",
+           "tree_structure", "flat_specs", "shard_params",
+           "gather_model_shards"]
 
 STAGE_AXIS = "stage"
 DATA_AXIS = "data"
@@ -65,14 +75,24 @@ CONTEXT_AXIS = "context"
 MODEL_AXIS = "model"
 
 def mesh_grid(n_stages: int, n_data: int,
-              n_context: Optional[int] = None) -> np.ndarray:
+              n_context: Optional[int] = None,
+              n_model: Optional[int] = None) -> np.ndarray:
     """Global rank of each ``(stage, data)`` position: JAX's
     ``np.asarray(devices).reshape(n_stages, n_data)`` over ranks; with
     ``n_context`` each ``(stage, data, context)`` position, context
-    innermost."""
-    shape = ((n_stages, n_data) if n_context is None
-             else (n_stages, n_data, n_context))
+    innermost, and with ``n_model`` a last, innermost model dim."""
+    shape = ((n_stages, n_data)
+             + ((n_context,) if n_context is not None else ())
+             + ((n_model,) if n_model is not None else ()))
     return np.arange(int(np.prod(shape))).reshape(shape)
+
+
+def _grid4(grid: np.ndarray, n_context: Optional[int],
+           n_model: Optional[int]) -> np.ndarray:
+    """``grid`` as ``[stage, data, context, model]``, a size-1 dim for each
+    axis the mesh lacks."""
+    S, D = grid.shape[:2]
+    return grid.reshape(S, D, n_context or 1, n_model or 1)
 
 
 @dataclasses.dataclass
@@ -83,7 +103,9 @@ class TransportStats:
     and the bytes staged through pinned host memory (device to host plus
     host to device). ``wait_s`` is the host seconds blocked in
     :meth:`Mesh.wait` on posted messages, which ``p2p_s`` leaves out (it
-    holds the posting and the landing copies)."""
+    holds the posting and the landing copies). The ``model_*`` fields count
+    the collectives over the model line alone (the tensor-parallel blocks'
+    all-reduces), which ``collectives`` counts too."""
 
     p2p_bytes: int = 0
     p2p_messages: int = 0
@@ -94,47 +116,51 @@ class TransportStats:
     collectives: int = 0
     collective_s: float = 0.0
     staged_bytes: int = 0
+    model_collectives: int = 0
+    model_bytes: int = 0
+    model_s: float = 0.0
 
     def as_dict(self) -> dict:
         return dataclasses.asdict(self)
 
 
 class Mesh:
-    """This rank's view of the ``(stage, data[, context])`` world (module
-    docstring). Made by :func:`make_mesh`."""
+    """This rank's view of the ``(stage, data[, context][, model])`` world
+    (module docstring). Made by :func:`make_mesh`."""
 
     def __init__(self, n_stages: int, n_data: int, *, device: torch.device,
                  timeout: timedelta, grid: Optional[np.ndarray] = None,
-                 world_group=None, n_context: Optional[int] = None):
+                 world_group=None, n_context: Optional[int] = None,
+                 n_model: Optional[int] = None):
         self.n_stages = n_stages
         self.n_data = n_data
-        # None: no context axis (a 2-D mesh); else its size
+        # None: no context (model) axis; else its size
         self.n_context = n_context
+        self.n_model = n_model
         self.rank = dist.get_rank()
         self.backend = dist.get_backend()
         self.device = device
-        self.grid = (mesh_grid(n_stages, n_data, n_context) if grid is None
-                     else np.asarray(grid))
-        where = [int(a[0]) for a in np.nonzero(self.grid == self.rank)]
-        self.stage, self.data = where[:2]
-        self.context = where[2] if n_context is not None else 0
+        self.grid = (mesh_grid(n_stages, n_data, n_context, n_model)
+                     if grid is None else np.asarray(grid))
+        # the grid as [stage, data, context, model], size 1 for a missing axis
+        self._g4 = _grid4(self.grid, n_context, n_model)
+        self.stage, self.data, self.context, self.model = (
+            int(a[0]) for a in np.nonzero(self._g4 == self.rank))
         # the group of every rank of the mesh (None: the default group) and
         # the rank that writes for the mesh (checkpoints, TensorBoard)
         self.world_group = world_group
         self.lead = int(self.grid.flat[0])
-        groups = _make_groups(self.grid, timeout)
-        if n_context is None:
-            columns, rows = groups
-            self.column_group = columns[self.data]
-            self.data_group = rows[self.stage]
-            self.context_group = self.plane_group = None
-        else:
-            columns, rows, lines, planes = groups
-            c = self.context
-            self.column_group = columns[self.data * n_context + c]
-            self.data_group = rows[self.stage * n_context + c]
-            self.context_group = lines[self.stage * n_data + self.data]
-            self.plane_group = planes[self.stage]
+        groups = _make_groups(self.grid, timeout, n_context, n_model)
+        i, j, c, k = self.stage, self.data, self.context, self.model
+        C, M = self.context_size, self.model_size
+        self.column_group = groups["columns"][(j * C + c) * M + k]
+        self.data_group = groups["rows"][(i * C + c) * M + k]
+        self.context_group = self.plane_group = self.model_group = None
+        if n_context is not None:
+            self.context_group = groups["lines"][(i * n_data + j) * M + k]
+            self.plane_group = groups["planes"][i * M + k]
+        if n_model is not None:
+            self.model_group = groups["models"][(i * n_data + j) * C + c]
         self.prev = self.rank_of((self.stage - 1) % n_stages)
         self.next = self.rank_of((self.stage + 1) % n_stages)
         # gloo moves host tensors: CUDA tensors are staged explicitly
@@ -149,30 +175,37 @@ class Mesh:
     def __repr__(self) -> str:
         ctx = ("" if self.n_context is None
                else f"context={self.context}/{self.n_context}, ")
+        mod = ("" if self.n_model is None
+               else f"model={self.model}/{self.n_model}, ")
         return (f"Mesh(stage={self.stage}/{self.n_stages}, "
-                f"data={self.data}/{self.n_data}, {ctx}rank={self.rank}, "
+                f"data={self.data}/{self.n_data}, {ctx}{mod}rank={self.rank}, "
                 f"backend={self.backend!r}, device={self.device})")
 
     @property
     def axis_names(self) -> Tuple[str, ...]:
         """The mesh's axes, as JAX's ``Mesh.axis_names``."""
-        return ((STAGE_AXIS, DATA_AXIS) if self.n_context is None
-                else (STAGE_AXIS, DATA_AXIS, CONTEXT_AXIS))
+        return ((STAGE_AXIS, DATA_AXIS)
+                + ((CONTEXT_AXIS,) if self.n_context is not None else ())
+                + ((MODEL_AXIS,) if self.n_model is not None else ()))
 
     @property
     def context_size(self) -> int:
         """The context axis' size (1 without the axis)."""
         return self.n_context or 1
 
+    @property
+    def model_size(self) -> int:
+        """The model axis' size (1 without the axis)."""
+        return self.n_model or 1
+
     def rank_of(self, stage: int, data: Optional[int] = None,
-                context: Optional[int] = None) -> int:
-        """Global rank of position ``(stage, data[, context])`` (this rank's
-        data and context indices by default)."""
-        data = self.data if data is None else data
-        if self.n_context is None:
-            return int(self.grid[stage, data])
-        return int(self.grid[stage, data,
-                             self.context if context is None else context])
+                context: Optional[int] = None,
+                model: Optional[int] = None) -> int:
+        """Global rank of position ``(stage, data[, context][, model])``
+        (this rank's data, context and model indices by default)."""
+        return int(self._g4[stage, self.data if data is None else data,
+                            self.context if context is None else context,
+                            self.model if model is None else model])
 
     def reset_stats(self) -> None:
         self.stats = TransportStats()
@@ -380,8 +413,8 @@ class Mesh:
 
     def _group(self, over):
         """The group and size of ``over``: an axis name, ``"world"``, or
-        ``("data", "context")``, the stage's plane (its data group without a
-        context axis)."""
+        ``("data", "context")``, the stage's plane at this rank's model
+        index (its data group without a context axis)."""
         if isinstance(over, tuple):      # the stage's plane
             if set(over) != {DATA_AXIS, CONTEXT_AXIS}:
                 raise ValueError(f"no mesh axes {over!r}")
@@ -396,9 +429,12 @@ class Mesh:
             if self.n_context is None:
                 raise ValueError(f"mesh has no {CONTEXT_AXIS!r} axis")
             return self.context_group, self.n_context
+        if over == MODEL_AXIS:
+            if self.n_model is None:
+                raise ValueError(f"mesh has no {MODEL_AXIS!r} axis")
+            return self.model_group, self.n_model
         if over == "world":
-            return (self.world_group,
-                    self.n_stages * self.n_data * self.context_size)
+            return self.world_group, int(self.grid.size)
         raise ValueError(f"no mesh axis {over!r}")
 
     def group_size(self, over) -> int:
@@ -409,8 +445,8 @@ class Mesh:
                    op: str = "sum") -> None:
         """Sum ``t`` in place (``op="max"``: its maximum) over the data
         group (``over="data"``), this rank's pipeline (``"stage"``), its
-        context line (``"context"``), its stage's plane (``("data",
-        "context")``) or the ``"world"``."""
+        context line (``"context"``), its model line (``"model"``), its
+        stage's plane (``("data", "context")``) or the ``"world"``."""
         group, size = self._group(over)
         if size == 1:
             return
@@ -418,9 +454,7 @@ class Mesh:
         buf = self._out(t, ("reduce", 0))
         dist.all_reduce(buf, op=_OPS[op], group=group)
         self._into(buf, t)
-        self.stats.collectives += 1
-        self.stats.collective_bytes += t.numel() * t.element_size()
-        self.stats.collective_s += time.perf_counter() - t0
+        self._count(over, t.numel() * t.element_size(), t0)
 
     # --- the context line ---
 
@@ -494,10 +528,19 @@ class Mesh:
         if self.staged and t.is_cuda and to_device:
             outs = [o.to(t.device) for o in outs]
             self.stats.staged_bytes += size * t.numel() * t.element_size()
-        self.stats.collectives += 1
-        self.stats.collective_bytes += size * t.numel() * t.element_size()
-        self.stats.collective_s += time.perf_counter() - t0
+        self._count(over, size * t.numel() * t.element_size(), t0)
         return outs
+
+    def _count(self, over, nbytes: int, t0: float) -> None:
+        """One collective over ``over`` of ``nbytes``, begun at ``t0``."""
+        dt = time.perf_counter() - t0
+        self.stats.collectives += 1
+        self.stats.collective_bytes += nbytes
+        self.stats.collective_s += dt
+        if over == MODEL_AXIS:
+            self.stats.model_collectives += 1
+            self.stats.model_bytes += nbytes
+            self.stats.model_s += dt
 
     def broadcast_from(self, t: Optional[torch.Tensor], stage: int
                        ) -> torch.Tensor:
@@ -672,27 +715,38 @@ class _PSum(torch.autograd.Function):
         return g, None
 
 
-def _make_groups(grid: np.ndarray, timeout: timedelta):
-    """One group per data column (a pipeline) and per stage row (the data
-    replicas of a stage) of ``grid``; of a ``[stage, data, context]`` grid
-    one per ``(data, context)`` column, per ``(stage, context)`` row, per
-    ``(stage, data)`` context line and per stage's ``(data, context)``
-    plane, each list in row-major order. ``dist.new_group`` is collective
-    over the default group: every rank of the world makes every group, in
-    the same order, whether it is a member or not."""
+def _make_groups(grid: np.ndarray, timeout: timedelta,
+                 n_context: Optional[int] = None,
+                 n_model: Optional[int] = None) -> Dict[str, list]:
+    """The groups of ``grid``, each list in row-major order over the
+    positions it is indexed by: one per pipeline (``"columns"``, the stage
+    column at each ``(data, context, model)``), per stage's data replicas
+    (``"rows"``, at each ``(stage, context, model)``); with a context axis
+    per context line (``"lines"``, at each ``(stage, data, model)``) and per
+    stage's ``(data, context)`` plane (``"planes"``, at each ``(stage,
+    model)``); with a model axis per model line (``"models"``, at each
+    ``(stage, data, context)``). ``dist.new_group`` is collective over the
+    default group: every rank of the world makes every group, in the same
+    order, whether it is a member or not."""
     def make(ranks):
-        return dist.new_group([int(r) for r in ranks], timeout=timeout)
+        return dist.new_group([int(r) for r in np.asarray(ranks).reshape(-1)],
+                              timeout=timeout)
 
-    if grid.ndim == 2:
-        columns = [make(grid[:, j]) for j in range(grid.shape[1])]
-        rows = [make(grid[i, :]) for i in range(grid.shape[0])]
-        return columns, rows
-    S, D, C = grid.shape
-    columns = [make(grid[:, j, c]) for j in range(D) for c in range(C)]
-    rows = [make(grid[i, :, c]) for i in range(S) for c in range(C)]
-    lines = [make(grid[i, j, :]) for i in range(S) for j in range(D)]
-    planes = [make(grid[i].reshape(-1)) for i in range(S)]
-    return columns, rows, lines, planes
+    g = _grid4(grid, n_context, n_model)
+    S, D, C, M = g.shape
+    out = {"columns": [make(g[:, j, c, k]) for j in range(D)
+                       for c in range(C) for k in range(M)],
+           "rows": [make(g[i, :, c, k]) for i in range(S)
+                    for c in range(C) for k in range(M)]}
+    if n_context is not None:
+        out["lines"] = [make(g[i, j, :, k]) for i in range(S)
+                        for j in range(D) for k in range(M)]
+        out["planes"] = [make(g[i, :, :, k]) for i in range(S)
+                         for k in range(M)]
+    if n_model is not None:
+        out["models"] = [make(g[i, j, c, :]) for i in range(S)
+                         for j in range(D) for c in range(C)]
+    return out
 
 
 def survivor_mesh(mesh: Mesh, lost_stage: int) -> Optional[Mesh]:
@@ -705,10 +759,10 @@ def survivor_mesh(mesh: Mesh, lost_stage: int) -> Optional[Mesh]:
     A mesh made this way never touches the default group again."""
     from ..runtime import distributed as rd
 
-    if mesh.n_context is not None:
+    if mesh.n_context is not None or mesh.n_model is not None:
         raise NotImplementedError(
             "survivor_mesh takes a (stage, data) mesh; pipe_tpu's elastic "
-            "training has no context axis to carry over")
+            "training has no context or model axis to carry over")
     if mesh.world_group is not None:
         raise RuntimeError(
             "survivor_mesh of a survivor mesh: the ranks retired by the "
@@ -753,7 +807,7 @@ def carve_meshes(grids: Sequence[np.ndarray], *, device=None) -> list:
     if any(g.ndim != 2 for g in grids):
         raise ValueError(
             "carve_meshes takes [n_stages, n_data] grids; pipe_tpu's replica "
-            "carve has no context axis")
+            "carve has no context or model axis")
     ranks = [int(r) for g in grids for r in g.reshape(-1)]
     world = dist.get_world_size()
     if len(set(ranks)) != len(ranks) or not all(0 <= r < world
@@ -786,18 +840,14 @@ def make_mesh(n_stages: int, n_data: Optional[int] = None, *,
               device=None, grid: Optional[np.ndarray] = None) -> Mesh:
     """This rank's :class:`Mesh` over the initialized world
     (``runtime.distributed.initialize``), ``n_stages`` x ``n_data`` ranks,
-    x ``n_context`` with a context axis (innermost, as JAX lays it out);
-    ``n_data=None`` takes every rank left (``world // (n_stages *
-    n_context)``), as JAX takes every device left. Stage is the outer axis,
-    as in JAX. One mesh per shape is made per process (its groups with it)
-    and returned again. ``device``: this rank's (default: the one
-    ``initialize`` chose); ``grid``: another placement of the ranks
-    (``[n_stages, n_data]`` global ranks;
-    ``runtime.distributed.global_pipeline_mesh``)."""
-    if n_model is not None:
-        raise NotImplementedError(
-            f"make_mesh(n_model={n_model}) is not ported to pipe_tpu_torch "
-            f"yet (ROADMAP.md: A.10, tensor-parallel stage params)")
+    x ``n_context`` with a context axis and x ``n_model`` with a model axis
+    (innermost, in that order, as JAX lays them out); ``n_data=None`` takes
+    every rank left (``world // (n_stages * n_context * n_model)``), as JAX
+    takes every device left. Stage is the outer axis, as in JAX. One mesh
+    per shape is made per process (its groups with it) and returned again.
+    ``device``: this rank's (default: the one ``initialize`` chose);
+    ``grid``: another placement of the ranks (``[n_stages, n_data]`` global
+    ranks; ``runtime.distributed.global_pipeline_mesh``)."""
     if not dist.is_initialized():
         raise RuntimeError(
             "make_mesh needs an initialized world: "
@@ -807,23 +857,27 @@ def make_mesh(n_stages: int, n_data: Optional[int] = None, *,
         raise ValueError("n_stages must be positive")
     if n_context is not None and n_context <= 0:
         raise ValueError("n_context must be positive (or None for no axis)")
-    ctx = n_context or 1
-    if world % (n_stages * ctx):
-        what = (f"n_stages={n_stages}" if n_context is None
-                else f"n_stages*n_context={n_stages * ctx}")
-        raise ValueError(f"{world} ranks not divisible by {what}")
+    if n_model is not None and n_model <= 0:
+        raise ValueError("n_model must be positive (or None for no axis)")
+    ctx, tp = n_context or 1, n_model or 1
+    inner = n_stages * ctx * tp
+    if world % inner:
+        what = ("n_stages" + ("*n_context" if n_context else "")
+                + ("*n_model" if n_model else ""))
+        raise ValueError(f"{world} ranks not divisible by {what}={inner}")
     if n_data is None:
-        n_data = world // (n_stages * ctx)
-    if n_stages * n_data * ctx != world:
-        shape = f"{n_stages}x{n_data}" + (f"x{ctx}" if n_context else "")
+        n_data = world // inner
+    if n_data * inner != world:
+        shape = (f"{n_stages}x{n_data}" + (f"x{ctx}" if n_context else "")
+                 + (f"x{tp}" if n_model else ""))
         raise ValueError(
-            f"mesh {shape} needs {n_stages * n_data * ctx} ranks, the "
-            f"world has {world}")
+            f"mesh {shape} needs {n_data * inner} ranks, the world has "
+            f"{world}")
     if grid is None:
-        grid = mesh_grid(n_stages, n_data, n_context)
-    elif n_context is not None:
+        grid = mesh_grid(n_stages, n_data, n_context, n_model)
+    elif n_context is not None or n_model is not None:
         raise ValueError("make_mesh(grid=) places a (stage, data) mesh only")
-    key = (n_stages, n_data, n_context, np.asarray(grid).tobytes())
+    key = (n_stages, n_data, n_context, n_model, np.asarray(grid).tobytes())
     mesh = _MESHES.get(key)
     if mesh is None:
         from ..runtime import distributed as rd
@@ -831,7 +885,7 @@ def make_mesh(n_stages: int, n_data: Optional[int] = None, *,
                     device=torch.device(device) if device is not None
                     else rd.rank_device(),
                     timeout=rd.world_timeout(), grid=grid,
-                    n_context=n_context)
+                    n_context=n_context, n_model=n_model)
         _MESHES[key] = mesh
     return mesh
 
@@ -860,3 +914,113 @@ def localize(module: torch.nn.Module, keep: Iterable[torch.nn.Module],
                     continue
                 mod._buffers[name] = b.to(device if id(b) in kept else "meta")
     return module
+
+
+class PartitionSpec(tuple):
+    """A parameter's layout over the mesh, as JAX's ``PartitionSpec``: one
+    entry per dim, the name of the axis the dim is sharded over, or None
+    where it is whole (``PartitionSpec()``: replicated)."""
+
+    def __new__(cls, *axes):
+        return super().__new__(cls, axes)
+
+    def __repr__(self) -> str:
+        return f"PartitionSpec{tuple.__repr__(self)}"
+
+    def dim_of(self, axis: str) -> Optional[int]:
+        """The dim sharded over ``axis``, or None."""
+        return self.index(axis) if axis in self else None
+
+
+def param_tree(module: torch.nn.Module) -> dict:
+    """``module``'s parameters as a nested dict by their dotted names
+    (``ln1.scale`` under ``["ln1"]["scale"]``), as JAX's param trees."""
+    tree: dict = {}
+    for name, p in module.named_parameters():
+        *path, leaf = name.split(".")
+        node = tree
+        for key in path:
+            node = node.setdefault(key, {})
+        node[leaf] = p
+    return tree
+
+
+def tree_structure(tree) -> Any:
+    """The structure of a nested dict/list tree with its leaves as ``*``
+    (``PartitionSpec`` and tensors alike are leaves; a tuple is a list)."""
+    if isinstance(tree, dict):
+        return {k: tree_structure(v) for k, v in sorted(tree.items())}
+    if isinstance(tree, (list, tuple)) and not isinstance(tree,
+                                                          PartitionSpec):
+        return [tree_structure(v) for v in tree]
+    return "*"
+
+
+def flat_specs(tree, prefix: str = "") -> Dict[str, "PartitionSpec"]:
+    """``{dotted leaf name: spec}`` of one module's nested spec tree (the
+    names ``param_tree`` nests)."""
+    if isinstance(tree, dict):
+        out: Dict[str, PartitionSpec] = {}
+        for k, v in tree.items():
+            out.update(flat_specs(v, f"{prefix}{k}."))
+        return out
+    return {prefix[:-1]: tree}
+
+
+def shard_params(module: torch.nn.Module, specs: dict, mesh) -> List[str]:
+    """Slice each parameter of ``module`` named in ``specs`` (``{dotted
+    name: PartitionSpec}``) to this rank's block of its dim sharded over
+    the model axis, in place (a new ``nn.Parameter`` of the block; a
+    parameter on the ``meta`` device is left). A parameter already cut to
+    this rank's block is left as it is; one cut for another model line
+    raises. Returns the names it cut. Without a model axis nothing is cut."""
+    n = getattr(mesh, "n_model", None)
+    if not n:
+        return []
+    cut = []
+    for name, spec in specs.items():
+        dim = spec.dim_of(MODEL_AXIS)
+        if dim is None:
+            continue
+        owner, _, leaf = name.rpartition(".")
+        mod = module.get_submodule(owner) if owner else module
+        p = mod._parameters[leaf]
+        if p.device.type == "meta":
+            continue
+        mark = getattr(p, "_model_shard", None)
+        if mark == (mesh.model, n):
+            continue
+        if mark is not None:
+            raise ValueError(
+                f"{name} holds model shard {mark[0]} of {mark[1]}; this "
+                f"rank's is {mesh.model} of {n}")
+        if p.shape[dim] % n:
+            raise ValueError(f"dim {dim} of {name} {tuple(p.shape)} does "
+                             f"not shard over {n} model ranks")
+        per = p.shape[dim] // n
+        block = p.detach().narrow(dim, mesh.model * per, per).clone()
+        new = torch.nn.Parameter(block, requires_grad=p.requires_grad)
+        new._model_shard = (mesh.model, n)
+        mod._parameters[leaf] = new
+        cut.append(name)
+    return cut
+
+
+def gather_model_shards(mesh, named: Dict[str, torch.Tensor],
+                        specs: Dict[str, "PartitionSpec"]
+                        ) -> Dict[str, torch.Tensor]:
+    """``named`` (a rank's tensors by parameter name: its parameters or
+    their gradients) with every tensor sharded over the model axis
+    (``specs``) gathered over this rank's model line into the whole leaf,
+    the blocks in model order; the others as they are. Every rank of the
+    line calls it with the same names."""
+    out = dict(named)
+    for name in sorted(named):
+        spec = specs.get(name)
+        dim = None if spec is None else spec.dim_of(MODEL_AXIS)
+        if dim is None or mesh.model_size == 1:
+            continue
+        t = named[name].contiguous()
+        out[name] = torch.cat(mesh.all_gather(t, MODEL_AXIS), dim=dim)
+    return out
+

@@ -139,8 +139,21 @@ once in the loss. Replicated parameters' gradients are summed over the
 stage's whole ``(data, context)`` plane in one all-reduce, as JAX's
 ``_grad_reduce_axes``.
 
-Tensor-parallel specs (A.8, with A.10) are not ported: their field raises
-``NotImplementedError`` when set.
+**Tensor parallelism** (``stage_param_specs``, over a mesh made with
+``n_model``): one stage's per-leaf ``PartitionSpec``s (a list of per-layer
+trees, ``TPPipelinedLM.stage_param_specs``), checked at construction
+against each stage's blocks (``module.stage_blocks(s)``, their parameters
+as nested dicts) with ``pipe_tpu``'s words; then every leaf sharded over
+the model axis is cut to this rank's block (``parallel.mesh.shard_params``)
+and the blocks all-reduce over the rank's model line inside the ops. A
+model line runs one column of the tables in one order, so its collectives
+never cross its stage messages, serialized, overlapped or phase-compiled.
+Gradients are never summed over the model axis (``pipe_tpu``'s
+``_grad_reduce_axes``): every leaf's, sharded or replicated, is summed
+over the stage's ``(data[, context])`` plane at the rank's model index, and
+:meth:`ScheduledPipeline.gather_model_grads` gathers a rank's sharded
+leaves over its line into whole ones. The loss's copies on a model line
+count once. ``split_stage`` refuses specs, as ``pipe_tpu``'s does.
 """
 
 from __future__ import annotations
@@ -163,13 +176,10 @@ from ..core.schedule import (BWD, FWD, IDLE, WGRAD, _times_by_code,
 from ..obs.telemetry import get_registry
 from ..utils.platform import DEFAULT_DEVICE, resolve_device
 from .buffers import pack_words, packed_words, unpack_words
+from .mesh import (flat_specs, gather_model_shards, param_tree,
+                   shard_params, tree_structure)
 
 __all__ = ["ScheduledPipeline", "SkipLanes", "SplitBackwardStage"]
-
-# (field, the ROADMAP.md item that ports it)
-_NOT_PORTED = (
-    ("stage_param_specs", "A.8, tensor-parallel stage params"),
-)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -573,6 +583,9 @@ class ScheduledPipeline:
       context_axis, context_dim: ``"context"`` over a mesh with that axis
         shards dim ``context_dim`` of the input leaves over it (module
         docstring).
+      stage_param_specs: one stage's per-leaf ``PartitionSpec``s, a list
+        of per-layer trees (tensor parallelism, module docstring); the
+        module must give ``stage_blocks(s)``.
     """
 
     stage_fn: Callable
@@ -597,12 +610,6 @@ class ScheduledPipeline:
     def __post_init__(self):
         validate_mode(self.checkpoint)
         self.remat_policy = resolve_policy(self.remat_policy)
-        for name, item in _NOT_PORTED:
-            value = getattr(self, name)
-            if value is not None and value is not False:
-                raise NotImplementedError(
-                    f"ScheduledPipeline.{name}={value!r} is not ported to "
-                    f"pipe_tpu_torch yet (ROADMAP.md: {item})")
         if not isinstance(self.n_stages, int) or self.n_stages < 1:
             raise ValueError(f"n_stages must be a positive integer, got "
                              f"{self.n_stages!r}")
@@ -670,6 +677,8 @@ class ScheduledPipeline:
         self._rows = None
         self.v = self.schedule.v
         self.n_virtual = self.v * self.n_stages
+        self._param_specs = (self._bind_param_specs()
+                             if self.stage_param_specs is not None else {})
         self.last_slots: Dict[str, int] = {}
         # per-m phase verdicts (the rejection warns once per m) and walk
         # plans; the boundary layouts the overlapped transport learned
@@ -706,11 +715,59 @@ class ScheduledPipeline:
             raise ValueError(
                 "split_stage requires checkpoint='never': the stored "
                 "params-constant vjp IS the activation store")
+        if self.stage_param_specs is not None:
+            raise ValueError(
+                "split_stage does not compose with stage_param_specs "
+                "(tensor-parallel sharded stage params): the tapped/"
+                "wgrad fns are written for unsharded math and would "
+                "silently drop the cross-shard psums")
         if self.remat_policy is not None:
             raise ValueError(
                 "split_stage already defines its storage (full "
                 "residuals + taps); remat_policy would be silently "
                 "inert — drop one of the two")
+
+    # --- tensor-parallel specs ---
+
+    def _bind_param_specs(self) -> Dict[str, Any]:
+        """Check ``stage_param_specs`` against every stage's blocks
+        (``pipe_tpu``'s structure error), cut this rank's stages' sharded
+        leaves to its model block, and return ``{parameter name: spec}``
+        over every stage."""
+        stage_blocks = getattr(self.module, "stage_blocks", None)
+        if stage_blocks is None:
+            raise ValueError(
+                "stage_param_specs needs a module whose stage_blocks(s) "
+                "gives each stage's blocks (a PipelinedTransformer)")
+        specs = self.stage_param_specs
+        mine = set(self._columns())
+        placed = []
+        for s in range(self.n_virtual):
+            blocks = list(stage_blocks(s))
+            params = [param_tree(b) for b in blocks]
+            got, want = tree_structure(specs), tree_structure(params)
+            if got != want:
+                raise ValueError(
+                    f"stage_param_specs structure {got} does not match the "
+                    f"stacked stage params {want}")
+            for blk, spec_tree in zip(blocks, specs):
+                local = flat_specs(spec_tree)
+                if s % self.n_stages in mine:
+                    shard_params(blk, local, self.mesh)
+                placed.append((blk, local))
+        names = {id(p): n for n, p in self.module.named_parameters()}
+        return {names[id(blk.get_parameter(leaf))]: spec
+                for blk, local in placed for leaf, spec in local.items()}
+
+    def gather_model_grads(self, grads: Dict[str, torch.Tensor]
+                           ) -> Dict[str, torch.Tensor]:
+        """A rank's :meth:`loss_and_grad` gradients with every leaf sharded
+        over the model axis gathered over its model line into the whole
+        leaf (every rank of the line calls it); unchanged without specs or
+        a model axis."""
+        if not self._param_specs or self.mesh is None:
+            return dict(grads)
+        return gather_model_shards(self.mesh, grads, self._param_specs)
 
     # --- tables ---
 
@@ -1573,8 +1630,11 @@ class ScheduledPipeline:
         total = st.loss.detach()
         if self.mesh is not None:
             self.mesh.all_reduce(total, "world")
-            if self.context_axis:      # each context rank holds a copy
-                total = total / self.mesh.context_size
+            # each context rank and each model rank holds a copy
+            copies = ((self.mesh.context_size if self.context_axis else 1)
+                      * self.mesh.model_size)
+            if copies > 1:
+                total = total / copies
         loss = total * st.inv_wsum
         if self.stat_spec is not None:
             return loss, grads, self._reduce_stats(st.stats)

@@ -188,9 +188,9 @@ def test_mesh_context_axis_is_jax_grid(world, shape):
 
 
 def test_refusals_are_pipe_tpus(world):
-    """Ulysses' head count, the impl name, the 2-D-only survivor mesh and
-    the model axis refuse with ``pipe_tpu``'s words (and the ROADMAP
-    item)."""
+    """Ulysses' head count, the impl name and the 2-D-only survivor mesh
+    refuse with ``pipe_tpu``'s words; the model axis is a mesh axis like
+    any other, whose bad shape refuses with ``make_mesh``'s words."""
     res = world.run(cases.refusals, SHAPES[4])[0]
     assert res["heads"] == ("ValueError", "ulysses_attention needs heads % "
                             "axis_size == 0, got heads=3, axis_size=4")
@@ -198,8 +198,8 @@ def test_refusals_are_pipe_tpus(world):
                            "impl must be ring|ulysses, got 'nope'")
     assert res["survivor"][0] == "NotImplementedError"
     assert "survivor_mesh" in res["survivor"][1]
-    assert res["model"][0] == "NotImplementedError"
-    assert "A.10, tensor-parallel stage params" in res["model"][1]
+    assert res["model"] == ("ValueError",
+                            "mesh 1x1x2 needs 2 ranks, the world has 4")
 
 
 @pytest.mark.parametrize("impl", ["ring", "ulysses"])

@@ -146,6 +146,23 @@ assert cp.loss_post_fn(cp.stage_fn(1, cp.stage_fn(0, cp.pre_fn(x))),
                        x).shape == (2,)
 assert gen_app.main(["--tiny", "--device", "cpu", "--max-new", "3",
                      "--context-shards", "2"]) == 0
+from pipe_tpu_torch.inference import TPShardedGenerator
+from pipe_tpu_torch.models import TPPipelinedLM
+from pipe_tpu_torch.models.tp_lm import tp_split_backward_stage
+from pipe_tpu_torch.ops import tp_layers
+from pipe_tpu_torch.parallel.scheduled import ScheduledPipeline
+tcfg = pt.LMConfig(vocab=101, d_model=16, nhead=4, d_ff=32, n_layers=2,
+                   seq_len=16, dropout=0.1)
+tp = TPPipelinedLM(tcfg, 2, tp_axis=None, device="cpu")
+xs = {k: v.reshape(2, 1, -1) for k, v in x.items()}
+for sched, split in (("1f1b", None), ("zb-h1", tp_split_backward_stage(tp))):
+    ex = ScheduledPipeline(tp.stage_fn, tp.pre_fn, tp.loss_post_fn, 2, tp,
+                           checkpoint="never", schedule=sched, device="cpu",
+                           split_stage=split)
+    loss, _ = ex.loss_and_grad(xs, torch.ones(2, 1))
+    assert loss.item() == loss.item()
+assert Generator(tp, GenerationConfig(max_new_tokens=3, temperature=0.0)
+                 ).generate(prompt).shape == (2, 3)
 bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib")
        and sys.modules[m] is not None]
 assert not bad, bad
@@ -204,6 +221,10 @@ for make in (lambda: Linear(4, 4),
              lambda: __import__("pipe_tpu_torch.models.long_context_lm")
              .models.long_context_lm.ContextParallelLM(pt.LMConfig().tiny()),
              lambda: pt.build_sequential(pt.LMConfig().tiny()),
+             lambda: __import__("pipe_tpu_torch.models.tp_lm").models.tp_lm
+             .TPPipelinedLM(pt.LMConfig().tiny()),
+             lambda: __import__("pipe_tpu_torch.ops.tp_layers").ops
+             .tp_layers.TPBlock(16, 2, 32),
              lambda: pt.Pipe(pt.Sequential([Linear(4, 4, device="cpu")])),
              lambda: Trainer(pt.LMConfig().tiny(), TrainerConfig()),
              lambda: Trainer(pt.LMConfig().tiny(), TrainerConfig(

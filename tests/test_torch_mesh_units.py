@@ -293,17 +293,19 @@ def test_refusals_name_their_items(monkeypatch):
     from pipe_tpu_torch.parallel.scheduled import ScheduledPipeline
     from pipe_tpu_torch.ops.layers import Linear
 
-    # the context axis is ported: make_mesh(n_context=) needs a world like
-    # any mesh, and context_axis a mesh with the axis (JAX's words)
+    # the context and model axes are ported: make_mesh(n_context=) and
+    # make_mesh(n_model=) need a world like any mesh, context_axis a mesh
+    # with the axis, and stage_param_specs a spec tree of the stage's
+    # blocks (JAX's words)
     with pytest.raises(RuntimeError, match="initialize"):
         tmesh.make_mesh(2, 1, n_context=2)
-    with pytest.raises(NotImplementedError, match="A.10, tensor-parallel"):
+    with pytest.raises(RuntimeError, match="initialize"):
         tmesh.make_mesh(2, 1, n_model=2)
     for field, exc, words in (
             ("context_axis", ValueError,
              "mesh has no 'context' axis for context_axis"),
-            ("stage_param_specs", NotImplementedError,
-             "ROADMAP.md: A.8, tensor-parallel stage params")):
+            ("stage_param_specs", ValueError,
+             "stage_param_specs needs a module whose stage_blocks")):
         with pytest.raises(exc, match=words):
             ScheduledPipeline(lambda s, h, c: h, lambda x, c: x,
                               lambda h, x, c: h, n_stages=1,

@@ -13,8 +13,8 @@ through the emulator ``Pipe`` and through the one-device table executor.
   ``Pipe(mesh=stage_mesh(2), deferred_batch_norm=True).loss_and_grad`` in
   every checkpoint mode: loss within 1e-5 relative, gradients within rtol
   1e-4 / atol 1e-6, committed stats within rtol 1e-5 / atol 1e-6. The
-  padded-row refusal; the zb-h1 refusal. The data-axis case belongs to the
-  multi-device executors (ROADMAP.md: A.8).
+  padded-row refusal; the zb-h1 refusal. The data-axis case is held over a
+  mesh by tests/test_torch_mesh_pipe.py.
 """
 
 import jax

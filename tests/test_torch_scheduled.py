@@ -309,9 +309,10 @@ def test_forward_walks_the_fwd_ops(schedule):
     ("context_axis", "ctx", "A.8"),
     ("stage_param_specs", {}, "A.8")])
 def test_unported_fields_raise_naming_their_item(field, value, item):
-    """``stage_param_specs`` is not ported and names its item;
-    ``context_axis`` is, and refuses a mesh without the axis (here none)
-    with JAX's ``ValueError``."""
+    """Both fields of A.8 are ported and refuse bad values with JAX's
+    ``ValueError``: ``context_axis`` a mesh without the axis (here none),
+    ``stage_param_specs`` a spec tree whose structure is not the stage's
+    blocks' (the tutorial LM's blocks hold ``Linear``s, not ``{}``)."""
     model = tlm.PipelinedLM(tlm.LMConfig().tiny(), 2, device="cpu")
     assert field in {f.name for f in dataclasses.fields(JPipeline)}
     if field == "context_axis":
@@ -320,7 +321,9 @@ def test_unported_fields_raise_naming_their_item(field, value, item):
                                  f"context_axis"):
             port_pipeline(model, 2, "1f1b", "never", **{field: value})
         return
-    with pytest.raises(NotImplementedError, match=f"ROADMAP.md: {item}"):
+    with pytest.raises(ValueError, match="stage_param_specs structure {} "
+                                         "does not match the stacked stage "
+                                         "params"):
         port_pipeline(model, 2, "1f1b", "never", **{field: value})
 
 
