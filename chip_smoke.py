@@ -56,9 +56,13 @@ exits non-zero without a result line:
    peak, and the telemetry cost of an unprofiled step. (b) ``profile_model``
    over the LM's ``Sequential`` (per-layer forward and backward ms);
    ``auto_plan`` at 2 devices, its profile fitted to whole steps at m 2, 4
-   and 8 (the fitted per-cycle overhead, scale and residual printed):
-   ``Pipe(plan=...)``'s step loss equals the hand-built ``Pipe``'s bit for
-   bit; the winner's and the runners-up's predicted ms against measured
+   and 8 (``fit_step_costs``: each step the larger of the device's work
+   and the host's per-cycle overhead; the fitted overhead, scale, residual
+   and model printed), after checking that (a) left nothing alive (its
+   TensorBoard writer and event log closed, no profiler running, every
+   prefetcher's producer freed; the live threads and allocated bytes
+   printed): ``Pipe(plan=...)``'s step loss equals the hand-built
+   ``Pipe``'s bit for bit; the winner's and the runners-up's predicted ms against measured
    (the first runner-up and the first with another m), and the winner's
    best step is at most 5% over each runner-up's; ``Trainer(plan="auto")``'s
    plan line. (c)
@@ -81,7 +85,7 @@ exits non-zero without a result line:
    1e-5 relative, every gradient within 1e-4 x max(1, max|g|); the
    structural twin within the same bounds of the stored-graph twin too,
    its dQ and dK/dV launched 64 times (2 stages x 4 micro-batches x 8
-   layers). (b) Dropout 0.2: 8 ``Trainer`` steps each of the table gpipe
+   layers). (b) Dropout 0.2: 5 ``Trainer`` steps each of the table gpipe
    (except_last), 1f1b (except_last), zb-h1 (never: the Trainer's
    structural split, and the stored-graph split) and 1f1b (never, zb-h1's
    yardstick): losses finite, every trajectory within 1e-4 relative of
@@ -116,7 +120,7 @@ exits non-zero without a result line:
    loss within 1e-5 relative and every gradient (``wte``/``wpe`` among them,
    fed partly through the skip lane) within 1e-4 x max(1, max|g|) of the
    emulator's; ``memory_plan`` reports one skip lane and its park slots.
-   (c) Dropout 0.1: 4 steps each of the emulator and of the 1f1b table with
+   (c) Dropout 0.1: 3 steps each of the emulator and of the 1f1b table with
    the lane (except_last), Adam at lr 1e-4, one seed: every loss finite, the
    trajectories within 1e-4 relative (the table walk folds seeds as the
    emulator's ``ctx.fold(i, j)``, so the masks are the same). (d) Every
@@ -125,7 +129,7 @@ exits non-zero without a result line:
    12 blocks): the emulator's 372 / 192 / 192 a step under except_last.
    (e) ``apps.zoo``'s ``train`` over ``["gpt2", "--stages", "4",
    "--chunks", "16", "--batch", "32", "--schedule", "1f1b", "--steps",
-   "4"]``: finite losses, kept for phase 14; its ms per step is printed. (f) A 4-stage stack of
+   "3"]``: finite losses, kept for phase 14; its ms per step is printed. (f) A 4-stage stack of
    (Linear 1024 -> BatchNorm -> ReLU) x 4, chunks 8, batch 256, through
    ``Pipe(deferred_batch_norm=True)`` and the 1f1b table: the running stats
    after one step equal one whole-batch momentum update within 1e-5; zb-h1
@@ -141,7 +145,7 @@ exits non-zero without a result line:
    1e-5 relative, every gradient within 1e-4 x max(1, max|g|); forward, dQ
    and dK/dV launches equal with and without the policy and pinned to
    ``stage_passes`` x 8 layers; fewer matrix products dispatched under the
-   policy (``core.remat.count_dots``). (b) Dropout 0.2: 4 ``Trainer`` steps
+   policy (``core.remat.count_dots``). (b) Dropout 0.2: 3 ``Trainer`` steps
    of the 1f1b table without, with, with and without the policy (in turns):
    launches pinned, trajectories within 1e-4 of each other; ms per step,
    train tokens/s and peak bytes of each. In this phase and the three
@@ -175,12 +179,12 @@ exits non-zero without a result line:
    --batch 32 --lr 1e-4``: 2 dropout-0.1 steps, every loss finite. (d)
    Its forward, dQ and dK/dV launches pinned to ``stage_passes``: 24 x (32
    + 31) forwards and 768 each of dQ and dK/dV a step. (e) The zoo's first
-   2 steps again with ``remat_policy="dots_saveable"``: trajectory within
+   step again with ``remat_policy="dots_saveable"``: trajectory within
    1e-4 of the zoo's, launches equal; ms per step, train tokens/s and peak
    bytes of both.
 5g. vit -- ViT-L/16 at its published width (224 x 224 x 3, patch 16, 197
    tokens, d_model 1,024, 24 layers, 1,000 classes, dropout 0.1). (a)
-   ``apps.zoo vit --stages 8 --chunks 8 --batch 32 --lr 1e-4``: 8 steps,
+   ``apps.zoo vit --stages 8 --chunks 8 --batch 32 --lr 1e-4``: 4 steps,
    every loss finite, no kernel launch (197 tokens fail ``supports()``, so
    every block takes plain attention, as ``pipe_tpu``'s gate chooses); ms
    per step. (b) ``Pipe(balance=[3, 3, 3, 3, 3, 3, 3, 5], chunks=8)``
@@ -418,12 +422,12 @@ exits non-zero without a result line:
    d_model 2048, 16 layers, 4 a rank; random weights and tokens from
    seeds; dropout 0.2, batch 32, chunks 4): a serialized warm-up step, then
    1f1b/except_last steps through ``ScheduledPipeline(mesh=)`` serialized,
-   overlapped, overlapped, serialized (3 steps each, from one set of
+   overlapped, overlapped, serialized (2 steps each, from one set of
    weights): every step's loss and gradients bit for bit the warm-up's, and
    each rank's forward, dQ and dK/dV launches equal to its column of the
    table. (b) Phase-compiled 1f1b/except_last against (a)'s warm-up step,
    and phase-compiled zb-h1/never (the structural split) against its
-   interpreted step (3 steps each): bit for bit, launches as (a); the
+   interpreted step (2 steps each): bit for bit, launches as (a); the
    programs' cycles
    and segments printed. (c) ``obs/bubble_probe.py``'s ranks with
    ``--schedules --transport`` at ``pipe_tpu``'s widths (d_model 256, d_ff
@@ -456,7 +460,7 @@ exits non-zero without a result line:
    launched (the ring's softmax is einsums); one overlapped and one
    phase-compiled step bit for bit the first serialized one. (c)
    ``ContextShardedGenerator`` over a (1, 1, 4) mesh, a 4,096-token prompt,
-   batch 2: 32 greedy tokens equal to the one-device ``Generator``'s except
+   batch 2: 16 greedy tokens equal to the one-device ``Generator``'s except
    at near ties (top-2 within 1e-4 of max|logit|, phase 12's rule), beam 2
    over 8 tokens equal with scores within 1e-5 relative, every rank's
    tokens equal, no kernel launched; the sampled stream's (8 tokens)
@@ -483,7 +487,7 @@ exits non-zero without a result line:
    except_last, batch 32, chunks 4; per-row losses, the loss and its
    gradients), and the one-device ``Generator``'s tokens. (a)
    ``ScheduledPipeline(stage_param_specs=)`` over a (2, 1, 2) mesh,
-   1f1b/except_last, 2 ``loss_and_grad`` steps: each step's loss and the
+   1f1b/except_last, 1 ``loss_and_grad`` step: its loss and the
    per-row losses (``forward`` and ``loss_post_fn`` on the last stage's
    ranks) within 1e-5 relative of the twin's, every gradient, gathered
    over the model line into whole leaves, within 1e-4 x max(1, max|g|),
@@ -491,7 +495,7 @@ exits non-zero without a result line:
    bitwise-equal replicated gradients (digests of their bytes). (b) A
    (1, 2, 2) mesh (data and model) at 8 layers, one step, the same gates
    against its own twin. (c) ``TPShardedGenerator`` over (1, 1, 4), batch
-   2, a 128-token prompt: 32 greedy tokens equal to the one-device
+   2, a 128-token prompt: 16 greedy tokens equal to the one-device
    ``Generator``'s except at near ties (phase 12's rule), beam 2 over 8
    tokens equal with scores within 1e-5 relative, every rank's tokens
    equal, no kernel launched; the sampled stream's (8 tokens) agreement
@@ -503,6 +507,40 @@ exits non-zero without a result line:
    all-reduces (count, bytes, seconds), the staged bytes and the peak; the
    generator's prefill ms, ms per generated token and the decode
    collectives' share; all beside the card's name and power limit.
+
+17. moe -- run after phase 16, in the same world of 4 ranks, Mixture of
+   Experts over the model axis (``ops/moe.py``: heads and experts sharded
+   over the model line; two all-reduces a MoE layer, the router's logits
+   and the experts' outputs, three a block with attention's; no
+   all-to-all, no kernel) at ``MoELMConfig``'s defaults and the tutorial
+   LM's full width (d_model 2048, 32 heads, d_ff 2048, 16 layers, bptt
+   128, the corpus vocabulary, 8 experts, top 2, capacity factor 1.25:
+   1.42 B parameters), dropout 0, with random weights and tokens from
+   seeds, through ``MoEPipelinedLM``. The one-device twins run first in
+   the parent and are freed before the ranks build:
+   ``MoEPipelinedLM(ep_axis=None)`` on the same weights through the
+   one-device table executor (1f1b, except_last, batch 32, chunks 4;
+   per-row losses, the loss and its gradients; the token-slots each layer
+   drops over capacity, printed), and the one-device ``Generator``'s
+   greedy tokens (with the margins of its own teacher-forced logits) and
+   beam tokens and scores. (a) ``ScheduledPipeline(stage_param_specs=)``
+   over a (2, 1, 2) mesh, 16 layers, 1f1b/except_last, one
+   ``loss_and_grad`` step: the loss and the per-row losses within 1e-5
+   relative of the twin's, every gradient, gathered over the model line
+   into whole leaves, within 1e-4 x max(1, max|g|), the replicated
+   gradients of each model line bitwise equal (digests), each rank 4 of
+   the 8 experts, no flash launch on any rank. (b) ``TPShardedGenerator``
+   over (1, 1, 4), 2 experts and 8 heads a rank, batch 2, a 128-token
+   prompt: 32 greedy tokens equal to the one-device ``Generator``'s except
+   at near ties (phase 12's rule), beam 2 over 8 tokens equal with scores
+   within 1e-5 relative or within one fp32 ulp of the largest |logit| of
+   the twin's greedy stream (a score near 0 is a difference of logits that
+   large, resolved to that ulp), every rank's tokens equal, no kernel
+   launched. Prints per rank: ms a step, the model line's all-reduces
+   (``model_collectives``, ``model_bytes``, ``model_s``), the staged bytes
+   and the peak; the generator's prefill ms, ms per generated token and
+   the collectives' share; all beside the card's name and power limit.
+   The kernels JSON line carries ``launches_moe`` (0) in every entry.
 
 Before every phase the collector runs and the allocator's cache is
 emptied, and the phase's starting ``memory_allocated`` and the script's
@@ -568,6 +606,7 @@ SCHED_RUNS = (("gpipe", "except_last"), ("1f1b", "except_last"),
               ("zb-h1", "never"), ("zb-h1", "never", "stored-graph"),
               ("1f1b", "never"))
 SPLIT_SIGMA_RUNS = ("zb-h1/never", "zb-h1/never/stored-graph")
+SCHED_STEPS = 5          # each trajectory's steps
 FWD_WALKS = 3
 SPLIT_TIME_REPS = 5      # gate (c)'s host and device times of each pass
 TOL_SCHED_LOSS = 1e-5    # twin loss, relative to the emulator's
@@ -583,7 +622,7 @@ GPT2_BATCH = 32
 GPT2_TWINS = [(s, c) for s in ("gpipe", "1f1b")
               for c in ("except_last", "never")]
 GPT2_RUNS = ("emulator", "1f1b")          # both under except_last
-GPT2_STEPS = 4            # the trajectories' and the zoo's steps
+GPT2_STEPS = 3            # the trajectories' and the zoo's steps
 BN_WIDTH, BN_DEPTH, BN_CHUNKS, BN_BATCH = 1024, 4, 8, 256
 TOL_BN = 1e-5
 # Remat phase: the policy the tables take (JAX's headline program is
@@ -607,7 +646,7 @@ PLAN_FIT_M = (2, 4, 8)      # the m at which auto_plan fits its step costs
 TOL_PLAN = 0.05             # the plan's step may be this much over a runner-up's
 REMAT_POLICY = "dots_saveable"
 REMAT_RUNS = (None, REMAT_POLICY, REMAT_POLICY, None)
-REMAT_STEPS = 4          # each trajectory's steps
+REMAT_STEPS = 3          # each trajectory's steps
 # GPT-2 serve phase: slots, requests (prompt and new-token lengths drawn
 # from a seeded rng), the prompt buckets, the speculative depth, and the
 # top-2 margin below which a step is a near tie.
@@ -621,12 +660,13 @@ GPT2_TIE = 1e-4
 # 24 virtual stages of one block, chunks 32 of one 512-token row), and the
 # steps of (e) under the policy.
 BERT_STAGES, BERT_INTERLEAVE, BERT_CHUNKS, BERT_BATCH = 8, 3, 32, 32
-BERT_POLICY_STEPS = 2
+BERT_POLICY_STEPS = 1
 BERT_ZOO_STEPS = 2
 # ViT phase: BASELINE config #5 (8 stages, chunks 8, batch 32) and its
 # uneven Pipe balance over embed + 24 blocks + head.
 VIT_STAGES, VIT_CHUNKS, VIT_BATCH = 8, 8, 32
 VIT_BALANCE = [3] * 7 + [5]
+VIT_STEPS = 4            # the zoo's steps
 # Generation phase: batch, prompt and new tokens (prompt + new = 256, a
 # sequence the flash forward takes, for the reference forward); beam search
 # on the first GEN_BEAM_BATCH prompts; sampling; int8 against fp32 logits,
@@ -1653,7 +1693,22 @@ def phase_train_obs(smi: str) -> dict:
     if sum(stage_busy) > wall:
         raise AssertionError(f"stage busy {sum(stage_busy)} s exceeds the "
                              f"traced wall {wall} s")
+    # (b) starts with nothing of (a) alive (C.27): the TensorBoard writer
+    # and the event log closed, no profiler, every prefetcher's producer
+    # freed, (a)'s weights and moments collected
+    tr.tb.close()
+    tr.events.close()
     del tr, state
+    gc.collect()
+    torch.cuda.empty_cache()
+    import threading
+    left = dict(profiler=bool(torch._C._autograd._profiler_enabled()),
+                prefetchers=BatchPrefetcher.opened - BatchPrefetcher.closed,
+                threads=threading.active_count(),
+                memory_allocated=torch.cuda.memory_allocated())
+    log("train_obs", before_planner=left)
+    if left["profiler"] or left["prefetchers"]:
+        raise AssertionError(f"(a) left {left} alive for the planner")
     shutil.rmtree(os.path.join(tdir), ignore_errors=True)
 
     # (b) the planner
@@ -1683,7 +1738,8 @@ def phase_train_obs(smi: str) -> dict:
     fit = fitted[0]
     log("train_obs", fit_m=list(PLAN_FIT_M), fit_o_ms=f"{fit.o * 1e3:.3f}",
         fit_scale=f"{fit.layer_fwd_s[1] / prof.layer_fwd_s[1]:.4f}",
-        fit_rel_residual=f"{fit.rel_residual:.4f}", source=fit.source)
+        fit_rel_residual=f"{fit.rel_residual:.4f}",
+        step_model=fit.step_model, source=fit.source)
     # the first runner-up, and the first with another m: the choice of m is
     # what the fitted overhead decides
     runners = list(plan.runners_up[:1]) + [
@@ -2141,7 +2197,7 @@ def phase_schedules() -> dict:
         _zero_launches()
         torch.cuda.reset_peak_memory_stats()
         losses, step_s, mallocs, gc_s, held = [], [], [], [], []
-        for b in range(TRAIN_STEPS):
+        for b in range(SCHED_STEPS):
             n_malloc = torch.cuda.memory_stats()["num_device_alloc"]
             with _gc_pauses() as pauses:
                 t_step = time.perf_counter()
@@ -2157,8 +2213,8 @@ def phase_schedules() -> dict:
             losses.append(info["loss"])
         launches = _launch_counts()
         peak = torch.cuda.max_memory_allocated()
-        steady = sum(step_s[1:]) / (TRAIN_STEPS - 1)
-        expected = _expected_launches(trainer.scheduled, lps, TRAIN_STEPS)
+        steady = sum(step_s[1:]) / (SCHED_STEPS - 1)
+        expected = _expected_launches(trainer.scheduled, lps, SCHED_STEPS)
         runs[key] = losses
         by_schedule[key] = launches
         steady_s[key] = steady
@@ -2172,7 +2228,7 @@ def phase_schedules() -> dict:
                 if k:
                     fwd_s[key] = fwd_s.get(key, 0.0) + (
                         time.perf_counter() - t_walk) / FWD_WALKS
-        log("schedules", run=key, dropout=cfg.dropout, steps=TRAIN_STEPS,
+        log("schedules", run=key, dropout=cfg.dropout, steps=SCHED_STEPS,
             losses=[f"{l:.6f}" for l in losses],
             ms_per_step=[f"{t * 1e3:.1f}" for t in step_s],
             steady_ms_per_step=f"{steady * 1e3:.1f}",
@@ -2186,7 +2242,7 @@ def phase_schedules() -> dict:
             raise AssertionError(f"{key}: non-finite training loss {losses}")
         if launches != expected:
             raise AssertionError(f"{key} launched {launches} in "
-                                 f"{TRAIN_STEPS} steps, its tables imply "
+                                 f"{SCHED_STEPS} steps, its tables imply "
                                  f"{expected}")
         del trainer, state
         torch.cuda.empty_cache()
@@ -3011,7 +3067,7 @@ def phase_bert() -> dict:
         losses.append(loss.item())
         step_s.append(time.perf_counter() - t_step)
     launches = _launch_counts()
-    steady = sum(step_s[1:]) / (steps - 1)
+    steady = (sum(step_s[1:]) / (steps - 1) if steps > 1 else step_s[0])
     key = f"loop/interleaved-1f1b/{REMAT_POLICY}"
     by_run[key] = launches
     log("bert", run=key, dropout=cfg.dropout, steps=steps,
@@ -3050,7 +3106,7 @@ def phase_vit() -> None:
     # (a) the zoo, config #5
     argv = ["vit", "--stages", str(VIT_STAGES), "--chunks", str(VIT_CHUNKS),
             "--batch", str(VIT_BATCH), "--lr", str(TRAIN_LR), "--steps",
-            str(TRAIN_STEPS)]
+            str(VIT_STEPS)]
     losses, ms, peak, launches = _run_zoo("vit", argv)
     log("vit", run="zoo/1f1b", losses=losses, steady_ms_per_step=f"{ms:.1f}",
         train_images_per_s=f"{VIT_BATCH / ms * 1e3:.1f}",
@@ -6262,13 +6318,14 @@ OV_STEP_SEED = 7
 # (a): the transports, in turns, OV_TURN_STEPS steps each
 OV_TURNS = (("serialized", False, False), ("overlapped", True, False),
             ("overlapped", True, False), ("serialized", False, False))
-OV_TURN_STEPS = 3
+OV_TURN_STEPS = 2
 # (b): (schedule, checkpoint) of the phase-compiled steps held to the
 # interpreted walk; zb-h1 under never with the structural split
 OV_PHASE_RUNS = (("1f1b", "except_last"), ("zb-h1", "never"))
-# (c): the probe's geometry and widths (pipe_tpu's defaults)
+# (c): the probe's geometry and widths (pipe_tpu's defaults), timed over
+# 2 iterations a row (pipe_tpu's 4)
 OV_PROBE = dict(n_stages=OV_STAGES, chunks=8, d_model=256, d_ff=512,
-                seq_len=64, iters=4)
+                seq_len=64, iters=2)
 # (d): the zoo over the world: phase gpt2's argv (e), for a few steps
 ZOO_WORLD_STEPS = 3
 TOL_ZOO_WORLD = 1e-5         # relative, against the one-device zoo's losses
@@ -6604,7 +6661,7 @@ CTX_RING = ((2, 1, 2), 4)
 CTX_STEPS = 1
 CTX_GEN_PROMPT = 4096
 CTX_GEN_BATCH = 2
-CTX_GEN_NEW = 32
+CTX_GEN_NEW = 16
 CTX_BEAMS = 2
 CTX_BEAM_NEW = 8
 CTX_SAMPLE_SEED = 31
@@ -7001,13 +7058,13 @@ TP_WEIGHT_SEED = 37
 TP_DATA_SEED = 41
 TP_BATCH = 32
 TP_CHUNKS = 4
-TP_PP = ((2, 1, 2), 16, 2)       # (stages, data, model), layers, steps
+TP_PP = ((2, 1, 2), 16, 1)       # (stages, data, model), layers, steps
 TP_DP = ((1, 2, 2), MESH_LAYERS, 1)
 TP_SPLIT_LAYERS = 8
 TP_GEN_SHAPE = (1, 1, 4)
 TP_GEN_BATCH = 2
 TP_GEN_PROMPT = 128
-TP_GEN_NEW = 32
+TP_GEN_NEW = 16
 TP_BEAMS = 2
 TP_BEAM_NEW = 8
 TP_SAMPLE_SEED = 43
@@ -7434,6 +7491,396 @@ def phase_tp(smi: str, world=None, *, overrides=None, device="cuda",
     log("tp", seconds=f"{time.perf_counter() - t_phase:.1f}", card=card)
     return launches
 
+# Phase 17: MoELMConfig's defaults at the tutorial LM's full width (8
+# experts, top 2, capacity 1.25), dropout 0, weights and tokens from seeds;
+# (a) over (2, 1, 2) for one step, (b) the generator over (1, 1, 4).
+MOE_WORLD = 4
+MOE_WEIGHT_SEED = 47
+MOE_DATA_SEED = 53
+MOE_PP = ((2, 1, 2), 16, 1)      # (stages, data, model), layers, steps
+MOE_GEN_SHAPE = (1, 1, 4)
+MOE_GEN_BATCH = 2
+MOE_GEN_PROMPT = 128
+MOE_GEN_NEW = 32
+MOE_BEAMS = 2
+MOE_BEAM_NEW = 8
+
+
+def _moe_model(vocab: int, n_layers: int, n_stages: int, *, mesh=None,
+               ep_axis="model", device="cuda", overrides=None):
+    """``MoEPipelinedLM`` at full width (``MoELMConfig`` defaults;
+    ``overrides``: a smaller config, for a CPU rehearsal), dropout 0, on
+    ``device``, its weights drawn from phase 17's seed (the same bits in
+    every process on one card, whatever the stage count or ``ep_axis``)."""
+    from pipe_tpu_torch.models.moe_lm import MoELMConfig, MoEPipelinedLM
+    cfg = dataclasses.replace(
+        MoELMConfig(vocab=vocab, dropout=0.0, n_layers=n_layers),
+        **(overrides or {}))
+    return MoEPipelinedLM(cfg, n_stages, ep_axis, mesh=mesh, device=device,
+                          generator=torch.Generator(device=device)
+                          .manual_seed(MOE_WEIGHT_SEED))
+
+
+def _gen_margins(gen, prompt, toks) -> tuple:
+    """Per row, at each step of the greedy stream ``toks``: the top-2 gap of
+    the logits that picked it over the largest |logit| (the near-tie rule's
+    unit), from ``gen``'s own cached calls teacher-forced on ``toks`` (the
+    whole batch a call, so a MoE layer's capacity is the stream's own); and
+    the largest |logit| of the stream."""
+    from pipe_tpu_torch.inference.generate import head_logits
+    from pipe_tpu_torch.ops.layers import causal_table
+
+    m = gen.model
+    b, p = prompt.shape
+    n = toks.shape[1]
+    allowed = causal_table(p + n, prompt.device)
+    rows = [[] for _ in range(b)]
+    scale = 0.0
+    with torch.inference_mode():
+        h, caches = gen._prefill(prompt, p + n, allowed)
+        for t in range(n):
+            if t:
+                pos = p + t - 1
+                h = gen._run_layers(m.embed_at(toks[:, t - 1:t], pos),
+                                    caches, pos, allowed)
+            logits = head_logits(m, h[:, -1]).float()
+            top2 = torch.topk(logits, 2, dim=-1).values
+            gap = (top2[:, 0] - top2[:, 1]) / logits.abs().amax(-1)
+            scale = max(scale, logits.abs().max().item())
+            for i, g in enumerate(gap.tolist()):
+                rows[i].append(g)
+    return rows, scale
+
+
+def _moe_refs(tmp: str, vocab: int, overrides=None, device="cuda") -> dict:
+    """The one-device twins, in the parent: ``MoEPipelinedLM(ep_axis=None)``
+    through the one-device table executor (1f1b, except_last) at (a)'s 16
+    layers over 2 stages (per-row losses, the loss and its gradients,
+    written to a file the ranks read; the token-slots each layer drops over
+    the batch's micro-batches), and the one-device ``Generator``'s greedy
+    tokens with their near-tie margins and its beam tokens and scores over
+    (b)'s prompt. ``overrides`` and ``device``: a CPU rehearsal's."""
+    from pipe_tpu_torch.core.partition import StageCtx
+    from pipe_tpu_torch.inference import GenerationConfig, Generator
+
+    seq = (overrides or {}).get("seq_len", BPTT)
+    gen = torch.Generator(device=device).manual_seed(MOE_DATA_SEED)
+    tokens = torch.randint(0, vocab, (TP_BATCH, seq), generator=gen,
+                           device=device)
+    prompt = torch.randint(0, vocab, (MOE_GEN_BATCH, MOE_GEN_PROMPT),
+                           generator=gen, device=device)
+    torch.save({"tokens": tokens.cpu(), "prompt": prompt.cpu()},
+               os.path.join(tmp, "moe.pt"))
+    x, w = _tp_batch(tokens)
+    (n_stages, _, _), n_layers, _ = MOE_PP
+    model = _moe_model(vocab, n_layers, n_stages, ep_axis=None,
+                       device=device, overrides=overrides)
+    refs = {"params": sum(p.numel() for p in model.parameters()),
+            "n_experts": model.cfg.n_experts}
+    ex = _tp_table(model, n_stages, device=device)
+    _peak_reset(device)
+    _sync(device)
+    t0 = time.perf_counter()
+    loss, grads = ex.loss_and_grad(x, w)
+    _sync(device)
+    refs.update(ms=(time.perf_counter() - t0) * 1e3, loss=float(loss),
+                peak_bytes=_peak(device),
+                per_row=_tp_per_row(ex, model, x))
+    torch.save({"grads": {n: g.detach().cpu() for n, g in grads.items()},
+                "per_row": refs["per_row"], "loss": refs["loss"]},
+               os.path.join(tmp, "twin_moe.pt"))
+    del grads, ex
+    dropped = [0] * n_layers
+    with torch.no_grad():
+        for i in range(x["tokens"].shape[0]):
+            h = model.pre_fn({"tokens": x["tokens"][i]}, StageCtx(train=False))
+            for l, blk in enumerate(model.blocks):
+                dropped[l] += blk.dropped_slots(h)
+                h = blk(h)
+    refs["dropped"] = dropped
+    refs["slots"] = x["tokens"].numel() * model.cfg.top_k
+    g = Generator(model, GenerationConfig(max_new_tokens=MOE_GEN_NEW,
+                                          temperature=0.0))
+    greedy = g.generate(prompt)
+    refs["greedy"] = greedy.cpu()
+    refs["margins"], refs["logit_scale"] = _gen_margins(g, prompt, greedy)
+    toks, scores = Generator(model, GenerationConfig(
+        max_new_tokens=MOE_BEAM_NEW, num_beams=MOE_BEAMS)
+    ).generate_with_scores(prompt)
+    refs["beam"], refs["beam_scores"] = toks.cpu(), scores.cpu()
+    del model, g
+    gc.collect()
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    return refs
+
+
+def _moe_rank(tmp: str, vocab: int, overrides=None) -> dict:
+    """On each rank of the world: gates (a) and (b) of phase 17 (its
+    docstring), against the twin's file; every rank returns its own
+    numbers. ``overrides``: a smaller config, for a CPU rehearsal (the
+    mesh's device then is the CPU)."""
+    import hashlib
+
+    import torch.distributed as dist
+
+    from pipe_tpu_torch.inference import GenerationConfig
+    from pipe_tpu_torch.inference.generate import head_logits
+    from pipe_tpu_torch.inference.pipelined import stage_modules
+    from pipe_tpu_torch.inference.tp import TPShardedGenerator
+    from pipe_tpu_torch.ops.layers import causal_table
+    from pipe_tpu_torch.parallel.mesh import MODEL_AXIS, localize, make_mesh
+    from pipe_tpu_torch.runtime.distributed import rank_device
+
+    dev = rank_device()
+    data = torch.load(os.path.join(tmp, "moe.pt"))
+    x, w = _tp_batch(data["tokens"].to(dev))
+    out = {"rank": dist.get_rank()}
+
+    # (a) the training step over (2, 1, 2)
+    shape, n_layers, steps = MOE_PP
+    twin = torch.load(os.path.join(tmp, "twin_moe.pt"), mmap=True)
+    mesh = make_mesh(shape[0], shape[1], n_model=shape[2])
+    model = _moe_model(vocab, n_layers, shape[0], mesh=mesh, device=dev,
+                       overrides=overrides)
+    localize(model, stage_modules(model, mesh.stage, shape[0]), dev)
+    ex = _tp_table(model, shape[0], mesh=mesh,
+                   stage_param_specs=model.stage_param_specs())
+    sharded = {n for n, spec in ex._param_specs.items()
+               if spec.dim_of(MODEL_AXIS) is not None}
+    _peak_reset(dev)
+    runs = []
+    for i in range(steps):
+        model.zero_grad(set_to_none=True)
+        _sync(dev)
+        _zero_launches()
+        mesh.reset_stats()
+        t0 = time.perf_counter()
+        loss, grads = ex.loss_and_grad(x, w)
+        _sync(dev)
+        rec = dict(loss=float(loss), ms=(time.perf_counter() - t0) * 1e3,
+                   launches=_rank_counts(), transport=mesh.stats.as_dict(),
+                   loss_rel=abs(float(loss) - twin["loss"])
+                   / abs(twin["loss"]))
+        if i == 0:
+            rec["digests"] = {
+                n: hashlib.blake2b(g.detach().cpu().numpy().tobytes(),
+                                   digest_size=16).hexdigest()
+                for n, g in grads.items() if n not in sharded}
+            rec["n_sharded"] = len(sharded & set(grads))
+            rec["experts"] = int(next(
+                b for b in model.blocks
+                if b.moe.w1.device.type != "meta").moe.w1.shape[0])
+            rec["grad_err"] = _grad_err(ex.gather_model_grads(grads),
+                                        twin["grads"])
+        runs.append(rec)
+        del grads
+    peak = _peak(dev)
+    _zero_launches()
+    got = _tp_per_row(ex, model, x)
+    per_row_rel = None
+    if got is not None:
+        want = twin["per_row"]
+        per_row_rel = ((got - want).abs() / want.abs()).max().item()
+    out["pp"] = dict(steps=runs, per_row_rel=per_row_rel, peak_bytes=peak,
+                     stage=mesh.stage, data=mesh.data, model=mesh.model,
+                     forward_launches=_rank_counts())
+    del ex, model, twin
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+    # (b) the generator over a model line of 4: greedy (its prefill timed
+    # alone first), beam
+    mesh = make_mesh(*MOE_GEN_SHAPE[:2], n_model=MOE_GEN_SHAPE[2])
+    model = _moe_model(vocab, 16, 1, mesh=mesh, device=dev,
+                       overrides=overrides)
+    prompt = data["prompt"].to(dev)
+    g = TPShardedGenerator(mesh, model, GenerationConfig(
+        max_new_tokens=MOE_GEN_NEW, temperature=0.0))
+    _zero_launches()
+    _peak_reset(dev)
+    total = MOE_GEN_PROMPT + MOE_GEN_NEW
+    with torch.inference_mode():
+        _sync(dev)
+        mesh.reset_stats()
+        t0 = time.perf_counter()
+        h, _ = g._prefill(prompt, total, causal_table(total, prompt.device))
+        head_logits(model, h[:, -1])
+        _sync(dev)
+        prefill_ms = (time.perf_counter() - t0) * 1e3
+        prefill_stats = mesh.stats.as_dict()
+        del h
+    mesh.reset_stats()
+    t0 = time.perf_counter()
+    greedy = g.generate(prompt)
+    _sync(dev)
+    total_ms = (time.perf_counter() - t0) * 1e3
+    stats = mesh.stats.as_dict()
+    beam, scores = TPShardedGenerator(mesh, model, GenerationConfig(
+        max_new_tokens=MOE_BEAM_NEW, num_beams=MOE_BEAMS)
+    ).generate_with_scores(prompt)
+    blk = model.blocks[0]
+    out["generate"] = dict(
+        greedy=greedy.cpu(), beam=beam.cpu(), beam_scores=scores.cpu(),
+        prefill_ms=prefill_ms, total_ms=total_ms,
+        ms_per_generated_token=total_ms / MOE_GEN_NEW,
+        decode_ms_per_token=(total_ms - prefill_ms) / (MOE_GEN_NEW - 1),
+        collectives=stats["model_collectives"],
+        collective_bytes=stats["model_bytes"],
+        collective_s=stats["model_s"],
+        collective_share=stats["model_s"] / (total_ms / 1e3),
+        prefill_collectives=prefill_stats["model_collectives"],
+        prefill_collective_s=prefill_stats["model_s"],
+        heads=int(blk.wqkv.shape[2]), nhead=model.cfg.nhead,
+        experts=int(blk.moe.w1.shape[0]), n_experts=model.cfg.n_experts,
+        launches=_rank_counts(), peak_bytes=_peak(dev))
+    del g, model
+    dist.barrier()
+    return out
+
+
+def phase_moe(smi: str, world=None, *, overrides=None, device="cuda",
+              vocab=None) -> dict:
+    """Phase 17: MoE over the model axis in the world of 4 ranks; returns
+    the kernels' launches of its runs (all 0: the MoE block is einsums),
+    summed over ranks. A CPU rehearsal passes a world of CPU ranks, a
+    smaller config (``overrides``), ``device="cpu"`` and a ``vocab`` size
+    (the corpus's otherwise)."""
+    import shutil
+    import tempfile
+
+    t_phase = time.perf_counter()
+    card = smi.splitlines()[0]
+    if vocab is None:
+        vocab = len(_corpus()[2])
+    tmp = tempfile.mkdtemp(prefix="pipe_tpu_moe_")
+    refs = _moe_refs(tmp, vocab, overrides, device)
+    (shape, n_layers, _) = MOE_PP
+    log("moe", world=MOE_WORLD, backend="gloo", device=f"{device}:0 (shared)",
+        vocab=vocab, params=refs["params"], batch=TP_BATCH, chunks=TP_CHUNKS,
+        twin_ms=f"{refs['ms']:.1f}", twin_loss=f"{refs['loss']:.6f}",
+        twin_peak_bytes=refs["peak_bytes"],
+        refs_s=f"{time.perf_counter() - t_phase:.1f}", card=card)
+    log("moe", run="twin", dropped_slots_per_layer=refs["dropped"],
+        slots_per_layer=refs["slots"],
+        dropped_share=f"{sum(refs['dropped']) / (refs['slots'] * n_layers):.4f}")
+    with _world(world, MOE_WORLD, TP_TIMEOUT_S, TP_THREADS) as world:
+        t0 = time.perf_counter()
+        res = world.run(_moe_rank, tmp, vocab, overrides)
+    log("moe", world_s=f"{time.perf_counter() - t0:.1f}")
+    launches = {c.__name__: 0 for c in _counters()}
+    for r in res:
+        a = r["pp"]
+        for i, s in enumerate(a["steps"]):
+            t = s["transport"]
+            log("moe", rank=r["rank"], run=f"pp/step{i}",
+                mesh="x".join(map(str, shape)), layers=n_layers,
+                loss=f"{s['loss']:.6f}", loss_rel=f"{s['loss_rel']:.3e}",
+                ms=f"{s['ms']:.1f}", launches=list(s["launches"].values()),
+                model_collectives=t["model_collectives"],
+                model_bytes=t["model_bytes"], model_s=f"{t['model_s']:.3f}",
+                p2p_bytes=t["p2p_bytes"], p2p_s=f"{t['p2p_s']:.3f}",
+                collectives=t["collectives"], staged_bytes=t["staged_bytes"],
+                peak_bytes=a["peak_bytes"], card=card)
+            for k, v in s["launches"].items():
+                launches[k] += v
+            if s["loss_rel"] > TOL_TP_LOSS or any(s["launches"].values()):
+                raise AssertionError(
+                    f"moe rank {r['rank']} step {i}: loss {s['loss_rel']:.3e} "
+                    f"(> {TOL_TP_LOSS}) off the twin, or launches "
+                    f"{s['launches']}")
+        s0 = a["steps"][0]
+        for k, v in a["forward_launches"].items():
+            launches[k] += v
+        log("moe", rank=r["rank"], run="pp", stage=a["stage"], data=a["data"],
+            model=a["model"], experts=s0["experts"],
+            per_row_rel=("-" if a["per_row_rel"] is None
+                         else f"{a['per_row_rel']:.3e}"),
+            grad_err=f"{s0['grad_err']:.3e}",
+            sharded_leaves=s0["n_sharded"])
+        if s0["grad_err"] > TOL_TP_GRAD or any(
+                a["forward_launches"].values()) or (
+                a["per_row_rel"] is not None
+                and a["per_row_rel"] > TOL_TP_LOSS):
+            raise AssertionError(
+                f"moe rank {r['rank']}: per-row {a['per_row_rel']} (> "
+                f"{TOL_TP_LOSS}) or gradients {s0['grad_err']:.3e} (> "
+                f"{TOL_TP_GRAD}) off the twin, or the forward launched "
+                f"{a['forward_launches']}")
+        if s0["experts"] * shape[2] != refs["n_experts"]:
+            raise AssertionError(f"moe rank {r['rank']} holds "
+                                 f"{s0['experts']} experts")
+    # the ranks of a model line: bitwise-equal replicated gradients
+    lines = {}
+    for r in res:
+        lines.setdefault((r["pp"]["stage"], r["pp"]["data"]),
+                         []).append(r["pp"]["steps"][0]["digests"])
+    for key, digests in lines.items():
+        if len(digests) != shape[2] or any(d != digests[0] for d in digests):
+            raise AssertionError(f"moe: the model line at (stage, data) "
+                                 f"{key} holds replicated gradients that "
+                                 f"differ")
+    if not any(r["pp"]["per_row_rel"] is not None for r in res):
+        raise AssertionError("moe: no rank compared per-row losses")
+    log("moe", run="pp", model_lines=len(lines), replicated_equal=True,
+        replicated_leaves=len(next(iter(lines.values()))[0]))
+    # (b) every rank's tokens; rank 0's against the one-device Generator
+    g0 = res[0]["generate"]
+    for r in res:
+        g = r["generate"]
+        for k in ("greedy", "beam"):
+            if not torch.equal(g[k], g0[k]):
+                raise AssertionError(f"moe generator: rank {r['rank']}'s {k} "
+                                     f"tokens differ from rank 0's")
+        if any(g["launches"].values()):
+            raise AssertionError(f"moe generator launched {g['launches']}")
+        if (g["heads"] * MOE_GEN_SHAPE[2] != g["nhead"]
+                or g["experts"] * MOE_GEN_SHAPE[2] != g["n_experts"]):
+            raise AssertionError(f"moe generator: rank {r['rank']} holds "
+                                 f"{g['heads']} heads, {g['experts']} "
+                                 f"experts")
+    compared, departures = _ring_streams(g0["greedy"].tolist(),
+                                         refs["greedy"].tolist(),
+                                         refs["margins"], "moe greedy")
+    beam_equal = torch.equal(g0["beam"], refs["beam"])
+    beam_diff = (g0["beam_scores"] - refs["beam_scores"]).abs()
+    beam_rel = (beam_diff / refs["beam_scores"].abs()).max().item()
+    # A beam score sums log-probabilities taken from logits as large as
+    # logit_scale, which fp32 resolves to one ulp of that scale: a score
+    # near 0 cannot agree more closely than that, whatever its relative
+    # bound says.
+    ulp = float(np.spacing(np.float32(refs["logit_scale"])))
+    beam_ok = bool((beam_diff <= torch.clamp(
+        TOL_TP_SCORES * refs["beam_scores"].abs(), min=ulp)).all())
+    log("moe", run="generate", mesh="x".join(map(str, MOE_GEN_SHAPE)),
+        prompt=MOE_GEN_PROMPT, batch=MOE_GEN_BATCH, new=MOE_GEN_NEW,
+        heads=g0["heads"], experts=g0["experts"],
+        compared=compared, departures=departures, beam_equal=beam_equal,
+        beam_scores_rel=f"{beam_rel:.3e}",
+        beam_scores=[f"{v:.9g}" for v in g0["beam_scores"].tolist()],
+        twin_beam_scores=[f"{v:.9g}" for v in refs["beam_scores"].tolist()],
+        beam_scores_abs=f"{beam_diff.max().item():.3e}",
+        logit_scale=f"{refs['logit_scale']:.4g}", logit_ulp=f"{ulp:.3e}",
+        prefill_ms=f"{g0['prefill_ms']:.1f}", total_ms=f"{g0['total_ms']:.1f}",
+        ms_per_generated_token=f"{g0['ms_per_generated_token']:.3f}",
+        decode_ms_per_token=f"{g0['decode_ms_per_token']:.3f}",
+        allreduces=g0["collectives"], allreduce_bytes=g0["collective_bytes"],
+        allreduce_s=f"{g0['collective_s']:.3f}",
+        collective_share=f"{g0['collective_share']:.3f}",
+        prefill_allreduces=g0["prefill_collectives"],
+        prefill_allreduce_s=f"{g0['prefill_collective_s']:.3f}",
+        peak_bytes=g0["peak_bytes"], card=card)
+    if not beam_equal or not beam_ok:
+        raise AssertionError(f"moe beam: tokens equal {beam_equal}, scores "
+                             f"{beam_diff.tolist()} off the twin's, over "
+                             f"{TOL_TP_SCORES} relative and one ulp of "
+                             f"{refs['logit_scale']:.4g}")
+    shutil.rmtree(tmp, ignore_errors=True)
+    log("moe", seconds=f"{time.perf_counter() - t_phase:.1f}", card=card)
+    return launches
+
+
 _T_START = time.perf_counter()
 
 
@@ -7485,7 +7932,7 @@ def main() -> int:
     del ctx
     fresh("fleet")
     phase_fleet(smi, gap)
-    # phases 11-16 share one world of 4 ranks: it is spawned, and each
+    # phases 11-17 share one world of 4 ranks: it is spawned, and each
     # rank's CUDA context made, once
     from pipe_tpu_torch.runtime.distributed import World
     with World(MESH_WORLD, device="cuda", backend="gloo",
@@ -7502,6 +7949,8 @@ def main() -> int:
         context_launches = phase_context(smi, world)
         fresh("tp")
         tp_launches = phase_tp(smi, world)
+        fresh("moe")
+        moe_launches = phase_moe(smi, world)
     sources = {"flash_attn_fwd": ("flash_attn_fwd.cu", 87,
                                   "flash_attention_fwd"),
                "flash_attn_bwd_dq": ("flash_attn_bwd.cu", 162,
@@ -7548,6 +7997,7 @@ def main() -> int:
             "ulysses_total": context_launches["total"][wrapper],
             "ring": 0, "generator": 0}
         entry["launches_tp"] = tp_launches[wrapper]
+        entry["launches_moe"] = moe_launches[wrapper]
         entry["gpt2_shape"] = row["gpt2_shape"]
         entry["bert_shape"] = row["bert_shape"]
         entry["mesh_shape"] = row["mesh_shape"]

@@ -24,11 +24,15 @@ layer by layer. The layouts that differ:
   ``Linear``;
 * ``BatchNorm``: ``scale``/``bias`` go to the parameters, the running
   ``mean``/``var`` to the buffers of the same names;
-* the tensor-parallel block (``ops/tp_layers.py``): its leaves keep
+* the tensor-parallel block (``ops/tp_layers.py``) and the MoE block
+  (``ops/moe.py``, its experts under ``moe.*``): their leaves keep
   ``pipe_tpu``'s names and layouts; a leaf cut to a model shard
   (``parallel.mesh.shard_params``) takes its block of the whole array, along
-  the dim ``tp_block_specs`` shards, so ``TPPipelinedLM``'s whole triple
-  loads into a whole model and into every rank's shard alike.
+  the dim ``tp_block_specs`` or ``moe_block_specs`` shards (the heads, the
+  experts), so ``TPPipelinedLM``'s and ``MoEPipelinedLM``'s whole triples
+  load into a whole model and into every rank's shard alike, and
+  :func:`pipelined_lm_arrays` gives a cut model's rank its blocks of
+  ``pipe_tpu``'s gradients.
 
 :func:`load_pipelined_lm_params` copies the JAX ``Trainer``'s params, the
 ``PipelinedLM`` triple ``(stage_params, pre_params, post_params)``, into a
@@ -71,6 +75,7 @@ from .models.vit import PatchEmbed, ViTHead
 from .ops.layers import (Decoder, Dropout, Embedding, LayerNorm, Lambda,
                          Linear, MultiHeadAttention, PositionalEncoding,
                          Sequential, _TransformerBlockBase)
+from .ops.moe import MoEBlock, moe_block_specs
 from .ops.tp_layers import TPBlock, tp_block_specs
 from .parallel.mesh import MODEL_AXIS
 
@@ -142,7 +147,9 @@ def _pairs(layer: nn.Module, params: Any
         for name in ("attn", "ff1", "ff2", "ln1", "ln2"):
             yield from _pairs(getattr(layer, name), params[name])
     elif isinstance(layer, TPBlock):
-        yield from _tp_block(layer, params)
+        yield from _sharded_block(layer, params, tp_block_specs())
+    elif isinstance(layer, MoEBlock):
+        yield from _sharded_block(layer, params, moe_block_specs())
     elif isinstance(layer, GPT2Embed):
         yield _array(layer.wte, params["wte"])
         yield _array(layer.wpe, params["wpe"])
@@ -172,12 +179,12 @@ def _pairs(layer: nn.Module, params: Any
         raise TypeError(f"no pipe_tpu layout known for {type(layer).__name__}")
 
 
-def _tp_block(block: TPBlock, params: Any
-              ) -> Iterator[Tuple[torch.Tensor, np.ndarray]]:
-    """A tensor-parallel block's leaves: ``pipe_tpu``'s layout, no
+def _sharded_block(block: nn.Module, params: Any, specs: Any
+                   ) -> Iterator[Tuple[torch.Tensor, np.ndarray]]:
+    """A tensor-parallel or MoE block's leaves: ``pipe_tpu``'s layout, no
     transpose; a leaf ``shard_params`` has cut takes its model block of the
-    whole array, along the dim its spec shards."""
-    specs = tp_block_specs()
+    whole array, along the dim its spec (in ``specs``, the block's nested
+    tree) shards."""
     for name, p in block.named_parameters():
         arr, spec = params, specs
         for key in name.split("."):

@@ -71,6 +71,9 @@ MAX_REL_RESIDUAL = 0.25
 # Rounds of the step fit's round-robin timing: each m's wall is the least
 # of at least this many.
 FIT_ROUNDS = 11
+# How a step pays its device work and its host's per-cycle overhead o:
+# their sum, or the larger of the two (a step the host sets the pace of).
+STEP_MODELS = ("sum", "max")
 
 # pipe_tpu's defaults for profiles built without a fresh fit, from its
 # virtual-CPU-mesh calibrations (ZB_CROSSOVER_r05.json, structural split:
@@ -116,6 +119,9 @@ class CostProfile:
     mode: str = "serialized"            # serialized | parallel
     rel_residual: float = 0.0           # of the calibration behind sigma/o
     source: str = "unspecified"
+    # how a step pays the device's work and the host's o per cycle: "sum"
+    # (pipe_tpu's model) or "max" (fit_step_costs: the larger of the two)
+    step_model: str = "sum"
 
     def __post_init__(self):
         n = len(self.layer_fwd_s)
@@ -126,6 +132,9 @@ class CostProfile:
         if self.mode not in ("serialized", "parallel"):
             raise ValueError(f"mode must be serialized|parallel, "
                              f"got {self.mode!r}")
+        if self.step_model not in STEP_MODELS:
+            raise ValueError(f"step_model must be sum|max, got "
+                             f"{self.step_model!r}")
         if self.rel_residual > MAX_REL_RESIDUAL:
             warnings.warn(
                 f"REFUSING to plan on this calibration: relative fit "
@@ -148,7 +157,12 @@ class CostProfile:
                 else self.sigma * LEGACY_SIGMA_RATIO)
 
     def to_json(self) -> str:
-        return json.dumps(dataclasses.asdict(self))
+        """``pipe_tpu``'s JSON; ``step_model`` only where it is not the
+        sum, which ``pipe_tpu``'s profiles all are."""
+        d = dataclasses.asdict(self)
+        if d["step_model"] == "sum":
+            del d["step_model"]
+        return json.dumps(d)
 
     @classmethod
     def from_json(cls, text: str) -> "CostProfile":
@@ -253,7 +267,8 @@ def uniform_profile(n_layers: int, *, rows: int = 1, f: float = 1.0,
 def predict_wall(op: np.ndarray, grp: Optional[np.ndarray],
                  stage_fwd_s: Sequence[float],
                  stage_bwd_s: Sequence[float], *, d: int, sigma: float,
-                 o: float, mode: str, recompute: bool = False) -> float:
+                 o: float, mode: str, recompute: bool = False,
+                 step_model: str = "sum") -> float:
     """Predicted wall seconds of one step — the heterogeneous
     generalization of :func:`obs.zb_model.schedule_wall`: instead of one
     scalar ``f`` for every stage, each of the ``S = v*d`` virtual stages
@@ -267,6 +282,11 @@ def predict_wall(op: np.ndarray, grp: Optional[np.ndarray],
       :class:`obs.zb_model.OpCosts` uses, so with uniform cost columns
       and ``b = 2f`` this function equals ``schedule_wall`` exactly
       (pinned in ``tests/test_torch_planner.py``).
+
+    The ``T`` cycles' overhead ``T * o`` adds to the ops' costs
+    (``step_model="sum"``, ``pipe_tpu``'s model), or the step takes the
+    larger of the two (``"max"``: the host issues the cycles while the
+    device works through the ops, and the slower of them sets the pace).
     """
     op = np.asarray(op)
     T, cols = op.shape
@@ -290,10 +310,16 @@ def predict_wall(op: np.ndarray, grp: Optional[np.ndarray],
         bb = b_at + (f_at if recompute else 0.0)
         ct[op == BWD] = bb[op == BWD]
     if mode == "parallel":
-        return float(ct.max(axis=1).sum() + T * o)
-    if mode == "serialized":
-        return float(ct.sum() + T * o)
-    raise ValueError(f"mode must be parallel|serialized, got {mode!r}")
+        work = float(ct.max(axis=1).sum())
+    elif mode == "serialized":
+        work = float(ct.sum())
+    else:
+        raise ValueError(f"mode must be parallel|serialized, got {mode!r}")
+    if step_model == "max":
+        return max(work, T * o)
+    if step_model == "sum":
+        return work + T * o
+    raise ValueError(f"step_model must be sum|max, got {step_model!r}")
 
 
 # ---------------------------------------------------------------------------
@@ -519,7 +545,8 @@ def search(profile: CostProfile, *, n_devices: int,
                         wall = predict_wall(
                             op, grp, f_vec, b_vec, d=d, sigma=sigma,
                             o=profile.o, mode=profile.mode,
-                            recompute=checkpoint != "never")
+                            recompute=checkpoint != "never",
+                            step_model=profile.step_model)
                         act = int(np.ceil(scale * max(
                             profile.layer_act_bytes, default=0)))
                         mem = estimate_memory(
@@ -569,12 +596,16 @@ def fit_step_costs(module, sample, profile: CostProfile, *, n_devices: int,
     The per-layer profile times each layer alone at one micro-batch size
     and scales it linearly in rows, and with ``o`` = 0 a ``serialized``
     step at a fixed batch prices every m alike. A measured step also pays
-    per op (host dispatch and launches) and runs small micro-batches less
-    efficiently, so it grows with m. The least-squares fit of
-    ``wall(m) = scale * priced(m) + cycles(m) * o`` (``scale`` > 0,
-    ``o`` >= 0, ``cycles`` the table's length) gives the returned profile
-    its scaled layer costs, ``o`` and the fit's relative residual, which
-    :class:`CostProfile` refuses above :data:`MAX_REL_RESIDUAL`.
+    the host, which issues every cycle's ops (dispatch and launches), and
+    the host and the device work at once: a step takes the larger of the
+    device's work and the host's, ``wall(m) = max(scale * priced(m),
+    o * cycles(m))`` (:func:`_fit_step_model`; ``cycles`` the table's
+    length). The returned profile carries the scaled layer costs, ``o``,
+    ``step_model="max"`` and the fit's relative residual, which
+    :class:`CostProfile` refuses above :data:`MAX_REL_RESIDUAL` (walls
+    that fall steeply with m, or no line at all). Where no point is
+    device-bound the walls do not tell the scale: the profile's own costs
+    stand (scale 1, or less where they would outrun a host-bound wall).
 
     The m points are timed round robin: ``warmup`` untimed steps of every
     m, then at least :data:`FIT_ROUNDS` (or ``repeat``) rounds of one timed
@@ -631,22 +662,40 @@ def fit_step_costs(module, sample, profile: CostProfile, *, n_devices: int,
             samples[i].append(_balance._time_once(step, device))
     walls = [min(s) for s in samples]
     module.zero_grad(set_to_none=True)
-    a, w = np.array([priced, cycles]).T, np.array(walls)
-    (k, o), *_ = np.linalg.lstsq(a, w, rcond=None)
-    if o < 0:       # no growth with m: the layer costs alone, scaled
-        k, o = float(w @ a[:, 0] / (a[:, 0] @ a[:, 0])), 0.0
-    if k <= 0:
-        warnings.warn(
-            f"REFUSING to plan on this calibration: the step walls {walls} "
-            f"at m={ms} grow faster than the table's cycles (scale "
-            f"{k:.3g}), so the per-cycle overhead model does not describe "
-            f"this machine.", stacklevel=2)
-        raise CalibrationError(f"step fit scale {k:.3g} <= 0")
-    rel = float(np.sqrt(np.mean((w - a @ np.array([k, o])) ** 2)) / w.mean())
+    k, o, rel = _fit_step_model(priced, cycles, walls)
     return dataclasses.replace(
         profile, layer_fwd_s=tuple(k * f for f in profile.layer_fwd_s),
         layer_bwd_s=tuple(k * b for b in profile.layer_bwd_s),
-        o=float(o), rel_residual=rel, source=f"{profile.source}+steps")
+        o=o, rel_residual=rel, step_model="max",
+        source=f"{profile.source}+steps")
+
+
+def _fit_step_model(priced: Sequence[float], cycles: Sequence[float],
+                    walls: Sequence[float]) -> Tuple[float, float, float]:
+    """Least squares of ``wall_i = max(k * priced_i, o * cycles_i)`` over
+    ``k > 0``, ``o >= 0``: ``(k, o, relative residual)``.
+
+    Under the model the device-bound points are those of the smallest
+    ``cycles / priced``, so the fit tries each such split: ``k`` from the
+    device-bound points alone, ``o`` from the host-bound ones, and keeps the
+    split whose ``(k, o)`` leaves the least residual under the max (on a
+    tie, the one with more device-bound points). With no device-bound
+    point ``k`` is the profile's own 1, capped where ``k * priced`` would
+    outrun a host-bound wall; with no host-bound point ``o`` is 0."""
+    p, c, w = (np.asarray(v, np.float64) for v in (priced, cycles, walls))
+    order = np.argsort(c / p, kind="stable")
+    best = None
+    for j in range(len(w), -1, -1):
+        dev, host = order[:j], order[j:]
+        o = (float(w[host] @ c[host] / (c[host] @ c[host]))
+             if len(host) else 0.0)
+        k = (float(w[dev] @ p[dev] / (p[dev] @ p[dev])) if len(dev)
+             else min(1.0, float(np.min(o * c / p))))
+        rel = float(np.sqrt(np.mean((w - np.maximum(k * p, o * c)) ** 2))
+                    / w.mean())
+        if best is None or rel < best[2] - 1e-12:   # rounding is a tie
+            best = (k, o, rel)
+    return best
 
 
 def _fit_points(m_candidates: Sequence[int],

@@ -220,10 +220,12 @@ class BatchPrefetcher:
     advancing the iterator releases the previous slot to the producer,
     which may overwrite it at once. Callers that keep them across
     iterations must ``.copy()`` (``Trainer._batches`` does). ``opened``
-    counts the prefetchers constructed in this process.
+    counts the prefetchers constructed in this process, ``closed`` those
+    whose producer has been freed.
     """
 
     opened = 0
+    closed = 0
 
     def __init__(self, source: np.ndarray, bptt: int, depth: int = 2):
         lib = _load("pipetpu_prefetch.cpp")
@@ -271,6 +273,7 @@ class BatchPrefetcher:
         if getattr(self, "_h", None):
             self._lib.ptpf_free(self._h)
             self._h = None
+            BatchPrefetcher.closed += 1
 
     def __enter__(self):
         return self

@@ -20,6 +20,13 @@ line, so greedy and beam search pick alike there, and sampling draws from a
 tokens, and a seed gives the one-device ``Generator``'s stream except where
 the logits' rounding differs. The decode attention is plain: this path
 launches no kernel.
+
+The MoE family (:class:`~pipe_tpu_torch.models.moe_lm.MoEPipelinedLM`)
+decodes the same way: its experts shard over the model line with the heads
+(``moe_block_decode`` routes per token, so the dense dispatch works
+unchanged at one token a row), its nested ``moe.*`` leaves cut by the same
+specs, and each MoE layer adds two all-reduces (the router's logits, the
+experts' outputs) to the attention's one.
 """
 
 from __future__ import annotations
@@ -37,7 +44,9 @@ class TPShardedGenerator(Generator):
 
     ``mesh``: the rank's mesh, with a model axis; ``model``: a
     :class:`~pipe_tpu_torch.models.tp_lm.TPPipelinedLM` built with
-    ``tp_axis=MODEL_AXIS``, holding every weight on the rank's device,
+    ``tp_axis=MODEL_AXIS`` or a
+    :class:`~pipe_tpu_torch.models.moe_lm.MoEPipelinedLM` built with
+    ``ep_axis=MODEL_AXIS``, holding every weight on the rank's device,
     whole or already cut to this rank's shard (its sharded leaves are cut
     here, by ``model.stage_param_specs()``). Every rank of the line calls
     :meth:`generate` with the whole prompt and returns the tokens. Beam
@@ -60,6 +69,10 @@ class TPShardedGenerator(Generator):
         if model.cfg.nhead % self.tp:
             raise ValueError(f"nhead={model.cfg.nhead} must divide over "
                              f"tp={self.tp}")
+        n_experts = getattr(model.cfg, "n_experts", None)
+        if n_experts is not None and n_experts % self.tp:
+            from ..ops.moe import _experts_refused
+            raise _experts_refused(n_experts, self.tp)
         super().__init__(model, gen_cfg)
         model.mesh = mesh
         specs = {}

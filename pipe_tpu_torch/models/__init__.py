@@ -10,14 +10,15 @@
   a context axis (ring or Ulysses attention), ``ContextParallelLM``.
 * :mod:`.tp_lm`: the tutorial LM with Megatron-split blocks whose heads
   and FFN columns shard over the mesh's model axis, ``TPPipelinedLM``.
-
-``pipe_tpu``'s MoE LM is not ported yet (ROADMAP.md: A.8 (ii)).
+* :mod:`.moe_lm`: the tutorial LM with Mixture-of-Experts blocks whose
+  heads and experts shard over the mesh's model axis, ``MoEPipelinedLM``.
 """
 
 from .bert import BertConfig, PipelinedBERT, mask_tokens
 from .common import PipelinedTransformer, per_row_ce
 from .gpt2 import GPT2Config, PipelinedGPT2
 from .long_context_lm import ContextParallelLM
+from .moe_lm import MoELMConfig, MoEPipelinedLM
 from .tp_lm import TPPipelinedLM
 from .transformer_lm import LMConfig, PipelinedLM
 from .vit import PipelinedViT, ViTConfig
@@ -27,5 +28,6 @@ __all__ = [
     "GPT2Config", "PipelinedGPT2",
     "LMConfig", "PipelinedLM",
     "PipelinedTransformer", "per_row_ce",
-    "PipelinedViT", "ViTConfig", "TPPipelinedLM",
+    "PipelinedViT", "ViTConfig", "TPPipelinedLM", "MoELMConfig",
+    "MoEPipelinedLM",
 ]

@@ -10,9 +10,10 @@ FLOP/s, a profiled emulator step's per-stage timeline from the device
 trace), the table walk's overlapped and phase-compiled transports over
 two ranks sharing the card (the staged, double-buffered one-round path),
 Ulysses attention through the kernels at the context phase's (16, 2048, 64)
-shape, and ring and Ulysses attention and a ring LM step over a context
-line of two ranks sharing the card against one device. Skipped without a
-card.
+shape, ring and Ulysses attention and a ring LM step over a context
+line of two ranks sharing the card against one device, and a MoE step over
+a model line of two ranks sharing the card against one device. Skipped
+without a card.
 
 This file imports only torch and pipe_tpu_torch, so it runs on a machine
 without JAX; there, skip the repo's JAX conftest:
@@ -902,5 +903,43 @@ def test_ring_lm_step_over_two_ranks_on_the_card(cuda):
         assert abs(r["loss"] - loss.item()) <= 1e-5 * abs(loss.item())
         for name, p in model.named_parameters():
             want = p.grad.cpu().numpy()
+            err = np.abs(r["grads"][name] - want).max()
+            assert err <= TOL * max(1.0, np.abs(want).max()), name
+
+
+def test_moe_step_over_a_model_line_on_the_card(cuda):
+    """``MoEPipelinedLM`` over a model line of two ranks sharing the card
+    (each rank 2 of 4 experts, its tensors on ``cuda``; the line's
+    all-reduces staged through host memory): the loss and the gradients,
+    gathered over the line, are the one-device ``ep_axis=None`` model's on
+    the same seed-drawn weights, within 1e-5 relative and 1e-4 x max(1,
+    max|g|), at a drop-free capacity."""
+    import numpy as np
+
+    import torch_moe_cases as cases
+    from pipe_tpu_torch.models.moe_lm import MoELMConfig, MoEPipelinedLM
+    from pipe_tpu_torch.parallel.scheduled import ScheduledPipeline
+    from pipe_tpu_torch.runtime import World
+
+    cfg_kw = dict(vocab=101, d_model=64, nhead=4, d_ff=128, n_layers=2,
+                  seq_len=32, dropout=0.0, n_experts=4, capacity_factor=2.0)
+    toks = np.random.default_rng(0).integers(0, 101, (2, 4, 32))
+    x = {"tokens": toks, "targets": np.roll(toks, -1, -1)}
+    w = np.ones((2, 4), np.float32)
+    with World(2, device="cuda", threads=1, timeout=300.0) as world:
+        ranks = world.run(cases.seeded_step, cfg_kw, (1, 1, 2), x, w)
+    model = MoEPipelinedLM(MoELMConfig(**cfg_kw), 1, ep_axis=None,
+                           device=cuda, generator=torch.Generator(
+                               device=cuda).manual_seed(0))
+    ex = ScheduledPipeline(model.stage_fn, model.pre_fn, model.loss_post_fn,
+                           1, model, schedule="1f1b", device=cuda)
+    loss, grads = ex.loss_and_grad(
+        {k: torch.from_numpy(v).to(cuda) for k, v in x.items()},
+        torch.from_numpy(w).to(cuda))
+    for r in ranks:
+        assert r["devices"] == ["cuda"] and r["experts"] == 2
+        assert abs(r["loss"] - loss.item()) <= 1e-5 * abs(loss.item())
+        for name, g in grads.items():
+            want = g.cpu().numpy()
             err = np.abs(r["grads"][name] - want).max()
             assert err <= TOL * max(1.0, np.abs(want).max()), name

@@ -163,6 +163,17 @@ for sched, split in (("1f1b", None), ("zb-h1", tp_split_backward_stage(tp))):
     assert loss.item() == loss.item()
 assert Generator(tp, GenerationConfig(max_new_tokens=3, temperature=0.0)
                  ).generate(prompt).shape == (2, 3)
+from pipe_tpu_torch.models import MoELMConfig, MoEPipelinedLM
+from pipe_tpu_torch.ops import moe
+mcfg = MoELMConfig(vocab=101, d_model=16, nhead=4, d_ff=32, n_layers=2,
+                   seq_len=16, dropout=0.1, n_experts=4)
+me = MoEPipelinedLM(mcfg, 2, ep_axis=None, device="cpu")
+ex = ScheduledPipeline(me.stage_fn, me.pre_fn, me.loss_post_fn, 2, me,
+                       schedule="1f1b", device="cpu")
+loss, _ = ex.loss_and_grad(xs, torch.ones(2, 1))
+assert loss.item() == loss.item()
+assert Generator(me, GenerationConfig(max_new_tokens=3, num_beams=2)
+                 ).generate(prompt).shape == (2, 3)
 bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib")
        and sys.modules[m] is not None]
 assert not bad, bad
@@ -225,6 +236,11 @@ for make in (lambda: Linear(4, 4),
              .TPPipelinedLM(pt.LMConfig().tiny()),
              lambda: __import__("pipe_tpu_torch.ops.tp_layers").ops
              .tp_layers.TPBlock(16, 2, 32),
+             lambda: __import__("pipe_tpu_torch.models.moe_lm").models.moe_lm
+             .MoEPipelinedLM(__import__("pipe_tpu_torch.models.moe_lm")
+                             .models.moe_lm.MoELMConfig().tiny()),
+             lambda: __import__("pipe_tpu_torch.ops.moe").ops.moe.MoEBlock(
+                 16, 2, 32, 4),
              lambda: pt.Pipe(pt.Sequential([Linear(4, 4, device="cpu")])),
              lambda: Trainer(pt.LMConfig().tiny(), TrainerConfig()),
              lambda: Trainer(pt.LMConfig().tiny(), TrainerConfig(
@@ -304,7 +320,8 @@ def test_child_entry_point_imports_no_jax():
 
 @pytest.mark.parametrize("path", sorted(
     str(p.relative_to(REPO))
-    for p in [*(REPO / "pipe_tpu_torch").rglob("*.py"), REPO / "chip_smoke.py"]))
+    for p in [*(REPO / "pipe_tpu_torch").rglob("*.py"), REPO / "chip_smoke.py",
+              *(REPO / "tests").glob("torch_*_cases.py")]))
 def test_no_source_imports_jax_or_pipe_tpu(path):
     tree = ast.parse((REPO / path).read_text())
     for node in ast.walk(tree):

@@ -386,16 +386,18 @@ def _fit_case(monkeypatch, k, o, extra=(0.0, 0.0, 0.0)):
     cycles = [get_schedule("gpipe").op_tables(m, 2)[0].shape[0]
               for m in (2, 4, 8)]
     priced = 8 / 4 * 6 * (1e-3 + 2e-3 + 1e-3)    # every m alike, o = 0
-    ran = _stub_walls(monkeypatch, [k * priced + c * o + e
+    ran = _stub_walls(monkeypatch, [max(k * priced, c * o) + e
                                     for c, e in zip(cycles, extra)])
     return seq, x, prof, ran, priced, cycles
 
 
-@pytest.mark.parametrize("k,o", [(0.5, 2e-3), (1.0, 0.0), (2.0, 1e-4)])
+@pytest.mark.parametrize("k,o", [(0.5, 2e-3), (1.0, 0.0), (2.0, 6e-3)])
 def test_fit_step_costs_recovers_scale_and_overhead(monkeypatch, k, o):
-    """Walls made by the model itself: the fit gives back its scale and
-    per-cycle overhead with no residual, and a search over the fitted
-    profile prices each m as the walls do."""
+    """Walls made by the model itself, the larger of the device's work and
+    the host's per-cycle overhead (device-bound at the small m, host-bound
+    past them): the fit gives back its scale and overhead with no
+    residual, and a search over the fitted profile prices each m as the
+    walls do."""
     seq, x, prof, ran, priced, cycles = _fit_case(monkeypatch, k, o)
     fit = tplan.fit_step_costs(seq, x, prof, n_devices=2, m_points=(8, 2, 4),
                                batch_rows=8, checkpoint="except_last")
@@ -405,11 +407,12 @@ def test_fit_step_costs_recovers_scale_and_overhead(monkeypatch, k, o):
     assert fit.layer_bwd_s == pytest.approx([k * 2e-3] * 6)
     assert fit.rel_residual == pytest.approx(0.0, abs=1e-9)
     assert fit.source == "uniform+steps" and seq[0].weight.grad is None
+    assert fit.step_model == "max"
     plans = tplan.search(fit, n_devices=2, m_candidates=(2, 4, 8),
                          batch_rows=8, schedules=("gpipe",),
                          checkpoint="except_last", uniform_only=True)
-    assert [p.predicted_step_s for p in plans] == pytest.approx(
-        [k * priced + c * o for c in cycles])
+    assert sorted(p.predicted_step_s for p in plans) == pytest.approx(
+        sorted(max(k * priced, c * o) for c in cycles))
 
 
 def test_fit_step_costs_takes_each_ms_least_wall(monkeypatch):
@@ -422,7 +425,7 @@ def test_fit_step_costs_takes_each_ms_least_wall(monkeypatch):
     cycles = [get_schedule("gpipe").op_tables(m, 2)[0].shape[0]
               for m in (2, 4, 8)]
     priced = 8 / 4 * 6 * (1e-3 + 2e-3 + 1e-3)
-    clean = [k * priced + c * o for c in cycles]
+    clean = [max(k * priced, c * o) for c in cycles]
     slow = (1.0, 1.3, 2.5)                  # the host's stretch, per m
     walls = [[w * (f if 0 < r < tplan.FIT_ROUNDS - 1 else 1.0)
               for r in range(tplan.FIT_ROUNDS)]
@@ -437,9 +440,9 @@ def test_fit_step_costs_takes_each_ms_least_wall(monkeypatch):
     assert fit.layer_fwd_s == pytest.approx([k * 1e-3] * 6)
     assert fit.rel_residual == pytest.approx(0.0, abs=1e-9)
     medians = [float(np.median(w)) for w in walls]
-    a = np.array([[priced] * 3, cycles], dtype=float).T
-    (k_median, _), *_ = np.linalg.lstsq(a, np.array(medians), rcond=None)
-    assert k_median <= 0
+    _, o_median, rel_median = tplan._fit_step_model([priced] * 3, cycles,
+                                                    medians)
+    assert o_median > 2 * o and rel_median > 0.1
 
 
 def test_fit_step_costs_without_growth_fits_no_overhead(monkeypatch):
@@ -459,7 +462,7 @@ def test_fit_step_costs_without_growth_fits_no_overhead(monkeypatch):
 
 
 @pytest.mark.parametrize("walls", [
-    (50e-3, 95e-3, 200e-3),     # steeper than the cycles: scale <= 0
+    (200e-3, 95e-3, 50e-3),     # falling steeply with m: residual > 0.25
     (1e-3, 20e-3, 2e-3),        # no line through them: residual > 0.25
 ])
 def test_fit_step_costs_refuses_a_bad_fit(monkeypatch, walls):
@@ -472,6 +475,79 @@ def test_fit_step_costs_refuses_a_bad_fit(monkeypatch, walls):
                              batch_rows=8, checkpoint="except_last")
     with pytest.raises(ValueError, match="two distinct"):
         tplan.fit_step_costs(seq, x, prof, n_devices=2, m_points=(2, 2))
+
+
+def _grid_least(priced, cycles, walls):
+    """The least relative residual of ``max(k * priced, o * cycles)`` over
+    a fine grid of (k, o) around the walls: an independent check that the
+    fit found the model's least squares."""
+    p, c, w = (np.asarray(v, float) for v in (priced, cycles, walls))
+    ks = np.linspace(1e-3, 2.0, 801) * w.max() / p.min()
+    os_ = np.linspace(0.0, 2.0, 801) * w.max() / c.min()
+    pred = np.maximum(ks[:, None, None] * p, os_[None, :, None] * c)
+    return float(np.sqrt(((pred - w) ** 2).mean(-1)).min() / w.mean())
+
+
+def test_fit_step_costs_fits_a_host_bound_step(monkeypatch):
+    """Walls steeper than the cycles (the card's shape: the m 2 step
+    device-bound, m 4 and m 8 host-bound), which the additive model
+    refused (its scale came out <= 0): the larger of device and host fits
+    them with a positive scale, all three points host-bound here, o the
+    walls' least squares over the cycles, and the model's least residual
+    (checked against a grid search)."""
+    walls = (50e-3, 95e-3, 200e-3)
+    _stub_walls(monkeypatch, walls)
+    seq, x = _seq(width=16, n=6), torch.randn(4, 16)
+    prof = tplan.uniform_profile(6, rows=4, f=1e-3, mode="serialized")
+    fit = tplan.fit_step_costs(seq, x, prof, n_devices=2, m_points=(2, 4, 8),
+                               batch_rows=8, checkpoint="except_last")
+    cycles = [get_schedule("gpipe").op_tables(m, 2)[0].shape[0]
+              for m in (2, 4, 8)]
+    priced = 8 / 4 * 6 * (1e-3 + 2e-3 + 1e-3)
+    o = float(np.dot(walls, cycles) / np.dot(cycles, cycles))
+    assert fit.o == pytest.approx(o, rel=1e-12)
+    assert fit.o == pytest.approx(10.543e-3, rel=1e-4)
+    # no device-bound point: the profile's own costs, scale 1
+    assert fit.layer_fwd_s == pytest.approx([1e-3] * 6)
+    assert priced < min(o * c for c in cycles)
+    assert fit.rel_residual == pytest.approx(0.0991, abs=1e-4)
+    assert fit.rel_residual <= _grid_least([priced] * 3, cycles, walls) + 1e-6
+    assert fit.step_model == "max" and fit.rel_residual <= \
+        tplan.MAX_REL_RESIDUAL
+
+
+# The walls of the card's refused runs (ROADMAP C.27: each m's rounds over
+# 0.297-0.301 / 0.348-0.452 / 0.785-0.940 s at m 2 / 4 / 8).
+C27_WALLS = [list(np.linspace(lo, hi, tplan.FIT_ROUNDS))
+             for lo, hi in ((0.297, 0.301), (0.348, 0.452), (0.785, 0.940))]
+
+
+def test_fit_step_costs_takes_the_cards_refused_walls(monkeypatch):
+    """The walls on which the additive fit refused on the card: a positive
+    scale, o > 0, the residual within the bound, the m 2 step
+    device-bound and the others host-bound; ``auto_plan`` on them picks
+    m = 2."""
+    _stub_walls(monkeypatch, C27_WALLS)
+    seq, x = _seq(width=16, n=6), torch.randn(4, 16)
+    prof = tplan.uniform_profile(6, rows=4, f=1e-3, mode="serialized")
+    fit = tplan.fit_step_costs(seq, x, prof, n_devices=2, m_points=(2, 4, 8),
+                               batch_rows=8, checkpoint="except_last")
+    cycles = [get_schedule("gpipe").op_tables(m, 2)[0].shape[0]
+              for m in (2, 4, 8)]
+    priced = 8 / 4 * 6 * (1e-3 + 2e-3 + 1e-3)
+    k = fit.layer_fwd_s[0] / 1e-3
+    assert k > 0 and fit.o > 0 and fit.rel_residual <= tplan.MAX_REL_RESIDUAL
+    assert k * priced == pytest.approx(0.297, rel=1e-9)
+    assert fit.o * cycles[0] < k * priced < fit.o * cycles[1]
+    assert fit.rel_residual <= _grid_least([priced] * 3, cycles,
+                                           [0.297, 0.348, 0.785]) + 1e-6
+    _stub_walls(monkeypatch, C27_WALLS)
+    plan = tplan.auto_plan(seq, x, n_devices=2, m_candidates=(2, 4, 8),
+                           batch_rows=8, schedules=("gpipe", "1f1b"),
+                           checkpoint="except_last")
+    assert plan.m == 2 and plan.profile_source == "profile_model+steps"
+    assert all(r["m"] != 2 or r["predicted_step_s"] >= plan.predicted_step_s
+               for r in plan.runners_up)
 
 
 def test_auto_plan_ranks_m_by_the_fitted_overhead(monkeypatch):
